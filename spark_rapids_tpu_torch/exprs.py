@@ -1,0 +1,492 @@
+"""Expression IR with Spark SQL semantics, evaluated with torch tensor ops.
+
+Counterpart of ``spark_rapids_tpu/exprs.py``, cut to the families this
+slice runs: column references, literals (dates included), comparisons,
+Kleene AND/OR and NOT, + - * /, and numeric casts.  The reference traces
+every expression of a stage into one XLA program; here each node is one or
+a few eager elementwise torch ops on the batch's tensors.  Fusing them into
+one hand-written kernel is later work (ROADMAP queue 2 row 1).
+
+Null model: a value is a pair ``(data, valid)`` where ``valid`` is a bool
+tensor or ``None`` (= all valid).  Semantics match Spark: nulls propagate
+through arithmetic and comparisons, AND/OR are three-valued, and division
+by zero gives null unless ANSI mode is on.  Literals are 0-dim tensors of
+their physical dtype on the batch's device, so they broadcast without
+materializing a column and never round-trip through the host.
+"""
+
+from __future__ import annotations
+
+import copy
+import datetime
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import types as T
+from .types import DataType, TypeSig
+
+__all__ = [
+    "Expression", "BoundReference", "UnresolvedColumn", "Literal",
+    "Cast", "Add", "Subtract", "Multiply", "Divide",
+    "EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
+    "GreaterThanOrEqual", "Not", "And", "Or",
+    "Value", "EvalContext", "bind", "promote_physical", "physical_literal",
+    "AggregateExpression",
+]
+
+Value = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (data, valid-or-None)
+
+
+def _and_valid(a: Optional[torch.Tensor],
+               b: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+class Expression:
+    """Base expression node.  Subclasses set ``dtype``/``nullable`` on
+    resolve."""
+
+    dtype: DataType = None
+    nullable: bool = True
+    children: Tuple["Expression", ...] = ()
+    input_sig: TypeSig = TypeSig.device_compute
+    output_sig: TypeSig = TypeSig.device_compute
+
+    def eval(self, ctx: "EvalContext") -> Value:
+        raise NotImplementedError(type(self).__name__)
+
+    def resolved(self) -> bool:
+        return self.dtype is not None and all(c.resolved()
+                                              for c in self.children)
+
+    def fingerprint(self) -> str:
+        """Structural rendering, identical to the reference's (the explain
+        string shows it)."""
+        args = ",".join(c.fingerprint() for c in self.children)
+        return f"{type(self).__name__}[{self._fp_extra()}]({args})"
+
+    def _fp_extra(self) -> str:
+        return str(self.dtype)
+
+    def references(self) -> set:
+        out = set()
+        for c in self.children:
+            out |= c.references()
+        return out
+
+    def __repr__(self):
+        return self.fingerprint()
+
+
+class EvalContext:
+    """The inputs of one batch's evaluation.
+
+    ``arrays[i]`` is the (data, valid) pair of bound ordinal ``i`` (None for
+    a host column); ``active`` is the live-row mask.  Under ANSI mode,
+    expressions append per-row error masks to ``errors`` and the stage
+    raises if any is set."""
+
+    def __init__(self, arrays: Sequence[Optional[Value]], num_rows: int,
+                 device: torch.device, active: Optional[torch.Tensor] = None,
+                 ansi: bool = False):
+        self.arrays = list(arrays)
+        self.num_rows = num_rows
+        self.device = device
+        self.active = active
+        self.ansi = ansi
+        self.errors: List[torch.Tensor] = []
+
+    def record_error(self, err: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> None:
+        """Append a per-row ANSI error mask, confined to live valid rows."""
+        if valid is not None:
+            err = err & valid
+        if self.active is not None:
+            err = err & self.active
+        self.errors.append(err)
+
+
+# ---------------------------------------------------------------------------------
+# Leaves
+# ---------------------------------------------------------------------------------
+
+class UnresolvedColumn(Expression):
+    """A by-name column reference produced by the DataFrame API."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.children = ()
+
+    def resolved(self):
+        return False
+
+    def _fp_extra(self):
+        return self.name
+
+    def references(self):
+        return {self.name}
+
+
+class BoundReference(Expression):
+    def __init__(self, ordinal: int, dtype: DataType, nullable: bool,
+                 name: str = ""):
+        self.ordinal = ordinal
+        self.dtype = dtype
+        self.nullable = nullable
+        self.name = name
+        self.children = ()
+
+    def eval(self, ctx: EvalContext) -> Value:
+        return ctx.arrays[self.ordinal]
+
+    def _fp_extra(self):
+        return f"{self.ordinal}:{self.dtype}"
+
+
+class Literal(Expression):
+    def __init__(self, value: Any, dtype: Optional[DataType] = None):
+        self.value = value
+        self.dtype = dtype if dtype is not None else _infer_literal_type(value)
+        self.nullable = value is None
+        self.children = ()
+
+    def eval(self, ctx: EvalContext) -> Value:
+        tdt = self.dtype.torch_dtype
+        if self.value is None:
+            return (torch.zeros((), dtype=tdt, device=ctx.device),
+                    torch.zeros((), dtype=torch.bool, device=ctx.device))
+        return torch.full((), physical_literal(self.value, self.dtype),
+                          dtype=tdt, device=ctx.device), None
+
+    def _fp_extra(self):
+        return f"{self.value!r}:{self.dtype}"
+
+
+def physical_literal(v: Any, dtype: DataType):
+    """A Python literal → its physical device value."""
+    if dtype.kind == T.TypeKind.DATE and isinstance(v, datetime.date):
+        return (v - datetime.date(1970, 1, 1)).days
+    if dtype.kind == T.TypeKind.TIMESTAMP and isinstance(v, datetime.datetime):
+        epoch = datetime.datetime(1970, 1, 1, tzinfo=v.tzinfo)
+        return int((v - epoch).total_seconds() * 1_000_000)
+    return v
+
+
+def _infer_literal_type(v: Any) -> DataType:
+    if v is None:
+        return T.NULLTYPE
+    if isinstance(v, bool):
+        return T.BOOLEAN
+    if isinstance(v, int):
+        return T.INT32 if -(2**31) <= v < 2**31 else T.INT64
+    if isinstance(v, float):
+        return T.FLOAT64
+    if isinstance(v, str):
+        return T.STRING
+    if isinstance(v, datetime.datetime):
+        return T.TIMESTAMP
+    if isinstance(v, datetime.date):
+        return T.DATE
+    if isinstance(v, np.generic):
+        return {np.dtype(np.int32): T.INT32, np.dtype(np.int64): T.INT64,
+                np.dtype(np.float32): T.FLOAT32,
+                np.dtype(np.float64): T.FLOAT64}[v.dtype]
+    raise TypeError(f"cannot infer literal type for {v!r}")
+
+
+# ---------------------------------------------------------------------------------
+# Cast (numeric, boolean and date subset of ops/cast.py cast_value)
+# ---------------------------------------------------------------------------------
+
+_INT_BOUNDS = {k: (int(np.iinfo(t).min), int(np.iinfo(t).max)) for k, t in (
+    (T.TypeKind.INT8, np.int8), (T.TypeKind.INT16, np.int16),
+    (T.TypeKind.INT32, np.int32), (T.TypeKind.INT64, np.int64))}
+_MICROS_PER_DAY = 86_400_000_000
+
+
+class Cast(Expression):
+    input_sig = TypeSig.device_compute
+    output_sig = TypeSig.device_compute
+
+    def __init__(self, child: Expression, to: DataType, ansi: bool = False):
+        self.children = (child,)
+        self.dtype = to
+        self.nullable = child.nullable
+        self.ansi = ansi
+
+    def eval(self, ctx: EvalContext) -> Value:
+        data, valid = self.children[0].eval(ctx)
+        src, dst = self.children[0].dtype, self.dtype
+        out_dt = dst.torch_dtype
+        if src == dst:
+            return data, valid
+        if src.kind == T.TypeKind.NULL:
+            return (torch.zeros_like(data, dtype=out_dt),
+                    torch.zeros_like(data, dtype=torch.bool))
+        if dst.kind == T.TypeKind.BOOLEAN:
+            return data != 0, valid
+        if src.kind == T.TypeKind.DATE and dst.kind == T.TypeKind.TIMESTAMP:
+            return data.to(torch.int64) * _MICROS_PER_DAY, valid
+        if src.kind == T.TypeKind.TIMESTAMP and dst.kind == T.TypeKind.DATE:
+            return torch.div(data, _MICROS_PER_DAY,
+                             rounding_mode="floor").to(out_dt), valid
+        ansi = self.ansi or ctx.ansi
+        if dst.is_integral and src.is_floating:
+            # JVM semantics: NaN → 0, truncate toward zero, clamp at the
+            # target's bounds (ANSI: those rows are errors)
+            lo, hi = _INT_BOUNDS[dst.kind]
+            if ansi:
+                ctx.record_error(torch.isnan(data) | (data < float(lo))
+                                 | (data > float(hi)), valid)
+            d = torch.nan_to_num(data.to(torch.float64), nan=0.0,
+                                 posinf=float(hi), neginf=float(lo))
+            return torch.clamp(torch.trunc(d), float(lo),
+                               float(hi)).to(out_dt), valid
+        if dst.is_integral and src.is_integral and ansi:
+            lo, hi = _INT_BOUNDS[dst.kind]
+            if hi < _INT_BOUNDS[src.kind][1]:
+                ctx.record_error((data < lo) | (data > hi), valid)
+        # widening, int→float, and wrapping integer narrowing
+        return data.to(out_dt), valid
+
+    def _fp_extra(self):
+        return f"->{self.dtype}"
+
+
+# ---------------------------------------------------------------------------------
+# Arithmetic
+# ---------------------------------------------------------------------------------
+
+def promote_physical(data: torch.Tensor, src: DataType,
+                     dst: DataType) -> torch.Tensor:
+    """Convert a physical value from ``src``'s representation to ``dst``'s
+    (without decimals, which the port lacks yet, a dtype conversion)."""
+    tdt = dst.torch_dtype
+    return data if data.dtype == tdt else data.to(tdt)
+
+
+class BinaryExpression(Expression):
+    symbol = "?"
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+        if left.resolved() and right.resolved():
+            self._resolve()
+
+    def _resolve(self):
+        l, r = self.children
+        self.dtype = self._result_type(l.dtype, r.dtype)
+        self.nullable = l.nullable or r.nullable
+
+    def _result_type(self, lt: DataType, rt: DataType) -> DataType:
+        return T.common_type(lt, rt)
+
+    def _operand_type(self) -> DataType:
+        return T.common_type(self.children[0].dtype, self.children[1].dtype)
+
+    def _eval_children_promoted(self, ctx):
+        l, r = self.children
+        ld, lv = l.eval(ctx)
+        rd, rv = r.eval(ctx)
+        ct = self._operand_type()
+        return (promote_physical(ld, l.dtype, ct),
+                promote_physical(rd, r.dtype, ct), _and_valid(lv, rv))
+
+
+class Add(BinaryExpression):
+    symbol = "+"
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        return ld + rd, v
+
+
+class Subtract(BinaryExpression):
+    symbol = "-"
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        return ld - rd, v
+
+
+class Multiply(BinaryExpression):
+    symbol = "*"
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        return ld * rd, v
+
+
+class Divide(BinaryExpression):
+    """Spark ``/``: always double; null on division by zero (ANSI mode:
+    an error)."""
+    symbol = "/"
+
+    def _result_type(self, lt, rt):
+        return T.FLOAT64
+
+    def _operand_type(self):
+        return T.FLOAT64
+
+    def _resolve(self):
+        super()._resolve()
+        self.nullable = True  # x / 0 is null
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        zero = rd == 0
+        if ctx.ansi:
+            ctx.record_error(zero, v)
+        out = ld / torch.where(zero, torch.ones_like(rd), rd)
+        return out, _and_valid(v, ~zero)
+
+
+# ---------------------------------------------------------------------------------
+# Comparisons and boolean logic
+# ---------------------------------------------------------------------------------
+
+class BinaryComparison(BinaryExpression):
+    op: Callable = None
+    output_sig = TypeSig.BOOLEAN
+
+    def _result_type(self, lt, rt):
+        T.common_type(lt, rt)  # raises on incomparable types
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        return type(self).op(ld, rd), v
+
+
+class EqualTo(BinaryComparison):
+    symbol = "="
+    op = staticmethod(lambda a, b: a == b)
+
+
+class LessThan(BinaryComparison):
+    symbol = "<"
+    op = staticmethod(lambda a, b: a < b)
+
+
+class LessThanOrEqual(BinaryComparison):
+    symbol = "<="
+    op = staticmethod(lambda a, b: a <= b)
+
+
+class GreaterThan(BinaryComparison):
+    symbol = ">"
+    op = staticmethod(lambda a, b: a > b)
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    symbol = ">="
+    op = staticmethod(lambda a, b: a >= b)
+
+
+class Not(Expression):
+    input_sig = TypeSig.BOOLEAN + TypeSig.null
+    output_sig = TypeSig.BOOLEAN
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+        self.dtype = T.BOOLEAN
+        self.nullable = child.nullable
+
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        return ~d, v
+
+
+class And(BinaryExpression):
+    """Kleene AND: false AND null = false."""
+    symbol = "and"
+    input_sig = TypeSig.BOOLEAN + TypeSig.null
+    output_sig = TypeSig.BOOLEAN
+
+    def _result_type(self, lt, rt):
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        ld, lv = self.children[0].eval(ctx)
+        rd, rv = self.children[1].eval(ctx)
+        if lv is None and rv is None:
+            return ld & rd, None
+        lt = ld if lv is None else (ld & lv)       # definitely true
+        rt = rd if rv is None else (rd & rv)
+        lf = (~ld) if lv is None else ((~ld) & lv)  # definitely false
+        rf = (~rd) if rv is None else ((~rd) & rv)
+        return lt & rt, lf | rf | (lt & rt)
+
+
+class Or(BinaryExpression):
+    """Kleene OR: true OR null = true."""
+    symbol = "or"
+    input_sig = TypeSig.BOOLEAN + TypeSig.null
+    output_sig = TypeSig.BOOLEAN
+
+    def _result_type(self, lt, rt):
+        return T.BOOLEAN
+
+    def eval(self, ctx):
+        ld, lv = self.children[0].eval(ctx)
+        rd, rv = self.children[1].eval(ctx)
+        if lv is None and rv is None:
+            return ld | rd, None
+        lt = ld if lv is None else (ld & lv)
+        rt = rd if rv is None else (rd & rv)
+        valid_l = torch.ones_like(ld) if lv is None else lv
+        valid_r = torch.ones_like(rd) if rv is None else rv
+        return lt | rt, lt | rt | (valid_l & valid_r)
+
+
+# ---------------------------------------------------------------------------------
+# Aggregates are declared here; their buffers live in aggfns.py
+# ---------------------------------------------------------------------------------
+
+class AggregateExpression(Expression):
+    """Marker base: func name + child."""
+
+    func: str = "?"
+
+    def __init__(self, child: Optional[Expression]):
+        self.children = (child,) if child is not None else ()
+        if child is not None and child.resolved():
+            self._resolve()
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = True
+
+    def _fp_extra(self):
+        return f"{self.func}:{self.dtype}"
+
+
+# ---------------------------------------------------------------------------------
+# Binding: resolve UnresolvedColumn against a schema, rebuilding the tree
+# ---------------------------------------------------------------------------------
+
+def bind(expr: Expression, schema) -> Expression:
+    """A copy of ``expr`` with columns bound to ordinals and types set."""
+    if isinstance(expr, UnresolvedColumn):
+        idx = schema.index_of(expr.name)
+        f = schema.fields[idx]
+        return BoundReference(idx, f.dtype, f.nullable, f.name)
+    if not expr.children:
+        return expr
+    node = copy.copy(expr)
+    node.children = tuple(bind(c, schema) for c in expr.children)
+    if isinstance(node, (BinaryExpression, AggregateExpression)):
+        node._resolve()
+    elif isinstance(node, Not):
+        node.nullable = node.children[0].nullable
+    elif isinstance(node, Cast):
+        node.nullable = node.children[0].nullable
+    elif hasattr(node, "_rebind"):
+        node._rebind()
+    return node

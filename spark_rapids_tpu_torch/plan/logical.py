@@ -1,0 +1,115 @@
+"""Logical plan nodes built by the DataFrame API
+(``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
+aggregate, sort)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..batch import Field, Schema
+from ..exprs import Expression, bind
+
+__all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
+           "Sort", "SortOrder"]
+
+
+class LogicalPlan:
+    children: Tuple["LogicalPlan", ...] = ()
+
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def node_desc(self) -> str:
+        return type(self).__name__
+
+
+class LogicalScan(LogicalPlan):
+    """Leaf: an in-memory source (``plan/physical.py MemorySource``)."""
+
+    def __init__(self, schema: Schema, source, desc: str,
+                 fmt: str = "memory"):
+        self._schema = schema
+        self.source = source
+        self.desc = desc
+        self.fmt = fmt
+
+    def schema(self) -> Schema:
+        return self._schema
+
+    def node_desc(self):
+        return f"Scan {self.fmt} [{self.desc}]"
+
+
+class Project(LogicalPlan):
+    def __init__(self, child: LogicalPlan,
+                 exprs: List[Tuple[str, Expression]]):
+        self.children = (child,)
+        self.exprs = exprs  # unbound; names are output names
+
+    def schema(self) -> Schema:
+        in_schema = self.children[0].schema()
+        fields = []
+        for name, e in self.exprs:
+            b = bind(e, in_schema)
+            fields.append(Field(name, b.dtype, b.nullable))
+        return Schema(fields)
+
+    def node_desc(self):
+        return f"Project [{', '.join(n for n, _ in self.exprs)}]"
+
+
+class Filter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, condition: Expression):
+        self.children = (child,)
+        self.condition = condition
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def node_desc(self):
+        return f"Filter [{self.condition.fingerprint()}]"
+
+
+class Aggregate(LogicalPlan):
+    def __init__(self, child: LogicalPlan,
+                 group_exprs: List[Tuple[str, Expression]],
+                 agg_exprs: List[Tuple[str, Expression]]):
+        self.children = (child,)
+        self.group_exprs = group_exprs
+        self.agg_exprs = agg_exprs
+
+    def schema(self) -> Schema:
+        in_schema = self.children[0].schema()
+        fields = []
+        for name, e in self.group_exprs + self.agg_exprs:
+            b = bind(e, in_schema)
+            fields.append(Field(name, b.dtype, b.nullable))
+        return Schema(fields)
+
+    def node_desc(self):
+        return (f"Aggregate keys=[{', '.join(n for n, _ in self.group_exprs)}]"
+                f" aggs=[{', '.join(n for n, _ in self.agg_exprs)}]")
+
+
+class SortOrder:
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.expr = expr
+        self.ascending = ascending
+        # Spark default: nulls first for ASC, nulls last for DESC
+        self.nulls_first = (nulls_first if nulls_first is not None
+                            else ascending)
+
+
+class Sort(LogicalPlan):
+    def __init__(self, child: LogicalPlan, orders: List[SortOrder],
+                 global_sort: bool = True):
+        self.children = (child,)
+        self.orders = orders
+        self.global_sort = global_sort
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def node_desc(self):
+        return f"Sort [{len(self.orders)} keys, global={self.global_sort}]"

@@ -1,0 +1,240 @@
+"""The wrap → tag → convert planner (``spark_rapids_tpu/plan/overrides.py``
+counterpart).
+
+* wrap: a meta tree over the logical plan;
+* tag: per-node TypeSig and capability checks collect human-readable
+  reasons a node cannot run on the device;
+* convert: supported nodes become device operators (project/filter chains
+  fuse into one ``StageExec``); tagged nodes become CPU operators;
+* explain: per-node placement, ``*`` on the device and ``!`` on the CPU
+  with ``@`` reason lines, in the reference's format.
+
+The port has one CPU operator so far, the host sort that TPC-H Q1's
+ORDER BY on string keys needs; any other fallback, and any device operator
+not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..aggfns import AggregateExpression
+from ..config import TpuConf
+from ..exprs import BoundReference, Expression, bind
+from . import logical as L
+from .physical import AggregateExec, ScanExec, StageExec, TpuExec
+from .planner import bind_project, strip_alias
+
+__all__ = ["apply_overrides", "explain_plan", "NodeMeta"]
+
+EXPLAIN_HEADER = ("*  = runs on GPU\n!  = falls back to CPU (reasons follow "
+                  "on @-lines)\n")
+
+
+def expr_reasons(e: Expression, allow_string_passthrough: bool = True
+                 ) -> List[str]:
+    """Reasons this bound expression tree cannot run on the device."""
+    reasons: List[str] = []
+    core = strip_alias(e)
+    if isinstance(core, BoundReference):
+        if core.dtype.is_host_carried:
+            if not allow_string_passthrough:
+                reasons.append(
+                    f"host-carried column {core.name or core.ordinal} "
+                    f"({core.dtype}) used in computation")
+        else:
+            r = core.output_sig.check(core.dtype)
+            if r is not None:
+                reasons.append(f"column {core.name or core.ordinal}: {r}")
+        return reasons
+
+    def walk(node: Expression):
+        dt = node.dtype
+        if dt is not None:
+            if dt.is_string:
+                reasons.append(
+                    f"expression {type(node).__name__} produces/consumes "
+                    f"string (device string kernels pending)")
+                return
+            r = node.output_sig.check(dt)
+            if r is not None:
+                label = (f"column {node.name or node.ordinal}"
+                         if isinstance(node, BoundReference)
+                         else type(node).__name__)
+                reasons.append(f"{label}: {r}")
+                return
+        for c in node.children:
+            cdt = c.dtype
+            if cdt is not None and not cdt.is_string:
+                r = node.input_sig.check(cdt)
+                if r is not None:
+                    reasons.append(
+                        f"{type(node).__name__} input "
+                        f"{getattr(c, 'name', '') or type(c).__name__}: {r}")
+                    continue
+            walk(c)
+
+    walk(core)
+    return reasons
+
+
+class NodeMeta:
+    def __init__(self, plan: L.LogicalPlan, conf: TpuConf):
+        self.plan = plan
+        self.conf = conf
+        self.children = [NodeMeta(c, conf) for c in plan.children]
+        self.reasons: List[str] = []
+
+    def will_not_work(self, reason: str):
+        self.reasons.append(reason)
+
+    @property
+    def on_device(self) -> bool:
+        return not self.reasons
+
+    def tag(self):
+        for c in self.children:
+            c.tag()
+        if not self.conf["spark.rapids.tpu.sql.enabled"]:
+            self.will_not_work("spark.rapids.tpu.sql.enabled is false")
+            return
+        try:
+            self._tag_self()
+        except (TypeError, KeyError, ValueError) as ex:
+            self.will_not_work(f"tagging error: {ex}")
+
+    def _tag_self(self):
+        p = self.plan
+        if isinstance(p, L.LogicalScan):
+            return
+        if isinstance(p, L.Project):
+            schema = p.children[0].schema()
+            for name, e in p.exprs:
+                for r in expr_reasons(bind(e, schema)):
+                    self.will_not_work(f"{name}: {r}")
+            return
+        if isinstance(p, L.Filter):
+            b = bind(p.condition, p.children[0].schema())
+            for r in expr_reasons(b, allow_string_passthrough=False):
+                self.will_not_work(f"condition: {r}")
+            return
+        if isinstance(p, L.Aggregate):
+            schema = p.children[0].schema()
+            for name, e in p.group_exprs:
+                core = strip_alias(bind(e, schema))
+                if core.dtype is not None and core.dtype.is_string:
+                    # bare string columns group on the device via
+                    # dictionary codes (ops/strings.py)
+                    if not isinstance(core, BoundReference):
+                        self.will_not_work(
+                            f"group key {name} is a computed string "
+                            f"expression (device string kernels pending)")
+                else:
+                    for r in expr_reasons(core,
+                                          allow_string_passthrough=False):
+                        self.will_not_work(f"group key {name}: {r}")
+            for name, e in p.agg_exprs:
+                b = strip_alias(bind(e, schema))
+                if not isinstance(b, AggregateExpression):
+                    self.will_not_work(
+                        f"aggregate {name} is not a plain aggregate call")
+                    continue
+                for c in b.children:
+                    for r in expr_reasons(c, allow_string_passthrough=False):
+                        self.will_not_work(f"aggregate {name}: {r}")
+            return
+        if isinstance(p, L.Sort):
+            schema = p.children[0].schema()
+            for o in p.orders:
+                for r in expr_reasons(bind(o.expr, schema),
+                                      allow_string_passthrough=False):
+                    self.will_not_work(f"sort key: {r}")
+            return
+        self.will_not_work(f"operator {type(p).__name__} has no GPU version")
+
+    def explain_lines(self, indent: int = 0) -> List[str]:
+        mark = "*" if self.on_device else "!"
+        lines = ["  " * indent + f"{mark} {self.plan.node_desc()}"]
+        lines += ["  " * indent + f"    @{r}" for r in self.reasons]
+        for c in self.children:
+            lines += c.explain_lines(indent + 1)
+        return lines
+
+
+def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
+    p = meta.plan
+    if not meta.on_device:
+        if not conf["spark.rapids.tpu.sql.fallback.enabled"]:
+            raise NotImplementedError(
+                f"{type(p).__name__} cannot run on the GPU and CPU fallback "
+                f"is disabled: {'; '.join(meta.reasons)}")
+        if conf["spark.rapids.tpu.test.validateExecsOnTpu"]:
+            raise AssertionError(
+                f"validateExecsOnTpu: {type(p).__name__} fell back to CPU: "
+                f"{'; '.join(meta.reasons)}")
+        if isinstance(p, L.Sort):
+            from ..cpu.exec import CpuSortExec
+            child = _convert(meta.children[0], conf)
+            schema = child.output_schema
+            return CpuSortExec(child, [(bind(o.expr, schema), o.ascending,
+                                        o.nulls_first) for o in p.orders])
+        raise NotImplementedError(
+            f"the CPU fallback for {type(p).__name__} is not ported yet "
+            f"(ROADMAP.md, modules to port): {'; '.join(meta.reasons)}")
+
+    if isinstance(p, (L.Project, L.Filter)):
+        chain: List[NodeMeta] = []
+        node = meta
+        while isinstance(node.plan, (L.Project, L.Filter)) \
+                and node.on_device:
+            chain.append(node)
+            node = node.children[0]
+        child = _convert(node, conf)
+        schema = child.output_schema
+        steps: List[Tuple[str, object]] = []
+        for nm in reversed(chain):
+            if isinstance(nm.plan, L.Filter):
+                steps.append(("filter", bind(nm.plan.condition, schema)))
+            else:
+                triples, schema = bind_project(nm.plan.exprs, schema)
+                steps.append(("project", triples))
+        return StageExec(child, steps, schema)
+
+    if isinstance(p, L.LogicalScan):
+        return ScanExec(p.schema(), p.source)
+
+    if isinstance(p, L.Aggregate):
+        child = _convert(meta.children[0], conf)
+        schema = child.output_schema
+        return AggregateExec(
+            child, [(n, bind(e, schema)) for n, e in p.group_exprs],
+            [(n, strip_alias(bind(e, schema))) for n, e in p.agg_exprs])
+
+    raise NotImplementedError(
+        f"the device {type(p).__name__} operator is not ported yet "
+        f"(ROADMAP.md queue 2: sort permutation, row 8)")
+
+
+def _tagged(plan: L.LogicalPlan, conf: TpuConf) -> NodeMeta:
+    meta = NodeMeta(plan, conf)
+    meta.tag()
+    return meta
+
+
+def apply_overrides(plan: L.LogicalPlan, conf: Optional[TpuConf] = None
+                    ) -> TpuExec:
+    conf = conf or TpuConf()
+    meta = _tagged(plan, conf)
+    explain = conf["spark.rapids.tpu.sql.explain"]
+    if explain == "ALL" or (explain == "NOT_ON_TPU" and any(
+            ln.lstrip().startswith(("!", "@"))
+            for ln in meta.explain_lines())):
+        import logging
+        logging.getLogger("spark_rapids_tpu_torch.overrides").info(
+            "plan placement:\n%s", "\n".join(meta.explain_lines()))
+    return _convert(meta, conf)
+
+
+def explain_plan(plan: L.LogicalPlan, conf: Optional[TpuConf] = None) -> str:
+    meta = _tagged(plan, conf or TpuConf())
+    return EXPLAIN_HEADER + "\n".join(meta.explain_lines())

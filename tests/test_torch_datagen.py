@@ -1,0 +1,27 @@
+"""The port's numpy lineitem generator draws what the reference writes."""
+
+import numpy as np
+import pyarrow.parquet as pq
+import pytest
+
+from spark_rapids_tpu.models import tpch as ref_tpch
+from spark_rapids_tpu_torch.models import tpch
+
+
+@pytest.mark.parametrize("rows,chunk", [(2500, 1000), (999, 1000)])
+def test_gen_lineitem_arrays_match_reference_parquet(tmp_path, rows, chunk):
+    path = ref_tpch.gen_lineitem(0, str(tmp_path), rows=rows, chunk=chunk)
+    ref = pq.read_table(path)
+    got = tpch.gen_lineitem_arrays(0, rows=rows, chunk=chunk)
+    assert list(got) == ref.column_names
+    for name in ref.column_names:
+        want = ref.column(name).to_numpy()
+        if want.dtype.kind == "O":
+            assert got[name].tolist() == want.tolist(), name
+        else:
+            assert got[name].dtype == want.dtype, name
+            np.testing.assert_array_equal(got[name], want, err_msg=name)
+
+
+def test_row_count_follows_the_scale_factor():
+    assert len(tpch.gen_lineitem_arrays(0.0001)["l_quantity"]) == 600
