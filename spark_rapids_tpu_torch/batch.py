@@ -29,7 +29,7 @@ from .types import DataType
 
 __all__ = ["Field", "Schema", "DeviceColumn", "HostColumn",
            "HostStringColumn", "DictStringColumn", "ColumnBatch",
-           "numpy_column", "upload", "from_numpy", "to_host"]
+           "numpy_column", "live_mask", "upload", "from_numpy", "to_host"]
 
 
 @dataclass(frozen=True)
@@ -206,6 +206,15 @@ def numpy_column(arr) -> Tuple[DataType, np.ndarray, Optional[np.ndarray]]:
     if dt is None:
         raise TypeError(f"unsupported numpy dtype {arr.dtype}")
     return dt, np.ascontiguousarray(arr), None
+
+
+def live_mask(n: int, valid: Optional[torch.Tensor],
+              active: Optional[torch.Tensor], device) -> torch.Tensor:
+    """Bool [n]: the rows that are live (``active``, None = all) and valid
+    (``valid``, None = all)."""
+    m = torch.ones(n, dtype=torch.bool, device=device) if active is None \
+        else active
+    return m if valid is None else m & valid
 
 
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:

@@ -101,6 +101,40 @@ GRID_MAX_GROUPS = register(
     "most this many slots.",
     check=_positive)
 
+AUTO_BROADCAST_THRESHOLD = register(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold", 256 * 1024 * 1024,
+    "Estimated-size cutoff (bytes) under which the build side of a join is "
+    "broadcast (materialized once) instead of hash partitioned; -1 "
+    "disables the choice. The smaller side that fits builds.")
+
+DENSE_DOMAIN_CAP = register(
+    "spark.rapids.tpu.join.denseDomainCap", 1 << 26,
+    "Largest key domain (max_key - min_key + 1) for which the dense "
+    "direct-address kernels engage: broadcast joins build a key -> row "
+    "table, and integral-key aggregations scatter into domain-sized "
+    "accumulators. 0 turns the dense paths off.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+DENSE_MIN_PROBE_ROWS = register(
+    "spark.rapids.tpu.join.denseMinProbeRows", 16384,
+    "Smallest estimated probe-side row count for which a broadcast join "
+    "engages the dense direct-address path (its build-key stats cost one "
+    "fetch). 0 always engages.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+AGG_DENSE_ENABLED = register(
+    "spark.rapids.tpu.sql.agg.dense.enabled", True,
+    "Enable the dense direct-address grouped aggregation (scatter into "
+    "domain-sized accumulators) for bounded-domain integral group keys; "
+    "the domain cap is join.denseDomainCap.")
+
+AGG_DENSE_MAX_ACCUM = register(
+    "spark.rapids.tpu.sql.agg.dense.maxAccumBytes", 1_500_000_000,
+    "Device-memory budget for the multi-key dense aggregation's "
+    "accumulators (primary-key domain x (residual channels + aggregate "
+    "buffers)).",
+    check=_positive)
+
 
 class TpuConf:
     """An immutable snapshot of settings; unset keys resolve to defaults."""

@@ -88,14 +88,16 @@ class EvalContext:
     """The inputs of one batch's evaluation.
 
     ``arrays[i]`` is the (data, valid) pair of bound ordinal ``i`` (None for
-    a host column); ``active`` is the live-row mask.  Under ANSI mode,
-    expressions append per-row error masks to ``errors`` and the stage
-    raises if any is set."""
+    a host column); ``active`` is the live-row mask; ``extras`` are the
+    host-evaluated columns of string predicates (``plan/stringpred.py``).
+    Under ANSI mode, expressions append per-row error masks to ``errors``
+    and the stage raises if any is set."""
 
     def __init__(self, arrays: Sequence[Optional[Value]], num_rows: int,
                  device: torch.device, active: Optional[torch.Tensor] = None,
-                 ansi: bool = False):
+                 ansi: bool = False, extras: Sequence[Value] = ()):
         self.arrays = list(arrays)
+        self.extras = list(extras)
         self.num_rows = num_rows
         self.device = device
         self.active = active

@@ -28,21 +28,62 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "build_log", "load",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("masked_reduce", "grid_agg")
+KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
+           "compact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# per kernel source: its C entry points and their ctypes argument types
 _SIGNATURES = {
-    # active, n, k, data[], valid[], ops[], is_f64[], partials, nblocks,
-    # acc_f, acc_i, stream
-    "masked_reduce": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P,
-                      _P, ctypes.c_int, _P, _P, _P],
-    # codes[], code_valid[], dims[], nkeys, active, n, f[], f_valid[], nf,
-    # i[], i_valid[], ni, acc_f, acc_i, acc_cnt, G, use_shared, stream
-    "grid_agg": [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, _P, _P,
-                 ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
-                 ctypes.c_int, ctypes.c_int, _P],
+    "masked_reduce": {
+        # active, n, k, data[], valid[], ops[], is_f64[], partials, nblocks,
+        # acc_f, acc_i, stream
+        "masked_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    },
+    "grid_agg": {
+        # codes[], code_valid[], dims[], nkeys, active, n, f[], f_valid[],
+        # nf, i[], i_valid[], ni, acc_f, acc_i, acc_cnt, G, use_shared,
+        # stream
+        "grid_agg": [_P, _P, _P, _I, _P, _L, _P, _P, _I, _P, _P, _I, _P, _P,
+                     _P, _I, _I, _P],
+    },
+    "dense_join": {
+        # keys, elem, key_valid, active, n, out, stream
+        "dense_join_stats": [_P, _I, _P, _P, _L, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, table, dup, stream
+        "dense_join_build": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, table, ncols, data[],
+        # valid[], elems[], out[], out_valid[], out_sel, stream
+        "dense_join_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _I, _P, _P, _P,
+                             _P, _P, _P, _P],
+    },
+    "dense_agg": {
+        # nkeys, data[], valid[], elems[], cand[], active, n, stats, tables,
+        # fd, stream
+        "dense_agg_stats": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+        # key, key_valid, key_elem, nres, res[], res_valid[], res_elem[],
+        # nch, ch[], ch_valid[], ch_op[], ch_f64[], active, n, kmin, D,
+        # acc[], present, vmin[], vmax[], vdmin[], vdmax[], cap, ocount,
+        # obounds, okey, ores[], ores_valid[], och[], och_valid[], stream
+        "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
+        # nres, vmin[], vmax[], vdmin[], vdmax[], present, S, out, stream
+        "dense_agg_check": [_I, _P, _P, _P, _P, _P, _L, _P, _P],
+    },
+    "topk": {
+        # nkeys, data[], valid[], kinds[], desc[], nulls_first[], active, n,
+        # k, scratch, out, stream
+        "topk": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P],
+    },
+    "compact": {
+        # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,
+        # scratch, stream
+        "compact": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -108,9 +149,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_library_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = _SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

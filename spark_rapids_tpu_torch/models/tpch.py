@@ -1,11 +1,14 @@
-"""TPC-H lineitem data, Q6 and Q1, and numpy oracles.
+"""TPC-H lineitem, orders and customer data, Q6, Q1 and Q3, and numpy
+oracles.
 
-Counterpart of ``spark_rapids_tpu/models/tpch.py``.  The generator is a
-numpy-only copy of the reference's ``gen_lineitem`` column draws (:21-60),
-in the same order from the same seed, so both packages see the same
-values; it returns the dict of numpy arrays that both packages'
-``create_dataframe`` take, instead of writing parquet.  The oracles are
-plain numpy (``np.add.at`` for the groups), independent of both engines.
+Counterpart of ``spark_rapids_tpu/models/tpch.py``.  The generators are
+numpy-only copies of the reference's ``gen_lineitem`` (:21-60),
+``gen_orders`` (:67) and ``gen_customer`` (:102) column draws, in the same
+order from the same seeds, so both packages see the same values; they
+return the dict of numpy arrays that both packages' ``create_dataframe``
+take, instead of writing parquet.  The oracles are plain numpy
+(``np.add.at``/``np.bincount`` for the groups, direct addressing for Q3's
+dense keys), independent of both engines.
 """
 
 from __future__ import annotations
@@ -15,10 +18,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["LINEITEM_ROWS_PER_SF", "gen_lineitem_arrays", "q6", "q1",
-           "q6_numpy", "q1_numpy"]
+__all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "gen_lineitem_arrays",
+           "gen_orders_arrays", "gen_customer_arrays", "q6", "q1", "q3",
+           "q6_numpy", "q1_numpy", "q3_numpy"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+Q3_CUTOFF = datetime.date(1995, 3, 15)
 
 
 def gen_lineitem_arrays(sf: float, seed: int = 19920101,
@@ -54,6 +60,41 @@ def gen_lineitem_arrays(sf: float, seed: int = 19920101,
     return {name: np.concatenate(arrs) for name, arrs in parts.items()}
 
 
+def gen_orders_arrays(sf: float, seed: int = 19930101,
+                      rows: Optional[int] = None,
+                      chunk: int = 1_000_000) -> Dict[str, np.ndarray]:
+    """Seeded orders columns: ``rows`` or ``max(2, n_lineitem // 4 - 1)``
+    rows, so ``o_orderkey`` covers every ``l_orderkey`` of
+    :func:`gen_lineitem_arrays` at the same ``sf``.  o_orderdate comes
+    back as ``datetime64[D]``."""
+    n_li = int(LINEITEM_ROWS_PER_SF * sf)
+    n = rows if rows is not None else max(2, n_li // 4 - 1)
+    rng = np.random.default_rng(seed)
+    n_cust = max(2, int(150_000 * sf))
+    base = np.datetime64("1992-01-01")
+    parts: Dict[str, List[np.ndarray]] = {}
+    for off in range(0, n, chunk):
+        m = min(chunk, n - off)
+        okey = np.arange(off + 1, off + 1 + m, dtype=np.int64)
+        odate = base + rng.integers(0, 2406, m).astype("timedelta64[D]")
+        ckey = rng.integers(1, n_cust, m).astype(np.int64)
+        for name, arr in (("o_orderkey", okey), ("o_custkey", ckey),
+                          ("o_orderdate", odate),
+                          ("o_shippriority", np.zeros(m, dtype=np.int64))):
+            parts.setdefault(name, []).append(arr)
+    return {name: np.concatenate(arrs) for name, arrs in parts.items()}
+
+
+def gen_customer_arrays(sf: float, seed: int = 19940101,
+                        rows: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Seeded customer columns: ``rows`` or ``max(2, int(150_000 * sf))``
+    rows; c_mktsegment is a numpy unicode array."""
+    n = rows if rows is not None else max(2, int(150_000 * sf))
+    rng = np.random.default_rng(seed)
+    return {"c_custkey": np.arange(1, n + 1, dtype=np.int64),
+            "c_mktsegment": rng.choice(np.array(SEGMENTS), n)}
+
+
 def q6(df):
     """TPC-H Q6: scan → filter → SUM(price * discount)."""
     from ..sql import functions as F
@@ -83,6 +124,22 @@ def q1(df, delta_days: int = 90):
                    F.avg(F.col("l_discount")).alias("avg_disc"),
                    F.count_star().alias("count_order"))
               .sort("l_returnflag", "l_linestatus"))
+
+
+def q3(cust, orders, lineitem):
+    """TPC-H Q3 shipping priority: two inner equi-joins, a 3-key GROUP BY
+    with a SUM, ORDER BY revenue DESC, o_orderdate, LIMIT 10."""
+    from ..sql import functions as F
+    revenue = F.col("l_extendedprice") * (1 - F.col("l_discount"))
+    return (cust.where(F.col("c_mktsegment") == "BUILDING")
+            .join(orders, [("c_custkey", "o_custkey")])
+            .join(lineitem, [("o_orderkey", "l_orderkey")])
+            .where((F.col("o_orderdate") < Q3_CUTOFF)
+                   & (F.col("l_shipdate") > Q3_CUTOFF))
+            .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(revenue).alias("revenue"))
+            .sort(F.col("revenue").desc(), F.col("o_orderdate"))
+            .limit(10))
 
 
 def q6_numpy(data: Dict[str, np.ndarray]) -> Optional[float]:
@@ -131,3 +188,33 @@ def q1_numpy(data: Dict[str, np.ndarray], delta_days: int = 90
         rows.append((f, s, *(float(x[i]) for x in sums),
                      *(float(x[i]) for x in avgs), int(cnt[i])))
     return rows
+
+
+def q3_numpy(cust: Dict[str, np.ndarray], orders: Dict[str, np.ndarray],
+             lineitem: Dict[str, np.ndarray], k: int = 10) -> List[tuple]:
+    """Q3 over the generators' arrays by direct addressing (every key is
+    dense: c_custkey and o_orderkey are 1..n), rows as :func:`q3` returns
+    them: (l_orderkey, o_orderdate, o_shippriority, revenue).  Ties in
+    revenue keep o_orderdate order, then l_orderkey order, as a stable
+    sort of the groups in key order does."""
+    cutoff = np.datetime64(Q3_CUTOFF)
+    ckey, okey = cust["c_custkey"], orders["o_orderkey"]
+    if not (np.array_equal(ckey, np.arange(1, len(ckey) + 1))
+            and np.array_equal(okey, np.arange(1, len(okey) + 1))):
+        raise ValueError("q3_numpy needs c_custkey and o_orderkey = 1..n")
+    cust_ok = np.zeros(len(ckey) + 1, dtype=bool)
+    cust_ok[ckey] = cust["c_mktsegment"] == "BUILDING"
+    odate = orders["o_orderdate"]
+    ok_o = cust_ok[orders["o_custkey"]] & (odate < cutoff)
+    lkey = lineitem["l_orderkey"]
+    m = ok_o[lkey - 1] & (lineitem["l_shipdate"] > cutoff)
+    rev = lineitem["l_extendedprice"][m] * (1 - lineitem["l_discount"][m])
+    size = len(okey) + 1
+    revenue = np.bincount(lkey[m], weights=rev, minlength=size)
+    groups = np.flatnonzero(np.bincount(lkey[m], minlength=size))
+    days = odate[groups - 1].astype(np.int64)
+    order = np.lexsort((days, -revenue[groups]))[:k]
+    top = groups[order]
+    prio = orders["o_shippriority"]
+    return [(int(g), odate[g - 1].astype(datetime.date),
+             int(prio[g - 1]), float(revenue[g])) for g in top]

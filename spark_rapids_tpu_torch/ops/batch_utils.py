@@ -1,16 +1,32 @@
-"""Batch utilities (``spark_rapids_tpu/ops/batch_utils.py`` counterpart).
+"""Batch utilities (``spark_rapids_tpu/ops/batch_utils.py`` counterpart):
+compaction by mask, concatenation of device columns, and the bounded slice
+of a front-packed batch.
 
-Only the bounded form of ``compact_packed`` (:307) is ported: the slice
-that trims a batch whose live rows are packed at the front to a static
-bound, without a host sync.  Compaction by mask, concat, row windows and
-gathers (ROADMAP queue 2 row 3) come with the operators that need them.
+``compact`` packs the live rows of every device column to the front through
+the hand-written kernel ``csrc/compact.cu`` (replacing the reference's
+``_compact_fn`` :280), or its plain PyTorch version for CPU tensors;
+``compact_columns`` is the dispatching wrapper and ``compact_kernel`` the
+launcher, which counts its launches.  ``concat_batches`` is ``torch.cat``
+of each column: a plain copy, not a kernel.  Row windows and gathers by
+index come with the operators that need them.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import kernels
 from ..batch import ColumnBatch, DeviceColumn, DictStringColumn, HostColumn
 
-__all__ = ["compact_packed"]
+__all__ = ["compact_packed", "compact", "compact_columns", "compact_kernel",
+           "compact_plain", "concat_batches", "CP_MAX_COLS"]
+
+CP_MAX_COLS = 16            # csrc/compact.cu CP_MAX_COLS
+CP_TILE = 4096              # csrc/compact.cu CP_TILE
+
+Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
 def compact_packed(batch: ColumnBatch, bound: int) -> ColumnBatch:
@@ -33,3 +49,124 @@ def compact_packed(batch: ColumnBatch, bound: int) -> ColumnBatch:
             cols.append(DeviceColumn(c.dtype, c.data[:cap], valid))
     sel = None if batch.sel is None else batch.sel[:cap]
     return ColumnBatch(batch.schema, cols, cap, sel)
+
+
+def compact(batch: ColumnBatch, n_live: Optional[int] = None) -> ColumnBatch:
+    """The batch's live rows packed to the front, in row order, with no
+    selection mask.  The live count is fetched (one counted fetch) unless
+    the caller already knows it."""
+    if batch.sel is None:
+        return batch
+    if any(isinstance(c, HostColumn) for c in batch.columns):
+        raise NotImplementedError(
+            "compacting host columns is not ported yet (ROADMAP.md queue 2 "
+            "row 3)")
+    if n_live is None:
+        from ..utils.metrics import fetch
+        n_live = int(fetch(batch.sel.sum()))
+    packed = compact_columns(
+        [(c.codes, c.valid) if isinstance(c, DictStringColumn)
+         else (c.data, c.valid) for c in batch.columns], batch.sel, n_live)
+    cols: List = [DictStringColumn(d, v, c.dictionary)
+                  if isinstance(c, DictStringColumn)
+                  else DeviceColumn(c.dtype, d, v)
+                  for c, (d, v) in zip(batch.columns, packed)]
+    return ColumnBatch(batch.schema, cols, n_live)
+
+
+def compact_columns(cols: Sequence[Value], active: torch.Tensor,
+                    n_live: int) -> List[Value]:
+    """Each (data, valid) column's rows where ``active`` holds, packed to
+    the front; ``n_live`` is the number of such rows."""
+    run = compact_kernel if active.is_cuda else compact_plain
+    out: List[Value] = []
+    for lo in range(0, len(cols), CP_MAX_COLS):
+        out += run(cols[lo:lo + CP_MAX_COLS], active, n_live)
+    return out
+
+
+def compact_plain(cols, active, n_live: int) -> List[Value]:
+    """Plain PyTorch version of ``csrc/compact.cu``."""
+    return [(d[active], None if v is None else v[active]) for d, v in cols]
+
+
+def compact_kernel(cols, active, n_live: int) -> List[Value]:
+    """Launch ``csrc/compact.cu`` on CUDA tensors (same arguments as
+    :func:`compact_plain`)."""
+    n = active.shape[0]
+    if len(cols) > CP_MAX_COLS:
+        raise ValueError(f"compact takes at most {CP_MAX_COLS} columns")
+    if active.dtype != torch.bool or not active.is_cuda \
+            or not active.is_contiguous():
+        raise ValueError("active must be a contiguous CUDA bool tensor")
+    dev = active.device
+    ins, outs, vins, vouts, elems, result = [], [], [], [], [], []
+    for d, v in cols:
+        for t in (d, v):
+            if t is not None and (t.shape != (n,) or not t.is_cuda
+                                  or not t.is_contiguous()):
+                raise ValueError(f"compact columns must be contiguous CUDA "
+                                 f"[{n}] tensors, got {tuple(t.shape)} on "
+                                 f"{t.device}")
+        if d.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"compact moves 1, 2, 4 or 8-byte elements, "
+                             f"not {d.dtype}")
+        od = torch.empty(n_live, dtype=d.dtype, device=dev)
+        ov = None if v is None else torch.empty(n_live, dtype=torch.bool,
+                                                device=dev)
+        ins.append(d.data_ptr())
+        outs.append(od.data_ptr())
+        vins.append(None if v is None else v.data_ptr())
+        vouts.append(None if ov is None else ov.data_ptr())
+        elems.append(d.element_size())
+        result.append((od, ov))
+    if n == 0 or n_live == 0:
+        return result  # nothing to move: no launch
+    scratch = torch.empty(-(-n // CP_TILE), dtype=torch.int64, device=dev)
+    lib = kernels.load("compact")
+    P = kernels.pointer_array
+    rc = lib.compact(len(cols), P(ins), P(outs), P(vins), P(vouts),
+                     kernels.int_array(elems), active.data_ptr(), n, n_live,
+                     scratch.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(lib, "compact", rc)
+    compact_kernel.launches += 1
+    return result
+
+
+compact_kernel.launches = 0
+
+
+def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
+    """One batch holding every row of ``batches`` in order (``torch.cat``
+    per column; selection masks and validity ride along, filled with True
+    where a batch has none)."""
+    if len(batches) == 1:
+        return batches[0]
+    first = batches[0]
+    n = sum(b.num_rows for b in batches)
+
+    def cat_valid(masks, lengths, like):
+        if all(m is None for m in masks):
+            return None
+        parts = [torch.ones(k, dtype=torch.bool, device=like.device)
+                 if m is None else m for m, k in zip(masks, lengths)]
+        return torch.cat(parts)
+
+    lengths = [b.num_rows for b in batches]
+    cols: List = []
+    for i, c in enumerate(first.columns):
+        if not isinstance(c, DeviceColumn):
+            raise NotImplementedError(
+                "concatenating string columns is not ported yet (ROADMAP.md "
+                "queue 2 row 3)")
+        parts = [b.columns[i] for b in batches]
+        cols.append(DeviceColumn(
+            c.dtype, torch.cat([p.data for p in parts]),
+            cat_valid([p.valid for p in parts], lengths, c.data)))
+    sel = None
+    if any(b.sel is not None for b in batches):
+        dev = next(b.sel for b in batches if b.sel is not None).device
+        sel = torch.cat([torch.ones(b.num_rows, dtype=torch.bool, device=dev)
+                         if b.sel is None else b.sel for b in batches])
+    return ColumnBatch(first.schema, cols, n, sel)

@@ -24,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import kernels
-from ..batch import upload
+from ..batch import live_mask, upload
 
 __all__ = ["init_scalars", "ungrouped_reduce", "masked_reduce",
            "masked_reduce_plain", "GridAccumulator", "grid_group_reduce",
@@ -385,3 +385,402 @@ def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
 
 
 grid_agg.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# Dense direct-address aggregation: a primary integral key over [kmin, kmin+D)
+# plus residual keys that depend on it
+# ---------------------------------------------------------------------------------
+
+DA_MAX_KEYS = 8             # csrc/dense_agg.cu DA_MAX_KEYS
+DA_MAX_CH = 16              # csrc/dense_agg.cu DA_MAX_CH
+DA_SAMPLE = 1 << 18         # rows of the first batch the dependence probe sees
+DA_TABLE = 1 << 19          # slots of its table per candidate
+OVERFLOW_ROWS = 1 << 20     # rows outside the first domain the buffer holds
+_DA_OP = {"sum": 0, "min": 1, "max": 2}
+_KEY_TYPES = (torch.int32, torch.int64)
+
+
+def _opt_ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def dense_key_stats(keys: Sequence[Value], cand: Sequence[bool],
+                    active: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense aggregation's stats over one batch, still on the device:
+    (int64 [k, 3] min, max and count of each key's live valid values;
+    int32 [k] per primary candidate, 1 when one of its values maps to two
+    different key tuples, validity included, among the live rows of the
+    first DA_SAMPLE rows).  ``keys`` are int32/int64 (data, valid)."""
+    n = keys[0][0].shape[0]
+    keys = [(_column(d, n), _column(v, n)) for d, v in keys]
+    run = dense_agg_stats if keys[0][0].is_cuda else dense_agg_stats_plain
+    return run(keys, cand, active)
+
+
+def dense_agg_stats_plain(keys, cand, active):
+    """Plain PyTorch version of ``dense_agg_stats``."""
+    dev = keys[0][0].device
+    n = keys[0][0].shape[0]
+    stats = torch.tensor([[_I64_MAX, _I64_MIN, 0]] * len(keys),
+                         dtype=torch.int64, device=dev)
+    for c, (d, v) in enumerate(keys):
+        x = d.to(torch.int64)[live_mask(n, v, active, dev)]
+        if x.numel():
+            stats[c] = torch.stack([x.min(), x.max(),
+                                    torch.tensor(x.numel(), device=dev)])
+    fd = torch.zeros(len(keys), dtype=torch.int32, device=dev)
+    m = min(n, DA_SAMPLE)
+    rows = torch.arange(m, device=dev)
+    if active is not None:
+        rows = rows[active[:m]]
+
+    def tuple_ids(idx):
+        """Per sampled row, the id of its (valid, value) tuple over the
+        keys ``idx``."""
+        cols = []
+        for c in idx:
+            d, v = keys[c]
+            val = d[rows].to(torch.int64)
+            ok = torch.ones_like(val, dtype=torch.bool) if v is None \
+                else v[rows]
+            cols += [ok.to(torch.int64), torch.where(ok, val, 0)]
+        return torch.unique(torch.stack(cols, 1), dim=0,
+                            return_inverse=True)[1]
+
+    if rows.numel():
+        every = tuple_ids(range(len(keys)))
+        for c, is_cand in enumerate(cand):
+            if not is_cand:
+                continue
+            own = tuple_ids([c])
+            n_own = int(own.max()) + 1
+            # two tuples under one candidate value: the candidate's distinct
+            # count falls short of the full key's
+            pairs = torch.unique(torch.stack([own, every], 1), dim=0)
+            fd[c] = int(pairs.shape[0] > n_own)
+    return stats, fd
+
+
+def dense_agg_stats(keys, cand, active):
+    """Launch ``dense_agg_stats`` of ``csrc/dense_agg.cu``."""
+    n = keys[0][0].shape[0]
+    if not 1 <= len(keys) <= DA_MAX_KEYS:
+        raise ValueError(f"dense_agg_stats takes 1..{DA_MAX_KEYS} keys, got "
+                         f"{len(keys)}")
+    dev = keys[0][0].device
+    if active is not None:
+        _check_column(active, n, (torch.bool,), "active")
+    for d, v in keys:
+        _check_column(d, n, _KEY_TYPES, "group key")
+        if v is not None:
+            _check_column(v, n, (torch.bool,), "group key valid")
+    stats = upload(torch.tensor([[_I64_MAX, _I64_MIN, 0]] * len(keys),
+                                dtype=torch.int64), dev)
+    fd = torch.zeros(len(keys), dtype=torch.int32, device=dev)
+    tables = torch.full((max(sum(map(bool, cand)), 1) * DA_TABLE,), -1,
+                        dtype=torch.int32, device=dev)
+    lib = kernels.load("dense_agg")
+    rc = lib.dense_agg_stats(
+        len(keys), kernels.pointer_array([d.data_ptr() for d, _ in keys]),
+        kernels.pointer_array([_opt_ptr(v) for _, v in keys]),
+        kernels.int_array([d.element_size() for d, _ in keys]),
+        kernels.int_array([int(bool(c)) for c in cand]), _opt_ptr(active), n,
+        stats.data_ptr(), tables.data_ptr(), fd.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(lib, "dense_agg_stats", rc)
+    dense_agg_stats.launches += 1
+    return stats, fd
+
+
+dense_agg_stats.launches = 0
+
+
+class DenseAccumulator:
+    """The per-query device state of the dense aggregation.
+
+    Slots [0, D) hold keys kmin..kmin+D-1; slot D holds the null key.
+    ``acc[j]`` is channel j's [D + 1] accumulator (float64 sums, or int64
+    sum/min/max; a channel whose contribution has no data counts rows);
+    ``present`` marks observed slots; per residual key, ``vmin``/``vmax``
+    (int64) and ``vdmin``/``vdmax`` (int32 0/1 validity) prove that it
+    depends on the primary.  Rows whose key falls outside the domain go to
+    the overflow buffer (``cap`` rows), which :meth:`widen` folds in."""
+
+    def __init__(self, kmin: int, D: int, nres: int,
+                 channels: Sequence[Tuple[str, bool]], device,
+                 cap: int = OVERFLOW_ROWS):
+        if nres > DA_MAX_KEYS - 1 or len(channels) > DA_MAX_CH:
+            raise ValueError(f"the dense aggregation takes at most "
+                             f"{DA_MAX_KEYS - 1} residual keys and "
+                             f"{DA_MAX_CH} channels")
+        for op, is_f64 in channels:
+            if is_f64 and op != "sum":
+                raise ValueError(f"float64 {op} has no dense channel")
+        self.kmin, self.D = int(kmin), int(D)
+        self.channels = list(channels)
+        self.nres = nres
+        self.device = device
+        self.cap = int(cap)
+        self._alloc(self.D)
+        nch = len(self.channels)
+        i64 = dict(dtype=torch.int64, device=device)
+        self.ocount = torch.zeros(1, **i64)
+        self.obounds = upload(torch.tensor([_I64_MAX, _I64_MIN],
+                                           dtype=torch.int64), device)
+        self.okey = torch.empty(self.cap, **i64)
+        self.ores = torch.empty((nres, self.cap), **i64)
+        self.ores_valid = torch.empty((nres, self.cap), dtype=torch.bool,
+                                      device=device)
+        self.och = torch.empty((nch, self.cap), **i64)
+        self.och_valid = torch.empty((nch, self.cap), dtype=torch.bool,
+                                     device=device)
+
+    @property
+    def S(self) -> int:
+        return self.D + 1
+
+    def _alloc(self, D: int) -> None:
+        S, dev = D + 1, self.device
+        self.acc = []
+        for op, is_f64 in self.channels:
+            if is_f64:
+                self.acc.append(torch.zeros(S, dtype=torch.float64,
+                                            device=dev))
+            else:
+                fill = {"sum": 0, "count": 0, "min": _I64_MAX,
+                        "max": _I64_MIN}[op]
+                self.acc.append(torch.full((S,), fill, dtype=torch.int64,
+                                           device=dev))
+        self.present = torch.zeros(S, dtype=torch.uint8, device=dev)
+        r = self.nres
+        self.vmin = torch.full((r, S), _I64_MAX, dtype=torch.int64,
+                               device=dev)
+        self.vmax = torch.full((r, S), _I64_MIN, dtype=torch.int64,
+                               device=dev)
+        self.vdmin = torch.ones((r, S), dtype=torch.int32, device=dev)
+        self.vdmax = torch.zeros((r, S), dtype=torch.int32, device=dev)
+
+    def update(self, key: Value, residuals: Sequence[Value],
+               contributions: Sequence[Value],
+               active: Optional[torch.Tensor]) -> None:
+        """Adds one batch (in place).  ``contributions`` follow
+        ``channels``; ``data=None`` counts rows where ``valid`` holds."""
+        n = key[0].shape[0]
+        key = (_column(key[0], n), _column(key[1], n))
+        residuals = [(_column(d, n), _column(v, n)) for d, v in residuals]
+        contributions = [(_column(d, n), _column(v, n))
+                         for d, v in contributions]
+        run = dense_agg_update if key[0].is_cuda else dense_agg_update_plain
+        run(self, key, residuals, contributions, active)
+
+    def check(self) -> torch.Tensor:
+        """int64 [2] device tensor: (1 if a residual does not depend on the
+        primary, else 0; the number of observed slots)."""
+        run = dense_agg_check if self.present.is_cuda \
+            else dense_agg_check_plain
+        return run(self)
+
+    def tail(self) -> torch.Tensor:
+        """int64 [5] device tensor for the query's tail fetch: violation,
+        n_groups, overflow rows, overflow key min and max."""
+        return torch.cat([self.check(), self.ocount, self.obounds])
+
+    def widen(self, kmin: int, D: int) -> None:
+        """Re-lay the accumulators onto [kmin, kmin + D), which contains
+        the old domain: old slots land at their keys' new slots, the null
+        slot stays last."""
+        off = self.kmin - kmin
+        if off < 0 or off + self.D > D:
+            raise ValueError("the new domain must contain the old one")
+        old = (self.acc, self.present, self.vmin, self.vmax, self.vdmin,
+               self.vdmax)
+        oD = self.D
+        self._alloc(D)
+        for new, o in zip(self.acc + [self.present], old[0] + [old[1]]):
+            new[off:off + oD] = o[:oD]
+            new[D] = o[oD]
+        for new, o in zip((self.vmin, self.vmax, self.vdmin, self.vdmax),
+                          old[2:]):
+            new[:, off:off + oD] = o[:, :oD]
+            new[:, D] = o[:, oD]
+        self.kmin, self.D = int(kmin), int(D)
+
+    def replay_overflow(self, count: int) -> None:
+        """Adds the ``count`` buffered overflow rows (all in the widened
+        domain) and empties the buffer."""
+        if count > self.cap:
+            raise ValueError(f"{count} overflow rows exceed the buffer's "
+                             f"{self.cap}")
+        rows = [(self.okey[:count].clone(), None),
+                [(self.ores[i, :count].clone(),
+                  self.ores_valid[i, :count].clone())
+                 for i in range(self.nres)],
+                [(None if op == "count" else
+                  (self.och[j, :count].view(torch.float64) if is_f64
+                   else self.och[j, :count]).clone(),
+                  self.och_valid[j, :count].clone())
+                 for j, (op, is_f64) in enumerate(self.channels)]]
+        self.ocount.zero_()
+        self.obounds[0] = _I64_MAX
+        self.obounds[1] = _I64_MIN
+        self.update(rows[0], rows[1], rows[2], None)
+
+    def slot_keys(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(int64 key of every slot, its validity: False for the null
+        slot)."""
+        slot = torch.arange(self.S, dtype=torch.int64, device=self.device)
+        return slot + self.kmin, slot < self.D
+
+
+def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
+                           contributions, active) -> None:
+    """Plain PyTorch version of ``dense_agg_update``: overflow rows land in
+    row order (the kernel's atomic cursor gives no fixed order)."""
+    d, v = key
+    n, dev = d.shape[0], d.device
+    live = torch.ones(n, dtype=torch.bool, device=dev) if active is None \
+        else active
+    kv = torch.ones_like(live) if v is None else v
+    k64 = d.to(torch.int64)
+    in_dom = live & kv & (k64 >= acc.kmin) & (k64 - acc.kmin < acc.D)
+    out = live & kv & ~in_dom
+    rows = in_dom | (live & ~kv)
+    slot = torch.where(in_dom, k64 - acc.kmin, acc.D)
+    acc.present[slot[rows]] = 1
+    for j, ((cd, cv), (op, is_f64)) in enumerate(zip(contributions,
+                                                     acc.channels)):
+        m = rows if cv is None else rows & cv
+        x = torch.ones(n, dtype=torch.int64, device=dev) if cd is None \
+            else cd
+        if op in ("sum", "count"):
+            acc.acc[j].index_add_(0, slot[m], x[m].to(acc.acc[j].dtype))
+        else:
+            acc.acc[j].scatter_reduce_(0, slot[m], x[m],
+                                       "amin" if op == "min" else "amax")
+    for i, (rd, rv) in enumerate(residuals):
+        ok = rows if rv is None else rows & rv
+        x = rd.to(torch.int64)
+        acc.vmin[i].scatter_reduce_(0, slot[ok], x[ok], "amin")
+        acc.vmax[i].scatter_reduce_(0, slot[ok], x[ok], "amax")
+        acc.vdmax[i][slot[ok]] = 1
+        if rv is not None:
+            acc.vdmin[i][slot[rows & ~rv]] = 0
+    o = out.nonzero().squeeze(1)
+    if o.numel() == 0:
+        return
+    ko = k64[o]
+    acc.obounds[0] = torch.minimum(acc.obounds[0], ko.min())
+    acc.obounds[1] = torch.maximum(acc.obounds[1], ko.max())
+    base = int(acc.ocount[0])
+    acc.ocount += o.numel()
+    take = max(0, min(o.numel(), acc.cap - base))
+    o, dst = o[:take], slice(base, base + take)
+    acc.okey[dst] = k64[o]
+    for i, (rd, rv) in enumerate(residuals):
+        acc.ores[i, dst] = rd.to(torch.int64)[o]
+        acc.ores_valid[i, dst] = True if rv is None else rv[o]
+    for j, (cd, cv) in enumerate(contributions):
+        acc.och_valid[j, dst] = True if cv is None else cv[o]
+        if cd is not None:
+            bits = cd.view(torch.int64) if cd.dtype == torch.float64 \
+                else cd.to(torch.int64)
+            acc.och[j, dst] = bits[o]
+
+
+def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
+                     active) -> None:
+    """Launch ``dense_agg_update`` of ``csrc/dense_agg.cu``."""
+    d, v = key
+    n = d.shape[0]
+    _check_column(d, n, _KEY_TYPES, "group key")
+    if v is not None:
+        _check_column(v, n, (torch.bool,), "group key valid")
+    if active is not None:
+        _check_column(active, n, (torch.bool,), "active")
+    if len(residuals) != acc.nres or len(contributions) != len(acc.channels):
+        raise ValueError("residuals/contributions do not match the "
+                         "accumulator's layout")
+    res, res_valid, res_elem = [], [], []
+    for rd, rv in residuals:
+        _check_column(rd, n, _KEY_TYPES, "residual key")
+        if rv is not None:
+            _check_column(rv, n, (torch.bool,), "residual valid")
+        res.append(rd.data_ptr())
+        res_valid.append(_opt_ptr(rv))
+        res_elem.append(rd.element_size())
+    ch, ch_valid, ch_op, ch_f64 = [], [], [], []
+    for (cd, cv), (op, is_f64) in zip(contributions, acc.channels):
+        if cd is not None:
+            _check_column(cd, n, (torch.float64 if is_f64 else torch.int64,),
+                          "contribution")
+        elif op != "count":
+            raise ValueError(f"a {op} channel needs data")
+        if cv is not None:
+            _check_column(cv, n, (torch.bool,), "contribution valid")
+        ch.append(_opt_ptr(cd))
+        ch_valid.append(_opt_ptr(cv))
+        ch_op.append(_DA_OP["sum" if op == "count" else op])
+        ch_f64.append(int(is_f64))
+    for t in acc.acc + [acc.present, acc.vmin, acc.okey]:
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError("accumulators must be contiguous CUDA tensors")
+    if n == 0:
+        return  # no rows (and no data pointers): no launch
+    P = kernels.pointer_array
+    nres = acc.nres
+    lib = kernels.load("dense_agg")
+    rc = lib.dense_agg_update(
+        d.data_ptr(), _opt_ptr(v), d.element_size(), nres, P(res),
+        P(res_valid), kernels.int_array(res_elem), len(ch), P(ch),
+        P(ch_valid), kernels.int_array(ch_op), kernels.int_array(ch_f64),
+        _opt_ptr(active), n, acc.kmin, acc.D, P([a.data_ptr() for a in acc.acc]),
+        acc.present.data_ptr(), P([acc.vmin[i].data_ptr() for i in range(nres)]),
+        P([acc.vmax[i].data_ptr() for i in range(nres)]),
+        P([acc.vdmin[i].data_ptr() for i in range(nres)]),
+        P([acc.vdmax[i].data_ptr() for i in range(nres)]), acc.cap,
+        acc.ocount.data_ptr(), acc.obounds.data_ptr(), acc.okey.data_ptr(),
+        P([acc.ores[i].data_ptr() for i in range(nres)]),
+        P([acc.ores_valid[i].data_ptr() for i in range(nres)]),
+        P([None if op == "count" else acc.och[j].data_ptr()
+           for j, (op, _) in enumerate(acc.channels)]),
+        P([acc.och_valid[j].data_ptr() for j in range(len(acc.channels))]),
+        torch.cuda.current_stream(d.device).cuda_stream)
+    kernels.check_launch(lib, "dense_agg_update", rc)
+    dense_agg_update.launches += 1
+
+
+dense_agg_update.launches = 0
+
+
+def dense_agg_check_plain(acc: DenseAccumulator) -> torch.Tensor:
+    """Plain PyTorch version of ``dense_agg_check``."""
+    present = acc.present.bool()
+    bad = torch.zeros_like(present)
+    for i in range(acc.nres):
+        has = acc.vdmax[i] == 1
+        bad |= has & ((acc.vdmin[i] == 0) | (acc.vmin[i] != acc.vmax[i]))
+    return torch.stack([(present & bad).any().to(torch.int64),
+                        present.sum()])
+
+
+def dense_agg_check(acc: DenseAccumulator) -> torch.Tensor:
+    """Launch ``dense_agg_check`` of ``csrc/dense_agg.cu``."""
+    out = torch.zeros(2, dtype=torch.int64, device=acc.device)
+    nres = acc.nres
+    P = kernels.pointer_array
+    lib = kernels.load("dense_agg")
+    rc = lib.dense_agg_check(
+        nres, P([acc.vmin[i].data_ptr() for i in range(nres)]),
+        P([acc.vmax[i].data_ptr() for i in range(nres)]),
+        P([acc.vdmin[i].data_ptr() for i in range(nres)]),
+        P([acc.vdmax[i].data_ptr() for i in range(nres)]),
+        acc.present.data_ptr(), acc.S, out.data_ptr(),
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "dense_agg_check", rc)
+    dense_agg_check.launches += 1
+    return out
+
+
+dense_agg_check.launches = 0

@@ -1,6 +1,6 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, sort)."""
+aggregate, sort, join, limit)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from ..batch import Field, Schema
 from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "Sort", "SortOrder"]
+           "Sort", "SortOrder", "Join", "Limit"]
 
 
 class LogicalPlan:
@@ -113,3 +113,47 @@ class Sort(LogicalPlan):
 
     def node_desc(self):
         return f"Sort [{len(self.orders)} keys, global={self.global_sort}]"
+
+
+class Join(LogicalPlan):
+    """Equi-join on ``left_keys[i] = right_keys[i]``; ``using`` (set by
+    ``DataFrame.join`` on column names) drops the right side's copies of
+    the key columns."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: List[Expression], right_keys: List[Expression],
+                 how: str = "inner", condition: Optional[Expression] = None):
+        self.children = (left, right)
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.how = how
+        self.condition = condition
+        self.using: List[str] = []
+
+    def schema(self) -> Schema:
+        l, r = self.children[0].schema(), self.children[1].schema()
+        if self.how in ("semi", "anti", "left_semi", "left_anti"):
+            return l
+        using = set(self.using)
+        fields = list(l.fields)
+        rf = [f for f in r.fields if f.name not in using]
+        if self.how in ("left", "left_outer", "full", "full_outer"):
+            rf = [Field(f.name, f.dtype, True) for f in rf]
+        if self.how in ("right", "right_outer", "full", "full_outer"):
+            fields = [Field(f.name, f.dtype, True) for f in fields]
+        return Schema(fields + rf)
+
+    def node_desc(self):
+        return f"Join {self.how}"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, n: int):
+        self.children = (child,)
+        self.n = n
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def node_desc(self):
+        return f"Limit {self.n}"

@@ -9,9 +9,11 @@ counterpart).
 * explain: per-node placement, ``*`` on the device and ``!`` on the CPU
   with ``@`` reason lines, in the reference's format.
 
-The port has one CPU operator so far, the host sort that TPC-H Q1's
-ORDER BY on string keys needs; any other fallback, and any device operator
-not ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
+The plan is optimized first (``optimizer.optimize``: filter pushdown and
+column pruning), for execution and explain alike.  The port has one CPU
+operator so far, the host sort that TPC-H Q1's ORDER BY on string keys
+needs; any other fallback, and any device operator not ported yet, raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from ..config import TpuConf
 from ..exprs import BoundReference, Expression, bind
 from . import logical as L
 from .physical import AggregateExec, ScanExec, StageExec, TpuExec
+from .optimizer import optimize
 from .planner import bind_project, strip_alias
+from .stringpred import lowerable_kind
 
 __all__ = ["apply_overrides", "explain_plan", "NodeMeta"]
 
@@ -31,9 +35,13 @@ EXPLAIN_HEADER = ("*  = runs on GPU\n!  = falls back to CPU (reasons follow "
                   "on @-lines)\n")
 
 
-def expr_reasons(e: Expression, allow_string_passthrough: bool = True
-                 ) -> List[str]:
-    """Reasons this bound expression tree cannot run on the device."""
+def expr_reasons(e: Expression, allow_string_passthrough: bool = True,
+                 allow_string_preds: bool = False) -> List[str]:
+    """Reasons this bound expression tree cannot run on the device.
+
+    ``allow_string_preds``: inside stages, boolean subtrees over one string
+    column are evaluated on the host per distinct value
+    (``plan/stringpred.py``), so they do not disqualify the node."""
     reasons: List[str] = []
     core = strip_alias(e)
     if isinstance(core, BoundReference):
@@ -49,6 +57,8 @@ def expr_reasons(e: Expression, allow_string_passthrough: bool = True
         return reasons
 
     def walk(node: Expression):
+        if allow_string_preds and lowerable_kind(node) is not None:
+            return
         dt = node.dtype
         if dt is not None:
             if dt.is_string:
@@ -110,13 +120,42 @@ class NodeMeta:
         if isinstance(p, L.Project):
             schema = p.children[0].schema()
             for name, e in p.exprs:
-                for r in expr_reasons(bind(e, schema)):
+                for r in expr_reasons(bind(e, schema),
+                                      allow_string_preds=True):
                     self.will_not_work(f"{name}: {r}")
             return
         if isinstance(p, L.Filter):
             b = bind(p.condition, p.children[0].schema())
-            for r in expr_reasons(b, allow_string_passthrough=False):
+            for r in expr_reasons(b, allow_string_passthrough=False,
+                                  allow_string_preds=True):
                 self.will_not_work(f"condition: {r}")
+            return
+        if isinstance(p, L.Limit):
+            return
+        if isinstance(p, L.Join):
+            for keys, child, side in ((p.left_keys, p.children[0], "left"),
+                                      (p.right_keys, p.children[1], "right")):
+                schema = child.schema()
+                for k in keys:
+                    b = bind(k, schema)
+                    core = strip_alias(b)
+                    if core.dtype is not None and core.dtype.is_string:
+                        # placed as the reference places it (bare string
+                        # columns join on dictionary codes there); the
+                        # port's join refuses string keys when it is built
+                        if not isinstance(core, BoundReference):
+                            self.will_not_work(
+                                f"{side} join key is a computed string "
+                                f"expression (device string kernels "
+                                f"pending)")
+                        continue
+                    for r in expr_reasons(b, allow_string_passthrough=False):
+                        self.will_not_work(f"{side} join key: {r}")
+            if p.how not in ("inner", "left", "left_outer", "right",
+                             "right_outer", "full", "full_outer", "semi",
+                             "anti", "left_semi", "left_anti", "cross",
+                             "existence"):
+                self.will_not_work(f"join type {p.how} not supported")
             return
         if isinstance(p, L.Aggregate):
             schema = p.children[0].schema()
@@ -210,6 +249,24 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
             child, [(n, bind(e, schema)) for n, e in p.group_exprs],
             [(n, strip_alias(bind(e, schema))) for n, e in p.agg_exprs])
 
+    if isinstance(p, L.Join):
+        from .join_exec import plan_broadcast_join
+        return plan_broadcast_join(p, _convert(meta.children[0], conf),
+                                   _convert(meta.children[1], conf), conf)
+
+    if isinstance(p, L.Limit):
+        sort_meta = meta.children[0]
+        if not (isinstance(sort_meta.plan, L.Sort) and sort_meta.on_device):
+            raise NotImplementedError(
+                "a LIMIT that is not over a device ORDER BY is not ported "
+                "yet (ROADMAP.md, modules to port, item 7)")
+        from .exec_nodes import TopKExec
+        child = _convert(sort_meta.children[0], conf)
+        schema = child.output_schema
+        return TopKExec(child, [(bind(o.expr, schema), o.ascending,
+                                 o.nulls_first)
+                                for o in sort_meta.plan.orders], p.n)
+
     raise NotImplementedError(
         f"the device {type(p).__name__} operator is not ported yet "
         f"(ROADMAP.md queue 2: sort permutation, row 8)")
@@ -224,7 +281,7 @@ def _tagged(plan: L.LogicalPlan, conf: TpuConf) -> NodeMeta:
 def apply_overrides(plan: L.LogicalPlan, conf: Optional[TpuConf] = None
                     ) -> TpuExec:
     conf = conf or TpuConf()
-    meta = _tagged(plan, conf)
+    meta = _tagged(optimize(plan), conf)
     explain = conf["spark.rapids.tpu.sql.explain"]
     if explain == "ALL" or (explain == "NOT_ON_TPU" and any(
             ln.lstrip().startswith(("!", "@"))
@@ -236,5 +293,5 @@ def apply_overrides(plan: L.LogicalPlan, conf: Optional[TpuConf] = None
 
 
 def explain_plan(plan: L.LogicalPlan, conf: Optional[TpuConf] = None) -> str:
-    meta = _tagged(plan, conf or TpuConf())
+    meta = _tagged(optimize(plan), conf or TpuConf())
     return EXPLAIN_HEADER + "\n".join(meta.explain_lines())

@@ -14,6 +14,7 @@ host syncs are the counted fetches where rows reach the host.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -27,7 +28,7 @@ from ..exprs import AggregateExpression, BoundReference, EvalContext, \
     Expression
 from ..ops import batch_utils, groupby
 from ..ops.strings import StringDictionary
-from ..utils.metrics import MetricSet, QueryStats, fetch_scalars
+from ..utils.metrics import MetricSet, QueryStats, fetch, fetch_scalars
 
 __all__ = ["ExecContext", "TpuExec", "MemorySource", "ScanExec", "StageExec",
            "AggregateExec", "CollectExec"]
@@ -182,7 +183,8 @@ class StageExec(TpuExec):
     def __init__(self, child: TpuExec, steps: List[Tuple[str, object]],
                  output_schema: Schema):
         super().__init__([child])
-        self.steps = steps
+        from .stringpred import lower_string_predicate_steps
+        self.steps, self.host_exprs = lower_string_predicate_steps(steps)
         self._schema = output_schema
 
     @property
@@ -192,13 +194,16 @@ class StageExec(TpuExec):
     def run_batch(self, b: ColumnBatch, device: torch.device,
                   ansi: bool) -> Tuple[ColumnBatch, List[torch.Tensor]]:
         """One batch through the steps → (output batch, ANSI error masks)."""
+        from .stringpred import host_predicate_column
         cur = _device_arrays(b)
         host = list(b.columns)
         active = b.sel
         errors: List[torch.Tensor] = []
+        extras = [host_predicate_column(e, b.columns[o], device)
+                  for e, o in self.host_exprs]
         for kind, payload in self.steps:
             ctx = EvalContext(cur, b.num_rows, device, active=active,
-                              ansi=ansi)
+                              ansi=ansi, extras=extras)
             if kind == "filter":
                 d, v = payload.eval(ctx)
                 keep = d if v is None else d & v
@@ -246,18 +251,25 @@ class StageExec(TpuExec):
 # ---------------------------------------------------------------------------------
 
 class AggregateExec(TpuExec):
-    """Aggregation over all input batches, in one of two device paths:
+    """Aggregation over all input batches, in one of three device paths:
 
     * ungrouped: every batch's contributions go through
       ``groupby.ungrouped_reduce`` (the masked_reduce kernel) into one
       K-slot accumulator;
+    * grouped on bare key columns of which one is integral, every buffer a
+      sum/min/max: dense direct addressing on that primary key
+      (``groupby.DenseAccumulator``, the dense_agg kernel), with the other
+      keys as residual channels, as the reference's
+      ``_try_dense_grouped_multi`` (:1321) and ``_try_dense_grouped``
+      (:1084) do;
     * grouped, when every key is a bare string column and every buffer is
       a sum: the dense grid of dictionary codes (``grid_group_reduce``,
       the grid_agg kernel), as the reference does at
       ``plan/physical.py:1736-1790``.
 
-    Other grouped aggregations need the sort-based path, which is not
-    ported yet, and raise ``NotImplementedError``."""
+    Other grouped aggregations, and input the dense path rejects, need the
+    sort-based path, which is not ported yet, and raise
+    ``NotImplementedError``."""
 
     def __init__(self, child: TpuExec,
                  group_exprs: List[Tuple[str, Expression]],
@@ -294,10 +306,12 @@ class AggregateExec(TpuExec):
         return outs
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
-        if self.group_exprs:
-            yield self._execute_grid(ctx)
-        else:
+        if not self.group_exprs:
             yield self._execute_ungrouped(ctx)
+        elif self._dense_static_ok(ctx.conf):
+            yield self._execute_dense(ctx)
+        else:
+            yield self._execute_grid(ctx)
 
     # -- ungrouped ----------------------------------------------------------------
     def _execute_ungrouped(self, ctx: ExecContext) -> ColumnBatch:
@@ -358,6 +372,11 @@ class AggregateExec(TpuExec):
         """(dictionary, device codes, device valid) of a host string column,
         cached on the column object.  A query with no dictionary yet
         adopts the cached one (its codes are valid verbatim)."""
+        if not isinstance(col, HostStringColumn):
+            raise NotImplementedError(
+                "grouping on dictionary codes that arrive from a join (a "
+                "second dictionary to merge) is not ported yet (ROADMAP.md, "
+                "modules to port, item 4)")
         cached = col._enc_cache
         if cached is not None and cached[1].device == device \
                 and (d is None or cached[0] is d):
@@ -421,6 +440,204 @@ class AggregateExec(TpuExec):
         for d in dicts:
             bound *= len(d) + 1
         return batch_utils.compact_packed(out, bound)
+
+    # -- grouped: dense direct addressing on an integral primary key ----------
+    def _key_refs(self) -> List[Optional[BoundReference]]:
+        from .planner import strip_alias
+        return [e if isinstance(e, BoundReference) else None
+                for e in (strip_alias(e) for _, e in self.group_exprs)]
+
+    def _dense_static_ok(self, conf: TpuConf) -> bool:
+        """The reference's static gates of its dense paths
+        (``_dense_agg_static_ok`` :1061 for one key,
+        ``_dense_residual_static_ok`` :1288 for several): every key a bare
+        column, one of them integral, every buffer a sum/min/max."""
+        if not conf["spark.rapids.tpu.sql.agg.dense.enabled"] \
+                or not conf["spark.rapids.tpu.join.denseDomainCap"]:
+            return False
+        if any(op not in ("sum", "min", "max") for _, op in self._buffers()):
+            return False
+        refs = self._key_refs()
+        if any(r is None or r.dtype is None for r in refs):
+            return False
+        kinds = ["s" if r.dtype.is_string else
+                 np.dtype(r.dtype.numpy_dtype).kind for r in refs]
+        if len(refs) == 1:
+            return kinds[0] in "iu"
+        return all(k in "iufbs" for k in kinds) and any(k in "iu"
+                                                      for k in kinds)
+
+    def _dense_key_values(self, b: ColumnBatch, dicts, device):
+        """Per group key, its (int32/int64 data, valid) for the dense
+        kernels: strings as dictionary codes, booleans and narrow ints
+        as int32."""
+        out = []
+        for k, ref in enumerate(self._key_refs()):
+            col = b.columns[ref.ordinal]
+            if ref.dtype.is_string:
+                dicts[k], codes, valid = self._encode(col, dicts[k], device)
+                out.append((codes, valid))
+                continue
+            if ref.dtype.is_floating:
+                raise NotImplementedError(
+                    f"group key {self.group_exprs[k][0]}: a floating-point "
+                    f"key beside an integral one needs the sort-based "
+                    f"grouped aggregation, which is not ported yet "
+                    f"(ROADMAP.md, modules to port, item 4)")
+            d = col.data
+            if d.dtype not in (torch.int32, torch.int64):
+                d = d.to(torch.int32)
+            out.append((d, col.valid))
+        return out
+
+    def _dense_channels(self, contributions) -> List[Tuple[str, bool]]:
+        chans = []
+        for (dt, op), ((d, _), _) in zip(self._buffers(), contributions):
+            is_f64 = dt == T.FLOAT64
+            if is_f64 and op != "sum":
+                raise NotImplementedError(
+                    f"float64 {op} over groups needs the sort-based grouped "
+                    f"aggregation, which is not ported yet (ROADMAP.md, "
+                    f"modules to port, item 4)")
+            chans.append(("count" if d is None else op, is_f64))
+        return chans
+
+    @staticmethod
+    def _reject(why: str) -> NotImplementedError:
+        return NotImplementedError(
+            f"the dense grouped aggregation rejects this input ({why}); the "
+            f"sort-based grouped aggregation it would fall back to is not "
+            f"ported yet (ROADMAP.md, modules to port, item 4)")
+
+    def _execute_dense(self, ctx: ExecContext) -> ColumnBatch:
+        """The reference's ``_try_dense_grouped_multi`` (:1321) and, for one
+        key, ``_try_dense_grouped`` (:1084), through the dense_agg kernel.
+
+        One fetch reads the first batch's key stats and the functional-
+        dependence probe; the primary key is the integral candidate with
+        the smallest domain whose values each map to one key tuple.  Every
+        batch then scatters into ONE accumulator; rows outside the first
+        batch's (padded) domain wait in the overflow buffer, and the tail
+        fetch (violation flag, group count, overflow count and key range)
+        decides whether to widen the domain once and replay them, at one
+        more fetch.  The output is compacted to the observed groups, in key
+        order, with the null key last."""
+        m = ctx.metric_set(self.op_id)
+        conf, device = ctx.conf, ctx.device
+        refs = self._key_refs()
+        n_keys = len(refs)
+        cap = conf["spark.rapids.tpu.join.denseDomainCap"]
+        cand = [not r.dtype.is_string
+                and np.dtype(r.dtype.numpy_dtype).kind in "iu" for r in refs]
+        dicts: List[Optional[StringDictionary]] = [None] * n_keys
+        seen: List[Tuple[ColumnBatch, list]] = []
+        best = None
+        batches = self.children[0].execute(ctx)
+        for b in batches:
+            with m.time("opTime"):
+                kv = self._dense_key_values(b, dicts, device)
+                seen.append((b, kv))
+                stats, fd = groupby.dense_key_stats(kv, cand, b.sel)
+                stats, fd = fetch((stats, fd))
+            if not any(stats[i][2] for i in range(n_keys) if cand[i]):
+                continue  # no valid candidate key yet: keep looking
+            for i in range(n_keys):
+                kmin, kmax, n_valid = (int(x) for x in stats[i])
+                if not cand[i] or n_valid == 0 or kmax - kmin + 1 > cap:
+                    continue
+                if n_keys > 1 and fd[i]:
+                    continue  # maps to two key tuples: not the primary
+                if best is None or kmax - kmin + 1 < best[0]:
+                    best = (kmax - kmin + 1, i, kmin)
+            if best is None:
+                raise self._reject(
+                    f"no integral key has a domain within "
+                    f"spark.rapids.tpu.join.denseDomainCap={cap} and "
+                    f"determines the others")
+            break
+        if not seen:
+            return self._empty()
+        # no valid primary in the whole input: every row has a null key
+        domain, pidx, kmin = best if best is not None \
+            else (1, cand.index(True), 0)
+        res_idx = [i for i in range(n_keys) if i != pidx]
+        n_bufs = len(self._buffers())
+
+        def check_size(D):
+            est = D * (len(res_idx) * 18 + 2 + 8 * n_bufs)
+            if n_keys > 1 and \
+                    est > conf["spark.rapids.tpu.sql.agg.dense.maxAccumBytes"]:
+                raise self._reject(
+                    f"{est} accumulator bytes exceed "
+                    f"spark.rapids.tpu.sql.agg.dense.maxAccumBytes")
+
+        # the first batch's exact span: keys beyond it overflow and widen
+        D = domain
+        check_size(D)
+        acc = None
+        m.add("aggDensePath", 1)
+        for b, kv in itertools.chain(seen, ((b, None) for b in batches)):
+            with m.time("opTime"):
+                if kv is None:
+                    kv = self._dense_key_values(b, dicts, device)
+                ectx = EvalContext(_device_arrays(b), b.num_rows, device,
+                                   active=b.sel)
+                contributions = self._contributions(ectx)
+                if acc is None:
+                    acc = groupby.DenseAccumulator(
+                        kmin, D, len(res_idx),
+                        self._dense_channels(contributions), device)
+                acc.update(kv[pidx], [kv[i] for i in res_idx],
+                           [v for v, _ in contributions], b.sel)
+        violated, n_groups, n_over, omin, omax = (
+            int(x) for x in fetch(acc.tail()))
+        if n_over:
+            if n_over > acc.cap:
+                raise self._reject(
+                    f"{n_over} rows fall outside the first batch's key "
+                    f"domain, more than the overflow buffer's {acc.cap}")
+            lo, hi = min(acc.kmin, omin), max(acc.kmin + acc.D - 1, omax)
+            if hi - lo + 1 > cap:
+                raise self._reject(
+                    f"the widened key domain {hi - lo + 1} exceeds "
+                    f"spark.rapids.tpu.join.denseDomainCap={cap}")
+            D = hi - lo + 1
+            check_size(D)
+            acc.widen(lo, D)
+            acc.replay_overflow(n_over)
+            m.add("aggDenseWidened", 1)
+            violated, n_groups = (int(x) for x in fetch(acc.check()))
+        if violated:
+            raise self._reject("a residual key takes two values, or null "
+                               "and non-null, under one primary key")
+        return self._dense_output(acc, pidx, res_idx, dicts, n_groups)
+
+    def _dense_output(self, acc, pidx: int, res_idx: List[int], dicts,
+                      n_groups: int) -> ColumnBatch:
+        """The accumulator's observed slots as the output batch (keys in
+        the query's order, then the aggregates), compacted."""
+        fields = self._schema.fields
+        cols: List = []
+        for i in range(len(self._key_refs())):
+            f = fields[i]
+            if i == pidx:
+                data, valid = acc.slot_keys()
+            else:
+                r = res_idx.index(i)
+                data, valid = acc.vmin[r], acc.vdmax[r] == 1
+            valid = valid if f.nullable else None
+            if f.dtype.is_string:
+                cols.append(DictStringColumn(data.to(torch.int32), valid,
+                                             dicts[i].values()))
+            else:
+                cols.append(DeviceColumn(f.dtype,
+                                         data.to(f.dtype.torch_dtype),
+                                         valid))
+        for (name, agg), (data, valid) in zip(self.agg_exprs,
+                                              self._finalize(acc.acc)):
+            cols.append(DeviceColumn(agg.dtype, data, valid))
+        out = ColumnBatch(self._schema, cols, acc.S, acc.present.bool())
+        return batch_utils.compact(out, n_live=n_groups)
 
     def _empty(self) -> ColumnBatch:
         cols = []

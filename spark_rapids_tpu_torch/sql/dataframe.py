@@ -52,6 +52,33 @@ class DataFrame:
                 orders.append(L.SortOrder(c.expr))
         return DataFrame(L.Sort(self._plan, orders), self.session)
 
+    def limit(self, n: int) -> "DataFrame":
+        """The first ``n`` rows; after ``sort`` this is a top-k."""
+        return DataFrame(L.Limit(self._plan, n), self.session)
+
+    def join(self, other: "DataFrame", on, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join with ``other``: ``on`` is a column name or list of
+        names present on both sides (the right copies are dropped), or a
+        list of (left name, right name) pairs."""
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)) and on \
+                and all(isinstance(x, str) for x in on):
+            node = L.Join(self._plan, other._plan,
+                          [E.UnresolvedColumn(k) for k in on],
+                          [E.UnresolvedColumn(k) for k in on], how=how)
+            node.using = list(on)
+            return DataFrame(node, self.session)
+        if isinstance(on, (list, tuple)) and on and all(
+                isinstance(x, (list, tuple)) and len(x) == 2 for x in on):
+            return DataFrame(L.Join(self._plan, other._plan,
+                                    [E.UnresolvedColumn(a) for a, _ in on],
+                                    [E.UnresolvedColumn(b) for _, b in on],
+                                    how=how), self.session)
+        raise NotImplementedError(
+            "join on: column names or (left, right) name pairs")
+
     def collect(self) -> List[tuple]:
         """Execute and fetch all rows as tuples of Python values."""
         return self.session._execute(self._plan)

@@ -48,6 +48,7 @@ class QueryStats:
         self.upload_bytes = 0
         self.upload_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] \
             = []
+        self.deferred_checks: List[Tuple[torch.Tensor, str]] = []
 
     @classmethod
     def get(cls) -> "QueryStats":
@@ -71,6 +72,13 @@ class QueryStats:
             for name in _COUNTERS:
                 setattr(parent, name,
                         getattr(parent, name) + getattr(mine, name))
+
+    def defer_check(self, flag: torch.Tensor, message: str) -> None:
+        """A device tensor that must be all zero, read by this scope's next
+        :func:`fetch` at no extra sync; a nonzero value raises
+        ``NotImplementedError(message)`` there, before any row of that
+        fetch is returned."""
+        self.deferred_checks.append((flag, message))
 
     def upload_ms(self) -> float:
         """Device time of this scope's uploads (synchronizes on the last
@@ -128,11 +136,15 @@ def fetch(tree):
 
     CUDA leaves are copied asynchronously into pinned host buffers and the
     host waits once on the current stream, so a call is one sync however
-    many tensors it moves."""
+    many tensors it moves.  The scope's deferred checks ride along and
+    raise here if one failed."""
     s = QueryStats.get()
     s.blocking_fetches += 1
+    checks, s.deferred_checks = s.deferred_checks, []
     leaves: list = []
     spec = _flatten(tree, leaves)
+    n_tree = len(leaves)
+    leaves += [flag for flag, _ in checks]
     t0 = time.perf_counter()
     host = []
     on_cuda = False
@@ -149,7 +161,10 @@ def fetch(tree):
     out = [h.numpy() for h in host]
     s.fetch_wait_s += time.perf_counter() - t0
     s.fetch_bytes += sum(a.nbytes for a in out)
-    return _unflatten(spec, out)
+    for (_, message), value in zip(checks, out[n_tree:]):
+        if value.any():
+            raise NotImplementedError(message)
+    return _unflatten(spec, out[:n_tree])
 
 
 def fetch_scalars(x: torch.Tensor) -> list:

@@ -244,3 +244,204 @@ def test_presence_count_channel_refuses_a_mask():
     with pytest.raises(ValueError, match="presence count"):
         tg.grid_group_reduce(keys, (4,), [((None, mask), "sum")], active,
                              acc)
+
+
+# ---------------------------------------------------------------------------------
+# Dense direct-address aggregation (csrc/dense_agg.cu's plain versions),
+# Session-level against the JAX package's dense paths
+# ---------------------------------------------------------------------------------
+
+import spark_rapids_tpu as jsrt  # noqa: E402
+from spark_rapids_tpu.sql import functions as JF  # noqa: E402
+import spark_rapids_tpu_torch as tsrt  # noqa: E402
+from spark_rapids_tpu_torch.sql import functions as TF  # noqa: E402
+
+DENSE_SETTINGS = {"spark.rapids.tpu.sql.batchSizeRows": 1000}
+
+
+def _sessions(settings=DENSE_SETTINGS):
+    return jsrt.Session(settings), tsrt.Session(settings, device="cpu")
+
+
+def _row_key(row):
+    return tuple((x is None, x if x is not None else 0) for x in row)
+
+
+def _assert_same_groups(got, want):
+    """Rows in any order; ints, dates and None exact, floats within REL."""
+    got, want = sorted(got, key=_row_key), sorted(want, key=_row_key)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float) and a is not None:
+                assert abs(a - b) <= REL * max(abs(b), 1.0), (g, w)
+            else:
+                assert a == b, (g, w)
+
+
+def _run_both(query, data, settings=DENSE_SETTINGS):
+    jsess, tsess = _sessions(settings)
+    want = query(JF, jsess.create_dataframe(data)).collect()
+    got = query(TF, tsess.create_dataframe(data)).collect()
+    return got, want, tsess
+
+
+def _dense_data(n=5000, seed=21):
+    rng = np.random.default_rng(seed)
+    key = rng.integers(100, 900, n).astype(object)
+    key[rng.random(n) < 0.03] = None
+    x = rng.normal(size=n).astype(object)
+    x[rng.random(n) < 0.1] = None
+    return {"k": key, "x": x,
+            "q": rng.integers(-10**6, 10**6, n).astype(np.int64),
+            "f": rng.random(n) < 0.8}
+
+
+def _agg_query(F, df):
+    return (df.where(F.col("f"))
+              .group_by("k")
+              .agg(F.sum(F.col("x")).alias("sx"), F.sum(F.col("q")).alias("sq"),
+                   F.min(F.col("q")).alias("lo"), F.max(F.col("q")).alias("hi"),
+                   F.count(F.col("x")).alias("cx"), F.avg(F.col("q")).alias("aq"),
+                   F.count_star().alias("n")))
+
+
+def test_dense_single_key_aggregate_matches_reference():
+    """One integral key with nulls, a selection mask, every dense buffer
+    op, 5 batches: the single-key dense path (reference ``_try_dense_
+    grouped`` :1084) through the same kernel with no residual channels."""
+    got, want, tsess = _run_both(_agg_query, _dense_data())
+    assert any(r[0] is None for r in got)
+    _assert_same_groups(got, want)
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get("aggDensePath") for m in metrics.values())
+
+
+def test_dense_multi_key_aggregate_matches_reference():
+    """A primary key with residual keys that depend on it (a date, a
+    nullable int, a string and a boolean), as TPC-H Q3 groups (l_orderkey,
+    o_orderdate, o_shippriority); the narrower residuals must not become
+    the primary."""
+    rng = np.random.default_rng(22)
+    n, groups = 6000, 700
+    gid = rng.integers(0, groups, n)
+    day = (np.datetime64("1994-01-01")
+           + rng.integers(0, 900, groups).astype("timedelta64[D]"))[gid]
+    prio = rng.integers(0, 3, groups).astype(object)
+    prio[rng.random(groups) < 0.2] = None
+    name = np.array([f"n{g % 40}" for g in range(groups)])
+    data = {"k": (gid * 7 + 11).astype(np.int64), "day": day,
+            "prio": prio[gid], "name": name[gid], "flag": gid % 3 == 0,
+            "x": rng.uniform(0, 100, n)}
+
+    def q(F, df):
+        return (df.group_by("k", "day", "prio", "name", "flag")
+                  .agg(F.sum(F.col("x")).alias("s"),
+                       F.count_star().alias("n")))
+
+    got, want, _ = _run_both(q, data)
+    _assert_same_groups(got, want)
+
+
+def test_dense_keys_outside_the_first_batch_widen_the_domain():
+    """Later batches carry keys below and above the first batch's padded
+    domain: they wait in the overflow buffer and the domain widens once at
+    the tail."""
+    rng = np.random.default_rng(23)
+    first = rng.integers(50_000, 50_100, 1000)
+    later = rng.integers(0, 120_000, 4000)
+    key = np.concatenate([first, later]).astype(np.int64)
+    data = {"k": key, "x": rng.normal(size=len(key)),
+            "day": np.datetime64("1995-01-01")
+            + (key % 97).astype("timedelta64[D]")}
+
+    def q(F, df):
+        return df.group_by("k", "day").agg(F.sum(F.col("x")).alias("s"),
+                                            F.count_star().alias("n"))
+
+    got, want, tsess = _run_both(q, data)
+    _assert_same_groups(got, want)
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get("aggDenseWidened") for m in metrics.values())
+    assert tsess.last_query_stats().blocking_fetches == 4
+
+
+def test_dense_residual_violation_raises():
+    """A residual that takes two values under one primary key: the first
+    batch's probe rejects it as the primary's dependent when it shows
+    there, the violation check when only a later batch shows it."""
+    n = 3000
+    k = np.arange(n, dtype=np.int64) % 500
+    ok = {"k": k, "r": k * 2, "x": np.ones(n)}
+    late = dict(ok, r=np.where(np.arange(n) < 2000, k * 2, k * 2 + 1))
+    early = dict(ok, r=np.arange(n, dtype=np.int64) % 7)
+    _, tsess = _sessions()
+
+    def q(data):
+        return (tsess.create_dataframe(data).group_by("k", "r")
+                .agg(TF.sum(TF.col("x"))))
+
+    assert len(q(ok).collect()) == 500
+    with pytest.raises(NotImplementedError, match="two values.*item 4"):
+        q(late).collect()
+    with pytest.raises(NotImplementedError, match="determines.*item 4"):
+        q(early).collect()
+
+
+def test_dense_overflow_buffer_fills_and_overflows():
+    """The plain update appends out-of-domain rows to the buffer; a full
+    buffer keeps counting, which the aggregate turns into a raise."""
+    acc = tg.DenseAccumulator(10, 4, 1, [("sum", True), ("count", False)],
+                              CPU, cap=3)
+    key = torch.tensor([10, 2, 13, 99, 5], dtype=torch.int64)
+    res = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32)
+    x = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0], dtype=torch.float64)
+    acc.update((key, None), [(res, None)], [(x, None), (None, None)], None)
+    viol, groups, n_over, lo, hi = acc.tail().tolist()
+    assert (viol, groups, n_over, lo, hi) == (0, 2, 3, 2, 99)
+    assert acc.okey[:3].tolist() == [2, 99, 5]
+    acc.widen(2, 128)
+    acc.replay_overflow(n_over)
+    assert acc.check().tolist() == [0, 5]
+    keys, valid = acc.slot_keys()
+    live = acc.present.bool()
+    assert keys[live].tolist() == [2, 5, 10, 13, 99]
+    assert acc.acc[0][live].tolist() == [2.0, 5.0, 1.0, 3.0, 4.0]
+    acc.update((torch.tensor([500, 600, 700, 800]), None),
+               [(torch.zeros(4, dtype=torch.int32), None)],
+               [(torch.ones(4, dtype=torch.float64), None), (None, None)],
+               None)
+    assert acc.tail().tolist()[2] == 4  # over the buffer's 3 rows
+    with pytest.raises(ValueError, match="exceed"):
+        acc.replay_overflow(4)
+
+
+def test_dense_stats_probe_matches_the_reference_candidates():
+    """The exact dependence probe flags a candidate exactly when the
+    reference's sampled distinct counts reject it: with a primary,
+    a dependent date and a constant, only the primary passes."""
+    n = 4000
+    rng = np.random.default_rng(24)
+    k = rng.integers(0, 800, n).astype(np.int64)
+    day = (k % 300).astype(np.int32)
+    zero = np.zeros(n, dtype=np.int64)
+    keys = [(_t(k), None), (_t(day), None), (_t(zero), None)]
+    stats, fd = tg.dense_key_stats(keys, [True, True, True], None)
+    assert fd.tolist() == [0, 1, 1]
+    assert stats[0].tolist() == [int(k.min()), int(k.max()), n]
+    assert stats[2].tolist() == [0, 0, n]
+    # dependence holds both ways for a one-to-one residual
+    keys[1] = (_t((k * 3 % 1000).astype(np.int32)), None)
+    assert tg.dense_key_stats(keys, [True, True, False],
+                              None)[1].tolist() == [0, 0, 0]
+
+
+def test_dense_kernel_wrappers_refuse_cpu_tensors():
+    keys = [(torch.zeros(4, dtype=torch.int64), None)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tg.dense_agg_stats(keys, [True], None)
+    acc = tg.DenseAccumulator(0, 4, 0, [("sum", False)], CPU, cap=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tg.dense_agg_update(acc, keys[0], [],
+                            [(torch.zeros(4, dtype=torch.int64), None)], None)
+    assert tg.dense_agg_stats.launches == tg.dense_agg_update.launches == 0

@@ -139,10 +139,13 @@ def test_ungrouped_min_max_with_nulls_match_reference(sessions):
 
 
 def test_grouped_aggregation_off_the_grid_is_not_ported(sessions, data):
+    """Keys neither the string grid nor the dense path takes (an integral
+    key now groups on the dense path: tests/test_torch_groupby.py) need
+    the sort-based path, which raises."""
     _, tsess = sessions
     df = tsess.create_dataframe(data)
     with pytest.raises(NotImplementedError, match="item 4"):
-        df.group_by("l_suppkey").agg(TF.sum(TF.col("l_tax"))).collect()
+        df.group_by("l_tax").agg(TF.sum(TF.col("l_quantity"))).collect()
     with pytest.raises(NotImplementedError, match="item 4"):
         df.group_by("l_returnflag").agg(TF.max(TF.col("l_tax"))).collect()
 
@@ -152,3 +155,57 @@ def test_scan_uploads_only_the_columns_the_query_reads(sessions, data):
     tpch.q6(tsess.create_dataframe(data)).collect()
     # shipdate int32, discount, quantity, extendedprice float64
     assert tsess.last_query_stats().upload_bytes == 50_000 * (4 + 3 * 8)
+
+
+Q3_SF = 0.02   # lineitem 120,024 rows, orders 30,005, customer 3,000
+Q3_SETTINGS = {"spark.rapids.tpu.sql.batchSizeRows": 32768,
+               "spark.rapids.tpu.join.denseMinProbeRows": 0}
+
+
+@pytest.fixture(scope="module")
+def q3_tables():
+    return (tpch.gen_customer_arrays(Q3_SF), tpch.gen_orders_arrays(Q3_SF),
+            tpch.gen_lineitem_arrays(Q3_SF))
+
+
+def test_q3_matches_reference_and_oracle(q3_tables):
+    """TPC-H Q3 (two dense broadcast joins, the 3-key dense aggregate, the
+    top-10) through both packages: rows equal (revenue within rel 1e-9),
+    the same explain placement, no more blocking fetches than the
+    reference, and the numpy oracle."""
+    cust, orders, li = q3_tables
+    assert len(li["l_orderkey"]) == 120_024
+    jsess, tsess = jsrt.Session(Q3_SETTINGS), \
+        tsrt.Session(Q3_SETTINGS, device="cpu")
+    jdf = jtpch.q3(*(jsess.create_dataframe(t) for t in q3_tables))
+    with JStats.scoped() as st:
+        jrows = jdf.collect()
+    tdf = tpch.q3(*(tsess.create_dataframe(t) for t in q3_tables))
+    trows = tdf.collect()
+    assert len(trows) == 10
+    _assert_rows_close(trows, jrows)
+    _assert_rows_close(trows, tpch.q3_numpy(cust, orders, li))
+    assert _placement(tdf.explain_string()) == _placement(
+        jdf.explain_string())
+    assert tsess.last_query_stats().blocking_fetches <= st.blocking_fetches
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get("aggDensePath") for m in metrics.values())
+
+
+def test_string_predicates_match_reference(sessions):
+    """Boolean predicates over one string column, nulls included, are
+    evaluated on the host per distinct value (plan/stringpred.py)."""
+    data = _nulls_dict()
+
+    def q(F):
+        def run(df):
+            return (df.where((~(F.col("k") == "x") & (F.col("k") >= "y"))
+                             | (F.col("k") < "y"))
+                      .agg(F.count_star().alias("n"),
+                           F.sum(F.col("w")).alias("sw")))
+        return run
+    jrows, jf, trows, tf, jexp, texp = _run_both(sessions, data, q(JF),
+                                                 q(TF))
+    assert trows == jrows
+    assert _placement(texp) == _placement(jexp)
+    assert tf <= jf
