@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of spark_rapids_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--checks-only]
 
 Builds the hand-written CUDA kernels from ``spark_rapids_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-port's main path — TPC-H Q6 and Q1 over seeded SF10 lineitem data
-(60,012,150 rows), and Q3 over SF10 lineitem, orders (15,003,036 rows) and
-customer (1,500,000 rows), through ``Session.create_dataframe`` →
-``collect`` — checks the results against numpy oracles and shows that each
-query went through its kernels.  Prints per-query and per-kernel timings,
-a ``{"kernels": [...]}`` line, the card's name and power limit, and as its
+holds each against its plain PyTorch version on the card (``--checks-only``
+stops there), then drives the port's main path through
+``Session.create_dataframe`` → ``collect``: TPC-H Q6 and Q1 over seeded
+SF10 lineitem data (60,012,150 rows), Q3 over SF10 lineitem, orders
+(15,003,036 rows) and customer (1,500,000 rows), and Q4, Q13, Q18 and Q21
+over the reference suite's gen_db tables at SF10 (lineitem 60,012,150,
+orders 15,000,000, customer 1,500,000, supplier 100,000 rows).  It checks
+the results against numpy oracles and shows that each query went through
+its kernels.  Prints per-query and per-kernel timings, a
+``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when any phase fails or when no CUDA device is available.  Imports
 nothing of JAX or of the JAX package.
@@ -37,6 +40,20 @@ QUERY_REL_TOL = 1e-9          # engine vs numpy oracle, float64 results
 Q3_REFERENCE_FETCHES = 43
 Q3_ORDERS = 15_003_036        # o_orderkey 1..n at SF10: the join-2 domain
 Q3_GROUPS = 1_287_275         # groups of Q3's aggregate at SF10
+# the reference suite's gen_db shapes at SF10 (Q4, Q13, Q18, Q21)
+DB_ORDERS = 15_000_000
+DB_CUSTOMERS = 1_500_000
+DB_SUPPLIERS = 100_000
+DB_LINEITEM = 60_012_150
+DB_COLUMNS = {"lineitem": ["l_orderkey", "l_suppkey", "l_quantity",
+                           "l_commitdate", "l_receiptdate"],
+              "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
+                         "o_totalprice", "o_orderdate", "o_orderpriority"],
+              "customer": ["c_custkey", "c_name"],
+              "supplier": ["s_suppkey", "s_name"]}
+DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
+              "q18": ("orders", "lineitem", "customer"),
+              "q21": ("lineitem", "orders", "supplier")}
 
 
 class SmokeFailure(Exception):
@@ -325,46 +342,44 @@ def join_case(torch, n_build, n_probe, seed, device, dup=False,
 
 
 def compare_dense_join(torch, join, build, probe, payload) -> int:
-    """Stats exact; the table exact where keys are unique (a repeated
-    key's slot holds one of its rows) and the duplicate count exact; the
-    probe on the kernel's table exact, selection, data and validity.
-    Returns the duplicate count and the largest difference of the probe's
-    outputs."""
+    """Stats exact, the duplicate count included; where the keys are
+    unique, the table exact and the probe on it exact for every join type
+    (inner and left with the payload, semi and anti without): selection,
+    data and validity.  Returns the duplicate count and the largest
+    difference of the probe's outputs."""
     bk, bv, ba = build
-    ks, ps = join.dense_join_stats(*build), join.dense_join_stats_plain(*build)
+    cap = 1 << 26
+    ks = join.dense_join_stats(*build, cap)
+    ps = join.dense_join_stats_plain(*build, cap)
     torch.cuda.synchronize()
     check(torch.equal(ks, ps), f"dense_join stats {ks.tolist()} vs "
           f"{ps.tolist()}")
-    kmin, kmax, count = ks.tolist()
-    if count == 0:
-        return 0, 0.0
+    kmin, kmax, count, dups = ks.tolist()
+    if count == 0 or dups:
+        return dups, 0.0
     D = kmax - kmin + 1
-    kt, kd = join.dense_join_build(bk, bv, ba, kmin, D)
-    pt, pd = join.dense_join_build_plain(bk, bv, ba, kmin, D)
+    kt = join.dense_join_build(bk, bv, ba, kmin, D)
+    pt = join.dense_join_build_plain(bk, bv, ba, kmin, D)
     torch.cuda.synchronize()
-    check(torch.equal(kd, pd), f"dense_join duplicates {kd.item()} vs "
-          f"{pd.item()}")
-    differ = (kt != pt).nonzero().squeeze(1)
-    if differ.numel():
-        rows = kt[differ].long()
-        check(bool((rows >= 0).all()) and torch.equal(
-            bk[rows] - kmin, differ), "dense_join table differs at a slot "
-              "that is not a repeated key's")
-        check(kd.item() > 0, "dense_join tables differ with unique keys")
-    ksel, kcols = join.dense_join_probe(*probe, kmin, kt, payload)
-    psel, pcols = join.dense_join_probe_plain(*probe, kmin, kt, payload)
-    torch.cuda.synchronize()
-    check(torch.equal(ksel, psel), "dense_join probe selections differ")
-    err = max_abs_diff(ksel, psel)
-    for j, ((kd_, kv_), (pd_, pv_)) in enumerate(zip(kcols, pcols)):
-        check(torch.equal(kd_, pd_), f"dense_join payload {j} data differs")
-        check((kv_ is None) == (pv_ is None)
-              and (kv_ is None or torch.equal(kv_, pv_)),
-              f"dense_join payload {j} validity differs")
-        err = max(err, max_abs_diff(kd_, pd_))
-        if kv_ is not None:
-            err = max(err, max_abs_diff(kv_, pv_))
-    return kd.item(), err
+    check(torch.equal(kt, pt), "dense_join tables differ")
+    err = 0.0
+    for how in ("inner", "semi", "anti", "left"):
+        pay = payload if how in ("inner", "left") else []
+        ksel, kcols = join.dense_join_probe(*probe, kmin, kt, pay, how)
+        psel, pcols = join.dense_join_probe_plain(*probe, kmin, kt, pay, how)
+        torch.cuda.synchronize()
+        check(torch.equal(ksel, psel), f"dense_join {how} selections differ")
+        err = max(err, max_abs_diff(ksel, psel))
+        for j, ((kd_, kv_), (pd_, pv_)) in enumerate(zip(kcols, pcols)):
+            check(torch.equal(kd_, pd_),
+                  f"dense_join {how} payload {j} data differs")
+            check((kv_ is None) == (pv_ is None)
+                  and (kv_ is None or torch.equal(kv_, pv_)),
+                  f"dense_join {how} payload {j} validity differs")
+            err = max(err, max_abs_diff(kd_, pd_))
+            if kv_ is not None:
+                err = max(err, max_abs_diff(kv_, pv_))
+    return 0, err
 
 
 # ---------------------------------------------------------------------------------
@@ -546,11 +561,11 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
         worst["dense_join"] = max(worst["dense_join"], err)
     dups, err = compare_dense_join(torch, join, *join_case(
         torch, 1000, 100, 6, device, dup=True))
-    worst["dense_join"] = max(worst["dense_join"], err)
     check(dups == 1, f"dense_join reported {dups} repeated keys, not 1")
     print("check dense_join: build 0/1/1000/200003 rows (one all-inactive), "
           "probe up to 4194321 rows with null, missing and out-of-domain "
-          "keys: ok; a repeated build key reported: ok")
+          "keys, inner/semi/anti/left: ok; a repeated build key counted "
+          "exactly: ok")
     kmin, D = 10_000, 4096
     cases = [(0, {}, 1 << 12), (1, {}, 1 << 12), (5000, {}, 1 << 12),
              (5000, {"all_inactive": True}, 1 << 12),
@@ -607,6 +622,222 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
 
 
 # ---------------------------------------------------------------------------------
+# csr_join: kernel vs plain
+# ---------------------------------------------------------------------------------
+
+def csr_case(torch, n_build, n_probe, span, seed, device, all_inactive=False):
+    """Build keys over ``span`` values (repeated about n_build / span times,
+    some null, a live mask), probe keys that hit, miss (below and above the
+    domain) and are null, and a payload of 8, 4 and 1-byte columns."""
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+    bkeys = rng.integers(1000, 1000 + span, n_build).astype(np.int64)
+    build = (t(bkeys), t(rng.random(n_build) < 0.95),
+             t(rng.random(n_build) < (0.0 if all_inactive else 0.8)))
+    pkeys = rng.integers(990, 1010 + span, n_probe).astype(np.int64)
+    probe = (t(pkeys), t(rng.random(n_probe) < 0.95),
+             t(rng.random(n_probe) < 0.8))
+    payload = [(t(rng.integers(-10**12, 10**12, n_build)),
+                t(rng.random(n_build) < 0.9)),
+               (t(rng.integers(0, 10**6, n_build).astype(np.int32)), None),
+               (t(rng.random(n_build) < 0.5), None)]
+    return build, probe, payload
+
+
+def _same_values(torch, a, b, what: str) -> float:
+    """Exact equality of two lists of (data, valid); their largest
+    difference (0.0 when equal)."""
+    err = 0.0
+    for j, ((ad, av), (bd, bv)) in enumerate(zip(a, b)):
+        check(torch.equal(ad, bd), f"{what} column {j} data differs")
+        check((av is None) == (bv is None)
+              and (av is None or torch.equal(av, bv)),
+              f"{what} column {j} validity differs")
+        err = max(err, max_abs_diff(ad, bd))
+    return err
+
+
+def compare_csr_join(torch, join, build, probe, payload) -> float:
+    """The build (counts, starts, b_perm: the stable order makes the
+    permutation unique), every probe mode, the expansion and the gathers
+    exact against the plain versions; returns the largest difference."""
+    bk, bv, ba = build
+    st = join.dense_join_stats_plain(bk, bv, ba, 1 << 26).tolist()
+    kmin, D = (st[0], st[1] - st[0] + 1) if st[2] else (0, 1)
+    kb = join.csr_build_kernel(bk, bv, ba, kmin, D)
+    pb = join.csr_build_plain(bk, bv, ba, kmin, D)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("counts", "starts", "b_perm"), kb, pb):
+        check(torch.equal(x, y), f"csr_join build {name} differs")
+    counts, starts, b_perm = kb
+    err = 0.0
+    for how in ("semi", "anti"):
+        ks = join.csr_probe_kernel(*probe, kmin, counts, starts, how)
+        ps = join.csr_probe_plain(*probe, kmin, counts, starts, how)
+        torch.cuda.synchronize()
+        check(torch.equal(ks, ps), f"csr_join {how} selections differ")
+    for how in ("inner", "left"):
+        klo, koff = join.csr_probe_kernel(*probe, kmin, counts, starts, how)
+        plo, poff = join.csr_probe_plain(*probe, kmin, counts, starts, how)
+        torch.cuda.synchronize()
+        check(torch.equal(klo, plo) and torch.equal(koff, poff),
+              f"csr_join {how} probe differs")
+        total = int(koff[-1])
+        kpi, kbi = join.csr_expand_kernel(koff, klo, b_perm, total)
+        ppi, pbi = join.csr_expand_plain(koff, klo, b_perm, total)
+        torch.cuda.synchronize()
+        check(torch.equal(kpi, ppi) and torch.equal(kbi, pbi),
+              f"csr_join {how} expansion differs")
+        for idx, nullable in ((kbi, how == "left"), (kpi, False)):
+            cols = payload if idx is kbi else [(probe[0], probe[1])]
+            err = max(err, _same_values(
+                torch, join.csr_gather(idx, cols, nullable),
+                join.csr_gather_plain(idx, cols, nullable),
+                f"csr_join {how} gather"))
+    return err
+
+
+def check_csr_join(torch, join, device) -> float:
+    worst = 0.0
+    for nb, npr, span, seed, kw in ((0, 100, 10, 1, {}), (1, 1, 1, 2, {}),
+                                    (3000, 5000, 50, 3, {}),
+                                    (3000, 5000, 50, 4,
+                                     {"all_inactive": True}),
+                                    (5000, 2000, 1, 5, {}),
+                                    (2_000_003, BATCH_ROWS + 17, 600_000, 6,
+                                     {})):
+        worst = max(worst, compare_csr_join(torch, join, *csr_case(
+            torch, nb, npr, span, seed, device, **kw)))
+    print("check csr_join: build 0/1/3000/5000 (one key)/2000003 rows (one "
+          "all-inactive), probe up to 4194321 rows with null, missing and "
+          "out-of-domain keys; build, semi/anti/inner/left probe, "
+          "expansion and gathers exact: ok")
+    return worst
+
+
+# ---------------------------------------------------------------------------------
+# hash_agg: kernel vs plain
+# ---------------------------------------------------------------------------------
+
+def hash_case(torch, n, seed, device, groups=None):
+    """Key words of every kind (int64, date, bool, dictionary codes, the
+    float64 image of -0.0/+0.0/NaN keys), each with nulls, or two int64
+    keys over ``groups`` pairs; contributions with nulls and NaN."""
+    from spark_rapids_tpu_torch.ops import groupby
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+    if groups is None:
+        fk = rng.choice(np.array([-0.0, 0.0, 1.5, np.nan, -2.0]), n)
+        raw = [rng.integers(-50, 50, n), rng.integers(9000, 9030, n)
+               .astype(np.int32), rng.random(n) < 0.5,
+               rng.integers(0, 40, n).astype(np.int32), fk]
+        words = [(groupby.key_word(t(r)), t(rng.random(n) < 0.9))
+                 for r in raw]
+    else:
+        words = [(t(rng.integers(0, groups, n)), None),
+                 (t(rng.integers(0, 7, n)), None)]
+    x = rng.normal(size=n) * 1e3
+    x[rng.random(n) < 0.001] = np.nan
+    z = rng.choice(np.array([-0.0, 0.0, 3.0, -1.0]), n)
+    contribs = [(t(x), t(rng.random(n) < 0.9)), (t(rng.integers(
+        -10**12, 10**12, n)), None), (t(z), None), (t(x), None),
+        (t(rng.integers(-10**15, 10**15, n)), t(rng.random(n) < 0.8)),
+        (None, t(rng.random(n) < 0.7))]
+    channels = [("sum", True), ("sum", False), ("min", True), ("max", True),
+                ("max", False), ("count", False)]
+    return words, contribs, channels, t(rng.random(n) < 0.8)
+
+
+def _hash_groups(torch, acc):
+    """The accumulator's groups as (key matrix, values) sorted by key, the
+    kernel's live slots compacted by mask."""
+    keys, values, live = acc.finish()
+    cols = [w for w, _ in keys] + [ok.long() for _, ok in keys]
+    if live is not None:
+        cols = [c[live] for c in cols]
+        values = [v[live] for v in values]
+    m = torch.stack(cols, 1)
+    order = torch.arange(m.shape[0], device=m.device)
+    for c in reversed(range(m.shape[1])):
+        order = order[torch.sort(m[order, c], stable=True).indices]
+    return m[order], [v[order] for v in values]
+
+
+def run_hash_agg(torch, groupby, case, batch, plain, collide=False,
+                 abs_values=False):
+    words, contribs, channels, active = case
+    if abs_values:
+        contribs = [(d.abs() if d is not None and d.dtype == torch.float64
+                     else d, v) for d, v in contribs]
+    acc = groupby.HashAccumulator(len(words), channels, active.device,
+                                  collide=collide, plain=plain)
+    n = active.shape[0]
+    for lo in range(0, max(n, 1), batch):
+        sl = slice(lo, lo + batch)
+        acc.update([(d[sl], None if v is None else v[sl]) for d, v in words],
+                   [(None if d is None else d[sl],
+                     None if v is None else v[sl]) for d, v in contribs],
+                   active[sl], len(active[sl]))
+    return acc
+
+
+def compare_hash_agg(torch, groupby, case, batch, collide=False) -> float:
+    """Groups (keys and null bits) exact, int64 channels and counts exact,
+    float64 min/max exact to the bit (NaN included), float64 sums within
+    F64_SUM_TOL x the group's sum|x|.  Returns the largest float64 sum
+    difference."""
+    kacc = run_hash_agg(torch, groupby, case, batch, False, collide)
+    pacc = run_hash_agg(torch, groupby, case, batch, True)
+    sacc = run_hash_agg(torch, groupby, case, batch, True, abs_values=True)
+    check(kacc.cap == pacc.cap, "hash_agg grew differently from the plain "
+          "version")
+    km, kv = _hash_groups(torch, kacc)
+    pm, pv = _hash_groups(torch, pacc)
+    _, sv = _hash_groups(torch, sacc)
+    torch.cuda.synchronize()
+    check(torch.equal(km, pm), f"hash_agg groups differ ({km.shape[0]} vs "
+          f"{pm.shape[0]})")
+    worst = 0.0
+    for j, ((op, f64), a, b, s) in enumerate(zip(case[2], kv, pv, sv)):
+        if f64 and op == "sum":
+            nan = torch.isnan(b)
+            check(torch.equal(torch.isnan(a), nan), f"hash_agg channel {j} "
+                  f"NaN sums differ")
+            err = (a - b).abs()[~nan]
+            top = float(err.max()) if err.numel() else 0.0
+            check(bool((err <= F64_SUM_TOL * s[~nan]).all()),
+                  f"hash_agg channel {j} sums differ by up to {top}")
+            worst = max(worst, top)
+        elif f64:
+            check(torch.equal(a.view(torch.int64), b.view(torch.int64)),
+                  f"hash_agg channel {j} ({op}) differs")
+        else:
+            check(torch.equal(a, b), f"hash_agg channel {j} ({op}) differs")
+    return worst
+
+
+def check_hash_agg(torch, groupby, device) -> float:
+    worst = 0.0
+    for n, batch, seed, groups, collide in (
+            (0, 1, 1, None, False), (1, 1, 2, None, False),
+            (5000, 5000, 3, None, False), (20_000, 1000, 4, None, False),
+            (3000, 3000, 5, 200, True),
+            (BATCH_ROWS + 17, BATCH_ROWS + 17, 6, 1_000_000, False)):
+        case = hash_case(torch, n, seed, device, groups)
+        worst = max(worst, compare_hash_agg(torch, groupby, case, batch,
+                                            collide))
+    case = hash_case(torch, 5000, 7, device)
+    case = case[:3] + (torch.zeros_like(case[3]),)
+    compare_hash_agg(torch, groupby, case, 5000)
+    print(f"check hash_agg: n in (0, 1, 5000, 20000 in 1000-row batches "
+          f"with growth, 4194321), all-inactive, every key kind with nulls, "
+          f"-0.0/+0.0 and NaN keys and values, 1400 keys forced into one "
+          f"bucket: ok, max |f64 err| {worst:.3e} (tolerance "
+          f"{F64_SUM_TOL} x per-group sum|x|)")
+    return worst
+
+
+# ---------------------------------------------------------------------------------
 # The main path: TPC-H Q6 and Q1 at SF10
 # ---------------------------------------------------------------------------------
 
@@ -648,6 +879,45 @@ def check_q3(rows, want) -> float:
     return worst
 
 
+def check_rows(name: str):
+    """A checker for rows that must equal the oracle's: strings, integers
+    and dates exact, floats within QUERY_REL_TOL."""
+    def checker(rows, want) -> float:
+        check(len(rows) == len(want), f"{name} has {len(rows)} rows, oracle "
+              f"{len(want)}")
+        worst = 0.0
+        for got, ref in zip(rows, want):
+            check(len(got) == len(ref), f"{name} row {got} vs {ref}")
+            for a, b in zip(got, ref):
+                if isinstance(b, float):
+                    check(a is not None and rel_err(a, b) <= QUERY_REL_TOL,
+                          f"{name} {got} vs {ref}")
+                    worst = max(worst, rel_err(a, b))
+                else:
+                    check(a == b, f"{name} {got} vs {ref}")
+        return worst
+    return checker
+
+
+class ModeCounter:
+    """The launches of ``dense_join_probe`` in the given join types, as one
+    counter with the wrappers' ``launches`` interface."""
+
+    def __init__(self, fn, modes):
+        self.fn, self.modes = fn, modes
+        self.__name__ = f"{fn.__name__}[{'/'.join(modes)}]"
+
+    @property
+    def launches(self) -> int:
+        return sum(self.fn.launches_by_how[m] for m in self.modes)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        check(value == 0, "a mode counter only resets")
+        for m in self.modes:
+            self.fn.launches_by_how[m] = 0
+
+
 def launch_counts(counters) -> dict:
     """Per kernel source, the launches of its wrappers so far."""
     return {name: sum(fn.launches for fn in fns)
@@ -684,6 +954,36 @@ def run_query(torch, sess, df_fn, checker, want, name, counters):
                      "kernel_launches": launches, "max_rel_err": err})
         print(f"query {name} {runs[-1]['run']}: " + json.dumps(runs[-1]))
     return runs
+
+
+def profile_query(torch, df_fn, name: str, top: int = 8) -> None:
+    """One more warm run under ``torch.profiler`` (CUDA activity only):
+    the device time of its kernels and copies by name, and the share of
+    the run's device span that none of them covers (the device idle
+    share)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        df_fn().collect()
+        end.record()
+        end.synchronize()
+    span = start.elapsed_time(end)
+    events = [(getattr(e, "device_time_total", None)
+               or getattr(e, "cuda_time_total", 0.0), e.count, e.key)
+              for e in prof.key_averages()]
+    events = sorted((e for e in events if e[0] > 0), reverse=True)
+    busy = sum(us for us, _, _ in events) / 1e3
+    if not events:
+        print(f"profile {name}: the profiler recorded no device time")
+        return
+    print(f"profile {name}: span {span:.2f} ms, kernels and copies "
+          f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / span):.3f}")
+    for us, count, key in events[:top]:
+        print(f"profile {name}:   {us / 1e3:9.3f} ms  {count:5d} x  "
+              f"{key[:90]}")
 
 
 # ---------------------------------------------------------------------------------
@@ -818,7 +1118,7 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     D = Q3_ORDERS
     bkeys = torch.arange(1, D + 1, dtype=torch.int64, device=device)
     bactive = t(rng.random(D) < 0.097)
-    table, _ = join.dense_join_build(bkeys, None, bactive, 1, D)
+    table = join.dense_join_build(bkeys, None, bactive, 1, D)
     payload = [(bkeys, None),
                (t(rng.integers(8036, 8036 + 2406, D).astype(np.int32)),
                 None), (torch.zeros(D, dtype=torch.int64, device=device),
@@ -995,6 +1295,175 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     return out
 
 
+def time_slice3_kernels(torch, join, groupby, device, launches,
+                        worst) -> list:
+    """The dense join's semi probe, the CSR join and the hash aggregate at
+    the shapes Q18, Q13 and Q21 give them at SF10, each first held against
+    its plain version on the same inputs."""
+    rng = np.random.default_rng(7)
+    t = _to_device(torch, device)
+    n = BATCH_ROWS
+    out, notes = [], []
+
+    # dense_join semi probe: Q18's orders batch (o_orderkey 1..) against
+    # the table of the orders whose quantity passes 300 (~0.1% of the
+    # 15,000,000-slot domain)
+    D = DB_ORDERS
+    bkeys = torch.arange(1, D + 1, dtype=torch.int64, device=device)
+    table = join.dense_join_build(bkeys, None, t(rng.random(D) < 0.001), 1, D)
+    pk = torch.arange(1, n + 1, dtype=torch.int64, device=device)
+    ksel, _ = join.dense_join_probe(pk, None, None, 1, table, [], "semi")
+    psel, _ = join.dense_join_probe_plain(pk, None, None, 1, table, [],
+                                          "semi")
+    torch.cuda.synchronize()
+    check(torch.equal(ksel, psel), "dense_join semi probe differs at Q18's "
+          "shape")
+    inputs = copies_for_l2([pk])
+    ms = time_ms(torch, [(lambda k=k: join.dense_join_probe(
+        k, None, None, 1, table, [], "semi")) for k, in inputs],
+        reps=8 * len(inputs))
+    plain_ms = time_ms(torch, [(lambda k=k: join.dense_join_probe_plain(
+        k, None, None, 1, table, [], "semi")) for k, in inputs],
+        reps=2 * len(inputs))
+    lib_ms = time_ms(torch, [(lambda k=k: table.index_select(0, k - 1) >= 0)
+                             for k, in inputs], reps=8 * len(inputs))
+    nbytes = n * 8 + sector_bytes(torch, pk - 1, 4) + n
+    row = _row("dense_join", launches, max_abs_diff(ksel, psel), ms,
+               plain_ms, nbytes, lib_ms,
+               "spark_rapids_tpu/plan/join_exec.py:1410")
+    row.update(name="dense_join_semi",
+               launches=launches["dense_join_semi"])
+    out.append(row)
+    notes.append(f"n={n} probe rows, {int(ksel.sum())} matched, table {D} "
+                 f"slots")
+    del table, bkeys, inputs
+
+    # csr_join: Q13's left join — build the orders that are not urgent
+    # (15,000,000 rows, ~80% live, o_custkey over 1,500,000 slots), probe
+    # the 1,500,000 customers, expand, gather o_orderkey and o_custkey
+    nb, C = DB_ORDERS, DB_CUSTOMERS
+    ckey = t(rng.integers(1, C + 1, nb))
+    okey = torch.arange(1, nb + 1, dtype=torch.int64, device=device)
+    act = t(rng.random(nb) < 0.8)
+    probe = torch.arange(1, C + 1, dtype=torch.int64, device=device)
+    payload = [(okey, None), (ckey, None)]
+
+    def join_call(build, probe_keys, total, expand, gather):
+        def run():
+            counts, starts, b_perm = build(ckey, None, act, 1, C)
+            lo, off = (join.csr_probe_kernel if build is join.csr_build_kernel
+                       else join.csr_probe_plain)(probe_keys, None, None, 1,
+                                                  counts, starts, "left")
+            pi, bi = expand(off, lo, b_perm, total)
+            return gather(pi, [(probe_keys, None)], False) + gather(
+                bi, payload, True)
+        return run
+
+    counts, starts, b_perm = join.csr_build_kernel(ckey, None, act, 1, C)
+    lo, off = join.csr_probe_kernel(probe, None, None, 1, counts, starts,
+                                    "left")
+    total = int(off[-1])
+    kernel = join_call(join.csr_build_kernel, probe, total,
+                       join.csr_expand_kernel, join.csr_gather)
+    plain = join_call(join.csr_build_plain, probe, total,
+                      join.csr_expand_plain, join.csr_gather_plain)
+    err = _same_values(torch, kernel(), plain(), "csr_join at Q13's shape")
+    ms = time_ms(torch, [kernel], reps=8)
+    plain_ms = time_ms_synced(torch, [plain], reps=2)
+
+    def library():
+        k = torch.where(act, ckey, C + 1)
+        sk, perm = torch.sort(k, stable=True)
+        lo_ = torch.searchsorted(sk, probe)
+        hi_ = torch.searchsorted(sk, probe, right=True)
+        cnt = (hi_ - lo_).clamp(min=1)
+        pi = torch.repeat_interleave(torch.arange(C, device=device), cnt,
+                                     output_size=total)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = torch.arange(total, device=device) - first[pi] + lo_[pi]
+        hit = j < hi_[pi]
+        bi = torch.where(hit, perm[j.clamp(max=nb - 1)], -1)
+        return probe[pi], [d[bi.clamp(min=0)] for d, _ in payload], hit
+
+    lib_ms = time_ms_synced(torch, [library], reps=8)
+    # the function's inputs once (build keys and mask, probe keys, the
+    # two build columns at the matched rows, by sector) and its outputs
+    # (three int64 columns and two validity masks per output row); the
+    # counts, starts, permutation and gather maps are its own scratch
+    bi = b_perm[:int(starts[-1])]
+    nbytes = nb * (8 + 1) + C * 8 + 2 * sector_bytes(torch, bi, 8) \
+        + total * (3 * 8 + 2)
+    out.append(_row("csr_join", launches, max(err, worst["csr_join"]), ms,
+                    plain_ms, nbytes, lib_ms,
+                    "spark_rapids_tpu/plan/join_exec.py:1040"))
+    notes.append(f"build {nb} rows ({int(act.sum())} live) over {C} slots, "
+                 f"probe {C} rows, {total} output rows, 3 columns gathered")
+    del ckey, okey, act, payload, counts, starts, b_perm, lo, off, bi
+
+    # hash_agg: Q21's DISTINCT (l_orderkey, l_suppkey) on one lineitem
+    # batch, ~2/3 live, into a table that holds the batch's groups
+    words = [(t(rng.integers(1, DB_ORDERS + 1, n)), None),
+             (t(rng.integers(1, DB_SUPPLIERS + 1, n)), None)]
+    active = t(rng.random(n) < 0.63)
+    kacc = groupby.HashAccumulator(2, [], device)
+    kacc.update(words, [], active, n)
+    pacc = groupby.HashAccumulator(2, [], device, plain=True)
+    pacc.update(words, [], active, n)
+    km, _ = _hash_groups(torch, kacc)
+    pm, _ = _hash_groups(torch, pacc)
+    torch.cuda.synchronize()
+    check(torch.equal(km, pm), "hash_agg differs at Q21's shape")
+    groups = km.shape[0]
+    inputs = copies_for_l2([w for w, _ in words] + [active])
+    ms = time_ms(torch, [(lambda a=a, b=b, m=m: groupby.hash_agg_update(
+        kacc, [(a, None), (b, None)], [], m, n)) for a, b, m in inputs],
+        reps=8 * len(inputs))
+    plain_ms = time_ms_synced(torch, [(lambda a=a, b=b, m=m:
+                                       groupby.hash_agg_update_plain(
+                                           pacc, [(a, None), (b, None)], [],
+                                           m, n)) for a, b, m in inputs],
+                              reps=2)
+
+    def unique_call(a, b, m):
+        def run():
+            keys = torch.stack([a[m], b[m]], 1)
+            _, inv = torch.unique(keys, dim=0, return_inverse=True)
+            return torch.zeros(keys.shape[0], dtype=torch.int64,
+                               device=device).index_add_(
+                0, inv, torch.ones_like(inv))
+        return run
+
+    lib_ms = time_ms_synced(torch, [unique_call(*c) for c in inputs],
+                            reps=2 * len(inputs))
+    live = int(active.sum())
+    # the mask, each live row's two key words, and the sectors of every
+    # group's slot in the state, the null bits and both key columns (read:
+    # the timed calls find every group)
+    slots = (kacc.state == groupby.HA_READY).nonzero().squeeze(1)
+    nbytes = n + sector_bytes(torch, active.nonzero().squeeze(1), 8) * 2 \
+        + 2 * sector_bytes(torch, slots, 4) \
+        + 2 * sector_bytes(torch, slots, 8)
+    out.append(_row("hash_agg", launches, worst["hash_agg"], ms, plain_ms,
+                    nbytes, lib_ms, "spark_rapids_tpu/ops/groupby.py:251"))
+    notes.append(f"n={n} rows, {live} live, {groups} groups in "
+                 f"{kacc.cap} slots (every group present: the repeated "
+                 f"calls find, never claim)")
+    synced = {("csr_join", "plain"), ("csr_join", "library"),
+              ("hash_agg", "plain"), ("hash_agg", "library")}
+    for row, note in zip(out, notes):
+        mark = {w: "†" if (row["name"], w) in synced else ""
+                for w in ("plain", "library")}
+        nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
+              f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
+              f"{row['plain_ms']:.4f} ms"
+              f"{mark['plain']}, library {row['library_ms']:.4f} ms"
+              f"{mark['library']}), max |err| vs plain "
+              f"{row['max_abs_err']:.3e}, {row['launches']} launches on the "
+              f"main path")
+    return out
+
+
 # ---------------------------------------------------------------------------------
 
 def main() -> int:
@@ -1046,6 +1515,12 @@ def main() -> int:
         worst = check_kernels(torch, groupby, device)
         worst.update(check_new_kernels(torch, join, groupby, topk_mod,
                                        batch_utils, device))
+        worst["csr_join"] = check_csr_join(torch, join, device)
+        worst["hash_agg"] = check_hash_agg(torch, groupby, device)
+        if "--checks-only" in sys.argv[1:]:
+            print("chip_smoke: every kernel matches its plain version; "
+                  "--checks-only stops before the main path")
+            return 0
 
         t0 = time.perf_counter()
         data = tpch.gen_lineitem_arrays(SF)
@@ -1063,9 +1538,25 @@ def main() -> int:
               f"{len(cust['c_custkey'])} rows in "
               f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        db = tpch.gen_db_arrays(SF, columns=DB_COLUMNS)
+        rows = {t: len(next(iter(db[t].values()))) for t in db}
+        check(rows == {"customer": DB_CUSTOMERS, "supplier": DB_SUPPLIERS,
+                       "orders": DB_ORDERS, "lineitem": DB_LINEITEM},
+              f"SF{SF:g} gen_db tables have {rows} rows")
+        print(f"datagen gen_db (customer, supplier, orders, lineitem): "
+              f"{rows} rows in {time.perf_counter() - t0:.1f} s")
+        took = {}
+        t0 = time.perf_counter()
         q6_want, q1_want = tpch.q6_numpy(data), tpch.q1_numpy(data)
         q3_want = tpch.q3_numpy(cust, orders, data)
-        print(f"oracles: {time.perf_counter() - t0:.1f} s")
+        took["q6, q1, q3"] = time.perf_counter() - t0
+        db_want = {}
+        for q, tabs in DB_QUERIES.items():
+            t1 = time.perf_counter()
+            db_want[q] = getattr(tpch, f"{q}_numpy")(*(db[t] for t in tabs))
+            took[q] = time.perf_counter() - t1
+        print(f"oracles: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
         sess = Session.get_or_create(device="cuda")
         info = sess.device_info()
         print(f"session device: {info.name}, "
@@ -1073,6 +1564,7 @@ def main() -> int:
               f"{info.power_limit}")
         df = sess.create_dataframe(data)
         cdf, odf = sess.create_dataframe(cust), sess.create_dataframe(orders)
+        dbf = {t: sess.create_dataframe(cols) for t, cols in db.items()}
 
         counters = {
             "masked_reduce": [groupby.masked_reduce],
@@ -1081,13 +1573,36 @@ def main() -> int:
                            join.dense_join_probe],
             "dense_agg": [groupby.dense_agg_stats, groupby.dense_agg_update,
                           groupby.dense_agg_check],
-            "topk": [topk_mod.topk], "compact": [batch_utils.compact_kernel]}
+            "topk": [topk_mod.topk], "compact": [batch_utils.compact_kernel],
+            "dense_join_semi": [ModeCounter(join.dense_join_probe,
+                                            ("semi", "anti"))],
+            "csr_join": [join.csr_build_kernel, join.csr_probe_kernel,
+                         join.csr_expand_kernel, join.csr_gather],
+            "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_rehash]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
                   ("grid_agg",)),
                  ("q3", lambda: tpch.q3(cdf, odf, df), check_q3, q3_want,
-                  ("dense_join", "dense_agg", "topk", "compact"))]
+                  ("dense_join", "dense_agg", "topk", "compact")),
+                 # every join launches dense_join's stats kernel
+                 ("q4", lambda: tpch.q4(dbf["orders"], dbf["lineitem"]),
+                  check_rows("Q4"), db_want["q4"],
+                  ("csr_join", "dense_join", "grid_agg")),
+                 ("q13", lambda: tpch.q13(dbf["customer"], dbf["orders"]),
+                  check_rows("Q13"), db_want["q13"],
+                  ("csr_join", "dense_join", "dense_agg", "topk",
+                   "compact")),
+                 ("q18", lambda: tpch.q18(dbf["orders"], dbf["lineitem"],
+                                          dbf["customer"]),
+                  check_rows("Q18"), db_want["q18"],
+                  ("dense_agg", "dense_join", "dense_join_semi", "topk",
+                   "compact")),
+                 ("q21", lambda: tpch.q21(dbf["lineitem"], dbf["orders"],
+                                          dbf["supplier"]),
+                  check_rows("Q21"), db_want["q21"],
+                  ("hash_agg", "dense_agg", "dense_join",
+                   "dense_join_semi", "compact"))]
         runs_of, launches, per_wrapper = {}, {}, {}
         for name, df_fn, checker, want, used in paths:
             mine = {k: counters[k] for k in used}
@@ -1096,10 +1611,14 @@ def main() -> int:
                     fn.launches = 0
             runs_of[name] = run_query(torch, sess, df_fn, checker, want,
                                       name, mine)
-            launches.update(launch_counts(mine))  # read just after it
-            per_wrapper.update({fn.__name__: fn.launches
-                                for fns in mine.values() for fn in fns})
-        q6_runs, q1_runs, q3_runs = (runs_of[k] for k in ("q6", "q1", "q3"))
+            # read just after it; a kernel several paths launch sums them
+            for k, v in launch_counts(mine).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in mine.values():
+                for fn in fns:
+                    per_wrapper[fn.__name__] = \
+                        per_wrapper.get(fn.__name__, 0) + fn.launches
+        q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
         print("main path launches per kernel wrapper: "
@@ -1107,7 +1626,9 @@ def main() -> int:
         fetches = max(r["syncs"] for r in q3_runs)
         check(fetches <= Q3_REFERENCE_FETCHES, f"Q3 made {fetches} blocking "
               f"fetches, more than the reference's {Q3_REFERENCE_FETCHES}")
-        for name, runs in (("q6", q6_runs), ("q1", q1_runs), ("q3", q3_runs)):
+        for name, df_fn, *_ in paths:
+            profile_query(torch, df_fn, name)
+        for name, runs in runs_of.items():
             warm = runs[1:]
             med = {k: statistics.median(r[k] for r in warm)
                    for k in ("wall_ms", "upload_ms", "device_ms")}
@@ -1116,10 +1637,12 @@ def main() -> int:
                   f"{med['device_ms']:.2f} ms, syncs {warm[-1]['syncs']}, "
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
-        del df, cdf, odf, sess
+        del df, cdf, odf, dbf, sess
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
+        table += time_slice3_kernels(torch, join, groupby, device, launches,
+                                     worst)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

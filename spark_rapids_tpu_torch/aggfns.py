@@ -1,4 +1,5 @@
-"""Aggregate functions: SUM, AVG, COUNT, COUNT(*), MIN, MAX.
+"""Aggregate functions: SUM, AVG, COUNT, COUNT(*), MIN, MAX, and FIRST/LAST,
+which resolve but have no device reduction yet.
 
 Counterpart of ``spark_rapids_tpu/aggfns.py``.  Each aggregate declares
 its reduction buffers (``buffers()`` → [(accumulator type, op)], op in
@@ -22,7 +23,8 @@ import torch
 from . import types as T
 from .exprs import AggregateExpression, EvalContext, Value
 
-__all__ = ["Sum", "Count", "CountStar", "Min", "Max", "Average"]
+__all__ = ["Sum", "Count", "CountStar", "Min", "Max", "Average", "First",
+           "Last"]
 
 
 def _acc_type(dt: T.DataType) -> T.DataType:
@@ -163,3 +165,27 @@ class Average(AggregateExpression):
         (s, _), (cnt, _) = values
         ok = cnt > 0
         return s / torch.where(ok, cnt, 1).to(torch.float64), ok
+
+
+class First(AggregateExpression):
+    """FIRST(x): resolves like the reference's (``aggfns.py:254``), but the
+    order-sensitive reductions are not ported: the aggregate operator
+    raises for it (ROADMAP queue 2 row 4)."""
+
+    func = "first"
+
+    def __init__(self, child, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def _resolve(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = True
+
+    def buffers(self):
+        raise NotImplementedError(
+            f"{self.func} is not ported yet (ROADMAP.md queue 2 row 4)")
+
+
+class Last(First):
+    func = "last"

@@ -2,27 +2,34 @@
 // key -> build-row table, and the probe with its payload gathers.
 //
 // Replaces: spark_rapids_tpu/plan/join_exec.py:1200 _dense_prefetch (the
-// build-key stats program), :1353 _dense_build_state_impl (the int32 table
-// key - kmin -> build row) and :1410 _dense_join_pair (the probe: table
-// lookup, selection AND, payload gathers), for inner joins on one integral
+// build-key stats program, duplicate count included), :1353
+// _dense_build_state_impl (the int32 table key - kmin -> build row) and
+// :1410 _dense_join_pair (the probe: table lookup, the inner, semi, anti
+// and left outer selections, payload gathers), for joins on one integral
 // key.
 //
 // Three entry points, one per phase:
-//   dense_join_stats  min, max and count of the live, valid build keys in
-//                     one pass (block reduction, one atomic per block);
-//   dense_join_build  one thread per live build row claims table[key - kmin]
-//                     with atomicCAS from -1; a claimed slot means a
-//                     duplicate key, counted into a device word (the dense
-//                     path holds only for unique keys).  The reference finds
+//   dense_join_stats  min, max, count and duplicate count of the live,
+//                     valid build keys.  A first kernel reduces min, max
+//                     and count (block reduction, one atomic per block); a
+//                     second marks a bitmap of `cap` bits at key - kmin,
+//                     reading kmin from the first kernel's output in device
+//                     memory, and counts the keys whose bit was already set
+//                     (atomicOr returns the old word).  The reference finds
 //                     duplicates with a device sort inside its stats
-//                     program; here the count stays on the device until the
-//                     query's next fetch, so a join costs one fetch (the
-//                     stats, which size the table);
+//                     program; here the count is exact whenever the domain
+//                     fits `cap` (the only case the dense and CSR paths
+//                     take) and rides the same single fetch, which decides
+//                     between the dense table and the CSR path;
+//   dense_join_build  one thread per live build row claims table[key - kmin]
+//                     with atomicCAS from -1 (keys are unique here);
 //   dense_join_probe  per probe row: the live mask, the key's validity, the
-//                     domain test and the table lookup, then every payload
-//                     column's data and validity gathered from the matched
-//                     build row, and the output selection byte — one launch,
-//                     no index tensor written out.
+//                     domain test and the table lookup, then the output
+//                     selection byte for the join type (inner: matched;
+//                     semi: matched; anti: live and unmatched; left: live)
+//                     and every payload column's data and validity gathered
+//                     from the matched build row (a left join's misses are
+//                     null) — one launch, no index tensor written out.
 //
 // Bound: device memory.  The probe reads each probe row's 1 B mask, its key
 // (8 B) and one 4 B table word at a random address (a 32-byte sector), and
@@ -31,10 +38,12 @@
 // (~15 M-slot table, 60 MB, larger than the 50 MB L2) the random table
 // reads dominate.  The design keeps to one pass: the lookup and every
 // gather of a row happen in the thread that owns it, so the table word and
-// the build row index never leave registers.
+// the build row index never leave registers.  The duplicate bitmap is 8 MB
+// at the default cap and stays in L2.
 //
 // Keys are int32 or int64 (dates are int32 days); the caller promotes both
-// sides to one type.  Payload elements are 1, 2, 4 or 8 bytes.
+// sides to one type.  Payload elements are 1, 2, 4 or 8 bytes (string
+// payloads ride as int32 dictionary codes).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -113,28 +122,65 @@ dj_stats(const void* __restrict__ keys, int elem,
   }
 }
 
-// table: [D] int32 preset to -1; dup: one device word, preset to 0.
+// out[3] += the live valid keys whose bit in the `cap`-bit bitmap (zeroed
+// by the caller) was set already; kmin is read from out[0].
+__global__ void __launch_bounds__(DJ_THREADS)
+dj_dup(const void* __restrict__ keys, int elem,
+       const uint8_t* __restrict__ key_valid,
+       const uint8_t* __restrict__ active, long long n, long long cap,
+       unsigned int* __restrict__ bitmap, long long* __restrict__ out) {
+  const long long kmin = out[0];
+  long long dup = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += stride) {
+    if (!live(active, key_valid, r)) continue;
+    long long idx;
+    if (!in_domain(load_key(keys, elem, r), kmin, cap, &idx)) continue;
+    const unsigned int bit = 1u << (idx & 31);
+    if (atomicOr(bitmap + (idx >> 5), bit) & bit) ++dup;
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    dup += __shfl_down_sync(0xffffffffu, dup, o);
+  __shared__ long long s_dup[DJ_THREADS / 32];
+  if (threadIdx.x % 32 == 0) s_dup[threadIdx.x / 32] = dup;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < DJ_THREADS / 32; ++w) dup += s_dup[w];
+    if (dup > 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(out + 3),
+                (unsigned long long)dup);
+  }
+}
+
+// table: [D] int32 preset to -1.
 __global__ void __launch_bounds__(DJ_THREADS)
 dj_build(const void* __restrict__ keys, int elem,
          const uint8_t* __restrict__ key_valid,
          const uint8_t* __restrict__ active, long long n, long long kmin,
-         long long D, int* __restrict__ table,
-         unsigned long long* __restrict__ dup) {
+         long long D, int* __restrict__ table) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
     if (!live(active, key_valid, r)) continue;
     long long idx;
     if (!in_domain(load_key(keys, elem, r), kmin, D, &idx)) continue;
-    if (atomicCAS(table + idx, -1, (int)r) != -1) atomicAdd(dup, 1ULL);
+    atomicCAS(table + idx, -1, (int)r);
   }
 }
+
+// join types of dense_join_probe
+#define DJ_INNER 0
+#define DJ_SEMI 1
+#define DJ_ANTI 2
+#define DJ_LEFT 3
 
 struct DJPayload {
   const void* data[DJ_MAX_COLS];
   const uint8_t* valid[DJ_MAX_COLS];  // nullptr: the build column has no nulls
   void* out[DJ_MAX_COLS];
-  uint8_t* out_valid[DJ_MAX_COLS];    // nullptr exactly where valid is
+  uint8_t* out_valid[DJ_MAX_COLS];    // nullptr: no output validity (inner
+                                      // join of a column without nulls)
   int elem[DJ_MAX_COLS];
   int ncols;
 };
@@ -165,23 +211,26 @@ __global__ void __launch_bounds__(DJ_THREADS)
 dj_probe(const __grid_constant__ DJPayload p, const void* __restrict__ keys,
          int elem, const uint8_t* __restrict__ key_valid,
          const uint8_t* __restrict__ active, long long n, long long kmin,
-         long long D, const int* __restrict__ table,
+         long long D, const int* __restrict__ table, int mode,
          uint8_t* __restrict__ out_sel) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
     int bi = -1;
     long long idx;
-    if (live(active, key_valid, r) &&
+    const bool row_live = active == nullptr || active[r];
+    if (row_live && (key_valid == nullptr || key_valid[r]) &&
         in_domain(load_key(keys, elem, r), kmin, D, &idx))
       bi = table[idx];
     const bool matched = bi >= 0;
-    out_sel[r] = matched;
+    out_sel[r] = mode == DJ_ANTI ? (row_live && !matched)
+                 : mode == DJ_LEFT ? row_live : matched;
 #pragma unroll 4
     for (int j = 0; j < p.ncols; ++j) {
       copy_elem(p.out[j], p.data[j], p.elem[j], r, bi, matched);
       if (p.out_valid[j] != nullptr)
-        p.out_valid[j][r] = matched && p.valid[j][bi];
+        p.out_valid[j][r] =
+            matched && (p.valid[j] == nullptr || p.valid[j][bi]);
     }
   }
 }
@@ -201,23 +250,33 @@ static cudaError_t grid_for(long long n, int* blocks, int per_sm) {
 // Host entries, bound with ctypes; every pointer but the payload arrays'
 // host arrays points to device memory.  Each returns cudaGetLastError()
 // after its launch (0 = launched).
+// out: [min, max, count, dup], preset to INT64_MAX, INT64_MIN, 0, 0;
+// bitmap: ceil(cap / 32) zeroed words.
 extern "C" int dense_join_stats(const void* keys, int elem,
                                 const void* key_valid, const void* active,
-                                long long n, void* out, void* stream) {
-  if (elem != 4 && elem != 8) return (int)cudaErrorInvalidValue;
+                                long long n, long long cap, void* bitmap,
+                                void* out, void* stream) {
+  if ((elem != 4 && elem != 8) || cap < 1) return (int)cudaErrorInvalidValue;
   int blocks = 1;
   cudaError_t err = grid_for(n, &blocks, 8);
   if (err != cudaSuccess) return (int)err;
-  dj_stats<<<blocks, DJ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dj_stats<<<blocks, DJ_THREADS, 0, s>>>(
       keys, elem, static_cast<const uint8_t*>(key_valid),
       static_cast<const uint8_t*>(active), n, static_cast<long long*>(out));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dj_dup<<<blocks, DJ_THREADS, 0, s>>>(
+      keys, elem, static_cast<const uint8_t*>(key_valid),
+      static_cast<const uint8_t*>(active), n, cap,
+      static_cast<unsigned int*>(bitmap), static_cast<long long*>(out));
   return (int)cudaGetLastError();
 }
 
 extern "C" int dense_join_build(const void* keys, int elem,
                                 const void* key_valid, const void* active,
                                 long long n, long long kmin, long long D,
-                                void* table, void* dup, void* stream) {
+                                void* table, void* stream) {
   if ((elem != 4 && elem != 8) || n > INT_MAX || D < 1)
     return (int)cudaErrorInvalidValue;
   int blocks = 1;
@@ -226,27 +285,32 @@ extern "C" int dense_join_build(const void* keys, int elem,
   dj_build<<<blocks, DJ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       keys, elem, static_cast<const uint8_t*>(key_valid),
       static_cast<const uint8_t*>(active), n, kmin, D,
-      static_cast<int*>(table), static_cast<unsigned long long*>(dup));
+      static_cast<int*>(table));
   return (int)cudaGetLastError();
 }
 
 extern "C" int dense_join_probe(const void* keys, int elem,
                                 const void* key_valid, const void* active,
                                 long long n, long long kmin, long long D,
-                                const void* table, int ncols,
+                                const void* table, int mode, int ncols,
                                 const void* const* data,
                                 const void* const* valid,
                                 const int* elems, void* const* out,
                                 void* const* out_valid, void* out_sel,
                                 void* stream) {
-  if ((elem != 4 && elem != 8) || ncols < 0 || ncols > DJ_MAX_COLS || D < 1)
+  if ((elem != 4 && elem != 8) || ncols < 0 || ncols > DJ_MAX_COLS || D < 1
+      || mode < DJ_INNER || mode > DJ_LEFT
+      || ((mode == DJ_SEMI || mode == DJ_ANTI) && ncols > 0))
     return (int)cudaErrorInvalidValue;
   DJPayload p = {};
   for (int j = 0; j < ncols; ++j) {
     const int e = elems[j];
     if (e != 1 && e != 2 && e != 4 && e != 8)
       return (int)cudaErrorInvalidValue;
-    if ((valid[j] == nullptr) != (out_valid[j] == nullptr))
+    // an inner join keeps a column's validity exactly where it has one; a
+    // left join's misses make every gathered column nullable
+    if (mode == DJ_LEFT ? out_valid[j] == nullptr
+                        : (valid[j] == nullptr) != (out_valid[j] == nullptr))
       return (int)cudaErrorInvalidValue;
     p.data[j] = data[j];
     p.valid[j] = static_cast<const uint8_t*>(valid[j]);
@@ -261,7 +325,7 @@ extern "C" int dense_join_probe(const void* keys, int elem,
   dj_probe<<<blocks, DJ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       p, keys, elem, static_cast<const uint8_t*>(key_valid),
       static_cast<const uint8_t*>(active), n, kmin, D,
-      static_cast<const int*>(table), static_cast<uint8_t*>(out_sel));
+      static_cast<const int*>(table), mode, static_cast<uint8_t*>(out_sel));
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
-           "compact")
+           "compact", "csr_join", "hash_agg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,14 +51,44 @@ _SIGNATURES = {
                      _P, _I, _I, _P],
     },
     "dense_join": {
-        # keys, elem, key_valid, active, n, out, stream
-        "dense_join_stats": [_P, _I, _P, _P, _L, _P, _P],
-        # keys, elem, key_valid, active, n, kmin, D, table, dup, stream
-        "dense_join_build": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P],
-        # keys, elem, key_valid, active, n, kmin, D, table, ncols, data[],
-        # valid[], elems[], out[], out_valid[], out_sel, stream
-        "dense_join_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _I, _P, _P, _P,
-                             _P, _P, _P, _P],
+        # keys, elem, key_valid, active, n, cap, bitmap, out, stream
+        "dense_join_stats": [_P, _I, _P, _P, _L, _L, _P, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, table, stream
+        "dense_join_build": [_P, _I, _P, _P, _L, _L, _L, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, table, mode, ncols,
+        # data[], valid[], elems[], out[], out_valid[], out_sel, stream
+        "dense_join_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P],
+    },
+    "csr_join": {
+        # keys, elem, key_valid, active, n, kmin, D, slots, counts, stream
+        "csr_slots": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P],
+        # in, n, out, sums, stream
+        "csr_scan": [_P, _L, _P, _P, _P],
+        # keys_in, vals_in, keys_out, vals_out, n, shift, hist, offs, sums,
+        # stream
+        "csr_sort_pass": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, counts, starts, mode,
+        # lo, cnt, sel, stream
+        "csr_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _I, _P, _P, _P,
+                      _P],
+        # offsets, lo, b_perm, n, pi, bi, stream
+        "csr_expand": [_P, _P, _P, _L, _P, _P, _P],
+        # idx, idx_elem, n, ncols, data[], valid[], elems[], out[],
+        # out_valid[], stream
+        "csr_gather": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "hash_agg": {
+        # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
+        # acc[], active, n, state, tkeys, tnulls, cap, collide, ngroups,
+        # stream
+        "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P,
+                            _P, _P, _L, _I, _P, _P],
+        # nkeys, nch, old_state, old_keys, old_nulls, old_cap, old_acc[],
+        # new_state, new_keys, new_nulls, new_cap, new_acc[], collide,
+        # stream
+        "hash_agg_rehash": [_I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _L, _P,
+                            _I, _P],
     },
     "dense_agg": {
         # nkeys, data[], valid[], elems[], cand[], active, n, stats, tables,

@@ -1,14 +1,17 @@
-"""TPC-H lineitem, orders and customer data, Q6, Q1 and Q3, and numpy
-oracles.
+"""TPC-H data, Q6, Q1, Q3, Q4, Q13, Q18 and Q21, and numpy oracles.
 
-Counterpart of ``spark_rapids_tpu/models/tpch.py``.  The generators are
-numpy-only copies of the reference's ``gen_lineitem`` (:21-60),
-``gen_orders`` (:67) and ``gen_customer`` (:102) column draws, in the same
-order from the same seeds, so both packages see the same values; they
-return the dict of numpy arrays that both packages' ``create_dataframe``
-take, instead of writing parquet.  The oracles are plain numpy
-(``np.add.at``/``np.bincount`` for the groups, direct addressing for Q3's
-dense keys), independent of both engines.
+Counterpart of ``spark_rapids_tpu/models/tpch.py`` and
+``spark_rapids_tpu/models/tpch_suite.py``.  The generators are numpy-only
+copies of the reference's column draws, in the same order from the same
+seeds, so both packages see the same values: ``gen_lineitem`` (:21-60),
+``gen_orders`` (:67) and ``gen_customer`` (:102) for Q6/Q1/Q3, and the
+suite's ``gen_db`` (:45) for the other queries (:func:`gen_db_arrays`).
+They return the dicts of numpy arrays that both packages'
+``create_dataframe`` take, instead of writing parquet.  The query bodies
+mirror the suite's ``run_q*``; the oracles are plain numpy
+(``np.add.at``/``np.bincount`` for the groups, ``np.unique`` and
+``np.isin`` for the distinct pairs and the semi/anti joins, direct
+addressing for the dense keys), independent of both engines.
 """
 
 from __future__ import annotations
@@ -18,12 +21,22 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "gen_lineitem_arrays",
-           "gen_orders_arrays", "gen_customer_arrays", "q6", "q1", "q3",
-           "q6_numpy", "q1_numpy", "q3_numpy"]
+__all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
+           "NATIONS", "DB_TABLES", "gen_lineitem_arrays",
+           "gen_orders_arrays", "gen_customer_arrays", "gen_db_arrays",
+           "db_rows", "q6", "q1", "q3", "q4", "q13", "q18", "q21",
+           "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy", "q13_numpy",
+           "q18_numpy", "q21_numpy"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+           "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+           "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+           "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+           "UNITED KINGDOM", "UNITED STATES"]
 Q3_CUTOFF = datetime.date(1995, 3, 15)
 
 
@@ -95,6 +108,131 @@ def gen_customer_arrays(sf: float, seed: int = 19940101,
             "c_mktsegment": rng.choice(np.array(SEGMENTS), n)}
 
 
+# TPC-H shapes of the reference suite's ``gen_db`` (tpch_suite.py:27-44)
+_DB_SF1_ROWS = {"lineitem": 6_001_215, "orders": 1_500_000,
+                "customer": 150_000, "part": 200_000, "supplier": 10_000}
+DB_TABLES = ("customer", "supplier", "orders", "lineitem")
+_DB_SEEDS = {"customer": 1002, "supplier": 1003, "orders": 1006,
+             "lineitem": 1007}
+
+
+def db_rows(table: str, sf: float) -> int:
+    """Rows of ``table`` at ``sf`` in the reference suite's ``gen_db``."""
+    return max(8, int(_DB_SF1_ROWS[table] * sf))
+
+
+def _keep(out: Dict[str, List[np.ndarray]], cols, name: str, make) -> None:
+    """Append ``make()`` to column ``name`` when the caller keeps it; the
+    draws inside ``make`` happen either way, so the stream stays aligned."""
+    arr = make()
+    if cols is None or name in cols:
+        out.setdefault(name, []).append(arr)
+
+
+def gen_db_arrays(sf: float, tables=DB_TABLES, columns=None,
+                  chunk: int = 1_000_000) -> Dict[str, Dict[str, np.ndarray]]:
+    """The reference suite's ``gen_db`` (tpch_suite.py:45) tables as dicts
+    of numpy arrays: the same per-table seeds, the same 1,000,000-row
+    chunks and the same draw order within a chunk, so every value equals
+    what ``gen_db`` writes to parquet.  ``tables`` picks tables (each has
+    its own seed, so skipping one changes no other); ``columns`` maps a
+    table to the columns to return (None: all).  Columns left out are
+    still drawn, then dropped.  Dates come back as ``datetime64[D]``,
+    strings as numpy unicode."""
+    base = np.datetime64("1992-01-01")
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    n_cust, n_supp = db_rows("customer", sf), db_rows("supplier", sf)
+    n_part, n_ord = db_rows("part", sf), db_rows("orders", sf)
+    for table in tables:
+        cols = None if columns is None else columns.get(table)
+        rng = np.random.default_rng(_DB_SEEDS[table])
+        parts: Dict[str, List[np.ndarray]] = {}
+        if table == "customer":
+            n = n_cust
+            _keep(parts, cols, "c_custkey",
+                  lambda: np.arange(1, n + 1, dtype=np.int64))
+            _keep(parts, cols, "c_name", lambda: np.array(
+                [f"Customer#{i:09d}" for i in range(1, n + 1)]))
+            _keep(parts, cols, "c_nationkey", lambda: rng.integers(
+                0, len(NATIONS), n).astype(np.int64))
+            _keep(parts, cols, "c_mktsegment",
+                  lambda: rng.choice(np.array(SEGMENTS), n))
+            _keep(parts, cols, "c_acctbal", lambda: np.round(
+                rng.uniform(-999.99, 9999.99, n), 2))
+            phone = [rng.integers(10, 35, n), rng.integers(100, 999, n),
+                     rng.integers(100, 999, n), rng.integers(1000, 9999, n)]
+            _keep(parts, cols, "c_phone", lambda: np.array(
+                [f"{a}-{b}-{c}-{d}" for a, b, c, d in zip(*phone)]))
+        elif table == "supplier":
+            n = n_supp
+            _keep(parts, cols, "s_suppkey",
+                  lambda: np.arange(1, n + 1, dtype=np.int64))
+            _keep(parts, cols, "s_name", lambda: np.array(
+                [f"Supplier#{i:09d}" for i in range(1, n + 1)]))
+            _keep(parts, cols, "s_nationkey", lambda: rng.integers(
+                0, len(NATIONS), n).astype(np.int64))
+            _keep(parts, cols, "s_acctbal", lambda: np.round(
+                rng.uniform(-999.99, 9999.99, n), 2))
+        elif table == "orders":
+            for off in range(0, n_ord, chunk):
+                m = min(chunk, n_ord - off)
+                odate = base + rng.integers(0, 2406, m).astype(
+                    "timedelta64[D]")
+                _keep(parts, cols, "o_orderkey", lambda: np.arange(
+                    off + 1, off + 1 + m, dtype=np.int64))
+                _keep(parts, cols, "o_custkey", lambda: rng.integers(
+                    1, n_cust + 1, m).astype(np.int64))
+                _keep(parts, cols, "o_orderstatus", lambda: rng.choice(
+                    np.array(["O", "F", "P"]), m))
+                _keep(parts, cols, "o_totalprice", lambda: np.round(
+                    rng.uniform(800.0, 500_000.0, m), 2))
+                _keep(parts, cols, "o_orderdate", lambda: odate)
+                _keep(parts, cols, "o_orderpriority", lambda: rng.choice(
+                    np.array(PRIORITIES), m))
+                _keep(parts, cols, "o_shippriority",
+                      lambda: np.zeros(m, dtype=np.int64))
+        elif table == "lineitem":
+            n_li = db_rows("lineitem", sf)
+            for off in range(0, n_li, chunk):
+                m = min(chunk, n_li - off)
+                ship = base + rng.integers(0, 2526, m).astype(
+                    "timedelta64[D]")
+                commit = ship + rng.integers(-30, 60, m).astype(
+                    "timedelta64[D]")
+                receipt = ship + rng.integers(1, 60, m).astype(
+                    "timedelta64[D]")
+                for name, make in (
+                        ("l_orderkey", lambda: rng.integers(
+                            1, n_ord + 1, m).astype(np.int64)),
+                        ("l_partkey", lambda: rng.integers(
+                            1, n_part + 1, m).astype(np.int64)),
+                        ("l_suppkey", lambda: rng.integers(
+                            1, n_supp + 1, m).astype(np.int64)),
+                        ("l_quantity", lambda: rng.integers(
+                            1, 51, m).astype(np.float64)),
+                        ("l_extendedprice", lambda: np.round(
+                            rng.uniform(900.0, 105000.0, m), 2)),
+                        ("l_discount", lambda: rng.integers(
+                            0, 11, m).astype(np.float64) / 100.0),
+                        ("l_tax", lambda: rng.integers(
+                            0, 9, m).astype(np.float64) / 100.0),
+                        ("l_returnflag", lambda: rng.choice(
+                            np.array(["A", "N", "R"]), m)),
+                        ("l_linestatus", lambda: rng.choice(
+                            np.array(["O", "F"]), m)),
+                        ("l_shipdate", lambda: ship),
+                        ("l_commitdate", lambda: commit),
+                        ("l_receiptdate", lambda: receipt),
+                        ("l_shipmode", lambda: rng.choice(
+                            np.array(SHIPMODES), m))):
+                    _keep(parts, cols, name, make)
+        else:
+            raise ValueError(f"gen_db_arrays does not generate {table!r}")
+        out[table] = {name: np.concatenate(arrs) if len(arrs) > 1
+                      else arrs[0] for name, arrs in parts.items()}
+    return out
+
+
 def q6(df):
     """TPC-H Q6: scan → filter → SUM(price * discount)."""
     from ..sql import functions as F
@@ -140,6 +278,84 @@ def q3(cust, orders, lineitem):
             .agg(F.sum(revenue).alias("revenue"))
             .sort(F.col("revenue").desc(), F.col("o_orderdate"))
             .limit(10))
+
+
+def q4(orders, lineitem):
+    """TPC-H Q4 order priority checking (tpch_suite.py:231 run_q4): orders
+    of one quarter semi-joined to their late lineitems, counted by
+    priority."""
+    from ..sql import functions as F
+    lo, hi = datetime.date(1993, 7, 1), datetime.date(1993, 10, 1)
+    late = lineitem.filter(F.col("l_commitdate") < F.col("l_receiptdate"))
+    return (orders
+            .filter((F.col("o_orderdate") >= lo) & (F.col("o_orderdate") < hi))
+            .join(late, on=[("o_orderkey", "l_orderkey")], how="semi")
+            .group_by("o_orderpriority")
+            .agg(F.count_star().alias("order_count"))
+            .sort("o_orderpriority"))
+
+
+def q13(customer, orders):
+    """TPC-H Q13 customer distribution (tpch_suite.py:403 run_q13): a
+    left outer join of customer to its non-urgent orders, orders counted
+    per customer, customers counted per order count."""
+    from ..sql import functions as F
+    kept = orders.filter(F.col("o_orderpriority") != "1-URGENT")
+    per_cust = (customer
+                .join(kept, on=[("c_custkey", "o_custkey")], how="left")
+                .group_by("c_custkey")
+                .agg(F.count(F.col("o_orderkey")).alias("c_count")))
+    return (per_cust.group_by("c_count")
+            .agg(F.count_star().alias("custdist"))
+            .sort(F.col("custdist").desc(), F.col("c_count").desc()))
+
+
+def q18(orders, lineitem, customer):
+    """TPC-H Q18 large volume customer (tpch_suite.py:484 run_q18): orders
+    whose lineitem quantity passes 300 (a HAVING over a dense GROUP BY),
+    semi-joined, joined to customer for ``c_name``, top 100."""
+    from ..sql import functions as F
+    big = (lineitem.group_by("l_orderkey")
+           .agg(F.sum(F.col("l_quantity")).alias("qty"))
+           .filter(F.col("qty") > 300))
+    return (orders
+            .join(big, on=[("o_orderkey", "l_orderkey")], how="semi")
+            .join(customer, on=[("o_custkey", "c_custkey")])
+            .select("c_name", "o_orderkey", "o_totalprice")
+            .sort(F.col("o_totalprice").desc(), F.col("o_orderkey"))
+            .limit(100))
+
+
+def q21(lineitem, orders, supplier):
+    """TPC-H Q21 suppliers who kept orders waiting (tpch_suite.py:538
+    run_q21), without the reference's ``.cache()`` of the late pairs (the
+    port has no cache yet), so they are computed twice: two DISTINCTs on
+    the hash aggregate, two semi joins, an anti join, an inner join that
+    carries ``s_name``, a GROUP BY ``s_name`` and a top 100."""
+    from ..sql import functions as F
+    late = (lineitem
+            .filter(F.col("l_receiptdate") > F.col("l_commitdate"))
+            .select(F.col("l_orderkey").alias("late_ok"),
+                    F.col("l_suppkey").alias("late_sk")))
+    multi = (lineitem.select("l_orderkey", "l_suppkey").distinct()
+             .group_by("l_orderkey")
+             .agg(F.count_star().alias("n_sups"))
+             .filter(F.col("n_sups") > 1)
+             .select(F.col("l_orderkey").alias("mk")))
+    late_d = late.distinct()
+    multi_late = (late_d.group_by("late_ok")
+                  .agg(F.count_star().alias("n_late"))
+                  .filter(F.col("n_late") > 1)
+                  .select(F.col("late_ok").alias("xk")))
+    return (late_d
+            .join(orders.filter(F.col("o_orderstatus") == "F"),
+                  on=[("late_ok", "o_orderkey")], how="semi")
+            .join(multi, on=[("late_ok", "mk")], how="semi")
+            .join(multi_late, on=[("late_ok", "xk")], how="anti")
+            .join(supplier, on=[("late_sk", "s_suppkey")])
+            .group_by("s_name")
+            .agg(F.count_star().alias("numwait"))
+            .sort(F.col("numwait").desc(), "s_name").limit(100))
 
 
 def q6_numpy(data: Dict[str, np.ndarray]) -> Optional[float]:
@@ -218,3 +434,82 @@ def q3_numpy(cust: Dict[str, np.ndarray], orders: Dict[str, np.ndarray],
     prio = orders["o_shippriority"]
     return [(int(g), odate[g - 1].astype(datetime.date),
              int(prio[g - 1]), float(revenue[g])) for g in top]
+
+
+def _distinct(x: np.ndarray) -> np.ndarray:
+    """The distinct values of an integer array, in order, by a sort: some
+    numpy releases (2.3) take a hash path in ``np.unique`` that runs two
+    orders of magnitude slower on tens of millions of distinct int64."""
+    s = np.sort(x)
+    return s[np.concatenate(([True], s[1:] != s[:-1]))] if len(s) else s
+
+
+def q4_numpy(orders: Dict[str, np.ndarray],
+             lineitem: Dict[str, np.ndarray]) -> List[tuple]:
+    """Q4 over the generator's arrays: (o_orderpriority, order_count) in
+    priority order."""
+    late = _distinct(lineitem["l_orderkey"][
+        lineitem["l_commitdate"] < lineitem["l_receiptdate"]])
+    od = orders["o_orderdate"]
+    m = ((od >= np.datetime64("1993-07-01"))
+         & (od < np.datetime64("1993-10-01"))
+         & np.isin(orders["o_orderkey"], late))
+    prio, cnt = np.unique(orders["o_orderpriority"][m], return_counts=True)
+    return [(str(p), int(c)) for p, c in zip(prio, cnt)]
+
+
+def q13_numpy(customer: Dict[str, np.ndarray],
+              orders: Dict[str, np.ndarray]) -> List[tuple]:
+    """Q13: (c_count, custdist), custdist then c_count descending.
+    c_custkey is 1..n (direct addressing)."""
+    ckey = customer["c_custkey"]
+    if not np.array_equal(ckey, np.arange(1, len(ckey) + 1)):
+        raise ValueError("q13_numpy needs c_custkey = 1..n")
+    kept = orders["o_orderpriority"] != "1-URGENT"
+    per = np.bincount(orders["o_custkey"][kept], minlength=len(ckey) + 1)
+    cc, dist = np.unique(per[ckey], return_counts=True)
+    order = np.lexsort((-cc, -dist))
+    return [(int(cc[i]), int(dist[i])) for i in order]
+
+
+def q18_numpy(orders: Dict[str, np.ndarray], lineitem: Dict[str, np.ndarray],
+              customer: Dict[str, np.ndarray], k: int = 100) -> List[tuple]:
+    """Q18: (c_name, o_orderkey, o_totalprice), totalprice descending then
+    orderkey.  o_orderkey and c_custkey are 1..n."""
+    okey, ckey = orders["o_orderkey"], customer["c_custkey"]
+    if not (np.array_equal(okey, np.arange(1, len(okey) + 1))
+            and np.array_equal(ckey, np.arange(1, len(ckey) + 1))):
+        raise ValueError("q18_numpy needs o_orderkey and c_custkey = 1..n")
+    qty = np.bincount(lineitem["l_orderkey"], weights=lineitem["l_quantity"],
+                      minlength=len(okey) + 1)
+    rows = np.flatnonzero(qty[okey] > 300)
+    price = orders["o_totalprice"][rows]
+    top = rows[np.lexsort((okey[rows], -price))][:k]
+    names = customer["c_name"][orders["o_custkey"][top] - 1]
+    return [(str(n), int(okey[r]), float(orders["o_totalprice"][r]))
+            for n, r in zip(names, top)]
+
+
+def q21_numpy(lineitem: Dict[str, np.ndarray], orders: Dict[str, np.ndarray],
+              supplier: Dict[str, np.ndarray], k: int = 100) -> List[tuple]:
+    """Q21: (s_name, numwait), numwait descending then s_name.  Pairs of
+    (l_orderkey, l_suppkey) are packed into one int64 and deduplicated by
+    a sort; s_suppkey is 1..n."""
+    skey = supplier["s_suppkey"]
+    if not np.array_equal(skey, np.arange(1, len(skey) + 1)):
+        raise ValueError("q21_numpy needs s_suppkey = 1..n")
+    width = np.int64(len(skey) + 1)
+    lok, lsk = lineitem["l_orderkey"], lineitem["l_suppkey"]
+    late = lineitem["l_receiptdate"] > lineitem["l_commitdate"]
+    late_pairs = _distinct(lok[late] * width + lsk[late])
+    all_pairs = _distinct(lok * width + lsk)
+    ok_all, n_sup = np.unique(all_pairs // width, return_counts=True)
+    ok_late, n_late = np.unique(late_pairs // width, return_counts=True)
+    f_orders = orders["o_orderkey"][orders["o_orderstatus"] == "F"]
+    lo = late_pairs // width
+    m = (np.isin(lo, f_orders) & np.isin(lo, ok_all[n_sup > 1])
+         & ~np.isin(lo, ok_late[n_late > 1]))
+    names = supplier["s_name"][late_pairs[m] % width - 1]
+    name, cnt = np.unique(names, return_counts=True)
+    order = np.lexsort((name, -cnt))[:k]
+    return [(str(name[i]), int(cnt[i])) for i in order]

@@ -15,10 +15,12 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
-from ..batch import ColumnBatch, DeviceColumn, DictStringColumn, HostColumn
+from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn, HostColumn,
+                     HostStringColumn)
 
 __all__ = ["compact_packed", "compact", "compact_columns", "compact_kernel",
            "compact_plain", "concat_batches", "CP_MAX_COLS"]
@@ -156,11 +158,29 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
     lengths = [b.num_rows for b in batches]
     cols: List = []
     for i, c in enumerate(first.columns):
-        if not isinstance(c, DeviceColumn):
-            raise NotImplementedError(
-                "concatenating string columns is not ported yet (ROADMAP.md "
-                "queue 2 row 3)")
         parts = [b.columns[i] for b in batches]
+        if isinstance(c, DictStringColumn) and all(
+                isinstance(p, DictStringColumn)
+                and p.dictionary is c.dictionary for p in parts):
+            # codes of one dictionary: comparable as they are
+            cols.append(DictStringColumn(
+                torch.cat([p.codes for p in parts]),
+                cat_valid([p.valid for p in parts], lengths, c.codes),
+                c.dictionary))
+            continue
+        if all(isinstance(p, HostStringColumn) for p in parts):
+            valids = [p.valid for p in parts]
+            valid = None if all(v is None for v in valids) else np.concatenate(
+                [np.ones(len(p.data), dtype=bool) if v is None else v
+                 for p, v in zip(parts, valids)])
+            cols.append(HostStringColumn(
+                np.concatenate([p.data for p in parts]), valid))
+            continue
+        if not all(isinstance(p, DeviceColumn) for p in parts):
+            raise NotImplementedError(
+                "concatenating dictionary codes of different dictionaries, "
+                "or host columns with device columns, is not ported yet "
+                "(ROADMAP.md queue 2 row 3)")
         cols.append(DeviceColumn(
             c.dtype, torch.cat([p.data for p in parts]),
             cat_valid([p.valid for p in parts], lengths, c.data)))

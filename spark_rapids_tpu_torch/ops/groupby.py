@@ -1,16 +1,20 @@
-"""Aggregation reductions: the ungrouped masked reduction and the dense grid.
+"""Aggregation reductions: the ungrouped masked reduction, the dense grid,
+the dense direct-address aggregate and the hash aggregate.
 
 Counterpart of ``spark_rapids_tpu/ops/groupby.py`` (``ungrouped_reduce``
-:396, ``grid_group_reduce`` :424).  The reference reduces each batch to
-partials and merges them with further jitted programs; here every batch
-adds straight into ONE device accumulator per query, which gives the same
-result without the concat/re-reduce passes.
+:396, ``grid_group_reduce`` :424, ``group_reduce`` :251) and of the dense
+programs of ``spark_rapids_tpu/plan/physical.py`` (:1084, :1321).  The
+reference reduces each batch to partials and merges them with further
+jitted programs; here every batch adds straight into ONE device
+accumulator per query, which gives the same result without the
+concat/re-reduce passes.
 
 Each reduction has a hand-written CUDA kernel (``csrc/masked_reduce.cu``,
-``csrc/grid_agg.cu``) and a plain PyTorch version of the same function in
-this module.  ``ungrouped_reduce`` and ``grid_group_reduce`` pick by where
-the tensors lie: CUDA tensors launch the kernel (or raise), CPU tensors run
-the plain version.  Each kernel wrapper counts its launches in
+``csrc/grid_agg.cu``, ``csrc/dense_agg.cu``, ``csrc/hash_agg.cu``) and a
+plain PyTorch version of the same function in this module; the
+dispatching functions and accumulators pick by where the tensors lie:
+CUDA tensors launch the kernel (or raise), CPU tensors run the plain
+version.  Each kernel wrapper counts its launches in
 ``<wrapper>.launches``.
 
 Contributions are ``((data, valid), op)`` pairs as ``aggfns`` makes them;
@@ -28,7 +32,12 @@ from ..batch import live_mask, upload
 
 __all__ = ["init_scalars", "ungrouped_reduce", "masked_reduce",
            "masked_reduce_plain", "GridAccumulator", "grid_group_reduce",
-           "grid_agg", "grid_agg_plain", "grid_size", "grid_uses_shared"]
+           "grid_agg", "grid_agg_plain", "grid_size", "grid_uses_shared",
+           "dense_key_stats", "dense_agg_stats", "dense_agg_stats_plain",
+           "DenseAccumulator", "dense_agg_update", "dense_agg_update_plain",
+           "dense_agg_check", "dense_agg_check_plain", "HashAccumulator",
+           "hash_agg_update", "hash_agg_update_plain", "hash_agg_rehash",
+           "key_word", "key_from_word", "f64_image", "f64_from_image"]
 
 Value = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -784,3 +793,323 @@ def dense_agg_check(acc: DenseAccumulator) -> torch.Tensor:
 
 
 dense_agg_check.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# Hash aggregation: any key tuple, one open-addressing table for the stream
+# ---------------------------------------------------------------------------------
+
+HA_MAX_KEYS = 8             # csrc/hash_agg.cu HA_MAX_KEYS
+HA_MAX_CH = 16              # csrc/hash_agg.cu HA_MAX_CH
+HA_LOAD = 0.5               # groups per slot the table is allowed
+HA_MIN_SLOTS = 1024
+HA_COMPACT_SLOTS = 1 << 20  # larger tables are compacted after a count fetch
+HA_READY = 2                # csrc/hash_agg.cu HA_READY
+_HA_OP = {"sum": 0, "min": 1, "max": 2, "count": 3}
+_F64_SIGNLESS = 0x7FFFFFFFFFFFFFFF
+
+
+def f64_image(x: torch.Tensor, nan_image: int) -> torch.Tensor:
+    """int64 image of float64 values, monotonic with -0.0 below +0.0, NaN
+    mapped to ``nan_image``: the accumulator form of a float64 min/max
+    channel (csrc/hash_agg.cu ``f64_image``)."""
+    b = x.view(torch.int64)
+    img = torch.where(b >= 0, b, b ^ _F64_SIGNLESS)
+    return torch.where(torch.isnan(x), nan_image, img)
+
+
+def f64_from_image(img: torch.Tensor) -> torch.Tensor:
+    """float64 values of :func:`f64_image` images; either NaN image gives
+    NaN."""
+    b = torch.where(img >= 0, img, img ^ _F64_SIGNLESS)
+    out = b.view(torch.float64)
+    nan = (img == _I64_MIN) | (img == _I64_MAX)
+    return torch.where(nan, float("nan"), out)
+
+
+def key_word(data: torch.Tensor) -> torch.Tensor:
+    """int64 word of a group key column: integers, dates, booleans and
+    dictionary codes as they are, floats as ``topk.sortable_view`` images
+    (-0.0 and +0.0 one group, every NaN one group)."""
+    from .topk import sortable_view
+    return sortable_view(data).to(torch.int64).contiguous()
+
+
+def key_from_word(word: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`key_word` into ``dtype`` (NaN comes back as the
+    canonical NaN, -0.0 as +0.0)."""
+    if dtype in (torch.float64, torch.float32):
+        ibits, imin, imax = ((torch.int64, _I64_MIN, _I64_MAX)
+                             if dtype == torch.float64 else
+                             (torch.int32, torch.iinfo(torch.int32).min,
+                              torch.iinfo(torch.int32).max))
+        bits = torch.where(word >= 0, word, imin - word).to(ibits)
+        out = bits.view(dtype)
+        return torch.where(word == imax, float("nan"), out)
+    return word.to(dtype)
+
+
+def _ha_init(op: str, is_f64: bool) -> float:
+    if is_f64:
+        if op in ("min", "max"):
+            edge = float("inf") if op == "min" else float("-inf")
+            return int(f64_image(torch.tensor([edge], dtype=torch.float64),
+                                 0)[0])
+        return 0.0
+    return {"sum": 0, "count": 0, "min": _I64_MAX, "max": _I64_MIN}[op]
+
+
+class HashAccumulator:
+    """The per-query state of the hash aggregation: one table that every
+    batch adds into.
+
+    ``channels`` holds (op, is_f64) per contribution, op in
+    sum/min/max/count.  ``update`` takes each batch's int64 key words with
+    their validity (:func:`key_word`), its contributions and its live
+    mask.  The host keeps an upper bound on the number of groups (the rows
+    added so far, or ``key_bound`` when the keys' domain is smaller); the
+    table grows only when that bound could pass ``HA_LOAD`` of its slots,
+    and then one fetch reads the exact group count first.  ``finish``
+    returns the groups: a large table compacted after one more fetch of
+    their count, a small one under its live mask.
+
+    On a CUDA device the table is open addressing over ``cap`` slots
+    (``csrc/hash_agg.cu``); on the CPU, or with ``plain=True`` on either
+    device, the plain version keeps the groups dense
+    (``hash_agg_update_plain``), with the same growth decisions and
+    fetches.  ``collide`` sends every key to one bucket (a test of the
+    kernel's probing)."""
+
+    def __init__(self, nkeys: int, channels: Sequence[Tuple[str, bool]],
+                 device, key_bound: Optional[int] = None,
+                 collide: bool = False, plain: Optional[bool] = None):
+        if not 1 <= nkeys <= HA_MAX_KEYS or len(channels) > HA_MAX_CH:
+            raise ValueError(f"the hash aggregation takes 1..{HA_MAX_KEYS} "
+                             f"keys and at most {HA_MAX_CH} channels")
+        self.nkeys = nkeys
+        self.channels = list(channels)
+        self.device = torch.device(device)
+        self.key_bound = key_bound
+        self.collide = collide
+        self.kernel = self.device.type == "cuda" if plain is None \
+            else not plain
+        self.cap = 0
+        self.bound = 0
+        self.growths = 0
+        self.ngroups = torch.zeros(1, dtype=torch.int64, device=self.device)
+
+    def _limit_bound(self, n: int) -> int:
+        return n if self.key_bound is None else min(n, self.key_bound)
+
+    def _alloc(self, cap: int):
+        dev = self.device
+        acc = []
+        for op, is_f64 in self.channels:
+            init = _ha_init(op, is_f64)
+            dtype = torch.float64 if is_f64 and op == "sum" else torch.int64
+            n = cap if self.kernel else 0
+            acc.append(torch.full((n,), init, dtype=dtype, device=dev))
+        if not self.kernel:  # the plain version keeps the groups dense
+            return (None, torch.empty((self.nkeys, 0), dtype=torch.int64,
+                                      device=dev),
+                    torch.empty(0, dtype=torch.int32, device=dev), acc)
+        return (torch.zeros(cap, dtype=torch.int32, device=dev),
+                torch.empty((self.nkeys, cap), dtype=torch.int64, device=dev),
+                torch.empty(cap, dtype=torch.int32, device=dev), acc)
+
+    @staticmethod
+    def _slots_for(groups: int) -> int:
+        need = max(HA_MIN_SLOTS, int(groups / HA_LOAD))
+        return 1 << (need - 1).bit_length()
+
+    def _reserve(self, n: int) -> None:
+        """Make room for ``n`` more rows' groups: fetch the exact count and
+        grow only when the host's bound says the table could fill."""
+        if self.cap == 0:
+            self.cap = self._slots_for(self._limit_bound(2 * n))
+            self.state, self.keys, self.nulls, self.acc = \
+                self._alloc(self.cap)
+            return
+        limit = int(self.cap * HA_LOAD)
+        if self._limit_bound(self.bound + n) <= limit:
+            return
+        from ..utils.metrics import fetch
+        self.bound = int(fetch(self.ngroups)[0])
+        if self._limit_bound(self.bound + n) <= limit:
+            return
+        self.growths += 1
+        self._grow(self._slots_for(self._limit_bound(2 * (self.bound + n))))
+
+    def _grow(self, cap: int) -> None:
+        old = (self.state, self.keys, self.nulls, self.acc, self.cap)
+        new = self._alloc(cap)
+        if self.kernel:
+            hash_agg_rehash(self, old, new, cap)
+            self.state, self.keys, self.nulls, self.acc = new
+        self.cap = cap
+
+    def update(self, words: Sequence[Value],
+               contributions: Sequence[Value],
+               active: Optional[torch.Tensor], n: int) -> None:
+        """Adds one batch of ``n`` rows (in place)."""
+        if len(words) != self.nkeys or len(contributions) != len(
+                self.channels):
+            raise ValueError("keys/contributions do not match the "
+                             "accumulator's layout")
+        self._reserve(n)
+        words = [(_column(d, n), _column(v, n)) for d, v in words]
+        contributions = [(_column(d, n), _column(v, n))
+                         for d, v in contributions]
+        run = hash_agg_update if self.kernel else hash_agg_update_plain
+        run(self, words, contributions, active, n)
+        self.bound = self._limit_bound(self.bound + n)
+
+    def finish(self):
+        """(per key its int64 words and validity; per channel its values —
+        float64 min/max decoded from their images; the live mask or None),
+        every list in one slot order.  A table of more than
+        ``HA_COMPACT_SLOTS`` slots is compacted to its groups after one
+        fetch of their count; a smaller one comes back whole under its
+        live mask, with no fetch.  The plain version's groups are dense
+        already; it makes the same fetch, so counts agree."""
+        from ..utils.metrics import fetch
+        if self.cap == 0:
+            self._reserve(0)
+        groups = int(fetch(self.ngroups)[0]) \
+            if self.cap > HA_COMPACT_SLOTS else None
+        live = None
+        words, nulls, acc = list(self.keys), self.nulls, self.acc
+        if self.kernel and groups is None:
+            live = self.state == HA_READY
+        elif self.kernel:
+            from .batch_utils import compact_columns
+            cols = [(w, None) for w in words] + [(nulls, None)] \
+                + [(a, None) for a in acc]
+            packed = [d for d, _ in compact_columns(
+                cols, self.state == HA_READY, groups)]
+            words, nulls, acc = (packed[:self.nkeys], packed[self.nkeys],
+                                 packed[self.nkeys + 1:])
+        keys = [(w, (nulls >> i) & 1 == 0) for i, w in enumerate(words)]
+        values = []
+        for (op, is_f64), a in zip(self.channels, acc):
+            values.append(f64_from_image(a) if is_f64 and op != "sum" else a)
+        return keys, values, live
+
+
+def _tuple_matrix(words, nulls) -> torch.Tensor:
+    """[n, 1 + nkeys] int64 rows (null bits, words) that identify a
+    group."""
+    return torch.stack([nulls.to(torch.int64)] + list(words), 1)
+
+
+def hash_agg_update_plain(acc: HashAccumulator, words, contributions,
+                          active, n: int) -> None:
+    """Plain PyTorch version of ``hash_agg_update``: the groups stay dense
+    (``acc.keys`` [nkeys, G], ``acc.nulls`` [G], ``acc.acc`` [G] per
+    channel); each batch's tuples merge into them through ``torch.unique``
+    and its contributions add by ``index_add_``/``scatter_reduce_``."""
+    dev = acc.device
+    rows = torch.arange(n, device=dev) if active is None \
+        else active.nonzero().squeeze(1)
+    nulls = torch.zeros(rows.numel(), dtype=torch.int32, device=dev)
+    bw = []
+    for i, (d, v) in enumerate(words):
+        w = d[rows]
+        if v is not None:
+            ok = v[rows]
+            w = torch.where(ok, w, 0)
+            nulls |= (~ok).to(torch.int32) << i
+        bw.append(w)
+    old = _tuple_matrix(list(acc.keys), acc.nulls)
+    G = old.shape[0]
+    both = torch.cat([old, _tuple_matrix(bw, nulls)]) if bw else old
+    uniq, inv = torch.unique(both, dim=0, return_inverse=True)
+    groups = uniq.shape[0]
+    new_acc = []
+    for (op, is_f64), a in zip(acc.channels, acc.acc):
+        fresh = torch.full((groups,), _ha_init(op, is_f64), dtype=a.dtype,
+                           device=dev)
+        fresh[inv[:G]] = a
+        new_acc.append(fresh)
+    slot = inv[G:]
+    for (d, v), (op, is_f64), a in zip(contributions, acc.channels, new_acc):
+        m = torch.ones(rows.numel(), dtype=torch.bool, device=dev) \
+            if v is None else v[rows]
+        s = slot[m]
+        if op == "count":
+            a.index_add_(0, s, torch.ones_like(s))
+            continue
+        x = d[rows][m]
+        if op == "sum":
+            a.index_add_(0, s, x.to(a.dtype))
+        else:
+            if is_f64:
+                x = f64_image(x, _I64_MIN if op == "min" else _I64_MAX)
+            a.scatter_reduce_(0, s, x, "amin" if op == "min" else "amax")
+    acc.ngroups.fill_(groups)
+    acc.nulls = uniq[:, 0].to(torch.int32)
+    acc.keys = uniq[:, 1:].T.contiguous()
+    acc.acc = new_acc
+
+
+def hash_agg_update(acc: HashAccumulator, words, contributions, active,
+                    n: int) -> None:
+    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
+    if active is not None:
+        _check_column(active, n, (torch.bool,), "active")
+    for d, v in words:
+        _check_column(d, n, (torch.int64,), "key word")
+        if v is not None:
+            _check_column(v, n, (torch.bool,), "key valid")
+    data, valid, ops, f64 = [], [], [], []
+    for (d, v), (op, is_f64) in zip(contributions, acc.channels):
+        if op == "count":
+            if d is not None:
+                raise ValueError("a count channel takes no data")
+        else:
+            _check_column(d, n, (torch.float64 if is_f64 else torch.int64,),
+                          "contribution")
+        if v is not None:
+            _check_column(v, n, (torch.bool,), "contribution valid")
+        data.append(_opt_ptr(d))
+        valid.append(_opt_ptr(v))
+        ops.append(_HA_OP[op])
+        f64.append(int(is_f64))
+    if n == 0:
+        return
+    P = kernels.pointer_array
+    lib = kernels.load("hash_agg")
+    rc = lib.hash_agg_update(
+        acc.nkeys, P([d.data_ptr() for d, _ in words]),
+        P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
+        P(valid), kernels.int_array(ops), kernels.int_array(f64),
+        P([a.data_ptr() for a in acc.acc]), _opt_ptr(active), n,
+        acc.state.data_ptr(), acc.keys.data_ptr(), acc.nulls.data_ptr(),
+        acc.cap, int(acc.collide), acc.ngroups.data_ptr(),
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "hash_agg_update", rc)
+    hash_agg_update.launches += 1
+
+
+hash_agg_update.launches = 0
+
+
+def hash_agg_rehash(acc: HashAccumulator, old, new, new_cap: int) -> None:
+    """Launch ``hash_agg_rehash`` of ``csrc/hash_agg.cu``: every group of
+    the ``old`` table (state, keys, nulls, accumulators, cap) into the
+    empty ``new`` one of ``new_cap`` slots."""
+    o_state, o_keys, o_nulls, o_acc, o_cap = old
+    n_state, n_keys, n_nulls, n_acc = new
+    P = kernels.pointer_array
+    lib = kernels.load("hash_agg")
+    rc = lib.hash_agg_rehash(
+        acc.nkeys, len(acc.channels), o_state.data_ptr(), o_keys.data_ptr(),
+        o_nulls.data_ptr(), o_cap, P([a.data_ptr() for a in o_acc]),
+        n_state.data_ptr(), n_keys.data_ptr(), n_nulls.data_ptr(), new_cap,
+        P([a.data_ptr() for a in n_acc]), int(acc.collide),
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "hash_agg_rehash", rc)
+    hash_agg_rehash.launches += 1
+
+
+hash_agg_rehash.launches = 0

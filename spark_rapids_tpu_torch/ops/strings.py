@@ -7,6 +7,13 @@ strings at the output boundary.  The dictionary is incremental and
 query-scoped: every batch extends the same mapping, so codes stay
 comparable across batches.  Code order is insertion order, valid for
 equality (grouping) only, never for ORDER BY.
+
+:func:`encode_column` gives any string column as device codes: a host
+column is encoded once and the encoding cached on the column object (the
+in-memory scan hands out the same objects on every run); dictionary codes
+that arrive from a join are adopted verbatim when their dictionary is the
+one in use, and remapped into it otherwise, so codes of different
+dictionaries are never compared.
 """
 
 from __future__ import annotations
@@ -14,8 +21,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["StringDictionary"]
+__all__ = ["StringDictionary", "encode_column"]
 
 
 class StringDictionary:
@@ -24,6 +32,22 @@ class StringDictionary:
     def __init__(self):
         self._code_of: Dict[str, int] = {}
         self._values: List[str] = []
+        self._array: Optional[np.ndarray] = None
+        # the values array this dictionary was adopted from: codes that
+        # refer to it are this dictionary's codes
+        self.source: Optional[np.ndarray] = None
+        # id(values array) -> (values array, device remap into this one)
+        self.remaps: Dict[int, tuple] = {}
+
+    @classmethod
+    def from_values(cls, values: np.ndarray) -> "StringDictionary":
+        """A dictionary whose codes are the positions in ``values``
+        (distinct strings, as a join's dictionary holds)."""
+        d = cls()
+        d._values = [str(v) for v in values]
+        d._code_of = {v: i for i, v in enumerate(d._values)}
+        d.source = values
+        return d
 
     def __len__(self) -> int:
         return len(self._values)
@@ -52,7 +76,47 @@ class StringDictionary:
         return codes, valid
 
     def values(self) -> np.ndarray:
-        """The dictionary as an object array: ``values()[code]``."""
-        out = np.empty(len(self._values), dtype=object)
-        out[:] = self._values
-        return out
+        """The dictionary as an object array: ``values()[code]``.  The same
+        array object comes back until the dictionary grows, so columns
+        coded against one snapshot share it (``DictStringColumn``
+        identity)."""
+        if self._array is None or len(self._array) != len(self._values):
+            self._array = np.empty(len(self._values), dtype=object)
+            self._array[:] = self._values
+        return self._array
+
+
+def encode_column(col, d: Optional[StringDictionary], device: torch.device):
+    """(dictionary, device int32 codes, device valid-or-None) of a string
+    column under dictionary ``d`` (None: the column's own or a new one).
+
+    A ``HostStringColumn`` is encoded on the host and its encoding cached
+    on the column object; a query with no dictionary yet adopts the cached
+    one.  A ``DictStringColumn``'s codes are used verbatim when its
+    dictionary is ``d``'s source (or ``d`` is None, which adopts it), and
+    otherwise remapped into ``d`` through a device gather."""
+    from ..batch import DictStringColumn, upload
+    if isinstance(col, DictStringColumn):
+        if d is None:
+            d = StringDictionary.from_values(col.dictionary)
+        if d.source is col.dictionary:
+            return d, col.codes, col.valid
+        if len(col.dictionary) == 0:  # every row is null
+            return d, torch.zeros_like(col.codes), col.valid
+        hit = d.remaps.get(id(col.dictionary))
+        if hit is None or hit[0] is not col.dictionary:
+            codes, _ = d.encode(np.asarray(col.dictionary, dtype=object))
+            hit = (col.dictionary,
+                   upload(torch.from_numpy(codes), col.codes.device))
+            d.remaps[id(col.dictionary)] = hit
+        return d, hit[1][col.codes.to(torch.int64)], col.valid
+    cached = col._enc_cache
+    if cached is not None and cached[1].device == device \
+            and (d is None or cached[0] is d):
+        return cached
+    d = d if d is not None else StringDictionary()
+    codes, valid = d.encode(col.data, col.valid)
+    col._enc_cache = (d, upload(torch.from_numpy(codes), device),
+                      None if valid is None
+                      else upload(torch.from_numpy(valid), device))
+    return col._enc_cache

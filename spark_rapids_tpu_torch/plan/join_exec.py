@@ -1,40 +1,52 @@
-"""Broadcast joins on the dense direct-address path.
+"""Broadcast joins on one integral key: the dense path and the CSR path.
 
 Counterpart of ``spark_rapids_tpu/plan/join_exec.py``: the broadcast
 exchange (``BroadcastExchangeExec``, whose build side is materialized
-whole, ``materialize_whole`` :62), the broadcast join's dense path for
-inner joins on one integral key (``_dense_static_ok`` :1145,
-``execute`` :1572) and the build-side choice (``plan_broadcast_join``
-:1846).  The phases run through ``ops/join.py`` and its kernel
-``csrc/dense_join.cu``.
+whole, ``materialize_whole`` :62), the broadcast join's dense path
+(``_dense_static_ok`` :1145, ``_dense_join_pair`` :1410) and CSR path
+(``_csr_match_state`` :1040 with ``_semi_anti`` :690 and ``_outer_join``
+:697) for inner, left outer, semi and anti joins, and the build-side
+choice (``plan_broadcast_join`` :1846, ``_legal_build_sides`` :1838).  The
+phases run through ``ops/join.py`` and its kernels ``csrc/dense_join.cu``
+and ``csrc/csr_join.cu``.
 
-A join costs one blocking fetch: the build keys' min, max and count, which
-size the table.  Whether a build key repeats is counted on the device
-while the table is built and read by the query's next fetch
-(``QueryStats.defer_check``), which raises before any row reaches the
-caller.  Everything the dense path does not cover raises
-``NotImplementedError`` naming its ROADMAP row: joins that are not inner
-(row 7), several keys, keys that are not integral, repeated build keys,
-a key domain over ``denseDomainCap`` or a probe side under
-``denseMinProbeRows`` (the CSR and sorted broadcast paths, row 6′), and
-joins whose sides both exceed the broadcast threshold (the shuffled
-sort-merge join, row 7).  The reference's dynamic partition pruning
-(``_inject_dpp`` :1522) prunes parquet row groups; the port reads
-in-memory columns, so it is not ported (ROADMAP item 9).
+A join's one planning fetch reads the build keys' min, max, count and
+duplicate count, as the reference's stats program does: a build without
+repeated keys takes the dense table (key - kmin → build row), whose probe
+passes each probe batch through under a selection mask with the build
+columns gathered beside it (left: null where unmatched) and costs no
+fetch; a build that repeats keys takes the CSR path (per-slot counts and
+starts and a stable build permutation), whose semi and anti probes are
+selections again, and whose inner and left probes expand into gather
+maps at one fetch per probe batch (the output size), as the reference's
+``_outer_join`` does.  String columns ride as int32 dictionary codes
+(``DictStringColumn``), as the reference's ``_dense_payload_fields``
+:1168 and ``_gather_cols`` :1904 do.
+
+What neither path covers raises ``NotImplementedError`` naming its ROADMAP
+row: right, full and cross joins and joins whose sides both exceed the
+broadcast threshold (the shuffled sort-merge join, row 7), several keys,
+keys that are not integral, a key domain over ``denseDomainCap`` and a
+probe side under ``denseMinProbeRows`` (the sorted broadcast path, row
+6′).  The reference's dynamic partition pruning (``_inject_dpp`` :1522)
+prunes parquet row groups; the port reads in-memory columns, so it is not
+ported (ROADMAP item 9).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from .. import types as T
-from ..batch import ColumnBatch, DeviceColumn, HostStringColumn, Schema
+from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn,
+                     HostStringColumn, Schema)
 from ..exprs import EvalContext, bind
 from ..ops import batch_utils, join
-from ..utils.metrics import QueryStats, fetch
+from ..ops.strings import encode_column
+from ..utils.metrics import fetch
 from . import logical as L
 from .cbo import estimate_rows, estimated_bytes
 from .physical import ExecContext, TpuExec, _device_arrays
@@ -44,6 +56,9 @@ __all__ = ["BroadcastExchangeExec", "BroadcastJoinExec",
 
 _CANON = {"left_outer": "left", "right_outer": "right", "full_outer": "full",
           "left_semi": "semi", "left_anti": "anti"}
+# sides that may be broadcast: never the row-preserving side
+_LEGAL_BUILD_SIDES = {"inner": (1, 0), "left": (1,), "semi": (1,),
+                      "anti": (1,)}
 
 
 def _not_ported(what: str, row: str) -> NotImplementedError:
@@ -53,7 +68,7 @@ def _not_ported(what: str, row: str) -> NotImplementedError:
 
 class BroadcastExchangeExec(TpuExec):
     """The build side, materialized once as one batch: every child batch
-    concatenated, selection masks kept (the dense build folds them in, so
+    concatenated, selection masks kept (the build kernels fold them in, so
     no live count is fetched)."""
 
     def __init__(self, child: TpuExec):
@@ -76,15 +91,35 @@ class BroadcastExchangeExec(TpuExec):
         yield self.materialize(ctx)
 
 
+def _device_values(col, device):
+    """(data, valid, dictionary or None) of a column on the device:
+    string columns as int32 dictionary codes."""
+    if isinstance(col, DeviceColumn):
+        return col.data, col.valid, None
+    d, codes, valid = encode_column(col, None, device)
+    dictionary = col.dictionary if isinstance(col, DictStringColumn) \
+        else d.values()
+    return codes, valid, dictionary
+
+
+def _column(dtype: T.DataType, data, valid, dictionary):
+    if dictionary is not None:
+        return DictStringColumn(data, valid, dictionary)
+    return DeviceColumn(dtype, data, valid)
+
+
 class BroadcastJoinExec(TpuExec):
-    """Inner equi-join of a streamed probe side against a broadcast build
-    side on one integral key, by direct addressing: the table maps
-    key - kmin to the build row, and each probe batch passes through
-    under a selection mask with the build columns gathered beside it."""
+    """Equi-join of a streamed probe side against a broadcast build side
+    on one integral key: inner (either side builds), left outer, semi and
+    anti (the right side builds)."""
 
     def __init__(self, plan: L.Join, left: TpuExec, right: TpuExec,
                  build_side: int):
         super().__init__([left, right])
+        self.how = _CANON.get(plan.how, plan.how)
+        if build_side not in _LEGAL_BUILD_SIDES[self.how]:
+            raise ValueError(f"cannot broadcast side {build_side} of a "
+                             f"{self.how} join")
         self.build_side = build_side
         self.using = list(plan.using)
         self._schema = plan.schema()
@@ -94,15 +129,19 @@ class BroadcastJoinExec(TpuExec):
         for k in self.keys:
             if not k.dtype.is_integral and k.dtype.kind != T.TypeKind.DATE:
                 raise _not_ported(
-                    f"a join on a {k.dtype} key (the dense path takes "
-                    f"integral and date keys; the sorted broadcast path)",
-                    "6′")
+                    f"a join on a {k.dtype} key (the dense and CSR paths "
+                    f"take integral and date keys; the sorted broadcast "
+                    f"path)", "6′")
         wide = any(k.dtype.torch_dtype == torch.int64 for k in self.keys)
         self.key_dtype = torch.int64 if wide else torch.int32
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
+
+    def node_desc(self) -> str:
+        side = "left" if self.build_side == 0 else "right"
+        return f"TpuBroadcastHashJoin [{self.how}] build={side}"
 
     def _key(self, side: int, b: ColumnBatch, device):
         d, v = self.keys[side].eval(EvalContext(_device_arrays(b),
@@ -115,81 +154,144 @@ class BroadcastJoinExec(TpuExec):
         return d.to(self.key_dtype).contiguous(), \
             None if v is None else v.contiguous()
 
-    def _payload(self, build: ColumnBatch):
-        """(build schema index, (data, valid)) of every build column the
-        output carries."""
+    def _payload(self, build: ColumnBatch, device):
+        """(field, data, valid, dictionary) of every build column an inner
+        or left join carries; none for semi and anti."""
+        if self.how in ("semi", "anti"):
+            return []
         using = set(self.using) if self.build_side == 1 else set()
-        out = []
-        for i, (f, c) in enumerate(zip(build.schema, build.columns)):
-            if f.name in using:
-                continue
-            if not isinstance(c, DeviceColumn):
-                raise _not_ported(
-                    f"the string column {f.name} on a join's build side "
-                    f"(string payloads ride as dictionary codes in the "
-                    f"reference)", "6′")
-            out.append((i, (c.data, c.valid)))
-        return out
+        return [(f, *_device_values(c, device))
+                for f, c in zip(build.schema, build.columns)
+                if f.name not in using]
+
+    def _assemble(self, probe_cols, built, n: int,
+                  sel: Optional[torch.Tensor]) -> ColumnBatch:
+        """The output batch: build columns then probe columns when the left
+        side builds, else probe then build; a using key's copy on the
+        right side is dropped."""
+        cols = built + probe_cols if self.build_side == 0 \
+            else probe_cols + built
+        return ColumnBatch(self._schema, cols, n, sel)
+
+    def _probe_columns(self, probe: ColumnBatch) -> list:
+        using = set(self.using) if self.build_side == 0 else set()
+        return [(f, c) for f, c in zip(probe.schema, probe.columns)
+                if f.name not in using]
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
         m = ctx.metric_set(self.op_id)
         device = ctx.device
-        bs, ps = self.build_side, 1 - self.build_side
+        bs = self.build_side
         build = self.children[bs].materialize(ctx)
+        cap = ctx.conf["spark.rapids.tpu.join.denseDomainCap"]
         with m.time("buildTime"):
             bkey, bvalid = self._key(bs, build, device)
-            kmin, kmax, n_valid = (int(x) for x in fetch(
-                join.join_key_stats(bkey, bvalid, build.sel)))
+            kmin, kmax, n_valid, dup = (int(x) for x in fetch(
+                join.join_key_stats(bkey, bvalid, build.sel, max(cap, 1))))
         if n_valid == 0:
-            return  # an inner join with an empty build side has no rows
-        cap = ctx.conf["spark.rapids.tpu.join.denseDomainCap"]
+            if self.how in ("inner", "semi"):
+                return  # nothing can match
+            kmin, kmax, dup = 0, 0, 0  # a one-slot table that matches none
         if kmax - kmin + 1 > cap:
             raise _not_ported(
                 f"a broadcast join whose build keys span {kmax - kmin + 1} "
                 f"values, over spark.rapids.tpu.join.denseDomainCap={cap} "
-                f"(the CSR and sorted broadcast paths)", "6′")
+                f"(the sorted broadcast path)", "6′")
+        D = kmax - kmin + 1
+        if dup == 0:
+            m.add("joinDensePath", 1)
+            yield from self._dense(ctx, m, build, bkey, bvalid, kmin, D)
+        else:
+            m.add("joinCsrPath", 1)
+            yield from self._csr(ctx, m, build, bkey, bvalid, kmin, D)
+
+    def _probe_batches(self, ctx):
+        for probe in self.children[1 - self.build_side].execute(ctx):
+            if probe.num_rows:
+                yield probe
+
+    def _dense(self, ctx, m, build, bkey, bvalid, kmin: int, D: int):
+        """Unique build keys: the direct-address table, sync-free probes."""
+        device = ctx.device
         with m.time("buildTime"):
-            table, dup = join.build_join_table(bkey, bvalid, build.sel,
-                                               kmin, kmax - kmin + 1)
-            QueryStats.get().defer_check(dup, str(_not_ported(
-                "a broadcast join whose build side repeats a key (the CSR "
-                "and sorted broadcast paths)", "6′")))
-            payload = self._payload(build)
-        using = set(self.using) if bs == 0 else set()
-        for probe in self.children[ps].execute(ctx):
-            if probe.num_rows == 0:
+            table = join.build_join_table(bkey, bvalid, build.sel, kmin, D)
+            payload = self._payload(build, device)
+        for probe in self._probe_batches(ctx):
+            with m.time("opTime"):
+                pkey, pvalid = self._key(1 - self.build_side, probe, device)
+                sel, gathered = join.probe_join(
+                    pkey, pvalid, probe.sel, kmin, table,
+                    [(d, v) for _, d, v, _ in payload], self.how)
+            m.add("numOutputBatches", 1)
+            if self.how in ("semi", "anti"):
+                yield ColumnBatch(self._schema, probe.columns, probe.num_rows,
+                                  sel)
+                continue
+            built = [_column(f.dtype, d, v, dct) for (f, _, _, dct), (d, v)
+                     in zip(payload, gathered)]
+            yield self._assemble([c for _, c in self._probe_columns(probe)],
+                                 built, probe.num_rows, sel)
+
+    def _csr(self, ctx, m, build, bkey, bvalid, kmin: int, D: int):
+        """Repeated build keys: counts, starts and the stable build
+        permutation once; per probe batch a selection (semi, anti) or the
+        gather maps of its output rows (inner, left: one fetch of the
+        output size)."""
+        device = ctx.device
+        with m.time("buildTime"):
+            counts, starts, b_perm = join.csr_build(bkey, bvalid, build.sel,
+                                                    kmin, D)
+            payload = self._payload(build, device)
+        for probe in self._probe_batches(ctx):
+            with m.time("opTime"):
+                pkey, pvalid = self._key(1 - self.build_side, probe, device)
+                got = join.csr_probe(pkey, pvalid, probe.sel, kmin, counts,
+                                     starts, self.how)
+            m.add("numOutputBatches", 1)
+            if self.how in ("semi", "anti"):
+                yield ColumnBatch(self._schema, probe.columns, probe.num_rows,
+                                  got)
+                continue
+            lo, offsets = got
+            total = int(fetch(offsets[-1:])[0])
+            if total == 0:
                 continue
             with m.time("opTime"):
-                pkey, pvalid = self._key(ps, probe, device)
-                sel, gathered = join.probe_join(pkey, pvalid, probe.sel, kmin,
-                                                table, [v for _, v in payload])
-            built = [DeviceColumn(build.schema.fields[i].dtype, d, v)
-                     for (i, _), (d, v) in zip(payload, gathered)]
-            passed = [c for f, c in zip(probe.schema, probe.columns)
-                      if f.name not in using]
-            cols = built + passed if bs == 0 else passed + built
-            m.add("numOutputBatches", 1)
-            yield ColumnBatch(self._schema, cols, probe.num_rows, sel)
+                pi, bi = join.csr_expand(offsets, lo, b_perm, total)
+                pcols = [(f, *_device_values(c, device))
+                         for f, c in self._probe_columns(probe)]
+                p_out = join.gather_rows(pi, [(d, v) for _, d, v, _ in pcols],
+                                         nullable=False)
+                b_out = join.gather_rows(bi, [(d, v) for _, d, v, _ in
+                                              payload],
+                                         nullable=self.how == "left")
+            passed = [_column(f.dtype, d, v, dct) for (f, _, _, dct), (d, v)
+                      in zip(pcols, p_out)]
+            built = [_column(f.dtype, d, v, dct) for (f, _, _, dct), (d, v)
+                     in zip(payload, b_out)]
+            yield self._assemble(passed, built, total, None)
 
 
 def plan_broadcast_join(plan: L.Join, left: TpuExec, right: TpuExec,
                         conf) -> BroadcastJoinExec:
-    """The reference's build-side choice: the smaller side whose estimate
-    fits ``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` builds.  Only
-    what the dense inner path runs is ported; the rest raises."""
+    """The reference's build-side choice: among the sides that may be
+    broadcast for the join type, the smaller one whose estimate fits
+    ``spark.rapids.tpu.sql.autoBroadcastJoinThreshold`` builds.  Only what
+    the dense and CSR paths run is ported; the rest raises."""
     how = _CANON.get(plan.how, plan.how)
-    if how != "inner":
-        raise _not_ported(f"a {plan.how} join (outer, semi, anti and cross "
-                          f"joins)", "7")
+    legal = _LEGAL_BUILD_SIDES.get(how)
+    if legal is None:
+        raise _not_ported(f"a {plan.how} join (right, full and cross joins "
+                          f"plan the shuffled join)", "7")
     if len(plan.left_keys) != 1:
         raise _not_ported(f"an equi-join on {len(plan.left_keys)} keys (the "
                           f"sorted broadcast path)", "6′")
     threshold = conf["spark.rapids.tpu.sql.autoBroadcastJoinThreshold"]
     ests = [estimated_bytes(c) for c in plan.children]
-    fits = [s for s in (1, 0) if threshold >= 0 and ests[s] is not None
+    fits = [s for s in legal if threshold >= 0 and ests[s] is not None
             and ests[s] <= threshold]
     if not fits:
-        raise _not_ported("a join whose sides both exceed "
+        raise _not_ported("a join whose broadcastable side exceeds "
                           "spark.rapids.tpu.sql.autoBroadcastJoinThreshold "
                           "(the shuffled sort-merge join)", "7")
     build_side = min(fits, key=lambda s: ests[s])

@@ -1,6 +1,6 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, sort, join, limit)."""
+aggregate, distinct, sort, join, limit)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from ..batch import Field, Schema
 from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "Sort", "SortOrder", "Join", "Limit"]
+           "Distinct", "Sort", "SortOrder", "Join", "Limit"]
 
 
 class LogicalPlan:
@@ -91,6 +91,17 @@ class Aggregate(LogicalPlan):
                 f" aggs=[{', '.join(n for n, _ in self.agg_exprs)}]")
 
 
+class Distinct(LogicalPlan):
+    """The distinct rows of the child: a GROUP BY every column with no
+    aggregate (reference ``logical.py:186``)."""
+
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
 class SortOrder:
     def __init__(self, expr: Expression, ascending: bool = True,
                  nulls_first: Optional[bool] = None):
@@ -118,7 +129,8 @@ class Sort(LogicalPlan):
 class Join(LogicalPlan):
     """Equi-join on ``left_keys[i] = right_keys[i]``; ``using`` (set by
     ``DataFrame.join`` on column names) drops the right side's copies of
-    the key columns."""
+    the key columns.  A semi or anti join keeps the left schema only; a
+    left outer join makes the right side's fields nullable."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: List[Expression], right_keys: List[Expression],

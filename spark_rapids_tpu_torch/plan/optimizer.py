@@ -272,6 +272,9 @@ def prune_columns(plan: L.LogicalPlan,
         need = _refs(e for _, e in plan.group_exprs + plan.agg_exprs)
         return L.Aggregate(prune_columns(plan.children[0], need),
                            plan.group_exprs, plan.agg_exprs)
+    if isinstance(plan, L.Distinct):
+        # every column is a group key: the child keeps them all
+        return L.Distinct(prune_columns(plan.children[0], None))
     if isinstance(plan, L.Sort):
         need = None if required is None else (
             required | _refs(o.expr for o in plan.orders))
@@ -283,6 +286,9 @@ def prune_columns(plan: L.LogicalPlan,
         lnames = set(plan.children[0].schema().names())
         rnames = set(plan.children[1].schema().names())
         lreq = rreq = None
+        # a semi or anti join outputs the left side only, so what the plan
+        # above requires leaves its right side just the keys (and a
+        # condition's columns), as the reference prunes (pushdown.py:190)
         if required is not None:
             lreq = {c for c in required if c in lnames} \
                 | _refs(plan.left_keys)

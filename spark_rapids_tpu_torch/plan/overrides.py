@@ -11,9 +11,12 @@ counterpart).
 
 The plan is optimized first (``optimizer.optimize``: filter pushdown and
 column pruning), for execution and explain alike.  The port has one CPU
-operator so far, the host sort that TPC-H Q1's ORDER BY on string keys
-needs; any other fallback, and any device operator not ported yet, raises
-``NotImplementedError`` naming its ROADMAP item.
+operator so far, the host sort that an ORDER BY on string keys needs
+(TPC-H Q1, Q4, Q21); any other fallback, and any device operator not
+ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
+``Distinct`` becomes an aggregate grouped on every column (reference
+``overrides.py:405``); a device ORDER BY becomes ``SortExec`` and a LIMIT
+over anything but a device ORDER BY ``LimitExec`` (``exec_nodes.py``).
 """
 
 from __future__ import annotations
@@ -130,7 +133,9 @@ class NodeMeta:
                                   allow_string_preds=True):
                 self.will_not_work(f"condition: {r}")
             return
-        if isinstance(p, L.Limit):
+        if isinstance(p, (L.Limit, L.Distinct)):
+            # Distinct groups by bare column references: string columns
+            # go through dictionary codes like any group key
             return
         if isinstance(p, L.Join):
             for keys, child, side in ((p.left_keys, p.children[0], "left"),
@@ -249,6 +254,20 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
             child, [(n, bind(e, schema)) for n, e in p.group_exprs],
             [(n, strip_alias(bind(e, schema))) for n, e in p.agg_exprs])
 
+    if isinstance(p, L.Distinct):
+        child = _convert(meta.children[0], conf)
+        schema = child.output_schema
+        return AggregateExec(
+            child, [(f.name, BoundReference(i, f.dtype, f.nullable, f.name))
+                    for i, f in enumerate(schema)], [])
+
+    if isinstance(p, L.Sort):
+        from .exec_nodes import SortExec
+        child = _convert(meta.children[0], conf)
+        schema = child.output_schema
+        return SortExec(child, [(bind(o.expr, schema), o.ascending,
+                                 o.nulls_first) for o in p.orders])
+
     if isinstance(p, L.Join):
         from .join_exec import plan_broadcast_join
         return plan_broadcast_join(p, _convert(meta.children[0], conf),
@@ -257,9 +276,8 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
     if isinstance(p, L.Limit):
         sort_meta = meta.children[0]
         if not (isinstance(sort_meta.plan, L.Sort) and sort_meta.on_device):
-            raise NotImplementedError(
-                "a LIMIT that is not over a device ORDER BY is not ported "
-                "yet (ROADMAP.md, modules to port, item 7)")
+            from .exec_nodes import LimitExec
+            return LimitExec(_convert(sort_meta, conf), p.n)
         from .exec_nodes import TopKExec
         child = _convert(sort_meta.children[0], conf)
         schema = child.output_schema
@@ -269,7 +287,7 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
 
     raise NotImplementedError(
         f"the device {type(p).__name__} operator is not ported yet "
-        f"(ROADMAP.md queue 2: sort permutation, row 8)")
+        f"(ROADMAP.md, modules to port)")
 
 
 def _tagged(plan: L.LogicalPlan, conf: TpuConf) -> NodeMeta:

@@ -27,11 +27,14 @@ from ..config import TpuConf
 from ..exprs import AggregateExpression, BoundReference, EvalContext, \
     Expression
 from ..ops import batch_utils, groupby
-from ..ops.strings import StringDictionary
+from ..ops.strings import StringDictionary, encode_column
 from ..utils.metrics import MetricSet, QueryStats, fetch, fetch_scalars
 
 __all__ = ["ExecContext", "TpuExec", "MemorySource", "ScanExec", "StageExec",
            "AggregateExec", "CollectExec"]
+
+DENSE_MARGIN_GAPS = 64
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 class ExecContext:
@@ -251,25 +254,29 @@ class StageExec(TpuExec):
 # ---------------------------------------------------------------------------------
 
 class AggregateExec(TpuExec):
-    """Aggregation over all input batches, in one of three device paths:
+    """Aggregation over all input batches, in one of four device paths:
 
     * ungrouped: every batch's contributions go through
       ``groupby.ungrouped_reduce`` (the masked_reduce kernel) into one
       K-slot accumulator;
-    * grouped on bare key columns of which one is integral, every buffer a
-      sum/min/max: dense direct addressing on that primary key
-      (``groupby.DenseAccumulator``, the dense_agg kernel), with the other
-      keys as residual channels, as the reference's
-      ``_try_dense_grouped_multi`` (:1321) and ``_try_dense_grouped``
-      (:1084) do;
+    * grouped on bare key columns of which one is integral, none floating,
+      every buffer an integral sum/min/max or a float64 sum: dense direct
+      addressing on that primary key (``groupby.DenseAccumulator``, the
+      dense_agg kernel), with the other keys as residual channels, as the
+      reference's ``_try_dense_grouped_multi`` (:1321) and
+      ``_try_dense_grouped`` (:1084) do;
     * grouped, when every key is a bare string column and every buffer is
       a sum: the dense grid of dictionary codes (``grid_group_reduce``,
       the grid_agg kernel), as the reference does at
-      ``plan/physical.py:1736-1790``.
+      ``plan/physical.py:1736-1790``;
+    * every other grouping, and input the dense path or the grid rejects:
+      the hash aggregation (``groupby.HashAccumulator``, the hash_agg
+      kernel) in place of the reference's sort-based path
+      (``_execute_grouped`` :1697, ``group_reduce``), with the batches the
+      rejecting path had consumed replayed into it.
 
-    Other grouped aggregations, and input the dense path rejects, need the
-    sort-based path, which is not ported yet, and raise
-    ``NotImplementedError``."""
+    FIRST and LAST raise ``NotImplementedError``: their order-sensitive
+    reductions are not ported (ROADMAP queue 2 row 4)."""
 
     def __init__(self, child: TpuExec,
                  group_exprs: List[Tuple[str, Expression]],
@@ -306,19 +313,28 @@ class AggregateExec(TpuExec):
         return outs
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
+        ordered = [n for n, a in self.agg_exprs if a.func in ("first",
+                                                              "last")]
+        if ordered:
+            raise NotImplementedError(
+                f"the aggregates {ordered} (first/last) are not ported yet "
+                f"(ROADMAP.md queue 2 row 4)")
+        batches = self.children[0].execute(ctx)
         if not self.group_exprs:
-            yield self._execute_ungrouped(ctx)
+            yield self._execute_ungrouped(ctx, batches)
         elif self._dense_static_ok(ctx.conf):
-            yield self._execute_dense(ctx)
+            yield self._execute_dense(ctx, batches)
+        elif self._grid_static_ok():
+            yield self._execute_grid(ctx, batches)
         else:
-            yield self._execute_grid(ctx)
+            yield self._execute_hash(ctx, batches)
 
     # -- ungrouped ----------------------------------------------------------------
-    def _execute_ungrouped(self, ctx: ExecContext) -> ColumnBatch:
+    def _execute_ungrouped(self, ctx: ExecContext, batches) -> ColumnBatch:
         m = ctx.metric_set(self.op_id)
         specs = [(op, dt == T.FLOAT64) for dt, op in self._buffers()]
         acc_f, acc_i = groupby.init_scalars(specs, ctx.device)
-        for b in self.children[0].execute(ctx):
+        for b in batches:
             with m.time("opTime"):
                 active = b.active_mask(ctx.device)
                 ectx = EvalContext(_device_arrays(b), b.num_rows, ctx.device,
@@ -337,23 +353,12 @@ class AggregateExec(TpuExec):
         return ColumnBatch(self._schema, cols, 1)
 
     # -- grouped: the dense grid of dictionary codes ------------------------------
-    def _grid_key_ordinals(self) -> List[int]:
+    def _grid_static_ok(self) -> bool:
+        """The grid takes bare string keys and sums only."""
         from .planner import strip_alias
-        ords = []
-        for name, e in self.group_exprs:
-            core = strip_alias(e)
-            if not (isinstance(core, BoundReference) and core.dtype.is_string):
-                raise NotImplementedError(
-                    f"group key {name}: only bare string columns group on the "
-                    f"dense grid; the sort-based grouped aggregation is not "
-                    f"ported yet (ROADMAP.md, modules to port, item 4)")
-            ords.append(core.ordinal)
-        if any(op != "sum" for _, op in self._buffers()):
-            raise NotImplementedError(
-                "min/max over groups needs the sort-based grouped "
-                "aggregation, which is not ported yet (ROADMAP.md, modules "
-                "to port, item 4)")
-        return ords
+        return all(isinstance(core, BoundReference) and core.dtype.is_string
+                   for core in (strip_alias(e) for _, e in self.group_exprs)) \
+            and all(op == "sum" for _, op in self._buffers())
 
     def _grid_layout(self) -> List[str]:
         """Where each buffer lands in the grid accumulator, fixed at bind
@@ -366,52 +371,34 @@ class AggregateExec(TpuExec):
                              else "f" if dt == T.FLOAT64 else "i")
         return kinds
 
-    @staticmethod
-    def _encode(col: HostStringColumn, d: Optional[StringDictionary],
-                device: torch.device):
-        """(dictionary, device codes, device valid) of a host string column,
-        cached on the column object.  A query with no dictionary yet
-        adopts the cached one (its codes are valid verbatim)."""
-        if not isinstance(col, HostStringColumn):
-            raise NotImplementedError(
-                "grouping on dictionary codes that arrive from a join (a "
-                "second dictionary to merge) is not ported yet (ROADMAP.md, "
-                "modules to port, item 4)")
-        cached = col._enc_cache
-        if cached is not None and cached[1].device == device \
-                and (d is None or cached[0] is d):
-            return cached
-        d = d if d is not None else StringDictionary()
-        codes, valid = d.encode(col.data, col.valid)
-        col._enc_cache = (d, upload(torch.from_numpy(codes), device),
-                          None if valid is None
-                          else upload(torch.from_numpy(valid), device))
-        return col._enc_cache
-
-    def _execute_grid(self, ctx: ExecContext) -> ColumnBatch:
+    def _execute_grid(self, ctx: ExecContext, batches) -> ColumnBatch:
+        """The grid over padded dictionary sizes; a grid that outgrows
+        ``gridMaxGroups`` hands every batch seen so far, and the rest, to
+        the hash aggregation."""
+        from .planner import strip_alias
         m = ctx.metric_set(self.op_id)
-        ords = self._grid_key_ordinals()
+        ords = [strip_alias(e).ordinal for _, e in self.group_exprs]
         grid_max = ctx.conf["spark.rapids.tpu.sql.agg.gridMaxGroups"]
         dicts: List[Optional[StringDictionary]] = [None] * len(ords)
         acc: Optional[groupby.GridAccumulator] = None
-        for b in self.children[0].execute(ctx):
+        seen: List[ColumnBatch] = []
+        for b in batches:
             with m.time("opTime"):
                 keys = []
                 for k, o in enumerate(ords):
-                    dicts[k], codes, valid = self._encode(b.columns[o],
-                                                          dicts[k],
-                                                          ctx.device)
+                    dicts[k], codes, valid = encode_column(b.columns[o],
+                                                           dicts[k],
+                                                           ctx.device)
                     keys.append((codes, valid))
                 # padded dictionary sizes: the grid grows only when a
                 # dictionary passes a power of two
                 dims = tuple(1 << max(len(d) - 1, 0).bit_length()
                              for d in dicts)
                 if groupby.grid_size(dims) > grid_max:
-                    raise NotImplementedError(
-                        f"the dense grid of dims {dims} exceeds "
-                        f"spark.rapids.tpu.sql.agg.gridMaxGroups={grid_max};"
-                        f" the sort-based grouped aggregation is not ported "
-                        f"yet (ROADMAP.md, modules to port, item 4)")
+                    m.add("aggGridRejected", 1)
+                    return self._execute_hash(
+                        ctx, itertools.chain(seen, [b], batches))
+                seen.append(b)
                 active = b.active_mask(ctx.device)
                 ectx = EvalContext(_device_arrays(b), b.num_rows, ctx.device,
                                    active=active)
@@ -451,11 +438,15 @@ class AggregateExec(TpuExec):
         """The reference's static gates of its dense paths
         (``_dense_agg_static_ok`` :1061 for one key,
         ``_dense_residual_static_ok`` :1288 for several): every key a bare
-        column, one of them integral, every buffer a sum/min/max."""
+        column, one of them integral and none floating, every buffer a
+        sum/min/max, and no float64 min/max (the dense channels add
+        float64 but order only int64)."""
         if not conf["spark.rapids.tpu.sql.agg.dense.enabled"] \
                 or not conf["spark.rapids.tpu.join.denseDomainCap"]:
             return False
-        if any(op not in ("sum", "min", "max") for _, op in self._buffers()):
+        if any(op not in ("sum", "min", "max")
+               or (dt == T.FLOAT64 and op != "sum")
+               for dt, op in self._buffers()):
             return False
         refs = self._key_refs()
         if any(r is None or r.dtype is None for r in refs):
@@ -464,8 +455,8 @@ class AggregateExec(TpuExec):
                  np.dtype(r.dtype.numpy_dtype).kind for r in refs]
         if len(refs) == 1:
             return kinds[0] in "iu"
-        return all(k in "iufbs" for k in kinds) and any(k in "iu"
-                                                      for k in kinds)
+        return all(k in "iubs" for k in kinds) and any(k in "iu"
+                                                     for k in kinds)
 
     def _dense_key_values(self, b: ColumnBatch, dicts, device):
         """Per group key, its (int32/int64 data, valid) for the dense
@@ -475,53 +466,38 @@ class AggregateExec(TpuExec):
         for k, ref in enumerate(self._key_refs()):
             col = b.columns[ref.ordinal]
             if ref.dtype.is_string:
-                dicts[k], codes, valid = self._encode(col, dicts[k], device)
+                dicts[k], codes, valid = encode_column(col, dicts[k], device)
                 out.append((codes, valid))
                 continue
-            if ref.dtype.is_floating:
-                raise NotImplementedError(
-                    f"group key {self.group_exprs[k][0]}: a floating-point "
-                    f"key beside an integral one needs the sort-based "
-                    f"grouped aggregation, which is not ported yet "
-                    f"(ROADMAP.md, modules to port, item 4)")
             d = col.data
             if d.dtype not in (torch.int32, torch.int64):
                 d = d.to(torch.int32)
             out.append((d, col.valid))
         return out
 
-    def _dense_channels(self, contributions) -> List[Tuple[str, bool]]:
-        chans = []
-        for (dt, op), ((d, _), _) in zip(self._buffers(), contributions):
-            is_f64 = dt == T.FLOAT64
-            if is_f64 and op != "sum":
-                raise NotImplementedError(
-                    f"float64 {op} over groups needs the sort-based grouped "
-                    f"aggregation, which is not ported yet (ROADMAP.md, "
-                    f"modules to port, item 4)")
-            chans.append(("count" if d is None else op, is_f64))
-        return chans
+    def _channels(self, contributions) -> List[Tuple[str, bool]]:
+        return [("count" if d is None else op, dt == T.FLOAT64)
+                for (dt, op), ((d, _), _) in zip(self._buffers(),
+                                                 contributions)]
 
-    @staticmethod
-    def _reject(why: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"the dense grouped aggregation rejects this input ({why}); the "
-            f"sort-based grouped aggregation it would fall back to is not "
-            f"ported yet (ROADMAP.md, modules to port, item 4)")
-
-    def _execute_dense(self, ctx: ExecContext) -> ColumnBatch:
+    def _execute_dense(self, ctx: ExecContext, batches) -> ColumnBatch:
         """The reference's ``_try_dense_grouped_multi`` (:1321) and, for one
         key, ``_try_dense_grouped`` (:1084), through the dense_agg kernel.
 
         One fetch reads the first batch's key stats and the functional-
         dependence probe; the primary key is the integral candidate with
         the smallest domain whose values each map to one key tuple.  Every
-        batch then scatters into ONE accumulator; rows outside the first
-        batch's (padded) domain wait in the overflow buffer, and the tail
-        fetch (violation flag, group count, overflow count and key range)
-        decides whether to widen the domain once and replay them, at one
-        more fetch.  The output is compacted to the observed groups, in key
-        order, with the null key last."""
+        batch then scatters into ONE accumulator over the first batch's
+        span and a margin; rows outside it wait in the overflow buffer,
+        and the tail fetch (violation flag, group count, overflow count
+        and key range) decides whether to widen the domain once and replay
+        them, at one more fetch.  The output is compacted to the observed groups, in key
+        order, with the null key last.  Input the path rejects (no primary
+        key, a domain over ``denseDomainCap``, accumulators over
+        ``maxAccumBytes``, a full overflow buffer, a residual key that is
+        not determined by the primary) goes to the hash aggregation with
+        every batch, as the reference replays its buffered batches into
+        its sort path (``_sort_path_replay`` :1670)."""
         m = ctx.metric_set(self.op_id)
         conf, device = ctx.conf, ctx.device
         refs = self._key_refs()
@@ -531,8 +507,15 @@ class AggregateExec(TpuExec):
                 and np.dtype(r.dtype.numpy_dtype).kind in "iu" for r in refs]
         dicts: List[Optional[StringDictionary]] = [None] * n_keys
         seen: List[Tuple[ColumnBatch, list]] = []
+
+        def reject() -> ColumnBatch:
+            """Every batch, the consumed ones first, into the hash
+            aggregation."""
+            m.add("aggDenseRejected", 1)
+            return self._execute_hash(ctx, itertools.chain(
+                (b for b, _ in seen), batches))
+
         best = None
-        batches = self.children[0].execute(ctx)
         for b in batches:
             with m.time("opTime"):
                 kv = self._dense_key_values(b, dicts, device)
@@ -548,68 +531,68 @@ class AggregateExec(TpuExec):
                 if n_keys > 1 and fd[i]:
                     continue  # maps to two key tuples: not the primary
                 if best is None or kmax - kmin + 1 < best[0]:
-                    best = (kmax - kmin + 1, i, kmin)
+                    best = (kmax - kmin + 1, i, kmin, n_valid)
             if best is None:
-                raise self._reject(
-                    f"no integral key has a domain within "
-                    f"spark.rapids.tpu.join.denseDomainCap={cap} and "
-                    f"determines the others")
+                # no integral key has a domain within denseDomainCap and
+                # determines the others
+                return reject()
             break
         if not seen:
             return self._empty()
         # no valid primary in the whole input: every row has a null key
-        domain, pidx, kmin = best if best is not None \
-            else (1, cand.index(True), 0)
+        domain, pidx, kmin, n_valid = best if best is not None \
+            else (1, cand.index(True), 0, 1)
         res_idx = [i for i in range(n_keys) if i != pidx]
         n_bufs = len(self._buffers())
+        max_bytes = conf["spark.rapids.tpu.sql.agg.dense.maxAccumBytes"]
 
-        def check_size(D):
-            est = D * (len(res_idx) * 18 + 2 + 8 * n_bufs)
-            if n_keys > 1 and \
-                    est > conf["spark.rapids.tpu.sql.agg.dense.maxAccumBytes"]:
-                raise self._reject(
-                    f"{est} accumulator bytes exceed "
-                    f"spark.rapids.tpu.sql.agg.dense.maxAccumBytes")
+        def too_big(D) -> bool:
+            return n_keys > 1 and \
+                D * (len(res_idx) * 18 + 2 + 8 * n_bufs) > max_bytes
 
-        # the first batch's exact span: keys beyond it overflow and widen
+        # the first batch's span with a margin of DENSE_MARGIN_GAPS mean key
+        # gaps on each side, where it fits: a later batch's keys just past
+        # the first batch's extremes then need no widening (and no second
+        # tail fetch); keys beyond it overflow and widen
         D = domain
-        check_size(D)
+        if too_big(D):
+            return reject()
+        margin = DENSE_MARGIN_GAPS * -(-domain // n_valid)
+        lo = max(kmin - margin, _I64_MIN)
+        hi = min(kmin + domain - 1 + margin, _I64_MAX)
+        if hi - lo + 1 <= cap and not too_big(hi - lo + 1):
+            kmin, D = lo, hi - lo + 1
         acc = None
-        m.add("aggDensePath", 1)
-        for b, kv in itertools.chain(seen, ((b, None) for b in batches)):
+        for b, kv in itertools.chain(list(seen), ((b, None)
+                                                  for b in batches)):
             with m.time("opTime"):
                 if kv is None:
                     kv = self._dense_key_values(b, dicts, device)
+                    seen.append((b, None))
                 ectx = EvalContext(_device_arrays(b), b.num_rows, device,
                                    active=b.sel)
                 contributions = self._contributions(ectx)
                 if acc is None:
                     acc = groupby.DenseAccumulator(
                         kmin, D, len(res_idx),
-                        self._dense_channels(contributions), device)
+                        self._channels(contributions), device)
                 acc.update(kv[pidx], [kv[i] for i in res_idx],
                            [v for v, _ in contributions], b.sel)
         violated, n_groups, n_over, omin, omax = (
             int(x) for x in fetch(acc.tail()))
         if n_over:
-            if n_over > acc.cap:
-                raise self._reject(
-                    f"{n_over} rows fall outside the first batch's key "
-                    f"domain, more than the overflow buffer's {acc.cap}")
             lo, hi = min(acc.kmin, omin), max(acc.kmin + acc.D - 1, omax)
-            if hi - lo + 1 > cap:
-                raise self._reject(
-                    f"the widened key domain {hi - lo + 1} exceeds "
-                    f"spark.rapids.tpu.join.denseDomainCap={cap}")
-            D = hi - lo + 1
-            check_size(D)
-            acc.widen(lo, D)
+            if n_over > acc.cap or hi - lo + 1 > cap or too_big(hi - lo + 1):
+                return reject()  # the overflow outgrew the buffer or caps
+            acc.widen(lo, hi - lo + 1)
             acc.replay_overflow(n_over)
             m.add("aggDenseWidened", 1)
             violated, n_groups = (int(x) for x in fetch(acc.check()))
         if violated:
-            raise self._reject("a residual key takes two values, or null "
-                               "and non-null, under one primary key")
+            # a residual key takes two values, or null and non-null, under
+            # one primary key
+            return reject()
+        m.add("aggDensePath", 1)
         return self._dense_output(acc, pidx, res_idx, dicts, n_groups)
 
     def _dense_output(self, acc, pidx: int, res_idx: List[int], dicts,
@@ -638,6 +621,86 @@ class AggregateExec(TpuExec):
             cols.append(DeviceColumn(agg.dtype, data, valid))
         out = ColumnBatch(self._schema, cols, acc.S, acc.present.bool())
         return batch_utils.compact(out, n_live=n_groups)
+
+    # -- grouped: the hash aggregation ------------------------------------------
+    def _hash_key_words(self, b: ColumnBatch, ectx: EvalContext, dicts,
+                        device):
+        """Per group key, its int64 word column and validity
+        (``groupby.key_word``): strings as dictionary codes."""
+        from .planner import strip_alias
+        out = []
+        for k, (_, e) in enumerate(self.group_exprs):
+            core = strip_alias(e)
+            if core.dtype.is_string:
+                dicts[k], codes, valid = encode_column(
+                    b.columns[core.ordinal], dicts[k], device)
+                out.append((codes.to(torch.int64), valid))
+                continue
+            d, v = e.eval(ectx)
+            if d.dim() == 0:
+                d = d.expand(b.num_rows)
+            if v is not None and v.dim() == 0:
+                v = v.expand(b.num_rows)
+            out.append((groupby.key_word(d), v))
+        return out
+
+    def _key_bound(self, dicts) -> Optional[int]:
+        """An upper bound on the number of groups from the keys' domains
+        alone (dictionary sizes and booleans, each with a null), or None
+        when a key's domain is unbounded."""
+        bound = 1
+        for (_, e), d in zip(self.group_exprs, dicts):
+            if d is not None:
+                bound *= len(d) + 1
+            elif e.dtype.kind == T.TypeKind.BOOLEAN:
+                bound *= 3
+            else:
+                return None
+        return bound
+
+    def _execute_hash(self, ctx: ExecContext, batches) -> ColumnBatch:
+        """The hash aggregation over every batch into one table, at one
+        fetch for each time the table may have to grow, and one to
+        compact a large table's output."""
+        m = ctx.metric_set(self.op_id)
+        device = ctx.device
+        dicts: List[Optional[StringDictionary]] = [None] * len(
+            self.group_exprs)
+        acc: Optional[groupby.HashAccumulator] = None
+        for b in batches:
+            if b.num_rows == 0:
+                continue
+            with m.time("opTime"):
+                ectx = EvalContext(_device_arrays(b), b.num_rows, device,
+                                   active=b.sel)
+                words = self._hash_key_words(b, ectx, dicts, device)
+                contributions = self._contributions(ectx)
+                if acc is None:
+                    acc = groupby.HashAccumulator(
+                        len(words), self._channels(contributions),
+                        device)
+                acc.key_bound = self._key_bound(dicts)
+                acc.update(words, [v for v, _ in contributions], b.sel,
+                           b.num_rows)
+        if acc is None:
+            return self._empty()
+        keys, values, live = acc.finish()
+        m.add("aggHashPath", 1)
+        m.add("aggHashGrowths", acc.growths)
+        cols: List = []
+        for f, (word, valid), d in zip(self._schema.fields, keys, dicts):
+            valid = valid if f.nullable else None
+            if f.dtype.is_string:
+                cols.append(DictStringColumn(word.to(torch.int32), valid,
+                                             d.values()))
+            else:
+                cols.append(DeviceColumn(
+                    f.dtype, groupby.key_from_word(word, f.dtype.torch_dtype),
+                    valid))
+        for (name, agg), (data, valid) in zip(self.agg_exprs,
+                                              self._finalize(values)):
+            cols.append(DeviceColumn(agg.dtype, data, valid))
+        return ColumnBatch(self._schema, cols, keys[0][0].shape[0], live)
 
     def _empty(self) -> ColumnBatch:
         cols = []

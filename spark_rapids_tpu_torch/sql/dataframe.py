@@ -56,11 +56,18 @@ class DataFrame:
         """The first ``n`` rows; after ``sort`` this is a top-k."""
         return DataFrame(L.Limit(self._plan, n), self.session)
 
+    def distinct(self) -> "DataFrame":
+        """The distinct rows (a GROUP BY every column)."""
+        return DataFrame(L.Distinct(self._plan), self.session)
+
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join with ``other``: ``on`` is a column name or list of
         names present on both sides (the right copies are dropped), or a
-        list of (left name, right name) pairs."""
+        list of (left name, right name) pairs.  ``how`` takes the
+        reference's names: inner, left (left_outer), semi (left_semi),
+        anti (left_anti), and right/full, which plan the shuffled join
+        that is not ported yet."""
         if isinstance(on, str):
             on = [on]
         if isinstance(on, (list, tuple)) and on \

@@ -10,7 +10,8 @@ from .. import exprs as E
 from .. import types as T
 from .column import Column, to_expr
 
-__all__ = ["col", "lit", "sum", "avg", "count", "count_star", "min", "max"]
+__all__ = ["col", "lit", "sum", "avg", "count", "count_star", "min", "max",
+           "first", "last"]
 
 
 def col(name: str) -> Column:
@@ -28,8 +29,6 @@ def sum(c) -> Column:  # noqa: A001 — mirrors pyspark naming
 def avg(c) -> Column:
     return Column(A.Average(to_expr(c)))
 
-
-
 def count(c) -> Column:
     if isinstance(c, str) and c == "*":
         return Column(A.CountStar())
@@ -46,3 +45,11 @@ def min(c) -> Column:  # noqa: A001
 
 def max(c) -> Column:  # noqa: A001
     return Column(A.Max(to_expr(c)))
+
+
+def first(c, ignore_nulls: bool = False) -> Column:
+    return Column(A.First(to_expr(c), ignore_nulls))
+
+
+def last(c, ignore_nulls: bool = False) -> Column:
+    return Column(A.Last(to_expr(c), ignore_nulls))

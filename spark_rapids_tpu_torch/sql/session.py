@@ -76,17 +76,13 @@ class Session:
     # -- execution ----------------------------------------------------------------
     def _execute(self, plan: L.LogicalPlan):
         from ..plan.overrides import apply_overrides
-        from ..utils.metrics import fetch
         conf = self.conf()
         phys = apply_overrides(plan, conf)
         ctx = ExecContext(conf, self.device)
         self._last_ctx = ctx
         with QueryStats.scoped() as stats:
             self._last_stats = stats
-            rows = CollectExec(phys).collect_rows(ctx)
-            if stats.deferred_checks:  # no fetch read them yet
-                fetch([])
-            return rows
+            return CollectExec(phys).collect_rows(ctx)
 
     def _explain(self, plan: L.LogicalPlan) -> str:
         from ..plan.overrides import explain_plan

@@ -4,6 +4,8 @@ identical seeded inputs.  int64 results and counts exact; float64 sums
 within rel 1e-12 (the two sum in different orders); min/max identical,
 NaN and the sign of zero included."""
 
+import datetime
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -367,25 +369,29 @@ def test_dense_keys_outside_the_first_batch_widen_the_domain():
 
 
 def test_dense_residual_violation_raises():
-    """A residual that takes two values under one primary key: the first
-    batch's probe rejects it as the primary's dependent when it shows
-    there, the violation check when only a later batch shows it."""
+    """A residual that takes two values under one primary key no longer
+    raises: the first batch's probe rejects it as the primary's dependent
+    when it shows there, the violation check when only a later batch shows
+    it, and either way every batch replays into the hash aggregation,
+    whose groups equal the reference's (its sort path)."""
     n = 3000
     k = np.arange(n, dtype=np.int64) % 500
     ok = {"k": k, "r": k * 2, "x": np.ones(n)}
     late = dict(ok, r=np.where(np.arange(n) < 2000, k * 2, k * 2 + 1))
     early = dict(ok, r=np.arange(n, dtype=np.int64) % 7)
-    _, tsess = _sessions()
 
-    def q(data):
-        return (tsess.create_dataframe(data).group_by("k", "r")
-                .agg(TF.sum(TF.col("x"))))
+    def q(F, df):
+        return df.group_by("k", "r").agg(F.sum(F.col("x")).alias("s"),
+                                         F.count_star().alias("n"))
 
-    assert len(q(ok).collect()) == 500
-    with pytest.raises(NotImplementedError, match="two values.*item 4"):
-        q(late).collect()
-    with pytest.raises(NotImplementedError, match="determines.*item 4"):
-        q(early).collect()
+    for data, groups, path in ((ok, 500, "aggDensePath"),
+                               (late, 1000, "aggHashPath"),
+                               (early, 3000, "aggHashPath")):
+        got, want, tsess = _run_both(q, data)
+        _assert_same_groups(got, want)
+        assert len(got) == groups
+        metrics = tsess.last_exec_context().metrics
+        assert any(m.values.get(path) for m in metrics.values())
 
 
 def test_dense_overflow_buffer_fills_and_overflows():
@@ -445,3 +451,211 @@ def test_dense_kernel_wrappers_refuse_cpu_tensors():
         tg.dense_agg_update(acc, keys[0], [],
                             [(torch.zeros(4, dtype=torch.int64), None)], None)
     assert tg.dense_agg_stats.launches == tg.dense_agg_update.launches == 0
+
+
+# ---------------------------------------------------------------------------------
+# Hash aggregation (csrc/hash_agg.cu's plain version) against the JAX
+# package's sort-based group_reduce, and at the Session level
+# ---------------------------------------------------------------------------------
+
+def _hash_case(n, seed):
+    """Keys of every kind the hash path takes — int64, date (int32 days),
+    bool, dictionary codes (int32) and float64 with -0.0/+0.0 and NaN —
+    each with nulls; contributions with nulls and NaN values."""
+    rng = np.random.default_rng(seed)
+    fkey = rng.choice(np.array([-0.0, 0.0, 1.5, np.nan, -2.0, np.inf]), n)
+    keys = [(rng.integers(-3, 3, n).astype(np.int64), rng.random(n) < 0.9),
+            (rng.integers(9000, 9004, n).astype(np.int32), None),
+            (rng.random(n) < 0.5, rng.random(n) < 0.95),
+            (rng.integers(0, 5, n).astype(np.int32), rng.random(n) < 0.9),
+            (fkey, rng.random(n) < 0.9)]
+    xs = rng.normal(size=n)
+    xs[rng.random(n) < 0.01] = np.nan
+    zeros = rng.choice(np.array([-0.0, 0.0, 2.5, -1.0]), n)
+    contribs = [(xs, rng.random(n) < 0.9, "sum", True),
+                (rng.integers(-10**12, 10**12, n), None, "sum", False),
+                (zeros, rng.random(n) < 0.9, "min", True),
+                (zeros, None, "max", True),
+                (xs, None, "max", True),
+                (rng.integers(-10**15, 10**15, n), rng.random(n) < 0.8,
+                 "min", False),
+                (rng.integers(-10**15, 10**15, n), None, "max", False),
+                (None, rng.random(n) < 0.7, "count", False)]
+    return keys, contribs, rng.random(n) < 0.8
+
+
+def _group_key(row_keys):
+    """A hashable group identity: None for null, floats with -0.0 as 0.0
+    and every NaN as one value."""
+    out = []
+    for v in row_keys:
+        if v is None:
+            out.append(None)
+        elif isinstance(v, float) and np.isnan(v):
+            out.append("nan")
+        elif isinstance(v, float):
+            out.append(v + 0.0)
+        elif isinstance(v, (str, datetime.date)):
+            out.append(v)
+        else:
+            out.append(int(v))
+    return tuple(out)
+
+
+def _reference_hash_groups(keys, contribs, active):
+    jkeys = [(_j(d), _j(v)) for d, v in keys]
+    jcon = []
+    for d, v, op, _ in contribs:
+        if op == "count":
+            ind = np.ones(len(active), np.int64) if v is None \
+                else v.astype(np.int64)
+            jcon.append(((jnp.asarray(ind), None), "sum"))
+        else:
+            jcon.append(((_j(d), _j(v)), op))
+    out_keys, out_vals, n_groups, _ = jg.group_reduce(jkeys, jcon,
+                                                      jnp.asarray(active))
+    g = int(n_groups)
+    keys = [(np.asarray(d)[:g].tolist(),
+             [True] * g if v is None else np.asarray(v)[:g].tolist())
+            for d, v in out_keys]
+    vals = [np.asarray(d)[:g].tolist() for d, _ in out_vals]
+    return {_group_key([x if ok else None for x, ok in
+                        ((d[i], v[i]) for d, v in keys)]):
+            [c[i] for c in vals] for i in range(g)}
+
+
+def _port_hash_groups(keys, contribs, active, batch):
+    acc = tg.HashAccumulator(len(keys), [(op, f) for _, _, op, f in
+                                         contribs], CPU)
+    n = len(active)
+    for lo in range(0, n, batch):
+        sl = slice(lo, lo + batch)
+        words = [(tg.key_word(_t(d[sl])), _t(None if v is None else v[sl]))
+                 for d, v in keys]
+        acc.update(words, [(_t(None if d is None else d[sl]),
+                            _t(None if v is None else v[sl]))
+                           for d, v, _, _ in contribs],
+                   _t(active[sl]), len(active[sl]))
+    kv, values, live = acc.finish()
+    assert live is None
+    dtypes = [torch.from_numpy(np.asarray(d[:1])).dtype for d, _ in keys]
+    cols = [(tg.key_from_word(w, dt).tolist(), ok.tolist())
+            for (w, ok), dt in zip(kv, dtypes)]
+    vals = [v.tolist() for v in values]
+    rows = {_group_key([x if ok else None for x, ok in
+                        ((d[i], v[i]) for d, v in cols)]):
+            [c[i] for c in vals] for i in range(kv[0][0].shape[0])}
+    return rows, acc
+
+
+@pytest.mark.parametrize("n,seed,batch", [(1, 31, 1), (4000, 32, 4000),
+                                          (6000, 33, 700)])
+def test_hash_aggregate_matches_group_reduce(n, seed, batch):
+    """Every key kind and null, -0.0/+0.0 as one group and NaN keys as one
+    group, sum/count/min/max with NaN values, in one batch and in many
+    (the plain version keeps the same growth decisions as the kernel)."""
+    keys, contribs, active = _hash_case(n, seed)
+    want = _reference_hash_groups(keys, contribs, active)
+    got, _ = _port_hash_groups(keys, contribs, active, batch)
+    assert got.keys() == want.keys()
+    for k, vals in want.items():
+        for a, b, (_, _, op, _) in zip(got[k], vals, contribs):
+            assert _same(a, b, "sum" if op in ("sum", "count") else op), \
+                (k, op, a, b)
+
+
+def test_hash_table_grows_with_exact_counts():
+    """The host's bound on the groups (rows so far) passes the load limit
+    after a few batches: one fetch reads the exact count, and the table
+    grows only when that count needs it; the key domain's bound (a
+    boolean and a dictionary) keeps a small table from growing at all."""
+    from spark_rapids_tpu_torch.utils.metrics import QueryStats
+    rng = np.random.default_rng(34)
+    acc = tg.HashAccumulator(1, [("count", False)], CPU)
+    with QueryStats.scoped() as st:
+        for _ in range(6):
+            k = _t(rng.integers(0, 10**9, 1000).astype(np.int64))
+            acc.update([(k, None)], [(None, None)], None, 1000)
+    assert acc.cap == 16384 and acc.growths == 1 and st.blocking_fetches == 1
+    small = tg.HashAccumulator(2, [("count", False)], CPU, key_bound=3 * 8)
+    with QueryStats.scoped() as st:
+        for _ in range(50):
+            w = [(_t(rng.integers(0, 2, 1000).astype(np.int64)), None),
+                 (_t(rng.integers(0, 7, 1000).astype(np.int64)), None)]
+            small.update(w, [(None, None)], None, 1000)
+    assert small.cap == tg.HA_MIN_SLOTS and st.blocking_fetches == 0
+    assert small.finish()[1][0].sum().item() == 50_000
+
+
+def _hash_data(n=5000, seed=35):
+    rng = np.random.default_rng(seed)
+    name = np.array([f"s{x}" for x in rng.integers(0, 300, n)], dtype=object)
+    name[rng.random(n) < 0.05] = None
+    fk = rng.choice(np.array([-0.0, 0.0, 0.25, np.nan, 7.0]), n).astype(
+        object)
+    fk[rng.random(n) < 0.05] = None
+    x = rng.normal(size=n)
+    x[rng.random(n) < 0.01] = np.nan
+    return {"name": name, "fk": fk, "b": rng.random(n) < 0.5,
+            "day": np.datetime64("1995-01-01")
+            + rng.integers(0, 4, n).astype("timedelta64[D]"),
+            "i": rng.integers(-5, 5, n).astype(np.int64), "x": x,
+            "z": rng.choice(np.array([-0.0, 0.0, 1.0]), n)}
+
+
+@pytest.mark.parametrize("keys", [("name",), ("fk",), ("b", "day"),
+                                  ("name", "i"), ("fk", "b", "name")])
+def test_hash_path_matches_reference(keys):
+    """Groupings no dense path and no grid takes (string keys past
+    gridMaxGroups, floating keys, boolean and date keys) with every
+    aggregate and float64 min/max over NaN and signed zeros: the port's
+    hash path against the reference's sort path, through both Sessions."""
+    settings = dict(DENSE_SETTINGS, **{
+        "spark.rapids.tpu.sql.agg.gridMaxGroups": 64})
+
+    def q(F, df):
+        return (df.where(F.col("i") > -4).group_by(*keys)
+                  .agg(F.sum(F.col("x")).alias("sx"),
+                       F.min(F.col("z")).alias("lo"),
+                       F.max(F.col("x")).alias("hi"),
+                       F.max(F.col("i")).alias("mi"),
+                       F.count(F.col("x")).alias("cx"),
+                       F.count_star().alias("n")))
+
+    got, want, tsess = _run_both(q, _hash_data(), settings)
+    got = sorted(got, key=lambda r: _group_key(r[:len(keys)]).__repr__())
+    want = sorted(want, key=lambda r: _group_key(r[:len(keys)]).__repr__())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _group_key(g[:len(keys)]) == _group_key(w[:len(keys)])
+        for a, b, op in zip(g[len(keys):], w[len(keys):],
+                            ("sum", "min", "max", "max", "sum", "sum")):
+            assert (a is None) == (b is None), (g, w)
+            if a is not None:
+                assert _same(a, b, op), (g, w)
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get("aggHashPath") for m in metrics.values())
+
+
+def test_hash_kernel_wrappers_refuse_cpu_tensors():
+    acc = tg.HashAccumulator(1, [("count", False)], CPU)
+    acc._reserve(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tg.hash_agg_update(acc, [(torch.zeros(4, dtype=torch.int64), None)],
+                           [(None, None)], None, 4)
+    assert tg.hash_agg_update.launches == tg.hash_agg_rehash.launches == 0
+
+
+@pytest.mark.parametrize("cols", [("name",), ("fk",), ("name", "i"),
+                                  ("fk", "b", "day")])
+def test_distinct_matches_reference(cols):
+    """DISTINCT groups on every column: string columns on the grid, the
+    rest on the dense path or the hash aggregate; -0.0/+0.0 and NaN are
+    one value each, null is a value."""
+    def q(F, df):
+        return df.select(*cols).distinct()
+
+    got, want, _ = _run_both(q, _hash_data())
+    assert len(got) == len(want)
+    assert sorted(map(_group_key, got), key=repr) == sorted(
+        map(_group_key, want), key=repr)

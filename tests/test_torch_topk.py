@@ -123,10 +123,15 @@ def test_topk_over_a_dense_aggregate_with_string_keys(sessions):
 
 
 def test_limit_without_a_device_sort_is_not_ported(sessions):
-    _, tsess = sessions
-    df = tsess.create_dataframe({"i": np.arange(10, dtype=np.int64),
-                                 "s": np.array(list("abcdefghij"))})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        df.limit(3).collect()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        df.sort("s").limit(3).collect()  # a string key sorts on the host
+    """A LIMIT over no device ORDER BY now runs (``LimitExec``): over a
+    scan it takes the first rows, over a host ORDER BY on a string key the
+    first rows of the host sort, as the reference does."""
+    jsess, tsess = sessions
+    data = {"i": np.arange(10, dtype=np.int64)[::-1].copy(),
+            "s": np.array(list("jihgfedcba"))}
+    rows = []
+    for sess in (tsess, jsess):
+        df = sess.create_dataframe(data)
+        rows.append((df.limit(3).collect(), df.sort("s").limit(3).collect()))
+    assert rows[0] == rows[1]
+    assert rows[0][1] == [(0, "a"), (1, "b"), (2, "c")]

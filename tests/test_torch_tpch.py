@@ -138,16 +138,33 @@ def test_ungrouped_min_max_with_nulls_match_reference(sessions):
     _assert_rows_close(trows, jrows)
 
 
-def test_grouped_aggregation_off_the_grid_is_not_ported(sessions, data):
-    """Keys neither the string grid nor the dense path takes (an integral
-    key now groups on the dense path: tests/test_torch_groupby.py) need
-    the sort-based path, which raises."""
-    _, tsess = sessions
-    df = tsess.create_dataframe(data)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        df.group_by("l_tax").agg(TF.sum(TF.col("l_quantity"))).collect()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        df.group_by("l_returnflag").agg(TF.max(TF.col("l_tax"))).collect()
+@pytest.mark.parametrize("case", ["float_key", "max_over_string_group",
+                                  "first"])
+def test_grouped_aggregation_off_the_grid_is_not_ported(sessions, data,
+                                                         case):
+    """Groupings neither the string grid nor the dense path takes — a
+    floating key, a float64 max over a string group — now run on the hash
+    aggregation and equal the reference's sort path; FIRST/LAST still
+    raise, naming the row."""
+    jsess, tsess = sessions
+    if case == "first":
+        df = tsess.create_dataframe(data)
+        with pytest.raises(NotImplementedError, match="row 4"):
+            df.group_by("l_returnflag").agg(
+                TF.first(TF.col("l_tax"))).collect()
+        return
+    key, agg = {"float_key": ("l_tax", "sum"),
+                "max_over_string_group": ("l_returnflag", "max")}[case]
+    col = "l_quantity" if agg == "sum" else "l_tax"
+    rows = []
+    for sess, F in ((tsess, TF), (jsess, JF)):
+        df = sess.create_dataframe(data)
+        rows.append(sorted(df.group_by(key).agg(
+            getattr(F, agg)(F.col(col)).alias("v"),
+            F.count_star().alias("n")).collect()))
+    _assert_rows_close(rows[0], rows[1])
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get("aggHashPath") for m in metrics.values())
 
 
 def test_scan_uploads_only_the_columns_the_query_reads(sessions, data):
@@ -209,3 +226,69 @@ def test_string_predicates_match_reference(sessions):
     assert trows == jrows
     assert _placement(texp) == _placement(jexp)
     assert tf <= jf
+
+
+# ---------------------------------------------------------------------------------
+# Q4, Q13, Q18 and Q21 over the reference suite's gen_db data
+# ---------------------------------------------------------------------------------
+
+from spark_rapids_tpu.models import tpch_suite  # noqa: E402
+
+DB_SF = 0.01   # lineitem 60,012, orders 15,000, customer 1,500, supplier 100
+DB_SETTINGS = {"spark.rapids.tpu.sql.batchSizeRows": 16384,
+               "spark.rapids.tpu.join.denseMinProbeRows": 0}
+DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
+              "q18": ("orders", "lineitem", "customer"),
+              "q21": ("lineitem", "orders", "supplier")}
+
+
+@pytest.fixture(scope="module")
+def db():
+    return tpch.gen_db_arrays(DB_SF)
+
+
+@pytest.mark.parametrize("query", list(DB_QUERIES))
+def test_suite_query_matches_reference_and_oracle(db, query):
+    """The four queries of this slice (semi, anti and left outer joins, the
+    CSR join, the hash aggregate, DISTINCT, HAVING, the device ORDER BY
+    and a LIMIT over the host sort) through both packages on the same
+    gen_db arrays in 16,384-row batches: rows equal the reference's
+    ``run_q*`` and the numpy oracle, at no more blocking fetches."""
+    tables = DB_QUERIES[query]
+    jsess = jsrt.Session(DB_SETTINGS)
+    tsess = tsrt.Session(DB_SETTINGS, device="cpu")
+    jdfs = {t: jsess.create_dataframe(db[t]) for t in tables}
+    with JStats.scoped() as st:
+        jrows = getattr(tpch_suite, f"run_{query}")(jdfs)
+    trows = getattr(tpch, query)(*(tsess.create_dataframe(db[t])
+                                   for t in tables)).collect()
+    want = getattr(tpch, f"{query}_numpy")(*(db[t] for t in tables))
+    assert trows
+    _assert_rows_close(trows, jrows)
+    _assert_rows_close(trows, want)
+    assert tsess.last_query_stats().blocking_fetches <= st.blocking_fetches
+
+
+def test_gen_db_arrays_match_reference_parquet(tmp_path):
+    """Every column of every table equals what the reference suite's
+    gen_db writes, over several 1,000-row chunks."""
+    pq = pytest.importorskip("pyarrow.parquet")
+    sf = 0.002
+    paths = tpch_suite.gen_db(sf, str(tmp_path), chunk=1000)
+    mine = tpch.gen_db_arrays(sf, chunk=1000)
+    for t in tpch.DB_TABLES:
+        ref = pq.read_table(paths[t])
+        assert ref.column_names == list(mine[t])
+        for c in ref.column_names:
+            got = mine[t][c]
+            want = ref.column(c).to_numpy()
+            if got.dtype.kind == "M":
+                want = np.asarray(want, dtype="datetime64[D]")
+            elif got.dtype.kind == "U":
+                want = want.astype(str)
+            np.testing.assert_array_equal(got, want, err_msg=f"{t}.{c}")
+    picked = tpch.gen_db_arrays(sf, tables=("lineitem",), chunk=1000,
+                                columns={"lineitem": ["l_orderkey"]})
+    np.testing.assert_array_equal(picked["lineitem"]["l_orderkey"],
+                                  mine["lineitem"]["l_orderkey"])
+    assert list(picked) == ["lineitem"]

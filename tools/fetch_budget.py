@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Blocking fetches per TPC-H query in the JAX reference and in the port.
+
+    JAX_PLATFORMS=cpu python tools/fetch_budget.py --sf 1 --package both \
+        [--batch-rows 4194304]
+
+Both packages run on the CPU over the same ``gen_db_arrays`` data (the
+reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
+(4,194,304, the default of ``batchSizeRows``) and
+``spark.rapids.tpu.join.denseMinProbeRows = 0``; each query's rows are
+checked against the numpy oracle.  SF1 with 400,000-row batches cuts
+lineitem into the 15 batches it has at SF10 with the default size.  Prints one JSON line per query and
+package: ``{"query", "package", "blocking_fetches", "seconds"}``.  A
+fetch count on the CPU equals the count on a device for the same plan
+(the counted fetches do not depend on the backend); the port's ceiling on
+the card is the reference's count for the same query, scale factor and
+batch size.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
+           "q18": ("orders", "lineitem", "customer"),
+           "q21": ("lineitem", "orders", "supplier")}
+SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
+
+
+def _same(got, want) -> bool:
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                if a is None or abs(a - b) > 1e-9 * max(abs(b), 1.0):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--package", choices=("reference", "port", "both"),
+                    default="both")
+    ap.add_argument("--queries", default=",".join(QUERIES))
+    ap.add_argument("--batch-rows", type=int, default=4 << 20)
+    args = ap.parse_args()
+    settings = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
+                                 args.batch_rows})
+    from spark_rapids_tpu_torch.models import tpch
+    data = tpch.gen_db_arrays(args.sf)
+    runners = []
+    if args.package in ("reference", "both"):
+        import spark_rapids_tpu as jsrt
+        from spark_rapids_tpu.models import tpch_suite
+        from spark_rapids_tpu.utils.metrics import QueryStats
+        jsess = jsrt.Session(settings)
+
+        def run_ref(q):
+            dfs = {t: jsess.create_dataframe(data[t]) for t in QUERIES[q]}
+            with QueryStats.scoped() as st:
+                rows = getattr(tpch_suite, f"run_{q}")(dfs)
+            return rows, st.blocking_fetches
+        runners.append(("reference", run_ref))
+    if args.package in ("port", "both"):
+        import spark_rapids_tpu_torch as tsrt
+        tsess = tsrt.Session(settings, device="cpu")
+
+        def run_port(q):
+            dfs = [tsess.create_dataframe(data[t]) for t in QUERIES[q]]
+            rows = getattr(tpch, q)(*dfs).collect()
+            return rows, tsess.last_query_stats().blocking_fetches
+        runners.append(("port", run_port))
+    for q in args.queries.split(","):
+        want = getattr(tpch, f"{q}_numpy")(*(data[t] for t in QUERIES[q]))
+        for package, run in runners:
+            t0 = time.perf_counter()
+            rows, fetches = run(q)
+            print(json.dumps({"query": q, "package": package, "sf": args.sf,
+                              "batch_rows": args.batch_rows,
+                              "blocking_fetches": fetches,
+                              "matches_oracle": _same(rows, want),
+                              "seconds": round(time.perf_counter() - t0,
+                                               3)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
