@@ -8,9 +8,12 @@ holds each against its plain PyTorch version on the card (``--checks-only``
 stops there), then drives the port's main path through
 ``Session.create_dataframe`` → ``collect``: TPC-H Q6 and Q1 over seeded
 SF10 lineitem data (60,012,150 rows), Q3 over SF10 lineitem, orders
-(15,003,036 rows) and customer (1,500,000 rows), and Q4, Q13, Q18 and Q21
+(15,003,036 rows) and customer (1,500,000 rows), Q4, Q13, Q18 and Q21
 over the reference suite's gen_db tables at SF10 (lineitem 60,012,150,
-orders 15,000,000, customer 1,500,000, supplier 100,000 rows).  It checks
+orders 15,000,000, customer 1,500,000, supplier 100,000 rows), and Q10
+over the same tables in the reference's two configurations: the defaults,
+where the second join's staged side flips it to a broadcast join, and
+AQE off, where it joins 8 hash partition pairs.  It checks
 the results against numpy oracles and shows that each query went through
 its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
@@ -46,14 +49,23 @@ DB_CUSTOMERS = 1_500_000
 DB_SUPPLIERS = 100_000
 DB_LINEITEM = 60_012_150
 DB_COLUMNS = {"lineitem": ["l_orderkey", "l_suppkey", "l_quantity",
-                           "l_commitdate", "l_receiptdate"],
+                           "l_commitdate", "l_receiptdate", "l_returnflag",
+                           "l_extendedprice", "l_discount"],
               "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
                          "o_totalprice", "o_orderdate", "o_orderpriority"],
-              "customer": ["c_custkey", "c_name"],
+              # every column: Q10's first join builds the side the
+              # reference does only if customer is estimated at the full
+              # width of its table, as the reference's is
+              "customer": None,
               "supplier": ["s_suppkey", "s_name"]}
 DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
               "q18": ("orders", "lineitem", "customer"),
-              "q21": ("lineitem", "orders", "supplier")}
+              "q21": ("lineitem", "orders", "supplier"),
+              "q10": ("customer", "orders", "lineitem")}
+# Q10 with AQE off: the reference's blocking fetches for the same plan
+# (tools/fetch_budget.py at SF1 with 400,000-row batches, which cut
+# lineitem into the 15 batches it has at SF10): the port's ceiling
+Q10_SHUFFLED_REFERENCE_FETCHES = 53
 
 
 class SmokeFailure(Exception):
@@ -1464,6 +1476,343 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
     return out
 
 
+
+# ---------------------------------------------------------------------------------
+# hashing, sort_join and dense_agg's float residuals: kernels vs plain
+# ---------------------------------------------------------------------------------
+
+def hash_columns_case(torch, n, seed, device):
+    """One column of every hashable type (bool, int8, int16, int32,
+    int64, float32, float64) with nulls and the edge values: int extremes,
+    -0.0, NaN, +-inf and subnormals."""
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+    cols = [rng.random(n) < 0.5]
+    for dt in (np.int8, np.int16, np.int32, np.int64):
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, n, endpoint=True, dtype=dt)
+        x[:min(n, 2)] = [info.min, info.max][:min(n, 2)]
+        cols.append(x)
+    for dt in (np.float32, np.float64):
+        tiny = np.finfo(dt).tiny
+        edge = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, tiny / 2,
+                         -tiny / 4, tiny], dtype=dt)
+        x = rng.normal(scale=1e6, size=n).astype(dt)
+        x[:min(n, len(edge))] = edge[:min(n, len(edge))]
+        cols.append(x)
+    return [(t(c), t(rng.random(n) < 0.9)) for c in cols]
+
+
+def check_hashing(torch, hashing, device) -> float:
+    """Every column alone and all of them folded, murmur3 and xxhash64,
+    bit-exact; partition ids and counts under a live mask for 1, 8, 200
+    and 4096 partitions."""
+    for n, seed in ((1, 1), (5000, 2), (BATCH_ROWS + 17, 3)):
+        cols = hash_columns_case(torch, n, seed, device)
+        active = _to_device(torch, device)(
+            np.random.default_rng(seed).random(n) < 0.7)
+        for keys in [[c] for c in cols] + [cols]:
+            for algo in ("murmur3", "xxhash64"):
+                kh = hashing.hash_rows_kernel(keys, None, algo, 42, 0)[0]
+                ph = hashing.hash_rows_plain(keys, None, algo, 42, 0)[0]
+                torch.cuda.synchronize()
+                check(torch.equal(kh, ph), f"{algo} hash differs over "
+                      f"{len(keys)} column(s) of n={n}")
+        for nparts in (1, 8, 200, 4096):
+            for algo in ("murmur3", "xxhash64"):
+                kc = torch.zeros(nparts + 1, dtype=torch.int64, device=device)
+                pc = torch.zeros_like(kc)
+                kp = hashing.hash_rows_kernel(cols[3:5], active, algo, 42,
+                                              nparts, kc)[1]
+                pp = hashing.hash_rows_plain(cols[3:5], active, algo, 42,
+                                             nparts, pc)[1]
+                torch.cuda.synchronize()
+                check(torch.equal(kp, pp) and torch.equal(kc, pc),
+                      f"{algo} partition ids or counts differ ({nparts} "
+                      f"partitions, n={n})")
+    print("check hashing: bool/int8/int16/int32/int64/float32/float64 with "
+          "nulls, int extremes, -0.0, NaN, +-inf and subnormals, alone and "
+          "folded, n up to 4194321: murmur3 and xxhash64 bit-exact; "
+          "partition ids and counts for 1/8/200/4096 partitions: ok")
+    return 0.0
+
+
+def sort_case(torch, n, seed, device, kind, span=50):
+    """Keys of one kind with nulls and a live mask: integers over
+    ``span`` values, floats drawn from -0.0/+0.0/NaN/+-inf/subnormal and
+    a few numbers, or an (int64, float64) pair."""
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+
+    def col(k):
+        if k in ("int64", "int32"):
+            return rng.integers(-span, span, n).astype(k)
+        dt = np.dtype(k)
+        vals = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf,
+                         np.finfo(dt).tiny / 2, 1.5, -2.25, 1e30],
+                        dtype=dt)
+        return rng.choice(vals, n)
+    kinds = ["int64", "float64"] if kind == "two" else [kind]
+    keys = [(t(col(k)), t(rng.random(n) < 0.95)) for k in kinds]
+    return keys, t(rng.random(n) < 0.85)
+
+
+def check_sort_join(torch, join, device) -> float:
+    """The sorted build (b_perm, n_valid, sorted images), the probe in
+    every mode and the unmatched build rows exact against the plain
+    versions; and the partition placement that reuses csr_join's radix
+    pass."""
+    for nb, npr, kind, seed in ((0, 100, "int64", 1), (1, 1, "int32", 2),
+                                (3000, 5000, "int64", 3),
+                                (3000, 5000, "int32", 4),
+                                (3000, 5000, "float64", 5),
+                                (3000, 5000, "float32", 6),
+                                (3000, 5000, "two", 7),
+                                (2_500_003, 71_700, "int64", 8)):
+        bkeys, bact = sort_case(torch, nb, seed, device, kind,
+                                span=max(50, nb // 4))
+        pkeys, pact = sort_case(torch, npr, seed + 100, device, kind,
+                                span=max(50, nb // 4))
+        kb = join.sorted_build_kernel(bkeys, bact)
+        pb = join.sorted_build_plain(bkeys, bact)
+        torch.cuda.synchronize()
+        check(torch.equal(kb.n_valid, pb.n_valid), f"sort_join n_valid "
+              f"{kb.n_valid.tolist()} vs {pb.n_valid.tolist()} ({kind})")
+        check(torch.equal(kb.b_perm, pb.b_perm), f"sort_join b_perm differs "
+              f"({kind}, n={nb})")
+        check(torch.equal(kb.words, pb.words), f"sort_join sorted images "
+              f"differ ({kind})")
+        for how in ("inner", "full", "semi", "anti"):
+            ko = join.sorted_probe_kernel(pkeys, pact, kb, how)
+            po = join.sorted_probe_plain(pkeys, pact, pb, how)
+            torch.cuda.synchronize()
+            for name, x, y in zip(("lo", "matches", "selection/offsets"),
+                                  ko, po):
+                check(torch.equal(x, y), f"sort_join {how} probe {name} "
+                      f"differs ({kind}, n={nb}/{npr})")
+        lo, m, _ = ko
+        km, kc = join.unmatched_build_kernel(lo, m, kb, bact)
+        pm, pc = join.unmatched_build_plain(lo, m, pb, bact)
+        torch.cuda.synchronize()
+        check(torch.equal(km, pm) and torch.equal(kc, pc),
+              f"sort_join unmatched build rows differ ({kind})")
+    rng = np.random.default_rng(9)
+    for n, nparts in ((0, 8), (1, 8), (BATCH_ROWS + 17, 8),
+                      (100_000, 300)):
+        pids = _to_device(torch, device)(
+            rng.integers(0, nparts + 1, n).astype(np.int32))
+        kp = join.partition_perm_kernel(pids, nparts)
+        pp = join.partition_perm_plain(pids, nparts)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, pp), f"partition placement differs "
+              f"(n={n}, {nparts} partitions)")
+    print("check sort_join: build 0/1/3000/2500003 rows, int64/int32/"
+          "float64/float32 keys with -0.0/+0.0, NaN, +-inf, subnormals, "
+          "nulls and dead rows, and an (int64, float64) key pair: b_perm, "
+          "n_valid, sorted images, inner/full/semi/anti probes and the "
+          "unmatched build rows exact; partition placement (8 and 300 "
+          "partitions) exact: ok")
+    return 0.0
+
+
+def check_dense_agg_f64(torch, groupby, device) -> float:
+    """A float64 residual (a string-code residual beside it) on the dense
+    aggregate: -0.0/+0.0 under one key, a NaN under another, nulls; the
+    residual channels, presence and the violation check exact, the
+    decoded residuals equal bit for bit."""
+    worst = 0.0
+    for n, seed, nan in ((1, 1, False), (5000, 2, False), (5000, 3, True),
+                         (BATCH_ROWS + 17, 4, False)):
+        rng = np.random.default_rng(seed)
+        t = _to_device(torch, device)
+        key = rng.integers(0, 4096, n).astype(np.int64)
+        bal = (key * 0.25 - 300.0).astype(np.float64)
+        zero = key % 64 == 0
+        bal[zero] = rng.choice(np.array([0.0, -0.0]), int(zero.sum()))
+        if nan:  # every row of one key whose residual is not null
+            bal[key == key[(key % 7) != 3][0]] = np.nan
+        res = [(t((key % 1000).astype(np.int32)), None),
+               (t(bal), t((key % 7) != 3))]
+        contrib = [(t(rng.normal(size=n) * 1e3), None)]
+        active = t(rng.random(n) < 0.8)
+        accs = []
+        for update in (groupby.dense_agg_update,
+                       groupby.dense_agg_update_plain):
+            acc = groupby.DenseAccumulator(0, 4096, 2, [("sum", True)],
+                                           device, res_f64=[False, True])
+            update(acc, (t(key), None), res, contrib, active)
+            accs.append(acc)
+        ka, pa = accs
+        torch.cuda.synchronize()
+        for name in ("present", "vmin", "vmax", "vdmin", "vdmax"):
+            check(torch.equal(getattr(ka, name), getattr(pa, name)),
+                  f"dense_agg float residual {name} differs (n={n})")
+        kc, pc = groupby.dense_agg_check(ka), groupby.dense_agg_check_plain(
+            pa)
+        check(torch.equal(kc, pc), "dense_agg float residual check differs")
+        check(int(kc[0]) == int(nan and n > 1), f"dense_agg float residual "
+              f"violation {int(kc[0])} with{'' if nan else 'out'} a NaN")
+        kv, pv = ka.residual(1)[0], pa.residual(1)[0]
+        check(torch.equal(kv.view(torch.int64), pv.view(torch.int64)),
+              "dense_agg decoded float residuals differ")
+        worst = max(worst, max_abs_diff(ka.acc[0], pa.acc[0]))
+    print("check dense_agg float residuals: -0.0/+0.0 under one key, a NaN, "
+          "nulls, n up to 4194321: channels, check and decoded values "
+          "exact: ok")
+    return worst
+
+
+def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
+                        worst) -> list:
+    """hashing, sort_join and dense_agg's float residual channels at the
+    shapes Q10 gives them at SF10, each first held against its plain
+    version on the same inputs."""
+    rng = np.random.default_rng(8)
+    t = _to_device(torch, device)
+    n = BATCH_ROWS
+    out, notes = [], []
+
+    # hashing: the murmur3 partition id of one lineitem batch's l_orderkey
+    # for the shuffled join's exchange, a third of the rows live ('R')
+    keys = [(t(rng.integers(1, DB_ORDERS + 1, n)), None)]
+    active = t(rng.random(n) < 1 / 3)
+    kc = torch.zeros(9, dtype=torch.int64, device=device)
+    pc = torch.zeros_like(kc)
+    kp = hashing.hash_rows_kernel(keys, active, "murmur3", 42, 8, kc,
+                                  want_hash=False)[1]
+    pp = hashing.hash_rows_plain(keys, active, "murmur3", 42, 8, pc)[1]
+    torch.cuda.synchronize()
+    check(torch.equal(kp, pp) and torch.equal(kc, pc),
+          "hashing differs at Q10's shape")
+    inputs = copies_for_l2([keys[0][0], active])
+    counts = torch.zeros(9, dtype=torch.int64, device=device)
+    ms = time_ms(torch, [(lambda k=k, a=a: hashing.hash_rows_kernel(
+        [(k, None)], a, "murmur3", 42, 8, counts, want_hash=False))
+        for k, a in inputs], reps=8 * len(inputs))
+    plain_ms = time_ms_synced(torch, [(
+        lambda k=k, a=a: hashing.hash_rows_plain(
+            [(k, None)], a, "murmur3", 42, 8, counts)) for k, a in inputs],
+        reps=2 * len(inputs))
+    # the key and the live mask read once, the id written once
+    row = _row("hashing", launches, 0.0, ms, plain_ms, n * (8 + 1 + 4), None,
+               "spark_rapids_tpu/ops/hashing.py:190")
+    out.append(row)
+    notes.append(f"n={n} int64 keys, {int(active.sum())} live, 8 "
+                 f"partitions (no PyTorch call computes murmur3)")
+    del keys, active, inputs
+
+    # sort_join: one Q10-shuffled partition pair — the build is the
+    # partition's ~2.5 M returned lineitems (l_orderkey), the probe its
+    # ~71.7 K orders of the quarter (o_orderkey, unique)
+    nb, npr = 2_500_000, 71_700
+    bk = t(rng.integers(1, DB_ORDERS + 1, nb))
+    pk = t(rng.choice(np.arange(1, DB_ORDERS + 1), npr, replace=False))
+    kb = join.sorted_build_kernel([(bk, None)], None)
+    pb = join.sorted_build_plain([(bk, None)], None)
+    ko = join.sorted_probe_kernel([(pk, None)], None, kb, "inner")
+    po = join.sorted_probe_plain([(pk, None)], None, pb, "inner")
+    torch.cuda.synchronize()
+    check(torch.equal(kb.b_perm, pb.b_perm) and all(
+        torch.equal(x, y) for x, y in zip(ko, po)),
+        "sort_join differs at Q10's pair shape")
+    matched = int(ko[1].sum())
+
+    def kernel_call(b, p):
+        return lambda: join.sorted_probe_kernel(
+            [(p, None)], None, join.sorted_build_kernel([(b, None)], None),
+            "inner")
+
+    # one call launches ~55 kernels (a 5-launch radix pass per key byte):
+    # each copy once keeps the queue under the stream's launch depth
+    inputs = copies_for_l2([bk, pk])
+    ms = time_ms(torch, [kernel_call(b, p) for b, p in inputs],
+                 reps=len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda b=b, p=p: join.sorted_probe_plain(
+        [(p, None)], None, join.sorted_build_plain([(b, None)], None),
+        "inner") for b, p in inputs[:2]], reps=2)
+
+    def library(b, p):
+        def run():
+            sk, perm = torch.sort(b, stable=True)
+            return (torch.searchsorted(sk, p),
+                    torch.searchsorted(sk, p, right=True), perm)
+        return run
+
+    lib_ms = time_ms(torch, [library(b, p) for b, p in inputs],
+                     reps=len(inputs))
+    hit = ko[1] > 0
+    # build keys and probe keys read once; sorted images, b_perm, lo and
+    # matches written once; the matched images read by sector
+    nbytes = nb * 8 + npr * 8 + nb * (8 + 4) + npr * 8 \
+        + sector_bytes(torch, ko[0][hit].to(torch.int64), 8)
+    out.append(_row("sort_join", launches, 0.0, ms, plain_ms, nbytes, lib_ms,
+                    "spark_rapids_tpu/plan/join_exec.py:626"))
+    notes.append(f"build {nb} int64 keys, probe {npr} keys, {matched} "
+                 f"matches (library: torch.sort(stable=True) + two "
+                 f"torch.searchsorted)")
+    del bk, pk, kb, pb, ko, po, inputs
+
+    # dense_agg with a float64 residual: Q10's GROUP BY (c_custkey over
+    # 1,500,000 slots, residuals c_name codes and c_acctbal) over the
+    # ~765 K joined rows of one query, one float64 sum
+    n10, D = 765_000, DB_CUSTOMERS
+    key = rng.integers(1, D + 1, n10)
+    res = [(t((key % 1_000_000).astype(np.int32)), None),
+           (t(np.round(key * 0.37 - 999.99, 2)), None)]
+    vol = t(rng.uniform(800, 100_000, n10))
+    tk = t(key.astype(np.int64))
+    accs = []
+    for update in (groupby.dense_agg_update, groupby.dense_agg_update_plain):
+        acc = groupby.DenseAccumulator(1, D, 2, [("sum", True)], device,
+                                       res_f64=[False, True])
+        update(acc, (tk, None), res, [(vol, None)], None)
+        accs.append(acc)
+    torch.cuda.synchronize()
+    check(torch.equal(accs[0].vmin, accs[1].vmin)
+          and torch.equal(accs[0].vmax, accs[1].vmax),
+          "dense_agg float residual channels differ at Q10's shape")
+    err = max_abs_diff(accs[0].acc[0], accs[1].acc[0])
+    kacc = accs[0]
+    inputs = copies_for_l2([tk, res[0][0], res[1][0], vol])
+    ms = time_ms(torch, [(lambda k=k, a=a, b=b, v=v: groupby.dense_agg_update(
+        kacc, (k, None), [(a, None), (b, None)], [(v, None)], None))
+        for k, a, b, v in inputs], reps=8 * len(inputs))
+    pacc = accs[1]
+    plain_ms = time_ms_synced(torch, [(
+        lambda k=k, a=a, b=b, v=v: groupby.dense_agg_update_plain(
+            pacc, (k, None), [(a, None), (b, None)], [(v, None)], None))
+        for k, a, b, v in inputs[:2]], reps=2)
+    sums = torch.zeros(D + 1, dtype=torch.float64, device=device)
+    lib_ms = time_ms(torch, [(lambda k=k, v=v: sums.index_add_(0, k - 1, v))
+                             for k, _, _, v in inputs], reps=8 * len(inputs))
+    slots = tk - 1
+    # key, two residuals and the value read once; per row the sectors of
+    # its slot in the sum, presence and the four words of each residual
+    nbytes = n10 * (8 + 4 + 8 + 8) + sector_bytes(torch, slots, 8) * 5 \
+        + sector_bytes(torch, slots, 1) + sector_bytes(torch, slots, 4) * 4
+    row = _row("dense_agg", launches, max(err, worst["dense_agg"]), ms,
+               plain_ms, nbytes, lib_ms,
+               "spark_rapids_tpu/plan/physical.py:1321")
+    row["name"] = "dense_agg_f64_residual"
+    out.append(row)
+    notes.append(f"{n10} rows over {D} slots, an int32 and a float64 "
+                 f"residual, one float64 sum (library: index_add_ of the "
+                 f"sum)")
+    synced = {("hashing", "plain"), ("sort_join", "plain"),
+              ("dense_agg_f64_residual", "plain")}
+    for row, note in zip(out, notes):
+        mark = {w: "†" if (row["name"], w) in synced else ""
+                for w in ("plain", "library")}
+        nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        lib = "none" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f} ms"
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
+              f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
+              f"{row['plain_ms']:.4f} ms{mark['plain']}, library {lib}), "
+              f"max |err| vs plain {row['max_abs_err']:.3e}, "
+              f"{row['launches']} launches on the main path")
+    return out
+
 # ---------------------------------------------------------------------------------
 
 def main() -> int:
@@ -1480,7 +1829,8 @@ def main() -> int:
     try:
         from spark_rapids_tpu_torch import Session, kernels
         from spark_rapids_tpu_torch.models import tpch
-        from spark_rapids_tpu_torch.ops import batch_utils, groupby, join
+        from spark_rapids_tpu_torch.ops import (batch_utils, groupby, hashing,
+                                                join)
         from spark_rapids_tpu_torch.ops import topk as topk_mod
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not importable ({e})",
@@ -1517,6 +1867,10 @@ def main() -> int:
                                        batch_utils, device))
         worst["csr_join"] = check_csr_join(torch, join, device)
         worst["hash_agg"] = check_hash_agg(torch, groupby, device)
+        worst["hashing"] = check_hashing(torch, hashing, device)
+        worst["sort_join"] = check_sort_join(torch, join, device)
+        worst["dense_agg"] = max(worst["dense_agg"], check_dense_agg_f64(
+            torch, groupby, device))
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -1565,6 +1919,10 @@ def main() -> int:
         df = sess.create_dataframe(data)
         cdf, odf = sess.create_dataframe(cust), sess.create_dataframe(orders)
         dbf = {t: sess.create_dataframe(cols) for t, cols in db.items()}
+        # Q10-shuffled: the same tables on a session with AQE off
+        shuf = Session({"spark.rapids.tpu.sql.aqe.enabled": False},
+                       device="cuda")
+        sbf = {t: shuf.create_dataframe(db[t]) for t in DB_QUERIES["q10"]}
 
         counters = {
             "masked_reduce": [groupby.masked_reduce],
@@ -1577,8 +1935,12 @@ def main() -> int:
             "dense_join_semi": [ModeCounter(join.dense_join_probe,
                                             ("semi", "anti"))],
             "csr_join": [join.csr_build_kernel, join.csr_probe_kernel,
-                         join.csr_expand_kernel, join.csr_gather],
-            "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_rehash]}
+                         join.csr_expand_kernel, join.csr_gather,
+                         join.partition_perm_kernel],
+            "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_rehash],
+            "hashing": [hashing.hash_rows_kernel],
+            "sort_join": [join.sorted_build_kernel, join.sorted_probe_kernel,
+                          join.unmatched_build_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -1602,15 +1964,37 @@ def main() -> int:
                                           dbf["supplier"]),
                   check_rows("Q21"), db_want["q21"],
                   ("hash_agg", "dense_agg", "dense_join",
-                   "dense_join_semi", "compact"))]
+                   "dense_join_semi", "compact")),
+                 # customer x orders broadcasts (orders build, repeated
+                 # o_custkey: CSR); the second join flips to the dense path
+                 ("q10_flip", lambda: tpch.q10(dbf["customer"],
+                                               dbf["orders"],
+                                               dbf["lineitem"]),
+                  check_rows("Q10-flip"), db_want["q10"],
+                  ("dense_join", "csr_join", "dense_agg", "topk")),
+                 ("q10_shuffled", lambda: tpch.q10(sbf["customer"],
+                                                   sbf["orders"],
+                                                   sbf["lineitem"]),
+                  check_rows("Q10-shuffled"), db_want["q10"],
+                  ("hashing", "sort_join", "csr_join", "dense_join",
+                   "dense_agg", "topk"))]
         runs_of, launches, per_wrapper = {}, {}, {}
         for name, df_fn, checker, want, used in paths:
             mine = {k: counters[k] for k in used}
             for fns in mine.values():  # counts from 0 just before the path
                 for fn in fns:
                     fn.launches = 0
-            runs_of[name] = run_query(torch, sess, df_fn, checker, want,
-                                      name, mine)
+            runs_of[name] = run_query(
+                torch, shuf if name == "q10_shuffled" else sess, df_fn,
+                checker, want, name, mine)
+            if name.startswith("q10"):
+                ctx = (shuf if name == "q10_shuffled" else
+                       sess).last_exec_context()
+                flips = sum(m.values.get("aqeShuffleToBroadcast", 0)
+                            for m in ctx.metrics.values())
+                print(f"query {name}: aqeShuffleToBroadcast {flips:g}")
+                check(flips == (name == "q10_flip"), f"{name} flipped "
+                      f"{flips:g} times")
             # read just after it; a kernel several paths launch sums them
             for k, v in launch_counts(mine).items():
                 launches[k] = launches.get(k, 0) + v
@@ -1626,6 +2010,10 @@ def main() -> int:
         fetches = max(r["syncs"] for r in q3_runs)
         check(fetches <= Q3_REFERENCE_FETCHES, f"Q3 made {fetches} blocking "
               f"fetches, more than the reference's {Q3_REFERENCE_FETCHES}")
+        fetches = max(r["syncs"] for r in runs_of["q10_shuffled"])
+        check(fetches <= Q10_SHUFFLED_REFERENCE_FETCHES, f"Q10-shuffled made "
+              f"{fetches} blocking fetches, more than the reference's "
+              f"{Q10_SHUFFLED_REFERENCE_FETCHES}")
         for name, df_fn, *_ in paths:
             profile_query(torch, df_fn, name)
         for name, runs in runs_of.items():
@@ -1637,12 +2025,17 @@ def main() -> int:
                   f"{med['device_ms']:.2f} ms, syncs {warm[-1]['syncs']}, "
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
-        del df, cdf, odf, dbf, sess
+        del df, cdf, odf, dbf, sbf, sess, shuf
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
         table += time_slice3_kernels(torch, join, groupby, device, launches,
                                      worst)
+        table += time_slice4_kernels(torch, hashing, join, groupby, device,
+                                     launches, worst)
+        check(sorted({r["source"] for r in table}) == sorted(
+            f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
+            "the kernels line misses a kernel source")
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

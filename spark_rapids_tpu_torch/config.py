@@ -136,6 +136,40 @@ AGG_DENSE_MAX_ACCUM = register(
     check=_positive)
 
 
+AQE_ENABLED = register(
+    "spark.rapids.tpu.sql.aqe.enabled", True,
+    "Adaptive re-planning at exchange boundaries: a shuffled join whose "
+    "staged build input is actually under autoBroadcastJoinThreshold "
+    "flips to a broadcast join at run time. The staged input serves "
+    "either path.")
+
+EXCHANGE_ENABLED = register(
+    "spark.rapids.tpu.sql.exchange.enabled", True,
+    "Plan equi-joins that broadcast neither side over hash-partitioned "
+    "sides (a shuffle exchange under each side of a sort-merge join). "
+    "When false such a join joins its two sides whole.")
+
+SHUFFLE_PARTITIONS = register(
+    "spark.rapids.tpu.sql.shuffle.partitions", 8,
+    "Number of partitions of a shuffle exchange. On one card a partition "
+    "exists for memory decomposition, not parallelism.",
+    check=_positive)
+
+SHUFFLE_MODE = register(
+    "spark.rapids.tpu.shuffle.mode", "CACHE_ONLY",
+    "Shuffle transport: CACHE_ONLY (partitions stay on the device). HOST "
+    "and ICI are the reference's other transports; the port raises on "
+    "them (ROADMAP.md item 10).",
+    check=_one_of("HOST", "ICI", "CACHE_ONLY"))
+
+JOIN_SUBPARTITIONS = register(
+    "spark.rapids.tpu.sql.join.subPartitions", 16,
+    "Fan-out used to split a shuffled-join partition pair whose combined "
+    "rows exceed sql.batchSizeRows by a second, independent key hash "
+    "(xxhash64) before joining.",
+    check=_positive)
+
+
 class TpuConf:
     """An immutable snapshot of settings; unset keys resolve to defaults."""
 

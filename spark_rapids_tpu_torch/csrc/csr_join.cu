@@ -13,17 +13,14 @@
 //                  dead, null or outside the domain; counts[slot] += 1
 //                  (atomics: a count does not depend on order);
 //   csr_scan       exclusive scan of int32 counts into int64 offsets, with
-//                  the total in out[n]: block scans, a scan of the block
-//                  sums in one block, and a pass that adds them;
+//                  the total in out[n] (radix.cuh scan_i32);
 //   csr_sort_pass  one 8-bit pass of a stable LSD radix sort of row numbers
-//                  by slot: per-tile digit histograms, their scan (digit
-//                  major), and a scatter that ranks equal digits in row
-//                  order (__match_any_sync within a warp, per-warp counts
-//                  in shared memory across warps, a running base across
-//                  the tile's rounds).  bit_length(D) / 8 passes give
-//                  b_perm: the live rows grouped by slot, each slot's rows
-//                  in build order, as the reference's lexsort on (slot,
-//                  row) does — without atomics, so the order is fixed;
+//                  by slot (radix.cuh radix_pass).  bit_length(D) / 8
+//                  passes give b_perm: the live rows grouped by slot, each
+//                  slot's rows in build order, as the reference's lexsort
+//                  on (slot, row) does — without atomics, so the order is
+//                  fixed.  With a partition id as the slot, one pass places
+//                  a shuffle exchange's rows by partition;
 //   csr_probe      per probe row its slot's (lo, matches), 0 matches when
 //                  the row is dead, null or outside the domain; semi and
 //                  anti write the selection (anti keeps null-key rows, as
@@ -51,15 +48,10 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "radix.cuh"
+
 #define CJ_THREADS 256
 #define CJ_MAX_COLS 16
-#define SCAN_THREADS 512
-#define SCAN_ITEMS 8
-#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
-#define RS_THREADS 256
-#define RS_WARPS (RS_THREADS / 32)
-#define RS_ITEMS 16
-#define RS_TILE (RS_THREADS * RS_ITEMS)
 
 #define CJ_INNER 0
 #define CJ_SEMI 1
@@ -101,184 +93,6 @@ cj_slots(const void* __restrict__ keys, int elem,
         in_domain(load_key(keys, elem, r), kmin, D, &idx))
       atomicAdd(counts + idx, 1);
     slots[r] = (int)idx;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Exclusive scan: int32 in, int64 out (out[n] = total)
-// ---------------------------------------------------------------------------
-
-// Scans one SCAN_TILE tile per block; writes the tile's total to sums.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles(const int* __restrict__ in, long long* __restrict__ out,
-           long long n, long long* __restrict__ sums) {
-  __shared__ long long s_warp[SCAN_THREADS / 32];
-  const long long base = (long long)blockIdx.x * SCAN_TILE
-                         + (long long)threadIdx.x * SCAN_ITEMS;
-  long long vals[SCAN_ITEMS];
-  long long run = 0;
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long r = base + i;
-    vals[i] = run;
-    run += r < n ? in[r] : 0;
-  }
-  // block-wide exclusive scan of the per-thread totals
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  long long incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = lane < SCAN_THREADS / 32 ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long v = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += v;
-    }
-    if (lane < SCAN_THREADS / 32) s_warp[lane] = w;  // inclusive per warp
-  }
-  __syncthreads();
-  const long long offset =
-      (incl - run) + (warp > 0 ? s_warp[warp - 1] : 0);
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long r = base + i;
-    if (r < n) out[r] = offset + vals[i];
-  }
-  if (threadIdx.x == SCAN_THREADS - 1)
-    sums[blockIdx.x] = offset + run;
-}
-
-// One block: exclusive scan of the tile totals in place, chunk by chunk
-// with a carry; total[0] receives the grand total.
-__global__ void __launch_bounds__(1024)
-scan_sums(long long* __restrict__ sums, long long nb,
-          long long* __restrict__ total) {
-  __shared__ long long s_warp[32];
-  __shared__ long long s_carry;
-  if (threadIdx.x == 0) s_carry = 0;
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (long long c = 0; c < nb; c += 1024) {
-    const long long r = c + threadIdx.x;
-    const long long v = r < nb ? sums[r] : 0;
-    long long incl = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += u;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      long long w = s_warp[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const long long u = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += u;
-      }
-      s_warp[lane] = w;
-    }
-    __syncthreads();
-    const long long excl = s_carry + incl - v
-                           + (warp > 0 ? s_warp[warp - 1] : 0);
-    if (r < nb) sums[r] = excl;
-    __syncthreads();
-    if (threadIdx.x == 1023) s_carry = excl + v;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *total = s_carry;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_add(long long* __restrict__ out, long long n,
-         const long long* __restrict__ sums) {
-  const long long add = sums[blockIdx.x];
-  const long long base = (long long)blockIdx.x * SCAN_TILE;
-  for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
-    const long long r = base + i;
-    if (r < n) out[r] += add;
-  }
-}
-
-static long long scan_blocks(long long n) {
-  return n <= 0 ? 1 : (n + SCAN_TILE - 1) / SCAN_TILE;
-}
-
-// out[0..n) = exclusive scan of in, out[n] = total; sums: scan_blocks(n)
-// int64 words of scratch.
-static cudaError_t scan_i32(const int* in, long long* out, long long n,
-                            long long* sums, cudaStream_t s) {
-  const long long nb = scan_blocks(n);
-  scan_tiles<<<(unsigned)nb, SCAN_THREADS, 0, s>>>(in, out, n, sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_sums<<<1, 1024, 0, s>>>(sums, nb, out + n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_add<<<(unsigned)nb, SCAN_THREADS, 0, s>>>(out, n, sums);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Stable LSD radix sort pass: 8 bits of int32 keys, int32 values
-// ---------------------------------------------------------------------------
-
-// hist[d * nblocks + b]: rows of tile b whose digit is d.
-__global__ void __launch_bounds__(RS_THREADS)
-rs_hist(const int* __restrict__ keys, long long n, int shift,
-        int* __restrict__ hist, int nblocks) {
-  __shared__ int s[256];
-  s[threadIdx.x] = 0;
-  __syncthreads();
-  const long long tile = (long long)blockIdx.x * RS_TILE;
-  for (int i = 0; i < RS_ITEMS; ++i) {
-    const long long r = tile + (long long)i * RS_THREADS + threadIdx.x;
-    if (r < n) atomicAdd(&s[(keys[r] >> shift) & 255], 1);
-  }
-  __syncthreads();
-  hist[(long long)threadIdx.x * nblocks + blockIdx.x] = s[threadIdx.x];
-}
-
-// Row r of tile b goes to offs[d * nblocks + b] + (rows before r in tile
-// b with digit d).  vals_in == nullptr: the values are the row numbers.
-__global__ void __launch_bounds__(RS_THREADS)
-rs_scatter(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
-           int* __restrict__ keys_out, int* __restrict__ vals_out,
-           long long n, int shift, const long long* __restrict__ offs,
-           int nblocks) {
-  __shared__ long long s_base[256];
-  __shared__ int s_cnt[RS_WARPS][257];
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  s_base[t] = offs[(long long)t * nblocks + blockIdx.x];
-  for (int w = 0; w < RS_WARPS; ++w) s_cnt[w][t] = 0;
-  if (t < RS_WARPS) s_cnt[t][256] = 0;
-  __syncthreads();
-  const long long tile = (long long)blockIdx.x * RS_TILE;
-  for (int i = 0; i < RS_ITEMS; ++i) {
-    const long long r = tile + (long long)i * RS_THREADS + t;
-    const bool ok = r < n;
-    const int k = ok ? keys_in[r] : 0;
-    const int d = ok ? (k >> shift) & 255 : 256;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (lane == __ffs(peers) - 1) s_cnt[warp][d] = __popc(peers);
-    __syncthreads();
-    if (ok) {
-      long long pos = s_base[d] + rank;
-      for (int w = 0; w < warp; ++w) pos += s_cnt[w][d];
-      keys_out[pos] = k;
-      vals_out[pos] = vals_in == nullptr ? (int)r : vals_in[r];
-    }
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < RS_WARPS; ++w) {
-      total += s_cnt[w][t];
-      s_cnt[w][t] = 0;
-    }
-    s_base[t] += total;
-    __syncthreads();
   }
 }
 
@@ -424,10 +238,6 @@ extern "C" int csr_scan(const void* in, long long n, void* out, void* sums,
                        static_cast<cudaStream_t>(stream));
 }
 
-static long long sort_tiles(long long n) {
-  return n <= 0 ? 1 : (n + RS_TILE - 1) / RS_TILE;
-}
-
 // One pass over bits [shift, shift + 8) (tiles = ceil(n / RS_TILE)).
 // hist: 256 * tiles int32; offs: 256 * tiles + 1 int64; sums:
 // ceil(256 * tiles / SCAN_TILE) int64.
@@ -438,22 +248,11 @@ extern "C" int csr_sort_pass(const void* keys_in, const void* vals_in,
   if (n < 0 || n >= INT_MAX || shift < 0 || shift > 24)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const long long tiles = sort_tiles(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rs_hist<<<(unsigned)tiles, RS_THREADS, 0, s>>>(
-      static_cast<const int*>(keys_in), n, shift, static_cast<int*>(hist),
-      (int)tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = scan_i32(static_cast<const int*>(hist),
-                 static_cast<long long*>(offs), 256 * tiles,
-                 static_cast<long long*>(sums), s);
-  if (err != cudaSuccess) return (int)err;
-  rs_scatter<<<(unsigned)tiles, RS_THREADS, 0, s>>>(
+  return (int)radix_pass<int>(
       static_cast<const int*>(keys_in), static_cast<const int*>(vals_in),
       static_cast<int*>(keys_out), static_cast<int*>(vals_out), n, shift,
-      static_cast<const long long*>(offs), (int)tiles);
-  return (int)cudaGetLastError();
+      static_cast<int*>(hist), static_cast<long long*>(offs),
+      static_cast<long long*>(sums), static_cast<cudaStream_t>(stream));
 }
 
 // mode 1/2 (semi, anti): sel [n]; mode 0/3 (inner, left): lo, cnt [n].

@@ -35,6 +35,15 @@
 //                     both null and non-null rows, or two values, is a
 //                     violation; also counts the present slots (n_groups).
 //
+// Float residuals (physical.py:1288 takes kind "f", :1537 checks them):
+// a float64 residual's channels hold the int64 image of its value that
+// orders floats with -0.0 just below +0.0 (hash_agg.cu's f64_image), so
+// vmin decodes to the reference's scatter-min (which prefers -0.0), and
+// the check takes images -1 and 0 (-0.0 and +0.0) as equal, as the
+// reference's float comparison does.  A NaN drives vmin to INT64_MIN and
+// vmax to INT64_MAX, images no number has: the check sees two values, a
+// violation, as the reference treats any NaN residual.
+//
 // Bound: device memory.  The update reads each row's live mask, key,
 // residuals and contribution columns once and does a read-modify-write of
 // one 32-byte sector per channel at the row's slot, which is random in the
@@ -47,9 +56,9 @@
 //
 // float64 atomics add in no fixed order: sums may differ from run to run in
 // the last bits.  int64 sums wrap modulo 2^64 like the reference's.  Keys
-// and residuals are int32 or int64 (dates are int32, dictionary codes of
-// strings int32, booleans are promoted by the caller); residuals are
-// widened to int64 in their channels.
+// and integer residuals are int32 or int64 (dates are int32, dictionary
+// codes of strings int32, booleans are promoted by the caller); residuals
+// are widened to int64 in their channels; float residuals are float64.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -201,6 +210,7 @@ struct DAUpdate {
   const void* res[DA_MAX_RES];
   const uint8_t* res_valid[DA_MAX_RES];
   int res_elem[DA_MAX_RES];
+  int res_f64[DA_MAX_RES];  // 1: a float64 residual (channels hold images)
   int nres;
   const void* ch[DA_MAX_CH];  // nullptr: a count channel (adds 1)
   const uint8_t* ch_valid[DA_MAX_CH];
@@ -226,6 +236,15 @@ struct DAUpdate {
   long long* och[DA_MAX_CH];  // 8-byte words (float64 bits or int64)
   uint8_t* och_valid[DA_MAX_CH];
 };
+
+#define F64_NEG_ZERO_IMAGE (-1LL)
+
+// int64 image of a float64, monotonic, with -0.0 (image -1) just below
+// +0.0 (image 0); not called for NaN.
+__device__ __forceinline__ long long f64_image(double x) {
+  const long long b = __double_as_longlong(x);
+  return b >= 0 ? b : b ^ 0x7fffffffffffffffLL;
+}
 
 __device__ __forceinline__ bool ch_live(const DAUpdate& a, int j,
                                         long long r) {
@@ -294,9 +313,17 @@ da_update(const __grid_constant__ DAUpdate a,
     for (int i = 0; i < a.nres; ++i) {
       const bool v = a.res_valid[i] == nullptr || a.res_valid[i][r];
       if (v) {
-        const long long x = load_i(a.res[i], a.res_elem[i], r);
-        if (x < a.vmin[i][slot]) atomicMin(a.vmin[i] + slot, x);
-        if (x > a.vmax[i][slot]) atomicMax(a.vmax[i] + slot, x);
+        long long lo, hi;
+        if (a.res_f64[i]) {
+          const double d = static_cast<const double*>(a.res[i])[r];
+          const bool nan = d != d;
+          lo = nan ? LLONG_MIN : f64_image(d);
+          hi = nan ? LLONG_MAX : lo;
+        } else {
+          lo = hi = load_i(a.res[i], a.res_elem[i], r);
+        }
+        if (lo < a.vmin[i][slot]) atomicMin(a.vmin[i] + slot, lo);
+        if (hi > a.vmax[i][slot]) atomicMax(a.vmax[i] + slot, hi);
         if (a.vdmax[i][slot] == 0) atomicMax(a.vdmax[i] + slot, 1);
       } else if (a.vdmin[i][slot] == 1) {
         atomicMin(a.vdmin[i] + slot, 0);
@@ -314,8 +341,15 @@ struct DACheck {
   const long long* vmax[DA_MAX_RES];
   const int* vdmin[DA_MAX_RES];
   const int* vdmax[DA_MAX_RES];
+  int res_f64[DA_MAX_RES];
   int nres;
 };
+
+// Two channel values that are one key: equal, or -0.0 and +0.0.
+__device__ __forceinline__ bool same_value(long long lo, long long hi,
+                                           int f64) {
+  return lo == hi || (f64 && lo == F64_NEG_ZERO_IMAGE && hi == 0);
+}
 
 // out: [violation, n_groups], preset to 0.
 __global__ void __launch_bounds__(DA_THREADS)
@@ -330,7 +364,8 @@ da_check(const __grid_constant__ DACheck c,
     ++groups;
     for (int i = 0; i < c.nres; ++i) {
       if (c.vdmax[i][s] == 1 &&
-          (c.vdmin[i][s] == 0 || c.vmin[i][s] != c.vmax[i][s]))
+          (c.vdmin[i][s] == 0 ||
+           !same_value(c.vmin[i][s], c.vmax[i][s], c.res_f64[i])))
         bad = 1;
     }
   }
@@ -413,7 +448,8 @@ extern "C" int dense_agg_stats(int nkeys, const void* const* data,
   return (int)cudaGetLastError();
 }
 
-// Inputs: the primary key, nres residual columns, nch contribution
+// Inputs: the primary key, nres residual columns (res_f64[i]: float64,
+// else integers of res_elem[i] bytes), nch contribution
 // channels (ch[j] nullptr = a count; ops 0 sum, 1 min, 2 max; ch_f64[j]
 // = float64 sum).  Accumulators: acc[j] [S] (S = D + 1), present [S],
 // vmin/vmax [nres][S] int64, vdmin/vdmax [nres][S] int32.  Overflow:
@@ -422,7 +458,7 @@ extern "C" int dense_agg_stats(int nkeys, const void* const* data,
 extern "C" int dense_agg_update(
     const void* key, const void* key_valid, int key_elem, int nres,
     const void* const* res, const void* const* res_valid,
-    const int* res_elem, int nch, const void* const* ch,
+    const int* res_elem, const int* res_f64, int nch, const void* const* ch,
     const void* const* ch_valid, const int* ch_op, const int* ch_f64,
     const void* active, long long n, long long kmin, long long D,
     void* const* acc, void* present, void* const* vmin, void* const* vmax,
@@ -437,10 +473,12 @@ extern "C" int dense_agg_update(
   a.key_valid = static_cast<const uint8_t*>(key_valid);
   a.key_elem = key_elem;
   for (int i = 0; i < nres; ++i) {
-    if (!elem_ok(res_elem[i])) return (int)cudaErrorInvalidValue;
+    if (!elem_ok(res_elem[i]) || (res_f64[i] && res_elem[i] != 8))
+      return (int)cudaErrorInvalidValue;
     a.res[i] = res[i];
     a.res_valid[i] = static_cast<const uint8_t*>(res_valid[i]);
     a.res_elem[i] = res_elem[i];
+    a.res_f64[i] = res_f64[i] != 0;
     a.vmin[i] = static_cast<long long*>(vmin[i]);
     a.vmax[i] = static_cast<long long*>(vmax[i]);
     a.vdmin[i] = static_cast<int*>(vdmin[i]);
@@ -480,8 +518,9 @@ extern "C" int dense_agg_update(
 extern "C" int dense_agg_check(int nres, const void* const* vmin,
                                const void* const* vmax,
                                const void* const* vdmin,
-                               const void* const* vdmax, const void* present,
-                               long long S, void* out, void* stream) {
+                               const void* const* vdmax, const int* res_f64,
+                               const void* present, long long S, void* out,
+                               void* stream) {
   if (nres < 0 || nres > DA_MAX_RES || S < 1)
     return (int)cudaErrorInvalidValue;
   DACheck c = {};
@@ -490,6 +529,7 @@ extern "C" int dense_agg_check(int nres, const void* const* vmin,
     c.vmax[i] = static_cast<const long long*>(vmax[i]);
     c.vdmin[i] = static_cast<const int*>(vdmin[i]);
     c.vdmax[i] = static_cast<const int*>(vdmax[i]);
+    c.res_f64[i] = res_f64[i] != 0;
   }
   c.nres = nres;
   int blocks = 1;

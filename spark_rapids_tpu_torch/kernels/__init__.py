@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ctypes: no PyTorch headers,
 so a build takes seconds.  Libraries are built from the sources of the
 checkout at first use, into ``build/kernels/`` beside the package, and are
-named by a hash of their source and flags, so an edited source is rebuilt.
+named by a hash of their source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt.
 A failed build raises; nothing falls back to the plain PyTorch versions.
 Nothing here runs at import time: the CPU tests import every module on a
 host without ``nvcc``.
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
-           "compact", "csr_join", "hash_agg")
+           "compact", "csr_join", "hash_agg", "hashing", "sort_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,19 +96,38 @@ _SIGNATURES = {
         # fd, stream
         "dense_agg_stats": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
         # key, key_valid, key_elem, nres, res[], res_valid[], res_elem[],
-        # nch, ch[], ch_valid[], ch_op[], ch_f64[], active, n, kmin, D,
-        # acc[], present, vmin[], vmax[], vdmin[], vdmax[], cap, ocount,
-        # obounds, okey, ores[], ores_valid[], och[], och_valid[], stream
-        "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                             _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P,
-                             _P, _P, _P, _P, _P, _P, _P],
-        # nres, vmin[], vmax[], vdmin[], vdmax[], present, S, out, stream
-        "dense_agg_check": [_I, _P, _P, _P, _P, _P, _L, _P, _P],
+        # res_f64[], nch, ch[], ch_valid[], ch_op[], ch_f64[], active, n,
+        # kmin, D, acc[], present, vmin[], vmax[], vdmin[], vdmax[], cap,
+        # ocount, obounds, okey, ores[], ores_valid[], och[], och_valid[],
+        # stream
+        "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                             _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L,
+                             _P, _P, _P, _P, _P, _P, _P, _P],
+        # nres, vmin[], vmax[], vdmin[], vdmax[], res_f64[], present, S, out,
+        # stream
+        "dense_agg_check": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P],
     },
     "topk": {
         # nkeys, data[], valid[], kinds[], desc[], nulls_first[], active, n,
         # k, scratch, out, stream
         "topk": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P],
+    },
+    "hashing": {
+        # nkeys, data[], valid[], elems[], is_float[], active, n, algo, seed,
+        # nparts, hash_out, pid_out, counts, stream
+        "hash_rows": [_I, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+    },
+    "sort_join": {
+        # nkeys, data[], valid[], elems[], kinds[], active, n, words, b_perm,
+        # n_valid, flags, wa, wb, pa, pb, hist, offs, sums, stream
+        "sort_build": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P],
+        # nkeys, data[], valid[], elems[], kinds[], active, n, words, nb,
+        # n_valid, mode, lo, matches, cnt, sel, stream
+        "sort_probe": [_I, _P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _P, _P, _P,
+                       _P, _P],
+        # lo, matches, n, b_perm, nb, active, hit, mask, count, stream
+        "sort_unmatched": [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,
@@ -131,6 +151,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,4 +1,4 @@
-"""TPC-H data, Q6, Q1, Q3, Q4, Q13, Q18 and Q21, and numpy oracles.
+"""TPC-H data, Q6, Q1, Q3, Q4, Q10, Q13, Q18 and Q21, and numpy oracles.
 
 Counterpart of ``spark_rapids_tpu/models/tpch.py`` and
 ``spark_rapids_tpu/models/tpch_suite.py``.  The generators are numpy-only
@@ -24,9 +24,9 @@ import numpy as np
 __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "NATIONS", "DB_TABLES", "gen_lineitem_arrays",
            "gen_orders_arrays", "gen_customer_arrays", "gen_db_arrays",
-           "db_rows", "q6", "q1", "q3", "q4", "q13", "q18", "q21",
-           "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy", "q13_numpy",
-           "q18_numpy", "q21_numpy"]
+           "db_rows", "q6", "q1", "q3", "q4", "q10", "q13", "q18", "q21",
+           "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy", "q10_numpy",
+           "q13_numpy", "q18_numpy", "q21_numpy"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
@@ -295,6 +295,27 @@ def q4(orders, lineitem):
             .sort("o_orderpriority"))
 
 
+def q10(customer, orders, lineitem):
+    """TPC-H Q10 returned item reporting (tpch_suite.py:346 run_q10):
+    customer joined to its orders of one quarter, joined to their returned
+    lineitems, revenue per (c_custkey, c_name, c_acctbal), top 20.  At
+    SF10 neither side of the second join fits the broadcast threshold, so
+    it plans as a sort-merge join over two shuffle exchanges."""
+    from ..sql import functions as F
+    lo, hi = datetime.date(1993, 10, 1), datetime.date(1994, 1, 1)
+    return (customer
+            .join(orders, on=[("c_custkey", "o_custkey")])
+            .filter((F.col("o_orderdate") >= lo) & (F.col("o_orderdate") < hi))
+            .join(lineitem.filter(F.col("l_returnflag") == "R"),
+                  on=[("o_orderkey", "l_orderkey")])
+            .select("c_custkey", "c_name", "c_acctbal",
+                    (F.col("l_extendedprice") * (1 - F.col("l_discount")))
+                    .alias("volume"))
+            .group_by("c_custkey", "c_name", "c_acctbal")
+            .agg(F.sum(F.col("volume")).alias("revenue"))
+            .sort(F.col("revenue").desc(), F.col("c_custkey")).limit(20))
+
+
 def q13(customer, orders):
     """TPC-H Q13 customer distribution (tpch_suite.py:403 run_q13): a
     left outer join of customer to its non-urgent orders, orders counted
@@ -456,6 +477,31 @@ def q4_numpy(orders: Dict[str, np.ndarray],
          & np.isin(orders["o_orderkey"], late))
     prio, cnt = np.unique(orders["o_orderpriority"][m], return_counts=True)
     return [(str(p), int(c)) for p, c in zip(prio, cnt)]
+
+
+def q10_numpy(customer: Dict[str, np.ndarray], orders: Dict[str, np.ndarray],
+              lineitem: Dict[str, np.ndarray], k: int = 20) -> List[tuple]:
+    """Q10: (c_custkey, c_name, c_acctbal, revenue), revenue descending
+    then c_custkey; both joins by direct addressing (c_custkey and
+    o_orderkey are 1..n)."""
+    ckey, okey = customer["c_custkey"], orders["o_orderkey"]
+    if not (np.array_equal(ckey, np.arange(1, len(ckey) + 1))
+            and np.array_equal(okey, np.arange(1, len(okey) + 1))):
+        raise ValueError("q10_numpy needs c_custkey and o_orderkey = 1..n")
+    od = orders["o_orderdate"]
+    in_q = (od >= np.datetime64("1993-10-01")) & (od < np.datetime64(
+        "1994-01-01"))
+    lkey = lineitem["l_orderkey"]
+    m = (lineitem["l_returnflag"] == "R") & in_q[lkey - 1]
+    vol = lineitem["l_extendedprice"][m] * (1 - lineitem["l_discount"][m])
+    cust = orders["o_custkey"][lkey[m] - 1]
+    size = len(ckey) + 1
+    revenue = np.bincount(cust, weights=vol, minlength=size)
+    groups = np.flatnonzero(np.bincount(cust, minlength=size))
+    top = groups[np.lexsort((groups, -revenue[groups]))][:k]
+    return [(int(c), str(customer["c_name"][c - 1]),
+             float(customer["c_acctbal"][c - 1]), float(revenue[c]))
+            for c in top]
 
 
 def q13_numpy(customer: Dict[str, np.ndarray],

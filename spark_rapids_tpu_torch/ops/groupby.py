@@ -514,12 +514,21 @@ class DenseAccumulator:
     sum/min/max; a channel whose contribution has no data counts rows);
     ``present`` marks observed slots; per residual key, ``vmin``/``vmax``
     (int64) and ``vdmin``/``vdmax`` (int32 0/1 validity) prove that it
-    depends on the primary.  Rows whose key falls outside the domain go to
-    the overflow buffer (``cap`` rows), which :meth:`widen` folds in."""
+    depends on the primary.  A float64 residual (``res_f64``) keeps the
+    :func:`f64_image` of its values (-0.0 just below +0.0), and a NaN
+    sets its slot's vmin and vmax to the two images no number has, which
+    the check reads as a violation.  Rows whose key falls outside the
+    domain go to the overflow buffer (``cap`` rows), which :meth:`widen`
+    folds in."""
 
     def __init__(self, kmin: int, D: int, nres: int,
                  channels: Sequence[Tuple[str, bool]], device,
-                 cap: int = OVERFLOW_ROWS):
+                 cap: int = OVERFLOW_ROWS,
+                 res_f64: Optional[Sequence[bool]] = None):
+        self.res_f64 = [False] * nres if res_f64 is None \
+            else [bool(f) for f in res_f64]
+        if len(self.res_f64) != nres:
+            raise ValueError("res_f64 needs one flag per residual")
         if nres > DA_MAX_KEYS - 1 or len(channels) > DA_MAX_CH:
             raise ValueError(f"the dense aggregation takes at most "
                              f"{DA_MAX_KEYS - 1} residual keys and "
@@ -623,7 +632,8 @@ class DenseAccumulator:
             raise ValueError(f"{count} overflow rows exceed the buffer's "
                              f"{self.cap}")
         rows = [(self.okey[:count].clone(), None),
-                [(self.ores[i, :count].clone(),
+                [((self.ores[i, :count].view(torch.float64)
+                   if self.res_f64[i] else self.ores[i, :count]).clone(),
                   self.ores_valid[i, :count].clone())
                  for i in range(self.nres)],
                 [(None if op == "count" else
@@ -641,6 +651,14 @@ class DenseAccumulator:
         slot)."""
         slot = torch.arange(self.S, dtype=torch.int64, device=self.device)
         return slot + self.kmin, slot < self.D
+
+    def residual(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(residual i's value in every slot: int64, or float64 decoded
+        from its images; its validity)."""
+        v = self.vmin[i]
+        if self.res_f64[i]:
+            v = f64_from_image(v)
+        return v, self.vdmax[i] == 1
 
 
 def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
@@ -670,9 +688,15 @@ def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
                                        "amin" if op == "min" else "amax")
     for i, (rd, rv) in enumerate(residuals):
         ok = rows if rv is None else rows & rv
-        x = rd.to(torch.int64)
-        acc.vmin[i].scatter_reduce_(0, slot[ok], x[ok], "amin")
-        acc.vmax[i].scatter_reduce_(0, slot[ok], x[ok], "amax")
+        if acc.res_f64[i]:
+            nan = torch.isnan(rd)
+            x = f64_image(rd, 0)
+            lo, hi = torch.where(nan, _I64_MIN, x), torch.where(nan, _I64_MAX,
+                                                                 x)
+        else:
+            lo = hi = rd.to(torch.int64)
+        acc.vmin[i].scatter_reduce_(0, slot[ok], lo[ok], "amin")
+        acc.vmax[i].scatter_reduce_(0, slot[ok], hi[ok], "amax")
         acc.vdmax[i][slot[ok]] = 1
         if rv is not None:
             acc.vdmin[i][slot[rows & ~rv]] = 0
@@ -688,7 +712,8 @@ def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
     o, dst = o[:take], slice(base, base + take)
     acc.okey[dst] = k64[o]
     for i, (rd, rv) in enumerate(residuals):
-        acc.ores[i, dst] = rd.to(torch.int64)[o]
+        acc.ores[i, dst] = (rd.view(torch.int64) if acc.res_f64[i]
+                            else rd.to(torch.int64))[o]
         acc.ores_valid[i, dst] = True if rv is None else rv[o]
     for j, (cd, cv) in enumerate(contributions):
         acc.och_valid[j, dst] = True if cv is None else cv[o]
@@ -712,8 +737,9 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
         raise ValueError("residuals/contributions do not match the "
                          "accumulator's layout")
     res, res_valid, res_elem = [], [], []
-    for rd, rv in residuals:
-        _check_column(rd, n, _KEY_TYPES, "residual key")
+    for (rd, rv), f64 in zip(residuals, acc.res_f64):
+        _check_column(rd, n, (torch.float64,) if f64 else _KEY_TYPES,
+                      "residual key")
         if rv is not None:
             _check_column(rv, n, (torch.bool,), "residual valid")
         res.append(rd.data_ptr())
@@ -742,7 +768,8 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
     lib = kernels.load("dense_agg")
     rc = lib.dense_agg_update(
         d.data_ptr(), _opt_ptr(v), d.element_size(), nres, P(res),
-        P(res_valid), kernels.int_array(res_elem), len(ch), P(ch),
+        P(res_valid), kernels.int_array(res_elem),
+        kernels.int_array([int(f) for f in acc.res_f64]), len(ch), P(ch),
         P(ch_valid), kernels.int_array(ch_op), kernels.int_array(ch_f64),
         _opt_ptr(active), n, acc.kmin, acc.D, P([a.data_ptr() for a in acc.acc]),
         acc.present.data_ptr(), P([acc.vmin[i].data_ptr() for i in range(nres)]),
@@ -769,7 +796,10 @@ def dense_agg_check_plain(acc: DenseAccumulator) -> torch.Tensor:
     bad = torch.zeros_like(present)
     for i in range(acc.nres):
         has = acc.vdmax[i] == 1
-        bad |= has & ((acc.vdmin[i] == 0) | (acc.vmin[i] != acc.vmax[i]))
+        same = acc.vmin[i] == acc.vmax[i]
+        if acc.res_f64[i]:  # -0.0 (image -1) and +0.0 (image 0) are equal
+            same |= (acc.vmin[i] == -1) & (acc.vmax[i] == 0)
+        bad |= has & ((acc.vdmin[i] == 0) | ~same)
     return torch.stack([(present & bad).any().to(torch.int64),
                         present.sum()])
 
@@ -785,6 +815,7 @@ def dense_agg_check(acc: DenseAccumulator) -> torch.Tensor:
         P([acc.vmax[i].data_ptr() for i in range(nres)]),
         P([acc.vdmin[i].data_ptr() for i in range(nres)]),
         P([acc.vdmax[i].data_ptr() for i in range(nres)]),
+        kernels.int_array([int(f) for f in acc.res_f64]),
         acc.present.data_ptr(), acc.S, out.data_ptr(),
         torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "dense_agg_check", rc)

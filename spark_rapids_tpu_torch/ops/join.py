@@ -1,23 +1,31 @@
-"""Broadcast-join device phases: the dense direct-address join and the CSR
-join over a build side that repeats keys.
+"""Join device phases: the dense direct-address join, the CSR join over a
+build side that repeats keys, and the sort-based match state of a join on
+any key tuple.
 
 The reference keeps these programs inside
 ``spark_rapids_tpu/plan/join_exec.py``: the dense path (``_dense_prefetch``
 :1200, ``_dense_build_state_impl`` :1353, ``_dense_join_pair`` :1410) and
 the CSR path (``_csr_match_state`` :1040, ``_semi_anti`` :690,
 ``_outer_join`` :697, ``_expand_rows`` :1649, ``_gather_cols`` :1904).
+The sorted path is the reference's ``BroadcastJoinExec._match_state``
+:932 with ``_float_orderable`` :1674 and the shuffled join's
+``_match_state`` :626 with ``_unmatched_build_mask`` :750.
 The port keeps them here, beside their hand-written CUDA kernels
-(``csrc/dense_join.cu``, ``csrc/csr_join.cu``).  Each phase has a plain
-PyTorch version of the same function in this module; the dispatching
+(``csrc/dense_join.cu``, ``csrc/csr_join.cu``, ``csrc/sort_join.cu``).
+Each phase has a plain PyTorch version of the same function in this
+module; the dispatching
 functions (``join_key_stats``, ``build_join_table``, ``probe_join``,
-``csr_build``, ``csr_probe``, ``csr_expand``, ``gather_rows``) pick by
+``csr_build``, ``csr_probe``, ``csr_expand``, ``gather_rows``,
+``sorted_build``, ``sorted_probe``, ``unmatched_build_mask``) pick by
 where the tensors lie: CUDA tensors launch the kernel (or raise), CPU
 tensors run the plain version.  Each kernel wrapper counts its launches in
 ``<wrapper>.launches``.
 
-Keys are int32 or int64 columns (dates are int32 days), ``valid`` is a bool
-mask or None, ``active`` the live-row mask or None (all rows live).  Join
-types are "inner", "semi", "anti" and "left"; a null or dead probe key
+The dense and CSR keys are int32 or int64 columns (dates are int32 days);
+the sorted path takes a tuple of integer, date, float and dictionary-code
+columns.  ``valid`` is a bool mask or None, ``active`` the live-row mask or
+None (all rows live).  Join types are "inner", "semi", "anti" and "left"
+(the sorted path: also "right" and "full"); a null or dead probe key
 matches nothing, and an anti join keeps it.
 """
 
@@ -38,7 +46,12 @@ __all__ = ["DJ_MAX_COLS", "CJ_MAX_COLS", "JOIN_MODES", "join_key_stats",
            "csr_build_plain", "csr_probe", "csr_probe_kernel",
            "csr_probe_plain", "csr_expand", "csr_expand_kernel",
            "csr_expand_plain", "gather_rows", "csr_gather",
-           "csr_gather_plain"]
+           "csr_gather_plain", "SJ_MAX_KEYS", "SortedBuild", "sort_image",
+           "sorted_build", "sorted_build_plain", "sorted_build_kernel",
+           "sorted_probe", "sorted_probe_plain", "sorted_probe_kernel",
+           "unmatched_build_mask", "unmatched_build_plain",
+           "unmatched_build_kernel", "partition_perm", "partition_perm_plain",
+           "partition_perm_kernel"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -545,3 +558,336 @@ def csr_gather(idx, cols, nullable: bool) -> List[Value]:
 
 
 csr_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# Sorted path: the build stably sorted by its key tuple, probes by search
+# ---------------------------------------------------------------------------------
+
+SJ_MAX_KEYS = 8             # csrc/sort_join.cu SJ_MAX_KEYS
+_SORT_MODES = {"inner": 0, "semi": 1, "anti": 2, "left": 3, "right": 3,
+               "full": 3}
+_I32_MIN = torch.iinfo(torch.int32).min
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def _sort_columns(keys: Sequence[Value]) -> List[Value]:
+    """Key columns as the kernel reads them: 4- or 8-byte integers or
+    floats (booleans and narrow integers widened to int32), contiguous."""
+    out = []
+    for d, v in keys:
+        if d.dtype in (torch.bool, torch.int8, torch.int16):
+            d = d.to(torch.int32)
+        if d.dtype not in (torch.int32, torch.int64, torch.float32,
+                           torch.float64):
+            raise TypeError(f"the sorted join takes integer, date, float and "
+                            f"dictionary-code keys, not {d.dtype}")
+        out.append((d.contiguous(), None if v is None else v.contiguous()))
+    return out
+
+
+def sort_image(d: torch.Tensor) -> torch.Tensor:
+    """int64 image of a key column whose signed order is the reference's
+    (``_float_orderable`` for floats: -0.0 and subnormals as +0.0, one
+    NaN; integers as they are): equal images are equal join keys."""
+    if d.dtype == torch.float64:
+        from .hashing import f64_bit_pattern
+        b = f64_bit_pattern(d)
+        return torch.where(b < 0, ~b, b | _I64_MIN)
+    if d.dtype == torch.float32:
+        b = d.view(torch.int32)
+        b = torch.where(d.abs() < 1.17549435e-38, 0, b)
+        b = torch.where(torch.isnan(d), _I32_MAX, b)
+        return torch.where(b < 0, ~b, b | _I32_MIN).to(torch.int64)
+    return d.to(torch.int64)
+
+
+class SortedBuild:
+    """A sorted build side: ``words`` int64 [k, n], the key images in
+    sorted order (valid rows first); ``b_perm`` int32 [n], the build row at
+    each sorted position; ``n_valid`` int64 [1] on the device, the number
+    of valid rows (live, no null key)."""
+
+    def __init__(self, words: torch.Tensor, b_perm: torch.Tensor,
+                 n_valid: torch.Tensor):
+        self.words = words
+        self.b_perm = b_perm
+        self.n_valid = n_valid
+
+    @property
+    def n(self) -> int:
+        return self.b_perm.shape[0]
+
+
+def sorted_build(keys: Sequence[Value], active: Optional[torch.Tensor]
+                 ) -> SortedBuild:
+    """The build rows stably sorted by (invalid, key tuple): valid rows
+    first in key order, each key's rows in build order, then the invalid
+    rows (dead, or a null key) by key."""
+    keys = _sort_columns(keys)
+    run = sorted_build_kernel if keys[0][0].is_cuda else sorted_build_plain
+    return run(keys, active)
+
+
+def _row_valid(keys, active, n, device) -> torch.Tensor:
+    ok = live_mask(n, None, active, device)
+    for _, v in keys:
+        if v is not None:
+            ok = ok & v
+    return ok
+
+
+def sorted_build_plain(keys, active) -> SortedBuild:
+    """Plain PyTorch version of ``sorted_build_kernel``."""
+    n, dev = keys[0][0].shape[0], keys[0][0].device
+    ok = _row_valid(keys, active, n, dev)
+    perm = torch.arange(n, device=dev)
+    for d, _ in reversed(keys):
+        perm = perm[torch.sort(sort_image(d)[perm], stable=True).indices]
+    perm = perm[torch.sort((~ok)[perm].to(torch.int8), stable=True).indices]
+    words = torch.stack([sort_image(d)[perm] for d, _ in keys]) if n \
+        else torch.empty((len(keys), 0), dtype=torch.int64, device=dev)
+    return SortedBuild(words, perm.to(torch.int32),
+                       ok.sum().to(torch.int64).reshape(1))
+
+
+def _sort_key_args(keys):
+    P = kernels.pointer_array
+    return (len(keys), P([d.data_ptr() for d, _ in keys]),
+            P([_ptr(v) for _, v in keys]),
+            kernels.int_array([d.element_size() for d, _ in keys]),
+            kernels.int_array([int(d.is_floating_point()) for d, _ in keys]))
+
+
+def _check_sort_keys(keys, active, n):
+    if not 1 <= len(keys) <= SJ_MAX_KEYS:
+        raise ValueError(f"the sorted join takes 1..{SJ_MAX_KEYS} keys, got "
+                         f"{len(keys)}")
+    for d, v in keys:
+        _check(d, n, (torch.int32, torch.int64, torch.float32, torch.float64),
+               "join key")
+        _check(v, n, (torch.bool,), "key valid")
+    _check(active, n, (torch.bool,), "active")
+    if n >= 2**31 - 1:
+        raise ValueError(f"the sorted join holds int32 rows; the side has {n}")
+
+
+def sorted_build_kernel(keys, active) -> SortedBuild:
+    """Launch ``sort_build`` of ``csrc/sort_join.cu``."""
+    n = keys[0][0].shape[0]
+    _check_sort_keys(keys, active, n)
+    dev = keys[0][0].device
+    words = torch.empty((len(keys), n), dtype=torch.int64, device=dev)
+    b_perm = torch.empty(n, dtype=torch.int32, device=dev)
+    n_valid = torch.zeros(1, dtype=torch.int64, device=dev)
+    tiles = max(1, -(-n // RS_TILE))
+    u64 = dict(dtype=torch.int64, device=dev)
+    flags, wa, wb = (torch.empty(n, **u64) for _ in range(3))
+    pa, pb = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2))
+    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
+    offs = torch.empty(256 * tiles + 1, **u64)
+    sums = torch.empty(max(1, -(-256 * tiles // SCAN_TILE)), **u64)
+    lib = kernels.load("sort_join")
+    rc = lib.sort_build(*_sort_key_args(keys), _ptr(active), n,
+                        words.data_ptr(), b_perm.data_ptr(),
+                        n_valid.data_ptr(), flags.data_ptr(), wa.data_ptr(),
+                        wb.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+                        hist.data_ptr(), offs.data_ptr(), sums.data_ptr(),
+                        _stream(keys[0][0]))
+    kernels.check_launch(lib, "sort_build", rc)
+    sorted_build_kernel.launches += 1
+    return SortedBuild(words, b_perm, n_valid)
+
+
+sorted_build_kernel.launches = 0
+
+
+def sorted_probe(keys: Sequence[Value], active: Optional[torch.Tensor],
+                 build: SortedBuild, how: str):
+    """Per probe row its match range in the sorted build: (int32 [n] lo,
+    -1 without a match; int32 [n] matches, 0 for a dead or null-key row;
+    then for semi and anti the bool [n] selection (anti keeps dead-key
+    rows that are live), for inner, left, right and full the int64
+    [n + 1] offsets of each row's output rows (an outer join's miss
+    counts 1), the total last)."""
+    if how not in _SORT_MODES:
+        raise ValueError(f"join type {how!r} is not one of "
+                         f"{list(_SORT_MODES)}")
+    keys = _sort_columns(keys)
+    run = sorted_probe_kernel if keys[0][0].is_cuda else sorted_probe_plain
+    return run(keys, active, build, how)
+
+
+def sorted_probe_plain(keys, active, build: SortedBuild, how: str):
+    """Plain PyTorch version of ``sorted_probe_kernel``."""
+    n, dev = keys[0][0].shape[0], keys[0][0].device
+    ok = _row_valid(keys, active, n, dev)
+    nv = int(build.n_valid[0])
+    if len(keys) != build.words.shape[0]:
+        raise ValueError("probe and build keys differ in number")
+    if len(keys) == 1:
+        br, pr = build.words[0, :nv], sort_image(keys[0][0])
+    else:
+        # dense ranks of the tuples in lexicographic order: the build's
+        # stay sorted, so two searches per probe row give its range
+        pw = torch.stack([sort_image(d) for d, _ in keys], 1)
+        ranks = torch.unique(torch.cat([build.words[:, :nv].t(), pw]),
+                             dim=0, return_inverse=True)[1]
+        br, pr = ranks[:nv], ranks[nv:]
+    first = torch.searchsorted(br, pr, side="left")
+    last = torch.searchsorted(br, pr, side="right")
+    matches = torch.where(ok, last - first, 0).to(torch.int32)
+    lo = torch.where(matches > 0, first, -1).to(torch.int32)
+    live = live_mask(n, None, active, dev)
+    mode = _SORT_MODES[how]
+    if mode == 1:
+        return lo, matches, matches > 0
+    if mode == 2:
+        return lo, matches, live & (matches == 0)
+    cnt = torch.where(live, matches.clamp(min=1), 0) if mode == 3 \
+        else matches
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(cnt, 0)
+    return lo, matches, offsets
+
+
+def sorted_probe_kernel(keys, active, build: SortedBuild, how: str):
+    """Launch ``sort_probe`` of ``csrc/sort_join.cu`` (and, for inner and
+    outer joins, ``csr_scan`` of ``csrc/csr_join.cu`` over the counts)."""
+    n = keys[0][0].shape[0]
+    _check_sort_keys(keys, active, n)
+    if len(keys) != build.words.shape[0]:
+        raise ValueError("probe and build keys differ in number")
+    w = build.words
+    if w.dtype != torch.int64 or w.shape != (len(keys), build.n) \
+            or not w.is_cuda or not w.is_contiguous():
+        raise ValueError(f"sorted keys: expected a contiguous CUDA int64 "
+                         f"[{len(keys)}, {build.n}] tensor, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    dev = keys[0][0].device
+    mode = _SORT_MODES[how]
+    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    matches = torch.empty(n, dtype=torch.int32, device=dev)
+    sel = cnt = None
+    if mode in (1, 2):
+        sel = torch.empty(n, dtype=torch.bool, device=dev)
+    else:
+        cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = kernels.load("sort_join")
+    rc = lib.sort_probe(*_sort_key_args(keys), _ptr(active), n,
+                        build.words.data_ptr(), build.n,
+                        build.n_valid.data_ptr(), mode, lo.data_ptr(),
+                        matches.data_ptr(), _ptr(cnt), _ptr(sel),
+                        _stream(keys[0][0]))
+    kernels.check_launch(lib, "sort_probe", rc)
+    sorted_probe_kernel.launches += 1
+    if sel is not None:
+        return lo, matches, sel
+    return lo, matches, _scan(cnt, kernels.load("csr_join"))
+
+
+sorted_probe_kernel.launches = 0
+
+
+def unmatched_build_mask(lo: torch.Tensor, matches: torch.Tensor,
+                         build: SortedBuild, active: Optional[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bool [nb] live build rows no probe row matched, int64 [1] their
+    count on the device): a full outer join's unmatched build rows."""
+    run = unmatched_build_kernel if lo.is_cuda else unmatched_build_plain
+    return run(lo, matches, build, active)
+
+
+def unmatched_build_plain(lo, matches, build: SortedBuild, active):
+    """Plain PyTorch version of ``unmatched_build_kernel``."""
+    nb, dev = build.n, build.b_perm.device
+    hit_sorted = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    m = matches > 0
+    hit_sorted.index_add_(0, lo[m].to(torch.int64),
+                          torch.ones(int(m.sum()), dtype=torch.int64,
+                                     device=dev))
+    hit_sorted.index_add_(0, (lo[m] + matches[m]).to(torch.int64),
+                          -torch.ones(int(m.sum()), dtype=torch.int64,
+                                      device=dev))
+    covered = torch.cumsum(hit_sorted[:nb], 0) > 0
+    hit = torch.zeros(nb, dtype=torch.bool, device=dev)
+    hit[build.b_perm.to(torch.int64)] = covered
+    mask = live_mask(nb, None, active, dev) & ~hit
+    return mask, mask.sum().to(torch.int64).reshape(1)
+
+
+def unmatched_build_kernel(lo, matches, build: SortedBuild, active):
+    """Launch ``sort_unmatched`` of ``csrc/sort_join.cu``."""
+    n, nb = lo.shape[0], build.n
+    _check(lo, n, (torch.int32,), "lo")
+    _check(matches, n, (torch.int32,), "matches")
+    _check(build.b_perm, nb, (torch.int32,), "b_perm")
+    _check(active, nb, (torch.bool,), "build active")
+    dev = lo.device
+    hit = torch.zeros(nb, dtype=torch.uint8, device=dev)
+    mask = torch.empty(nb, dtype=torch.bool, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = kernels.load("sort_join")
+    rc = lib.sort_unmatched(lo.data_ptr(), matches.data_ptr(), n,
+                            build.b_perm.data_ptr(), nb, _ptr(active),
+                            hit.data_ptr(), mask.data_ptr(), count.data_ptr(),
+                            _stream(lo))
+    kernels.check_launch(lib, "sort_unmatched", rc)
+    unmatched_build_kernel.launches += 1
+    return mask, count
+
+
+unmatched_build_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# Stable placement of rows by partition id
+# ---------------------------------------------------------------------------------
+
+def partition_perm(pids: torch.Tensor, nparts: int) -> torch.Tensor:
+    """int32 [n]: the rows stably ordered by their partition id in
+    [0, nparts] (``nparts``: a dead row), so each partition's rows form one
+    contiguous run, in row order."""
+    run = partition_perm_kernel if pids.is_cuda else partition_perm_plain
+    return run(pids, nparts)
+
+
+def partition_perm_plain(pids, nparts: int) -> torch.Tensor:
+    """Plain PyTorch version of ``partition_perm_kernel``."""
+    return torch.sort(pids, stable=True).indices.to(torch.int32)
+
+
+def partition_perm_kernel(pids, nparts: int) -> torch.Tensor:
+    """Launch ``csr_sort_pass`` of ``csrc/csr_join.cu`` once per 8 bits of
+    ``nparts`` (one pass for up to 255 partitions), the partition id being
+    the digit."""
+    n = pids.shape[0]
+    _check(pids, n, (torch.int32,), "partition ids")
+    if n >= 2**31 - 1 or not 0 <= nparts < 2**24:
+        raise ValueError(f"partition placement takes int32 rows and fewer "
+                         f"than 2^24 partitions; got {n} rows, {nparts}")
+    dev = pids.device
+    lib = kernels.load("csr_join")
+    tiles = max(1, -(-n // RS_TILE))
+    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
+    offs = torch.empty(256 * tiles + 1, dtype=torch.int64, device=dev)
+    sums = torch.empty(max(1, -(-256 * tiles // SCAN_TILE)),
+                       dtype=torch.int64, device=dev)
+    keys_b = torch.empty_like(pids)
+    vals_a = torch.empty_like(pids)
+    vals_b = torch.empty_like(pids)
+    k_in, v_in, k_out, v_out = pids, None, keys_b, vals_a
+    spare_k = torch.empty_like(pids)
+    for shift in range(0, max(nparts.bit_length(), 1), 8):
+        rc = lib.csr_sort_pass(k_in.data_ptr(), _ptr(v_in), k_out.data_ptr(),
+                               v_out.data_ptr(), n, shift, hist.data_ptr(),
+                               offs.data_ptr(), sums.data_ptr(), _stream(pids))
+        kernels.check_launch(lib, "csr_sort_pass", rc)
+        k_in, v_in = k_out, v_out
+        k_out = spare_k if k_in is keys_b else keys_b
+        v_out = vals_b if v_in is vals_a else vals_a
+    partition_perm_kernel.launches += 1
+    return v_in
+
+
+partition_perm_kernel.launches = 0

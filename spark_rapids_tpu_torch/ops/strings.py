@@ -33,6 +33,9 @@ class StringDictionary:
         self._code_of: Dict[str, int] = {}
         self._values: List[str] = []
         self._array: Optional[np.ndarray] = None
+        # values adopted by from_values, turned into the map above only
+        # when a lookup needs it: adopted codes are used as they are
+        self._pending: Optional[np.ndarray] = None
         # the values array this dictionary was adopted from: codes that
         # refer to it are this dictionary's codes
         self.source: Optional[np.ndarray] = None
@@ -44,12 +47,18 @@ class StringDictionary:
         """A dictionary whose codes are the positions in ``values``
         (distinct strings, as a join's dictionary holds)."""
         d = cls()
-        d._values = [str(v) for v in values]
-        d._code_of = {v: i for i, v in enumerate(d._values)}
-        d.source = values
+        d._pending = d._array = d.source = values
         return d
 
+    def _materialize(self) -> None:
+        if self._pending is not None:
+            self._values = [str(v) for v in self._pending]
+            self._code_of = {v: i for i, v in enumerate(self._values)}
+            self._pending = None
+
     def __len__(self) -> int:
+        if self._pending is not None:
+            return len(self._pending)
         return len(self._values)
 
     def encode(self, data: np.ndarray, valid: Optional[np.ndarray] = None
@@ -57,6 +66,7 @@ class StringDictionary:
         """Host strings → (int32 codes, validity-or-None); null slots get
         code 0.  ``np.unique`` finds the batch's distinct values in C, so
         only those pass through the Python map."""
+        self._materialize()
         live = data if valid is None else data[valid]
         if live.dtype.kind == "O":
             live = live.astype(str)
@@ -80,6 +90,8 @@ class StringDictionary:
         array object comes back until the dictionary grows, so columns
         coded against one snapshot share it (``DictStringColumn``
         identity)."""
+        if self._pending is not None:
+            return self._array
         if self._array is None or len(self._array) != len(self._values):
             self._array = np.empty(len(self._values), dtype=object)
             self._array[:] = self._values

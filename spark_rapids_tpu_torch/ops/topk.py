@@ -75,7 +75,7 @@ def topk_indices(keys: Sequence[SortKey], active: Optional[torch.Tensor],
     if not 1 <= k <= TK_MAX_K:
         raise NotImplementedError(
             f"a top-k of {k} rows needs the full device sort, which is not "
-            f"ported yet (ROADMAP.md queue 2 row 8; the top-k kernel keeps "
+            f"ported yet (ROADMAP.md queue 2 row 8′; the top-k kernel keeps "
             f"at most {TK_MAX_K} rows)")
     keys = [(_column(d, n), None if v is None else _column(v, n), a, nf)
             for d, v, a, nf in keys]

@@ -51,5 +51,12 @@ def estimated_row_bytes(schema) -> int:
 
 
 def estimated_bytes(node: L.LogicalPlan) -> Optional[float]:
+    """Rows times the planning row width; a scan is as wide as its table
+    before column pruning, as the reference's unnarrowed scans are."""
     rows = estimate_rows(node)
-    return None if rows is None else rows * estimated_row_bytes(node.schema())
+    if rows is None:
+        return None
+    schema = node.schema()
+    if isinstance(node, L.LogicalScan):
+        schema = getattr(node.source, "unpruned", schema)
+    return rows * estimated_row_bytes(schema)

@@ -82,7 +82,7 @@ class TopKExec(TpuExec):
         if len(orders) > topk.TK_MAX_KEYS:
             raise NotImplementedError(
                 f"a top-k on {len(orders)} sort keys needs the full device "
-                f"sort, which is not ported yet (ROADMAP.md queue 2 row 8; "
+                f"sort, which is not ported yet (ROADMAP.md queue 2 row 8′; "
                 f"the top-k kernel takes {topk.TK_MAX_KEYS})")
         self.orders = orders
         self.n = n

@@ -269,9 +269,9 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
                                  o.nulls_first) for o in p.orders])
 
     if isinstance(p, L.Join):
-        from .join_exec import plan_broadcast_join
-        return plan_broadcast_join(p, _convert(meta.children[0], conf),
-                                   _convert(meta.children[1], conf), conf)
+        from .planner import plan_join
+        return plan_join(p, _convert(meta.children[0], conf),
+                         _convert(meta.children[1], conf), conf)
 
     if isinstance(p, L.Limit):
         sort_meta = meta.children[0]

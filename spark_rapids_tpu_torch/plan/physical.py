@@ -83,16 +83,21 @@ class MemorySource:
     pinned host copy for CUDA uploads, made the first time a query reads
     the column, and one :class:`HostStringColumn` object per batch for
     string columns, so their cached dictionary encodings serve every run.
+    ``unpruned`` is the schema of the table before column pruning: the
+    planner's size estimates read it, as the reference's do, since the
+    reference's in-memory scans are not narrowed.
     """
 
     def __init__(self, columns: Dict[str, Tuple[T.DataType, np.ndarray,
                                                 Optional[np.ndarray]]],
-                 batch_rows: int, _cache: Optional[dict] = None):
+                 batch_rows: int, _cache: Optional[dict] = None,
+                 unpruned: Optional[Schema] = None):
         self.columns = columns
         self.batch_rows = batch_rows
         self.num_rows = len(next(iter(columns.values()))[1]) \
             if columns else 0
         self._cache = {} if _cache is None else _cache
+        self.unpruned = unpruned if unpruned is not None else self.schema()
 
     def schema(self) -> Schema:
         return Schema([Field(n, dt, valid is not None)
@@ -100,7 +105,7 @@ class MemorySource:
 
     def pruned(self, names: List[str]) -> "MemorySource":
         return MemorySource({n: self.columns[n] for n in names},
-                            self.batch_rows, self._cache)
+                            self.batch_rows, self._cache, self.unpruned)
 
     def _host_tensor(self, key, arr: np.ndarray,
                      device: torch.device) -> torch.Tensor:
@@ -259,12 +264,13 @@ class AggregateExec(TpuExec):
     * ungrouped: every batch's contributions go through
       ``groupby.ungrouped_reduce`` (the masked_reduce kernel) into one
       K-slot accumulator;
-    * grouped on bare key columns of which one is integral, none floating,
-      every buffer an integral sum/min/max or a float64 sum: dense direct
-      addressing on that primary key (``groupby.DenseAccumulator``, the
-      dense_agg kernel), with the other keys as residual channels, as the
-      reference's ``_try_dense_grouped_multi`` (:1321) and
-      ``_try_dense_grouped`` (:1084) do;
+    * grouped on bare key columns of which one is integral (a single key
+      must be), every buffer an integral sum/min/max or a float64 sum:
+      dense direct addressing on that primary key
+      (``groupby.DenseAccumulator``, the dense_agg kernel), with the other
+      keys — integers, dates, booleans, strings as codes, floats — as
+      residual channels, as the reference's ``_try_dense_grouped_multi``
+      (:1321) and ``_try_dense_grouped`` (:1084) do;
     * grouped, when every key is a bare string column and every buffer is
       a sum: the dense grid of dictionary codes (``grid_group_reduce``,
       the grid_agg kernel), as the reference does at
@@ -438,9 +444,9 @@ class AggregateExec(TpuExec):
         """The reference's static gates of its dense paths
         (``_dense_agg_static_ok`` :1061 for one key,
         ``_dense_residual_static_ok`` :1288 for several): every key a bare
-        column, one of them integral and none floating, every buffer a
-        sum/min/max, and no float64 min/max (the dense channels add
-        float64 but order only int64)."""
+        column, one of them integral (a single key must be), every buffer
+        a sum/min/max, and no float64 min/max (the dense channels add
+        float64 but order only int64).  Floating keys ride as residuals."""
         if not conf["spark.rapids.tpu.sql.agg.dense.enabled"] \
                 or not conf["spark.rapids.tpu.join.denseDomainCap"]:
             return False
@@ -455,13 +461,13 @@ class AggregateExec(TpuExec):
                  np.dtype(r.dtype.numpy_dtype).kind for r in refs]
         if len(refs) == 1:
             return kinds[0] in "iu"
-        return all(k in "iubs" for k in kinds) and any(k in "iu"
-                                                     for k in kinds)
+        return all(k in "iubsf" for k in kinds) and any(k in "iu"
+                                                      for k in kinds)
 
     def _dense_key_values(self, b: ColumnBatch, dicts, device):
-        """Per group key, its (int32/int64 data, valid) for the dense
-        kernels: strings as dictionary codes, booleans and narrow ints
-        as int32."""
+        """Per group key, its (data, valid) for the dense kernels: strings
+        as int32 dictionary codes, booleans and narrow ints as int32,
+        floats as float64 (residuals only)."""
         out = []
         for k, ref in enumerate(self._key_refs()):
             col = b.columns[ref.ordinal]
@@ -470,7 +476,9 @@ class AggregateExec(TpuExec):
                 out.append((codes, valid))
                 continue
             d = col.data
-            if d.dtype not in (torch.int32, torch.int64):
+            if d.is_floating_point():
+                d = d.to(torch.float64)
+            elif d.dtype not in (torch.int32, torch.int64):
                 d = d.to(torch.int32)
             out.append((d, col.valid))
         return out
@@ -520,7 +528,11 @@ class AggregateExec(TpuExec):
             with m.time("opTime"):
                 kv = self._dense_key_values(b, dicts, device)
                 seen.append((b, kv))
-                stats, fd = groupby.dense_key_stats(kv, cand, b.sel)
+                # floats enter the dependence probe as their group-key
+                # words (-0.0 = +0.0, one NaN), as the reference hashes them
+                stats, fd = groupby.dense_key_stats(
+                    [(groupby.key_word(d) if d.is_floating_point() else d, v)
+                     for d, v in kv], cand, b.sel)
                 stats, fd = fetch((stats, fd))
             if not any(stats[i][2] for i in range(n_keys) if cand[i]):
                 continue  # no valid candidate key yet: keep looking
@@ -575,7 +587,9 @@ class AggregateExec(TpuExec):
                 if acc is None:
                     acc = groupby.DenseAccumulator(
                         kmin, D, len(res_idx),
-                        self._channels(contributions), device)
+                        self._channels(contributions), device,
+                        res_f64=[refs[i].dtype.is_floating
+                                 for i in res_idx])
                 acc.update(kv[pidx], [kv[i] for i in res_idx],
                            [v for v, _ in contributions], b.sel)
         violated, n_groups, n_over, omin, omax = (
@@ -606,8 +620,7 @@ class AggregateExec(TpuExec):
             if i == pidx:
                 data, valid = acc.slot_keys()
             else:
-                r = res_idx.index(i)
-                data, valid = acc.vmin[r], acc.vdmax[r] == 1
+                data, valid = acc.residual(res_idx.index(i))
             valid = valid if f.nullable else None
             if f.dtype.is_string:
                 cols.append(DictStringColumn(data.to(torch.int32), valid,

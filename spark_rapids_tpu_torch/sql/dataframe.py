@@ -66,8 +66,7 @@ class DataFrame:
         names present on both sides (the right copies are dropped), or a
         list of (left name, right name) pairs.  ``how`` takes the
         reference's names: inner, left (left_outer), semi (left_semi),
-        anti (left_anti), and right/full, which plan the shuffled join
-        that is not ported yet."""
+        anti (left_anti), right (right_outer) and full (full_outer)."""
         if isinstance(on, str):
             on = [on]
         if isinstance(on, (list, tuple)) and on \
@@ -85,6 +84,12 @@ class DataFrame:
                                     how=how), self.session)
         raise NotImplementedError(
             "join on: column names or (left, right) name pairs")
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        """The cartesian product with ``other`` (planning raises: the cross
+        join is not ported yet)."""
+        return DataFrame(L.Join(self._plan, other._plan, [], [],
+                                how="cross"), self.session)
 
     def collect(self) -> List[tuple]:
         """Execute and fetch all rows as tuples of Python values."""

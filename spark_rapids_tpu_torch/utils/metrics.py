@@ -25,7 +25,7 @@ _STATS_STACK: "contextvars.ContextVar[tuple]" = \
     contextvars.ContextVar("srt_torch_query_stats", default=())
 
 _COUNTERS = ("blocking_fetches", "fetch_bytes", "fetch_wait_s", "uploads",
-             "upload_bytes")
+             "upload_bytes", "shuffle_bytes")
 
 
 class QueryStats:
@@ -46,6 +46,8 @@ class QueryStats:
         self.fetch_wait_s = 0.0
         self.uploads = 0
         self.upload_bytes = 0
+        # bytes of the batches shuffle exchanges partitioned
+        self.shuffle_bytes = 0
         self.upload_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] \
             = []
 

@@ -659,3 +659,80 @@ def test_distinct_matches_reference(cols):
     assert len(got) == len(want)
     assert sorted(map(_group_key, got), key=repr) == sorted(
         map(_group_key, want), key=repr)
+
+
+# ---------------------------------------------------------------------------------
+# Float residual keys on the dense path (TPC-H Q10's c_acctbal)
+# ---------------------------------------------------------------------------------
+
+def _nan_marked(rows):
+    """NaN as a float no row holds, so the rows sort and compare."""
+    return [tuple(1e300 if isinstance(x, float) and x != x else x
+                  for x in r) for r in rows]
+
+
+@pytest.mark.parametrize("case", ["equal", "signed_zero", "nan",
+                                  "null_group", "null_mixed", "float32"])
+def test_dense_float_residuals_match_reference(case):
+    """A primary key with a string and a float residual, as Q10 groups
+    (c_custkey, c_name, c_acctbal): equal values per key stay on the dense
+    path (-0.0 and +0.0 are one value, and the residual keeps the
+    reference's -0.0); a NaN residual, or a key whose residual is null in
+    some rows only, replays every batch into the hash aggregation; a key
+    whose residual is null in every row keeps a null residual."""
+    rng = np.random.default_rng(31)
+    n, groups = 5000, 600
+    gid = rng.integers(0, groups, n)
+    bal = np.round(rng.uniform(-999.99, 9999.99, groups), 2)
+    bal[:6] = [0.0, -0.0, 0.0, -0.0, 5.5, -5.5]
+    res = bal[gid].astype(object)
+    if case == "signed_zero":  # keys 0 and 1 see both zeros
+        res[gid == 0] = rng.choice(np.array([0.0, -0.0]), (gid == 0).sum())
+        res[gid == 1] = rng.choice(np.array([0.0, -0.0]), (gid == 1).sum())
+    if case == "nan":
+        res[np.flatnonzero(gid == 7)[:1]] = np.nan
+    if case == "null_group":
+        res[gid == 9] = None
+    if case == "null_mixed":
+        res[np.flatnonzero(gid == 9)[:1]] = None
+    if case == "float32":
+        res = np.array([np.float32(x) for x in res])
+    data = {"k": (gid * 3 + 5).astype(np.int64),
+            "name": np.array([f"Customer#{g:09d}" for g in gid]),
+            "bal": res, "x": rng.uniform(0, 100, n)}
+
+    def q(F, df):
+        return (df.group_by("k", "name", "bal")
+                  .agg(F.sum(F.col("x")).alias("s"),
+                       F.count_star().alias("n")))
+
+    got, want, tsess = _run_both(q, data)
+    _assert_same_groups(_nan_marked(got), _nan_marked(want))
+    path = "aggHashPath" if case in ("nan", "null_mixed") else "aggDensePath"
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get(path) for m in metrics.values()), path
+    if path == "aggDensePath":
+        sign = {r[0]: np.signbit(r[2]) for r in want if r[2] is not None}
+        assert all(np.signbit(r[2]) == sign[r[0]] for r in got
+                   if r[2] is not None)
+
+
+def test_dense_float_residual_plain_channels():
+    """The plain update keeps a float64 residual as images: -0.0 and +0.0
+    are one value whose residual decodes to -0.0, two values are a
+    violation, and a NaN is one too."""
+    def run(values):
+        acc = tg.DenseAccumulator(0, 2, 1, [("count", False)],
+                                  torch.device("cpu"), res_f64=[True])
+        keys = torch.zeros(len(values), dtype=torch.int64)
+        acc.update((keys, None),
+                   [(torch.tensor(values, dtype=torch.float64), None)],
+                   [(None, None)], None)
+        return acc.check().tolist(), acc.residual(0)[0][0].item()
+
+    (viol, groups), v = run([0.0, -0.0, 0.0])
+    assert (viol, groups) == (0, 1) and v == 0.0 and np.signbit(v)
+    assert run([2.5, 2.5])[0][0] == 0 and run([2.5, 2.5])[1] == 2.5
+    assert run([2.5, 3.0])[0][0] == 1
+    assert run([2.5, float("nan")])[0][0] == 1
+    assert run([float("nan")])[0][0] == 1

@@ -1,8 +1,10 @@
-"""Broadcast joins through both packages' Sessions on the same numpy dicts:
-the port's dense inner join (plain PyTorch versions of csrc/dense_join.cu
-on the CPU) against the JAX package's BroadcastJoinExec.  Joins without
-ORDER BY leave row order open, so rows compare as sorted lists; values are
-exact (the joins move values, they compute none)."""
+"""Joins through both packages' Sessions on the same numpy dicts: the
+port's broadcast joins (dense, CSR and sorted paths) and its shuffled
+sort-merge join with the runtime broadcast flip (plain PyTorch versions of
+csrc/dense_join.cu, csr_join.cu, sort_join.cu and hashing.cu on the CPU)
+against the JAX package's BroadcastJoinExec and SortMergeJoinExec.  Joins
+without ORDER BY leave row order open, so rows compare as sorted lists;
+values are exact (the joins move values, they compute none)."""
 
 import numpy as np
 import pytest
@@ -138,48 +140,60 @@ def test_duplicate_build_keys_raise(sessions):
 
 @pytest.mark.parametrize("how", ["left", "semi", "anti", "full"])
 def test_joins_other_than_inner_raise(sessions, how):
-    """Left outer, semi and anti joins now run (dense path here: unique
-    build keys) and equal the reference; a full outer join still needs
-    the shuffled join and raises."""
+    """Left outer, semi and anti joins run (dense path here: unique build
+    keys), and so does a full outer join, which broadcasts neither side
+    and plans the shuffled join; all equal the reference."""
     jsess, tsess = sessions
     rows = []
     for sess in (jsess, tsess):
         d = sess.create_dataframe({"k": np.arange(5, dtype=np.int64),
                                    "w": np.arange(5, dtype=np.int64) * 7})
         f = sess.create_dataframe({"k": np.arange(10, dtype=np.int64)})
-        if sess is tsess and how == "full":
-            with pytest.raises(NotImplementedError, match="row 7"):
-                f.join(d, "k", how=how).collect()
-            return
         rows.append(sorted(f.join(d, "k", how=how).collect(), key=_key))
     assert rows[1] == rows[0]
-    assert len(rows[1]) == {"left": 10, "semi": 5, "anti": 5}[how]
+    assert len(rows[1]) == {"left": 10, "semi": 5, "anti": 5, "full": 10}[how]
+    if how == "full":
+        _check_path(tsess, "numOutputBatches")
+        assert any(k.startswith("SortMergeJoinExec") for k in
+                   tsess.last_exec_context().metrics)
 
 
 def test_unported_join_shapes_raise(sessions):
-    _, tsess = sessions
-    d = tsess.create_dataframe({"a": np.arange(5, dtype=np.int64),
-                                "b": np.arange(5, dtype=np.int64),
-                                "w": np.arange(5, dtype=np.float64)})
-    f = tsess.create_dataframe({"a2": np.arange(9, dtype=np.int64),
-                                "b2": np.arange(9, dtype=np.int64),
-                                "x": np.arange(9, dtype=np.float64)})
-    with pytest.raises(NotImplementedError, match="2 keys.*6′"):
-        f.join(d, [("a2", "a"), ("b2", "b")]).collect()
-    with pytest.raises(NotImplementedError, match="double key.*6′"):
-        f.join(d, [("x", "w")]).collect()
-    narrow = tsrt.Session({**SETTINGS,
-                           "spark.rapids.tpu.join.denseDomainCap": 3},
-                          device="cpu")
-    d2 = narrow.create_dataframe({"a": np.arange(5, dtype=np.int64)})
-    f2 = narrow.create_dataframe({"a": np.arange(9, dtype=np.int64)})
-    with pytest.raises(NotImplementedError, match="denseDomainCap.*6′"):
-        f2.join(d2, "a").collect()
-    default = tsrt.Session(device="cpu")
-    d3 = default.create_dataframe({"a": np.arange(5, dtype=np.int64)})
-    f3 = default.create_dataframe({"a": np.arange(9, dtype=np.int64)})
-    with pytest.raises(NotImplementedError, match="denseMinProbeRows.*6′"):
-        f3.join(d3, "a").collect()
+    """The shapes that raised before the sorted broadcast path (row 6″) —
+    two keys, a float key, a key domain over denseDomainCap, a probe
+    estimated under denseMinProbeRows — now run and equal the reference;
+    what is still queued (cross joins, the HOST and ICI shuffle
+    transports) raises, naming its row or item."""
+    jsess, tsess = sessions
+    d = {"a": np.arange(5, dtype=np.int64), "b": np.arange(5, dtype=np.int64),
+         "w": np.arange(5, dtype=np.float64)}
+    f = {"a2": np.arange(9, dtype=np.int64) % 6,
+         "b2": np.arange(9, dtype=np.int64) % 4,
+         "x": np.arange(9, dtype=np.float64)}
+    narrow = {**SETTINGS, "spark.rapids.tpu.join.denseDomainCap": 3}
+    for settings, on, path in (
+            (SETTINGS, [("a2", "a"), ("b2", "b")], "joinSortedPath"),
+            (SETTINGS, [("x", "w")], "joinSortedPath"),
+            (narrow, [("a2", "a")], "joinSortedPath"),
+            ({}, [("a2", "a")], "joinSortedPath")):
+        rows = []
+        for sess in (jsrt.Session(settings),
+                     tsrt.Session(settings, device="cpu")):
+            rows.append(sorted(sess.create_dataframe(f).join(
+                sess.create_dataframe(d), on).collect(), key=_key))
+        assert rows[1] == rows[0] and rows[1], on
+        _check_path(sess, path)
+    d4 = tsess.create_dataframe(d)
+    f4 = tsess.create_dataframe(f)
+    with pytest.raises(NotImplementedError, match="cross join.*7′"):
+        f4.cross_join(d4).collect()
+    for mode in ("HOST", "ICI"):
+        shuffled = tsrt.Session({
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
+            "spark.rapids.tpu.shuffle.mode": mode}, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            shuffled.create_dataframe(f).join(
+                shuffled.create_dataframe(d), [("a2", "a")]).collect()
 
 
 def test_join_phases_plain_versions():
@@ -405,3 +419,377 @@ def test_csr_phases_plain_versions():
     out = tj.gather_rows(bi, [(keys, valid)], nullable=True)
     assert out[0][0].tolist() == [7, 7, 0, 5, 5]
     assert out[0][1].tolist() == [True, True, False, True, True]
+
+
+# ---------------------------------------------------------------------------------
+# The sorted path (row 6″), the shuffled join and its flip (row 7′)
+# ---------------------------------------------------------------------------------
+
+HOWS = ["inner", "left", "right", "full", "semi", "anti"]
+SHUFFLED = {"spark.rapids.tpu.sql.batchSizeRows": 1024,
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 2000}
+
+
+def _sides(seed: int, n_left: int = 900, n_right: int = 1300, span: int = 80):
+    """Two sides whose int64 keys repeat on both, miss on both and are
+    null on both, with a second key, a float key with -0.0/+0.0 and NaN,
+    string keys and string payloads."""
+    rng = np.random.default_rng(seed)
+
+    def side(n, p):
+        k = rng.integers(0, span, n).astype(object)
+        k[rng.random(n) < 0.05] = None
+        fk = rng.choice(np.array([-0.0, 0.0, 1.5, np.nan, -2.25, 7.0]), n)
+        return {f"{p}k": k, f"{p}k2": rng.integers(0, 3, n).astype(np.int64),
+                f"{p}f": fk,
+                f"{p}s": np.array([f"s{x}" for x in rng.integers(0, 40, n)]),
+                f"{p}v": rng.integers(-99, 99, n).astype(np.int64),
+                f"{p}name": np.array([f"n{x % 11}" for x in range(n)])}
+    return side(n_left, "l_"), side(n_right, "r_")
+
+
+def _both(settings, left, right, q):
+    """(reference rows, reference fetches, port rows, port fetches, port
+    session) of ``q(F, left_df, right_df)``."""
+    jsess = jsrt.Session(settings)
+    tsess = tsrt.Session(settings, device="cpu")
+    out = []
+    for sess, F in ((jsess, JF), (tsess, TF)):
+        df = q(F, sess.create_dataframe(left), sess.create_dataframe(right))
+        with JStats.scoped() as st:
+            rows = df.collect()
+        fetches = st.blocking_fetches if sess is jsess \
+            else sess.last_query_stats().blocking_fetches
+        out += [sorted((_canon(r) for r in rows), key=repr), fetches]
+    return out + [tsess]
+
+
+def _canon(row):
+    """A row with NaN as a marker, so rows holding NaN compare equal."""
+    return tuple("NaN" if isinstance(x, float) and x != x else x
+                 for x in row)
+
+
+@pytest.mark.parametrize("aqe", [True, False])
+@pytest.mark.parametrize("how", HOWS)
+def test_shuffled_join_matches_reference(how, aqe):
+    """No side fits the lowered threshold: both packages plan a sort-merge
+    join over two shuffle exchanges.  With AQE on, a legal build side
+    whose staged rows fit flips to a broadcast join (a full join has none
+    and stays shuffled); with it off, 8 partition pairs join through the
+    sorted match state.  Repeated, missing and null keys on both sides;
+    rows equal the reference's at no more fetches."""
+    left, right = _sides(21)
+    settings = dict(SHUFFLED, **{"spark.rapids.tpu.sql.aqe.enabled": aqe,
+                                 "spark.rapids.tpu.sql."
+                                 "autoBroadcastJoinThreshold": 20000})
+
+    def q(F, lf, rf):
+        # estimated at half its 900 rows, the filtered left side keeps a
+        # fifth: staged, it fits the threshold its estimate does not
+        lf = lf.where(F.col("l_v") > 60)
+        return lf.join(rf, [("l_k", "r_k")], how=how)
+
+    jrows, jf, trows, tf, tsess = _both(settings, left, right, q)
+    assert trows == jrows and trows
+    assert tf <= jf
+    # only inner and right joins may build the left side
+    flipped = aqe and how in ("inner", "right")
+    metrics = tsess.last_exec_context().metrics
+    assert sum(m.values.get("aqeShuffleToBroadcast", 0)
+               for m in metrics.values()) == int(flipped)
+    if not flipped:
+        assert sum(m.values.get("numOutputBatches", 0) for k, m in
+                   metrics.items() if k.startswith("ShuffleExchange")) == 16
+
+
+@pytest.mark.parametrize("how", HOWS)
+@pytest.mark.parametrize("case", ["empty_left", "empty_right",
+                                  "one_partition"])
+def test_shuffled_join_edge_sides_match_reference(how, case):
+    """An empty side (every partition empty) and keys that all hash to one
+    partition (seven of eight partitions empty on both sides): the
+    exchanges still yield 8 batches each and the pairs stay aligned."""
+    left, right = _sides(22, 300, 400)
+    if case == "one_partition":
+        for side, p in ((left, "l_"), (right, "r_")):
+            side[f"{p}k"] = np.where(side[f"{p}k"] == None, None,  # noqa
+                                     7).astype(object)
+    settings = dict(SHUFFLED, **{"spark.rapids.tpu.sql.aqe.enabled": False})
+
+    def q(F, lf, rf):
+        if case == "empty_left":
+            lf = lf.where(F.col("l_v") > 1000)
+        if case == "empty_right":
+            rf = rf.where(F.col("r_v") > 1000)
+        return lf.join(rf, [("l_k", "r_k")], how=how)
+
+    jrows, jf, trows, tf, tsess = _both(settings, left, right, q)
+    assert trows == jrows
+    assert tf <= jf
+
+
+@pytest.mark.parametrize("key", ["two_keys", "float", "string"])
+def test_multi_key_float_and_string_shuffled_joins(key):
+    """Two keys (int64, int64), a float key (-0.0 = +0.0, NaN = NaN) and a
+    string key, whose codes must come from one dictionary shared by both
+    exchanges and the join.  (A full join's rows hold the inner join's;
+    the reference compiles a float key's programs slowly, so it runs one
+    join type.)"""
+    left, right = _sides(23)
+    settings = dict(SHUFFLED, **{"spark.rapids.tpu.sql.aqe.enabled": False})
+    on = {"two_keys": [("l_k", "r_k"), ("l_k2", "r_k2")],
+          "float": [("l_f", "r_f")], "string": [("l_s", "r_s")]}[key]
+    for how in (("full",) if key == "float" else ("inner", "full", "anti")):
+        jrows, jf, trows, tf, _ = _both(
+            settings, left, right,
+            lambda F, lf, rf: lf.join(rf, on, how=how))
+        assert trows == jrows, how
+        assert trows or how == "anti", how
+        assert tf <= jf
+
+
+@pytest.mark.parametrize("how", ["full", "right", "inner"])
+def test_using_keys_coalesce_in_right_and_full_joins(how):
+    """A USING join keeps one key column; in right and full joins it is
+    the left value where there is one, else the right (null only where
+    both are)."""
+    left, right = _sides(24, 200, 300)
+    for settings in (SHUFFLED, {"spark.rapids.tpu.sql.batchSizeRows": 1024}):
+        for on in (["k"], ["s"], ["k", "s"]):
+            lt = {"k": left["l_k"], "s": left["l_s"], "lv": left["l_v"]}
+            rt = {"k" if "k" in on else "rk": right["r_k"],
+                  "s" if "s" in on else "rs": right["r_s"],
+                  "rv": right["r_v"]}
+            jrows, jf, trows, tf, _ = _both(
+                settings, lt, rt,
+                lambda F, lf, rf: lf.join(rf, on, how=how))
+            assert trows == jrows and trows, (on, settings)
+            assert tf <= jf
+
+
+@pytest.mark.parametrize("how", HOWS)
+def test_oversized_partition_pairs_split_by_xxhash64(how):
+    """Pairs over batchSizeRows split into subPartitions sub-pairs by
+    xxhash64 of the keys; equal keys still meet, so rows equal the
+    reference's."""
+    left, right = _sides(25, 1500, 1800, span=400)
+    settings = {"spark.rapids.tpu.sql.batchSizeRows": 256,
+                "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 2000,
+                "spark.rapids.tpu.sql.aqe.enabled": False,
+                "spark.rapids.tpu.sql.join.subPartitions": 4}
+    jrows, jf, trows, tf, tsess = _both(
+        settings, left, right,
+        lambda F, lf, rf: lf.join(rf, [("l_k", "r_k")], how=how))
+    assert trows == jrows and trows
+    metrics = tsess.last_exec_context().metrics
+    assert sum(m.values.get("subPartitionedPairs", 0)
+               for m in metrics.values()) > 0
+
+
+def test_flip_reads_the_exact_size_only_when_the_bound_does_not_fit():
+    """``staged_fits`` bounds the staged rows by their count first: a
+    threshold the bound fits costs no fetch, one only the exact live count
+    fits costs one, as does one neither fits; and a query whose staged
+    bound fits flips at no more fetches than the same join planned as a
+    broadcast."""
+    from spark_rapids_tpu_torch.batch import ColumnBatch, DeviceColumn, \
+        Field, Schema
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.plan.exchange_exec import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.plan.physical import ExecContext, TpuExec
+    from spark_rapids_tpu_torch.utils.metrics import QueryStats
+    from spark_rapids_tpu_torch import types as T
+
+    schema = Schema([Field("k", T.INT64, False)])
+    sel = torch.arange(1000) % 4 == 0
+
+    class Batches(TpuExec):
+        output_schema = schema
+
+        def execute(self, ctx):
+            yield ColumnBatch(schema, [DeviceColumn(
+                T.INT64, torch.arange(1000))], 1000)
+            yield ColumnBatch(schema, [DeviceColumn(
+                T.INT64, torch.arange(1000))], 1000, sel)
+
+    ctx = ExecContext(TpuConf(), torch.device("cpu"))
+    for threshold, fits, fetches in ((16000, True, 0), (10000, True, 1),
+                                     (9000, False, 1)):
+        ex = ShuffleExchangeExec(Batches(), [], 8, {})
+        with QueryStats.scoped() as st:
+            assert ex.staged_fits(ctx, threshold) == fits
+        assert st.blocking_fetches == fetches, threshold
+
+    left, right = _sides(26, 2000, 2500)
+
+    def q(F, lf, rf):
+        # both sides are bare scans: estimated at their tables' full row
+        # width, staged at the columns the query keeps
+        return lf.join(rf, [("l_k", "r_k")]).select("l_k", "l_name", "r_v")
+
+    # the flipped join knows no probe estimate, so the dense gate's
+    # denseMinProbeRows does not apply to it: take it off the planned one
+    base = {"spark.rapids.tpu.sql.batchSizeRows": 1024,
+            "spark.rapids.tpu.join.denseMinProbeRows": 0}
+    out = {}
+    for name, threshold in (("flip", 100_000), ("broadcast", 1 << 30)):
+        settings = dict(base, **{
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": threshold})
+        jrows, jf, trows, tf, tsess = _both(
+            settings, {"l_k": left["l_k"], "l_name": left["l_name"],
+                       **{f"l_x{i}": left["l_v"] for i in range(4)}},
+            right, q)
+        assert trows == jrows and trows and tf <= jf
+        metrics = tsess.last_exec_context().metrics
+        out[name] = (sum(m.values.get("aqeShuffleToBroadcast", 0)
+                         for m in metrics.values()), tf)
+    assert out["flip"][0] == 1 and out["broadcast"][0] == 0
+    assert out["flip"][1] == out["broadcast"][1]
+
+
+def _reference_node(settings, left, right, on, cls):
+    from spark_rapids_tpu.plan import join_exec as RJ
+    js = jsrt.Session(settings)
+    df = js.create_dataframe(left).join(js.create_dataframe(right), on)
+
+    def find(n):
+        if isinstance(n, getattr(RJ, cls)):
+            return n
+        for c in list(getattr(n, "children", None) or []) + [
+                getattr(n, "root", None)]:
+            if c is not None and (r := find(c)) is not None:
+                return r
+        return None
+    return find(js._plan_physical(df._plan))
+
+
+@pytest.mark.parametrize("key", ["int64", "int32", "float64", "float32",
+                                 "two_keys"])
+def test_sorted_match_state_matches_reference(key):
+    """sort_join's plain version against the reference's match state on the
+    same build and probe: matches and b_perm exact and lo exact wherever a
+    row matches (the single-key sorted broadcast path, ``_match_state``
+    :932); for two keys the reference's union kernel orders groups by hash,
+    so each probe row's matched build rows (b_perm[lo:lo + matches]) must
+    be the same rows in the same order."""
+    from spark_rapids_tpu.batch import from_numpy as jfrom_numpy
+    rng = np.random.default_rng(27)
+    nb, npr = 700, 900
+    if key.startswith("float"):
+        vals = np.array([-0.0, 0.0, np.nan, 1.5, -3.0, np.inf, -np.inf,
+                         1e-310 if key == "float64" else 1e-40, 2.5],
+                        dtype=key)
+        bk = rng.choice(vals, nb)
+        pk = rng.choice(np.append(vals, np.array([99.5], dtype=key)), npr)
+    else:
+        dt = np.int32 if key == "int32" else np.int64
+        bk = rng.integers(-50, 50, nb).astype(dt)
+        pk = rng.integers(-60, 60, npr).astype(dt)
+    build = {"bk": bk, "bk2": rng.integers(0, 3, nb).astype(np.int64)}
+    probe = {"pk": pk, "pk2": rng.integers(0, 3, npr).astype(np.int64)}
+    on = [("pk", "bk")] + ([("pk2", "bk2")] if key == "two_keys" else [])
+    settings = {"spark.rapids.tpu.join.denseMinProbeRows": 10**9,
+                "spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+                    -1 if key == "two_keys" else 1 << 30}
+    node = _reference_node(settings, probe, build, on,
+                           "SortMergeJoinExec" if key == "two_keys"
+                           else "BroadcastJoinExec")
+    lo_r, m_r, perm_r = (np.asarray(x) for x in node._match_state(
+        jfrom_numpy(probe), jfrom_numpy(build), probe_side=0))
+    keys = [("bk", "pk")] + ([("bk2", "pk2")] if key == "two_keys" else [])
+    state = tj.sorted_build([(torch.from_numpy(build[b]), None)
+                             for b, _ in keys], None)
+    lo, m, _ = tj.sorted_probe([(torch.from_numpy(probe[p]), None)
+                                for _, p in keys], None, state, "inner")
+    lo, m, perm = lo.numpy(), m.numpy(), state.b_perm.numpy()
+    np.testing.assert_array_equal(m, m_r[:npr])
+    hit = m > 0
+    assert hit.any() and not hit.all()
+    if key == "two_keys":
+        for i in np.flatnonzero(hit):
+            np.testing.assert_array_equal(perm[lo[i]:lo[i] + m[i]],
+                                          perm_r[lo_r[i]:lo_r[i] + m[i]])
+    else:
+        np.testing.assert_array_equal(lo[hit], lo_r[:npr][hit])
+        nv = int(state.n_valid[0])
+        np.testing.assert_array_equal(perm[:nv], perm_r[:nv])
+
+
+def test_sorted_phases_plain_versions():
+    """The sorted build under a validity and a live mask, every probe mode,
+    and the unmatched build rows of a full join."""
+    keys = torch.tensor([7, 5, 7, 9, 7, 5, 3], dtype=torch.int64)
+    valid = torch.tensor([True, True, True, True, False, True, True])
+    active = torch.tensor([True, True, True, True, True, True, False])
+    st = tj.sorted_build([(keys, valid)], active)
+    assert int(st.n_valid[0]) == 5
+    assert st.b_perm.tolist()[:5] == [1, 5, 0, 2, 3]
+    assert st.words[0, :5].tolist() == [5, 5, 7, 7, 9]
+    probe = torch.tensor([7, 8, 5, 11, 9], dtype=torch.int32)
+    pact = torch.tensor([True, True, True, False, True])
+    lo, m, offsets = tj.sorted_probe([(probe, None)], pact, st, "full")
+    assert lo.tolist() == [2, -1, 0, -1, 4] and m.tolist() == [2, 0, 2, 0, 1]
+    assert offsets.tolist() == [0, 2, 3, 5, 5, 6]
+    assert tj.sorted_probe([(probe, None)], pact, st, "inner")[2].tolist() \
+        == [0, 2, 2, 4, 4, 5]
+    assert tj.sorted_probe([(probe, None)], pact, st, "semi")[2].tolist() \
+        == [True, False, True, False, True]
+    assert tj.sorted_probe([(probe, None)], pact, st, "anti")[2].tolist() \
+        == [False, True, False, False, False]
+    mask, count = tj.unmatched_build_mask(lo, m, st, active)
+    assert mask.tolist() == [False] * 4 + [True, False, False]
+    assert count.tolist() == [1]
+    fl = torch.tensor([-0.0, float("nan"), 0.0, 1e-310, 2.0],
+                      dtype=torch.float64)
+    st = tj.sorted_build([(fl, None)], None)
+    _, m, _ = tj.sorted_probe([(torch.tensor([0.0, float("nan")],
+                                             dtype=torch.float64), None)],
+                              None, st, "inner")
+    assert m.tolist() == [3, 1]  # -0.0, +0.0 and the subnormal; one NaN
+
+
+def test_sorted_join_kernel_wrappers_refuse_cpu_tensors():
+    keys = [(torch.zeros(4, dtype=torch.int64), None)]
+    st = tj.sorted_build(keys, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tj.sorted_build_kernel(keys, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tj.sorted_probe_kernel(keys, None, st, "inner")
+    with pytest.raises(ValueError, match="CUDA"):
+        tj.unmatched_build_kernel(torch.zeros(4, dtype=torch.int32),
+                                  torch.zeros(4, dtype=torch.int32), st, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tj.partition_perm_kernel(torch.zeros(4, dtype=torch.int32), 8)
+    assert tj.sorted_build_kernel.launches == \
+        tj.sorted_probe_kernel.launches == \
+        tj.unmatched_build_kernel.launches == \
+        tj.partition_perm_kernel.launches == 0
+
+
+@pytest.mark.parametrize("how", ["right", "full"])
+def test_filters_above_outer_joins_stay_like_the_reference(how):
+    """A conjunct over a side that a right or full join null-extends stays
+    above the join (pushing it would drop the null-extended rows' filter
+    and keep rows it removes); the filters' placement and the rows equal
+    the reference's.  (The reference prunes an unnarrowed scan under a
+    filter with a Project; the port narrows the scan itself.)"""
+    left, right = _sides(28, 300, 400)
+
+    def q(F, lf, rf):
+        return (lf.join(rf, [("l_k", "r_k")], how=how)
+                  .where((F.col("l_v") > 0) & (F.col("r_v") < 50))
+                  .select("l_k", "l_v", "r_v"))
+
+    settings = {"spark.rapids.tpu.sql.batchSizeRows": 1024}
+    jrows, jf, trows, tf, _ = _both(settings, left, right, q)
+    assert trows == jrows and trows
+    assert tf <= jf
+    jsess, tsess = jsrt.Session(settings), tsrt.Session(settings, device="cpu")
+    exps = [[ln.strip() for ln in q(
+        F, s.create_dataframe(left), s.create_dataframe(right))
+        .explain_string().splitlines() if "Filter" in ln or "Join" in ln]
+        for s, F in ((jsess, JF), (tsess, TF))]
+    assert exps[1] == exps[0]
+    assert exps[1][0].startswith("* Filter") and exps[1][1].startswith(
+        "* Join")

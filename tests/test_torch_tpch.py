@@ -292,3 +292,47 @@ def test_gen_db_arrays_match_reference_parquet(tmp_path):
     np.testing.assert_array_equal(picked["lineitem"]["l_orderkey"],
                                   mine["lineitem"]["l_orderkey"])
     assert list(picked) == ["lineitem"]
+
+
+# ---------------------------------------------------------------------------------
+# Q10: the shuffled sort-merge join and its runtime broadcast flip
+# ---------------------------------------------------------------------------------
+
+# the broadcast threshold scaled from SF10 to DB_SF, so each side of the
+# second join is estimated over it as at SF10 (and the first still fits)
+Q10_SETTINGS = dict(DB_SETTINGS, **{
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 268_435})
+
+
+@pytest.mark.parametrize("config", ["flip", "shuffled"])
+def test_q10_matches_reference_and_oracle(db, config):
+    """TPC-H Q10 in the reference's two configurations: with AQE on, the
+    second join's staged left side fits and it flips to a broadcast join
+    (``aqeShuffleToBroadcast`` = 1); with AQE off, it joins 8 hash
+    partition pairs.  Rows equal the reference's ``run_q10`` and
+    ``q10_numpy`` (c_acctbal rides the dense aggregate as a float
+    residual), at no more blocking fetches."""
+    settings = dict(Q10_SETTINGS, **{
+        "spark.rapids.tpu.sql.aqe.enabled": config == "flip"})
+    tables = ("customer", "orders", "lineitem")
+    jsess = jsrt.Session(settings)
+    tsess = tsrt.Session(settings, device="cpu")
+    jdfs = {t: jsess.create_dataframe(db[t]) for t in tables}
+    with JStats.scoped() as st:
+        jrows = tpch_suite.run_q10(jdfs)
+    trows = tpch.q10(*(tsess.create_dataframe(db[t])
+                       for t in tables)).collect()
+    want = tpch.q10_numpy(*(db[t] for t in tables))
+    assert len(trows) == 20
+    _assert_rows_close(trows, jrows)
+    _assert_rows_close(trows, want)
+    assert tsess.last_query_stats().blocking_fetches <= st.blocking_fetches
+    metrics = tsess.last_exec_context().metrics
+    values = lambda name: sum(m.values.get(name, 0)  # noqa: E731
+                              for m in metrics.values())
+    assert values("aqeShuffleToBroadcast") == int(config == "flip")
+    assert values("aggDensePath") == 1
+    exchanged = sum(m.values.get("numOutputBatches", 0)
+                    for k, m in metrics.items()
+                    if k.startswith("ShuffleExchangeExec"))
+    assert exchanged == (0 if config == "flip" else 16)

@@ -9,8 +9,13 @@ reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
 (4,194,304, the default of ``batchSizeRows``) and
 ``spark.rapids.tpu.join.denseMinProbeRows = 0``; each query's rows are
 checked against the numpy oracle.  SF1 with 400,000-row batches cuts
-lineitem into the 15 batches it has at SF10 with the default size.  Prints one JSON line per query and
-package: ``{"query", "package", "blocking_fetches", "seconds"}``.  A
+lineitem into the 15 batches it has at SF10 with the default size.  Q10
+runs in the reference's two configurations, ``q10_flip`` (AQE on: the
+second join's staged side flips it to a broadcast join) and
+``q10_shuffled`` (AQE off: 8 hash partition pairs), with the broadcast
+threshold scaled from SF10 to ``--sf`` so the plans are SF10's.  Prints
+one JSON line per query and package: ``{"query", "package",
+"blocking_fetches", "seconds"}``.  A
 fetch count on the CPU equals the count on a device for the same plan
 (the counted fetches do not depend on the backend); the port's ceiling on
 the card is the reference's count for the same query, scale factor and
@@ -27,10 +32,18 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
-           "q18": ("orders", "lineitem", "customer"),
-           "q21": ("lineitem", "orders", "supplier")}
+Q10_TABLES = ("customer", "orders", "lineitem")
+# name: (query body, tables, settings beyond the common ones)
+QUERIES = {"q4": ("q4", ("orders", "lineitem"), {}),
+           "q13": ("q13", ("customer", "orders"), {}),
+           "q18": ("q18", ("orders", "lineitem", "customer"), {}),
+           "q21": ("q21", ("lineitem", "orders", "supplier"), {}),
+           "q10_flip": ("q10", Q10_TABLES,
+                        {"spark.rapids.tpu.sql.aqe.enabled": True}),
+           "q10_shuffled": ("q10", Q10_TABLES,
+                            {"spark.rapids.tpu.sql.aqe.enabled": False})}
 SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
+SF10_BROADCAST_THRESHOLD = 256 * 1024 * 1024
 
 
 def _same(got, want) -> bool:
@@ -54,8 +67,15 @@ def main() -> None:
     ap.add_argument("--queries", default=",".join(QUERIES))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     args = ap.parse_args()
-    settings = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
-                                 args.batch_rows})
+    base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
+                             args.batch_rows})
+
+    def settings(q):
+        extra = dict(QUERIES[q][2])
+        if QUERIES[q][0] == "q10":
+            extra["spark.rapids.tpu.sql.autoBroadcastJoinThreshold"] = int(
+                SF10_BROADCAST_THRESHOLD * args.sf / 10)
+        return dict(base, **extra)
     from spark_rapids_tpu_torch.models import tpch
     data = tpch.gen_db_arrays(args.sf)
     runners = []
@@ -63,25 +83,28 @@ def main() -> None:
         import spark_rapids_tpu as jsrt
         from spark_rapids_tpu.models import tpch_suite
         from spark_rapids_tpu.utils.metrics import QueryStats
-        jsess = jsrt.Session(settings)
 
         def run_ref(q):
-            dfs = {t: jsess.create_dataframe(data[t]) for t in QUERIES[q]}
+            jsess = jsrt.Session(settings(q))
+            body, tables, _ = QUERIES[q]
+            dfs = {t: jsess.create_dataframe(data[t]) for t in tables}
             with QueryStats.scoped() as st:
-                rows = getattr(tpch_suite, f"run_{q}")(dfs)
+                rows = getattr(tpch_suite, f"run_{body}")(dfs)
             return rows, st.blocking_fetches
         runners.append(("reference", run_ref))
     if args.package in ("port", "both"):
         import spark_rapids_tpu_torch as tsrt
-        tsess = tsrt.Session(settings, device="cpu")
 
         def run_port(q):
-            dfs = [tsess.create_dataframe(data[t]) for t in QUERIES[q]]
-            rows = getattr(tpch, q)(*dfs).collect()
+            tsess = tsrt.Session(settings(q), device="cpu")
+            body, tables, _ = QUERIES[q]
+            dfs = [tsess.create_dataframe(data[t]) for t in tables]
+            rows = getattr(tpch, body)(*dfs).collect()
             return rows, tsess.last_query_stats().blocking_fetches
         runners.append(("port", run_port))
     for q in args.queries.split(","):
-        want = getattr(tpch, f"{q}_numpy")(*(data[t] for t in QUERIES[q]))
+        body, tables, _ = QUERIES[q]
+        want = getattr(tpch, f"{body}_numpy")(*(data[t] for t in tables))
         for package, run in runners:
             t0 = time.perf_counter()
             rows, fetches = run(q)
