@@ -48,17 +48,22 @@ DB_ORDERS = 15_000_000
 DB_CUSTOMERS = 1_500_000
 DB_SUPPLIERS = 100_000
 DB_LINEITEM = 60_012_150
-DB_COLUMNS = {"lineitem": ["l_orderkey", "l_suppkey", "l_quantity",
-                           "l_commitdate", "l_receiptdate", "l_returnflag",
-                           "l_extendedprice", "l_discount"],
+DB_COLUMNS = {"lineitem": ["l_orderkey", "l_partkey", "l_suppkey",
+                           "l_quantity", "l_commitdate", "l_receiptdate",
+                           "l_returnflag", "l_extendedprice", "l_discount",
+                           "l_shipdate"],
               "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
                          "o_totalprice", "o_orderdate", "o_orderpriority"],
               # every column: Q10's first join builds the side the
               # reference does only if customer is estimated at the full
               # width of its table, as the reference's is
               "customer": None,
-              "supplier": ["s_suppkey", "s_name"]}
+              "supplier": ["s_suppkey", "s_name", "s_nationkey"],
+              "partsupp": None, "nation": None}
+DB_PARTSUPP = 8_000_000
+Q11_TABLES = ("partsupp", "supplier", "nation")
 DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
+              "q11": Q11_TABLES,
               "q18": ("orders", "lineitem", "customer"),
               "q21": ("lineitem", "orders", "supplier"),
               "q10": ("customer", "orders", "lineitem")}
@@ -66,6 +71,11 @@ DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
 # (tools/fetch_budget.py at SF1 with 400,000-row batches, which cut
 # lineitem into the 15 batches it has at SF10): the port's ceiling
 Q10_SHUFFLED_REFERENCE_FETCHES = 53
+# blocking fetch ceilings of the slice-5 paths at SF10: the reference's
+# count for the same plan (tools/fetch_budget.py at SF1 with 400,000-row
+# batches, which give lineitem the 15 batches it has at SF10)
+SLICE5_FETCH_CEILINGS = {"s1": (33, "the reference's count"),
+                         "w1": (4, "the reference's count")}
 
 
 class SmokeFailure(Exception):
@@ -911,6 +921,43 @@ def check_rows(name: str):
     return checker
 
 
+def _days(a: np.ndarray) -> np.ndarray:
+    return a.astype("datetime64[D]").astype(np.int64).astype(np.int32) \
+        if a.dtype.kind == "M" else a
+
+
+def check_device_columns(name: str, exact_floats: bool):
+    """A checker for ``to_device_arrays`` results against an oracle dict
+    ``{column: (data, valid)}`` or ``{column: data}``: validity equal,
+    integers and dates equal, floats equal (``exact_floats``) or within
+    QUERY_REL_TOL where valid."""
+    def checker(out, want) -> float:
+        check(set(out) == set(want), f"{name} columns {sorted(out)}")
+        worst = 0.0
+        for c, w in want.items():
+            wd, wv = w if isinstance(w, tuple) else (w, None)
+            wd = _days(wd)
+            gd, gv = out[c]
+            gd = gd.cpu().numpy()
+            check(gd.shape == wd.shape, f"{name}.{c}: {gd.shape[0]} rows, "
+                  f"oracle {wd.shape[0]}")
+            ok = np.ones(len(wd), dtype=bool) if wv is None else wv
+            got_ok = np.ones(len(gd), dtype=bool) if gv is None \
+                else gv.cpu().numpy()
+            check(np.array_equal(got_ok, ok), f"{name}.{c}: nulls differ")
+            if wd.dtype.kind == "f" and not exact_floats:
+                err = np.abs(gd[ok] - wd[ok]) / np.maximum(np.abs(wd[ok]),
+                                                           1e-300)
+                e = float(err.max()) if err.size else 0.0
+                check(e <= QUERY_REL_TOL, f"{name}.{c}: rel err {e:.3e}")
+                worst = max(worst, e)
+            else:
+                check(np.array_equal(gd[ok], wd[ok]),
+                      f"{name}.{c} differs from the oracle")
+        return worst
+    return checker
+
+
 class ModeCounter:
     """The launches of ``dense_join_probe`` in the given join types, as one
     counter with the wrappers' ``launches`` interface."""
@@ -936,10 +983,24 @@ def launch_counts(counters) -> dict:
             for name, fns in counters.items()}
 
 
-def run_query(torch, sess, df_fn, checker, want, name, counters):
+def collect(df):
+    return df.collect()
+
+
+def to_device(df):
+    return df.to_device_arrays()
+
+
+def run_query(torch, sess, df_fn, checker, want, name, counters,
+              result=collect):
     """One cold and three warm runs; returns the per-run measurements and
-    the kernel launches each run made.  ``counters`` maps each kernel the
-    query must launch to its wrappers."""
+    the kernel launches each run made.  Syncs and upload bytes count every
+    query the path runs (Q11 runs two: its total, then the rest); upload
+    ms is the last query's.  ``counters`` maps each kernel the
+    query must launch to its wrappers; ``result`` ends the query (rows on
+    the host, or ``to_device_arrays``, whose tensors the checker reads
+    after the timed span)."""
+    from spark_rapids_tpu_torch.utils.metrics import QueryStats
     runs = []
     for i in range(4):
         before = launch_counts(counters)
@@ -948,12 +1009,16 @@ def run_query(torch, sess, df_fn, checker, want, name, counters):
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        rows = df_fn().collect()
+        with QueryStats.scoped() as path_stats:  # every query of the path
+            rows = result(df_fn())
         end.record()
         end.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         stats = sess.last_query_stats()
         err = checker(rows, want)
+        out_rows = len(rows) if isinstance(rows, list) else (
+            next(iter(rows.values()))[0].shape[0] if rows else 0)
+        del rows
         after = launch_counts(counters)
         launches = {k: after[k] - before[k] for k in counters}
         idle = [k for k, v in launches.items() if v == 0]
@@ -961,14 +1026,16 @@ def run_query(torch, sess, df_fn, checker, want, name, counters):
         runs.append({"run": "cold" if i == 0 else f"warm{i}",
                      "wall_ms": wall, "device_ms": start.elapsed_time(end),
                      "upload_ms": stats.upload_ms(),
-                     "upload_bytes": stats.upload_bytes,
-                     "syncs": stats.blocking_fetches,
-                     "kernel_launches": launches, "max_rel_err": err})
+                     "upload_bytes": path_stats.upload_bytes,
+                     "syncs": path_stats.blocking_fetches,
+                     "kernel_launches": launches, "max_rel_err": err,
+                     "output_rows": out_rows})
         print(f"query {name} {runs[-1]['run']}: " + json.dumps(runs[-1]))
     return runs
 
 
-def profile_query(torch, df_fn, name: str, top: int = 8) -> None:
+def profile_query(torch, df_fn, name: str, top: int = 8,
+                  result=collect) -> None:
     """One more warm run under ``torch.profiler`` (CUDA activity only):
     the device time of its kernels and copies by name, and the share of
     the run's device span that none of them covers (the device idle
@@ -979,7 +1046,7 @@ def profile_query(torch, df_fn, name: str, top: int = 8) -> None:
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
-        df_fn().collect()
+        result(df_fn())
         end.record()
         end.synchronize()
     span = start.elapsed_time(end)
@@ -1814,6 +1881,447 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
     return out
 
 # ---------------------------------------------------------------------------------
+# the full device sort (sort.cu), the window scans (window_scan.cu) and
+# frames (window_frame.cu)
+# ---------------------------------------------------------------------------------
+
+SORT_KINDS = ("int8", "int16", "int32", "date", "int64", "float32", "float64",
+              "bool", "codes")
+
+
+def sort_key_column(rng, kind: str, n: int, span: int = 40):
+    """One key column of ``kind`` with ties, and for floats -0.0/+0.0, NaN
+    and +-inf."""
+    if kind in ("int8", "int16", "int32", "int64"):
+        return rng.integers(-span, span, n).astype(kind)
+    if kind in ("date", "codes"):
+        return rng.integers(0, span, n).astype(np.int32)
+    if kind == "bool":
+        return rng.random(n) < 0.5
+    dt = np.dtype(kind)
+    vals = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, 1.5, -2.25, 1e30,
+                     3.0, -7.0], dtype=dt)
+    return rng.choice(vals, n)
+
+
+def _same(torch, a, b) -> bool:
+    """Equal values (NaN equal to NaN) of one shape and type."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def check_sort(torch, sort_ops, device) -> float:
+    """sort.cu against its plain versions: the images of every key type
+    (asc/desc, nulls first/last, NaN, +-0.0, ties), the permutation with
+    and without a live mask (exact), constant keys (every pass skipped),
+    several keys, the range key and the gather."""
+    rng = np.random.default_rng(51)
+    t = _to_device(torch, device)
+    cases = []
+    for n in (0, 1, 5000, 300_001):
+        for kind in SORT_KINDS:
+            for asc, nf in ((True, True), (False, True), (True, False),
+                            (False, False)):
+                cases.append((n, [(kind, asc, nf, 0.9)], n % 2 == 1))
+    cases += [(300_001, [("int64", True, True, 1.0),
+                         ("float64", False, False, 0.8),
+                         ("int32", True, False, 1.0)], True),
+              (300_001, [("date", True, True, 1.0),
+                         ("float64", False, False, 1.0),
+                         ("int64", True, True, 1.0)], False),
+              (BATCH_ROWS, [("date", True, True, 1.0),
+                            ("float64", False, False, 1.0),
+                            ("int64", True, True, 1.0)], False)]
+    for n, spec, masked in cases:
+        keys = []
+        for kind, asc, nf, frac in spec:
+            d = t(sort_key_column(rng, kind, n, span=max(40, n // 50)))
+            v = None if frac >= 1.0 else t(rng.random(n) < frac)
+            keys.append((d, v, asc, nf))
+        active = t(rng.random(n) < 0.8) if masked else None
+        kw = sort_ops.sort_images_kernel(keys)
+        pw = sort_ops.sort_images_plain(keys)
+        torch.cuda.synchronize()
+        check(len(kw) == len(pw) and all(
+            a[1] == b[1] and torch.equal(a[0], b[0])
+            for a, b in zip(kw, pw)), f"sort images differ ({spec}, n={n})")
+        kp = sort_ops.sort_perm_kernel(kw, active, n)
+        pp = sort_ops.sort_perm_plain(pw, active, n, device)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, pp), f"sort permutation differs ({spec}, "
+              f"n={n}, live mask {masked})")
+        d, v, asc, nf = keys[0]
+        kr = sort_ops.range_key_kernel(d, v, asc, nf, kp)
+        pr = sort_ops.range_key_plain(d, v, asc, nf, kp)
+        cols = [(d, v)] + [(k[0], k[1]) for k in keys[1:]]
+        kg = sort_ops.gather_kernel(cols, kp)
+        pg = sort_ops.gather_plain(cols, kp)
+        torch.cuda.synchronize()
+        check(torch.equal(kr, pr), f"range key differs ({spec}, n={n})")
+        check(all(_same(torch, a[0], b[0]) and (
+            (a[1] is None and b[1] is None) or torch.equal(a[1], b[1]))
+            for a, b in zip(kg, pg)), f"sort gather differs ({spec})")
+    # constant keys: every pass skips on the device, the order stays
+    n = 100_000
+    keys = [(t(np.full(n, 7, dtype=np.int64)), None, True, True),
+            (t(np.full(n, 3, dtype=np.int32)), None, False, True)]
+    kp = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(keys), None, n)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, torch.arange(n, dtype=torch.int32, device=device)),
+          "a sort over constant keys moved rows")
+    print("check sort: images, permutation, range key and gather exact "
+          "over int8/int16/int32/date/int64/float32/float64/bool/code keys, "
+          "asc/desc x nulls first/last, NaN/+-0.0/+-inf, ties, live masks, "
+          "0/1/5000/300001/4194304 rows, three-key sorts, constant keys "
+          "(every pass skipped): ok")
+    return 0.0
+
+
+class _Ctx:
+    """A window context's positions, for holding each function's kernel
+    against its plain version on the same positions."""
+
+    def __init__(self, torch, window, seg, peer, n, device, scan):
+        i32 = torch.int32
+        self.n, self.device = n, device
+        self.seg_start, self.peer_start = seg, peer
+        self.seg_start_pos = scan(i32, "max", "start_pos", n, flags=seg)
+        self.seg_end_pos = scan(i32, "min", "end_pos", n, flags=seg)
+        self.peer_start_pos = scan(i32, "max", "start_pos", n, flags=peer)
+        self.peer_end_pos = scan(i32, "min", "end_pos", n, flags=peer)
+        self._dense = scan(i32, "sum", "flag_count", n, flags=peer,
+                           reset=seg)
+
+    def dense_count(self):
+        return self._dense
+
+
+def _kw(fn):
+    """A scan wrapper that takes win_scan's keyword arguments."""
+    return lambda dtype, op, mode, n, vals=None, mask=None, flags=None, \
+        reset=None: fn(dtype, op, mode, n, vals, mask, flags, reset)
+
+
+def window_case(torch, rng, n, device, parts, days, nulls):
+    """Sorted (partition, order) keys: int64 partitions with nulls, int32
+    order keys with ties and nulls, rows sorted by (partition, order)."""
+    t = _to_device(torch, device)
+    part = np.sort(rng.integers(0, parts, n)).astype(np.int64)
+    day = rng.integers(0, days, n).astype(np.int32)
+    order = np.lexsort((day, part))
+    part, day = part[order], day[order]
+    pv = t(rng.random(n) < 0.98) if nulls else None
+    dv = t(rng.random(n) < 0.9) if nulls else None
+    return (t(part), pv), (t(day), dv)
+
+
+def check_window(torch, window, device) -> float:
+    """window_scan.cu and window_frame.cu against their plain versions on
+    the same sorted keys: flags and positions exact, integer scans exact,
+    float64 sums within 1e-12 x the running sum of |x|, min/max exact
+    (NaN included), ranks, lag/lead with and without defaults, take, ROWS
+    and RANGE bounds (asc/desc, nulls first/last, saturating deltas),
+    framed sums and min/max."""
+    rng = np.random.default_rng(52)
+    t = _to_device(torch, device)
+    worst = 0.0
+    for n, parts, days, nulls in ((1, 1, 1, False), (5000, 40, 90, True),
+                                  (300_001, 500, 2526, True),
+                                  (BATCH_ROWS, 7000, 2526, False)):
+        (pd, pv), (dd, dv) = window_case(torch, rng, n, device, parts, days,
+                                         nulls)
+        keys = [(pd, pv), (dd, dv)]
+        kseg, kpeer = window.win_flags_kernel(keys, 1, n)
+        pseg, ppeer = window.win_flags_plain(keys, 1, n, device)
+        torch.cuda.synchronize()
+        check(torch.equal(kseg, pseg) and torch.equal(kpeer, ppeer),
+              f"window flags differ (n={n})")
+        kw = _Ctx(torch, window, kseg, kpeer, n, device,
+                  _kw(window.win_scan_kernel))
+        pw = _Ctx(torch, window, kseg, kpeer, n, device,
+                  _kw(window.win_scan_plain))
+        torch.cuda.synchronize()
+        for a in ("seg_start_pos", "seg_end_pos", "peer_start_pos",
+                  "peer_end_pos", "_dense"):
+            check(torch.equal(getattr(kw, a), getattr(pw, a)),
+                  f"window positions {a} differ (n={n})")
+        x64 = t(rng.integers(-1000, 1000, n).astype(np.int64))
+        xf = rng.uniform(-1e4, 1e4, n)
+        xf[rng.random(n) < 0.001] = np.nan
+        xf = t(xf)
+        m = t(rng.random(n) < 0.9)
+        for dtype, x in ((torch.int64, x64), (torch.float64, xf)):
+            for op in ("sum", "min", "max"):
+                for mask, reset in ((m, kseg), (None, kseg), (m, None)):
+                    k = window.win_scan_kernel(dtype, op, "values", n, x,
+                                               mask, None, reset)
+                    p = window.win_scan_plain(dtype, op, "values", n, x,
+                                              mask, None, reset)
+                    torch.cuda.synchronize()
+                    if dtype == torch.float64 and op == "sum":
+                        fin = ~torch.isnan(p)
+                        absx = torch.where(torch.isnan(x), torch.zeros_like(
+                            x), x.abs())
+                        scale = window.win_scan_plain(
+                            dtype, "sum", "values", n, absx, mask, None,
+                            reset)
+                        err = float(((k - p).abs()[fin] / torch.clamp(
+                            scale[fin], min=1.0)).max()) if n else 0.0
+                        check(err <= F64_SUM_TOL and torch.equal(
+                            torch.isnan(k), torch.isnan(p)),
+                            f"window float sum scan off by {err:.3e}")
+                        worst = max(worst, err)
+                    else:
+                        check(_same(torch, k, p), f"window {op} scan over "
+                              f"{dtype} differs (n={n})")
+        kt = window.win_take_kernel(x64, kw.seg_end_pos)
+        check(torch.equal(kt, x64[kw.seg_end_pos.long()]),
+              "window take differs")
+        for fn in ("row_number", "rank", "dense_rank", "percent_rank",
+                   "cume_dist", "ntile"):
+            for tiles in ((1, 3, 7) if fn == "ntile" else (1,)):
+                k = window.win_rank_kernel(fn, kw, tiles)
+                p = window.win_rank_plain(fn, kw, tiles)
+                torch.cuda.synchronize()
+                check(torch.equal(k, p), f"window {fn} differs (n={n})")
+        for val in ((xf, None), (x64, m), (dd, dv)):
+            for off in (1, 2, -1, -3):
+                for dflt in (None, (torch.full_like(val[0], 5), None),
+                             (val[0].flip(0).contiguous(), m)):
+                    k = window.win_shift_kernel(kw, val, off, dflt)
+                    p = window.win_shift_plain(kw, val, off, dflt)
+                    torch.cuda.synchronize()
+                    check(torch.equal(k[1], p[1]) and _same(
+                        torch, torch.where(k[1], k[0], torch.zeros_like(
+                            k[0])), torch.where(p[1], p[0],
+                                                torch.zeros_like(p[0]))),
+                        f"window lag/lead {off} differs (n={n})")
+        frames = []
+        for lo, hi in ((-6, 0), (None, 0), (-3, None), (2, 5), (None, None),
+                       (-(1 << 39), 1 << 39)):
+            frames.append(("rows", lo, hi, None, None) + (
+                window.frame_rows_kernel(kw, lo, hi),
+                window.frame_rows_plain(kw, lo, hi)))
+        for key in ((dd, dv), (dd.to(torch.int64), dv)):
+            for desc, nf in ((False, True), (True, False), (False, False),
+                             (True, True)):
+                for lo, hi in ((-30, 0), (None, 5), (-(1 << 62), 3),
+                               (0, None), (1, 2)):
+                    frames.append(("range", lo, hi, desc, nf) + (
+                        window.frame_range_kernel(kw, key, lo, hi, desc, nf),
+                        window.frame_range_plain(kw, key, lo, hi, desc, nf)))
+        for kind, lo, hi, desc, nf, (ka, kb), (pa, pb) in frames:
+            torch.cuda.synchronize()
+            check(torch.equal(ka, pa) and torch.equal(kb, pb),
+                  f"window {kind} frame bounds ({lo}, {hi}, desc {desc}, "
+                  f"nulls first {nf}) differ (n={n})")
+        for kind, lo, hi, desc, nf, (a, b), _ in frames[:8]:
+            run = window.win_scan_kernel(torch.int64, "sum", "values", n,
+                                         x64, m, None, kseg)
+            cnt = window.win_scan_kernel(torch.int64, "sum", "flag_count", n,
+                                         None, None, m, kseg)
+            for vals, r in ((x64, run), (None, cnt)):
+                k = window.frame_sum_kernel(r, vals, m, a, b)
+                p = window.frame_sum_plain(r, vals, m, a, b)
+                torch.cuda.synchronize()
+                check(torch.equal(k, p), f"framed sum differs ({kind} "
+                      f"{lo},{hi})")
+            runf = window.win_scan_kernel(torch.float64, "sum", "values", n,
+                                          xf, m, None, kseg)
+            k = window.frame_sum_kernel(runf, xf, m, a, b)
+            p = window.frame_sum_plain(runf, xf, m, a, b)
+            torch.cuda.synchronize()
+            check(_same(torch, k, p), "framed float sum differs")
+            if kind == "rows" and lo is not None and hi is not None \
+                    and hi - lo < 16:
+                for vals in (x64, xf):
+                    for op in ("min", "max"):
+                        k = window.frame_minmax_kernel(vals, m, op, a, b)
+                        p = window.frame_minmax_plain(vals, m, op, a, b)
+                        torch.cuda.synchronize()
+                        check(torch.equal(k[1], p[1]) and _same(
+                            torch, k[0], p[0]), f"framed {op} differs "
+                            f"({lo},{hi})")
+    print(f"check window: flags, positions, int64 scans, ranks, ntile, "
+          f"lag/lead, take, ROWS/RANGE bounds, framed sums and min/max "
+          f"exact; float64 sum scans within {worst:.3e} x the running "
+          f"sum of |x| (1/5000/300001/4194304 rows, nulls, NaN): ok")
+    return worst
+
+
+def _passes_run(torch, words) -> int:
+    """Radix passes sort.cu runs over these words: a byte whose digit is
+    the same in every row is skipped."""
+    run = 0
+    for w, nbytes in words:
+        u = w ^ (-(1 << 63)) if nbytes == 8 else w
+        for b in range(nbytes):
+            d = (u >> (8 * b)) & 255
+            run += int(d.min() != d.max())
+    return run
+
+
+def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
+                        lineitem) -> list:
+    """sort (one S1 run: 4,194,304 lineitem rows by ship date, price desc,
+    order key, and the gather of its 6 columns), window_scan (W1's running
+    revenue: a segmented sum over 60,012,150 rows in supplier order) and
+    window_frame (W1's 30-day RANGE bounds and framed sum over the same
+    rows), each first held against its plain version on the same inputs."""
+    t = _to_device(torch, device)
+    out, notes = [], []
+
+    # sort: the first batch of S1's input, one run
+    n = BATCH_ROWS
+    cols = [t(_days(lineitem[c][:n])) for c in
+            ("l_shipdate", "l_extendedprice", "l_orderkey", "l_partkey",
+             "l_suppkey", "l_discount")]
+    keys = [(cols[0], None, True, True), (cols[1], None, False, False),
+            (cols[2], None, True, True)]
+    gcols = [(c, None) for c in cols]
+    kp = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(keys), None, n)
+    pw = sort_ops.sort_images_plain(keys)
+    pp = sort_ops.sort_perm_plain(pw, None, n, device)
+    kg = sort_ops.gather_kernel(gcols, kp)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, pp) and all(torch.equal(a, b[0][pp.long()])
+                                      for (a, _), b in zip(kg, gcols)),
+          "sort differs at S1's run shape")
+    passes = _passes_run(torch, pw)
+    total = sum(b for _, b in pw)
+
+    def kernel_call(c):
+        k = [(c[0], None, True, True), (c[1], None, False, False),
+             (c[2], None, True, True)]
+        return lambda: sort_ops.gather_kernel(
+            [(x, None) for x in c], sort_ops.sort_perm_kernel(
+                sort_ops.sort_images_kernel(k), None, n))
+
+    def plain_call(c):
+        k = [(c[0], None, True, True), (c[1], None, False, False),
+             (c[2], None, True, True)]
+        return lambda: sort_ops.gather_plain(
+            [(x, None) for x in c], sort_ops.sort_perm_plain(
+                sort_ops.sort_images_plain(k), None, n, device))
+
+    def library_call(c):
+        def run():
+            order = torch.arange(n, device=device)
+            for x, desc in ((c[2], False), (c[1], True), (c[0], False)):
+                order = order[torch.sort(x[order], stable=True,
+                                         descending=desc).indices]
+            return [x[order] for x in c]
+        return run
+
+    inputs = copies_for_l2(cols)
+    # one call launches ~70 kernels: each copy once keeps the queue under
+    # the stream's launch depth
+    ms = time_ms(torch, [kernel_call(c) for c in inputs], reps=len(inputs))
+    plain_ms = time_ms_synced(torch, [plain_call(c) for c in inputs[:2]],
+                              reps=2)
+    lib_ms = time_ms_synced(torch, [library_call(c) for c in inputs[:2]],
+                            reps=2)
+    # keys read once (4 + 8 + 8 B), the three images written once, per
+    # radix pass that runs the word and the row number read and written
+    # (24 B), per word its gather (8 B read at a row, 8 written), the
+    # permutation written (4 B) and the 6 columns gathered (read and
+    # written once, 40 B each way)
+    nbytes = n * (20 + 24 + 24 * passes + 16 * len(pw) + 4 + 80)
+    out.append(_row("sort", launches, 0.0, ms, plain_ms, nbytes, lib_ms,
+                    "spark_rapids_tpu/plan/exec_nodes.py:219"))
+    notes.append(f"n={n} rows, 3 keys (date asc, float64 desc, int64 asc), "
+                 f"{passes} of {total} radix passes run, 6 columns gathered "
+                 f"(library: torch.sort(stable=True) chained over the keys "
+                 f"and the gathers)")
+    del cols, keys, gcols, kp, pp, kg, inputs
+
+    # W1's rows in (supplier, ship date) order, on the device
+    m = len(lineitem["l_suppkey"])
+    supp = t(lineitem["l_suppkey"])
+    date = t(_days(lineitem["l_shipdate"]))
+    price = t(lineitem["l_extendedprice"])
+    perm = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(
+        [(supp, None, True, True), (date, None, True, True)]), None, m)
+    (supp, _), (date, _), (price, _) = sort_ops.gather_kernel(
+        [(supp, None), (date, None), (price, None)], perm)
+    del perm
+    w = window.SortedWindowContext([(supp, None)], [(date, None)], m,
+                                   device)
+    seg = w.seg_start
+
+    # window_scan: the running revenue (a float64 sum reset per supplier)
+    k = window.win_scan_kernel(torch.float64, "sum", "values", m, price,
+                               None, None, seg)
+    p = window.win_scan_plain(torch.float64, "sum", "values", m, price,
+                              None, None, seg)
+    scale = window.win_scan_plain(torch.float64, "sum", "values", m,
+                                  price.abs(), None, None, seg)
+    torch.cuda.synchronize()
+    err = float(((k - p).abs() / torch.clamp(scale, min=1.0)).max())
+    check(err <= F64_SUM_TOL, f"window_scan running sum off by {err:.3e}")
+    del k, p, scale
+    ms = time_ms(torch, [lambda: window.win_scan_kernel(
+        torch.float64, "sum", "values", m, price, None, None, seg)], reps=8)
+    plain_ms = time_ms_synced(torch, [lambda: window.win_scan_plain(
+        torch.float64, "sum", "values", m, price, None, None, seg)], reps=2)
+    lib_ms = time_ms_synced(torch, [lambda: torch.cumsum(price, 0)], reps=8)
+    # values (8 B) and reset flags (1 B) read, the sums (8 B) written
+    out.append(_row("window_scan", launches, max(err, worst["window_scan"]),
+                    ms, plain_ms, m * 17, lib_ms,
+                    "spark_rapids_tpu/ops/window.py:159"))
+    notes.append(f"{m} rows, {int(seg.sum())} partitions, a float64 sum "
+                 f"reset per partition (library: torch.cumsum of the same "
+                 f"column, unsegmented)")
+
+    # window_frame: RANGE -30..0 days and the framed revenue
+    run = window.win_scan_kernel(torch.float64, "sum", "values", m, price,
+                                 None, None, seg)
+    ka, kb = window.frame_range_kernel(w, (date, None), -30, 0, False, True)
+    pa, pb = window.frame_range_plain(w, (date, None), -30, 0, False, True)
+    ks = window.frame_sum_kernel(run, price, None, ka, kb)
+    ps = window.frame_sum_plain(run, price, None, pa, pb)
+    torch.cuda.synchronize()
+    check(torch.equal(ka, pa) and torch.equal(kb, pb) and torch.equal(ks, ps),
+          "window_frame differs at W1's shape")
+    width = float((kb.long() - ka.long() + 1).double().mean())
+    del pa, pb, ps
+
+    def frame_call(fn_range, fn_sum):
+        return lambda: fn_sum(run, price, None, *fn_range(
+            w, (date, None), -30, 0, False, True))
+    ms = time_ms(torch, [frame_call(window.frame_range_kernel,
+                                    window.frame_sum_kernel)], reps=8)
+    plain_ms = time_ms_synced(torch, [frame_call(window.frame_range_plain,
+                                                 window.frame_sum_plain)],
+                              reps=1)
+    # the key (4 B) and the partition bounds (8 B) read, lo/hi written and
+    # read again (16 B), the running sum at hi and lo and the value at lo
+    # by sector, the sum written (8 B)
+    nbytes = m * (4 + 8 + 16 + 8) + sector_bytes(torch, kb.long(), 8) \
+        + 2 * sector_bytes(torch, ka.long(), 8)
+    out.append(_row("window_frame", launches, 0.0, ms, plain_ms, nbytes, None,
+                    "spark_rapids_tpu/ops/window.py:214"))
+    notes.append(f"{m} rows, RANGE -30..0 days over an int32 key, mean "
+                 f"frame {width:.2f} rows (no PyTorch call computes a "
+                 f"framed sum)")
+    del ka, kb, ks, run, w, seg, supp, date, price
+    for row, note in zip(out, notes):
+        nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        lib = "none" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f} ms"
+        lib = lib if row["library_ms"] is None else lib + " †"
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
+              f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
+              f"{row['plain_ms']:.4f} ms †, library {lib}), max |err| vs "
+              f"plain {row['max_abs_err']:.3e}, {row['launches']} launches "
+              f"on the main path")
+    return out
+
+
+# ---------------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1830,7 +2338,8 @@ def main() -> int:
         from spark_rapids_tpu_torch import Session, kernels
         from spark_rapids_tpu_torch.models import tpch
         from spark_rapids_tpu_torch.ops import (batch_utils, groupby, hashing,
-                                                join)
+                                                join, window)
+        from spark_rapids_tpu_torch.ops import sort as sort_ops
         from spark_rapids_tpu_torch.ops import topk as topk_mod
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not importable ({e})",
@@ -1871,6 +2380,9 @@ def main() -> int:
         worst["sort_join"] = check_sort_join(torch, join, device)
         worst["dense_agg"] = max(worst["dense_agg"], check_dense_agg_f64(
             torch, groupby, device))
+        worst["sort"] = check_sort(torch, sort_ops, device)
+        worst["window_scan"] = check_window(torch, window, device)
+        worst["window_frame"] = worst["window_scan"]
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -1895,10 +2407,13 @@ def main() -> int:
         db = tpch.gen_db_arrays(SF, columns=DB_COLUMNS)
         rows = {t: len(next(iter(db[t].values()))) for t in db}
         check(rows == {"customer": DB_CUSTOMERS, "supplier": DB_SUPPLIERS,
-                       "orders": DB_ORDERS, "lineitem": DB_LINEITEM},
+                       "orders": DB_ORDERS, "lineitem": DB_LINEITEM,
+                       "nation": 25, "partsupp": DB_PARTSUPP},
               f"SF{SF:g} gen_db tables have {rows} rows")
-        print(f"datagen gen_db (customer, supplier, orders, lineitem): "
-              f"{rows} rows in {time.perf_counter() - t0:.1f} s")
+        sf1 = tpch.gen_db_arrays(1.0, tables=Q11_TABLES)
+        print(f"datagen gen_db (nation, customer, supplier, partsupp, "
+              f"orders, lineitem): {rows} rows, and Q11's tables at SF1, in "
+              f"{time.perf_counter() - t0:.1f} s")
         took = {}
         t0 = time.perf_counter()
         q6_want, q1_want = tpch.q6_numpy(data), tpch.q1_numpy(data)
@@ -1909,6 +2424,18 @@ def main() -> int:
             t1 = time.perf_counter()
             db_want[q] = getattr(tpch, f"{q}_numpy")(*(db[t] for t in tabs))
             took[q] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        db_want["q11_sf1"] = tpch.q11_numpy(*(sf1[t] for t in Q11_TABLES))
+        took["q11_sf1"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        s1_want = tpch.sort_lineitem_numpy(db["lineitem"])
+        took["s1"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        w1_want = tpch.supplier_history_numpy(db["lineitem"])
+        took["w1"] = time.perf_counter() - t1
+        print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
+              f"{len(db_want['q11_sf1'])} at SF1; W1 "
+              f"{len(w1_want['rn'][0])}")
         print(f"oracles: {time.perf_counter() - t0:.1f} s ("
               + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
         sess = Session.get_or_create(device="cuda")
@@ -1923,6 +2450,7 @@ def main() -> int:
         shuf = Session({"spark.rapids.tpu.sql.aqe.enabled": False},
                        device="cuda")
         sbf = {t: shuf.create_dataframe(db[t]) for t in DB_QUERIES["q10"]}
+        q11f = {t: sess.create_dataframe(sf1[t]) for t in Q11_TABLES}
 
         counters = {
             "masked_reduce": [groupby.masked_reduce],
@@ -1940,7 +2468,16 @@ def main() -> int:
             "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_rehash],
             "hashing": [hashing.hash_rows_kernel],
             "sort_join": [join.sorted_build_kernel, join.sorted_probe_kernel,
-                          join.unmatched_build_kernel]}
+                          join.unmatched_build_kernel],
+            "sort": [sort_ops.sort_images_kernel, sort_ops.sort_perm_kernel,
+                     sort_ops.range_key_kernel, sort_ops.gather_kernel],
+            "window_scan": [window.win_flags_kernel, window.win_scan_kernel,
+                            window.win_take_kernel, window.win_rank_kernel,
+                            window.win_shift_kernel],
+            "window_frame": [window.frame_rows_kernel,
+                             window.frame_range_kernel,
+                             window.frame_sum_kernel,
+                             window.frame_minmax_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -1951,9 +2488,10 @@ def main() -> int:
                  ("q4", lambda: tpch.q4(dbf["orders"], dbf["lineitem"]),
                   check_rows("Q4"), db_want["q4"],
                   ("csr_join", "dense_join", "grid_agg")),
+                 # Q13's ORDER BY (no LIMIT) is the full device sort
                  ("q13", lambda: tpch.q13(dbf["customer"], dbf["orders"]),
                   check_rows("Q13"), db_want["q13"],
-                  ("csr_join", "dense_join", "dense_agg", "topk",
+                  ("csr_join", "dense_join", "dense_agg", "sort",
                    "compact")),
                  ("q18", lambda: tpch.q18(dbf["orders"], dbf["lineitem"],
                                           dbf["customer"]),
@@ -1977,7 +2515,27 @@ def main() -> int:
                                                    sbf["lineitem"]),
                   check_rows("Q10-shuffled"), db_want["q10"],
                   ("hashing", "sort_join", "csr_join", "dense_join",
-                   "dense_agg", "topk"))]
+                   "dense_agg", "topk")),
+                 # the global ORDER BY: 15 runs and 15 ranges
+                 ("s1", lambda: tpch.sort_lineitem(dbf["lineitem"]),
+                  check_device_columns("S1", exact_floats=True), s1_want,
+                  ("sort",)),
+                 # two window specs, each one sort of every row; the filter
+                 # above them compacts
+                 ("w1", lambda: tpch.supplier_history(dbf["lineitem"]),
+                  check_device_columns("W1", exact_floats=False), w1_want,
+                  ("sort", "window_scan", "window_frame", "compact")),
+                 # the stock value total, then the HAVING and the sort
+                 ("q11", lambda: tpch.q11(dbf["partsupp"], dbf["supplier"],
+                                          dbf["nation"]),
+                  check_rows("Q11"), db_want["q11"],
+                  ("dense_join", "masked_reduce", "dense_agg", "sort")),
+                 ("q11_sf1", lambda: tpch.q11(q11f["partsupp"],
+                                              q11f["supplier"],
+                                              q11f["nation"]),
+                  check_rows("Q11-SF1"), db_want["q11_sf1"],
+                  ("dense_join", "masked_reduce", "dense_agg", "sort"))]
+        device_paths = {"s1", "w1"}
         runs_of, launches, per_wrapper = {}, {}, {}
         for name, df_fn, checker, want, used in paths:
             mine = {k: counters[k] for k in used}
@@ -1986,7 +2544,8 @@ def main() -> int:
                     fn.launches = 0
             runs_of[name] = run_query(
                 torch, shuf if name == "q10_shuffled" else sess, df_fn,
-                checker, want, name, mine)
+                checker, want, name, mine,
+                to_device if name in device_paths else collect)
             if name.startswith("q10"):
                 ctx = (shuf if name == "q10_shuffled" else
                        sess).last_exec_context()
@@ -2014,8 +2573,14 @@ def main() -> int:
         check(fetches <= Q10_SHUFFLED_REFERENCE_FETCHES, f"Q10-shuffled made "
               f"{fetches} blocking fetches, more than the reference's "
               f"{Q10_SHUFFLED_REFERENCE_FETCHES}")
+        for name, (ceiling, why) in SLICE5_FETCH_CEILINGS.items():
+            fetches = max(r["syncs"] for r in runs_of[name])
+            check(fetches <= ceiling, f"{name} made {fetches} blocking "
+                  f"fetches, more than {ceiling} ({why})")
+        del s1_want, w1_want
         for name, df_fn, *_ in paths:
-            profile_query(torch, df_fn, name)
+            profile_query(torch, df_fn, name, result=to_device
+                          if name in device_paths else collect)
         for name, runs in runs_of.items():
             warm = runs[1:]
             med = {k: statistics.median(r[k] for r in warm)
@@ -2025,7 +2590,7 @@ def main() -> int:
                   f"{med['device_ms']:.2f} ms, syncs {warm[-1]['syncs']}, "
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
-        del df, cdf, odf, dbf, sbf, sess, shuf
+        del df, cdf, odf, dbf, sbf, q11f, sess, shuf
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -2033,6 +2598,8 @@ def main() -> int:
                                      worst)
         table += time_slice4_kernels(torch, hashing, join, groupby, device,
                                      launches, worst)
+        table += time_slice5_kernels(torch, sort_ops, window, device,
+                                     launches, worst, db["lineitem"])
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

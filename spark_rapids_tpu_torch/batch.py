@@ -18,6 +18,7 @@ input as the dict of numpy arrays that the reference's
 from __future__ import annotations
 
 import datetime
+import decimal
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -163,6 +164,9 @@ def _object_column(arr: np.ndarray) -> Tuple[DataType, np.ndarray,
     valid = np.fromiter((x is not None for x in arr), dtype=bool,
                         count=len(arr))
     kinds = {type(x) for x in arr[valid]}
+    if decimal.Decimal in kinds:
+        raise NotImplementedError(
+            "decimal columns are not ported yet (ROADMAP.md queue 2 row 12)")
     if kinds <= {str}:
         data = arr.copy()
         data[~valid] = None

@@ -13,6 +13,14 @@
 //               running base across the tile's rounds), so the order is
 //               fixed without atomics.  vals_in == nullptr: the values are
 //               the row numbers.
+//   radix_pass_sel
+//               the same pass over a pair of ping-pong buffers whose
+//               current side is read on the device (state[p]), so a pass
+//               whose digit is the same in every row moves nothing: its
+//               scatter sees one digit holding all n rows, writes nothing
+//               and leaves state[p + 1] = state[p]; otherwise it writes
+//               the other side and flips it.  The host launches the same
+//               kernels either way and never waits (sort.cu).
 //
 // Included by each kernel source, which is compiled into its own library.
 
@@ -157,9 +165,10 @@ __device__ __forceinline__ int rs_digit(K key, int shift) {
 
 // hist[d * nblocks + b]: rows of tile b whose digit is d.
 template <typename K>
-__global__ void __launch_bounds__(RS_THREADS)
-rs_hist(const K* __restrict__ keys, long long n, int shift,
-        int* __restrict__ hist, int nblocks) {
+__device__ __forceinline__ void rs_hist_tile(const K* __restrict__ keys,
+                                             long long n, int shift,
+                                             int* __restrict__ hist,
+                                             int nblocks) {
   __shared__ int s[256];
   s[threadIdx.x] = 0;
   __syncthreads();
@@ -172,16 +181,21 @@ rs_hist(const K* __restrict__ keys, long long n, int shift,
   hist[(long long)threadIdx.x * nblocks + blockIdx.x] = s[threadIdx.x];
 }
 
+template <typename K>
+__global__ void __launch_bounds__(RS_THREADS)
+rs_hist(const K* __restrict__ keys, long long n, int shift,
+        int* __restrict__ hist, int nblocks) {
+  rs_hist_tile<K>(keys, n, shift, hist, nblocks);
+}
+
 // Row r of tile b goes to offs[d * nblocks + b] + (rows before r in tile
 // b with digit d).
 template <typename K>
-__global__ void __launch_bounds__(RS_THREADS)
-rs_scatter(const K* __restrict__ keys_in, const int* __restrict__ vals_in,
-           K* __restrict__ keys_out, int* __restrict__ vals_out,
-           long long n, int shift, const long long* __restrict__ offs,
-           int nblocks) {
-  __shared__ long long s_base[256];
-  __shared__ int s_cnt[RS_WARPS][257];
+__device__ __forceinline__ void rs_scatter_tile(
+    const K* __restrict__ keys_in, const int* __restrict__ vals_in,
+    K* __restrict__ keys_out, int* __restrict__ vals_out, long long n,
+    int shift, const long long* __restrict__ offs, int nblocks,
+    long long* s_base, int (*s_cnt)[257]) {
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   s_base[t] = offs[(long long)t * nblocks + blockIdx.x];
   for (int w = 0; w < RS_WARPS; ++w) s_cnt[w][t] = 0;
@@ -214,6 +228,55 @@ rs_scatter(const K* __restrict__ keys_in, const int* __restrict__ vals_in,
   }
 }
 
+template <typename K>
+__global__ void __launch_bounds__(RS_THREADS)
+rs_scatter(const K* __restrict__ keys_in, const int* __restrict__ vals_in,
+           K* __restrict__ keys_out, int* __restrict__ vals_out,
+           long long n, int shift, const long long* __restrict__ offs,
+           int nblocks) {
+  __shared__ long long s_base[256];
+  __shared__ int s_cnt[RS_WARPS][257];
+  rs_scatter_tile<K>(keys_in, vals_in, keys_out, vals_out, n, shift, offs,
+                     nblocks, s_base, s_cnt);
+}
+
+// Ping-pong buffers whose current side is state[p] (0 or 1).
+template <typename K>
+struct RSBufs {
+  K* keys[2];
+  int* vals[2];
+};
+
+template <typename K>
+__global__ void __launch_bounds__(RS_THREADS)
+rs_hist_sel(const __grid_constant__ RSBufs<K> b, const int* __restrict__ state,
+            int p, long long n, int shift, int* __restrict__ hist,
+            int nblocks) {
+  rs_hist_tile<K>(b.keys[state[p]], n, shift, hist, nblocks);
+}
+
+// A pass whose digit holds all n rows is the identity: every block sees
+// it from the scanned offsets (digit d's total is offs[(d + 1) * nblocks]
+// - offs[d * nblocks]) and skips; block 0 records the side for pass p + 1.
+template <typename K>
+__global__ void __launch_bounds__(RS_THREADS)
+rs_scatter_sel(const __grid_constant__ RSBufs<K> b, int* __restrict__ state,
+               int p, long long n, int shift,
+               const long long* __restrict__ offs, int nblocks) {
+  __shared__ long long s_base[256];
+  __shared__ int s_cnt[RS_WARPS][257];
+  const int t = threadIdx.x;
+  const int side = state[p];
+  const long long total = offs[(long long)(t + 1) * nblocks]
+                          - offs[(long long)t * nblocks];
+  const int skip = __syncthreads_or(total == n);
+  if (blockIdx.x == 0 && t == 0) state[p + 1] = skip ? side : 1 - side;
+  if (skip) return;
+  rs_scatter_tile<K>(b.keys[side], b.vals[side], b.keys[1 - side],
+                     b.vals[1 - side], n, shift, offs, nblocks, s_base,
+                     s_cnt);
+}
+
 static long long sort_tiles(long long n) {
   return n <= 0 ? 1 : (n + RS_TILE - 1) / RS_TILE;
 }
@@ -235,5 +298,25 @@ static cudaError_t radix_pass(const K* keys_in, const int* vals_in,
   if (err != cudaSuccess) return err;
   rs_scatter<K><<<(unsigned)tiles, RS_THREADS, 0, s>>>(
       keys_in, vals_in, keys_out, vals_out, n, shift, offs, (int)tiles);
+  return cudaGetLastError();
+}
+
+// One skippable pass (pass number p) over bits [shift, shift + 8) of the
+// current side of `b`.  Scratch as radix_pass.
+template <typename K>
+static cudaError_t radix_pass_sel(const RSBufs<K>& b, int* state, int p,
+                                  long long n, int shift, int* hist,
+                                  long long* offs, long long* sums,
+                                  cudaStream_t s) {
+  const long long tiles = sort_tiles(n);
+  rs_hist_sel<K><<<(unsigned)tiles, RS_THREADS, 0, s>>>(b, state, p, n,
+                                                        shift, hist,
+                                                        (int)tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = scan_i32(hist, offs, 256 * tiles, sums, s);
+  if (err != cudaSuccess) return err;
+  rs_scatter_sel<K><<<(unsigned)tiles, RS_THREADS, 0, s>>>(
+      b, state, p, n, shift, offs, (int)tiles);
   return cudaGetLastError();
 }

@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
-           "compact", "csr_join", "hash_agg", "hashing", "sort_join")
+           "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
+           "window_scan", "window_frame")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -128,6 +129,49 @@ _SIGNATURES = {
                        _P, _P],
         # lo, matches, n, b_perm, nb, active, hit, mask, count, stream
         "sort_unmatched": [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P],
+    },
+    "sort": {
+        # data, valid, elem, kind, desc, nulls_first, n, word, flag_word,
+        # stream
+        "sort_image": [_P, _P, _I, _I, _I, _I, _L, _P, _P, _P],
+        # nwords, words[], bytes[], active, n, perm, ka, kb, va, vb, state,
+        # hist, offs, sums, stream
+        "sort_perm": [_I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P],
+        # data, valid, elem, kind, desc, nulls_first, perm, n, out, stream
+        "sort_range_key": [_P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
+        # ncols, in[], out[], vin[], vout[], elems[], perm, n, stream
+        "sort_gather": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
+    },
+    "window_scan": {
+        # npart, nkeys, data[], valid[], elems[], kinds[], n, seg_start,
+        # peer_start, stream
+        "win_flags": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P],
+        # type, op, mode, vals, mask, flags, reset, identity_bits, n, out,
+        # agg_v, agg_f, stream
+        "win_scan": [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P],
+        # src, elem, idx, n, out, stream
+        "win_take": [_P, _I, _P, _L, _P, _P],
+        # fn, tiles, seg_start, seg_end, peer_start, peer_end, dense, n, out,
+        # stream
+        "win_rank": [_I, _L, _P, _P, _P, _P, _P, _L, _P, _P],
+        # data, valid, elem, offset, dflt, dflt_valid, seg_start, seg_end, n,
+        # out, out_valid, stream
+        "win_shift": [_P, _P, _I, _L, _P, _P, _P, _P, _L, _P, _P, _P],
+    },
+    "window_frame": {
+        # lo, hi, lo_unb, hi_unb, seg_start, seg_end, n, lo_out, hi_out,
+        # stream
+        "frame_rows": [_L, _L, _I, _I, _P, _P, _L, _P, _P, _P],
+        # key, elem, valid, desc, nulls_first, lo, hi, lo_unb, hi_unb,
+        # seg_start, seg_end, n, lo_out, hi_out, stream
+        "frame_range": [_P, _I, _P, _I, _I, _L, _L, _I, _I, _P, _P, _L, _P,
+                        _P, _P],
+        # is_f64, run, vals, mask, lo, hi, n, out, stream
+        "frame_sum": [_I, _P, _P, _P, _P, _P, _L, _P, _P],
+        # is_f64, is_max, vals, mask, identity_bits, lo, hi, n, out,
+        # out_valid, stream
+        "frame_minmax": [_I, _I, _P, _P, _L, _P, _P, _L, _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

@@ -1,4 +1,5 @@
-"""TPC-H data, Q6, Q1, Q3, Q4, Q10, Q13, Q18 and Q21, and numpy oracles.
+"""TPC-H data, Q6, Q1, Q3, Q4, Q10, Q11, Q13, Q18 and Q21, the lineitem
+sort and the per-supplier window history, and numpy oracles.
 
 Counterpart of ``spark_rapids_tpu/models/tpch.py`` and
 ``spark_rapids_tpu/models/tpch_suite.py``.  The generators are numpy-only
@@ -11,7 +12,16 @@ They return the dicts of numpy arrays that both packages'
 mirror the suite's ``run_q*``; the oracles are plain numpy
 (``np.add.at``/``np.bincount`` for the groups, ``np.unique`` and
 ``np.isin`` for the distinct pairs and the semi/anti joins, direct
-addressing for the dense keys), independent of both engines.
+addressing for the dense keys, stable sorts for the ORDER BY and the
+windows), independent of both engines.
+
+``sort_lineitem`` is a global ORDER BY over a lineitem projection handed to
+the device (``to_device_arrays``), as a user does before a clustered write
+or an ML job: at SF10 its 15 batches take the out-of-core sort.
+``supplier_history`` is a per-supplier window history (two specs, so two
+sorts of the whole table: ranks, a running sum, 7-row moving frames, lag,
+a 30-day RANGE frame and the partition maximum), filtered to the last
+month of ship dates above the windows.
 """
 
 from __future__ import annotations
@@ -24,20 +34,26 @@ import numpy as np
 __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "NATIONS", "DB_TABLES", "gen_lineitem_arrays",
            "gen_orders_arrays", "gen_customer_arrays", "gen_db_arrays",
-           "db_rows", "q6", "q1", "q3", "q4", "q10", "q13", "q18", "q21",
-           "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy", "q10_numpy",
-           "q13_numpy", "q18_numpy", "q21_numpy"]
+           "db_rows", "q6", "q1", "q3", "q4", "q10", "q11", "q13", "q18",
+           "q21", "sort_lineitem", "supplier_history", "SORT_COLUMNS",
+           "HISTORY_CUTOFF", "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy",
+           "q10_numpy", "q11_numpy", "q13_numpy", "q18_numpy", "q21_numpy",
+           "sort_lineitem_numpy", "supplier_history_numpy"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
            "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
            "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
            "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
            "UNITED KINGDOM", "UNITED STATES"]
 Q3_CUTOFF = datetime.date(1995, 3, 15)
+HISTORY_CUTOFF = datetime.date(1998, 11, 1)
+SORT_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_shipdate",
+                "l_extendedprice", "l_discount")
 
 
 def gen_lineitem_arrays(sf: float, seed: int = 19920101,
@@ -110,14 +126,20 @@ def gen_customer_arrays(sf: float, seed: int = 19940101,
 
 # TPC-H shapes of the reference suite's ``gen_db`` (tpch_suite.py:27-44)
 _DB_SF1_ROWS = {"lineitem": 6_001_215, "orders": 1_500_000,
-                "customer": 150_000, "part": 200_000, "supplier": 10_000}
-DB_TABLES = ("customer", "supplier", "orders", "lineitem")
-_DB_SEEDS = {"customer": 1002, "supplier": 1003, "orders": 1006,
-             "lineitem": 1007}
+                "customer": 150_000, "part": 200_000, "partsupp": 800_000,
+                "supplier": 10_000}
+DB_TABLES = ("nation", "customer", "supplier", "partsupp", "orders",
+             "lineitem")
+_DB_SEEDS = {"nation": 1001, "customer": 1002, "supplier": 1003,
+             "partsupp": 1005, "orders": 1006, "lineitem": 1007}
 
 
 def db_rows(table: str, sf: float) -> int:
     """Rows of ``table`` at ``sf`` in the reference suite's ``gen_db``."""
+    if table == "nation":
+        return len(NATIONS)
+    if table == "partsupp":
+        return 4 * db_rows("part", sf)
     return max(8, int(_DB_SF1_ROWS[table] * sf))
 
 
@@ -147,7 +169,26 @@ def gen_db_arrays(sf: float, tables=DB_TABLES, columns=None,
         cols = None if columns is None else columns.get(table)
         rng = np.random.default_rng(_DB_SEEDS[table])
         parts: Dict[str, List[np.ndarray]] = {}
-        if table == "customer":
+        if table == "nation":
+            n = len(NATIONS)
+            _keep(parts, cols, "n_nationkey",
+                  lambda: np.arange(n, dtype=np.int64))
+            _keep(parts, cols, "n_name", lambda: np.array(NATIONS))
+            _keep(parts, cols, "n_regionkey", lambda: rng.integers(
+                0, len(REGIONS), n).astype(np.int64))
+        elif table == "partsupp":
+            ps_part = np.repeat(np.arange(1, n_part + 1, dtype=np.int64), 4)
+            slot = np.tile(np.arange(4, dtype=np.int64), n_part)
+            ps_supp = ((ps_part - 1) * 7 + slot * 13) % n_supp + 1
+            ps_supp = (ps_supp + slot) % n_supp + 1
+            n = len(ps_part)
+            _keep(parts, cols, "ps_partkey", lambda: ps_part)
+            _keep(parts, cols, "ps_suppkey", lambda: ps_supp)
+            _keep(parts, cols, "ps_availqty", lambda: rng.integers(
+                1, 10000, n).astype(np.int64))
+            _keep(parts, cols, "ps_supplycost", lambda: np.round(
+                rng.uniform(1.0, 1000.0, n), 2))
+        elif table == "customer":
             n = n_cust
             _keep(parts, cols, "c_custkey",
                   lambda: np.arange(1, n + 1, dtype=np.int64))
@@ -314,6 +355,74 @@ def q10(customer, orders, lineitem):
             .group_by("c_custkey", "c_name", "c_acctbal")
             .agg(F.sum(F.col("volume")).alias("revenue"))
             .sort(F.col("revenue").desc(), F.col("c_custkey")).limit(20))
+
+
+def q11(partsupp, supplier, nation, fraction: float = 0.0001):
+    """TPC-H Q11 important stock (tpch_suite.py:363 run_q11): partsupp
+    joined to the German suppliers, an ungrouped SUM of the stock value
+    (collected), then the value per part over ``fraction`` of it, value
+    descending then ps_partkey.  Runs the total's query; returns the
+    DataFrame of the second.  As the reference, the fraction stays 0.0001
+    at every scale factor (the spec's is 0.0001 / SF)."""
+    from ..sql import functions as F
+    ps_n = (partsupp
+            .join(supplier, on=[("ps_suppkey", "s_suppkey")])
+            .join(nation.filter(F.col("n_name") == "GERMANY"),
+                  on=[("s_nationkey", "n_nationkey")])
+            .with_column("value",
+                         F.col("ps_supplycost") * F.col("ps_availqty")))
+    total = ps_n.agg(F.sum(F.col("value")).alias("t")).collect()[0][0]
+    return (ps_n.group_by("ps_partkey")
+            .agg(F.sum(F.col("value")).alias("value"))
+            .filter(F.col("value") > F.lit((total or 0.0) * fraction))
+            .sort(F.col("value").desc(), "ps_partkey"))
+
+
+def sort_lineitem(lineitem, functions=None):
+    """A global ORDER BY of a lineitem projection: ship date, price
+    descending, order key; ties keep input order.  ``functions`` is the
+    functions module of the DataFrame's package (default: this one's)."""
+    if functions is None:
+        from ..sql import functions
+    F = functions
+    return (lineitem.select(*SORT_COLUMNS)
+            .sort("l_shipdate", F.col("l_extendedprice").desc(),
+                  "l_orderkey"))
+
+
+def supplier_history(lineitem, cutoff: datetime.date = HISTORY_CUTOFF,
+                     functions=None, window=None):
+    """Each lineitem's history within its supplier, for the ship dates
+    from ``cutoff`` on: row number, running revenue, 7-row moving average
+    quantity and maximum price, the previous price, the day's rank and
+    dense rank, the trailing 30-day revenue and the supplier's maximum
+    price.  ``functions`` and ``window`` are the functions module and the
+    Window class of the DataFrame's package (default: this one's)."""
+    if functions is None:
+        from ..sql import functions
+    if window is None:
+        from ..sql.window import Window as window
+    F, Window = functions, window
+    wa = Window.partition_by("l_suppkey").order_by(
+        "l_shipdate", "l_orderkey", "l_partkey")
+    wb = Window.partition_by("l_suppkey").order_by("l_shipdate")
+    price, qty = F.col("l_extendedprice"), F.col("l_quantity")
+    return (lineitem.select(
+        "l_suppkey", "l_orderkey", "l_partkey", "l_shipdate",
+        "l_extendedprice", "l_quantity",
+        F.row_number().over(wa).alias("rn"),
+        F.sum(price).over(wa.rows_between(Window.unboundedPreceding, 0))
+        .alias("running_rev"),
+        F.avg(qty).over(wa.rows_between(-6, 0)).alias("qty_ma7"),
+        F.max(price).over(wa.rows_between(-6, 0)).alias("price_max7"),
+        F.lag("l_extendedprice", 1).over(wa).alias("prev_price"),
+        F.rank().over(wb).alias("day_rank"),
+        F.dense_rank().over(wb).alias("day_drank"),
+        F.sum(price).over(wb.range_between(-30, 0)).alias("rev_30d"),
+        F.max(price).over(wb.rows_between(Window.unboundedPreceding,
+                                          Window.unboundedFollowing))
+        .alias("supp_max"))
+        .where(F.col("l_shipdate") >= cutoff))
 
 
 def q13(customer, orders):
@@ -559,3 +668,182 @@ def q21_numpy(lineitem: Dict[str, np.ndarray], orders: Dict[str, np.ndarray],
     name, cnt = np.unique(names, return_counts=True)
     order = np.lexsort((name, -cnt))[:k]
     return [(str(name[i]), int(cnt[i])) for i in order]
+
+
+def q11_numpy(partsupp: Dict[str, np.ndarray], supplier: Dict[str, np.ndarray],
+              nation: Dict[str, np.ndarray], fraction: float = 0.0001
+              ) -> List[tuple]:
+    """Q11: (ps_partkey, value), value descending then ps_partkey.
+    s_suppkey is 1..n (direct addressing)."""
+    skey = supplier["s_suppkey"]
+    if not np.array_equal(skey, np.arange(1, len(skey) + 1)):
+        raise ValueError("q11_numpy needs s_suppkey = 1..n")
+    german = np.isin(supplier["s_nationkey"],
+                     nation["n_nationkey"][nation["n_name"] == "GERMANY"])
+    m = german[partsupp["ps_suppkey"] - 1]
+    value = (partsupp["ps_supplycost"] * partsupp["ps_availqty"])[m]
+    part = partsupp["ps_partkey"][m]
+    total = float(value.sum())
+    size = int(partsupp["ps_partkey"].max(initial=0)) + 1
+    per = np.bincount(part, weights=value, minlength=size)
+    present = np.bincount(part, minlength=size) > 0
+    keys = np.flatnonzero(present & (per > total * fraction))
+    order = np.lexsort((keys, -per[keys]))
+    return [(int(k), float(per[k])) for k in keys[order]]
+
+
+def _stable_order(primary: np.ndarray, *minor: np.ndarray) -> np.ndarray:
+    """The stable order of rows by ``primary`` then ``minor`` keys (all
+    non-negative int64): one stable argsort of ``primary``, then the rare
+    runs of equal ``primary`` reordered by the minor keys (a stable
+    lexsort of just those rows)."""
+    n = len(primary)
+    if n < (1 << 26) and (n == 0 or primary.max() < (1 << 37)):
+        # a value sort of (key, row) words is several times faster than
+        # a stable argsort
+        order = np.sort((primary << 26) | np.arange(n, dtype=np.int64)) \
+            & ((1 << 26) - 1)
+    else:
+        order = np.argsort(primary, kind="stable")
+    if not minor or len(order) < 2:
+        return order
+    p = primary[order]
+    dup = np.zeros(len(p), dtype=bool)
+    dup[1:] = p[1:] == p[:-1]
+    dup[:-1] |= dup[1:]
+    at = np.flatnonzero(dup)
+    if len(at):
+        rows = order[at]
+        sub = np.lexsort(tuple(m[rows] for m in reversed(minor))
+                         + (primary[rows],))
+        order[at] = rows[sub]
+    return order
+
+
+def _packs(*fields) -> bool:
+    """Whether non-negative int fields (array, bits) fit 63 bits."""
+    return sum(b for _, b in fields) <= 63 and all(
+        len(a) == 0 or (a.min() >= 0 and a.max() < (1 << b))
+        for a, b in fields)
+
+
+def _pack(*fields) -> np.ndarray:
+    out = np.zeros(len(fields[0][0]), dtype=np.int64)
+    for a, b in fields:
+        out = (out << b) | a.astype(np.int64)
+    return out
+
+
+def sort_lineitem_numpy(lineitem: Dict[str, np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+    """The sorted projection: stable by (l_shipdate, l_extendedprice
+    descending, l_orderkey), ties in input order.  The three keys pack into
+    one int64 (prices as cents) when they fit, else ``np.lexsort``."""
+    date = lineitem["l_shipdate"].astype("datetime64[D]").astype(np.int64)
+    price, okey = lineitem["l_extendedprice"], lineitem["l_orderkey"]
+    cents = np.round(price * 100).astype(np.int64)
+    day = date - (date.min() if len(date) else 0)
+    fields = ((day, 12), ((1 << 24) - 1 - cents, 24))
+    if np.array_equal(cents / 100.0, price) and _packs(*fields):
+        order = _stable_order(_pack(*fields), okey)
+    else:
+        order = np.lexsort((okey, -price, date))
+    return {c: lineitem[c][order] for c in SORT_COLUMNS}
+
+
+def _segmented_cumsum(x: np.ndarray, pid: np.ndarray, pos: np.ndarray,
+                      parts: int) -> np.ndarray:
+    """Running sums within partitions (rows grouped by partition, ``pos``
+    the row's place in it), summed left to right within each partition
+    only, so a float's error follows the partition's running total."""
+    grid = np.zeros((parts, int(pos.max(initial=0)) + 1), dtype=x.dtype)
+    grid[pid, pos] = x
+    return np.cumsum(grid, axis=1)[pid, pos]
+
+
+def supplier_history_numpy(lineitem: Dict[str, np.ndarray],
+                           cutoff: datetime.date = HISTORY_CUTOFF
+                           ) -> Dict[str, tuple]:
+    """:func:`supplier_history` in numpy: ``{column: (data, valid)}`` in
+    the output's order (by supplier, ship date, order key, part key, ties
+    in input order; the second window's stable sort by supplier and ship
+    date keeps that order).  Rows are sorted once; the windows are then
+    evaluated at the kept rows only, from each supplier's rows before the
+    kept ones (counts, sums, distinct days) and the rows the frames
+    reach."""
+    supp, okey = lineitem["l_suppkey"], lineitem["l_orderkey"]
+    pkey = lineitem["l_partkey"]
+    date = lineitem["l_shipdate"].astype("datetime64[D]").astype(np.int64)
+    day = date - (date.min() if len(date) else 0)
+    if _packs((supp, 20), (day, 13), (okey, 30)):
+        order = _stable_order(_pack((supp, 20), (day, 13), (okey, 30)),
+                              pkey)
+    else:
+        order = np.lexsort((pkey, okey, date, supp))
+    supp, okey, pkey, date = (supp[order], okey[order], pkey[order],
+                              date[order])
+    price = lineitem["l_extendedprice"][order]
+    qty = lineitem["l_quantity"][order]
+    n = len(order)
+    start = np.ones(n, dtype=bool)
+    start[1:] = supp[1:] != supp[:-1]
+    pid = np.cumsum(start) - 1
+    first = np.flatnonzero(start)
+    parts = len(first)
+    peer = start.copy()
+    peer[1:] |= date[1:] != date[:-1]
+    cut = (np.datetime64(cutoff, "D") - np.datetime64("1970-01-01", "D")
+           ).astype(np.int64)
+    keep = date >= cut            # a suffix of every supplier's rows
+    # rows 30 days before the cutoff on: what the 30-day frames reach
+    near = date >= cut - 30
+    before = ~near
+    base_rev = np.bincount(pid[before], weights=price[before],
+                           minlength=parts)
+    base_n = np.bincount(pid[before], minlength=parts)
+    base_days = np.bincount(pid[before], weights=peer[before],
+                            minlength=parts).astype(np.int64)
+    # over the near rows: positions, running sums within the supplier
+    ni = np.flatnonzero(near)
+    npid = pid[ni]
+    nfirst = np.ones(len(ni), dtype=bool)
+    nfirst[1:] = npid[1:] != npid[:-1]
+    nstart = np.flatnonzero(nfirst)
+    npos = np.arange(len(ni)) - nstart[np.cumsum(nfirst) - 1]
+    run_rev = base_rev[npid] + _segmented_cumsum(
+        price[ni], np.cumsum(nfirst) - 1, npos, len(nstart))
+    days = base_days[npid] + _segmented_cumsum(
+        peer[ni].astype(np.int64), np.cumsum(nfirst) - 1, npos,
+        len(nstart))
+    comp = supp[ni] * (1 << 24) + date[ni]
+    lo30 = np.searchsorted(comp, comp - 30, side="left")
+    hi30 = np.searchsorted(comp, comp, side="right") - 1  # peers included
+    rev30 = run_rev[hi30] - run_rev[lo30] + price[ni][lo30]
+    k = keep[ni]
+    idx = ni[k]                   # kept rows in the sorted order
+    kp = pid[idx]
+    pos = base_n[kp] + npos[k]    # place within the supplier
+    lo7 = np.maximum(idx - 6, first[kp])
+    qsum = np.zeros(len(idx))
+    max7 = np.full(len(idx), -np.inf)
+    for j in range(7):
+        r = idx - j
+        ok = r >= lo7
+        qsum += np.where(ok, qty[np.maximum(r, 0)], 0.0)
+        max7 = np.where(ok, np.maximum(max7, price[np.maximum(r, 0)]), max7)
+    prev_ok = pos > 0
+    peer_first = np.searchsorted(comp, comp[k], side="left")
+    day_rank = base_n[kp] + npos[peer_first] + 1
+    supp_max = np.maximum.reduceat(price, first)[kp] if n else price[:0]
+    cols = {"l_suppkey": supp[idx], "l_orderkey": okey[idx],
+            "l_partkey": pkey[idx], "l_shipdate": date[idx].astype(np.int32),
+            "l_extendedprice": price[idx], "l_quantity": qty[idx],
+            "rn": (pos + 1).astype(np.int32), "running_rev": run_rev[k],
+            "qty_ma7": qsum / (idx - lo7 + 1), "price_max7": max7,
+            "prev_price": np.where(prev_ok, price[np.maximum(idx - 1, 0)],
+                                   0.0),
+            "day_rank": day_rank.astype(np.int32),
+            "day_drank": days[k].astype(np.int32), "rev_30d": rev30[k],
+            "supp_max": supp_max}
+    return {c: (a, prev_ok if c == "prev_price" else None)
+            for c, a in cols.items()}

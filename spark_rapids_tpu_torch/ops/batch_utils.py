@@ -1,14 +1,16 @@
 """Batch utilities (``spark_rapids_tpu/ops/batch_utils.py`` counterpart):
-compaction by mask, concatenation of device columns, and the bounded slice
-of a front-packed batch.
+compaction by mask, concatenation of device columns, the bounded slice
+of a front-packed batch, row windows (``slice_batch``) and the gather of a
+whole batch by a permutation (``gather``).
 
 ``compact`` packs the live rows of every device column to the front through
 the hand-written kernel ``csrc/compact.cu`` (replacing the reference's
 ``_compact_fn`` :280), or its plain PyTorch version for CPU tensors;
 ``compact_columns`` is the dispatching wrapper and ``compact_kernel`` the
 launcher, which counts its launches.  ``concat_batches`` is ``torch.cat``
-of each column: a plain copy, not a kernel.  Row windows and gathers by
-index come with the operators that need them.
+of each column and ``slice_batch`` a view of each: plain copies and views,
+not kernels.  ``gather`` applies a permutation to every column through the
+full device sort's gather kernel (``ops/sort.py``, ``csrc/sort.cu``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn, HostColumn,
                      HostStringColumn)
 
 __all__ = ["compact_packed", "compact", "compact_columns", "compact_kernel",
-           "compact_plain", "concat_batches", "CP_MAX_COLS"]
+           "compact_plain", "concat_batches", "slice_batch", "gather",
+           "CP_MAX_COLS"]
 
 CP_MAX_COLS = 16            # csrc/compact.cu CP_MAX_COLS
 CP_TILE = 4096              # csrc/compact.cu CP_TILE
@@ -190,3 +193,50 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
         sel = torch.cat([torch.ones(b.num_rows, dtype=torch.bool, device=dev)
                          if b.sel is None else b.sel for b in batches])
     return ColumnBatch(first.schema, cols, n, sel)
+
+
+def slice_batch(batch: ColumnBatch, start: int, length: int) -> ColumnBatch:
+    """Rows [start, start + length) of ``batch`` as views of every column
+    (reference :390): device data and validity, dictionary codes (which
+    keep their dictionary), host columns and the selection mask."""
+    end = start + length
+
+    def cut(x):
+        return None if x is None else x[start:end]
+    cols: List = []
+    for c in batch.columns:
+        if isinstance(c, DictStringColumn):
+            cols.append(DictStringColumn(cut(c.codes), cut(c.valid),
+                                         c.dictionary))
+        elif isinstance(c, HostStringColumn):
+            cols.append(HostStringColumn(cut(c.data), cut(c.valid)))
+        elif isinstance(c, HostColumn):
+            cols.append(HostColumn(c.dtype, cut(c.data), cut(c.valid)))
+        else:
+            cols.append(DeviceColumn(c.dtype, cut(c.data), cut(c.valid)))
+    return ColumnBatch(batch.schema, cols, length, cut(batch.sel))
+
+
+def gather(batch: ColumnBatch, perm: torch.Tensor) -> ColumnBatch:
+    """Every row of ``batch`` at the int32 permutation ``perm`` (its
+    selection mask goes along).  Host columns raise: moving host rows by a
+    device permutation is not ported (ROADMAP.md item 3)."""
+    from .sort import gather_columns
+    cols = []
+    for f, c in zip(batch.schema, batch.columns):
+        if isinstance(c, HostColumn):
+            raise NotImplementedError(
+                f"a device sort or window over the host column {f.name} is "
+                f"not ported yet (ROADMAP.md item 3)")
+        cols.append((c.codes if isinstance(c, DictStringColumn) else c.data,
+                     c.valid))
+    if batch.sel is not None:
+        cols.append((batch.sel, None))
+    moved = gather_columns(cols, perm) if cols else []
+    out: List = []
+    for c, (d, v) in zip(batch.columns, moved):
+        out.append(DictStringColumn(d, v, c.dictionary)
+                   if isinstance(c, DictStringColumn)
+                   else DeviceColumn(c.dtype, d, v))
+    sel = moved[-1][0] if batch.sel is not None else None
+    return ColumnBatch(batch.schema, out, perm.shape[0], sel)

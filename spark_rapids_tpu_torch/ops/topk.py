@@ -74,9 +74,9 @@ def topk_indices(keys: Sequence[SortKey], active: Optional[torch.Tensor],
     order (ties in row order), -1 past the last live row."""
     if not 1 <= k <= TK_MAX_K:
         raise NotImplementedError(
-            f"a top-k of {k} rows needs the full device sort, which is not "
-            f"ported yet (ROADMAP.md queue 2 row 8′; the top-k kernel keeps "
-            f"at most {TK_MAX_K} rows)")
+            f"a top-k of {k} rows is past the top-k kernel's {TK_MAX_K} "
+            f"(ROADMAP.md queue 2 row 8); the planner runs such a LIMIT "
+            f"over the full sort (row 8′)")
     keys = [(_column(d, n), None if v is None else _column(v, n), a, nf)
             for d, v, a, nf in keys]
     run = topk if keys[0][0].is_cuda else topk_plain

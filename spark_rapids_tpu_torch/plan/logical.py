@@ -1,6 +1,6 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, distinct, sort, join, limit)."""
+aggregate, distinct, sort, join, limit, window)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from ..batch import Field, Schema
 from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "Distinct", "Sort", "SortOrder", "Join", "Limit"]
+           "Distinct", "Sort", "SortOrder", "Join", "Limit", "Window"]
 
 
 class LogicalPlan:
@@ -169,3 +169,27 @@ class Limit(LogicalPlan):
 
     def node_desc(self):
         return f"Limit {self.n}"
+
+
+class Window(LogicalPlan):
+    """Appends window-function columns (reference :288).  Every one of
+    ``window_exprs`` shares one (partition_by, order_by) spec: the
+    DataFrame layer splits mixed specs into a chain of Window nodes, as
+    Spark's ExtractWindowExpressions rule does.  Output schema: the child's
+    columns, then the window columns."""
+
+    def __init__(self, child: LogicalPlan,
+                 window_exprs: List[Tuple[str, Expression]]):
+        self.children = (child,)
+        self.window_exprs = window_exprs
+
+    def schema(self) -> Schema:
+        in_schema = self.children[0].schema()
+        fields = list(in_schema.fields)
+        for name, e in self.window_exprs:
+            b = bind(e, in_schema)
+            fields.append(Field(name, b.dtype, b.nullable))
+        return Schema(fields)
+
+    def node_desc(self):
+        return f"Window [{', '.join(n for n, _ in self.window_exprs)}]"

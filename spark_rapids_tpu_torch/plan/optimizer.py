@@ -1,6 +1,6 @@
 """Logical rewrites before physical planning: filter pushdown through joins
-and projects (``spark_rapids_tpu/plan/optimizer.py push_filters``), then
-column pruning (the column part of ``spark_rapids_tpu/plan/pushdown.py
+and projects (``spark_rapids_tpu/plan/optimizer.py push_filters``; a
+filter stays above a window), then column pruning (the column part of ``spark_rapids_tpu/plan/pushdown.py
 optimize_scans``).
 
 ``push_filters`` sinks filter conjuncts below joins: a conjunct that
@@ -282,6 +282,18 @@ def prune_columns(plan: L.LogicalPlan,
                       plan.global_sort)
     if isinstance(plan, L.Limit):
         return L.Limit(prune_columns(plan.children[0], required), plan.n)
+    if isinstance(plan, L.Window):
+        # the child keeps what the plan above needs besides the window
+        # columns, and every column the window expressions read (reference
+        # pushdown.py:220); filters never move below a window (push_filters
+        # leaves them above it), as that would change partition contents
+        need = None
+        if required is not None:
+            wnames = {n for n, _ in plan.window_exprs}
+            need = ({c for c in required if c not in wnames}
+                    | _refs(e for _, e in plan.window_exprs))
+        return L.Window(prune_columns(plan.children[0], need),
+                        plan.window_exprs)
     if isinstance(plan, L.Join):
         lnames = set(plan.children[0].schema().names())
         rnames = set(plan.children[1].schema().names())

@@ -15,8 +15,13 @@ operator so far, the host sort that an ORDER BY on string keys needs
 (TPC-H Q1, Q4, Q21); any other fallback, and any device operator not
 ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
 ``Distinct`` becomes an aggregate grouped on every column (reference
-``overrides.py:405``); a device ORDER BY becomes ``SortExec`` and a LIMIT
-over anything but a device ORDER BY ``LimitExec`` (``exec_nodes.py``).
+``overrides.py:405``); a device ORDER BY becomes ``SortExec`` (reference
+:412) and a LIMIT over a device ORDER BY ``TopKExec`` where the top-k
+kernel reaches (else ``LimitExec`` over the sort, as over anything else,
+``exec_nodes.py``); a ``Window`` is tagged as the reference tags it
+(:279-300) and becomes ``WindowExec`` (:457).  A window the reference
+sends to the CPU (string partition or order keys) raises: the CPU window
+is not ported (ROADMAP item 3).
 """
 
 from __future__ import annotations
@@ -194,6 +199,29 @@ class NodeMeta:
                                       allow_string_passthrough=False):
                     self.will_not_work(f"sort key: {r}")
             return
+        if isinstance(p, L.Window):
+            from ..windowfns import WindowExpression, device_support_reason
+            schema = p.children[0].schema()
+            for name, e in p.window_exprs:
+                b = strip_alias(bind(e, schema))
+                if not isinstance(b, WindowExpression):
+                    self.will_not_work(f"{name} is not a window expression")
+                    continue
+                r = device_support_reason(b)
+                if r:
+                    self.will_not_work(f"{name}: {r}")
+                for pe in b.spec.partition_by:
+                    for rr in expr_reasons(pe,
+                                           allow_string_passthrough=False):
+                        self.will_not_work(f"{name} partition key: {rr}")
+                for o in b.spec.order_by:
+                    for rr in expr_reasons(o.expr,
+                                           allow_string_passthrough=False):
+                        self.will_not_work(f"{name} order key: {rr}")
+                for c in b.func.children:
+                    for rr in expr_reasons(c, allow_string_passthrough=False):
+                        self.will_not_work(f"{name}: {rr}")
+            return
         self.will_not_work(f"operator {type(p).__name__} has no GPU version")
 
     def explain_lines(self, indent: int = 0) -> List[str]:
@@ -222,6 +250,11 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
             schema = child.output_schema
             return CpuSortExec(child, [(bind(o.expr, schema), o.ascending,
                                         o.nulls_first) for o in p.orders])
+        if isinstance(p, L.Window):
+            raise NotImplementedError(
+                f"the CPU window operator is not ported yet (ROADMAP.md "
+                f"item 3, the cpu/ fallback operators): "
+                f"{'; '.join(meta.reasons)}")
         raise NotImplementedError(
             f"the CPU fallback for {type(p).__name__} is not ported yet "
             f"(ROADMAP.md, modules to port): {'; '.join(meta.reasons)}")
@@ -273,10 +306,21 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
         return plan_join(p, _convert(meta.children[0], conf),
                          _convert(meta.children[1], conf), conf)
 
+    if isinstance(p, L.Window):
+        from .window_exec import WindowExec
+        child = _convert(meta.children[0], conf)
+        schema = child.output_schema
+        return WindowExec(child, [(n, strip_alias(bind(e, schema)))
+                                  for n, e in p.window_exprs])
+
     if isinstance(p, L.Limit):
+        from .exec_nodes import LimitExec
+        from ..ops.topk import TK_MAX_K, TK_MAX_KEYS
         sort_meta = meta.children[0]
         if not (isinstance(sort_meta.plan, L.Sort) and sort_meta.on_device):
-            from .exec_nodes import LimitExec
+            return LimitExec(_convert(sort_meta, conf), p.n)
+        if p.n > TK_MAX_K or len(sort_meta.plan.orders) > TK_MAX_KEYS:
+            # past the top-k kernel's reach: the full sort, then the head
             return LimitExec(_convert(sort_meta, conf), p.n)
         from .exec_nodes import TopKExec
         child = _convert(sort_meta.children[0], conf)

@@ -89,6 +89,20 @@ class Column:
     def cast(self, dtype) -> "Column":
         return Column(E.Cast(self.expr, dtype))
 
+    def over(self, spec) -> "Column":
+        """Attach a window spec: ``F.row_number().over(w)`` (reference
+        :194)."""
+        from ..windowfns import WindowExpression
+        from .window import WindowSpec
+        if not isinstance(spec, WindowSpec):
+            raise TypeError("over() takes a WindowSpec")
+        core = self.expr
+        name = None
+        if isinstance(core, _AliasMarker):
+            name, core = core.name, core.children[0]
+        w = WindowExpression(core, spec._spec)
+        return Column(_AliasMarker(w, name) if name else w)
+
     # -- sort orders --------------------------------------------------------------
     def asc(self):
         from ..plan.logical import SortOrder
@@ -97,6 +111,14 @@ class Column:
     def desc(self):
         from ..plan.logical import SortOrder
         return SortOrder(self.expr, ascending=False)
+
+    def asc_nulls_last(self):
+        from ..plan.logical import SortOrder
+        return SortOrder(self.expr, ascending=True, nulls_first=False)
+
+    def desc_nulls_first(self):
+        from ..plan.logical import SortOrder
+        return SortOrder(self.expr, ascending=False, nulls_first=True)
 
     def __repr__(self):
         return f"Column<{self.expr.fingerprint()}>"

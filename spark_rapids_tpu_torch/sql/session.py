@@ -84,6 +84,24 @@ class Session:
             self._last_stats = stats
             return CollectExec(phys).collect_rows(ctx)
 
+    def _execute_device(self, plan: L.LogicalPlan):
+        """Execute to ONE compacted device batch, or None when no row comes
+        out (reference :517): the batches are concatenated before the
+        compaction, so a filtered result costs one count fetch, not one
+        per batch."""
+        from ..ops import batch_utils
+        from ..plan.overrides import apply_overrides
+        conf = self.conf()
+        phys = apply_overrides(plan, conf)
+        ctx = ExecContext(conf, self.device)
+        self._last_ctx = ctx
+        with QueryStats.scoped() as stats:
+            self._last_stats = stats
+            batches = [b for b in phys.execute(ctx) if b.num_rows > 0]
+            if not batches:
+                return None
+            return batch_utils.compact(batch_utils.concat_batches(batches))
+
     def _explain(self, plan: L.LogicalPlan) -> str:
         from ..plan.overrides import explain_plan
         return explain_plan(plan, self.conf())

@@ -55,3 +55,23 @@ def test_orders_cover_every_lineitem_order_key():
     li = tpch.gen_lineitem_arrays(0.001)
     orders = tpch.gen_orders_arrays(0.001)
     assert set(np.unique(li["l_orderkey"])) <= set(orders["o_orderkey"])
+
+
+@pytest.mark.parametrize("table", ["partsupp", "nation"])
+def test_gen_db_partsupp_and_nation_match_reference_parquet(tmp_path, table):
+    """partsupp (four suppliers per part, seed 1005) and nation (seed 1001)
+    equal what the reference suite's gen_db writes, and partsupp has 4 rows
+    per part."""
+    from spark_rapids_tpu.models import tpch_suite
+    sf = 0.003
+    paths = tpch_suite.gen_db(sf, str(tmp_path))
+    ref = pq.read_table(paths[table])
+    got = tpch.gen_db_arrays(sf, tables=(table,))[table]
+    assert list(got) == ref.column_names
+    for name in ref.column_names:
+        want = ref.column(name).to_numpy()
+        if got[name].dtype.kind == "U":
+            assert got[name].tolist() == ref.column(name).to_pylist(), name
+        else:
+            np.testing.assert_array_equal(got[name], want, err_msg=name)
+    assert len(got[ref.column_names[0]]) == tpch.db_rows(table, sf)

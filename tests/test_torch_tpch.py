@@ -336,3 +336,75 @@ def test_q10_matches_reference_and_oracle(db, config):
                     for k, m in metrics.items()
                     if k.startswith("ShuffleExchangeExec"))
     assert exchanged == (0 if config == "flip" else 16)
+
+
+# ---------------------------------------------------------------------------------
+# The full sort (S1), the window history (W1) and Q11
+# ---------------------------------------------------------------------------------
+
+def _device_columns_close(got: dict, want: dict):
+    """Port device columns against the reference's or the oracle's:
+    validity, integers and dates equal; floats within REL."""
+    assert set(got) == set(want)
+    for c, w in want.items():
+        wd, wv = w if isinstance(w, tuple) else (w, None)
+        wd, wv = np.asarray(wd), None if wv is None else np.asarray(wv)
+        if wd.dtype.kind == "M":
+            wd = wd.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        gd, gv = got[c]
+        gd = gd.numpy()
+        ok = np.ones(len(wd), dtype=bool) if wv is None else wv
+        gok = np.ones(len(gd), dtype=bool) if gv is None else gv.numpy()
+        np.testing.assert_array_equal(gok, ok, err_msg=c)
+        if wd.dtype.kind == "f":
+            np.testing.assert_allclose(gd[ok], wd[ok], rtol=REL, atol=0,
+                                       err_msg=c)
+        else:
+            np.testing.assert_array_equal(gd[ok], wd[ok], err_msg=c)
+
+
+@pytest.mark.parametrize("path", ["sort_lineitem", "supplier_history"])
+def test_sort_and_window_paths_match_reference_and_oracle(db, path):
+    """S1 (the lineitem ORDER BY, out-of-core in 16,384-row batches: 4
+    runs) and W1 (two window specs, filtered above them) through both
+    packages' ``to_device_arrays``: S1's columns equal the reference's and
+    the oracle's exactly, W1's within REL for floats, at no more blocking
+    fetches than the reference."""
+    from spark_rapids_tpu.sql.window import Window as JW
+    jsess = jsrt.Session(DB_SETTINGS)
+    tsess = tsrt.Session(DB_SETTINGS, device="cpu")
+    body = getattr(tpch, path)
+    extra = {} if path == "sort_lineitem" else {"window": JW}
+    jdf = body(jsess.create_dataframe(db["lineitem"]), functions=JF, **extra)
+    with JStats.scoped() as st:
+        jout = jdf.to_device_arrays()
+    tout = body(tsess.create_dataframe(db["lineitem"])).to_device_arrays()
+    _device_columns_close(tout, {c: (np.asarray(d), None if v is None
+                                     else np.asarray(v))
+                                 for c, (d, v) in jout.items()})
+    _device_columns_close(tout, getattr(tpch, f"{path}_numpy")(
+        db["lineitem"]))
+    assert tsess.last_query_stats().blocking_fetches <= st.blocking_fetches
+    tdf = body(tsess.create_dataframe(db["lineitem"]))
+    assert tdf.explain_string().splitlines()[2:] == \
+        jdf.explain_string().splitlines()[2:]
+    metrics = tsess.last_exec_context().metrics
+    if path == "supplier_history":
+        assert sum(m.values.get("numOutputBatches", 0)
+                   for m in metrics.values()) == 2   # one per Window node
+
+
+def test_q11_matches_reference_and_oracle(db):
+    """TPC-H Q11 (partsupp joined to the German suppliers, the total, the
+    HAVING and the ORDER BY through the full sort) against ``run_q11`` and
+    ``q11_numpy``."""
+    tables = ("partsupp", "supplier", "nation")
+    jsess = jsrt.Session(DB_SETTINGS)
+    tsess = tsrt.Session(DB_SETTINGS, device="cpu")
+    jrows = tpch_suite.run_q11({t: jsess.create_dataframe(db[t])
+                                for t in tables})
+    tdf = tpch.q11(*(tsess.create_dataframe(db[t]) for t in tables))
+    trows = tdf.collect()
+    assert trows
+    _assert_rows_close(trows, jrows)
+    _assert_rows_close(trows, tpch.q11_numpy(*(db[t] for t in tables)))

@@ -4,6 +4,11 @@
     JAX_PLATFORMS=cpu python tools/fetch_budget.py --sf 1 --package both \
         [--batch-rows 4194304]
 
+Besides the TPC-H queries, ``sort_lineitem`` (S1: a global ORDER BY of a
+lineitem projection, out-of-core when lineitem spans several batches) and
+``supplier_history`` (W1: two window specs over lineitem, filtered above
+them) run through ``to_device_arrays`` in both packages.
+
 Both packages run on the CPU over the same ``gen_db_arrays`` data (the
 reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
 (4,194,304, the default of ``batchSizeRows``) and
@@ -30,6 +35,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 Q10_TABLES = ("customer", "orders", "lineitem")
@@ -38,10 +45,15 @@ QUERIES = {"q4": ("q4", ("orders", "lineitem"), {}),
            "q13": ("q13", ("customer", "orders"), {}),
            "q18": ("q18", ("orders", "lineitem", "customer"), {}),
            "q21": ("q21", ("lineitem", "orders", "supplier"), {}),
+           "q11": ("q11", ("partsupp", "supplier", "nation"), {}),
            "q10_flip": ("q10", Q10_TABLES,
                         {"spark.rapids.tpu.sql.aqe.enabled": True}),
            "q10_shuffled": ("q10", Q10_TABLES,
                             {"spark.rapids.tpu.sql.aqe.enabled": False})}
+# device hand-offs: name -> (models/tpch function, numpy oracle)
+DEVICE_PATHS = {"sort_lineitem": ("sort_lineitem", "sort_lineitem_numpy"),
+                "supplier_history": ("supplier_history",
+                                     "supplier_history_numpy")}
 SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
 SF10_BROADCAST_THRESHOLD = 256 * 1024 * 1024
 
@@ -59,12 +71,38 @@ def _same(got, want) -> bool:
     return True
 
 
+def _same_columns(got: dict, want: dict) -> bool:
+    """Device columns against the oracle's: validity and integers equal,
+    floats within rel 1e-9."""
+    if set(got) != set(want):
+        return False
+    for c, w in want.items():
+        wd, wv = w if isinstance(w, tuple) else (w, None)
+        if wd.dtype.kind == "M":
+            wd = wd.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        gd, gv = got[c]
+        gd = np.asarray(gd.numpy() if hasattr(gd, "numpy") else gd)
+        ok = np.ones(len(wd), dtype=bool) if wv is None else wv
+        gok = np.ones(len(gd), dtype=bool) if gv is None else np.asarray(
+            gv.numpy() if hasattr(gv, "numpy") else gv)
+        if gd.shape != wd.shape or not np.array_equal(gok, ok):
+            return False
+        if wd.dtype.kind == "f":
+            if np.any(np.abs(gd[ok] - wd[ok])
+                      > 1e-9 * np.maximum(np.abs(wd[ok]), 1.0)):
+                return False
+        elif not np.array_equal(gd[ok], wd[ok]):
+            return False
+    return True
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--package", choices=("reference", "port", "both"),
                     default="both")
-    ap.add_argument("--queries", default=",".join(QUERIES))
+    ap.add_argument("--queries", default=",".join(list(QUERIES)
+                                                  + list(DEVICE_PATHS)))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     args = ap.parse_args()
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
@@ -85,6 +123,17 @@ def main() -> None:
         from spark_rapids_tpu.utils.metrics import QueryStats
 
         def run_ref(q):
+            if q in DEVICE_PATHS:
+                from spark_rapids_tpu.sql import functions as JF
+                from spark_rapids_tpu.sql.window import Window as JW
+                jsess = jsrt.Session(base)
+                df = jsess.create_dataframe(data["lineitem"])
+                body = getattr(tpch, DEVICE_PATHS[q][0])
+                q_df = body(df, functions=JF) if q == "sort_lineitem" \
+                    else body(df, functions=JF, window=JW)
+                with QueryStats.scoped() as st:
+                    out = q_df.to_device_arrays()
+                return out, st.blocking_fetches
             jsess = jsrt.Session(settings(q))
             body, tables, _ = QUERIES[q]
             dfs = {t: jsess.create_dataframe(data[t]) for t in tables}
@@ -95,23 +144,40 @@ def main() -> None:
     if args.package in ("port", "both"):
         import spark_rapids_tpu_torch as tsrt
 
+        from spark_rapids_tpu_torch.utils.metrics import \
+            QueryStats as TStats
+
         def run_port(q):
+            # the scope counts every query the body runs (Q11 runs two)
+            if q in DEVICE_PATHS:
+                tsess = tsrt.Session(base, device="cpu")
+                df = tsess.create_dataframe(data["lineitem"])
+                with TStats.scoped() as st:
+                    out = getattr(tpch, DEVICE_PATHS[q][0])(df) \
+                        .to_device_arrays()
+                return out, st.blocking_fetches
             tsess = tsrt.Session(settings(q), device="cpu")
             body, tables, _ = QUERIES[q]
             dfs = [tsess.create_dataframe(data[t]) for t in tables]
-            rows = getattr(tpch, body)(*dfs).collect()
-            return rows, tsess.last_query_stats().blocking_fetches
+            with TStats.scoped() as st:
+                rows = getattr(tpch, body)(*dfs).collect()
+            return rows, st.blocking_fetches
         runners.append(("port", run_port))
     for q in args.queries.split(","):
-        body, tables, _ = QUERIES[q]
-        want = getattr(tpch, f"{body}_numpy")(*(data[t] for t in tables))
+        if q in DEVICE_PATHS:
+            want = getattr(tpch, DEVICE_PATHS[q][1])(data["lineitem"])
+            same = _same_columns
+        else:
+            body, tables, _ = QUERIES[q]
+            want = getattr(tpch, f"{body}_numpy")(*(data[t] for t in tables))
+            same = _same
         for package, run in runners:
             t0 = time.perf_counter()
             rows, fetches = run(q)
             print(json.dumps({"query": q, "package": package, "sf": args.sf,
                               "batch_rows": args.batch_rows,
                               "blocking_fetches": fetches,
-                              "matches_oracle": _same(rows, want),
+                              "matches_oracle": same(rows, want),
                               "seconds": round(time.perf_counter() - t0,
                                                3)}), flush=True)
 
