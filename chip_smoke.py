@@ -13,9 +13,13 @@ over the reference suite's gen_db tables at SF10 (lineitem 60,012,150,
 orders 15,000,000, customer 1,500,000, supplier 100,000 rows), and Q10
 over the same tables in the reference's two configurations: the defaults,
 where the second join's staged side flips it to a broadcast join, and
-AQE off, where it joins 8 hash partition pairs.  It checks
-the results against numpy oracles and shows that each query went through
-its kernels.  Prints per-query and per-kernel timings, a
+AQE off, where it joins 8 hash partition pairs; the lineitem sort (S1),
+the per-supplier window history (W1) and Q11 (at SF10 and SF1); and the
+rest of TPC-H at SF10 (Q2, Q5, Q7, Q8, Q9, Q12, Q14, Q15, Q16, Q17, Q19,
+Q20, Q22) with Q21 in its EXISTS form (conditioned semi and anti joins
+through ``csrc/cond_join.cu``), plus a small cross join and a small
+existence join.  It checks the results against numpy oracles and shows
+that each query went through its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when any phase fails or when no CUDA device is available.  Imports
@@ -51,15 +55,18 @@ DB_LINEITEM = 60_012_150
 DB_COLUMNS = {"lineitem": ["l_orderkey", "l_partkey", "l_suppkey",
                            "l_quantity", "l_commitdate", "l_receiptdate",
                            "l_returnflag", "l_extendedprice", "l_discount",
-                           "l_shipdate"],
+                           "l_shipdate", "l_shipmode"],
               "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
                          "o_totalprice", "o_orderdate", "o_orderpriority"],
               # every column: Q10's first join builds the side the
               # reference does only if customer is estimated at the full
               # width of its table, as the reference's is
               "customer": None,
-              "supplier": ["s_suppkey", "s_name", "s_nationkey"],
-              "partsupp": None, "nation": None}
+              "supplier": ["s_suppkey", "s_name", "s_nationkey",
+                           "s_acctbal"],
+              "partsupp": None, "nation": None, "part": None,
+              "region": None}
+DB_PART = 2_000_000
 DB_PARTSUPP = 8_000_000
 Q11_TABLES = ("partsupp", "supplier", "nation")
 DB_QUERIES = {"q4": ("orders", "lineitem"), "q13": ("customer", "orders"),
@@ -76,6 +83,24 @@ Q10_SHUFFLED_REFERENCE_FETCHES = 53
 # batches, which give lineitem the 15 batches it has at SF10)
 SLICE5_FETCH_CEILINGS = {"s1": (33, "the reference's count"),
                          "w1": (4, "the reference's count")}
+# slice 6: the rest of TPC-H and Q21 in its EXISTS form at SF10, each with
+# the kernels it must launch at the least (the cold run adds every other
+# kernel it launched), and two small joins of the new join types
+REST_QUERIES = ("q2", "q5", "q7", "q8", "q9", "q12", "q14", "q15", "q16",
+                "q17", "q19", "q20", "q22", "q21_exists")
+REST_REQUIRE = {"q21_exists": ("cond_join", "sort_join", "hashing"),
+                "x_cross": ("cond_join",), "x_exists": ("cond_join",)}
+# blocking fetch ceilings: the reference's count for the same plan
+# (tools/fetch_budget.py at SF1 with 400,000-row batches, which give
+# lineitem the 15 batches it has at SF10, and the broadcast threshold
+# scaled to SF1); Q11 at SF1 in 4,194,304-row batches: the reference's 7
+_REF = "the reference's count"
+REST_FETCH_CEILINGS = {
+    "q2": (12, _REF), "q5": (7, _REF), "q7": (86, _REF), "q8": (26, _REF),
+    "q9": (77, _REF), "q12": (29, _REF), "q14": (18, _REF),
+    "q15": (9, _REF), "q16": (9, _REF), "q17": (45, _REF), "q19": (2, _REF),
+    "q20": (42, _REF), "q22": (53, _REF), "q21_exists": (1062, _REF),
+    "q11_sf1": (7, "the reference's count at SF1, 4,194,304-row batches")}
 
 
 class SmokeFailure(Exception):
@@ -992,16 +1017,19 @@ def to_device(df):
 
 
 def run_query(torch, sess, df_fn, checker, want, name, counters,
-              result=collect):
+              result=collect, require=None):
     """One cold and three warm runs; returns the per-run measurements and
     the kernel launches each run made.  Syncs and upload bytes count every
     query the path runs (Q11 runs two: its total, then the rest); upload
     ms is the last query's.  ``counters`` maps each kernel the
     query must launch to its wrappers; ``result`` ends the query (rows on
     the host, or ``to_device_arrays``, whose tensors the checker reads
-    after the timed span)."""
+    after the timed span).  With ``require``, ``counters`` holds every
+    kernel: the cold run must launch each required one, and every later
+    run each kernel the cold run launched."""
     from spark_rapids_tpu_torch.utils.metrics import QueryStats
     runs = []
+    watched = list(counters)
     for i in range(4):
         before = launch_counts(counters)
         torch.cuda.synchronize()
@@ -1021,6 +1049,11 @@ def run_query(torch, sess, df_fn, checker, want, name, counters,
         del rows
         after = launch_counts(counters)
         launches = {k: after[k] - before[k] for k in counters}
+        if require is not None and i == 0:
+            watched = [k for k, v in launches.items() if v]
+            missing = sorted(set(require) - set(watched))
+            check(not missing, f"{name} launched {missing} no time")
+        launches = {k: launches[k] for k in watched}
         idle = [k for k, v in launches.items() if v == 0]
         check(not idle, f"{name} run {i} launched {idle} no time")
         runs.append({"run": "cold" if i == 0 else f"warm{i}",
@@ -1682,6 +1715,55 @@ def check_sort_join(torch, join, device) -> float:
     return 0.0
 
 
+def check_dense_agg_deterministic(torch, groupby, device) -> None:
+    """float64 sums of the dense aggregate are bit for bit the same in
+    every run (TPC-H Q15 compares a recomputed sum with a collected one):
+    three kernel runs of three batches into fresh accumulators agree to the
+    bit, and each stays within F64_SUM_TOL x sum |x| of the plain version
+    per slot; infinities and NaN give the plain version's specials."""
+    rng = np.random.default_rng(15)
+    t = _to_device(torch, device)
+    D, n = 100_000, BATCH_ROWS
+    batches = []
+    for b in range(3):
+        key = rng.integers(0, D, n)
+        val = np.round(rng.uniform(900.0, 105000.0, n), 2) * (
+            1 - rng.integers(0, 11, n) / 100.0)
+        if b == 1:  # magnitudes far apart, and the specials, in some slots
+            val[:1000] = rng.choice(np.array([1e300, -1e300, 1e-300, 3.0,
+                                              -0.0]), 1000)
+            val[1000:1010] = [np.inf, -np.inf, np.nan, np.inf, 1.0, np.nan,
+                              -np.inf, 2.0, np.inf, 4.0]
+        batches.append(((t(key), None), [(t(val), None)],
+                        t(rng.random(n) < 0.9)))
+    runs = []
+    for update in (groupby.dense_agg_update, groupby.dense_agg_update,
+                   groupby.dense_agg_update, groupby.dense_agg_update_plain):
+        acc = groupby.DenseAccumulator(0, D, 0, [("sum", True)], device)
+        for key, contrib, active in batches:
+            update(acc, key, [], contrib, active)
+        runs.append(acc.acc[0])
+    scale = torch.zeros(D + 1, dtype=torch.float64, device=device)
+    for key, contrib, active in batches:
+        live = active & torch.isfinite(contrib[0][0])
+        scale.index_add_(0, key[0][live], contrib[0][0][live].abs())
+    torch.cuda.synchronize()
+    for r in runs[1:3]:
+        check(torch.equal(r.view(torch.int64), runs[0].view(torch.int64)),
+              "dense_agg float64 sums differ between two runs")
+    k, p = runs[0], runs[3]
+    special = ~torch.isfinite(p)
+    check(torch.equal(torch.isnan(k), torch.isnan(p)) and torch.equal(
+        k[special & ~torch.isnan(p)], p[special & ~torch.isnan(p)]),
+        "dense_agg float64 sums: infinities or NaN differ from plain")
+    fin = ~special
+    err = float(((k[fin] - p[fin]).abs() / scale[fin].clamp(min=1e-300))
+                .max())
+    check(err <= F64_SUM_TOL, f"dense_agg float64 sums off by {err:.3e}")
+    print(f"check dense_agg float64 sums: 3 runs of 3 batches of {n} rows "
+          f"equal bit for bit, specials as plain, max rel err {err:.3e}: ok")
+
+
 def check_dense_agg_f64(torch, groupby, device) -> float:
     """A float64 residual (a string-code residual beside it) on the dense
     aggregate: -0.0/+0.0 under one key, a NaN under another, nulls; the
@@ -2322,6 +2404,215 @@ def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
 
 
 # ---------------------------------------------------------------------------------
+# Slice 6: cond_join (conditioned, existence and cross joins) and the rest of
+# TPC-H
+# ---------------------------------------------------------------------------------
+
+def _cond_case(torch, rng, device, counts, n_build, lo=None):
+    """A match state on the device from per-probe candidate counts: each
+    probe row's range starts at ``lo`` (random where not given) in a
+    random build permutation."""
+    n_probe = len(counts)
+    if lo is None:
+        lo = rng.integers(0, max(n_build - int(counts.max(initial=0)), 1),
+                          n_probe)
+    offsets = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    t = _to_device(torch, device)
+    return (t(offsets), t(lo.astype(np.int32)),
+            t(rng.permutation(n_build).astype(np.int32)), int(offsets[-1]))
+
+
+def check_cond_join(torch, join, device) -> float:
+    """cond_expand, cond_counts and cross_pairs against their plain
+    versions on random cases: zero candidates, probes that are all
+    inactive (a sorted probe under an all-false mask), a build row that
+    every probe matches, one probe row with millions of candidates, and
+    pair counts past 2^24.  Every output is exact."""
+    rng = np.random.default_rng(66)
+    n_probe, n_build = 1 << 20, 700_000
+    cases = {
+        "random": _cond_case(torch, rng, device, np.where(
+            rng.random(n_probe) < 0.8, rng.integers(0, 7, n_probe), 0),
+            n_build),
+        "zero candidates": _cond_case(torch, rng, device,
+                                      np.zeros(n_probe, dtype=np.int64),
+                                      n_build),
+        "one build row for every probe": _cond_case(
+            torch, rng, device, np.ones(n_probe, dtype=np.int64), n_build,
+            lo=np.full(n_probe, 12345)),
+        "one heavy probe row": _cond_case(
+            torch, rng, device, np.where(np.arange(n_probe) == 777,
+                                         n_build, 0), n_build,
+            lo=np.zeros(n_probe, dtype=np.int64)),
+        "past 2^24 pairs": _cond_case(
+            torch, rng, device, np.full(1 << 22, 5, dtype=np.int64),
+            3_000_000),
+    }
+    # all-inactive probes through the sorted probe of the main path
+    keys = _to_device(torch, device)(rng.integers(0, 1000, n_build))
+    state = join.sorted_build([(keys, None)], None)
+    probe = _to_device(torch, device)(rng.integers(0, 1000, n_probe))
+    lo, _, offsets = join.sorted_probe(
+        [(probe, None)], torch.zeros(n_probe, dtype=torch.bool,
+                                     device=device), state, "inner")
+    torch.cuda.synchronize()
+    cases["all-inactive probes"] = (offsets, lo, state.b_perm,
+                                    int(offsets[-1]))
+    for what, (offsets, lo, b_perm, total) in cases.items():
+        kp, kb = join.cond_expand_kernel(offsets, lo, b_perm, total)
+        pp, pb = join.cond_expand_plain(offsets, lo, b_perm, total)
+        keep = torch.rand(total, device=device) < 0.5
+        kc = join.cond_counts_kernel(keep, kp, kb, lo.shape[0],
+                                     b_perm.shape[0])
+        pc = join.cond_counts_plain(keep, pp, pb, lo.shape[0],
+                                    b_perm.shape[0])
+        ks = join.cond_counts_kernel(keep, kp, kb, lo.shape[0], None)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, pp) and torch.equal(kb, pb),
+              f"cond_expand differs ({what}, {total} pairs)")
+        check(torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+              and torch.equal(ks[0], pc[0]) and ks[1] is None,
+              f"cond_counts differs ({what}, {total} pairs)")
+    for n_l, n_r in ((0, 5), (7, 0), (1, 1), (5, 25), (3000, 6000)):
+        k = join.cross_pairs_kernel(n_l, n_r, device)
+        p = join.cross_pairs_plain(n_l, n_r, device)
+        torch.cuda.synchronize()
+        check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+              f"cross_pairs differs ({n_l} x {n_r})")
+    print(f"cond_join: kernels equal their plain versions on "
+          f"{len(cases)} match states (up to "
+          f"{max(c[3] for c in cases.values())} pairs) and 5 cross "
+          f"products (up to 18,000,000 pairs)")
+    return 0.0
+
+
+def _row_of(source, name, per_wrapper, err, ms, plain_ms, nbytes, lib_ms,
+            replaces):
+    """A kernels-line row for wrapper ``name`` of ``csrc/<source>.cu``:
+    its main-path launches are those of ``<name>_kernel``."""
+    row = _row(name, {name: per_wrapper.get(f"{name}_kernel", 0)}, err, ms,
+               plain_ms, nbytes, lib_ms, replaces)
+    row["source"] = f"spark_rapids_tpu_torch/csrc/{source}.cu"
+    return row
+
+
+def time_slice6_kernels(torch, join, device, per_wrapper, worst,
+                        lineitem) -> list:
+    """cond_expand and cond_counts at the shape of one of Q21-exists's
+    sub-partition pairs at SF10 (the late lineitems of 1/128 of the
+    orders probing all of those orders' lines: about 312,000 probe rows,
+    470,000 build rows and 1.5 M candidate pairs; the pair keeps the
+    lines of another supplier), and cross_pairs at the small cross join's
+    shape (5 x 25), each first held against its plain version."""
+    t = _to_device(torch, device)
+    out, notes = [], []
+    okey, skey = lineitem["l_orderkey"], lineitem["l_suppkey"]
+    sub = okey % 128 == 0
+    late = sub & (lineitem["l_receiptdate"] > lineitem["l_commitdate"])
+    bkey, bsupp = t(okey[sub]), t(skey[sub])
+    pkey, psupp = t(okey[late]), t(skey[late])
+    state = join.sorted_build([(bkey, None)], None)
+    lo, _, offsets = join.sorted_probe([(pkey, None)], None, state, "inner")
+    total = int(offsets[-1])
+    n_p, n_b = pkey.shape[0], bkey.shape[0]
+    b_perm = state.b_perm
+    kp, kb = join.cond_expand_kernel(offsets, lo, b_perm, total)
+    pp, pb = join.cond_expand_plain(offsets, lo, b_perm, total)
+    keep = psupp[kp.long()] != bsupp[kb.long()]
+    kc, _ = join.cond_counts_kernel(keep, kp, kb, n_p, None)
+    pc, _ = join.cond_counts_plain(keep, pp, pb, n_p, None)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, pp) and torch.equal(kb, pb) and torch.equal(kc, pc),
+          "cond_join differs at Q21-exists's pair shape")
+    inputs = copies_for_l2([offsets, lo, b_perm])
+    ms = time_ms(torch, [lambda o=o, a=a, b=b: join.cond_expand_kernel(
+        o, a, b, total) for o, a, b in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: join.cond_expand_plain(
+        offsets, lo, b_perm, total)], reps=4)
+    cnt = (offsets[1:] - offsets[:-1])
+    rows = torch.arange(n_p, device=device)
+    lib_ms = time_ms_synced(torch, [lambda: torch.repeat_interleave(
+        rows, cnt)], reps=4)
+    # offsets (8 B) and lo (4 B) per probe row; b_perm by sector at the
+    # pairs' build positions; pi and bi written (8 B a pair)
+    at = lo.long()[kp.long()] + (torch.arange(total, device=device)
+                                 - offsets[:-1][kp.long()])
+    nbytes = 8 * (n_p + 1) + 4 * n_p + sector_bytes(torch, at, 4) \
+        + 8 * total
+    out.append(_row_of("cond_join", "cond_expand", per_wrapper, 0.0, ms,
+                       plain_ms, nbytes, lib_ms,
+                       "spark_rapids_tpu/plan/join_exec.py:446"))
+    notes.append(f"{n_p} probe rows, {n_b} build rows, {total} candidate "
+                 f"pairs (library: torch.repeat_interleave of the probe "
+                 f"rows, pi only)")
+    del at
+    inputs = copies_for_l2([keep, kp, kb])
+    ms = time_ms(torch, [lambda k=k, a=a, b=b: join.cond_counts_kernel(
+        k, a, b, n_p, None) for k, a, b in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: join.cond_counts_plain(
+        keep, kp, kb, n_p, None)], reps=4)
+    pl, kk = kp.long(), keep.int()
+    lib_ms = time_ms(torch, [lambda: torch.zeros(
+        n_p, dtype=torch.int32, device=device).index_add_(0, pl, kk)],
+        reps=8)
+    # keep (1 B), pi and bi (4 B each) per pair, the counts written
+    out.append(_row_of("cond_join", "cond_counts", per_wrapper, 0.0, ms,
+                       plain_ms, 9 * total + 4 * n_p, lib_ms,
+                       "spark_rapids_tpu/plan/join_exec.py:500"))
+    notes.append(f"{total} pairs, {int(keep.sum())} kept, counted per "
+                 f"probe row (library: index_add_ into zeros)")
+    n_l, n_r = 5, 25
+    ms = time_ms(torch, [lambda: join.cross_pairs_kernel(n_l, n_r, device)],
+                 reps=64)
+    plain_ms = time_ms(torch, [lambda: join.cross_pairs_plain(
+        n_l, n_r, device)], reps=64)
+    a, b = (torch.arange(n, device=device) for n in (n_l, n_r))
+    lib_ms = time_ms(torch, [lambda: torch.cartesian_prod(a, b)], reps=64)
+    out.append(_row_of("cond_join", "cross_pairs", per_wrapper, 0.0, ms,
+                       plain_ms, 8 * n_l * n_r, lib_ms,
+                       "spark_rapids_tpu/plan/join_exec.py:827"))
+    notes.append(f"{n_l} x {n_r} rows (the small cross join; library: "
+                 f"torch.cartesian_prod)")
+    for row, note in zip(out, notes):
+        nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
+              f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
+              f"{row['plain_ms']:.4f} ms †, library "
+              f"{row['library_ms']:.4f} ms), max |err| vs plain "
+              f"{row['max_abs_err']:.3e}, {row['launches']} launches on the "
+              f"main path")
+    return out
+
+
+def check_sorted_rows(name: str):
+    """Rows as a multiset (sorted), exact: a join's output order is not
+    specified."""
+    def checker(rows, want) -> float:
+        key = lambda r: tuple((0, x) if x is None else (1, x)  # noqa: E731
+                              for x in r)
+        check(sorted(rows, key=key) == sorted(want, key=key),
+              f"{name}: {len(rows)} rows differ from the oracle's "
+              f"{len(want)}")
+        return 0.0
+    return checker
+
+
+def small_join_oracles(db) -> dict:
+    """The small cross join (region x nation) and existence join (nation
+    to the suppliers with a balance over 9,990) in numpy."""
+    r, n, s = db["region"], db["nation"], db["supplier"]
+    cross = [(int(rk), str(rn), int(nk), str(nn), int(nr))
+             for rk, rn in zip(r["r_regionkey"], r["r_name"])
+             for nk, nn, nr in zip(n["n_nationkey"], n["n_name"],
+                                   n["n_regionkey"])]
+    rich = set(s["s_nationkey"][s["s_acctbal"] > 9990.0].tolist())
+    exists = [(int(nk), str(nn), int(nr), int(nk) in rich)
+              for nk, nn, nr in zip(n["n_nationkey"], n["n_name"],
+                                    n["n_regionkey"])]
+    return {"x_cross": cross, "x_exists": exists}
+
+
+# ---------------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2380,9 +2671,11 @@ def main() -> int:
         worst["sort_join"] = check_sort_join(torch, join, device)
         worst["dense_agg"] = max(worst["dense_agg"], check_dense_agg_f64(
             torch, groupby, device))
+        check_dense_agg_deterministic(torch, groupby, device)
         worst["sort"] = check_sort(torch, sort_ops, device)
         worst["window_scan"] = check_window(torch, window, device)
         worst["window_frame"] = worst["window_scan"]
+        worst["cond_join"] = check_cond_join(torch, join, device)
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -2408,11 +2701,12 @@ def main() -> int:
         rows = {t: len(next(iter(db[t].values()))) for t in db}
         check(rows == {"customer": DB_CUSTOMERS, "supplier": DB_SUPPLIERS,
                        "orders": DB_ORDERS, "lineitem": DB_LINEITEM,
-                       "nation": 25, "partsupp": DB_PARTSUPP},
+                       "nation": 25, "partsupp": DB_PARTSUPP,
+                       "part": DB_PART, "region": 5},
               f"SF{SF:g} gen_db tables have {rows} rows")
         sf1 = tpch.gen_db_arrays(1.0, tables=Q11_TABLES)
-        print(f"datagen gen_db (nation, customer, supplier, partsupp, "
-              f"orders, lineitem): {rows} rows, and Q11's tables at SF1, in "
+        print(f"datagen gen_db (every table): {rows} rows, and Q11's "
+              f"tables at SF1, in "
               f"{time.perf_counter() - t0:.1f} s")
         took = {}
         t0 = time.perf_counter()
@@ -2433,6 +2727,14 @@ def main() -> int:
         t1 = time.perf_counter()
         w1_want = tpch.supplier_history_numpy(db["lineitem"])
         took["w1"] = time.perf_counter() - t1
+        for q in REST_QUERIES:
+            t1 = time.perf_counter()
+            db_want[q] = getattr(tpch, f"{q}_numpy")(
+                *(db[t] for t in tpch.QUERY_TABLES[q]))
+            took[q] = time.perf_counter() - t1
+        db_want.update(small_join_oracles(db))
+        print("oracle rows: " + ", ".join(
+            f"{q} {len(db_want[q])}" for q in REST_QUERIES))
         print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
               f"{len(db_want['q11_sf1'])} at SF1; W1 "
               f"{len(w1_want['rn'][0])}")
@@ -2477,7 +2779,9 @@ def main() -> int:
             "window_frame": [window.frame_rows_kernel,
                              window.frame_range_kernel,
                              window.frame_sum_kernel,
-                             window.frame_minmax_kernel]}
+                             window.frame_minmax_kernel],
+            "cond_join": [join.cond_expand_kernel, join.cond_counts_kernel,
+                          join.cross_pairs_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -2561,6 +2865,34 @@ def main() -> int:
                 for fn in fns:
                     per_wrapper[fn.__name__] = \
                         per_wrapper.get(fn.__name__, 0) + fn.launches
+        # slice 6: every kernel counted from 0 before each path
+        from spark_rapids_tpu_torch.sql import functions as F
+        rest = [(q, (lambda q=q: getattr(tpch, q)(
+            *(dbf[t] for t in tpch.QUERY_TABLES[q]))),
+            check_rows(q.upper()), db_want[q]) for q in REST_QUERIES]
+        rest += [("x_cross", lambda: dbf["region"].cross_join(dbf["nation"]),
+                  check_sorted_rows("cross join"), db_want["x_cross"]),
+                 ("x_exists", lambda: tpch.conditioned_join(
+                     dbf["nation"], dbf["supplier"],
+                     [("n_nationkey", "s_nationkey")], "existence",
+                     F.col("s_acctbal") > 9990.0),
+                  check_sorted_rows("existence join"),
+                  db_want["x_exists"])]
+        for name, df_fn, checker, want in rest:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            runs_of[name] = run_query(torch, sess, df_fn, checker, want,
+                                      name, counters,
+                                      require=REST_REQUIRE.get(name, ()))
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            paths.append((name, df_fn, checker, want, ()))
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -2573,7 +2905,8 @@ def main() -> int:
         check(fetches <= Q10_SHUFFLED_REFERENCE_FETCHES, f"Q10-shuffled made "
               f"{fetches} blocking fetches, more than the reference's "
               f"{Q10_SHUFFLED_REFERENCE_FETCHES}")
-        for name, (ceiling, why) in SLICE5_FETCH_CEILINGS.items():
+        for name, (ceiling, why) in list(SLICE5_FETCH_CEILINGS.items()) \
+                + list(REST_FETCH_CEILINGS.items()):
             fetches = max(r["syncs"] for r in runs_of[name])
             check(fetches <= ceiling, f"{name} made {fetches} blocking "
                   f"fetches, more than {ceiling} ({why})")
@@ -2600,6 +2933,8 @@ def main() -> int:
                                      launches, worst)
         table += time_slice5_kernels(torch, sort_ops, window, device,
                                      launches, worst, db["lineitem"])
+        table += time_slice6_kernels(torch, join, device, per_wrapper,
+                                     worst, db["lineitem"])
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

@@ -47,6 +47,18 @@ class Schema:
         if len(self._index) != len(self.fields):
             raise ValueError(f"duplicate column names in {self.names()}")
 
+    @classmethod
+    def pair(cls, left: "Schema", right: "Schema") -> "Schema":
+        """The left side's fields then the right side's, as a join
+        condition binds them: a name both sides carry (a USING key)
+        resolves to the left side's."""
+        out = cls.__new__(cls)
+        out.fields = list(left.fields) + list(right.fields)
+        out._index = {}
+        for i, f in enumerate(out.fields):
+            out._index.setdefault(f.name, i)
+        return out
+
     def __len__(self):
         return len(self.fields)
 

@@ -54,8 +54,20 @@
 // min/max atomics are skipped when a plain read shows they cannot change
 // the word, which is the common case (a residual depends on its key).
 //
-// float64 atomics add in no fixed order: sums may differ from run to run in
-// the last bits.  int64 sums wrap modulo 2^64 like the reference's.  Keys
+// float64 sums are deterministic: a sum that depends on the order of
+// float atomics would differ from run to run in its last bits, and a query
+// that compares a recomputed sum with one it collected earlier (TPC-H
+// Q15's total_revenue = max) would then keep no row.  Within one call
+// da_absmax first takes each slot's largest finite |x|; each finite
+// contribution is then scaled by 2^k (k from its slot's largest |x| and
+// the call's row count, so no partial sum reaches 2^126) and added exactly
+// as a 128-bit integer (two 64-bit atomics with a carry: integer addition
+// does not depend on the order); da_fold adds each touched slot's integer,
+// converted back, to the float64 accumulator and clears its words.  Calls
+// run in stream order, so the accumulator sees the same additions every
+// run.  Infinities and NaN go straight to the accumulator (their sums do
+// not depend on the order).  The loss: bits below the slot's largest |x|
+// x 2^-100 or so.  int64 sums wrap modulo 2^64 like the reference's.  Keys
 // and integer residuals are int32 or int64 (dates are int32, dictionary
 // codes of strings int32, booleans are promoted by the caller); residuals
 // are widened to int64 in their channels; float residuals are float64.
@@ -217,6 +229,10 @@ struct DAUpdate {
   int ch_op[DA_MAX_CH];
   int ch_f64[DA_MAX_CH];
   int nch;
+  // float64 channels: per slot three words [S][3], a 128-bit fixed-point
+  // sum (low, high) and the bits of the slot's largest finite |x|
+  unsigned long long* fx[DA_MAX_CH];
+  long long rows;  // the call's row count (headroom of the fixed point)
   // accumulators over S = D + 1 slots (slot D: the null key)
   long long kmin;
   long long D;
@@ -274,6 +290,96 @@ __device__ void overflow(const DAUpdate& a, long long r, long long key) {
   }
 }
 
+// The row's slot: key - kmin, or the null key's slot D; false for a key
+// outside the domain (an overflow row).
+__device__ __forceinline__ bool slot_of(const DAUpdate& a, long long r,
+                                        long long* slot, long long* key) {
+  *slot = a.D;
+  if (a.key_valid == nullptr || a.key_valid[r]) {
+    *key = load_i(a.key, a.key_elem, r);
+    const unsigned long long d =
+        (unsigned long long)*key - (unsigned long long)a.kmin;
+    if (*key < a.kmin || d >= (unsigned long long)a.D) return false;
+    *slot = (long long)d;
+  }
+  return true;
+}
+
+// The scale exponent of a slot whose largest finite |x| has the bits
+// m_bits: |x| * 2^k < 2^(126 - h) for its every x, h bits holding the
+// call's row count, so no sum of the slot's rows reaches 2^126.
+__device__ __forceinline__ int fx_scale(unsigned long long m_bits,
+                                        long long rows) {
+  const double m = __longlong_as_double((long long)m_bits);
+  if (!(m > 0.0)) return 0;
+  const int h = 64 - __clzll((unsigned long long)rows);
+  return 125 - h - ilogb(m);
+}
+
+// x * 2^k (finite) added exactly to the 128-bit word pair w.
+__device__ __forceinline__ void fx_add(unsigned long long* w, double x,
+                                       int k) {
+  const double y = fabs(scalbn(x, k));
+  const double hi_d = trunc(y * 0x1p-64);
+  unsigned long long hi = __double2ull_rz(hi_d);
+  unsigned long long lo = __double2ull_rz(y - hi_d * 0x1p64);
+  if (x < 0.0) {  // two's complement of the 128-bit magnitude
+    lo = ~lo + 1ULL;
+    hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
+  }
+  if (lo == 0ULL && hi == 0ULL) return;
+  const unsigned long long old = atomicAdd(w, lo);
+  atomicAdd(w + 1, hi + (old + lo < old ? 1ULL : 0ULL));
+}
+
+// Per slot, the largest finite |x| of each float64 channel over the live
+// rows, as the bits of a non-negative double (they order as unsigned
+// integers); overflow rows wait for their replay.
+__global__ void __launch_bounds__(DA_THREADS)
+da_absmax(const __grid_constant__ DAUpdate a,
+          const uint8_t* __restrict__ active, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += stride) {
+    long long slot, key;
+    if (!is_live(active, r) || !slot_of(a, r, &slot, &key)) continue;
+    for (int j = 0; j < a.nch; ++j) {
+      if (!a.ch_f64[j] || !ch_live(a, j, r)) continue;
+      const double x = fabs(static_cast<const double*>(a.ch[j])[r]);
+      if (!(x <= 1.7976931348623157e308) || x == 0.0) continue;  // finite
+      const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+      unsigned long long* m = a.fx[j] + 3 * slot + 2;
+      if (b > *m) atomicMax(m, b);
+    }
+  }
+}
+
+// Each touched slot's fixed-point sum, back in float64, added to the
+// accumulator; its words cleared for the next call.
+__global__ void __launch_bounds__(DA_THREADS)
+da_fold(const __grid_constant__ DAUpdate a, long long S) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int j = 0; j < a.nch; ++j) {
+    if (!a.ch_f64[j]) continue;
+    for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         s < S; s += stride) {
+      unsigned long long* w = a.fx[j] + 3 * s;
+      const unsigned long long m_bits = w[2];
+      if (m_bits == 0ULL) continue;  // no finite non-zero x in the slot
+      unsigned long long lo = w[0], hi = w[1];
+      w[0] = w[1] = w[2] = 0ULL;
+      const bool neg = (long long)hi < 0;
+      if (neg) {
+        lo = ~lo + 1ULL;
+        hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
+      }
+      const double mag = (double)hi * 0x1p64 + (double)lo;
+      static_cast<double*>(a.acc[j])[s] +=
+          scalbn(neg ? -mag : mag, -fx_scale(m_bits, a.rows));
+    }
+  }
+}
+
 __global__ void __launch_bounds__(DA_THREADS)
 da_update(const __grid_constant__ DAUpdate a,
           const uint8_t* __restrict__ active, long long n) {
@@ -281,23 +387,21 @@ da_update(const __grid_constant__ DAUpdate a,
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
     if (!is_live(active, r)) continue;
-    long long slot = a.D;  // the null key's slot
-    if (a.key_valid == nullptr || a.key_valid[r]) {
-      const long long key = load_i(a.key, a.key_elem, r);
-      const unsigned long long d =
-          (unsigned long long)key - (unsigned long long)a.kmin;
-      if (key < a.kmin || d >= (unsigned long long)a.D) {
-        overflow(a, r, key);
-        continue;
-      }
-      slot = (long long)d;
+    long long slot, key;
+    if (!slot_of(a, r, &slot, &key)) {
+      overflow(a, r, key);
+      continue;
     }
     a.present[slot] = 1;
     for (int j = 0; j < a.nch; ++j) {
       if (!ch_live(a, j, r)) continue;
       if (a.ch_f64[j]) {
-        atomicAdd(static_cast<double*>(a.acc[j]) + slot,
-                  static_cast<const double*>(a.ch[j])[r]);
+        const double x = static_cast<const double*>(a.ch[j])[r];
+        unsigned long long* w = a.fx[j] + 3 * slot;
+        if (isfinite(x))
+          fx_add(w, x, fx_scale(w[2], a.rows));
+        else  // inf and NaN sums do not depend on the order
+          atomicAdd(static_cast<double*>(a.acc[j]) + slot, x);
         continue;
       }
       const long long v = ch_bits(a, j, r);
@@ -454,7 +558,9 @@ extern "C" int dense_agg_stats(int nkeys, const void* const* data,
 // = float64 sum).  Accumulators: acc[j] [S] (S = D + 1), present [S],
 // vmin/vmax [nres][S] int64, vdmin/vdmax [nres][S] int32.  Overflow:
 // okey [cap], ores/ores_valid [nres][cap], och (nullptr for counts) and
-// och_valid [nch][cap], ocount and obounds device words.
+// och_valid [nch][cap], ocount and obounds device words.  Float64
+// channels: fx[j] [S][3] uint64 words, zero between calls (nullptr for the
+// other channels).
 extern "C" int dense_agg_update(
     const void* key, const void* key_valid, int key_elem, int nres,
     const void* const* res, const void* const* res_valid,
@@ -464,7 +570,8 @@ extern "C" int dense_agg_update(
     void* const* acc, void* present, void* const* vmin, void* const* vmax,
     void* const* vdmin, void* const* vdmax, long long cap, void* ocount,
     void* obounds, void* okey, void* const* ores, void* const* ores_valid,
-    void* const* och, void* const* och_valid, void* stream) {
+    void* const* och, void* const* och_valid, void* const* fx,
+    void* stream) {
   if (!elem_ok(key_elem) || nres < 0 || nres > DA_MAX_RES || nch < 0 ||
       nch > DA_MAX_CH || D < 1 || cap < 0)
     return (int)cudaErrorInvalidValue;
@@ -498,8 +605,13 @@ extern "C" int dense_agg_update(
     a.acc[j] = acc[j];
     a.och[j] = static_cast<long long*>(och[j]);
     a.och_valid[j] = static_cast<uint8_t*>(och_valid[j]);
+    a.fx[j] = static_cast<unsigned long long*>(fx[j]);
+    if (ch_f64[j] && fx[j] == nullptr) return (int)cudaErrorInvalidValue;
   }
   a.nch = nch;
+  a.rows = n;
+  bool any_f64 = false;
+  for (int j = 0; j < nch; ++j) any_f64 = any_f64 || ch_f64[j];
   a.kmin = kmin;
   a.D = D;
   a.present = static_cast<uint8_t*>(present);
@@ -507,11 +619,18 @@ extern "C" int dense_agg_update(
   a.ocount = static_cast<unsigned long long*>(ocount);
   a.obounds = static_cast<long long*>(obounds);
   a.okey = static_cast<long long*>(okey);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* act = static_cast<const uint8_t*>(active);
   int blocks = 1;
   cudaError_t err = grid_for(n, 8, &blocks);
   if (err != cudaSuccess) return (int)err;
-  da_update<<<blocks, DA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const uint8_t*>(active), n);
+  if (any_f64) da_absmax<<<blocks, DA_THREADS, 0, st>>>(a, act, n);
+  da_update<<<blocks, DA_THREADS, 0, st>>>(a, act, n);
+  if (any_f64) {
+    err = grid_for(D + 1, 8, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    da_fold<<<blocks, DA_THREADS, 0, st>>>(a, D + 1);
+  }
   return (int)cudaGetLastError();
 }
 

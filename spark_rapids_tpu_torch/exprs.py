@@ -1,8 +1,9 @@
 """Expression IR with Spark SQL semantics, evaluated with torch tensor ops.
 
-Counterpart of ``spark_rapids_tpu/exprs.py``, cut to the families this
-slice runs: column references, literals (dates included), comparisons,
-Kleene AND/OR and NOT, + - * /, and numeric casts.  The reference traces
+Counterpart of ``spark_rapids_tpu/exprs.py``, cut to the families the
+ported TPC-H queries run: column references, literals (dates included),
+comparisons, Kleene AND/OR and NOT, IN, IS [NOT] NULL, + - * / % pmod,
+unary minus, abs, IF, CASE WHEN, COALESCE and numeric casts.  The reference traces
 every expression of a stage into one XLA program; here each node is one or
 a few eager elementwise torch ops on the batch's tensors.  Fusing them into
 one hand-written kernel is later work (ROADMAP queue 2 row 1).
@@ -31,8 +32,9 @@ __all__ = [
     "Expression", "BoundReference", "UnresolvedColumn", "Literal",
     "Cast", "Add", "Subtract", "Multiply", "Divide",
     "EqualTo", "LessThan", "LessThanOrEqual", "GreaterThan",
-    "GreaterThanOrEqual", "Not", "And", "Or",
-    "Value", "EvalContext", "bind", "promote_physical", "physical_literal",
+    "GreaterThanOrEqual", "Not", "And", "Or", "Remainder", "Pmod",
+    "UnaryMinus", "Abs", "In", "IsNull", "IsNotNull", "If", "CaseWhen",
+    "Coalesce", "Value", "EvalContext", "bind", "promote_physical", "physical_literal",
     "AggregateExpression",
 ]
 
@@ -95,9 +97,9 @@ class EvalContext:
 
     def __init__(self, arrays: Sequence[Optional[Value]], num_rows: int,
                  device: torch.device, active: Optional[torch.Tensor] = None,
-                 ansi: bool = False, extras: Sequence[Value] = ()):
+                 ansi: bool = False, host: Sequence = ()):
         self.arrays = list(arrays)
-        self.extras = list(extras)
+        self.host = list(host)
         self.num_rows = num_rows
         self.device = device
         self.active = active
@@ -349,6 +351,52 @@ class Divide(BinaryExpression):
         return out, _and_valid(v, ~zero)
 
 
+class Remainder(BinaryExpression):
+    """Spark ``%``: the sign follows the dividend; null on ``% 0``."""
+    symbol = "%"
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        zero = rd == 0
+        safe = torch.where(zero, torch.ones_like(rd), rd)
+        r = torch.sign(ld) * torch.remainder(torch.abs(ld), torch.abs(safe))
+        return r.to(ld.dtype), _and_valid(v, ~zero)
+
+
+class Pmod(BinaryExpression):
+    """``pmod(a, b)``: the remainder of ``a`` by ``|b|``, never negative;
+    null on a zero divisor."""
+    symbol = "pmod"
+
+    def eval(self, ctx):
+        ld, rd, v = self._eval_children_promoted(ctx)
+        zero = rd == 0
+        safe = torch.where(zero, torch.ones_like(rd), rd)
+        return torch.remainder(ld, torch.abs(safe)).to(ld.dtype), \
+            _and_valid(v, ~zero)
+
+
+class UnaryMinus(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+        self.dtype = child.dtype
+        self.nullable = child.nullable
+
+    def _rebind(self):
+        self.dtype = self.children[0].dtype
+        self.nullable = self.children[0].nullable
+
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        return -d, v
+
+
+class Abs(UnaryMinus):
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        return torch.abs(d), v
+
+
 # ---------------------------------------------------------------------------------
 # Comparisons and boolean logic
 # ---------------------------------------------------------------------------------
@@ -445,6 +493,178 @@ class Or(BinaryExpression):
         valid_l = torch.ones_like(ld) if lv is None else lv
         valid_r = torch.ones_like(rd) if rv is None else rv
         return lt | rt, lt | rt | (valid_l & valid_r)
+
+
+class In(Expression):
+    """``col IN (literals...)``: an OR of equality tests; with a null in
+    the list, a row that matches no value is null."""
+
+    def __init__(self, child: Expression, values: Sequence[Any]):
+        self.children = (child,)
+        self.values = tuple(values)
+        self.dtype = T.BOOLEAN
+        self.nullable = child.nullable or any(v is None for v in values)
+
+    def _rebind(self):
+        self.nullable = self.children[0].nullable \
+            or any(v is None for v in self.values)
+
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        hit = torch.zeros_like(d, dtype=torch.bool)
+        for val in self.values:
+            if val is not None:
+                hit = hit | (d == Literal(val, self.children[0].dtype)
+                             .eval(ctx)[0])
+        if any(x is None for x in self.values):
+            v = _and_valid(v, hit)
+        return hit, v
+
+    def _fp_extra(self):
+        return f"{self.values!r}"
+
+
+class IsNull(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+        self.dtype = T.BOOLEAN
+        self.nullable = False
+
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        if v is None:
+            return torch.zeros_like(d, dtype=torch.bool), None
+        return ~v, None
+
+
+class IsNotNull(IsNull):
+    def eval(self, ctx):
+        d, v = self.children[0].eval(ctx)
+        if v is None:
+            return torch.ones_like(d, dtype=torch.bool), None
+        return v, None
+
+
+def _ones(ref: torch.Tensor) -> torch.Tensor:
+    return torch.ones_like(ref, dtype=torch.bool)
+
+
+class If(Expression):
+    """``if(pred, then, else)``: a null predicate takes the else branch
+    (both branches are evaluated; ``torch.where`` selects)."""
+
+    def __init__(self, pred: Expression, then: Expression, other: Expression):
+        self.children = (pred, then, other)
+        if then.resolved() and other.resolved():
+            self.dtype = T.common_type(then.dtype, other.dtype)
+            self.nullable = pred.nullable or then.nullable or other.nullable
+
+    def _rebind(self):
+        _, then, other = self.children
+        self.dtype = T.common_type(then.dtype, other.dtype)
+        self.nullable = any(c.nullable for c in self.children)
+
+    def eval(self, ctx):
+        p, pv = self.children[0].eval(ctx)
+        td, tv = self.children[1].eval(ctx)
+        ed, ev = self.children[2].eval(ctx)
+        tdt = self.dtype.torch_dtype
+        cond = p if pv is None else p & pv
+        data = torch.where(cond, td.to(tdt), ed.to(tdt))
+        if tv is None and ev is None:
+            return data, None
+        tv = _ones(cond) if tv is None else tv
+        ev = _ones(cond) if ev is None else ev
+        return data, torch.where(cond, tv, ev)
+
+
+class CaseWhen(Expression):
+    """``CASE WHEN c1 THEN v1 ... ELSE e END``: the first branch whose
+    condition is true (not null) wins; no ELSE gives null."""
+
+    def __init__(self, branches: Sequence[Tuple[Expression, Expression]],
+                 otherwise: Optional[Expression] = None):
+        flat: List[Expression] = []
+        for c, v in branches:
+            flat += [c, v]
+        if otherwise is not None:
+            flat.append(otherwise)
+        self.branches = list(branches)
+        self.otherwise = otherwise
+        self.children = tuple(flat)
+        vals = [v for _, v in branches] + ([otherwise] if otherwise else [])
+        if all(v.resolved() for v in vals):
+            self._set_type(vals)
+            self.nullable = self.nullable \
+                or any(c.nullable for c, _ in branches)
+
+    def _set_type(self, vals):
+        dt = vals[0].dtype
+        for v in vals[1:]:
+            dt = T.common_type(dt, v.dtype)
+        self.dtype = dt
+        self.nullable = self.otherwise is None \
+            or any(v.nullable for v in vals)
+
+    def _rebind(self):
+        n = len(self.branches)
+        kids = self.children
+        self.branches = [(kids[2 * i], kids[2 * i + 1]) for i in range(n)]
+        self.otherwise = kids[2 * n] if len(kids) > 2 * n else None
+        self._set_type([v for _, v in self.branches]
+                       + ([self.otherwise] if self.otherwise else []))
+
+    def eval(self, ctx):
+        tdt = self.dtype.torch_dtype
+        if self.otherwise is not None:
+            out_d, out_v = self.otherwise.eval(ctx)
+            out_d = out_d.to(tdt)
+        else:
+            out_d = torch.zeros(ctx.num_rows, dtype=tdt, device=ctx.device)
+            out_v = torch.zeros(ctx.num_rows, dtype=torch.bool,
+                                device=ctx.device)
+        # last to first, so that the first matching branch wins
+        for cond_e, val_e in reversed(self.branches):
+            cd, cv = cond_e.eval(ctx)
+            c = cd if cv is None else cd & cv
+            vd, vv = val_e.eval(ctx)
+            out_d = torch.where(c, vd.to(tdt), out_d)
+            if vv is not None or out_v is not None:
+                vv = _ones(c) if vv is None else vv
+                ov = _ones(c) if out_v is None else out_v
+                out_v = torch.where(c, vv, ov)
+        return out_d, out_v
+
+
+class Coalesce(Expression):
+    """The first non-null argument; null only where every one is."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+        if all(c.resolved() for c in children):
+            self._rebind()
+
+    def _rebind(self):
+        dt = self.children[0].dtype
+        for c in self.children[1:]:
+            dt = T.common_type(dt, c.dtype)
+        self.dtype = dt
+        self.nullable = all(c.nullable for c in self.children)
+
+    def eval(self, ctx):
+        tdt = self.dtype.torch_dtype
+        out_d = torch.zeros(ctx.num_rows, dtype=tdt, device=ctx.device)
+        out_v = torch.zeros(ctx.num_rows, dtype=torch.bool, device=ctx.device)
+        for c in reversed(self.children):
+            d, v = c.eval(ctx)
+            if v is None:
+                out_d = d.to(tdt).expand(ctx.num_rows)
+                out_v = torch.ones(ctx.num_rows, dtype=torch.bool,
+                                   device=ctx.device)
+            else:
+                out_d = torch.where(v, d.to(tdt), out_d)
+                out_v = out_v | v
+        return out_d, (out_v if self.nullable else None)
 
 
 # ---------------------------------------------------------------------------------

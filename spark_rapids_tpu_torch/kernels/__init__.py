@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
            "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
-           "window_scan", "window_frame")
+           "window_scan", "window_frame", "cond_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,10 +100,10 @@ _SIGNATURES = {
         # res_f64[], nch, ch[], ch_valid[], ch_op[], ch_f64[], active, n,
         # kmin, D, acc[], present, vmin[], vmax[], vdmin[], vdmax[], cap,
         # ocount, obounds, okey, ores[], ores_valid[], och[], och_valid[],
-        # stream
+        # fx[], stream
         "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                              _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L,
-                             _P, _P, _P, _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
         # nres, vmin[], vmax[], vdmin[], vdmax[], res_f64[], present, S, out,
         # stream
         "dense_agg_check": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P],
@@ -172,6 +172,14 @@ _SIGNATURES = {
         # is_f64, is_max, vals, mask, identity_bits, lo, hi, n, out,
         # out_valid, stream
         "frame_minmax": [_I, _I, _P, _P, _L, _P, _P, _L, _P, _P, _P],
+    },
+    "cond_join": {
+        # offsets, lo, b_perm, n, total, pi, bi, stream
+        "cond_expand": [_P, _P, _P, _L, _L, _P, _P, _P],
+        # keep, pi, bi, total, pcount, bcount, stream
+        "cond_counts": [_P, _P, _P, _L, _P, _P, _P],
+        # n_l, n_r, pi, bi, stream
+        "cross_pairs": [_L, _L, _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

@@ -1,5 +1,6 @@
-"""TPC-H data, Q6, Q1, Q3, Q4, Q10, Q11, Q13, Q18 and Q21, the lineitem
-sort and the per-supplier window history, and numpy oracles.
+"""TPC-H data, all 22 queries of the reference suite and Q21 in its EXISTS
+form, the lineitem sort and the per-supplier window history, and numpy
+oracles.
 
 Counterpart of ``spark_rapids_tpu/models/tpch.py`` and
 ``spark_rapids_tpu/models/tpch_suite.py``.  The generators are numpy-only
@@ -13,7 +14,10 @@ mirror the suite's ``run_q*``; the oracles are plain numpy
 (``np.add.at``/``np.bincount`` for the groups, ``np.unique`` and
 ``np.isin`` for the distinct pairs and the semi/anti joins, direct
 addressing for the dense keys, stable sorts for the ORDER BY and the
-windows), independent of both engines.
+windows), independent of both engines.  ``QUERY_TABLES`` names each
+later query's tables in argument order; ``q21_exists`` builds its
+conditioned semi and anti joins as logical ``Join`` nodes
+(``conditioned_join``), so the same plan runs in either package.
 
 ``sort_lineitem`` is a global ORDER BY over a lineitem projection handed to
 the device (``to_device_arrays``), as a user does before a clustered write
@@ -38,13 +42,24 @@ __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "q21", "sort_lineitem", "supplier_history", "SORT_COLUMNS",
            "HISTORY_CUTOFF", "q6_numpy", "q1_numpy", "q3_numpy", "q4_numpy",
            "q10_numpy", "q11_numpy", "q13_numpy", "q18_numpy", "q21_numpy",
-           "sort_lineitem_numpy", "supplier_history_numpy"]
+           "sort_lineitem_numpy", "supplier_history_numpy", "TYPES",
+           "CONTAINERS", "QUERY_TABLES", "Q22_CODES", "q2", "q5", "q7", "q8",
+           "q9", "q12", "q14", "q15", "q16", "q17", "q19", "q20", "q22",
+           "conditioned_join", "q21_exists", "q2_numpy", "q5_numpy",
+           "q7_numpy", "q8_numpy", "q9_numpy", "q12_numpy", "q14_numpy",
+           "q15_numpy", "q16_numpy", "q17_numpy", "q19_numpy", "q20_numpy",
+           "q22_numpy", "q21_exists_numpy"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+TYPES = ["PROMO BRUSHED COPPER", "STANDARD POLISHED BRASS",
+         "PROMO ANODIZED TIN", "ECONOMY BURNISHED NICKEL",
+         "PROMO PLATED STEEL", "SMALL PLATED COPPER",
+         "MEDIUM BRUSHED STEEL", "LARGE ANODIZED BRASS"]
+CONTAINERS = ["SM CASE", "SM BOX", "MED BAG", "MED BOX", "LG CASE", "LG BOX"]
 NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
            "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
            "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
@@ -128,16 +143,21 @@ def gen_customer_arrays(sf: float, seed: int = 19940101,
 _DB_SF1_ROWS = {"lineitem": 6_001_215, "orders": 1_500_000,
                 "customer": 150_000, "part": 200_000, "partsupp": 800_000,
                 "supplier": 10_000}
-DB_TABLES = ("nation", "customer", "supplier", "partsupp", "orders",
-             "lineitem")
-_DB_SEEDS = {"nation": 1001, "customer": 1002, "supplier": 1003,
-             "partsupp": 1005, "orders": 1006, "lineitem": 1007}
+DB_TABLES = ("region", "nation", "customer", "supplier", "part", "partsupp",
+             "orders", "lineitem")
+# region takes no draws (the reference writes it before nation, from
+# nation's generator)
+_DB_SEEDS = {"region": 1001, "nation": 1001, "customer": 1002,
+             "supplier": 1003, "part": 1004, "partsupp": 1005,
+             "orders": 1006, "lineitem": 1007}
 
 
 def db_rows(table: str, sf: float) -> int:
     """Rows of ``table`` at ``sf`` in the reference suite's ``gen_db``."""
     if table == "nation":
         return len(NATIONS)
+    if table == "region":
+        return len(REGIONS)
     if table == "partsupp":
         return 4 * db_rows("part", sf)
     return max(8, int(_DB_SF1_ROWS[table] * sf))
@@ -169,7 +189,27 @@ def gen_db_arrays(sf: float, tables=DB_TABLES, columns=None,
         cols = None if columns is None else columns.get(table)
         rng = np.random.default_rng(_DB_SEEDS[table])
         parts: Dict[str, List[np.ndarray]] = {}
-        if table == "nation":
+        if table == "region":
+            _keep(parts, cols, "r_regionkey",
+                  lambda: np.arange(len(REGIONS), dtype=np.int64))
+            _keep(parts, cols, "r_name", lambda: np.array(REGIONS))
+        elif table == "part":
+            n = n_part
+            brands = np.array([f"Brand#{i}{j}" for i in range(1, 6)
+                               for j in range(1, 6)])
+            _keep(parts, cols, "p_partkey",
+                  lambda: np.arange(1, n + 1, dtype=np.int64))
+            _keep(parts, cols, "p_name", lambda: np.array(
+                [f"part {i} goldenrod" if i % 7 == 0 else f"part {i}"
+                 for i in range(1, n + 1)]))
+            _keep(parts, cols, "p_type",
+                  lambda: rng.choice(np.array(TYPES), n))
+            _keep(parts, cols, "p_size", lambda: rng.integers(
+                1, 51, n).astype(np.int64))
+            _keep(parts, cols, "p_container",
+                  lambda: rng.choice(np.array(CONTAINERS), n))
+            _keep(parts, cols, "p_brand", lambda: rng.choice(brands, n))
+        elif table == "nation":
             n = len(NATIONS)
             _keep(parts, cols, "n_nationkey",
                   lambda: np.arange(n, dtype=np.int64))
@@ -847,3 +887,667 @@ def supplier_history_numpy(lineitem: Dict[str, np.ndarray],
             "supp_max": supp_max}
     return {c: (a, prev_ok if c == "prev_price" else None)
             for c, a in cols.items()}
+
+
+# ---------------------------------------------------------------------------------
+# The rest of TPC-H (tpch_suite.py:206-586): Q2, Q5, Q7, Q8, Q9, Q12, Q14,
+# Q15, Q16, Q17, Q19, Q20, Q22, and Q21 in its EXISTS form
+# ---------------------------------------------------------------------------------
+
+# the tables each query takes, in its argument order
+QUERY_TABLES = {
+    "q2": ("partsupp", "supplier", "nation", "region", "part"),
+    "q5": ("customer", "orders", "lineitem", "supplier", "nation", "region"),
+    "q7": ("supplier", "lineitem", "orders", "customer", "nation"),
+    "q8": ("lineitem", "part", "supplier", "orders", "customer", "nation",
+           "region"),
+    "q9": ("part", "lineitem", "supplier", "nation", "orders"),
+    "q12": ("orders", "lineitem"),
+    "q14": ("lineitem", "part"),
+    "q15": ("lineitem", "supplier"),
+    "q16": ("partsupp", "supplier", "part"),
+    "q17": ("lineitem", "part"),
+    "q19": ("lineitem", "part"),
+    "q20": ("lineitem", "part", "partsupp", "supplier", "nation"),
+    "q22": ("customer", "orders"),
+    "q21_exists": ("lineitem", "orders", "supplier"),
+}
+D = datetime.date
+
+
+def _F():
+    from ..sql import functions
+    return functions
+
+
+def q2(partsupp, supplier, nation, region, part):
+    """TPC-H Q2 minimum cost supplier (tpch_suite.py:206 run_q2): the
+    European suppliers' cheapest offer per part of size 15."""
+    f = _F()
+    eu_sup = (supplier
+              .join(nation, on=[("s_nationkey", "n_nationkey")])
+              .join(region.filter(f.col("r_name") == "EUROPE"),
+                    on=[("n_regionkey", "r_regionkey")]))
+    ps_eu = partsupp.join(eu_sup, on=[("ps_suppkey", "s_suppkey")])
+    min_cost = (ps_eu.group_by("ps_partkey")
+                .agg(f.min(f.col("ps_supplycost")).alias("min_cost")))
+    return (ps_eu.join(min_cost, on=["ps_partkey"])
+            .filter(f.col("ps_supplycost") == f.col("min_cost"))
+            .join(part.filter(f.col("p_size") == 15),
+                  on=[("ps_partkey", "p_partkey")])
+            .select("s_acctbal", "s_name", "n_name", "ps_partkey",
+                    "ps_supplycost")
+            .sort(f.col("s_acctbal").desc(), "s_name", "ps_partkey")
+            .limit(100))
+
+
+def q5(customer, orders, lineitem, supplier, nation, region):
+    """TPC-H Q5 local supplier volume (tpch_suite.py:245 run_q5)."""
+    f = _F()
+    lo, hi = D(1994, 1, 1), D(1995, 1, 1)
+    return (customer
+            .join(orders, on=[("c_custkey", "o_custkey")])
+            .filter((f.col("o_orderdate") >= lo) & (f.col("o_orderdate") < hi))
+            .join(lineitem, on=[("o_orderkey", "l_orderkey")])
+            .join(supplier, on=[("l_suppkey", "s_suppkey")])
+            .filter(f.col("c_nationkey") == f.col("s_nationkey"))
+            .join(nation, on=[("s_nationkey", "n_nationkey")])
+            .join(region.filter(f.col("r_name") == "ASIA"),
+                  on=[("n_regionkey", "r_regionkey")])
+            .select("n_name",
+                    (f.col("l_extendedprice") * (1 - f.col("l_discount")))
+                    .alias("volume"))
+            .group_by("n_name").agg(f.sum(f.col("volume")).alias("revenue"))
+            .sort(f.col("revenue").desc()))
+
+
+def q7(supplier, lineitem, orders, customer, nation):
+    """TPC-H Q7 volume shipping (tpch_suite.py:269 run_q7): the nation
+    pair's filter reads two string columns that joins produced."""
+    f = _F()
+    n1, n2 = "FRANCE", "GERMANY"
+    lo, hi = D(1995, 1, 1), D(1996, 12, 31)
+    sup_n = nation.filter(f.col("n_name").isin(n1, n2)) \
+        .select(f.col("n_nationkey").alias("sn_key"),
+                f.col("n_name").alias("supp_nation"))
+    cust_n = nation.filter(f.col("n_name").isin(n1, n2)) \
+        .select(f.col("n_nationkey").alias("cn_key"),
+                f.col("n_name").alias("cust_nation"))
+    return (supplier.join(sup_n, on=[("s_nationkey", "sn_key")])
+            .join(lineitem, on=[("s_suppkey", "l_suppkey")])
+            .filter((f.col("l_shipdate") >= lo) & (f.col("l_shipdate") <= hi))
+            .join(orders, on=[("l_orderkey", "o_orderkey")])
+            .join(customer, on=[("o_custkey", "c_custkey")])
+            .join(cust_n, on=[("c_nationkey", "cn_key")])
+            .filter(((f.col("supp_nation") == n1)
+                     & (f.col("cust_nation") == n2))
+                    | ((f.col("supp_nation") == n2)
+                       & (f.col("cust_nation") == n1)))
+            .select("supp_nation", "cust_nation",
+                    f.year(f.col("l_shipdate")).alias("l_year"),
+                    (f.col("l_extendedprice") * (1 - f.col("l_discount")))
+                    .alias("volume"))
+            .group_by("supp_nation", "cust_nation", "l_year")
+            .agg(f.sum(f.col("volume")).alias("revenue"))
+            .sort("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(lineitem, part, supplier, orders, customer, nation, region):
+    """TPC-H Q8 national market share (tpch_suite.py:298 run_q8)."""
+    f = _F()
+    lo, hi = D(1995, 1, 1), D(1996, 12, 31)
+    n2 = nation.select(f.col("n_nationkey").alias("n2_key"),
+                       f.col("n_name").alias("n2_name"))
+    return (lineitem
+            .join(part, on=[("l_partkey", "p_partkey")])
+            .join(supplier, on=[("l_suppkey", "s_suppkey")])
+            .join(orders, on=[("l_orderkey", "o_orderkey")])
+            .filter((f.col("o_orderdate") >= lo) & (f.col("o_orderdate") <= hi))
+            .join(customer, on=[("o_custkey", "c_custkey")])
+            .join(nation, on=[("c_nationkey", "n_nationkey")])
+            .join(region.filter(f.col("r_name") == "AMERICA"),
+                  on=[("n_regionkey", "r_regionkey")])
+            .join(n2, on=[("s_nationkey", "n2_key")])
+            .with_column("o_year", f.year(f.col("o_orderdate")))
+            .with_column("volume",
+                         f.col("l_extendedprice") * (1 - f.col("l_discount")))
+            .with_column("brazil_volume",
+                         f.when(f.col("n2_name") == "BRAZIL",
+                                f.col("volume")).otherwise(f.lit(0.0)))
+            .group_by("o_year")
+            .agg(f.sum(f.col("brazil_volume")).alias("bv"),
+                 f.sum(f.col("volume")).alias("tv"))
+            .select("o_year", (f.col("bv") / f.col("tv")).alias("mkt_share"))
+            .sort("o_year"))
+
+
+def q9(part, lineitem, supplier, nation, orders):
+    """TPC-H Q9 product type profit (tpch_suite.py:329 run_q9)."""
+    f = _F()
+    return (part.filter(f.col("p_name").like("%goldenrod%"))
+            .join(lineitem, on=[("p_partkey", "l_partkey")])
+            .join(supplier, on=[("l_suppkey", "s_suppkey")])
+            .join(nation, on=[("s_nationkey", "n_nationkey")])
+            .join(orders, on=[("l_orderkey", "o_orderkey")])
+            .select(f.col("n_name").alias("nation"),
+                    f.year(f.col("o_orderdate")).alias("o_year"),
+                    (f.col("l_extendedprice") * (1 - f.col("l_discount"))
+                     - f.lit(0.01) * f.col("l_quantity")).alias("amount"))
+            .group_by("nation", "o_year")
+            .agg(f.sum(f.col("amount")).alias("sum_profit"))
+            .sort("nation", f.col("o_year").desc()))
+
+
+def q12(orders, lineitem):
+    """TPC-H Q12 shipping modes and order priority (tpch_suite.py:380
+    run_q12)."""
+    f = _F()
+    lo, hi = D(1994, 1, 1), D(1995, 1, 1)
+    high = f.when(f.col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                  f.lit(1)).otherwise(f.lit(0))
+    low = f.when(~f.col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                 f.lit(1)).otherwise(f.lit(0))
+    return (orders
+            .join(lineitem
+                  .filter(f.col("l_shipmode").isin("MAIL", "SHIP")
+                          & (f.col("l_commitdate") < f.col("l_receiptdate"))
+                          & (f.col("l_shipdate") < f.col("l_commitdate"))
+                          & (f.col("l_receiptdate") >= lo)
+                          & (f.col("l_receiptdate") < hi)),
+                  on=[("o_orderkey", "l_orderkey")])
+            .select("l_shipmode", high.alias("high"), low.alias("low"))
+            .group_by("l_shipmode")
+            .agg(f.sum(f.col("high")).alias("high_line_count"),
+                 f.sum(f.col("low")).alias("low_line_count"))
+            .sort("l_shipmode"))
+
+
+def q14(lineitem, part):
+    """TPC-H Q14 promotion effect (tpch_suite.py:418 run_q14)."""
+    f = _F()
+    lo, hi = D(1995, 9, 1), D(1995, 10, 1)
+    vol = f.col("l_extendedprice") * (1 - f.col("l_discount"))
+    return (lineitem
+            .filter((f.col("l_shipdate") >= lo) & (f.col("l_shipdate") < hi))
+            .join(part, on=[("l_partkey", "p_partkey")])
+            .select(f.when(f.col("p_type").like("PROMO%"), vol)
+                    .otherwise(f.lit(0.0)).alias("promo"),
+                    vol.alias("total"))
+            .agg(f.sum(f.col("promo")).alias("p"),
+                 f.sum(f.col("total")).alias("t"))
+            .select((f.col("p") / f.col("t") * 100.0).alias("promo_revenue")))
+
+
+def q15(lineitem, supplier):
+    """TPC-H Q15 top supplier (tpch_suite.py:433 run_q15): runs the
+    maximum's query (collected); returns the DataFrame of the second, which
+    keeps the suppliers whose revenue equals it."""
+    f = _F()
+    lo, hi = D(1996, 1, 1), D(1996, 4, 1)
+    revenue = (lineitem
+               .filter((f.col("l_shipdate") >= lo)
+                       & (f.col("l_shipdate") < hi))
+               .with_column("rev", f.col("l_extendedprice")
+                            * (1 - f.col("l_discount")))
+               .group_by("l_suppkey")
+               .agg(f.sum(f.col("rev")).alias("total_revenue")))
+    top = revenue.agg(f.max(f.col("total_revenue")).alias("m")) \
+        .collect()[0][0]
+    return (supplier
+            .join(revenue.filter(f.col("total_revenue") == f.lit(top)),
+                  on=[("s_suppkey", "l_suppkey")])
+            .select("s_suppkey", "s_name", "total_revenue")
+            .sort("s_suppkey"))
+
+
+def q16(partsupp, supplier, part):
+    """TPC-H Q16 parts/supplier relationship (tpch_suite.py:452 run_q16)."""
+    f = _F()
+    bad = supplier.filter(f.col("s_acctbal") < 0)
+    return (partsupp
+            .join(bad, on=[("ps_suppkey", "s_suppkey")], how="anti")
+            .join(part.filter((f.col("p_brand") != "Brand#45")
+                              & (f.col("p_size").isin(1, 4, 7, 10, 14, 23))),
+                  on=[("ps_partkey", "p_partkey")])
+            .select("p_brand", "p_type", "p_size", "ps_suppkey").distinct()
+            .group_by("p_brand", "p_type", "p_size")
+            .agg(f.count_star().alias("supplier_cnt"))
+            .sort(f.col("supplier_cnt").desc(), "p_brand", "p_type",
+                  "p_size"))
+
+
+def q17(lineitem, part):
+    """TPC-H Q17 small-quantity-order revenue (tpch_suite.py:467
+    run_q17)."""
+    f = _F()
+    parts = part.filter(f.col("p_container") == "JUMBO PKG")
+    avg_qty = (lineitem.group_by("l_partkey")
+               .agg(f.avg(f.col("l_quantity")).alias("aq"))
+               .select(f.col("l_partkey").alias("ak"),
+                       (f.col("aq") * 0.2).alias("lim")))
+    return (lineitem
+            .join(parts, on=[("l_partkey", "p_partkey")])
+            .join(avg_qty, on=[("l_partkey", "ak")])
+            .filter(f.col("l_quantity") < f.col("lim"))
+            .agg(f.sum(f.col("l_extendedprice")).alias("s"))
+            .select((f.col("s") / 7.0).alias("avg_yearly")))
+
+
+def q19(lineitem, part):
+    """TPC-H Q19 discounted revenue (tpch_suite.py:497 run_q19): the
+    container lists read a string column the join produced."""
+    f = _F()
+    return (lineitem
+            .join(part, on=[("l_partkey", "p_partkey")])
+            .filter(
+                (f.col("p_container").isin("SM CASE", "SM BOX")
+                 & (f.col("l_quantity") >= 1) & (f.col("l_quantity") <= 20)
+                 & (f.col("p_size") <= 15))
+                | (f.col("p_container").isin("MED BAG", "MED BOX")
+                   & (f.col("l_quantity") >= 10)
+                   & (f.col("l_quantity") <= 30)
+                   & (f.col("p_size") <= 25)))
+            .agg(f.sum(f.col("l_extendedprice") * (1 - f.col("l_discount")))
+                 .alias("revenue")))
+
+
+def q20(lineitem, part, partsupp, supplier, nation):
+    """TPC-H Q20 potential part promotion (tpch_suite.py:512 run_q20)."""
+    f = _F()
+    lo, hi = D(1994, 1, 1), D(1995, 1, 1)
+    shipped = (lineitem
+               .filter((f.col("l_shipdate") >= lo)
+                       & (f.col("l_shipdate") < hi))
+               .group_by("l_partkey", "l_suppkey")
+               .agg(f.sum(f.col("l_quantity")).alias("sq"))
+               .with_column("half_qty", f.col("sq") * 0.5))
+    forest = part.filter(f.like(f.col("p_name"), "part 1%"))
+    excess = (partsupp
+              .join(forest, on=[("ps_partkey", "p_partkey")], how="semi")
+              .join(shipped.select(f.col("l_partkey").alias("pk"),
+                                   f.col("l_suppkey").alias("sk"),
+                                   "half_qty"),
+                    on=[("ps_partkey", "pk"), ("ps_suppkey", "sk")])
+              .filter(f.col("ps_availqty") > f.col("half_qty")))
+    return (supplier
+            .join(excess, on=[("s_suppkey", "ps_suppkey")], how="semi")
+            .join(nation.filter(f.col("n_name") == "CANADA"),
+                  on=[("s_nationkey", "n_nationkey")])
+            .select("s_name", "s_suppkey").sort("s_name"))
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def q22(customer, orders):
+    """TPC-H Q22 global sales opportunity (tpch_suite.py:567 run_q22):
+    groups and filters on ``substring(c_phone, 1, 2)``, a string column
+    the stage computes; runs the average balance's query (collected) and
+    returns the DataFrame of the second."""
+    f = _F()
+    cust = customer.with_column(
+        "cntrycode", f.substring(f.col("c_phone"), 1, 2))
+    in_codes = cust.filter(f.col("cntrycode").isin(*Q22_CODES))
+    avg_bal = in_codes.filter(f.col("c_acctbal") > 0.0) \
+        .agg(f.avg(f.col("c_acctbal")).alias("a")).collect()[0][0]
+    return (in_codes.filter(f.col("c_acctbal") > f.lit(avg_bal))
+            .join(orders, on=[("c_custkey", "o_custkey")], how="anti")
+            .group_by("cntrycode")
+            .agg(f.count_star().alias("numcust"),
+                 f.sum(f.col("c_acctbal")).alias("totacctbal"))
+            .sort("cntrycode"))
+
+
+def conditioned_join(left, right, on, how: str, condition, logical=None):
+    """``left`` joined to ``right`` on the (left, right) name pairs ``on``
+    with a residual ``condition`` (a Column over both sides' columns), as
+    Spark plans a correlated EXISTS: the logical ``Join`` wrapped in a
+    DataFrame of ``left``'s package (``DataFrame.join`` has no condition
+    argument).  ``logical`` is that package's ``plan.logical`` module
+    (default: this one's)."""
+    import importlib
+    if logical is None:
+        from ..plan import logical
+    # the expression module of the condition's package
+    exprs = importlib.import_module(type(condition.expr).__module__)
+    node = logical.Join(left._plan, right._plan,
+                        [exprs.UnresolvedColumn(a) for a, _ in on],
+                        [exprs.UnresolvedColumn(b) for _, b in on],
+                        how=how, condition=condition.expr)
+    return type(left)(node, left.session)
+
+
+def q21_exists(lineitem, orders, supplier, functions=None, logical=None):
+    """TPC-H Q21 suppliers who kept orders waiting, in the official EXISTS
+    form as Spark plans it: the late lineitems ``l1`` semi-joined to every
+    lineitem of their order under ``l2.l_suppkey <> l1.l_suppkey`` (EXISTS)
+    and anti-joined to the late ones under the same condition (NOT
+    EXISTS), semi-joined to the orders with status 'F', joined to
+    supplier; late lines counted per supplier name, top 100.  Counts
+    ``l1`` rows, where ``q21`` (the reference suite's rewrite) counts
+    distinct (order, supplier) pairs.  ``functions`` and ``logical`` are
+    the DataFrame's package's modules (default: this one's)."""
+    f = functions if functions is not None else _F()
+    late = f.col("l_receiptdate") > f.col("l_commitdate")
+    l1 = lineitem.filter(late)
+    l2 = lineitem.select(f.col("l_orderkey").alias("l2_orderkey"),
+                         f.col("l_suppkey").alias("l2_suppkey"))
+    l3 = lineitem.filter(late).select(
+        f.col("l_orderkey").alias("l3_orderkey"),
+        f.col("l_suppkey").alias("l3_suppkey"))
+    exists = conditioned_join(
+        l1, l2, [("l_orderkey", "l2_orderkey")], "semi",
+        f.col("l2_suppkey") != f.col("l_suppkey"), logical)
+    waiting = conditioned_join(
+        exists, l3, [("l_orderkey", "l3_orderkey")], "anti",
+        f.col("l3_suppkey") != f.col("l_suppkey"), logical)
+    return (waiting
+            .join(orders.filter(f.col("o_orderstatus") == "F"),
+                  on=[("l_orderkey", "o_orderkey")], how="semi")
+            .join(supplier, on=[("l_suppkey", "s_suppkey")])
+            .group_by("s_name")
+            .agg(f.count_star().alias("numwait"))
+            .sort(f.col("numwait").desc(), "s_name").limit(100))
+
+
+# -- numpy oracles of the rest of TPC-H -----------------------------------------
+#
+# Every key of gen_db is dense (c_custkey, o_orderkey, p_partkey and
+# s_suppkey are 1..n, the nation and region keys 0..n-1), so the joins are
+# direct addressing; groups use np.unique over small label sets or a sort
+# of packed int64 keys (``_distinct``).
+
+def _dense(table: Dict[str, np.ndarray], key: str, base: int = 1) -> None:
+    k = table[key]
+    if not np.array_equal(k, np.arange(base, base + len(k))):
+        raise ValueError(f"the oracle needs {key} = {base}..{base}+n-1")
+
+
+def _year(days) -> np.ndarray:
+    return days.astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def _group_sum(labels: np.ndarray, x: np.ndarray):
+    """(distinct labels in order, the sum of ``x`` per label)."""
+    keys, inv = np.unique(labels, return_inverse=True)
+    return keys, np.bincount(inv.reshape(-1), weights=x,
+                             minlength=len(keys))
+
+
+def _in_range(d, lo: str, hi: str, closed: bool = False):
+    lo, hi = np.datetime64(lo), np.datetime64(hi)
+    return (d >= lo) & ((d <= hi) if closed else (d < hi))
+
+
+def _vol(li, m):
+    return li["l_extendedprice"][m] * (1 - li["l_discount"][m])
+
+
+def q2_numpy(partsupp, supplier, nation, region, part, k: int = 100):
+    """Q2: (s_acctbal, s_name, n_name, ps_partkey, ps_supplycost),
+    s_acctbal descending, then s_name, then ps_partkey."""
+    _dense(supplier, "s_suppkey")
+    _dense(part, "p_partkey")
+    eu = region["r_regionkey"][region["r_name"] == "EUROPE"]
+    n_eu = np.isin(nation["n_regionkey"], eu)
+    sn = supplier["s_nationkey"]
+    ps_s = partsupp["ps_suppkey"] - 1
+    ok = n_eu[sn[ps_s]]
+    pk, cost = partsupp["ps_partkey"], partsupp["ps_supplycost"]
+    min_cost = np.full(len(part["p_partkey"]) + 1, np.inf)
+    np.minimum.at(min_cost, pk[ok], cost[ok])
+    rows = np.flatnonzero(ok & (cost == min_cost[pk])
+                          & (part["p_size"][pk - 1] == 15))
+    s = ps_s[rows]
+    bal, name = supplier["s_acctbal"][s], supplier["s_name"][s]
+    order = np.lexsort((pk[rows], name, -bal))[:k]
+    return [(float(bal[i]), str(name[i]),
+             str(nation["n_name"][sn[s[i]]]), int(pk[rows][i]),
+             float(cost[rows][i])) for i in order]
+
+
+def q5_numpy(customer, orders, lineitem, supplier, nation, region):
+    """Q5: (n_name, revenue), revenue descending."""
+    for t, c in ((customer, "c_custkey"), (orders, "o_orderkey"),
+                 (supplier, "s_suppkey")):
+        _dense(t, c)
+    o = lineitem["l_orderkey"] - 1
+    cn = customer["c_nationkey"][orders["o_custkey"][o] - 1]
+    sn = supplier["s_nationkey"][lineitem["l_suppkey"] - 1]
+    asia = region["r_regionkey"][region["r_name"] == "ASIA"]
+    m = (_in_range(orders["o_orderdate"][o], "1994-01-01", "1995-01-01")
+         & (cn == sn) & np.isin(nation["n_regionkey"][sn], asia))
+    keys, rev = _group_sum(sn[m], _vol(lineitem, m))
+    order = np.argsort(-rev, kind="stable")
+    return [(str(nation["n_name"][keys[i]]), float(rev[i])) for i in order]
+
+
+def q7_numpy(supplier, lineitem, orders, customer, nation):
+    """Q7: (supp_nation, cust_nation, l_year, revenue) in that order."""
+    for t, c in ((customer, "c_custkey"), (orders, "o_orderkey"),
+                 (supplier, "s_suppkey")):
+        _dense(t, c)
+    names = nation["n_name"]
+    sn = names[supplier["s_nationkey"][lineitem["l_suppkey"] - 1]]
+    cn = names[customer["c_nationkey"][
+        orders["o_custkey"][lineitem["l_orderkey"] - 1] - 1]]
+    ship = lineitem["l_shipdate"]
+    pair = (((sn == "FRANCE") & (cn == "GERMANY"))
+            | ((sn == "GERMANY") & (cn == "FRANCE")))
+    m = _in_range(ship, "1995-01-01", "1996-12-31", closed=True) & pair
+    label = np.char.add(np.char.add(sn[m], "|"), cn[m])
+    year = _year(ship[m])
+    keys, inv = np.unique(np.char.add(label, year.astype(str)),
+                          return_inverse=True)
+    rev = np.bincount(inv.reshape(-1), weights=_vol(lineitem, m),
+                      minlength=len(keys))
+    rows = []
+    for i, kk in enumerate(keys.tolist()):
+        a, b = kk.split("|")
+        rows.append((a, b[:-4], int(b[-4:]), float(rev[i])))
+    return sorted(rows, key=lambda r: r[:3])
+
+
+def q8_numpy(lineitem, part, supplier, orders, customer, nation, region):
+    """Q8: (o_year, mkt_share) by year."""
+    for t, c in ((customer, "c_custkey"), (orders, "o_orderkey"),
+                 (supplier, "s_suppkey"), (part, "p_partkey")):
+        _dense(t, c)
+    o = lineitem["l_orderkey"] - 1
+    od = orders["o_orderdate"][o]
+    cn = customer["c_nationkey"][orders["o_custkey"][o] - 1]
+    america = region["r_regionkey"][region["r_name"] == "AMERICA"]
+    m = (_in_range(od, "1995-01-01", "1996-12-31", closed=True)
+         & np.isin(nation["n_regionkey"][cn], america))
+    vol = _vol(lineitem, m)
+    sn = supplier["s_nationkey"][lineitem["l_suppkey"][m] - 1]
+    brazil = np.where(nation["n_name"][sn] == "BRAZIL", vol, 0.0)
+    keys, tv = _group_sum(_year(od[m]), vol)
+    _, bv = _group_sum(_year(od[m]), brazil)
+    return [(int(y), float(b / t)) for y, b, t in zip(keys, bv, tv)]
+
+
+def q9_numpy(part, lineitem, supplier, nation, orders):
+    """Q9: (nation, o_year, sum_profit), nation then year descending."""
+    for t, c in ((orders, "o_orderkey"), (supplier, "s_suppkey"),
+                 (part, "p_partkey")):
+        _dense(t, c)
+    green = np.char.find(part["p_name"], "goldenrod") >= 0
+    m = green[lineitem["l_partkey"] - 1]
+    nat = supplier["s_nationkey"][lineitem["l_suppkey"][m] - 1]
+    year = _year(orders["o_orderdate"][lineitem["l_orderkey"][m] - 1])
+    amount = _vol(lineitem, m) - 0.01 * lineitem["l_quantity"][m]
+    keys, profit = _group_sum(nat * 10_000 + year, amount)
+    rows = [(str(nation["n_name"][kk // 10_000]), int(kk % 10_000),
+             float(p)) for kk, p in zip(keys, profit)]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def q12_numpy(orders, lineitem):
+    """Q12: (l_shipmode, high_line_count, low_line_count) by ship mode."""
+    _dense(orders, "o_orderkey")
+    li = lineitem
+    m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"])
+         & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"])
+         & _in_range(li["l_receiptdate"], "1994-01-01", "1995-01-01"))
+    prio = orders["o_orderpriority"][li["l_orderkey"][m] - 1]
+    high = np.isin(prio, ["1-URGENT", "2-HIGH"]).astype(np.float64)
+    modes, hi_cnt = _group_sum(li["l_shipmode"][m], high)
+    _, lo_cnt = _group_sum(li["l_shipmode"][m], 1.0 - high)
+    return [(str(s), int(round(h)), int(round(lo)))
+            for s, h, lo in zip(modes, hi_cnt, lo_cnt)]
+
+
+def q14_numpy(lineitem, part):
+    """Q14: [(promo_revenue,)]."""
+    _dense(part, "p_partkey")
+    m = _in_range(lineitem["l_shipdate"], "1995-09-01", "1995-10-01")
+    vol = _vol(lineitem, m)
+    promo = np.char.startswith(part["p_type"][lineitem["l_partkey"][m] - 1],
+                               "PROMO")
+    return [(float(vol[promo].sum() / vol.sum() * 100.0),)]
+
+
+def q15_numpy(lineitem, supplier):
+    """Q15: (s_suppkey, s_name, total_revenue) by s_suppkey."""
+    _dense(supplier, "s_suppkey")
+    m = _in_range(lineitem["l_shipdate"], "1996-01-01", "1996-04-01")
+    n = len(supplier["s_suppkey"]) + 1
+    sk = lineitem["l_suppkey"][m]
+    rev = np.bincount(sk, weights=_vol(lineitem, m), minlength=n)
+    present = np.bincount(sk, minlength=n) > 0
+    if not present.any():
+        return []
+    top = rev[present].max()
+    keys = np.flatnonzero(present & (rev == top))
+    return [(int(kk), str(supplier["s_name"][kk - 1]), float(rev[kk]))
+            for kk in keys]
+
+
+def q16_numpy(partsupp, supplier, part):
+    """Q16: (p_brand, p_type, p_size, supplier_cnt), count descending,
+    then brand, type and size."""
+    _dense(part, "p_partkey")
+    _dense(supplier, "s_suppkey")
+    sk, pk = partsupp["ps_suppkey"], partsupp["ps_partkey"] - 1
+    brand, ptype, size = part["p_brand"], part["p_type"], part["p_size"]
+    m = ((supplier["s_acctbal"][sk - 1] >= 0) & (brand[pk] != "Brand#45")
+         & np.isin(size[pk], [1, 4, 7, 10, 14, 23]))
+    bi = np.unique(brand, return_inverse=True)
+    ti = np.unique(ptype, return_inverse=True)
+    b, t = bi[1].reshape(-1)[pk[m]], ti[1].reshape(-1)[pk[m]]
+    group = (b * len(ti[0]) + t) * 64 + size[pk[m]]
+    pairs = _distinct(group * (1 << 32) + sk[m])
+    g, cnt = np.unique(pairs >> 32, return_counts=True)
+    rows = [(str(bi[0][x // 64 // len(ti[0])]),
+             str(ti[0][x // 64 % len(ti[0])]), int(x % 64), int(c))
+            for x, c in zip(g, cnt)]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def q17_numpy(lineitem, part):
+    """Q17: [(avg_yearly,)], None when no lineitem qualifies."""
+    _dense(part, "p_partkey")
+    pk, qty = lineitem["l_partkey"], lineitem["l_quantity"]
+    n = len(part["p_partkey"]) + 1
+    avg = np.bincount(pk, weights=qty, minlength=n) / np.maximum(
+        np.bincount(pk, minlength=n), 1)
+    m = (part["p_container"][pk - 1] == "JUMBO PKG") & (qty < avg[pk] * 0.2)
+    if not m.any():
+        return [(None,)]
+    return [(float(lineitem["l_extendedprice"][m].sum() / 7.0),)]
+
+
+def q19_numpy(lineitem, part):
+    """Q19: [(revenue,)], None when no lineitem qualifies."""
+    _dense(part, "p_partkey")
+    p = lineitem["l_partkey"] - 1
+    cont, size = part["p_container"][p], part["p_size"][p]
+    qty = lineitem["l_quantity"]
+    m = ((np.isin(cont, ["SM CASE", "SM BOX"]) & (qty >= 1) & (qty <= 20)
+          & (size <= 15))
+         | (np.isin(cont, ["MED BAG", "MED BOX"]) & (qty >= 10)
+            & (qty <= 30) & (size <= 25)))
+    if not m.any():
+        return [(None,)]
+    return [(float(_vol(lineitem, m).sum()),)]
+
+
+def q20_numpy(lineitem, part, partsupp, supplier, nation):
+    """Q20: (s_name, s_suppkey) by s_name."""
+    _dense(part, "p_partkey")
+    _dense(supplier, "s_suppkey")
+    w = np.int64(len(supplier["s_suppkey"]) + 1)
+    m = _in_range(lineitem["l_shipdate"], "1994-01-01", "1995-01-01")
+    key = lineitem["l_partkey"][m] * w + lineitem["l_suppkey"][m]
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    first = np.concatenate(([True], ks[1:] != ks[:-1])) if len(ks) else ks
+    keys = ks[first]
+    sq = np.add.reduceat(lineitem["l_quantity"][m][order],
+                         np.flatnonzero(first)) if len(ks) else ks
+    forest = np.char.startswith(part["p_name"], "part 1")
+    ps_key = partsupp["ps_partkey"] * w + partsupp["ps_suppkey"]
+    found = np.zeros(len(ps_key), dtype=bool)
+    half = np.zeros(len(ps_key))
+    if len(keys):
+        at = np.minimum(np.searchsorted(keys, ps_key), len(keys) - 1)
+        found = keys[at] == ps_key
+        half = np.where(found, sq[at] * 0.5, 0.0)
+    ok = (forest[partsupp["ps_partkey"] - 1] & found
+          & (partsupp["ps_availqty"] > half))
+    supp = np.unique(partsupp["ps_suppkey"][ok])
+    canada = nation["n_nationkey"][nation["n_name"] == "CANADA"]
+    supp = supp[np.isin(supplier["s_nationkey"][supp - 1], canada)]
+    names = supplier["s_name"][supp - 1]
+    order = np.argsort(names, kind="stable")
+    return [(str(names[i]), int(supp[i])) for i in order]
+
+
+def q22_numpy(customer, orders):
+    """Q22: (cntrycode, numcust, totacctbal) by cntrycode."""
+    code = customer["c_phone"].astype("U2")
+    bal = customer["c_acctbal"]
+    inc = np.isin(code, Q22_CODES)
+    pos = inc & (bal > 0.0)
+    if not pos.any():
+        return []
+    avg = bal[pos].mean()
+    has_order = np.isin(customer["c_custkey"], orders["o_custkey"])
+    m = inc & (bal > avg) & ~has_order
+    keys, inv = np.unique(code[m], return_inverse=True)
+    inv = inv.reshape(-1)
+    cnt = np.bincount(inv, minlength=len(keys))
+    tot = np.bincount(inv, weights=bal[m], minlength=len(keys))
+    return [(str(c), int(n), float(t)) for c, n, t in zip(keys, cnt, tot)]
+
+
+def q21_exists_numpy(lineitem, orders, supplier, k: int = 100):
+    """Q21 in its EXISTS form: (s_name, numwait), numwait descending then
+    s_name, counting late lines ``l1`` of 'F' orders for which another
+    supplier has a line of the order (EXISTS) and no other supplier has a
+    late one (NOT EXISTS).  With per-order line counts and per (order,
+    supplier) counts: EXISTS holds when the order has more lines than the
+    pair, NOT EXISTS when it has no more late lines than the pair."""
+    _dense(supplier, "s_suppkey")
+    _dense(orders, "o_orderkey")
+    ok, sk = lineitem["l_orderkey"], lineitem["l_suppkey"]
+    late = lineitem["l_receiptdate"] > lineitem["l_commitdate"]
+    n_ord = len(orders["o_orderkey"]) + 1
+    lines = np.bincount(ok, minlength=n_ord)
+    late_lines = np.bincount(ok[late], minlength=n_ord)
+    pair = ok * np.int64(len(supplier["s_suppkey"]) + 1) + sk
+    order = np.argsort(pair, kind="stable")
+    ps = pair[order]
+    start = np.concatenate(([True], ps[1:] != ps[:-1])) if len(ps) else ps
+    gid = np.empty(len(pair), dtype=np.int64)
+    gid[order] = np.cumsum(start) - 1
+    pair_lines = np.bincount(gid)
+    pair_late = np.bincount(gid[late], minlength=len(pair_lines))
+    f = orders["o_orderstatus"] == "F"
+    m = (late & (lines[ok] > pair_lines[gid])
+         & (late_lines[ok] == pair_late[gid]) & f[ok - 1])
+    name, cnt = np.unique(supplier["s_name"][sk[m] - 1], return_counts=True)
+    top = np.lexsort((name, -cnt))[:k]
+    return [(str(name[i]), int(cnt[i])) for i in top]

@@ -579,6 +579,9 @@ class DenseAccumulator:
                                device=dev)
         self.vdmin = torch.ones((r, S), dtype=torch.int32, device=dev)
         self.vdmax = torch.zeros((r, S), dtype=torch.int32, device=dev)
+        # the kernel's words of float64 sums, made at the first launch
+        # (``dense_agg_update``)
+        self.fx = None
 
     def update(self, key: Value, residuals: Sequence[Value],
                contributions: Sequence[Value],
@@ -763,6 +766,12 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
             raise ValueError("accumulators must be contiguous CUDA tensors")
     if n == 0:
         return  # no rows (and no data pointers): no launch
+    S = acc.D + 1
+    if acc.fx is None:
+        # per float64 channel the [S, 3] words of its deterministic sums
+        # (zero between calls: the kernel folds and clears them)
+        acc.fx = [torch.zeros((S, 3), dtype=torch.int64, device=d.device)
+                  if f64 else None for _, f64 in acc.channels]
     P = kernels.pointer_array
     nres = acc.nres
     lib = kernels.load("dense_agg")
@@ -782,6 +791,7 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
         P([None if op == "count" else acc.och[j].data_ptr()
            for j, (op, _) in enumerate(acc.channels)]),
         P([acc.och_valid[j].data_ptr() for j in range(len(acc.channels))]),
+        P([_opt_ptr(w) for w in acc.fx]),
         torch.cuda.current_stream(d.device).cuda_stream)
     kernels.check_launch(lib, "dense_agg_update", rc)
     dense_agg_update.launches += 1

@@ -12,6 +12,10 @@ The sorted path is the reference's ``BroadcastJoinExec._match_state``
 ``_match_state`` :626 with ``_unmatched_build_mask`` :750.
 The port keeps them here, beside their hand-written CUDA kernels
 (``csrc/dense_join.cu``, ``csrc/csr_join.cu``, ``csrc/sort_join.cu``).
+The pairs and counts of joins that match on more than key equality (a
+residual condition: ``_conditioned_probe_join`` :446; the cross product:
+``_cross`` :827) run through ``csrc/cond_join.cu`` (``cond_expand``,
+``cond_counts``, ``cross_pairs``).
 Each phase has a plain PyTorch version of the same function in this
 module; the dispatching
 functions (``join_key_stats``, ``build_join_table``, ``probe_join``,
@@ -51,7 +55,10 @@ __all__ = ["DJ_MAX_COLS", "CJ_MAX_COLS", "JOIN_MODES", "join_key_stats",
            "sorted_probe", "sorted_probe_plain", "sorted_probe_kernel",
            "unmatched_build_mask", "unmatched_build_plain",
            "unmatched_build_kernel", "partition_perm", "partition_perm_plain",
-           "partition_perm_kernel"]
+           "partition_perm_kernel", "cond_expand", "cond_expand_plain",
+           "cond_expand_kernel", "cond_counts", "cond_counts_plain",
+           "cond_counts_kernel", "cross_pairs", "cross_pairs_plain",
+           "cross_pairs_kernel"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -891,3 +898,135 @@ def partition_perm_kernel(pids, nparts: int) -> torch.Tensor:
 
 
 partition_perm_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# Conditioned and cross joins: candidate pairs and their surviving counts
+# ---------------------------------------------------------------------------------
+
+_I32_LIMIT = 2**31
+
+
+def _pairs_fit(total: int, *sides: int) -> None:
+    """Pairs and rows are int32: refuse what would wrap."""
+    if total >= _I32_LIMIT or any(n >= _I32_LIMIT for n in sides):
+        raise ValueError(f"{total} pairs over sides of {list(sides)} rows: "
+                         f"the pair maps hold int32 indices (< 2^31)")
+
+
+def cond_expand(offsets: torch.Tensor, lo: torch.Tensor, b_perm: torch.Tensor,
+                total: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every candidate pair of a match state: (int32 [total] probe row,
+    int32 [total] build row), probe rows in order.  ``offsets`` is the
+    int64 [n + 1] running count of each probe row's matches (0 for a
+    dead or null-key row; ``total`` = ``offsets[-1]``, read by the
+    caller's one fetch), ``lo`` the int32 [n] start of its match range in
+    the sorted build and ``b_perm`` the int32 build row at each sorted
+    position."""
+    _pairs_fit(total, lo.shape[0], b_perm.shape[0])
+    run = cond_expand_kernel if lo.is_cuda else cond_expand_plain
+    return run(offsets, lo, b_perm, total)
+
+
+def cond_expand_plain(offsets, lo, b_perm, total: int):
+    """Plain PyTorch version of ``cond_expand_kernel``."""
+    n, dev = lo.shape[0], lo.device
+    cnt = offsets[1:] - offsets[:-1]
+    pi = torch.repeat_interleave(torch.arange(n, device=dev), cnt)
+    k = torch.arange(total, device=dev) - offsets[:-1][pi]
+    bi = b_perm.to(torch.int64)[lo.to(torch.int64)[pi] + k] if total \
+        else torch.zeros(0, dtype=torch.int64, device=dev)
+    return pi.to(torch.int32), bi.to(torch.int32)
+
+
+def cond_expand_kernel(offsets, lo, b_perm, total: int):
+    """Launch ``cond_expand`` of ``csrc/cond_join.cu``."""
+    n = lo.shape[0]
+    _check(offsets, n + 1, (torch.int64,), "offsets")
+    _check(lo, n, (torch.int32,), "lo")
+    _check(b_perm, b_perm.shape[0], (torch.int32,), "b_perm")
+    pi = torch.empty(total, dtype=torch.int32, device=lo.device)
+    bi = torch.empty(total, dtype=torch.int32, device=lo.device)
+    lib = kernels.load("cond_join")
+    rc = lib.cond_expand(offsets.data_ptr(), lo.data_ptr(),
+                         b_perm.data_ptr(), n, total, pi.data_ptr(),
+                         bi.data_ptr(), _stream(lo))
+    kernels.check_launch(lib, "cond_expand", rc)
+    cond_expand_kernel.launches += 1
+    return pi, bi
+
+
+cond_expand_kernel.launches = 0
+
+
+def cond_counts(keep: torch.Tensor, pi: torch.Tensor, bi: torch.Tensor,
+                n_probe: int, n_build: Optional[int]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The kept pairs counted per probe row (int32 [n_probe]) and, given
+    ``n_build``, per build row (int32 [n_build]; None otherwise).
+    ``keep`` is bool [total]; ``pi`` is sorted."""
+    _pairs_fit(keep.shape[0], n_probe, n_build or 0)
+    run = cond_counts_kernel if keep.is_cuda else cond_counts_plain
+    return run(keep, pi, bi, n_probe, n_build)
+
+
+def cond_counts_plain(keep, pi, bi, n_probe: int, n_build: Optional[int]):
+    """Plain PyTorch version of ``cond_counts_kernel``."""
+    dev, k = keep.device, keep.to(torch.int32)
+    pc = torch.zeros(n_probe, dtype=torch.int32, device=dev).index_add_(
+        0, pi.to(torch.int64), k)
+    if n_build is None:
+        return pc, None
+    return pc, torch.zeros(n_build, dtype=torch.int32, device=dev) \
+        .index_add_(0, bi.to(torch.int64), k)
+
+
+def cond_counts_kernel(keep, pi, bi, n_probe: int, n_build: Optional[int]):
+    """Launch ``cond_counts`` of ``csrc/cond_join.cu``."""
+    total, dev = keep.shape[0], keep.device
+    _check(keep, total, (torch.bool,), "keep")
+    _check(pi, total, (torch.int32,), "pi")
+    _check(bi, total, (torch.int32,), "bi")
+    pc = torch.zeros(n_probe, dtype=torch.int32, device=dev)
+    bc = None if n_build is None else torch.zeros(n_build, dtype=torch.int32,
+                                                  device=dev)
+    lib = kernels.load("cond_join")
+    rc = lib.cond_counts(keep.data_ptr(), pi.data_ptr(), bi.data_ptr(),
+                         total, pc.data_ptr(), _ptr(bc), _stream(keep))
+    kernels.check_launch(lib, "cond_counts", rc)
+    cond_counts_kernel.launches += 1
+    return pc, bc
+
+
+cond_counts_kernel.launches = 0
+
+
+def cross_pairs(n_l: int, n_r: int, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross product's pairs: (int32 j // n_r, int32 j % n_r) for
+    j < n_l * n_r, left rows in order."""
+    _pairs_fit(n_l * n_r, n_l, n_r)
+    run = cross_pairs_kernel if device.type == "cuda" else cross_pairs_plain
+    return run(n_l, n_r, device)
+
+
+def cross_pairs_plain(n_l: int, n_r: int, device):
+    """Plain PyTorch version of ``cross_pairs_kernel``."""
+    j = torch.arange(n_l * n_r, dtype=torch.int64, device=device)
+    n = max(n_r, 1)
+    return (j // n).to(torch.int32), (j % n).to(torch.int32)
+
+
+def cross_pairs_kernel(n_l: int, n_r: int, device):
+    """Launch ``cross_pairs`` of ``csrc/cond_join.cu``."""
+    pi = torch.empty(n_l * n_r, dtype=torch.int32, device=device)
+    bi = torch.empty(n_l * n_r, dtype=torch.int32, device=device)
+    lib = kernels.load("cond_join")
+    rc = lib.cross_pairs(n_l, n_r, pi.data_ptr(), bi.data_ptr(),
+                         _stream(pi))
+    kernels.check_launch(lib, "cross_pairs", rc)
+    cross_pairs_kernel.launches += 1
+    return pi, bi
+
+
+cross_pairs_kernel.launches = 0

@@ -23,7 +23,42 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StringDictionary", "encode_column"]
+__all__ = ["StringDictionary", "encode_column", "distinct_strings"]
+
+_SAMPLE = 1 << 20
+
+
+def distinct_strings(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(the sorted distinct values, each value's index into them): what
+    ``np.unique(values, return_inverse=True)`` gives, without sorting the
+    strings of a large fixed-width column.  Each string's characters are
+    hashed to one uint64 word; the distinct hashes of a sample usually
+    cover the column (a dimension column repeats few values), so the rows
+    are found among them by binary search, else every hash is sorted.  The
+    distinct strings are checked to have distinct hashes; a collision
+    falls back to ``np.unique`` of the strings."""
+    if values.dtype.kind == "O":
+        values = values.astype(str)
+    n = len(values)
+    if values.dtype.kind == "U" and n > _SAMPLE and values.dtype.itemsize:
+        words = np.ascontiguousarray(values).view(np.uint32).reshape(n, -1)
+        h = np.zeros(n, dtype=np.uint64)
+        for j in range(words.shape[1]):
+            h = (h * np.uint64(0x100000001B3)) ^ words[:, j]
+        hu, first = np.unique(h[:_SAMPLE], return_index=True)
+        at = np.minimum(np.searchsorted(hu, h), len(hu) - 1)
+        if not np.array_equal(hu[at], h):
+            hu, first, at = np.unique(h, return_index=True,
+                                      return_inverse=True)
+        cand = values[first]
+        order = np.argsort(cand, kind="stable")
+        if len(np.unique(cand)) == len(cand):
+            rank = np.empty(len(order), dtype=np.int64)
+            rank[order] = np.arange(len(order))
+            return cand[order], rank[at.reshape(-1)]
+    uniq, inverse = np.unique(values, return_inverse=True)
+    return uniq, inverse.reshape(-1)
+
 
 
 class StringDictionary:
@@ -68,9 +103,7 @@ class StringDictionary:
         only those pass through the Python map."""
         self._materialize()
         live = data if valid is None else data[valid]
-        if live.dtype.kind == "O":
-            live = live.astype(str)
-        local, inverse = np.unique(live, return_inverse=True)
+        local, inverse = distinct_strings(live)
         remap = np.empty(max(len(local), 1), dtype=np.int32)
         for i, v in enumerate(local.tolist()):
             code = self._code_of.get(v)

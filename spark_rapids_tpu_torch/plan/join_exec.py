@@ -38,10 +38,24 @@ reference's ``shared_dicts``); string payload columns ride as dictionary
 codes.  USING keys of right and full joins coalesce across the sides
 (``_assemble`` :793).
 
-Not ported, and raising ``NotImplementedError`` naming ROADMAP queue 2 row
-7′: cross joins (``_cross`` :827), residual join conditions
-(``_conditioned_probe_join`` :446, ``_apply_residual`` :576) and existence
-joins (``_existence`` :617).  The reference's runtime scan pruning
+Joins that match on more than key equality (``csrc/cond_join.cu``):
+
+* a residual condition on a left, semi, anti, existence, right or full
+  join takes part in the matching (``_conditioned_probe_join`` :446):
+  every candidate pair of the sorted match state (one fetch of their
+  number), the condition over the pair columns, the surviving pairs
+  counted per probe row and per build row; semi, anti and existence read
+  the probe counts, outer joins pad the rows no surviving pair holds.  The
+  runtime flip stays off for such joins (:304), and the dense and CSR
+  paths do not take them (:1145), as in the reference.
+* an inner join's condition filters its output (``_apply_residual``
+  :576), on every path;
+* an existence join keeps every probe row and adds the match flag
+  (``_existence`` :617): the semi modes' selection;
+* a cross join pairs every left row with every right row (``_cross``
+  :827), broadcast or its sides whole.
+
+The reference's runtime scan pruning
 (``_inject_dpp`` :1522, ``_inject_smj_filter`` :161) prunes parquet row
 groups and changes no result; the port reads in-memory columns, so it is
 not ported (ROADMAP.md item 9).
@@ -55,7 +69,8 @@ import torch
 
 from .. import types as T
 from ..batch import ColumnBatch, DeviceColumn, DictStringColumn, Schema
-from ..exprs import bind
+from ..exprs import EvalContext, bind
+from ..batch import live_mask
 from ..ops import batch_utils, hashing, join
 from ..ops.strings import StringDictionary, encode_column
 from ..utils.metrics import fetch
@@ -63,7 +78,7 @@ from . import logical as L
 from .cbo import estimate_rows, estimated_bytes
 from .exchange_exec import (ShuffleExchangeExec, _encoded, empty_batch,
                             key_values, split_by_pid)
-from .physical import ExecContext, TpuExec
+from .physical import ExecContext, StageExec, TpuExec
 
 __all__ = ["BroadcastExchangeExec", "BroadcastJoinExec", "SortMergeJoinExec",
            "bound_join_keys", "plan_broadcast_join"]
@@ -72,14 +87,10 @@ _CANON = {"left_outer": "left", "right_outer": "right", "full_outer": "full",
           "left_semi": "semi", "left_anti": "anti"}
 # sides that may be broadcast: never the row-preserving side; a full join
 # preserves both
-_LEGAL_BUILD_SIDES = {"inner": (1, 0), "left": (1,), "semi": (1,),
-                      "anti": (1,), "right": (0,), "full": ()}
+_LEGAL_BUILD_SIDES = {"inner": (1, 0), "cross": (1, 0), "left": (1,),
+                      "semi": (1,), "anti": (1,), "existence": (1,),
+                      "right": (0,), "full": ()}
 _OUTER = ("left", "right", "full")
-
-
-def _not_ported(what: str, row: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 2 row {row})")
 
 
 def canon_how(how: str) -> str:
@@ -126,7 +137,35 @@ def _whole(child: TpuExec, ctx: ExecContext) -> ColumnBatch:
     parts = [b for b in child.execute(ctx) if b.num_rows > 0]
     if not parts:
         return empty_batch(child.output_schema, ctx.device)
+    if len(parts) > 1:
+        parts = _shared_codes(parts, ctx.device)
     return batch_utils.concat_batches(parts)
+
+
+def _shared_codes(parts: List[ColumnBatch], device) -> List[ColumnBatch]:
+    """``parts`` with every string column as codes of one dictionary per
+    column, so they concatenate on the device.  Each part's encoding is
+    cached on its column object (``encode_column``): a warm run encodes
+    nothing, where concatenating the host strings would make a new column,
+    and so a new encoding, every run."""
+    cols = [list(b.columns) for b in parts]
+    for i, f in enumerate(parts[0].schema):
+        first = parts[0].columns[i]
+        if not f.dtype.is_string or all(
+                isinstance(b.columns[i], DictStringColumn)
+                and isinstance(first, DictStringColumn)
+                and b.columns[i].dictionary is first.dictionary
+                for b in parts):
+            continue
+        d, enc = None, []
+        for b in parts:
+            d, codes, valid = encode_column(b.columns[i], d, device)
+            enc.append((codes, valid))
+        values = d.values()
+        for c, (codes, valid) in zip(cols, enc):
+            c[i] = DictStringColumn(codes, valid, values)
+    return [ColumnBatch(b.schema, c, b.num_rows, b.sel)
+            for b, c in zip(parts, cols)]
 
 
 class _StagedExec(TpuExec):
@@ -178,9 +217,8 @@ class _EquiJoin(TpuExec):
         self.plan = plan
         self.how = canon_how(plan.how)
         if self.how not in _LEGAL_BUILD_SIDES:
-            raise _not_ported(f"a {plan.how} join", "7′")
-        if plan.condition is not None:
-            raise _not_ported("a join with a residual condition", "7′")
+            raise ValueError(f"unknown join type {plan.how!r}")
+        self.condition = plan.condition
         self.using = list(plan.using)
         self._schema = plan.schema()
         lk, rk, self.common = bound_join_keys(plan, left.output_schema,
@@ -211,10 +249,10 @@ class _EquiJoin(TpuExec):
         join's unmatched build count rides in it).  None: no output row."""
         how = self.how
         pkeys = self._keys(probe_side, probe, device)
-        lo, matches, got = join.sorted_probe(pkeys, probe.sel, state, how)
-        if how in ("semi", "anti"):
-            return ColumnBatch(self._schema, probe.columns, probe.num_rows,
-                               got)
+        lo, matches, got = join.sorted_probe(
+            pkeys, probe.sel, state, "semi" if how == "existence" else how)
+        if how in ("semi", "anti", "existence"):
+            return self._flagged(probe, got)
         offsets = got
         if how == "full":
             unmatched, count = join.unmatched_build_mask(lo, matches, state,
@@ -234,20 +272,119 @@ class _EquiJoin(TpuExec):
             pi = torch.cat([pi, torch.full((extra,), -1, dtype=pi.dtype,
                                            device=device)])
             bi = torch.cat([bi, tail])
-        return self._assemble_maps(probe, build, probe_side, pi, bi,
-                                   total + extra, device)
+        return self._residual(self._assemble_maps(
+            probe, build, probe_side, pi, bi, total + extra, device), device)
+
+    def _flagged(self, probe: ColumnBatch, matched) -> ColumnBatch:
+        """A semi or anti join's probe rows under the selection
+        ``matched`` (bool per probe row: the anti selection for an anti
+        join); an existence join's every probe row with ``matched`` as
+        its ``exists`` column."""
+        if self.how != "existence":
+            return ColumnBatch(self._schema, probe.columns, probe.num_rows,
+                               matched)
+        return ColumnBatch(self._schema, list(probe.columns)
+                           + [DeviceColumn(T.BOOLEAN, matched, None)],
+                           probe.num_rows, probe.sel)
+
+    def _residual(self, out: ColumnBatch, device) -> ColumnBatch:
+        """An inner join's output under its residual condition
+        (``_apply_residual`` :576): the condition over the output's
+        columns ANDed into the selection."""
+        if self.condition is None:
+            return out
+        keep = _condition_mask(bind(self.condition, out.schema), out.columns,
+                               out.num_rows, device)
+        return ColumnBatch(out.schema, out.columns, out.num_rows,
+                           keep if out.sel is None else out.sel & keep)
+
+    def _conditioned(self, probe: ColumnBatch, build: ColumnBatch, device,
+                     state: Optional[join.SortedBuild] = None
+                     ) -> ColumnBatch:
+        """A left, semi, anti, existence, right or full join whose residual
+        condition takes part in the matching (``_conditioned_probe_join``
+        :446): the left side probes, the right side builds (``state``, its
+        sorted keys, when the caller keeps them across batches).  One fetch
+        reads the number of candidate pairs."""
+        how = self.how
+        if state is None:
+            state = join.sorted_build(self._keys(1, build, device), build.sel)
+        lo, _, offsets = join.sorted_probe(self._keys(0, probe, device),
+                                           probe.sel, state, "inner")
+        total = int(fetch(offsets[-1:])[0])
+        pi, bi = join.cond_expand(offsets, lo, state.b_perm, total)
+        cond = bind(self.condition, Schema.pair(probe.schema, build.schema))
+        refs = _ordinals(cond)
+        np_ = len(probe.schema.fields)
+        cols: List = [None] * (np_ + len(build.schema.fields))
+        for batch, idx, base in ((probe, pi, 0), (build, bi, np_)):
+            at = [i for i in range(len(batch.columns)) if base + i in refs]
+            vals = [_device_values(batch.columns[i], device) for i in at]
+            got = join.gather_rows(idx, [(d, v) for d, v, _ in vals], False)
+            for i, (d, v), (_, _, dct) in zip(at, got, vals):
+                cols[base + i] = _column(batch.schema.fields[i].dtype, d, v,
+                                         dct)
+        keep = _condition_mask(cond, cols, total, device)
+        pc, bc = join.cond_counts(keep, pi, bi, probe.num_rows,
+                                  build.num_rows if how in ("right", "full")
+                                  else None)
+        plive = live_mask(probe.num_rows, None, probe.sel, device)
+        hit = pc > 0
+        if how == "existence":
+            return self._flagged(probe, hit)
+        if how in ("semi", "anti"):
+            return self._flagged(probe, plive & (hit if how == "semi"
+                                                 else ~hit))
+        # outer: the surviving pairs, then the probe rows (left, full) and
+        # the build rows (right, full) no surviving pair holds, null-padded,
+        # in one gather; the pad rows ride under the selection
+        i32 = dict(dtype=torch.int32, device=device)
+        np_rows, nb_rows = probe.num_rows, build.num_rows
+        pmap, bmap, sel = [pi], [bi], [keep]
+        if how in ("left", "full"):
+            pmap.append(torch.arange(np_rows, **i32))
+            bmap.append(torch.full((np_rows,), -1, **i32))
+            sel.append(plive & ~hit)
+        if how in ("right", "full"):
+            blive = live_mask(nb_rows, None, build.sel, device)
+            pmap.append(torch.full((nb_rows,), -1, **i32))
+            bmap.append(torch.arange(nb_rows, **i32))
+            sel.append(blive & (bc == 0))
+        pi, bi, sel = torch.cat(pmap), torch.cat(bmap), torch.cat(sel)
+        out = self._assemble_maps(probe, build, 0, pi, bi, pi.shape[0],
+                                  device, pad_probe=how in ("right", "full"))
+        return ColumnBatch(out.schema, out.columns, out.num_rows, sel)
+
+    def _cross(self, left: ColumnBatch, right: ColumnBatch,
+               device) -> ColumnBatch:
+        """The cross product of the two batches' live rows (``_cross``
+        :827): every pair by ``cross_pairs``, the sides' selections
+        carried to the pairs."""
+        pi, bi = join.cross_pairs(left.num_rows, right.num_rows, device)
+        out = self._assemble_maps(left, right, 0, pi, bi, pi.shape[0],
+                                  device)
+        sel = None
+        for b, idx in ((left, pi), (right, bi)):
+            if b.sel is not None:
+                s = b.sel[idx.to(torch.int64)]
+                sel = s if sel is None else sel & s
+        return self._residual(ColumnBatch(out.schema, out.columns,
+                                          out.num_rows, sel), device)
 
     def _assemble_maps(self, probe: ColumnBatch, build: ColumnBatch,
                        probe_side: int, pi, bi, total: int,
-                       device) -> ColumnBatch:
+                       device, pad_probe: Optional[bool] = None
+                       ) -> ColumnBatch:
         """The output rows given by the gather maps (``pi`` into the probe
         batch, ``bi`` into the build batch, -1 a null row): the left side's
         columns, then the right side's without USING key copies, which a
-        right or full join coalesces into the left's."""
+        right or full join coalesces into the left's.  ``pad_probe``: the
+        probe map holds -1 (default: a full join's)."""
         how = self.how
         using = set(self.using)
         sides = [None, None]
-        sides[probe_side] = (probe, pi, how == "full")
+        sides[probe_side] = (probe, pi, how == "full" if pad_probe is None
+                             else pad_probe)
         sides[1 - probe_side] = (build, bi, how in _OUTER)
         cols_of = []
         for s, (batch, idx, nullable) in enumerate(sides):
@@ -270,6 +407,28 @@ class _EquiJoin(TpuExec):
         cols += [cols_of[1][f.name] for f in right.schema
                  if f.name not in using]
         return ColumnBatch(self._schema, cols, total)
+
+
+def _ordinals(e) -> set:
+    """The bound ordinals an expression reads."""
+    from ..exprs import BoundReference
+    if isinstance(e, BoundReference):
+        return {e.ordinal}
+    out = set()
+    for c in e.children:
+        out |= _ordinals(c)
+    return out
+
+
+def _condition_mask(cond, columns, n: int, device) -> torch.Tensor:
+    """bool [n]: where the bound ``cond`` holds (true, not null) over
+    ``columns`` (device columns read as (data, valid); None or a host
+    column where the condition reads none)."""
+    arrays = [(c.data, c.valid) if isinstance(c, DeviceColumn) else None
+              for c in columns]
+    d, v = cond.eval(EvalContext(arrays, n, device, host=columns))
+    keep = d if v is None else d & v
+    return keep.expand(n) if keep.dim() == 0 else keep
 
 
 def _coalesce(lc, rc, device):
@@ -295,9 +454,9 @@ def _coalesce(lc, rc, device):
 # ---------------------------------------------------------------------------------
 
 class BroadcastJoinExec(_EquiJoin):
-    """Equi-join of a streamed probe side against a broadcast build side:
-    inner (either side builds), left, semi and anti (the right side
-    builds), right (the left side builds)."""
+    """Join of a streamed probe side against a broadcast build side:
+    inner and cross (either side builds), left, semi, anti and existence
+    (the right side builds), right (the left side builds)."""
 
     def __init__(self, plan: L.Join, left: TpuExec, right: TpuExec,
                  build_side: int, string_dicts=None,
@@ -308,14 +467,21 @@ class BroadcastJoinExec(_EquiJoin):
                              f"{self.how} join")
         self.build_side = build_side
         self.probe_est = probe_est
+        # per execution (keyed by the context's id): the prepared build
+        # and the fetched build stats
+        self._prepared: Dict[int, tuple] = {}
+        self._host_stats: Dict[int, list] = {}
 
     def node_desc(self) -> str:
         side = "left" if self.build_side == 0 else "right"
-        return f"TpuBroadcastHashJoin [{self.how}] build={side}"
+        kind = "NestedLoop" if self.how == "cross" else "Hash"
+        return f"TpuBroadcast{kind}Join [{self.how}] build={side}"
 
     def _dense_static_ok(self, conf) -> bool:
         """The reference's ``_dense_static_ok`` :1145: one key with an
-        integer image, a join type the dense probe takes, a probe side not
+        integer image, a join type the dense probe takes (an inner join's
+        condition filters its output; the other types take a condition in
+        the matching, which the dense probe does not), a probe side not
         estimated under ``denseMinProbeRows``."""
         min_probe = conf["spark.rapids.tpu.join.denseMinProbeRows"]
         if self.probe_est is not None and min_probe \
@@ -323,8 +489,10 @@ class BroadcastJoinExec(_EquiJoin):
             return False
         if not conf["spark.rapids.tpu.join.denseDomainCap"]:
             return False
-        if self.how not in ("inner", "left", "semi", "anti") \
+        if self.how not in ("inner", "left", "semi", "anti", "existence") \
                 or len(self.common) != 1:
+            return False
+        if self.condition is not None and self.how != "inner":
             return False
         ct = self.common[0]
         return ct.is_string or ct.is_integral or ct.is_floating \
@@ -343,7 +511,7 @@ class BroadcastJoinExec(_EquiJoin):
     def _payload(self, build: ColumnBatch, device):
         """(field, data, valid, dictionary) of every build column an inner
         or left join carries; none for semi and anti."""
-        if self.how in ("semi", "anti"):
+        if self.how in ("semi", "anti", "existence"):
             return []
         using = set(self.using) if self.build_side == 1 else set()
         return [(f, *_device_values(c, device))
@@ -364,17 +532,72 @@ class BroadcastJoinExec(_EquiJoin):
         return [(f, c) for f, c in zip(probe.schema, probe.columns)
                 if f.name not in using]
 
+    def _prepare(self, ctx: ExecContext):
+        """This join's build, materialized once per execution, with its
+        dense key and, where the dense gate passes, the device stats
+        tensor the one fetch reads: (build, key, valid, stats or None)."""
+        prep = self._prepared.get(id(ctx))
+        if prep is None:
+            m = ctx.metric_set(self.op_id)
+            build = self.children[self.build_side].materialize(ctx)
+            prep = (build, None, None, None)
+            if self._dense_static_ok(ctx.conf):
+                cap = ctx.conf["spark.rapids.tpu.join.denseDomainCap"]
+                with m.time("buildTime"):
+                    bkey, bvalid = self._dense_key(self.build_side, build,
+                                                   ctx.device)
+                    prep = (build, bkey, bvalid, join.join_key_stats(
+                        bkey, bvalid, build.sel, cap))
+            self._prepared[id(ctx)] = prep
+        return prep
+
+    def _probe_chain(self) -> List["BroadcastJoinExec"]:
+        """This join and the broadcast joins below it on the probe side,
+        through stages: their build stats ride one fetch, as the
+        reference's fused region fetches its joins' stats in its one
+        prologue (``plan/fusion.py``, ``utils/metrics.py:596
+        region_scalars``)."""
+        chain: List[BroadcastJoinExec] = []
+        node: TpuExec = self
+        while True:
+            if isinstance(node, BroadcastJoinExec):
+                chain.append(node)
+                node = node.children[1 - node.build_side]
+            elif isinstance(node, StageExec):
+                node = node.children[0]
+            else:
+                return chain
+
+    def _stats(self, ctx: ExecContext):
+        """This join's host build stats [min, max, count, duplicates],
+        fetched together with those of every not yet fetched dense join
+        of its probe chain."""
+        host = self._host_stats.pop(id(ctx), None)
+        if host is None:
+            chain = [j for j in self._probe_chain()
+                     if id(ctx) not in j._host_stats]
+            preps = [j._prepare(ctx) for j in chain]
+            dense = [(j, p[3]) for j, p in zip(chain, preps)
+                     if p[3] is not None]
+            for (j, _), h in zip(dense, fetch([t for _, t in dense])):
+                j._host_stats[id(ctx)] = h
+            host = self._host_stats.pop(id(ctx))
+        return [int(x) for x in host]
+
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
         m = ctx.metric_set(self.op_id)
+        try:
+            yield from self._execute(ctx, m)
+        finally:
+            self._prepared.pop(id(ctx), None)
+            self._host_stats.pop(id(ctx), None)
+
+    def _execute(self, ctx: ExecContext, m) -> Iterator[ColumnBatch]:
         device = ctx.device
-        bs = self.build_side
-        build = self.children[bs].materialize(ctx)
-        if self._dense_static_ok(ctx.conf):
+        build, bkey, bvalid, stats = self._prepare(ctx)
+        if stats is not None:
             cap = ctx.conf["spark.rapids.tpu.join.denseDomainCap"]
-            with m.time("buildTime"):
-                bkey, bvalid = self._dense_key(bs, build, device)
-                kmin, kmax, n_valid, dup = (int(x) for x in fetch(
-                    join.join_key_stats(bkey, bvalid, build.sel, cap)))
+            kmin, kmax, n_valid, dup = self._stats(ctx)
             if n_valid == 0:
                 if self.how in ("inner", "semi"):
                     return  # nothing can match
@@ -389,6 +612,11 @@ class BroadcastJoinExec(_EquiJoin):
                     m.add("joinCsrPath", 1)
                     yield from self._csr(ctx, m, build, bkey, bvalid, kmin, D)
                 return
+        bs = self.build_side
+        if self.how == "cross" or (self.condition is not None
+                                   and self.how != "inner"):
+            yield from self._pairwise(ctx, m, build)
+            return
         m.add("joinSortedPath", 1)
         with m.time("buildTime"):
             state = join.sorted_build(self._keys(bs, build, device),
@@ -399,6 +627,28 @@ class BroadcastJoinExec(_EquiJoin):
             m.add("numOutputBatches", 1)
             if out is not None:
                 yield out
+
+    def _pairwise(self, ctx, m, build) -> Iterator[ColumnBatch]:
+        """Cross joins and joins whose condition takes part in the
+        matching, per probe batch with the sides in their order: a
+        conditioned join's right side builds (sorted once when it is the
+        broadcast side, per batch when it streams)."""
+        device = ctx.device
+        bs = self.build_side
+        state = None
+        if self.how != "cross" and bs == 1:
+            m.add("joinConditionedPath", 1)
+            with m.time("buildTime"):
+                state = join.sorted_build(self._keys(1, build, device),
+                                          build.sel)
+        for probe in self._probe_batches(ctx):
+            left, right = (build, probe) if bs == 0 else (probe, build)
+            with m.time("opTime"):
+                out = self._cross(left, right, device) \
+                    if self.how == "cross" \
+                    else self._conditioned(left, right, device, state)
+            m.add("numOutputBatches", 1)
+            yield out
 
     def _probe_batches(self, ctx):
         for probe in self.children[1 - self.build_side].execute(ctx):
@@ -417,16 +667,17 @@ class BroadcastJoinExec(_EquiJoin):
                                                device)
                 sel, gathered = join.probe_join(
                     pkey, pvalid, probe.sel, kmin, table,
-                    [(d, v) for _, d, v, _ in payload], self.how)
+                    [(d, v) for _, d, v, _ in payload],
+                    "semi" if self.how == "existence" else self.how)
             m.add("numOutputBatches", 1)
-            if self.how in ("semi", "anti"):
-                yield ColumnBatch(self._schema, probe.columns, probe.num_rows,
-                                  sel)
+            if self.how in ("semi", "anti", "existence"):
+                yield self._flagged(probe, sel)
                 continue
             built = [_column(f.dtype, d, v, dct) for (f, _, _, dct), (d, v)
                      in zip(payload, gathered)]
-            yield self._assemble([c for _, c in self._probe_columns(probe)],
-                                 built, probe.num_rows, sel)
+            yield self._residual(self._assemble(
+                [c for _, c in self._probe_columns(probe)], built,
+                probe.num_rows, sel), device)
 
     def _csr(self, ctx, m, build, bkey, bvalid, kmin: int, D: int):
         """Repeated build keys: counts, starts and the stable build
@@ -442,11 +693,11 @@ class BroadcastJoinExec(_EquiJoin):
                 pkey, pvalid = self._dense_key(1 - self.build_side, probe,
                                                device)
                 got = join.csr_probe(pkey, pvalid, probe.sel, kmin, counts,
-                                     starts, self.how)
+                                     starts, "semi" if self.how == "existence"
+                                     else self.how)
             m.add("numOutputBatches", 1)
-            if self.how in ("semi", "anti"):
-                yield ColumnBatch(self._schema, probe.columns, probe.num_rows,
-                                  got)
+            if self.how in ("semi", "anti", "existence"):
+                yield self._flagged(probe, got)
                 continue
             lo, offsets = got
             total = int(fetch(offsets[-1:])[0])
@@ -454,8 +705,9 @@ class BroadcastJoinExec(_EquiJoin):
                 continue
             with m.time("opTime"):
                 pi, bi = join.csr_expand(offsets, lo, b_perm, total)
-                yield self._assemble_maps(probe, build, 1 - self.build_side,
-                                          pi, bi, total, device)
+                yield self._residual(self._assemble_maps(
+                    probe, build, 1 - self.build_side, pi, bi, total,
+                    device), device)
 
 
 # ---------------------------------------------------------------------------------
@@ -465,7 +717,9 @@ class BroadcastJoinExec(_EquiJoin):
 class SortMergeJoinExec(_EquiJoin):
     """The join of two sides no broadcast takes: over two shuffle
     exchanges, partition pair by partition pair (or flipped to a broadcast
-    join when a staged side turns out small); else the two sides whole."""
+    join when a staged side turns out small, unless a condition takes part
+    in the matching); else (exchanges off, or a cross join) the two sides
+    whole."""
 
     def node_desc(self) -> str:
         return f"TpuSortMergeJoin [{self.how}]"
@@ -509,7 +763,8 @@ class SortMergeJoinExec(_EquiJoin):
         conf = ctx.conf
         threshold = conf["spark.rapids.tpu.sql.autoBroadcastJoinThreshold"]
         if not conf["spark.rapids.tpu.sql.aqe.enabled"] or threshold < 0 \
-                or conf["spark.rapids.tpu.shuffle.mode"] != "CACHE_ONLY":
+                or conf["spark.rapids.tpu.shuffle.mode"] != "CACHE_ONLY" \
+                or self.condition is not None:
             return None
         legal = _LEGAL_BUILD_SIDES[self.how]
         if not legal:
@@ -561,8 +816,18 @@ class SortMergeJoinExec(_EquiJoin):
                    right: ColumnBatch) -> Optional[ColumnBatch]:
         """One pair through the sorted match state: a right join probes
         with its right side (the mirrored left join), every other type
-        with its left."""
+        with its left; a join whose condition takes part in the matching
+        probes with its left side (``_join_pair`` :420), a cross join
+        pairs every row."""
         device = ctx.device
+        if self.how == "cross" or (self.condition is not None
+                                   and self.how != "inner"):
+            with m.time("opTime"):
+                out = self._cross(left, right, device) \
+                    if self.how == "cross" \
+                    else self._conditioned(left, right, device)
+            m.add("numOutputBatches", 1)
+            return out
         probe_side = 1 if self.how == "right" else 0
         probe, build = (right, left) if probe_side else (left, right)
         with m.time("opTime"):

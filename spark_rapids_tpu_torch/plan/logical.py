@@ -127,10 +127,13 @@ class Sort(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi-join on ``left_keys[i] = right_keys[i]``; ``using`` (set by
+    """Equi-join on ``left_keys[i] = right_keys[i]`` and, where given, a
+    residual ``condition`` over both sides' columns; ``using`` (set by
     ``DataFrame.join`` on column names) drops the right side's copies of
-    the key columns.  A semi or anti join keeps the left schema only; a
-    left outer join makes the right side's fields nullable."""
+    the key columns.  A semi or anti join keeps the left schema only, an
+    existence join adds a boolean ``exists`` column to it; a left outer
+    join makes the right side's fields nullable.  A cross join has no
+    keys."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -146,6 +149,13 @@ class Join(LogicalPlan):
         l, r = self.children[0].schema(), self.children[1].schema()
         if self.how in ("semi", "anti", "left_semi", "left_anti"):
             return l
+        if self.how == "existence":
+            # the left rows and a boolean match column (Spark's
+            # ExistenceJoin, from IN/EXISTS inside a disjunction)
+            from .. import types as T
+            return Schema(list(l.fields)
+                          + [Field(getattr(self, "exists_col", "exists"),
+                                   T.BOOLEAN, False)])
         using = set(self.using)
         fields = list(l.fields)
         rf = [f for f in r.fields if f.name not in using]

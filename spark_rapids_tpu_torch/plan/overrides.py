@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from ..aggfns import AggregateExpression
+from ..batch import Schema
 from ..config import TpuConf
 from ..exprs import BoundReference, Expression, bind
 from . import logical as L
@@ -166,6 +167,23 @@ class NodeMeta:
                              "anti", "left_semi", "left_anti", "cross",
                              "existence"):
                 self.will_not_work(f"join type {p.how} not supported")
+            # residual conditions: as the reference tags them (:249-268)
+            outer = ("left", "left_outer", "right", "right_outer", "full",
+                     "full_outer", "outer")
+            if p.condition is not None and p.how not in outer + (
+                    "inner", "semi", "anti", "existence", "left_semi",
+                    "left_anti"):
+                self.will_not_work(f"non-equi residual condition on "
+                                   f"{p.how} join runs on CPU")
+            elif p.condition is not None:
+                # an outer USING join with a condition stays on the device
+                # (the reference sends it to the CPU: its conditioned
+                # assembly does not coalesce USING keys; the port's does)
+                both = Schema.pair(p.children[0].schema(),
+                                   p.children[1].schema())
+                for r in expr_reasons(bind(p.condition, both),
+                                      allow_string_passthrough=False):
+                    self.will_not_work(f"join condition: {r}")
             return
         if isinstance(p, L.Aggregate):
             schema = p.children[0].schema()

@@ -192,7 +192,7 @@ class StageExec(TpuExec):
                  output_schema: Schema):
         super().__init__([child])
         from .stringpred import lower_string_predicate_steps
-        self.steps, self.host_exprs = lower_string_predicate_steps(steps)
+        self.steps = lower_string_predicate_steps(steps)
         self._schema = output_schema
 
     @property
@@ -201,27 +201,38 @@ class StageExec(TpuExec):
 
     def run_batch(self, b: ColumnBatch, device: torch.device,
                   ansi: bool) -> Tuple[ColumnBatch, List[torch.Tensor]]:
-        """One batch through the steps → (output batch, ANSI error masks)."""
-        from .stringpred import host_predicate_column
+        """One batch through the steps → (output batch, ANSI error masks).
+        A string-valued projection (``stringpred.HostStringExpr``) becomes
+        a dictionary column beside the host-carried ones."""
+        from .planner import strip_alias
+        from .stringpred import HostStringExpr
         cur = _device_arrays(b)
         host = list(b.columns)
         active = b.sel
         errors: List[torch.Tensor] = []
-        extras = [host_predicate_column(e, b.columns[o], device)
-                  for e, o in self.host_exprs]
         for kind, payload in self.steps:
             ctx = EvalContext(cur, b.num_rows, device, active=active,
-                              ansi=ansi, extras=extras)
+                              ansi=ansi, host=host)
             if kind == "filter":
                 d, v = payload.eval(ctx)
                 keep = d if v is None else d & v
                 keep = keep.expand(b.num_rows) if keep.dim() == 0 else keep
                 active = keep if active is None else active & keep
             else:
-                cur = [None if e is None else e.eval(ctx)
-                       for _, e, _ in payload]
-                host = [host[src] if e is None else None
-                        for _, e, src in payload]
+                cur, new_host = [], []
+                for _, e, src in payload:
+                    core = None if e is None else strip_alias(e)
+                    if e is None:
+                        cur.append(None)
+                        new_host.append(host[src])
+                    elif isinstance(core, HostStringExpr) \
+                            and core.dtype.is_string:
+                        cur.append(None)
+                        new_host.append(core.column(ctx))
+                    else:
+                        cur.append(e.eval(ctx))
+                        new_host.append(None)
+                host = new_host
             errors += ctx.errors
         cols = []
         for f, val, h in zip(self._schema, cur, host):

@@ -38,18 +38,19 @@ def plan_join(plan, left, right, conf):
     threshold, else a sort-merge join over hash-partitioned sides (both
     sides' keys cast to their common types, so equal keys land in the same
     partition), or over the two sides whole when exchanges are off.  One
-    dictionary per string key is shared by both exchanges and the join."""
+    dictionary per string key is shared by both exchanges and the join.
+    A cross join (no keys) that no broadcast takes joins its sides
+    whole."""
     from ..exprs import Cast
     from .exchange_exec import ShuffleExchangeExec
-    from .join_exec import (SortMergeJoinExec, _not_ported, bound_join_keys,
-                            canon_how, plan_broadcast_join)
-    if canon_how(plan.how) == "cross" or not plan.left_keys:
-        raise _not_ported("a cross join", "7′")
+    from .join_exec import (SortMergeJoinExec, bound_join_keys, canon_how,
+                            plan_broadcast_join)
     shared: dict = {}
     bc = plan_broadcast_join(plan, left, right, conf, shared)
     if bc is not None:
         return bc
-    if conf["spark.rapids.tpu.sql.exchange.enabled"]:
+    if canon_how(plan.how) != "cross" and plan.left_keys \
+            and conf["spark.rapids.tpu.sql.exchange.enabled"]:
         lk, rk, common = bound_join_keys(plan, left.output_schema,
                                          right.output_schema)
 

@@ -57,6 +57,12 @@ class Column:
     def __rtruediv__(self, o):
         return Column(E.Divide(to_expr(o), self.expr))
 
+    def __mod__(self, o):
+        return Column(E.Remainder(self.expr, to_expr(o)))
+
+    def __neg__(self):
+        return Column(E.UnaryMinus(self.expr))
+
     # -- comparisons --------------------------------------------------------------
     def __eq__(self, o):  # noqa: E721 — Column semantics, as in pyspark
         return Column(E.EqualTo(self.expr, to_expr(o)))
@@ -85,6 +91,28 @@ class Column:
 
     def __invert__(self):
         return Column(E.Not(self.expr))
+
+    def isin(self, *values) -> "Column":
+        vals = values[0] if len(values) == 1 and isinstance(
+            values[0], (list, tuple, set)) else values
+        return Column(E.In(self.expr, list(vals)))
+
+    def is_null(self) -> "Column":
+        return Column(E.IsNull(self.expr))
+
+    def is_not_null(self) -> "Column":
+        return Column(E.IsNotNull(self.expr))
+
+    isNull = is_null
+    isNotNull = is_not_null
+
+    def like(self, pattern: str) -> "Column":
+        from ..stringfns import Like
+        return Column(Like(self.expr, pattern))
+
+    def substr(self, pos, length) -> "Column":
+        from ..stringfns import Substring
+        return Column(Substring(self.expr, to_expr(pos), to_expr(length)))
 
     def cast(self, dtype) -> "Column":
         return Column(E.Cast(self.expr, dtype))

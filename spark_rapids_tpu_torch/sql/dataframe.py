@@ -156,10 +156,11 @@ class DataFrame:
             "join on: column names or (left, right) name pairs")
 
     def cross_join(self, other: "DataFrame") -> "DataFrame":
-        """The cartesian product with ``other`` (planning raises: the cross
-        join is not ported yet)."""
+        """The cartesian product with ``other`` (reference :292)."""
         return DataFrame(L.Join(self._plan, other._plan, [], [],
                                 how="cross"), self.session)
+
+    crossJoin = cross_join
 
     def collect(self) -> List[tuple]:
         """Execute and fetch all rows as tuples of Python values."""

@@ -1,6 +1,7 @@
 """Column functions (``spark_rapids_tpu/sql/functions.py`` counterpart):
-the column reference, literals, the aggregates and the window functions
-(:418-460) of the port."""
+the column reference, literals, CASE WHEN (:317), ``coalesce``,
+``isnull``, ``expr_abs``, the aggregates, the window functions
+(:418-460), ``year`` (:610), ``substring`` (:719) and ``like`` (:744)."""
 
 from __future__ import annotations
 
@@ -11,9 +12,10 @@ from .. import exprs as E
 from .. import types as T
 from .column import Column, to_expr
 
-__all__ = ["col", "lit", "sum", "avg", "count", "count_star", "min", "max",
+__all__ = ["col", "lit", "when", "coalesce", "isnull", "expr_abs", "sum", "avg", "count", "count_star", "min", "max",
            "first", "last", "row_number", "rank", "dense_rank",
-           "percent_rank", "cume_dist", "ntile", "lag", "lead"]
+           "percent_rank", "cume_dist", "ntile", "lag", "lead", "year",
+           "substring", "like"]
 
 
 def col(name: str) -> Column:
@@ -22,6 +24,38 @@ def col(name: str) -> Column:
 
 def lit(value: Any, dtype: Optional[T.DataType] = None) -> Column:
     return Column(E.Literal(value, dtype))
+
+
+class _WhenBuilder(Column):
+    """``when(c, v)[.when(c, v)...].otherwise(v)``; without ``otherwise``
+    the unmatched rows are null."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(E.CaseWhen(branches, None))
+
+    def when(self, cond, value) -> "_WhenBuilder":
+        return _WhenBuilder(self._branches
+                            + [(to_expr(cond), to_expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(E.CaseWhen(self._branches, to_expr(value)))
+
+
+def when(cond, value) -> _WhenBuilder:
+    return _WhenBuilder([(to_expr(cond), to_expr(value))])
+
+
+def coalesce(*cols) -> Column:
+    return Column(E.Coalesce(*[to_expr(c) for c in cols]))
+
+
+def isnull(c) -> Column:
+    return Column(E.IsNull(to_expr(c)))
+
+
+def expr_abs(c) -> Column:
+    return Column(E.Abs(to_expr(c)))
 
 
 def sum(c) -> Column:  # noqa: A001 — mirrors pyspark naming
@@ -105,3 +139,20 @@ def lag(c, offset: int = 1, default=None) -> Column:
 def lead(c, offset: int = 1, default=None) -> Column:
     from ..windowfns import Lead
     return Column(Lead(_colref(c), offset, default))
+
+
+# -- dates and strings --------------------------------------------------------------
+
+def year(c) -> Column:
+    from ..datetimefns import Year
+    return Column(Year(_colref(c)))
+
+
+def substring(c, pos, length) -> Column:  # noqa: A002
+    from ..stringfns import Substring
+    return Column(Substring(_colref(c), _colref(pos), _colref(length)))
+
+
+def like(c, pattern: str, escape: str = "\\") -> Column:
+    from ..stringfns import Like
+    return Column(Like(_colref(c), pattern, escape))

@@ -1,10 +1,13 @@
 """The port's expression families held against the JAX package's on the
 same seeded columns: comparisons, Kleene AND/OR/NOT, arithmetic with
 int→double promotion and null-on-division-by-zero, date literals, casts
-and null literals.  Results must agree exactly: the same IEEE operations
+and null literals; IN, IS [NOT] NULL, IF, CASE WHEN, COALESCE, unary
+minus, abs, % and pmod, and ``year`` over dates before and after the
+epoch; the host string functions LIKE and substring, nulls included.  Results must agree exactly: the same IEEE operations
 run on the same float64 values, and validity masks must be equal."""
 
 import datetime
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,11 +38,20 @@ def _columns():
         "b": (rng.random(N) < 0.5, rng.random(N) < 0.7),
         "d": (rng.integers(8000, 11000, N).astype(np.int32),
               rng.random(N) < 0.9),
+        "e": (rng.integers(-800_000, 800_000, N).astype(np.int32),
+              rng.random(N) < 0.9),
     }
 
 
 _KINDS = {"i32": "INT32", "i64": "INT64", "f64": "FLOAT64", "g64": "FLOAT64",
-          "b": "BOOLEAN", "d": "DATE"}
+          "b": "BOOLEAN", "d": "DATE", "e": "DATE"}
+
+
+def _year(E, c):
+    """``year(c)`` from the datetime module of ``E``'s package."""
+    dt = importlib.import_module(E.__name__.rsplit(".", 1)[0]
+                                 + ".datetimefns")
+    return dt.Year(c)
 
 CASES = {
     "eq_int_double": lambda E, T, c: E.EqualTo(c("i32"), c("g64")),
@@ -73,6 +85,30 @@ CASES = {
     "cast_long_int_wraps": lambda E, T, c: E.Cast(c("i64"), T.INT32),
     "cast_double_bool": lambda E, T, c: E.Cast(c("g64"), T.BOOLEAN),
     "null_literal": lambda E, T, c: E.Add(c("i32"), E.Literal(None)),
+    "in_int": lambda E, T, c: E.In(c("i32"), [1, 2, -3]),
+    "in_with_null": lambda E, T, c: E.In(c("i32"), [1, None]),
+    "in_double": lambda E, T, c: E.In(c("g64"), [1.5, 0.0]),
+    "in_date": lambda E, T, c: E.In(c("d"), [D1, datetime.date(1995, 6, 1)]),
+    "is_null": lambda E, T, c: E.IsNull(c("f64")),
+    "is_null_no_mask": lambda E, T, c: E.IsNull(c("i64")),
+    "is_not_null": lambda E, T, c: E.IsNotNull(c("i32")),
+    "if_with_nulls": lambda E, T, c: E.If(c("b"), c("f64"), c("i32")),
+    "case_when": lambda E, T, c: E.CaseWhen(
+        [(E.LessThan(c("i32"), E.Literal(0)), c("f64")),
+         (c("b"), E.Literal(1.0))], E.Literal(0.0)),
+    "case_when_no_else": lambda E, T, c: E.CaseWhen([(c("b"), c("i32"))]),
+    "coalesce": lambda E, T, c: E.Coalesce(c("f64"), c("i32"),
+                                           E.Literal(0.0)),
+    "coalesce_nullable": lambda E, T, c: E.Coalesce(c("f64"), c("i32")),
+    "unary_minus": lambda E, T, c: E.UnaryMinus(c("i64")),
+    "abs_double": lambda E, T, c: E.Abs(c("f64")),
+    "abs_int": lambda E, T, c: E.Abs(c("i32")),
+    "remainder_long_int": lambda E, T, c: E.Remainder(c("i64"), c("i32")),
+    "remainder_double": lambda E, T, c: E.Remainder(c("f64"), c("g64")),
+    "pmod_long_int": lambda E, T, c: E.Pmod(c("i64"), c("i32")),
+    "pmod_double": lambda E, T, c: E.Pmod(c("f64"), E.Literal(7.0)),
+    "year": lambda E, T, c: _year(E, c("d")),
+    "year_around_epoch": lambda E, T, c: _year(E, c("e")),
 }
 
 
@@ -149,3 +185,47 @@ def test_from_numpy_types_match_reference_create_dataframe():
     assert batch.column("d").data.tolist() == [8766, 9311, 0]
     assert batch.column("f").valid.tolist() == [True, False, True]
     assert batch.column("k").valid.tolist() == [True, False, True]
+
+
+STRINGS = np.array(["part 7 goldenrod", "PROMO BRUSHED", "13-555-1234",
+                    "", "a_b%c", "x", None, "31-2", "goldenrod",
+                    "PROMO"], dtype=object)
+
+
+@pytest.mark.parametrize("make", [
+    lambda S, E, c: S.Like(c, "%goldenrod%"),
+    lambda S, E, c: S.Like(c, "PROMO%"),
+    lambda S, E, c: S.Like(c, "%rod"),
+    lambda S, E, c: S.Like(c, "_3-%"),
+    lambda S, E, c: S.Like(c, "a\\_b\\%c"),
+    lambda S, E, c: S.Substring(c, E.Literal(1), E.Literal(2)),
+    lambda S, E, c: S.Substring(c, E.Literal(0), E.Literal(3)),
+    lambda S, E, c: S.Substring(c, E.Literal(4), E.Literal(100)),
+    lambda S, E, c: S.Substring(c, E.Literal(-3), E.Literal(2)),
+    lambda S, E, c: S.Substring(c, E.Literal(2), E.Literal(-1)),
+], ids=["like_contains", "like_prefix", "like_suffix", "like_underscore",
+        "like_escape", "substring_prefix", "substring_pos0",
+        "substring_tail", "substring_from_end", "substring_negative_len"])
+def test_host_string_functions_match_reference(make):
+    """LIKE and substring as the port's stage evaluates them (once per
+    distinct value, ``plan/stringpred.py``) against the reference's
+    row-by-row ``eval_host``; a null row is null in both."""
+    from spark_rapids_tpu import stringfns as JS
+    from spark_rapids_tpu_torch import stringfns as TS
+    from spark_rapids_tpu_torch.plan.stringpred import _eval_host
+    jcol = JE.BoundReference(0, JT.STRING, True, "s")
+    tcol = TE.BoundReference(0, TT.STRING, True, "s")
+    je, te = make(JS, JE, jcol), make(TS, TE, tcol)
+    assert str(te.dtype) == str(je.dtype)
+    valid = np.array([x is not None for x in STRINGS])
+    n = len(STRINGS)
+
+    def ev(e):  # the column, or a literal argument
+        if isinstance(e, JE.BoundReference):
+            return STRINGS, valid
+        return np.full(n, e.value, dtype=object), None
+    jd, jv = je.eval_host(ev, n)
+    jv = np.ones(n, dtype=bool) if jv is None else jv
+    td, tv = _eval_host(te, STRINGS, valid)
+    np.testing.assert_array_equal(tv, jv)
+    assert [str(x) for x in td[tv]] == [str(x) for x in jd[jv]]

@@ -161,9 +161,9 @@ def test_joins_other_than_inner_raise(sessions, how):
 def test_unported_join_shapes_raise(sessions):
     """The shapes that raised before the sorted broadcast path (row 6″) —
     two keys, a float key, a key domain over denseDomainCap, a probe
-    estimated under denseMinProbeRows — now run and equal the reference;
-    what is still queued (cross joins, the HOST and ICI shuffle
-    transports) raises, naming its row or item."""
+    estimated under denseMinProbeRows — now run and equal the reference,
+    as does the cross join since row 7′-rest; what is still queued (the
+    HOST and ICI shuffle transports) raises, naming its item."""
     jsess, tsess = sessions
     d = {"a": np.arange(5, dtype=np.int64), "b": np.arange(5, dtype=np.int64),
          "w": np.arange(5, dtype=np.float64)}
@@ -183,10 +183,10 @@ def test_unported_join_shapes_raise(sessions):
                 sess.create_dataframe(d), on).collect(), key=_key))
         assert rows[1] == rows[0] and rows[1], on
         _check_path(sess, path)
-    d4 = tsess.create_dataframe(d)
-    f4 = tsess.create_dataframe(f)
-    with pytest.raises(NotImplementedError, match="cross join.*7′"):
-        f4.cross_join(d4).collect()
+    crossed = [sorted(sess.create_dataframe(f).cross_join(
+        sess.create_dataframe(d)).collect(), key=_key)
+        for sess in (jsess, tsess)]
+    assert crossed[1] == crossed[0] and len(crossed[1]) == 45
     for mode in ("HOST", "ICI"):
         shuffled = tsrt.Session({
             "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,

@@ -397,14 +397,20 @@ def test_sort_and_window_paths_match_reference_and_oracle(db, path):
 def test_q11_matches_reference_and_oracle(db):
     """TPC-H Q11 (partsupp joined to the German suppliers, the total, the
     HAVING and the ORDER BY through the full sort) against ``run_q11`` and
-    ``q11_numpy``."""
+    ``q11_numpy``, at no more blocking fetches than the reference: the two
+    broadcast joins' build stats ride one fetch in each of its queries."""
+    from spark_rapids_tpu_torch.utils.metrics import QueryStats as TStats
     tables = ("partsupp", "supplier", "nation")
     jsess = jsrt.Session(DB_SETTINGS)
     tsess = tsrt.Session(DB_SETTINGS, device="cpu")
-    jrows = tpch_suite.run_q11({t: jsess.create_dataframe(db[t])
-                                for t in tables})
-    tdf = tpch.q11(*(tsess.create_dataframe(db[t]) for t in tables))
-    trows = tdf.collect()
+    with JStats.scoped() as st:
+        jrows = tpch_suite.run_q11({t: jsess.create_dataframe(db[t])
+                                    for t in tables})
+    with TStats.scoped() as both:
+        tdf = tpch.q11(*(tsess.create_dataframe(db[t]) for t in tables))
+        trows = tdf.collect()
     assert trows
     _assert_rows_close(trows, jrows)
     _assert_rows_close(trows, tpch.q11_numpy(*(db[t] for t in tables)))
+    assert tsess.last_query_stats().blocking_fetches <= st.blocking_fetches
+    assert both.blocking_fetches <= st.blocking_fetches

@@ -4,7 +4,11 @@
     JAX_PLATFORMS=cpu python tools/fetch_budget.py --sf 1 --package both \
         [--batch-rows 4194304]
 
-Besides the TPC-H queries, ``sort_lineitem`` (S1: a global ORDER BY of a
+The queries are Q4, Q13, Q18, Q21, Q11, Q10 (twice), the rest of TPC-H
+(Q2, Q5, Q7, Q8, Q9, Q12, Q14, Q15, Q16, Q17, Q19, Q20, Q22) and Q21 in
+its EXISTS form (``q21_exists``: the same logical plan built in both
+packages, with conditioned semi and anti joins).  Besides them,
+``sort_lineitem`` (S1: a global ORDER BY of a
 lineitem projection, out-of-core when lineitem spans several batches) and
 ``supplier_history`` (W1: two window specs over lineitem, filtered above
 them) run through ``to_device_arrays`` in both packages.
@@ -17,8 +21,9 @@ checked against the numpy oracle.  SF1 with 400,000-row batches cuts
 lineitem into the 15 batches it has at SF10 with the default size.  Q10
 runs in the reference's two configurations, ``q10_flip`` (AQE on: the
 second join's staged side flips it to a broadcast join) and
-``q10_shuffled`` (AQE off: 8 hash partition pairs), with the broadcast
-threshold scaled from SF10 to ``--sf`` so the plans are SF10's.  Prints
+``q10_shuffled`` (AQE off: 8 hash partition pairs); Q10 and the rest of
+TPC-H run with the broadcast threshold scaled from SF10 to ``--sf`` so
+the plans are SF10's.  Prints
 one JSON line per query and package: ``{"query", "package",
 "blocking_fetches", "seconds"}``.  A
 fetch count on the CPU equals the count on a device for the same plan
@@ -50,6 +55,8 @@ QUERIES = {"q4": ("q4", ("orders", "lineitem"), {}),
                         {"spark.rapids.tpu.sql.aqe.enabled": True}),
            "q10_shuffled": ("q10", Q10_TABLES,
                             {"spark.rapids.tpu.sql.aqe.enabled": False})}
+REST = ("q2", "q5", "q7", "q8", "q9", "q12", "q14", "q15", "q16", "q17",
+        "q19", "q20", "q22", "q21_exists")
 # device hand-offs: name -> (models/tpch function, numpy oracle)
 DEVICE_PATHS = {"sort_lineitem": ("sort_lineitem", "sort_lineitem_numpy"),
                 "supplier_history": ("supplier_history",
@@ -101,20 +108,23 @@ def main() -> None:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--package", choices=("reference", "port", "both"),
                     default="both")
-    ap.add_argument("--queries", default=",".join(list(QUERIES)
-                                                  + list(DEVICE_PATHS)))
+    ap.add_argument("--queries", default=",".join(
+        list(QUERIES) + list(REST) + list(DEVICE_PATHS)))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     args = ap.parse_args()
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
                              args.batch_rows})
 
+    from spark_rapids_tpu_torch.models import tpch
+    for q in REST:
+        QUERIES[q] = (q, tpch.QUERY_TABLES[q], {})
+
     def settings(q):
         extra = dict(QUERIES[q][2])
-        if QUERIES[q][0] == "q10":
+        if QUERIES[q][0] == "q10" or q in REST:
             extra["spark.rapids.tpu.sql.autoBroadcastJoinThreshold"] = int(
                 SF10_BROADCAST_THRESHOLD * args.sf / 10)
         return dict(base, **extra)
-    from spark_rapids_tpu_torch.models import tpch
     data = tpch.gen_db_arrays(args.sf)
     runners = []
     if args.package in ("reference", "both"):
@@ -138,7 +148,13 @@ def main() -> None:
             body, tables, _ = QUERIES[q]
             dfs = {t: jsess.create_dataframe(data[t]) for t in tables}
             with QueryStats.scoped() as st:
-                rows = getattr(tpch_suite, f"run_{body}")(dfs)
+                if body == "q21_exists":
+                    import spark_rapids_tpu.plan.logical as JL
+                    from spark_rapids_tpu.sql import functions as JF
+                    rows = tpch.q21_exists(*dfs.values(), functions=JF,
+                                           logical=JL).collect()
+                else:
+                    rows = getattr(tpch_suite, f"run_{body}")(dfs)
             return rows, st.blocking_fetches
         runners.append(("reference", run_ref))
     if args.package in ("port", "both"):
