@@ -55,7 +55,8 @@ DB_LINEITEM = 60_012_150
 DB_COLUMNS = {"lineitem": ["l_orderkey", "l_partkey", "l_suppkey",
                            "l_quantity", "l_commitdate", "l_receiptdate",
                            "l_returnflag", "l_extendedprice", "l_discount",
-                           "l_shipdate", "l_shipmode"],
+                           "l_shipdate", "l_shipmode", "l_tax",
+                           "l_linestatus"],
               "orders": ["o_orderkey", "o_custkey", "o_orderstatus",
                          "o_totalprice", "o_orderdate", "o_orderpriority"],
               # every column: Q10's first join builds the side the
@@ -101,6 +102,27 @@ REST_FETCH_CEILINGS = {
     "q15": (9, _REF), "q16": (9, _REF), "q17": (45, _REF), "q19": (2, _REF),
     "q20": (42, _REF), "q22": (53, _REF), "q21_exists": (1062, _REF),
     "q11_sf1": (7, "the reference's count at SF1, 4,194,304-row batches")}
+# slice 7: decimal money columns and FIRST/LAST at SF10, each with the
+# kernels it must launch at the least
+SLICE7_QUERIES = ("q1_dec", "q6_dec", "q18_dec", "f1", "f1u", "w2")
+SLICE7_REQUIRE = {
+    "q1_dec": ("grid_agg", "wide_decimal"),
+    "q6_dec": ("masked_reduce", "wide_decimal"),
+    "q18_dec": ("hash_agg", "wide_decimal", "dense_join_semi", "topk"),
+    "f1": ("hash_agg", "hash_agg_first_last"),
+    "f1u": ("masked_reduce", "masked_reduce_first_last"),
+    "w2": ("sort", "window_scan", "window_frame", "window_first_last")}
+# blocking fetch ceilings: the reference's count for the same plan
+# (tools/fetch_budget.py at SF1 with 400,000-row batches); Q6-dec's
+# reference count is 0 because it reads its wide sum's limbs to the host
+# without counting (spark_rapids_tpu/aggfns.py:139 np.asarray), so its
+# ceiling counts that read; the reference cannot run Q18-dec (its HAVING
+# reads a host-finalized wide sum), so Q18-dec's ceiling is the
+# reference's count for Q18's plan over float columns
+SLICE7_FETCH_CEILINGS = {
+    "q1_dec": (2, _REF), "q6_dec": (1, "the reference's uncounted read"),
+    "q18_dec": (37, "the reference's count for Q18's plan"),
+    "f1": (5, _REF), "f1u": (1, _REF), "w2": (2, _REF)}
 
 
 class SmokeFailure(Exception):
@@ -2614,6 +2636,547 @@ def small_join_oracles(db) -> dict:
 
 # ---------------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------------
+# Slice 7: wide decimals, FIRST/LAST, reproducible float sums
+# ---------------------------------------------------------------------------------
+
+class AttrCounter:
+    """A wrapper's launches that took one of its code paths (an integer
+    attribute beside its ``launches``), with the ``launches`` interface."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+        self.__name__ = f"{fn.__name__}[{attr}]"
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        check(value == 0, "an attribute counter only resets")
+        setattr(self.fn, self.attr, 0)
+
+
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def wide_case(torch, n, seed, device):
+    """Seeded limbs with carries, INT64_MIN limbs and +-(10^38 - 1), a
+    narrow operand, a null mask."""
+    from spark_rapids_tpu_torch.batch import wide_limbs
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+    a = rng.integers(I64_MIN, I64_MAX, (n, 2), dtype=np.int64, endpoint=True)
+    b = rng.integers(I64_MIN, I64_MAX, (n, 2), dtype=np.int64, endpoint=True)
+    edge = wide_limbs([0, 1, -1, I64_MIN, I64_MAX, 10 ** 38 - 1, -(10 ** 38 - 1),
+                   (1 << 64) - 1, 1 << 64, -(1 << 127), (1 << 127) - 1])
+    m = min(n, len(edge))
+    a[:m], b[:m] = edge[:m], edge[::-1][:m]
+    a[m:2 * m, 0], b[m:2 * m, 0] = -1, 1          # carries out of lo
+    a[2 * m:3 * m, 0] = b[2 * m:3 * m, 0] = I64_MIN
+    b[3 * m:4 * m] = a[3 * m:4 * m]               # equal pairs
+    narrow = rng.integers(-10 ** 17, 10 ** 17, n)
+    return t(a), t(b), t(narrow), t(rng.random(n) < 0.9)
+
+
+def check_wide_decimal(torch, wd, device) -> float:
+    """wide_decimal.cu against its plain version, bit for bit: every
+    elementwise op over wide and narrow operands, rescaled by 10^k up to
+    k = 20, a broadcast literal, null masks; the wide-sum finalize over 2
+    and 4 lanes with overflowing and empty groups."""
+    cases = 0
+    for n, seed in ((0, 1), (1, 2), (37, 3), (1 << 20, 4)):
+        a, b, narrow, valid = wide_case(torch, n, seed, device)
+        for op in ("add", "sub", "eq", "lt", "le", "gt", "ge"):
+            for x, y, ka, kb, v in ((a, b, 0, 0, None), (a, b, 0, 0, valid),
+                                    (narrow, b, 2, 0, None),
+                                    (a, narrow, 0, 20, valid),
+                                    (a, b[:1], 1, 3, None)):
+                if n == 0 and y.shape[0] == 0 and y is not b:
+                    continue
+                if y.shape[0] == 0 and n:
+                    continue
+                got = wd.wd_kernel(op, x, y, ka, kb, v)
+                want = wd.wide_binary_plain(op, x, y, ka, kb, v)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"wide_decimal {op} differs "
+                      f"(n={n}, k={ka}/{kb})")
+                cases += 1
+        for op, x, k in (("neg", a, 0), ("lift", narrow, 0),
+                         ("lift", a, 7), ("lift", narrow, 20),
+                         ("lift", a, 20)):
+            got = wd.wd_kernel(op, x, None, k, 0, None)
+            check(torch.equal(got, wd.wide_binary_plain(op, x, None, k)),
+                  f"wide_decimal {op} (k={k}) differs")
+            cases += 1
+    from spark_rapids_tpu_torch.batch import wide_limbs
+    rng = np.random.default_rng(8)
+    t = _to_device(torch, device)
+    for lanes_of, precision in ((lambda: wd.sum_lanes(t(rng.integers(
+            I64_MIN, I64_MAX, 200_000))), 22),
+            (lambda: wd.sum_lanes(t(wide_limbs([int(x) * 10 ** 17 for x in
+                                            rng.integers(-10 ** 18, 10 ** 18,
+                                                         200_000)]))), 36)):
+        lanes = lanes_of()
+        g = t(rng.integers(0, 1000, 200_000))
+        sums = [torch.zeros(1000, dtype=torch.int64, device=device)
+                .index_add_(0, g, x) for x in lanes]
+        count = torch.bincount(g, minlength=1000)
+        count[::97] = 0
+        got = wd.sum_finalize_kernel(sums, count, precision)
+        want = wd.sum_finalize_plain(sums, count, precision)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"wide sum finalize differs ({len(lanes)} lanes)")
+        check(bool((~got[1]).any()), "no overflowing group was drawn")
+    print(f"check wide_decimal: {cases} elementwise cases bit-exact (carries, "
+          f"INT64_MIN limbs, +-(10^38 - 1), 10^k up to k = 20, a broadcast "
+          f"operand, null masks), wide-sum finalize over 2 and 4 lanes with "
+          f"overflowing and empty groups bit-exact: ok")
+    return 0.0
+
+
+def _fl_groups(torch, acc):
+    """The accumulator's groups sorted by key: (keys, [(value, has) or
+    values])."""
+    keys, values, live = acc.finish()
+    word, ok = keys[0]
+    if live is not None:
+        word, ok = word[live], ok[live]
+        values = [(v[0][live], v[1][live]) if isinstance(v, tuple)
+                  else v[live] for v in values]
+    key = torch.where(ok, word, I64_MIN)
+    order = torch.sort(key).indices
+    return key[order], [(v[0][order], v[1][order]) if isinstance(v, tuple)
+                        else v[order] for v in values]
+
+
+def check_first_last(torch, groupby, window, device) -> float:
+    """FIRST/LAST kernels against their plain versions, exact: the
+    ungrouped picks of masked_reduce.cu over batches of which the first is
+    empty; hash_agg.cu's per-slot picks over batches that grow the table
+    (a rehash), with all-null groups, an empty batch and keys forced into
+    one bucket; window_frame.cu frame_first_last in its four modes over
+    empty and all-null frames; and frame_sum over a column with NaN and
+    infinities (direct sums)."""
+    rng = np.random.default_rng(21)
+    t = _to_device(torch, device)
+    # ungrouped
+    specs = [("first", False), ("last", False), ("first", True),
+             ("last", True), ("last", False)]
+    accs = []
+    for fn in (groupby.masked_reduce, groupby.masked_reduce_plain):
+        acc_f, acc_i = groupby.init_scalars(specs, device)
+        acc_h = torch.zeros_like(acc_i)
+        accs.append((acc_f, acc_i, acc_h))
+    for b, n in enumerate((1000, 0, BATCH_ROWS, 5000)):
+        ints, floats = t(rng.integers(I64_MIN, I64_MAX, n)), t(rng.normal(
+            size=n))
+        valid = t(rng.random(n) < 0.01)
+        active = t(rng.random(n) < (0.0 if b == 0 else 0.02))
+        cols = [(ints, None, "first"), (ints, None, "last"),
+                (floats, valid, "first"), (floats, valid, "last"),
+                (ints, valid, "last")]
+        for (fn, acc) in zip((groupby.masked_reduce,
+                              groupby.masked_reduce_plain), accs):
+            fn(cols, active, *acc)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x.view(torch.int64), y.view(torch.int64))
+              for x, y in zip(accs[0], accs[1])),
+          "masked_reduce first/last differs")
+    # grouped, with growth
+    cases, grew = 0, False
+    for n, batch, groups, collide in ((20_000, 1000, 5000, False),
+                                      (3000, 500, 300, True),
+                                      (BATCH_ROWS, BATCH_ROWS // 4,
+                                       1_000_000, False)):
+        keys = rng.integers(0, groups, n)
+        valid = (rng.random(n) < 0.3) & (keys % 7 != 0)  # all-null groups
+        active = rng.random(n) < 0.7
+        active[:batch] = False                            # an empty batch
+        ints, floats = rng.integers(I64_MIN, I64_MAX, n), rng.normal(size=n)
+        words = [(t(keys), t(rng.random(n) < 0.97))]
+        contribs = [(t(ints), None), (t(ints), None), (t(floats), t(valid)),
+                    (t(floats), t(valid)), (t(ints), t(valid)),
+                    (t(floats), None), (None, None)]
+        channels = [("first", False), ("last", False),
+                    ("first_valid", True), ("last_valid", True),
+                    ("first_valid", False), ("sum", True), ("count", False)]
+        case = (words, contribs, channels, t(active))
+        kacc = run_hash_agg(torch, groupby, case, batch, False, collide)
+        pacc = run_hash_agg(torch, groupby, case, batch, True)
+        grew = grew or kacc.growths > 0
+        kk, kv = _fl_groups(torch, kacc)
+        pk, pv = _fl_groups(torch, pacc)
+        torch.cuda.synchronize()
+        check(torch.equal(kk, pk), "hash_agg first/last groups differ")
+        for j, (a, b) in enumerate(zip(kv, pv)):
+            if isinstance(a, tuple):
+                check(torch.equal(a[1], b[1]) and torch.equal(
+                    a[0][a[1]].view(torch.int64), b[0][b[1]].view(
+                        torch.int64)), f"hash_agg first/last channel {j} "
+                      f"differs")
+            elif channels[j][0] == "count":
+                check(torch.equal(a, b), "hash_agg count differs")
+        cases += 1
+    check(grew, "no first/last case grew the table")
+    # windowed
+    n = 300_000
+    part = np.sort(rng.integers(0, 3000, n))
+    seg_start = np.searchsorted(part, part, side="left")
+    seg_end = np.searchsorted(part, part, side="right") - 1
+    lo = np.maximum(np.arange(n) + rng.integers(-8, 2, n), seg_start)
+    hi = np.minimum(np.arange(n) + rng.integers(-2, 8, n), seg_end)
+    valid = rng.random(n) < 0.25
+    valid[part % 11 == 0] = False                         # all-null frames
+    vals = t(rng.integers(I64_MIN, I64_MAX, n))
+    lo_t, hi_t = t(lo.astype(np.int32)), t(hi.astype(np.int32))
+    for last in (False, True):
+        for ign in (False, True):
+            got = window.frame_first_last_kernel(vals, t(valid), lo_t, hi_t,
+                                                 last, ign)
+            want = window.frame_first_last_plain(vals, t(valid), lo_t, hi_t,
+                                                 last, ign)
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1]) and torch.equal(
+                got[0][got[1]], want[0][want[1]]),
+                f"frame_first_last (last={last}, ignore_nulls={ign}) "
+                f"differs")
+    x = rng.uniform(-100, 100, 20_000)
+    x[rng.choice(20_000, 30, replace=False)] = rng.choice(
+        np.array([np.nan, np.inf, -np.inf]), 30)
+    p20 = np.sort(rng.integers(0, 40, 20_000))
+    xs = t(x)
+    run = torch.zeros_like(xs)
+    for s, e in zip(*(np.flatnonzero(np.r_[True, p20[1:] != p20[:-1]]),
+                      np.r_[np.flatnonzero(p20[1:] != p20[:-1]), 19_999])):
+        run[s:e + 1] = torch.cumsum(xs[s:e + 1], 0)
+    s20 = np.searchsorted(p20, p20, side="left")
+    e20 = np.searchsorted(p20, p20, side="right") - 1
+    a20 = t(np.maximum(np.arange(20_000) - 3, s20).astype(np.int32))
+    b20 = t(np.minimum(np.arange(20_000) + 1, e20).astype(np.int32))
+    got = window.frame_sum_kernel(run, xs, None, a20, b20)
+    want = window.frame_sum_plain(run, xs, None, a20, b20)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+          "frame_sum over NaN and infinities differs")
+    print(f"check first/last: masked_reduce over 4 batches (the first empty), "
+          f"hash_agg over {cases} cases with growth, all-null groups, an "
+          f"empty batch and one bucket, frame_first_last in 4 modes over "
+          f"{n} rows with empty and all-null frames, frame_sum over NaN "
+          f"and infinities: exact: ok")
+    return 0.0
+
+
+def check_float_sums_deterministic(torch, groupby, device) -> None:
+    """float64 sums of hash_agg.cu and grid_agg.cu are equal to the bit
+    over 3 runs of 3 batches (magnitudes far apart, infinities and NaN in
+    some slots) and within F64_SUM_TOL x the slot's sum |x| of the plain
+    version, as check_dense_agg_deterministic holds dense_agg.cu."""
+    rng = np.random.default_rng(16)
+    t = _to_device(torch, device)
+    n, D = BATCH_ROWS, 100_000
+    batches = []
+    for b in range(3):
+        key = rng.integers(0, D, n)
+        val = np.round(rng.uniform(900.0, 105000.0, n), 2) * (
+            1 - rng.integers(0, 11, n) / 100.0)
+        if b == 1:
+            val[:1000] = rng.choice(np.array([1e300, -1e300, 1e-300, 3.0,
+                                              -0.0]), 1000)
+            val[1000:1006] = [np.inf, -np.inf, np.nan, 1.0, np.nan, 2.0]
+        c0 = rng.integers(0, 3, n).astype(np.int32)
+        c1 = rng.integers(0, 5, n).astype(np.int32)
+        batches.append((t(key), t(val), t(rng.random(n) < 0.9), t(c0),
+                        t(c1), t((c0.astype(np.int64) * 6 + c1))))
+    for name in ("hash_agg", "grid_agg"):
+        runs = []
+        for plain in (False, False, False, True):
+            if name == "hash_agg":
+                acc = groupby.HashAccumulator(1, [("sum", True)], device,
+                                              plain=plain)
+                for key, val, act, *_ in batches:
+                    acc.update([(key, None)], [(val, None)], act, n)
+                keys, values, live = acc.finish()
+                word, sums = keys[0][0], values[0]
+                if live is not None:
+                    word, sums = word[live], sums[live]
+                order = torch.sort(word).indices
+                slot, sums = word[order], sums[order]
+            else:
+                acc = groupby.GridAccumulator((3, 5), ["f"], device)
+                for _, val, act, c0, c1, _ in batches:
+                    keys = [(c0, None), (c1, None)]
+                    if plain:
+                        groupby.grid_agg_plain(keys, (3, 5), [(val, None)],
+                                               [], act, acc.f, acc.i,
+                                               acc.cnt)
+                    else:
+                        groupby.grid_agg(keys, (3, 5), [(val, None)], [],
+                                         act, acc.f, acc.i, acc.cnt, acc.fx)
+                slot, sums = torch.arange(acc.G, device=device), acc.f[:, 0]
+            runs.append((slot, sums.clone()))
+        scale = torch.zeros(max(D, 24), dtype=torch.float64, device=device)
+        for key, val, act, _, _, gid in batches:
+            live = act & torch.isfinite(val)
+            at = key if name == "hash_agg" else gid
+            scale.index_add_(0, at[live], val[live].abs())
+        torch.cuda.synchronize()
+        for w, r in runs[1:3]:
+            check(torch.equal(w, runs[0][0]) and torch.equal(
+                r.view(torch.int64), runs[0][1].view(torch.int64)),
+                f"{name} float64 sums differ between two runs")
+        (slot, k), (pslot, p) = runs[0], runs[3]
+        check(torch.equal(slot, pslot), f"{name}: groups differ from plain")
+        check(torch.equal(torch.isnan(k), torch.isnan(p)),
+              f"{name}: NaN sums differ from plain")
+        fin = torch.isfinite(p)
+        inf = ~fin & ~torch.isnan(p)
+        check(torch.equal(k[inf], p[inf]),
+              f"{name}: infinite sums differ from plain")
+        s = scale[slot][fin].clamp(min=1e-300)
+        err = float(((k[fin] - p[fin]).abs() / s).max()) if fin.any() \
+            else 0.0
+        check(err <= F64_SUM_TOL, f"{name} float64 sums off by {err:.3e} "
+              f"x sum|x|")
+        print(f"check {name} float64 sums: 3 runs of 3 batches of {n} rows "
+              f"equal bit for bit, specials as plain, max rel err vs plain "
+              f"{err:.3e} x sum|x|: ok")
+
+
+def _row7(name, source, launches, err, ms, plain_ms, nbytes, replaces):
+    return {"name": name, "route": "cuda",
+            "source": f"spark_rapids_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
+                        db) -> list:
+    """The slice-7 kernels at the main path's shapes, each first held
+    against its plain version on the same inputs: the wide compare of
+    Q18-dec's HAVING and the wide-sum finalize over its groups (every
+    distinct l_orderkey at SF10), masked_reduce's FIRST/LAST over an F1u
+    batch, hash_agg's FIRST/LAST over an F1 batch into a table that holds
+    its customers, and frame_first_last over W2's sorted lineitem.  No
+    PyTorch call computes any of them (no 128-bit integers, no FIRST/LAST
+    reduction): library_ms is null."""
+    t = _to_device(torch, device)
+    li, orders = db["lineitem"], db["orders"]
+    out, notes = [], []
+    # Q18-dec: per order, the DECIMAL(22, 2) sum of l_quantity
+    qty = np.bincount(li["l_orderkey"], weights=np.round(
+        li["l_quantity"] * 100)).astype(np.int64)
+    qty = qty[np.bincount(li["l_orderkey"]) > 0]
+    m = len(qty)
+    lanes = wd.sum_lanes(t(qty))
+    count = t(np.full(m, 4, dtype=np.int64))
+    limbs, _, _ = wd.sum_finalize_kernel(lanes, count, 22)
+    lit = torch.tensor(300, dtype=torch.int64, device=device)
+    got = wd.wd_kernel("gt", limbs, lit, 0, 2)
+    want = wd.wide_binary_plain("gt", limbs, lit, 0, 2)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "wide compare differs at Q18-dec's shape")
+    inputs = copies_for_l2([limbs])
+    ms = time_ms(torch, [lambda x=x[0]: wd.wd_kernel("gt", x, lit, 0, 2)
+                         for x in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms(torch, [lambda: wd.wide_binary_plain(
+        "gt", limbs, lit, 0, 2)], reps=4)
+    out.append(_row7("wide_decimal", "wide_decimal",
+                     per_wrapper.get("wd_kernel", 0), 0.0, ms, plain_ms,
+                     17 * m, "spark_rapids_tpu/ops/wide_decimal.py:72"))
+    notes.append(f"{m} groups, DECIMAL(22, 2) > 300 (Q18-dec's HAVING)")
+    got = wd.sum_finalize_kernel(lanes, count, 22)
+    want = wd.sum_finalize_plain(lanes, count, 22)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "wide sum finalize differs at Q18-dec's shape")
+    inputs = copies_for_l2(lanes + [count])
+    ms = time_ms(torch, [lambda x=x: wd.sum_finalize_kernel(x[:2], x[2], 22)
+                         for x in inputs], reps=4 * len(inputs))
+    # the plain version uploads its bounds from the host: one call per
+    # event pair
+    plain_ms = time_ms_synced(torch, [lambda: wd.sum_finalize_plain(
+        lanes, count, 22)], reps=4)
+    out.append(_row7("wide_sum_finalize", "wide_decimal",
+                     per_wrapper.get("sum_finalize_kernel", 0), 0.0, ms,
+                     plain_ms, 41 * m, "spark_rapids_tpu/aggfns.py:131"))
+    notes.append(f"{m} groups of 2 lanes and a count into DECIMAL(22, 2) "
+                 f"limbs and validity")
+    del limbs, lanes, count, inputs, got, want
+    # F1u: one lineitem batch, the lines shipped from 1998-08-01 live
+    n = min(BATCH_ROWS, len(orders["o_orderkey"]))
+    ship = li["l_shipdate"][:n]
+    day = ship.astype("datetime64[D]").astype(np.int64)
+    active = t(ship >= np.datetime64("1998-08-01"))
+    key = t(li["l_orderkey"][:n])
+    price = t(np.round(li["l_extendedprice"][:n] * 100).astype(np.int64))
+    returned = t(li["l_returnflag"][:n] == "R")
+    finished = t(li["l_linestatus"][:n] == "F")
+    cols = [(t(day), None, "first"), (price, None, "last"),
+            (key, None, "last"), (key, returned, "first"),
+            (t(day), finished, "last")]
+    specs = [(op, False) for *_, op in cols]
+    results = []
+    for fn in (groupby.masked_reduce, groupby.masked_reduce_plain):
+        acc_f, acc_i = groupby.init_scalars(specs, device)
+        acc_h = torch.zeros_like(acc_i)
+        fn(cols, active, acc_f, acc_i, acc_h)
+        results.append((acc_i, acc_h))
+    torch.cuda.synchronize()
+    check(torch.equal(results[0][0], results[1][0])
+          and torch.equal(results[0][1], results[1][1]),
+          "masked_reduce first/last differs at F1u's shape")
+
+    # the accumulators are made once: uploading new ones would wait for
+    # pinned host memory inside the timed calls
+    acc_f, acc_i = groupby.init_scalars(specs, device)
+    acc_h = torch.zeros_like(acc_i)
+    inputs = copies_for_l2([active, returned, finished])
+    ms = time_ms(torch, [lambda a=a, r=r, f=f: groupby.masked_reduce(
+        [cols[0], cols[1], cols[2], (key, r, "first"),
+         (cols[4][0], f, "last")], a, acc_f, acc_i, acc_h)
+        for a, r, f in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: groupby.masked_reduce_plain(
+        cols, active, acc_f, acc_i, acc_h)], reps=4)
+    out.append(_row7("masked_reduce_first_last", "masked_reduce",
+                     per_wrapper.get("masked_reduce[ordered_launches]", 0),
+                     0.0, ms, plain_ms, 3 * n + 5 * 8,
+                     "spark_rapids_tpu/ops/groupby.py:333"))
+    notes.append(f"{n} rows, {int(active.sum())} live, 5 FIRST/LAST "
+                 f"columns (the active and 2 validity masks read, one value "
+                 f"per column)")
+    del inputs
+    # F1: one orders batch into a table that holds every customer
+    ck = t(orders["o_custkey"][:n])
+    odate = t(orders["o_orderdate"][:n].astype("datetime64[D]").astype(
+        np.int64))
+    tprice = t(np.round(orders["o_totalprice"][:n] * 100).astype(np.int64))
+    okey = t(orders["o_orderkey"][:n])
+    urgent = t(orders["o_orderpriority"][:n] == "1-URGENT")
+    filled = t(orders["o_orderstatus"][:n] == "F")
+    contribs = [(odate, None), (tprice, None), (okey, None), (okey, urgent),
+                (odate, filled), (None, None)]
+    channels = [("first", False), ("last", False), ("last", False),
+                ("first_valid", False), ("last_valid", False),
+                ("count", False)]
+    accs = []
+    for plain in (False, True):
+        acc = groupby.HashAccumulator(1, channels, device, plain=plain,
+                                      key_bound=len(db["customer"][
+                                          "c_custkey"]))
+        for _ in range(2):  # the second call finds every group in place
+            acc.update([(ck, None)], contribs, None, n)
+        accs.append(acc)
+    kk, kv = _fl_groups(torch, accs[0])
+    pk, pv = _fl_groups(torch, accs[1])
+    torch.cuda.synchronize()
+    check(torch.equal(kk, pk) and all(
+        torch.equal(a[1], b[1]) and torch.equal(a[0][a[1]], b[0][b[1]])
+        if isinstance(a, tuple) else torch.equal(a, b)
+        for a, b in zip(kv, pv)), "hash_agg first/last differs at F1's "
+        "shape")
+    groups = int(kk.shape[0])
+    ms = time_ms(torch, [lambda: accs[0].update([(ck, None)], contribs,
+                                                None, n)], reps=8)
+    plain_ms = time_ms_synced(torch, [lambda: accs[1].update(
+        [(ck, None)], contribs, None, n)], reps=2)
+    # per row its key, 4 values and 2 masks; per group its state, key,
+    # null bits, and 5 accumulators and 4 words, read and written
+    nbytes = n * (8 + 4 * 8 + 2) + 2 * groups * (4 + 8 + 4 + 5 * 8 + 4 * 8)
+    out.append(_row7("hash_agg_first_last", "hash_agg",
+                     per_wrapper.get("hash_agg_update[ordered_launches]", 0),
+                     0.0, ms, plain_ms, nbytes,
+                     "spark_rapids_tpu/ops/groupby.py:195"))
+    notes.append(f"{n} orders into {groups} customer groups, F1's 5 "
+                 f"FIRST/LAST channels and the count")
+    del accs, contribs
+    # the repaired float64 sums on the hash path: one lineitem batch's
+    # revenue per order (Q3's aggregate shape, but on the hash table)
+    okeys = t(li["l_orderkey"][:n])
+    rev = t(li["l_extendedprice"][:n] * (1 - li["l_discount"][:n]))
+    contribs = [(rev, None), (None, None)]
+    accs = []
+    for plain in (False, True):
+        # the same n rows every call: at most n groups, so the timed calls
+        # never fetch the group count
+        acc = groupby.HashAccumulator(1, [("sum", True), ("count", False)],
+                                      device, plain=plain, key_bound=n)
+        acc.update([(okeys, None)], contribs, None, n)
+        accs.append(acc)
+    kk, kv = _fl_groups(torch, accs[0])
+    pk, pv = _fl_groups(torch, accs[1])
+    torch.cuda.synchronize()
+    err = float((kv[0] - pv[0]).abs().max())
+    check(torch.equal(kk, pk) and torch.equal(kv[1], pv[1])
+          and err <= F64_SUM_TOL * float(rev.abs().sum()),
+          "hash_agg float64 sums differ at the timing shape")
+    groups = int(kk.shape[0])
+    ms = time_ms(torch, [lambda: accs[0].update([(okeys, None)], contribs,
+                                                None, n)], reps=8)
+    plain_ms = time_ms_synced(torch, [lambda: accs[1].update(
+        [(okeys, None)], contribs, None, n)], reps=2)
+    out.append(_row7("hash_agg_f64_sum", "hash_agg",
+                     per_wrapper.get("hash_agg_update", 0), err, ms,
+                     plain_ms, n * 16 + 2 * groups * (4 + 8 + 4 + 8 + 8),
+                     "spark_rapids_tpu/ops/groupby.py:251"))
+    notes.append(f"{n} lineitems into {groups} order groups, one float64 "
+                 f"sum (the fixed point: a largest-|x| pass, the adds, a "
+                 f"fold over the table) and a count")
+    del accs, contribs
+    # W2: the whole lineitem in supplier order, ROWS -6..0, LAST ignoring
+    # nulls of the returned lines' prices
+    order = np.argsort(li["l_suppkey"], kind="stable")
+    supp = li["l_suppkey"][order]
+    nn = len(supp)
+    s_start = np.searchsorted(supp, supp, side="left").astype(np.int32)
+    i = np.arange(nn, dtype=np.int32)
+    lo = t(np.maximum(i - 6, s_start))
+    hi = t(i)
+    vals = t(li["l_extendedprice"][order])
+    valid = t(li["l_returnflag"][order] == "R")
+    del order, supp, s_start, i
+    got = window.frame_first_last_kernel(vals, valid, lo, hi, True, True)
+    want = window.frame_first_last_plain(vals, valid, lo, hi, True, True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]) and torch.equal(
+        got[0][got[1]], want[0][want[1]]),
+        "frame_first_last differs at W2's shape")
+    del got, want
+    ms = time_ms(torch, [lambda: window.frame_first_last_kernel(
+        vals, valid, lo, hi, True, True)], reps=8)
+    plain_ms = time_ms(torch, [lambda: window.frame_first_last_plain(
+        vals, valid, lo, hi, True, True)], reps=2)
+    # values at the picked rows at most (8 B), validity and the bounds
+    # read, value and validity written
+    out.append(_row7("frame_first_last", "window_frame",
+                     per_wrapper.get("frame_first_last_kernel", 0), 0.0, ms,
+                     plain_ms, nn * (8 + 1 + 4 + 4 + 8 + 1),
+                     "spark_rapids_tpu/windowfns.py:321"))
+    notes.append(f"{nn} rows in supplier order, ROWS -6..0, LAST ignoring "
+                 f"nulls")
+    for row, note in zip(out, notes):
+        nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
+              f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
+              f"{row['plain_ms']:.4f} ms, no library call), max |err| vs "
+              f"plain {row['max_abs_err']:.3e}, {row['launches']} launches "
+              f"on the main path")
+    return out
+
+
+def check_f1(out, want) -> float:
+    """F1's device columns, sorted by o_custkey (the hash aggregate's
+    output order is not specified), against the oracle exactly."""
+    order = out["o_custkey"][0].argsort()
+    sorted_out = {c: (d[order], None if v is None else v[order])
+                  for c, (d, v) in out.items()}
+    return check_device_columns("F1", exact_floats=True)(sorted_out, want)
+
+
 def main() -> int:
     try:
         import torch
@@ -2630,6 +3193,7 @@ def main() -> int:
         from spark_rapids_tpu_torch.models import tpch
         from spark_rapids_tpu_torch.ops import (batch_utils, groupby, hashing,
                                                 join, window)
+        from spark_rapids_tpu_torch.ops import wide_decimal as wd
         from spark_rapids_tpu_torch.ops import sort as sort_ops
         from spark_rapids_tpu_torch.ops import topk as topk_mod
     except ImportError as e:
@@ -2676,6 +3240,9 @@ def main() -> int:
         worst["window_scan"] = check_window(torch, window, device)
         worst["window_frame"] = worst["window_scan"]
         worst["cond_join"] = check_cond_join(torch, join, device)
+        worst["wide_decimal"] = check_wide_decimal(torch, wd, device)
+        check_first_last(torch, groupby, window, device)
+        check_float_sums_deterministic(torch, groupby, device)
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -2733,6 +3300,19 @@ def main() -> int:
                 *(db[t] for t in tpch.QUERY_TABLES[q]))
             took[q] = time.perf_counter() - t1
         db_want.update(small_join_oracles(db))
+        dec = {t: tpch.decimal_columns(db[t], tpch.MONEY_COLUMNS[t])
+               for t in ("lineitem", "orders", "customer")}
+        for q, fn in (("q1_dec", lambda: tpch.q1_dec_numpy(db["lineitem"])),
+                      ("q6_dec", lambda: [(tpch.q6_dec_numpy(
+                          db["lineitem"]),)]),
+                      ("q18_dec", lambda: tpch.q18_dec_numpy(
+                          db["orders"], db["lineitem"], db["customer"])),
+                      ("f1", lambda: tpch.f1_numpy(db["orders"])),
+                      ("f1u", lambda: tpch.f1u_numpy(db["lineitem"])),
+                      ("w2", lambda: tpch.w2_numpy(db["lineitem"]))):
+            t1 = time.perf_counter()
+            db_want[q] = fn()
+            took[q] = time.perf_counter() - t1
         print("oracle rows: " + ", ".join(
             f"{q} {len(db_want[q])}" for q in REST_QUERIES))
         print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
@@ -2752,6 +3332,7 @@ def main() -> int:
         shuf = Session({"spark.rapids.tpu.sql.aqe.enabled": False},
                        device="cuda")
         sbf = {t: shuf.create_dataframe(db[t]) for t in DB_QUERIES["q10"]}
+        ddf = {t: sess.create_dataframe(cols) for t, cols in dec.items()}
         q11f = {t: sess.create_dataframe(sf1[t]) for t in Q11_TABLES}
 
         counters = {
@@ -2781,7 +3362,13 @@ def main() -> int:
                              window.frame_sum_kernel,
                              window.frame_minmax_kernel],
             "cond_join": [join.cond_expand_kernel, join.cond_counts_kernel,
-                          join.cross_pairs_kernel]}
+                          join.cross_pairs_kernel],
+            "wide_decimal": [wd.wd_kernel, wd.sum_finalize_kernel],
+            "hash_agg_first_last": [AttrCounter(groupby.hash_agg_update,
+                                                "ordered_launches")],
+            "masked_reduce_first_last": [AttrCounter(groupby.masked_reduce,
+                                                     "ordered_launches")],
+            "window_first_last": [window.frame_first_last_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -2893,6 +3480,38 @@ def main() -> int:
                         per_wrapper[fn.__name__] = \
                             per_wrapper.get(fn.__name__, 0) + fn.launches
             paths.append((name, df_fn, checker, want, ()))
+        # slice 7: decimal money columns and FIRST/LAST, every kernel
+        # counted from 0 before each
+        slice7 = [
+            ("q1_dec", lambda: tpch.q1_dec(ddf["lineitem"]),
+             check_rows("Q1-dec"), collect),
+            ("q6_dec", lambda: tpch.q6_dec(ddf["lineitem"]),
+             check_rows("Q6-dec"), collect),
+            ("q18_dec", lambda: tpch.q18_dec(ddf["orders"], ddf["lineitem"],
+                                             ddf["customer"]),
+             check_rows("Q18-dec"), collect),
+            ("f1", lambda: tpch.f1(ddf["orders"]), check_f1, to_device),
+            ("f1u", lambda: tpch.f1u(ddf["lineitem"]), check_rows("F1u"),
+             collect),
+            ("w2", lambda: tpch.w2(dbf["lineitem"]),
+             check_device_columns("W2", exact_floats=True), to_device)]
+        for name, df_fn, checker, result in slice7:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            runs_of[name] = run_query(torch, sess, df_fn, checker,
+                                      db_want[name], name, counters, result,
+                                      require=SLICE7_REQUIRE[name])
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            paths.append((name, df_fn, checker, db_want[name], ()))
+            if result is to_device:
+                device_paths.add(name)
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -2906,7 +3525,8 @@ def main() -> int:
               f"{fetches} blocking fetches, more than the reference's "
               f"{Q10_SHUFFLED_REFERENCE_FETCHES}")
         for name, (ceiling, why) in list(SLICE5_FETCH_CEILINGS.items()) \
-                + list(REST_FETCH_CEILINGS.items()):
+                + list(REST_FETCH_CEILINGS.items()) \
+                + list(SLICE7_FETCH_CEILINGS.items()):
             fetches = max(r["syncs"] for r in runs_of[name])
             check(fetches <= ceiling, f"{name} made {fetches} blocking "
                   f"fetches, more than {ceiling} ({why})")
@@ -2923,7 +3543,7 @@ def main() -> int:
                   f"{med['device_ms']:.2f} ms, syncs {warm[-1]['syncs']}, "
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
-        del df, cdf, odf, dbf, sbf, q11f, sess, shuf
+        del df, cdf, odf, dbf, sbf, q11f, ddf, dec, sess, shuf
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -2935,6 +3555,8 @@ def main() -> int:
                                      launches, worst, db["lineitem"])
         table += time_slice6_kernels(torch, join, device, per_wrapper,
                                      worst, db["lineitem"])
+        table += time_slice7_kernels(torch, groupby, window, wd, device,
+                                     per_wrapper, db)
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

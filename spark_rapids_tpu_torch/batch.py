@@ -10,9 +10,15 @@ rows that filters narrow instead of moving data.
 Nulls are bool validity masks (True = valid); ``valid=None`` means no nulls.
 Strings have no device representation: they ride as host columns
 (:class:`HostStringColumn`) and group on the device as int32 dictionary
-codes (``ops/strings.py``).  The host side is numpy only: the port takes its
-input as the dict of numpy arrays that the reference's
-``Session.create_dataframe`` is given (:func:`from_numpy`).
+codes (``ops/strings.py``).  Decimals are scaled integers: an int64 column
+for precision <= 18, an int64 ``[n, 2]`` limb column ``[lo, hi]`` above
+(reference ``batch.py:444-455``, ``:509 wide_decimal_limbs``).  The host
+side is numpy only: the port takes its input as the dict of numpy arrays
+that the reference's ``Session.create_dataframe`` is given
+(:func:`from_numpy`); a decimal column comes as an object array of
+``decimal.Decimal`` (typed as pyarrow infers it) or as a
+:class:`DecimalArray`, the port's stand-in for a pyarrow ``decimal128``
+array.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from .types import DataType
 
 __all__ = ["Field", "Schema", "DeviceColumn", "HostColumn",
            "HostStringColumn", "DictStringColumn", "ColumnBatch",
-           "numpy_column", "live_mask", "upload", "from_numpy", "to_host"]
+           "DecimalArray", "numpy_column", "live_mask", "upload",
+           "from_numpy", "to_host", "wide_limbs", "limbs_to_ints",
+           "decimal_values"]
 
 
 @dataclass(frozen=True)
@@ -159,6 +167,69 @@ class ColumnBatch:
 # Host numpy -> logical columns
 # ---------------------------------------------------------------------------------
 
+class DecimalArray:
+    """A decimal column in numpy: ``unscaled`` int64 ``[n]`` (any
+    precision) or int64 limbs ``[n, 2]`` ``[lo, hi]`` of the scaled 128-bit
+    two's-complement value (18 < precision <= 38), with ``precision``,
+    ``scale`` and an optional bool ``valid`` mask (True = valid).  The
+    unscaled value of row i is the decimal times 10^scale."""
+
+    def __init__(self, unscaled: np.ndarray, precision: int, scale: int,
+                 valid: Optional[np.ndarray] = None):
+        self.dtype = T.decimal(precision, scale)
+        unscaled = np.asarray(unscaled, dtype=np.int64)
+        if unscaled.ndim == 2 and (unscaled.shape[1] != 2
+                                   or not self.dtype.is_wide_decimal):
+            raise ValueError("limbs are [n, 2] and need precision > 18")
+        if self.dtype.is_wide_decimal and unscaled.ndim == 1:
+            unscaled = np.stack([unscaled, unscaled >> 63], axis=1)
+        self.unscaled = np.ascontiguousarray(unscaled)
+        self.valid = None if valid is None else np.asarray(valid, bool)
+
+    def __len__(self) -> int:
+        return self.unscaled.shape[0]
+
+
+def wide_limbs(values) -> np.ndarray:
+    """Python ints (the unscaled values) → ``[n, 2]`` int64 limbs, each
+    taken modulo 2^128."""
+    out = np.zeros((len(values), 2), dtype=np.int64)
+    for i, v in enumerate(values):
+        u = int(v) & ((1 << 128) - 1)
+        out[i] = [x - (1 << 64) if x >= (1 << 63) else x
+                  for x in (u & ((1 << 64) - 1), u >> 64)]
+    return out
+
+
+def limbs_to_ints(data: np.ndarray) -> List[int]:
+    """``[n, 2]`` int64 limbs → exact Python ints."""
+    lo = data[:, 0].astype(object) & ((1 << 64) - 1)
+    return list((data[:, 1].astype(object) << 64) + lo)
+
+
+def decimal_values(dtype: DataType, data: np.ndarray) -> list:
+    """The unscaled int64 (or limb) values of a decimal column as
+    ``decimal.Decimal`` objects."""
+    ints = limbs_to_ints(data) if data.ndim == 2 else data.tolist()
+    return [decimal.Decimal(int(x)).scaleb(-dtype.scale) for x in ints]
+
+
+def _infer_decimal(values) -> DataType:
+    """pyarrow's decimal128 inference: the widest scale, and the most
+    integer digits of any value."""
+    scale = int_digits = 0
+    for v in values:
+        _, digits, exp = v.as_tuple()
+        if exp >= 0:
+            p, s = len(digits) + exp, 0
+        else:
+            s = -exp
+            p = max(len(digits), s)
+        scale = max(scale, s)
+        int_digits = max(int_digits, p - s)
+    return T.decimal(int_digits + scale, scale)
+
+
 _NUMPY_TO_LOGICAL = {
     np.dtype(np.bool_): T.BOOLEAN, np.dtype(np.int8): T.INT8,
     np.dtype(np.int16): T.INT16, np.dtype(np.int32): T.INT32,
@@ -172,13 +243,18 @@ def _object_column(arr: np.ndarray) -> Tuple[DataType, np.ndarray,
                                              Optional[np.ndarray]]:
     """An object array with None for nulls, typed as pyarrow would infer
     it (str → string, bool → boolean, int → bigint, float or a mix of int
-    and float → double, datetime.date → date)."""
+    and float → double, datetime.date → date, decimal.Decimal → decimal of
+    the inferred precision and scale)."""
     valid = np.fromiter((x is not None for x in arr), dtype=bool,
                         count=len(arr))
     kinds = {type(x) for x in arr[valid]}
-    if decimal.Decimal in kinds:
-        raise NotImplementedError(
-            "decimal columns are not ported yet (ROADMAP.md queue 2 row 12)")
+    if kinds and kinds <= {decimal.Decimal}:
+        dt = _infer_decimal(arr[valid])
+        ints = [int(x.scaleb(dt.scale)) if ok else 0
+                for x, ok in zip(arr, valid)]
+        data = wide_limbs(ints) if dt.is_wide_decimal \
+            else np.array(ints, dtype=np.int64)
+        return dt, data, (None if valid.all() else valid)
     if kinds <= {str}:
         data = arr.copy()
         data[~valid] = None
@@ -206,7 +282,16 @@ def numpy_column(arr) -> Tuple[DataType, np.ndarray, Optional[np.ndarray]]:
     """One numpy input column → (logical type, physical data, valid).
 
     ``datetime64[D]`` becomes int32 days (date32), ``datetime64[us]``
-    int64 microseconds; unicode arrays stay host strings."""
+    int64 microseconds; unicode arrays stay host strings; a
+    :class:`DecimalArray` keeps its type and unscaled values."""
+    if isinstance(arr, DecimalArray):
+        valid = arr.valid
+        data = arr.unscaled
+        if valid is not None:
+            fill = valid if data.ndim == 1 else valid[:, None]
+            data = np.where(fill, data, 0)
+        return arr.dtype, data, (None if valid is None or valid.all()
+                                 else valid)
     arr = np.asarray(arr)
     if arr.dtype.kind == "U":
         return T.STRING, arr, None

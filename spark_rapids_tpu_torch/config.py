@@ -162,6 +162,13 @@ SHUFFLE_MODE = register(
     "them (ROADMAP.md item 10).",
     check=_one_of("HOST", "ICI", "CACHE_ONLY"))
 
+AGG_SINGLE_PROCESS_COMPLETE = register(
+    "spark.rapids.tpu.sql.agg.singleProcessComplete", True,
+    "Run an aggregate whose input is all in this process in one complete "
+    "pass. false asks for the reference's partial/final split (its row "
+    "5', with the skip-ratio probe); the port raises on it until the "
+    "distribution slice (ROADMAP.md item 10).")
+
 JOIN_SUBPARTITIONS = register(
     "spark.rapids.tpu.sql.join.subPartitions", 16,
     "Fan-out used to split a shuffled-join partition pair whose combined "

@@ -54,20 +54,11 @@
 // min/max atomics are skipped when a plain read shows they cannot change
 // the word, which is the common case (a residual depends on its key).
 //
-// float64 sums are deterministic: a sum that depends on the order of
-// float atomics would differ from run to run in its last bits, and a query
-// that compares a recomputed sum with one it collected earlier (TPC-H
-// Q15's total_revenue = max) would then keep no row.  Within one call
-// da_absmax first takes each slot's largest finite |x|; each finite
-// contribution is then scaled by 2^k (k from its slot's largest |x| and
-// the call's row count, so no partial sum reaches 2^126) and added exactly
-// as a 128-bit integer (two 64-bit atomics with a carry: integer addition
-// does not depend on the order); da_fold adds each touched slot's integer,
-// converted back, to the float64 accumulator and clears its words.  Calls
-// run in stream order, so the accumulator sees the same additions every
-// run.  Infinities and NaN go straight to the accumulator (their sums do
-// not depend on the order).  The loss: bits below the slot's largest |x|
-// x 2^-100 or so.  int64 sums wrap modulo 2^64 like the reference's.  Keys
+// float64 sums are deterministic, through the exact 128-bit fixed point of
+// fixed128.cuh: da_absmax takes each slot's largest finite |x|, da_update
+// adds each finite contribution as a scaled 128-bit integer, and da_fold
+// adds each touched slot's integer, converted back, to the float64
+// accumulator and clears its words.  int64 sums wrap modulo 2^64 like the reference's.  Keys
 // and integer residuals are int32 or int64 (dates are int32, dictionary
 // codes of strings int32, booleans are promoted by the caller); residuals
 // are widened to int64 in their channels; float residuals are float64.
@@ -75,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "fixed128.cuh"
 
 #define DA_THREADS 256
 #define DA_MAX_KEYS 8
@@ -305,33 +298,6 @@ __device__ __forceinline__ bool slot_of(const DAUpdate& a, long long r,
   return true;
 }
 
-// The scale exponent of a slot whose largest finite |x| has the bits
-// m_bits: |x| * 2^k < 2^(126 - h) for its every x, h bits holding the
-// call's row count, so no sum of the slot's rows reaches 2^126.
-__device__ __forceinline__ int fx_scale(unsigned long long m_bits,
-                                        long long rows) {
-  const double m = __longlong_as_double((long long)m_bits);
-  if (!(m > 0.0)) return 0;
-  const int h = 64 - __clzll((unsigned long long)rows);
-  return 125 - h - ilogb(m);
-}
-
-// x * 2^k (finite) added exactly to the 128-bit word pair w.
-__device__ __forceinline__ void fx_add(unsigned long long* w, double x,
-                                       int k) {
-  const double y = fabs(scalbn(x, k));
-  const double hi_d = trunc(y * 0x1p-64);
-  unsigned long long hi = __double2ull_rz(hi_d);
-  unsigned long long lo = __double2ull_rz(y - hi_d * 0x1p64);
-  if (x < 0.0) {  // two's complement of the 128-bit magnitude
-    lo = ~lo + 1ULL;
-    hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
-  }
-  if (lo == 0ULL && hi == 0ULL) return;
-  const unsigned long long old = atomicAdd(w, lo);
-  atomicAdd(w + 1, hi + (old + lo < old ? 1ULL : 0ULL));
-}
-
 // Per slot, the largest finite |x| of each float64 channel over the live
 // rows, as the bits of a non-negative double (they order as unsigned
 // integers); overflow rows wait for their replay.
@@ -345,11 +311,8 @@ da_absmax(const __grid_constant__ DAUpdate a,
     if (!is_live(active, r) || !slot_of(a, r, &slot, &key)) continue;
     for (int j = 0; j < a.nch; ++j) {
       if (!a.ch_f64[j] || !ch_live(a, j, r)) continue;
-      const double x = fabs(static_cast<const double*>(a.ch[j])[r]);
-      if (!(x <= 1.7976931348623157e308) || x == 0.0) continue;  // finite
-      const unsigned long long b = (unsigned long long)__double_as_longlong(x);
-      unsigned long long* m = a.fx[j] + 3 * slot + 2;
-      if (b > *m) atomicMax(m, b);
+      fx_absmax(a.fx[j] + 3 * slot + 2,
+                static_cast<const double*>(a.ch[j])[r]);
     }
   }
 }
@@ -364,18 +327,9 @@ da_fold(const __grid_constant__ DAUpdate a, long long S) {
     for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          s < S; s += stride) {
       unsigned long long* w = a.fx[j] + 3 * s;
-      const unsigned long long m_bits = w[2];
-      if (m_bits == 0ULL) continue;  // no finite non-zero x in the slot
-      unsigned long long lo = w[0], hi = w[1];
+      if (w[2] == 0ULL) continue;  // no finite non-zero x in the slot
+      static_cast<double*>(a.acc[j])[s] += fx_value(w, a.rows);
       w[0] = w[1] = w[2] = 0ULL;
-      const bool neg = (long long)hi < 0;
-      if (neg) {
-        lo = ~lo + 1ULL;
-        hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
-      }
-      const double mag = (double)hi * 0x1p64 + (double)lo;
-      static_cast<double*>(a.acc[j])[s] +=
-          scalbn(neg ? -mag : mag, -fx_scale(m_bits, a.rows));
     }
   }
 }

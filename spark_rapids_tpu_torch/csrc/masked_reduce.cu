@@ -18,8 +18,17 @@
 //      goes to scratch.  The grid size depends on n only.
 //   2. mr_finish: one block reduces the partials of each column in a fixed
 //      order and combines the result into the accumulator.
-// Ops: sum, min, max on float64 or int64 columns, and count (rows where
-// the column's validity mask holds; no data is read).  int64 sums wrap
+// Ops: sum, min, max on float64 or int64 columns, count (rows where
+// the column's validity mask holds; no data is read), and first and last
+// (ungrouped FIRST/LAST, the reference's _reduce_segment first/last and
+// first_valid/last_valid of ops/groupby.py:333, merged across batches as
+// plan/physical.py:943 _merge_scalars does): the host entry turns them
+// into an int64 min (FIRST) or max (LAST) of the row numbers whose mask
+// holds (the value's validity for the ignore-nulls forms, none otherwise),
+// so the reduction is the integer one; mr_finish reads the value at the
+// picked row and merges it with the accumulator's: FIRST keeps an earlier
+// batch's value when that batch had a qualifying row (its `has` word is
+// set), LAST takes this batch's whenever it has one.  int64 sums wrap
 // like the reference's.  float64 min/max follow jnp.min/jnp.max over
 // values masked with +-inf (ops/groupby.py:29 _SENTINELS): a NaN anywhere
 // makes the result NaN, and -0.0 sorts below +0.0.
@@ -34,13 +43,18 @@
 #define MR_MAX_COLS 16
 #define MR_THREADS 256
 
-enum { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2, OP_COUNT = 3 };
+enum { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2, OP_COUNT = 3, OP_FIRST = 4,
+       OP_LAST = 5 };
+
+enum { PICK_NONE = 0, PICK_FIRST = 1, PICK_LAST = 2 };
 
 struct MRArgs {
   const void* data[MR_MAX_COLS];      // double* or long long*; unused by count
   const uint8_t* valid[MR_MAX_COLS];  // nullptr: every row valid
-  int op[MR_MAX_COLS];
-  int is_f64[MR_MAX_COLS];
+  int op[MR_MAX_COLS];                // sum, min, max or count
+  int is_f64[MR_MAX_COLS];            // the reduction's type
+  int pick[MR_MAX_COLS];   // FIRST/LAST: row numbers reduce (as int64)
+  int value_f64[MR_MAX_COLS];  // a picked value's type
   int k;
 };
 
@@ -129,6 +143,8 @@ mr_partials(MRArgs a, const uint8_t* __restrict__ active, long long n,
         Slot x;
         if (a.op[j] == OP_COUNT) {
           x.i = 1;
+        } else if (a.pick[j]) {
+          x.i = r;
         } else if (a.is_f64[j]) {
           x.f = static_cast<const double*>(a.data[j])[r];
         } else {
@@ -150,7 +166,8 @@ mr_partials(MRArgs a, const uint8_t* __restrict__ active, long long n,
 
 __global__ void __launch_bounds__(MR_THREADS)
 mr_finish(MRArgs a, const Slot* __restrict__ partials, int nblocks,
-          double* __restrict__ acc_f, long long* __restrict__ acc_i) {
+          double* __restrict__ acc_f, long long* __restrict__ acc_i,
+          long long* __restrict__ acc_h) {
   __shared__ Slot smem[32];
 #pragma unroll
   for (int j = 0; j < MR_MAX_COLS; ++j) {
@@ -160,7 +177,19 @@ mr_finish(MRArgs a, const Slot* __restrict__ partials, int nblocks,
       for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
         v = combine(v, partials[(long long)b * a.k + j], op, f);
       v = block_reduce(v, op, f, smem);
-      if (threadIdx.x == 0) {
+      if (threadIdx.x == 0 && a.pick[j]) {
+        const bool first = a.pick[j] == PICK_FIRST;
+        const bool found = first ? v.i != LLONG_MAX : v.i != LLONG_MIN;
+        if (found && (!first || acc_h[j] == 0)) {
+          // the value's 8-byte word, in the slot of its type
+          const long long bits = static_cast<const long long*>(a.data[j])[v.i];
+          if (a.value_f64[j])
+            acc_f[j] = __longlong_as_double(bits);
+          else
+            acc_i[j] = bits;
+          acc_h[j] = 1;
+        }
+      } else if (threadIdx.x == 0) {
         Slot cur;
         if (f) {
           cur.f = acc_f[j];
@@ -176,21 +205,29 @@ mr_finish(MRArgs a, const Slot* __restrict__ partials, int nblocks,
 
 // Host entry, bound with ctypes.  Pointers are device pointers except the
 // four per-column arrays (host arrays of k entries).  `partials` is scratch
-// of nblocks * k 8-byte slots.  Returns cudaGetLastError() after the
-// launches (0 = launched).
+// of nblocks * k 8-byte slots; acc_h holds the FIRST/LAST columns' "some
+// batch had a qualifying row" words (int64 [k]).  Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int masked_reduce(const void* active, long long n, int k,
                              const void* const* data,
                              const void* const* valid, const int* ops,
                              const int* is_f64, void* partials, int nblocks,
-                             void* acc_f, void* acc_i, void* stream) {
+                             void* acc_f, void* acc_i, void* acc_h,
+                             void* stream) {
   if (k < 1 || k > MR_MAX_COLS || nblocks < 1)
     return (int)cudaErrorInvalidValue;
   MRArgs a = {};
   for (int j = 0; j < k; ++j) {
+    if (ops[j] < OP_SUM || ops[j] > OP_LAST
+        || ((data[j] == nullptr) != (ops[j] == OP_COUNT)))
+      return (int)cudaErrorInvalidValue;
     a.data[j] = data[j];
     a.valid[j] = static_cast<const uint8_t*>(valid[j]);
-    a.op[j] = ops[j];
-    a.is_f64[j] = is_f64[j];
+    const bool first = ops[j] == OP_FIRST, last = ops[j] == OP_LAST;
+    a.pick[j] = first ? PICK_FIRST : (last ? PICK_LAST : PICK_NONE);
+    a.op[j] = first ? OP_MIN : (last ? OP_MAX : ops[j]);
+    a.is_f64[j] = a.pick[j] ? 0 : is_f64[j];
+    a.value_f64[j] = is_f64[j];
   }
   a.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -200,7 +237,8 @@ extern "C" int masked_reduce(const void* active, long long n, int k,
   if (err != cudaSuccess) return (int)err;
   mr_finish<<<1, MR_THREADS, 0, s>>>(a, static_cast<const Slot*>(partials),
                                      nblocks, static_cast<double*>(acc_f),
-                                     static_cast<long long*>(acc_i));
+                                     static_cast<long long*>(acc_i),
+                                     static_cast<long long*>(acc_h));
   return (int)cudaGetLastError();
 }
 

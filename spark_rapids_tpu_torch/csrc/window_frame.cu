@@ -3,7 +3,8 @@
 //
 // Replaces: spark_rapids_tpu/ops/window.py:203 rows_positions, :214
 // range_positions (with :311 _lex_searchsorted), :344 positional_sum,
-// :355 sliding_sum and :372 sliding_minmax.  Rows are in the window's
+// :355 sliding_sum and :372 sliding_minmax, and the windowed FIRST/LAST of
+// spark_rapids_tpu/windowfns.py:321 _first_last.  Rows are in the window's
 // sorted order; seg_start/seg_end are window_scan.cu's partition bounds.
 //
 // Entry points:
@@ -25,20 +26,33 @@
 //                 segmented scan of the same contributions) at hi and
 //                 lo - 1, as the reference's prefix difference, but reset
 //                 at each partition, so a float sum's error follows the
-//                 partition's running total, not the column's.  An empty
-//                 frame gives 0.
+//                 partition's running total, not the column's.  Where the
+//                 running sum at either end is not finite (a NaN or an
+//                 infinity before the frame's end in the partition, or an
+//                 overflow), the frame is summed directly, in row order:
+//                 Spark's per-frame sum, which the difference would turn
+//                 into NaN for every later frame.  An empty frame gives 0.
 //   frame_minmax  min or max over [lo, hi] by a direct loop over the frame
 //                 (NaN propagates), and whether any row contributed.  The
 //                 loop costs the frame's width per row: 7 rows for ROWS
 //                 -6..0, a few for RANGE -30..0 days over a supplier's
 //                 ~600 lineitems; a wide RANGE frame over dense keys would
 //                 need the reference's sparse table instead.
+//   frame_first_last  FIRST or LAST over [lo, hi]: the value at the frame's
+//                 edge (valid where that row's value is), or with
+//                 ignore-nulls at the first (last) row of the frame whose
+//                 value is valid, found by a loop from the edge, which
+//                 stops at the first valid row: a few rows for W2's
+//                 returned-line columns (a quarter of the lines), the whole
+//                 frame where a partition's values are all null.  Running
+//                 and whole-partition frames come in as their bounds.
 //
 // Bound: device memory; one thread per row, every read but the binary
 // searches coalesced.
 
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -157,6 +171,9 @@ wf_range(const void* __restrict__ key, int elem,
 // framed sums and min/max
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ bool wf_finite(long long) { return true; }
+__device__ __forceinline__ bool wf_finite(double x) { return isfinite(x); }
+
 template <typename T>
 __global__ void __launch_bounds__(WF_THREADS)
 wf_sum(const T* __restrict__ run, const T* __restrict__ vals,
@@ -172,7 +189,36 @@ wf_sum(const T* __restrict__ run, const T* __restrict__ vals,
     }
     const bool in = mask == nullptr || mask[a];
     const T first = in ? (vals == nullptr ? (T)1 : vals[a]) : (T)0;
-    out[i] = run[b] - run[a] + first;
+    T sum = run[b] - run[a] + first;
+    if (vals != nullptr && !(wf_finite(run[a]) && wf_finite(run[b]))) {
+      sum = (T)0;  // Spark's sum of the frame itself
+      for (long long k = a; k <= b; ++k)
+        if (mask == nullptr || mask[k]) sum += vals[k];
+    }
+    out[i] = sum;
+  }
+}
+
+// FIRST (last == 0) or LAST over [lo, hi]; values move as 8-byte words.
+__global__ void __launch_bounds__(WF_THREADS)
+wf_first_last(const long long* __restrict__ vals,
+              const uint8_t* __restrict__ valid, const int* __restrict__ lo,
+              const int* __restrict__ hi, long long n, int last,
+              int ignore_nulls, long long* __restrict__ out,
+              uint8_t* __restrict__ out_valid) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const long long a = lo[i], b = hi[i];
+    long long pos = last ? b : a;
+    bool ok = b >= a;
+    if (ok && ignore_nulls && valid != nullptr) {
+      const long long step = last ? -1 : 1;
+      while (!valid[pos] && pos != (last ? a : b)) pos += step;
+    }
+    ok = ok && (valid == nullptr || valid[pos]);
+    out[i] = ok ? vals[pos] : 0LL;
+    out_valid[i] = ok;
   }
 }
 
@@ -316,6 +362,27 @@ extern "C" int frame_minmax(int is_f64, int is_max, const void* vals,
         static_cast<const long long*>(vals), m, is_max, identity_bits, l, h,
         n, static_cast<long long*>(out), ov);
   }
+  return (int)cudaGetLastError();
+}
+
+// vals: [n] 8-byte words; valid: [n] uint8 or nullptr; lo/hi: int32 frame
+// bounds; out: [n] 8-byte words, out_valid: [n] uint8.
+extern "C" int frame_first_last(const void* vals, const void* valid,
+                                const void* lo, const void* hi, long long n,
+                                int last, int ignore_nulls, void* out,
+                                void* out_valid, void* stream) {
+  if (n < 0 || vals == nullptr || lo == nullptr || hi == nullptr ||
+      out == nullptr || out_valid == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  int blocks = 1;
+  cudaError_t err = wf_grid(n, 16, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  wf_first_last<<<blocks, WF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(vals), static_cast<const uint8_t*>(valid),
+      static_cast<const int*>(lo), static_cast<const int*>(hi), n, last,
+      ignore_nulls, static_cast<long long*>(out),
+      static_cast<uint8_t*>(out_valid));
   return (int)cudaGetLastError();
 }
 

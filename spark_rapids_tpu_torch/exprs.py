@@ -1,9 +1,15 @@
 """Expression IR with Spark SQL semantics, evaluated with torch tensor ops.
 
 Counterpart of ``spark_rapids_tpu/exprs.py``, cut to the families the
-ported TPC-H queries run: column references, literals (dates included),
-comparisons, Kleene AND/OR and NOT, IN, IS [NOT] NULL, + - * / % pmod,
-unary minus, abs, IF, CASE WHEN, COALESCE and numeric casts.  The reference traces
+ported TPC-H queries run: column references, literals (dates and decimals
+included), comparisons, Kleene AND/OR and NOT, IN, IS [NOT] NULL,
++ - * / % pmod, unary minus, abs, IF, CASE WHEN, COALESCE and numeric and
+decimal casts.  Decimals follow the reference's rules, which differ from
+Spark's: operands are promoted to the wider decimal and rescaled
+(``promote_physical``); a product's precision caps at 18 and its int64
+product wraps; a quotient is a double.  Add, subtract and compare over
+DECIMAL(p > 18) operands run in ``ops/wide_decimal.py`` (one
+``csrc/wide_decimal.cu`` launch each on the card).  The reference traces
 every expression of a stage into one XLA program; here each node is one or
 a few eager elementwise torch ops on the batch's tensors.  Fusing them into
 one hand-written kernel is later work (ROADMAP queue 2 row 1).
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import decimal
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,6 +145,9 @@ class UnresolvedColumn(Expression):
 
 
 class BoundReference(Expression):
+    input_sig = TypeSig.device_compute + TypeSig.decimal128
+    output_sig = TypeSig.device_compute + TypeSig.decimal128
+
     def __init__(self, ordinal: int, dtype: DataType, nullable: bool,
                  name: str = ""):
         self.ordinal = ordinal
@@ -154,6 +164,9 @@ class BoundReference(Expression):
 
 
 class Literal(Expression):
+    input_sig = TypeSig.device_compute + TypeSig.decimal128
+    output_sig = TypeSig.device_compute + TypeSig.decimal128
+
     def __init__(self, value: Any, dtype: Optional[DataType] = None):
         self.value = value
         self.dtype = dtype if dtype is not None else _infer_literal_type(value)
@@ -161,19 +174,30 @@ class Literal(Expression):
         self.children = ()
 
     def eval(self, ctx: EvalContext) -> Value:
+        """A 0-dim tensor, or for a wide decimal the ``[2]`` limbs."""
         tdt = self.dtype.torch_dtype
+        shape = (2,) if self.dtype.is_wide_decimal else ()
         if self.value is None:
-            return (torch.zeros((), dtype=tdt, device=ctx.device),
+            return (torch.zeros(shape, dtype=tdt, device=ctx.device),
                     torch.zeros((), dtype=torch.bool, device=ctx.device))
-        return torch.full((), physical_literal(self.value, self.dtype),
-                          dtype=tdt, device=ctx.device), None
+        v = physical_literal(self.value, self.dtype)
+        if self.dtype.is_wide_decimal:
+            from .ops.wide_decimal import limb_constant
+            return torch.tensor(limb_constant(v), dtype=tdt,
+                                device=ctx.device), None
+        return torch.full((), v, dtype=tdt, device=ctx.device), None
 
     def _fp_extra(self):
         return f"{self.value!r}:{self.dtype}"
 
 
 def physical_literal(v: Any, dtype: DataType):
-    """A Python literal → its physical device value."""
+    """A Python literal → its physical device value (a decimal: its
+    unscaled integer, as the reference rounds it)."""
+    if dtype.is_decimal:
+        if isinstance(v, decimal.Decimal):
+            return int(v.scaleb(dtype.scale).to_integral_value())
+        return int(round(float(v) * 10 ** dtype.scale))
     if dtype.kind == T.TypeKind.DATE and isinstance(v, datetime.date):
         return (v - datetime.date(1970, 1, 1)).days
     if dtype.kind == T.TypeKind.TIMESTAMP and isinstance(v, datetime.datetime):
@@ -185,6 +209,10 @@ def physical_literal(v: Any, dtype: DataType):
 def _infer_literal_type(v: Any) -> DataType:
     if v is None:
         return T.NULLTYPE
+    if isinstance(v, decimal.Decimal):
+        _, digits, exp = v.as_tuple()
+        scale = max(0, -exp)
+        return T.decimal(min(max(len(digits), scale), 38), scale)
     if isinstance(v, bool):
         return T.BOOLEAN
     if isinstance(v, int):
@@ -241,6 +269,8 @@ class Cast(Expression):
             return torch.div(data, _MICROS_PER_DAY,
                              rounding_mode="floor").to(out_dt), valid
         ansi = self.ansi or ctx.ansi
+        if src.is_decimal or dst.is_decimal:
+            return _cast_decimal(ctx, data, valid, src, dst, ansi)
         if dst.is_integral and src.is_floating:
             # JVM semantics: NaN → 0, truncate toward zero, clamp at the
             # target's bounds (ANSI: those rows are errors)
@@ -263,15 +293,92 @@ class Cast(Expression):
         return f"->{self.dtype}"
 
 
+def _cast_decimal(ctx, data, valid, src: DataType, dst: DataType,
+                  ansi: bool) -> Value:
+    """The decimal casts of the reference's ``ops/cast.py:92-110`` (narrow
+    decimals): a value that needs more than ``dst.precision`` digits is
+    null (an error under ANSI); decimal → integral floors."""
+    def bounded(out, ok):
+        if ansi:
+            ctx.record_error(~ok, valid)
+        return out, _and_valid(valid, ok)
+
+    if src.is_wide_decimal or dst.is_wide_decimal:
+        raise NotImplementedError(
+            f"cast {src} -> {dst}: wide decimal casts are not ported "
+            f"(ROADMAP.md item 7)")
+    limit = 10 ** dst.precision if dst.is_decimal else None
+    if src.is_decimal and dst.is_floating:
+        return (data.to(dst.torch_dtype)
+                / float(10 ** src.scale)).to(dst.torch_dtype), valid
+    if src.is_decimal and dst.is_integral:
+        return torch.div(data, 10 ** src.scale, rounding_mode="floor").to(
+            dst.torch_dtype), valid
+    if (src.is_integral or src.kind == T.TypeKind.BOOLEAN) \
+            and dst.is_decimal:
+        out = data.to(torch.int64) * 10 ** dst.scale
+        return bounded(out, out.abs() < limit)
+    if src.is_floating and dst.is_decimal:
+        scaled = torch.round(data.to(torch.float64) * 10.0 ** dst.scale)
+        ok = torch.isfinite(scaled) & (scaled.abs() < float(limit))
+        return bounded(torch.where(ok, scaled, 0.0).to(torch.int64), ok)
+    if src.is_decimal and dst.is_decimal:
+        k = dst.scale - src.scale
+        out = data * 10 ** k if k >= 0 else _round_div(data, 10 ** -k)
+        return bounded(out, out.abs() < limit)
+    raise NotImplementedError(f"cast {src} -> {dst} is not ported "
+                              f"(ROADMAP.md item 8)")
+
+
 # ---------------------------------------------------------------------------------
 # Arithmetic
 # ---------------------------------------------------------------------------------
 
+def _round_div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Integer division rounding half away from zero (reference :514)."""
+    q = torch.div(x.abs() + d // 2, d, rounding_mode="floor")
+    return torch.where(x >= 0, q, -q)
+
+
 def promote_physical(data: torch.Tensor, src: DataType,
                      dst: DataType) -> torch.Tensor:
-    """Convert a physical value from ``src``'s representation to ``dst``'s
-    (without decimals, which the port lacks yet, a dtype conversion)."""
+    """Convert a physical value from ``src``'s representation to ``dst``'s,
+    honouring decimal scales (reference :368-420): decimal → float divides
+    by 10^scale, decimal → decimal shifts by the scale difference (rounding
+    half away from zero when it drops digits), an integral operand joining
+    a decimal is multiplied in; a wide target lifts to limbs
+    (``ops/wide_decimal.py``)."""
+    if dst.is_wide_decimal:
+        from .ops import wide_decimal as wd
+        if src.is_decimal:
+            k = dst.scale - src.scale
+        else:
+            data, k = data.to(torch.int64), dst.scale
+        if k < 0:
+            raise TypeError(f"wide-decimal down-scale {src} -> {dst} not "
+                            f"supported on device")
+        if src.is_wide_decimal and k == 0:
+            return data
+        return wd.wide_binary("lift", data, None, ka=k)
+    if src.is_wide_decimal:
+        if not dst.is_floating:
+            raise TypeError(f"wide-decimal narrowing {src} -> {dst} not "
+                            f"supported on device")
+        lo, hi = data[..., 0], data[..., 1]
+        lo_f = lo.to(torch.float64) + torch.where(lo < 0, 2.0 ** 64, 0.0)
+        val = hi.to(torch.float64) * 2.0 ** 64 + lo_f
+        return (val / float(10 ** src.scale)).to(dst.torch_dtype)
     tdt = dst.torch_dtype
+    if src.is_decimal and dst.is_floating:
+        return data.to(tdt) / torch.tensor(float(10 ** src.scale),
+                                           dtype=tdt)
+    if src.is_decimal and dst.is_decimal:
+        if dst.scale >= src.scale:
+            return data * 10 ** (dst.scale - src.scale) \
+                if dst.scale > src.scale else data
+        return _round_div(data, 10 ** (src.scale - dst.scale))
+    if dst.is_decimal:
+        return data.to(torch.int64) * 10 ** dst.scale
     return data if data.dtype == tdt else data.to(tdt)
 
 
@@ -302,27 +409,82 @@ class BinaryExpression(Expression):
         return (promote_physical(ld, l.dtype, ct),
                 promote_physical(rd, r.dtype, ct), _and_valid(lv, rv))
 
+    def _eval_wide(self, ctx, op: str) -> Value:
+        """``op`` over operands promoted to a wide decimal: one launch
+        lifts and rescales both (``wide_decimal.wide_binary``)."""
+        from .ops import wide_decimal as wd
+        l, r = self.children
+        ct = self._operand_type()
+        ld, lv = l.eval(ctx)
+        rd, rv = r.eval(ctx)
+
+        def scale_of(e):
+            return e.dtype.scale if e.dtype.is_decimal else 0
+
+        def physical(d, e):
+            return d if e.dtype.is_decimal else d.to(torch.int64)
+
+        ka, kb = ct.scale - scale_of(l), ct.scale - scale_of(r)
+        if ka < 0 or kb < 0:
+            raise TypeError(f"wide-decimal down-scale to {ct} not "
+                            f"supported on device")
+        return (wd.wide_binary(op, physical(ld, l), physical(rd, r), ka,
+                               kb), _and_valid(lv, rv))
+
 
 class Add(BinaryExpression):
     symbol = "+"
+    input_sig = TypeSig.device_compute + TypeSig.decimal128
+    output_sig = TypeSig.device_compute + TypeSig.decimal128
 
     def eval(self, ctx):
+        if self._operand_type().is_wide_decimal:
+            return self._eval_wide(ctx, "add")
         ld, rd, v = self._eval_children_promoted(ctx)
         return ld + rd, v
 
 
 class Subtract(BinaryExpression):
     symbol = "-"
+    input_sig = TypeSig.device_compute + TypeSig.decimal128
+    output_sig = TypeSig.device_compute + TypeSig.decimal128
 
     def eval(self, ctx):
+        if self._operand_type().is_wide_decimal:
+            return self._eval_wide(ctx, "sub")
         ld, rd, v = self._eval_children_promoted(ctx)
         return ld - rd, v
 
 
 class Multiply(BinaryExpression):
+    """``*``; for decimals the reference's rule: precision
+    min(p1 + p2 + 1, 18), scale s1 + s2 (capped at it), the int64 product
+    of the operands at their own scales (wrapping like the reference's),
+    rounded half away from zero to the result scale."""
     symbol = "*"
 
+    def _result_type(self, lt, rt):
+        if lt.is_decimal and rt.is_integral:
+            rt = T.integral_as_decimal(rt)
+        if rt.is_decimal and lt.is_integral:
+            lt = T.integral_as_decimal(lt)
+        if lt.is_decimal and rt.is_decimal:
+            p = min(lt.precision + rt.precision + 1, 18)
+            return T.decimal(p, min(lt.scale + rt.scale, p))
+        return T.common_type(lt, rt)
+
     def eval(self, ctx):
+        if self.dtype.is_decimal:
+            l, r = self.children
+            ld, lv = l.eval(ctx)
+            rd, rv = r.eval(ctx)
+            ls = l.dtype.scale if l.dtype.is_decimal else 0
+            rs = r.dtype.scale if r.dtype.is_decimal else 0
+            prod = ld.to(torch.int64) * rd.to(torch.int64)
+            drop = ls + rs - self.dtype.scale
+            if drop > 0:
+                prod = _round_div(prod, 10 ** drop)
+            return prod, _and_valid(lv, rv)
         ld, rd, v = self._eval_children_promoted(ctx)
         return ld * rd, v
 
@@ -403,6 +565,8 @@ class Abs(UnaryMinus):
 
 class BinaryComparison(BinaryExpression):
     op: Callable = None
+    wide_op: str = None  # the wide_decimal comparison
+    input_sig = TypeSig.device_compute + TypeSig.decimal128
     output_sig = TypeSig.BOOLEAN
 
     def _result_type(self, lt, rt):
@@ -410,6 +574,8 @@ class BinaryComparison(BinaryExpression):
         return T.BOOLEAN
 
     def eval(self, ctx):
+        if self._operand_type().is_wide_decimal:
+            return self._eval_wide(ctx, type(self).wide_op)
         ld, rd, v = self._eval_children_promoted(ctx)
         return type(self).op(ld, rd), v
 
@@ -417,26 +583,31 @@ class BinaryComparison(BinaryExpression):
 class EqualTo(BinaryComparison):
     symbol = "="
     op = staticmethod(lambda a, b: a == b)
+    wide_op = "eq"
 
 
 class LessThan(BinaryComparison):
     symbol = "<"
     op = staticmethod(lambda a, b: a < b)
+    wide_op = "lt"
 
 
 class LessThanOrEqual(BinaryComparison):
     symbol = "<="
     op = staticmethod(lambda a, b: a <= b)
+    wide_op = "le"
 
 
 class GreaterThan(BinaryComparison):
     symbol = ">"
     op = staticmethod(lambda a, b: a > b)
+    wide_op = "gt"
 
 
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
     op = staticmethod(lambda a, b: a >= b)
+    wide_op = "ge"
 
 
 class Not(Expression):

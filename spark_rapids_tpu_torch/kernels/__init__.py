@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
            "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
-           "window_scan", "window_frame", "cond_join")
+           "window_scan", "window_frame", "cond_join", "wide_decimal")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,15 +42,16 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "masked_reduce": {
         # active, n, k, data[], valid[], ops[], is_f64[], partials, nblocks,
-        # acc_f, acc_i, stream
-        "masked_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+        # acc_f, acc_i, acc_h, stream
+        "masked_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _P],
     },
     "grid_agg": {
         # codes[], code_valid[], dims[], nkeys, active, n, f[], f_valid[],
-        # nf, i[], i_valid[], ni, acc_f, acc_i, acc_cnt, G, use_shared,
+        # nf, i[], i_valid[], ni, acc_f, acc_i, acc_cnt, fx, G, use_shared,
         # stream
         "grid_agg": [_P, _P, _P, _I, _P, _L, _P, _P, _I, _P, _P, _I, _P, _P,
-                     _P, _I, _I, _P],
+                     _P, _P, _I, _I, _P],
     },
     "dense_join": {
         # keys, elem, key_valid, active, n, cap, bitmap, out, stream
@@ -82,15 +83,15 @@ _SIGNATURES = {
     },
     "hash_agg": {
         # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
-        # acc[], active, n, state, tkeys, tnulls, cap, collide, ngroups,
-        # stream
-        "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P,
-                            _P, _P, _L, _I, _P, _P],
+        # acc[], aux[], fx[], active, n, state, tkeys, tnulls, cap, collide,
+        # ngroups, rslot, call, stream
+        "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
         # nkeys, nch, old_state, old_keys, old_nulls, old_cap, old_acc[],
-        # new_state, new_keys, new_nulls, new_cap, new_acc[], collide,
-        # stream
-        "hash_agg_rehash": [_I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _L, _P,
-                            _I, _P],
+        # old_aux[], new_state, new_keys, new_nulls, new_cap, new_acc[],
+        # new_aux[], collide, stream
+        "hash_agg_rehash": [_I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
+                            _P, _P, _I, _P],
     },
     "dense_agg": {
         # nkeys, data[], valid[], elems[], cand[], active, n, stats, tables,
@@ -172,6 +173,8 @@ _SIGNATURES = {
         # is_f64, is_max, vals, mask, identity_bits, lo, hi, n, out,
         # out_valid, stream
         "frame_minmax": [_I, _I, _P, _P, _L, _P, _P, _L, _P, _P, _P],
+        # vals, valid, lo, hi, n, last, ignore_nulls, out, out_valid, stream
+        "frame_first_last": [_P, _P, _P, _P, _L, _I, _I, _P, _P, _P],
     },
     "cond_join": {
         # offsets, lo, b_perm, n, total, pi, bi, stream
@@ -180,6 +183,15 @@ _SIGNATURES = {
         "cond_counts": [_P, _P, _P, _L, _P, _P, _P],
         # n_l, n_r, pi, bi, stream
         "cross_pairs": [_L, _L, _P, _P, _P],
+    },
+    "wide_decimal": {
+        # op, a, a_rows, a_wide, ka, b, b_rows, b_wide, kb, valid, n, out,
+        # stream
+        "wd_elementwise": [_I, _P, _L, _I, _I, _P, _L, _I, _I, _P, _L, _P,
+                           _P],
+        # nlanes, lanes[], count, m, precision, out, out_valid, overflowed,
+        # stream
+        "wd_sum_finalize": [_I, _P, _P, _L, _I, _P, _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

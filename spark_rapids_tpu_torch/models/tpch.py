@@ -31,6 +31,7 @@ month of ship dates above the windows.
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,7 +49,10 @@ __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "conditioned_join", "q21_exists", "q2_numpy", "q5_numpy",
            "q7_numpy", "q8_numpy", "q9_numpy", "q12_numpy", "q14_numpy",
            "q15_numpy", "q16_numpy", "q17_numpy", "q19_numpy", "q20_numpy",
-           "q22_numpy", "q21_exists_numpy"]
+           "q22_numpy", "q21_exists_numpy", "MONEY_COLUMNS",
+           "decimal_columns", "q1_dec", "q6_dec", "q18_dec", "f1", "f1u",
+           "w2", "q1_dec_numpy", "q6_dec_numpy", "q18_dec_numpy",
+           "f1_numpy", "f1u_numpy", "w2_numpy", "F1U_CUTOFF"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
@@ -1551,3 +1555,371 @@ def q21_exists_numpy(lineitem, orders, supplier, k: int = 100):
     name, cnt = np.unique(supplier["s_name"][sk[m] - 1], return_counts=True)
     top = np.lexsort((name, -cnt))[:k]
     return [(str(name[i]), int(cnt[i])) for i in top]
+
+
+# ---------------------------------------------------------------------------------
+# Decimal money columns (Q1-dec, Q6-dec, Q18-dec) and FIRST/LAST (F1, F1u, W2)
+# ---------------------------------------------------------------------------------
+
+# the money columns of the TPC-H schema that gen_db_arrays draws with two
+# decimals (DECIMAL(12, 2) in the TPC-H schema)
+MONEY_COLUMNS = {"lineitem": ("l_quantity", "l_extendedprice", "l_discount",
+                              "l_tax"),
+                 "orders": ("o_totalprice",), "customer": ("c_acctbal",)}
+F1U_CUTOFF = datetime.date(1998, 8, 1)
+
+
+def _functions(functions):
+    if functions is None:
+        from ..sql import functions
+    return functions
+
+
+def _cents(x: np.ndarray, scale: int = 2) -> np.ndarray:
+    return np.round(x * 10 ** scale).astype(np.int64)
+
+
+def decimal_columns(table: Dict[str, np.ndarray], names, precision: int = 12,
+                    scale: int = 2) -> Dict[str, object]:
+    """A copy of ``table`` whose ``names`` columns are DECIMAL(precision,
+    scale) ``DecimalArray``s of ``round(x * 10^scale)``: exact for the
+    gen_db money columns, which are drawn with two decimals."""
+    from ..batch import DecimalArray
+    out = dict(table)
+    for n in names:
+        out[n] = DecimalArray(_cents(table[n], scale), precision, scale)
+    return out
+
+
+def q1_dec(df, functions=None, delta_days: int = 90):
+    """TPC-H Q1 over DECIMAL(12, 2) money columns, with decimal literals:
+    four wide sums (DECIMAL(22, 2), (22, 2), (28, 4), (28, 6)) and three
+    decimal averages (doubles, as the reference computes them)."""
+    F = _functions(functions)
+    one = F.lit(decimal.Decimal("1"))
+    cutoff = datetime.date(1998, 12, 1) - datetime.timedelta(days=delta_days)
+    disc_price = F.col("l_extendedprice") * (one - F.col("l_discount"))
+    charge = disc_price * (one + F.col("l_tax"))
+    return (df.where(F.col("l_shipdate") <= cutoff)
+              .group_by("l_returnflag", "l_linestatus")
+              .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                   F.sum(F.col("l_extendedprice")).alias("sum_base_price"),
+                   F.sum(disc_price).alias("sum_disc_price"),
+                   F.sum(charge).alias("sum_charge"),
+                   F.avg(F.col("l_quantity")).alias("avg_qty"),
+                   F.avg(F.col("l_extendedprice")).alias("avg_price"),
+                   F.avg(F.col("l_discount")).alias("avg_disc"),
+                   F.count_star().alias("count_order"))
+              .sort("l_returnflag", "l_linestatus"))
+
+
+def q6_dec(df, functions=None):
+    """TPC-H Q6 over DECIMAL(12, 2) columns and decimal literals: the
+    ungrouped sum of a DECIMAL(18, 4) product, a DECIMAL(28, 4)."""
+    F = _functions(functions)
+    lo, hi = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+    return (df.where((F.col("l_shipdate") >= lo) & (F.col("l_shipdate") < hi)
+                     & (F.col("l_discount") >= decimal.Decimal("0.05"))
+                     & (F.col("l_discount") <= decimal.Decimal("0.07"))
+                     & (F.col("l_quantity") < decimal.Decimal("24")))
+              .agg(F.sum(F.col("l_extendedprice") * F.col("l_discount"))
+                   .alias("revenue")))
+
+
+def q18_dec(orders, lineitem, customer, functions=None):
+    """TPC-H Q18 as :func:`q18` writes it, over DECIMAL(12, 2) quantities
+    and prices: the HAVING compares a DECIMAL(22, 2) sum with 300."""
+    F = _functions(functions)
+    big = (lineitem.group_by("l_orderkey")
+           .agg(F.sum(F.col("l_quantity")).alias("qty"))
+           .filter(F.col("qty") > 300))
+    return (orders
+            .join(big, on=[("o_orderkey", "l_orderkey")], how="semi")
+            .join(customer, on=[("o_custkey", "c_custkey")])
+            .select("c_name", "o_orderkey", "o_totalprice")
+            .sort(F.col("o_totalprice").desc(), F.col("o_orderkey"))
+            .limit(100))
+
+
+def _first_last_aggs(F, date, price, key, marked, dated):
+    return (F.first(F.col(date)).alias("first_date"),
+            F.last(F.col(price)).alias("last_price"),
+            F.last(F.col(key)).alias("last_key"),
+            F.first(F.col(marked), ignore_nulls=True).alias("first_marked"),
+            F.last(F.col(dated), ignore_nulls=True).alias("last_dated"),
+            F.count_star().alias("n"))
+
+
+def f1(orders, functions=None):
+    """F1: FIRST/LAST per customer over orders in input order: the first
+    order date, the last (decimal) total price and order key, the first
+    urgent order's key and the last filled order's date (nulls ignored),
+    and the count.  The nullable inputs come from a stage below the
+    aggregate, so no aggregate argument holds a string predicate."""
+    F = _functions(functions)
+    staged = orders.select(
+        "o_custkey", "o_orderkey", "o_orderdate", "o_totalprice",
+        F.when(F.col("o_orderpriority") == "1-URGENT", F.col("o_orderkey"))
+        .alias("urgent_key"),
+        F.when(F.col("o_orderstatus") == "F", F.col("o_orderdate"))
+        .alias("filled_date"))
+    return staged.group_by("o_custkey").agg(*_first_last_aggs(
+        F, "o_orderdate", "o_totalprice", "o_orderkey", "urgent_key",
+        "filled_date"))
+
+
+def f1u(lineitem, functions=None, cutoff: datetime.date = F1U_CUTOFF):
+    """F1u: F1's FIRST/LAST shapes ungrouped, over the lineitems shipped
+    from ``cutoff`` on: first ship date, last (decimal) price and order
+    key, the first returned line's order key and the last finished line's
+    ship date (nulls ignored), and the count."""
+    F = _functions(functions)
+    staged = lineitem.where(F.col("l_shipdate") >= cutoff).select(
+        "l_orderkey", "l_shipdate", "l_extendedprice",
+        F.when(F.col("l_returnflag") == "R", F.col("l_orderkey"))
+        .alias("returned_key"),
+        F.when(F.col("l_linestatus") == "F", F.col("l_shipdate"))
+        .alias("finished_date"))
+    return staged.agg(*_first_last_aggs(
+        F, "l_shipdate", "l_extendedprice", "l_orderkey", "returned_key",
+        "finished_date"))
+
+
+def w2(lineitem, cutoff: datetime.date = HISTORY_CUTOFF, functions=None,
+       window=None):
+    """W2: W1's two window specs and cutoff (:func:`supplier_history`)
+    with windowed FIRST/LAST: the price 6 rows back and 6 ahead (frame
+    edges), the supplier's first returned price so far and the last
+    returned quantity within 30 days (nulls ignored), and the supplier's
+    first and last price."""
+    F = _functions(functions)
+    if window is None:
+        from ..sql.window import Window as window
+    Window = window
+    wa = Window.partition_by("l_suppkey").order_by(
+        "l_shipdate", "l_orderkey", "l_partkey")
+    wb = Window.partition_by("l_suppkey").order_by("l_shipdate")
+    base = ("l_suppkey", "l_orderkey", "l_partkey", "l_shipdate",
+            "l_extendedprice", "l_quantity")
+    returned = F.col("l_returnflag") == "R"
+    staged = lineitem.select(
+        *base, F.when(returned, F.col("l_extendedprice"))
+        .alias("returned_price"),
+        F.when(returned, F.col("l_quantity")).alias("returned_qty"))
+    price = F.col("l_extendedprice")
+    whole = wa.rows_between(Window.unboundedPreceding,
+                            Window.unboundedFollowing)
+    return (staged.select(
+        *base,
+        F.first(price).over(wa.rows_between(-6, 0)).alias("price_back6"),
+        F.last(price).over(wa.rows_between(0, 6)).alias("price_ahead6"),
+        F.first(F.col("returned_price"), ignore_nulls=True)
+        .over(wa.rows_between(Window.unboundedPreceding, 0))
+        .alias("first_returned"),
+        F.last(F.col("returned_qty"), ignore_nulls=True)
+        .over(wb.range_between(-30, 0)).alias("last_returned_30d"),
+        F.first(price).over(whole).alias("supp_first"),
+        F.last(price).over(whole).alias("supp_last"))
+        .where(F.col("l_shipdate") >= cutoff))
+
+
+# -- oracles in exact integers ---------------------------------------------------
+
+def _exact_sum(x: np.ndarray) -> int:
+    """The exact sum of int64 values (32-bit halves summed apart)."""
+    x = x.astype(np.int64)
+    return (int((x >> 32).sum()) << 32) + int((x & 0xFFFFFFFF).sum())
+
+
+def _dec(unscaled: int, scale: int) -> decimal.Decimal:
+    return decimal.Decimal(int(unscaled)).scaleb(-scale)
+
+
+def q1_dec_numpy(data: Dict[str, np.ndarray], delta_days: int = 90
+                 ) -> List[tuple]:
+    """:func:`q1_dec` over the float gen_db arrays, in exact integers:
+    rows in (returnflag, linestatus) order, sums as ``Decimal``, averages
+    as the exact quotient in float64."""
+    cutoff = np.datetime64(datetime.date(1998, 12, 1)
+                           - datetime.timedelta(days=delta_days))
+    m = data["l_shipdate"] <= cutoff
+    flag, status = data["l_returnflag"][m], data["l_linestatus"][m]
+    qty, price = _cents(data["l_quantity"][m]), \
+        _cents(data["l_extendedprice"][m])
+    disc, tax = _cents(data["l_discount"][m]), _cents(data["l_tax"][m])
+    disc_price = price * (100 - disc)                  # scale 4
+    charge = disc_price * (100 + tax)                  # scale 6
+    rows = []
+    for f in np.unique(flag):
+        for st in np.unique(status):
+            g = (flag == f) & (status == st)
+            cnt = int(g.sum())
+            if not cnt:
+                continue
+            sq, sp = _exact_sum(qty[g]), _exact_sum(price[g])
+            rows.append((str(f), str(st), _dec(sq, 2), _dec(sp, 2),
+                         _dec(_exact_sum(disc_price[g]), 4),
+                         _dec(_exact_sum(charge[g]), 6),
+                         sq / 100 / cnt, sp / 100 / cnt,
+                         _exact_sum(disc[g]) / 100 / cnt, cnt))
+    return rows
+
+
+def q6_dec_numpy(data: Dict[str, np.ndarray]):
+    """:func:`q6_dec` in exact integers: the revenue as a ``Decimal`` with
+    scale 4, None when no row qualifies."""
+    ship = data["l_shipdate"]
+    disc = _cents(data["l_discount"])
+    m = ((ship >= np.datetime64("1994-01-01"))
+         & (ship < np.datetime64("1995-01-01"))
+         & (disc >= 5) & (disc <= 7) & (_cents(data["l_quantity"]) < 2400))
+    if not m.any():
+        return None
+    return _dec(_exact_sum(_cents(data["l_extendedprice"][m]) * disc[m]), 4)
+
+
+def q18_dec_numpy(orders, lineitem, customer, k: int = 100) -> List[tuple]:
+    """:func:`q18_dec` in exact integers: (c_name, o_orderkey,
+    o_totalprice as a ``Decimal``)."""
+    okey = orders["o_orderkey"]
+    if not (np.array_equal(okey, np.arange(1, len(okey) + 1))
+            and np.array_equal(customer["c_custkey"],
+                               np.arange(1, len(customer["c_custkey"]) + 1))):
+        raise ValueError("q18_dec_numpy needs o_orderkey and c_custkey = "
+                         "1..n")
+    # integral weights summed in float64: exact below 2^53
+    qty = np.bincount(lineitem["l_orderkey"],
+                      weights=_cents(lineitem["l_quantity"]),
+                      minlength=len(okey) + 1).astype(np.int64)
+    rows = np.flatnonzero(qty[okey] > 30000)
+    price = _cents(orders["o_totalprice"][rows])
+    top = rows[np.lexsort((okey[rows], -price))][:k]
+    names = customer["c_name"][orders["o_custkey"][top] - 1]
+    return [(str(n), int(okey[r]), _dec(_cents(orders["o_totalprice"][r]), 2))
+            for n, r in zip(names, top)]
+
+
+def _first_last_numpy(key, date, price_cents, rkey, marked, dated):
+    """Per group of ``key`` (all rows one group when ``key`` is None), in
+    row order: (first date, last price cents, last rkey, first rkey where
+    ``marked``, last date where ``dated``, count); None for a group with
+    no marked (dated) row.  Dates as int32 days."""
+    n = len(date)
+    if key is None:
+        key = np.zeros(n, dtype=np.int64)
+    keys, first = np.unique(key, return_index=True)
+    last = n - 1 - np.unique(key[::-1], return_index=True)[1]
+    count = np.bincount(np.searchsorted(keys, key), minlength=len(keys))
+
+    def pick(mask, take_last):
+        at = np.flatnonzero(mask)
+        g = np.searchsorted(keys, key[at])
+        out = np.full(len(keys), -1, dtype=np.int64)
+        if take_last:
+            out[g] = at          # later rows overwrite earlier ones
+        else:
+            out[g[::-1]] = at[::-1]
+        return out
+
+    fm, ld = pick(marked, False), pick(dated, True)
+    return keys, {"first_date": (date[first], None),
+                  "last_price": (price_cents[last], None),
+                  "last_key": (rkey[last], None),
+                  "first_marked": (np.where(fm >= 0, rkey[fm], 0), fm >= 0),
+                  "last_dated": (np.where(ld >= 0, date[ld], 0), ld >= 0),
+                  "n": (count, None)}
+
+
+def _days(x: np.ndarray) -> np.ndarray:
+    return x.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+
+
+def f1_numpy(orders: Dict[str, np.ndarray]) -> Dict[str, tuple]:
+    """:func:`f1`: ``{column: (data, valid)}`` in o_custkey order; the
+    price as unscaled DECIMAL(12, 2) cents, dates as int32 days."""
+    keys, cols = _first_last_numpy(
+        orders["o_custkey"], _days(orders["o_orderdate"]),
+        _cents(orders["o_totalprice"]), orders["o_orderkey"],
+        orders["o_orderpriority"] == "1-URGENT",
+        orders["o_orderstatus"] == "F")
+    return {"o_custkey": (keys, None), **cols}
+
+
+def f1u_numpy(lineitem: Dict[str, np.ndarray],
+              cutoff: datetime.date = F1U_CUTOFF) -> List[tuple]:
+    """:func:`f1u`'s one row, dates as ``datetime.date`` and the price as
+    a ``Decimal``, as ``collect()`` returns them."""
+    m = lineitem["l_shipdate"] >= np.datetime64(cutoff)
+    if not m.any():
+        return [(None, None, None, None, None, 0)]
+    _, cols = _first_last_numpy(
+        None, _days(lineitem["l_shipdate"][m]),
+        _cents(lineitem["l_extendedprice"][m]), lineitem["l_orderkey"][m],
+        lineitem["l_returnflag"][m] == "R",
+        lineitem["l_linestatus"][m] == "F")
+
+    def day(d, ok=True):
+        return (datetime.date(1970, 1, 1) + datetime.timedelta(days=int(d))
+                if ok else None)
+    fm, fm_ok = cols["first_marked"]
+    ld, ld_ok = cols["last_dated"]
+    return [(day(cols["first_date"][0][0]), _dec(cols["last_price"][0][0], 2),
+             int(cols["last_key"][0][0]),
+             int(fm[0]) if fm_ok[0] else None, day(ld[0], ld_ok[0]),
+             int(cols["n"][0][0]))]
+
+
+def w2_numpy(lineitem: Dict[str, np.ndarray],
+             cutoff: datetime.date = HISTORY_CUTOFF) -> Dict[str, tuple]:
+    """:func:`w2` in numpy: ``{column: (data, valid)}`` in the output's
+    order (by supplier, ship date, order key, part key, ties in input
+    order, as :func:`supplier_history_numpy` orders them)."""
+    supp, okey = lineitem["l_suppkey"], lineitem["l_orderkey"]
+    pkey = lineitem["l_partkey"]
+    date = lineitem["l_shipdate"].astype("datetime64[D]").astype(np.int64)
+    day = date - (date.min() if len(date) else 0)
+    if _packs((supp, 20), (day, 13), (okey, 30)):
+        order = _stable_order(_pack((supp, 20), (day, 13), (okey, 30)),
+                              pkey)
+    else:
+        order = np.lexsort((pkey, okey, date, supp))
+    supp, okey, pkey, date = (supp[order], okey[order], pkey[order],
+                              date[order])
+    price = lineitem["l_extendedprice"][order]
+    qty = lineitem["l_quantity"][order]
+    ret = lineitem["l_returnflag"][order] == "R"
+    n = len(order)
+    idx = np.arange(n)
+    start = np.ones(n, dtype=bool)
+    start[1:] = supp[1:] != supp[:-1]
+    pid = np.cumsum(start) - 1
+    first = np.flatnonzero(start)
+    last = np.append(first[1:], n) - 1
+    lo = first[pid]
+    hi = last[pid]
+    # next returned row at or after each row, previous at or before
+    nxt = np.minimum.accumulate(np.where(ret, idx, n)[::-1])[::-1]
+    prv = np.maximum.accumulate(np.where(ret, idx, -1))
+    first_ret = nxt[lo]
+    comp = supp * (1 << 24) + date
+    lo30 = np.searchsorted(comp, comp - 30, side="left")
+    hi30 = np.searchsorted(comp, comp, side="right") - 1
+    last_ret = prv[hi30]
+    ok_first = first_ret <= idx
+    ok_last = last_ret >= lo30
+    cut = (np.datetime64(cutoff, "D") - np.datetime64("1970-01-01", "D")
+           ).astype(np.int64)
+    k = date >= cut
+    cols = {"l_suppkey": (supp, None), "l_orderkey": (okey, None),
+            "l_partkey": (pkey, None),
+            "l_shipdate": (date.astype(np.int32), None),
+            "l_extendedprice": (price, None), "l_quantity": (qty, None),
+            "price_back6": (price[np.maximum(idx - 6, lo)], None),
+            "price_ahead6": (price[np.minimum(idx + 6, hi)], None),
+            "first_returned": (np.where(ok_first, price[np.minimum(
+                first_ret, n - 1)], 0.0), ok_first),
+            "last_returned_30d": (np.where(ok_last, qty[np.maximum(
+                last_ret, 0)], 0.0), ok_last),
+            "supp_first": (price[lo], None), "supp_last": (price[hi], None)}
+    return {c: (a[k], None if v is None else v[k])
+            for c, (a, v) in cols.items()}

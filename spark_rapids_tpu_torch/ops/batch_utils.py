@@ -82,12 +82,15 @@ def compact(batch: ColumnBatch, n_live: Optional[int] = None) -> ColumnBatch:
 def compact_columns(cols: Sequence[Value], active: torch.Tensor,
                     n_live: int) -> List[Value]:
     """Each (data, valid) column's rows where ``active`` holds, packed to
-    the front; ``n_live`` is the number of such rows."""
+    the front; ``n_live`` is the number of such rows (wide decimal limbs
+    move as two columns)."""
+    from .wide_decimal import join_wide, split_wide
+    cols, layout = split_wide(cols)
     run = compact_kernel if active.is_cuda else compact_plain
     out: List[Value] = []
     for lo in range(0, len(cols), CP_MAX_COLS):
         out += run(cols[lo:lo + CP_MAX_COLS], active, n_live)
-    return out
+    return join_wide(out, layout)
 
 
 def compact_plain(cols, active, n_live: int) -> List[Value]:

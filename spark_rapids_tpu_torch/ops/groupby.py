@@ -18,7 +18,15 @@ version.  Each kernel wrapper counts its launches in
 ``<wrapper>.launches``.
 
 Contributions are ``((data, valid), op)`` pairs as ``aggfns`` makes them;
-``data=None`` counts the live rows where ``valid`` holds.
+``data=None`` counts the live rows where ``valid`` holds.  The ops are sum,
+min, max, count and the order-sensitive first, last, first_valid and
+last_valid (FIRST/LAST, the reference's ``_reduce_segment`` :195 and
+``_merge_scalars`` :943): the value at the first or last live row of a
+group (``_valid``: the first or last row whose value is valid), where a
+batch with no such row leaves the group's earlier value alone.  Their
+accumulators come back as ``(value, has)`` pairs, ``has`` telling whether
+any batch had such a row.  float64 sums are equal to the bit from run to
+run on every path (``csrc/fixed128.cuh``).
 """
 
 from __future__ import annotations
@@ -43,13 +51,25 @@ Value = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 _I64_MAX = torch.iinfo(torch.int64).max
 _I64_MIN = torch.iinfo(torch.int64).min
-_OPCODE = {"sum": 0, "min": 1, "max": 2, "count": 3}
+_OPCODE = {"sum": 0, "min": 1, "max": 2, "count": 3, "first": 4, "last": 5}
+ORDERED_OPS = ("first", "last", "first_valid", "last_valid")
 MR_THREADS = 256        # csrc/masked_reduce.cu MR_THREADS
 MR_MAX_BLOCKS = 1024    # first-pass grid size cap (scratch = blocks x k)
 MR_MAX_COLS = 16        # csrc/masked_reduce.cu MR_MAX_COLS
 GA_MAX_KEYS = 8         # csrc/grid_agg.cu GA_MAX_KEYS
-GA_MAX_COLS = 16        # csrc/grid_agg.cu GA_MAX_COLS
+GA_MAX_COLS = 32        # csrc/grid_agg.cu GA_MAX_COLS
 GRID_SHARED_BYTES = 48 * 1024
+
+
+def kernel_op(op: str, valid: Optional[torch.Tensor]):
+    """The kernels' op and qualifying mask of a contribution: first/last
+    pick among the live rows (their values' validity rides in a second
+    buffer), first_valid/last_valid among the rows whose value is valid."""
+    if op in ("first", "last"):
+        return op, None
+    if op in ("first_valid", "last_valid"):
+        return op[:-6], valid
+    return op, valid
 
 
 def _column(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
@@ -73,25 +93,34 @@ def init_scalars(specs: Sequence[Tuple[str, bool]],
     else in acc_i[j]."""
     f_init = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
     i_init = {"sum": 0, "min": _I64_MAX, "max": _I64_MIN}
-    acc_f = torch.tensor([f_init[op] if f else 0.0 for op, f in specs],
-                         dtype=torch.float64)
-    acc_i = torch.tensor([0 if f else i_init[op] for op, f in specs],
+    acc_f = torch.tensor([f_init.get(op, 0.0) if f else 0.0
+                          for op, f in specs], dtype=torch.float64)
+    acc_i = torch.tensor([0 if f else i_init.get(op, 0) for op, f in specs],
                          dtype=torch.int64)
     return upload(acc_f, device), upload(acc_i, device)
 
 
 def ungrouped_reduce(contributions: List[Tuple[Value, str]],
                      active: torch.Tensor, acc_f: torch.Tensor,
-                     acc_i: torch.Tensor) -> None:
+                     acc_i: torch.Tensor,
+                     acc_h: Optional[torch.Tensor] = None) -> None:
     """Adds one batch into an ungrouped accumulator (in place):
-    masked sum/min/max of float64 or int64 contributions, and counts."""
+    masked sum/min/max of float64 or int64 contributions, counts, and
+    first/last values (``acc_h`` [K] int64: per slot, whether a batch had
+    a qualifying row; needed when a contribution is first or last)."""
     n = active.shape[0]
-    cols = [(_column(d, n), _column(v, n), "count" if d is None else op)
-            for (d, v), op in contributions]
+    cols = []
+    for (d, v), op in contributions:
+        op, v = kernel_op("count" if d is None else op, v)
+        cols.append((_column(d, n), _column(v, n), op))
+    if acc_h is None:
+        if any(op in ("first", "last") for _, _, op in cols):
+            raise ValueError("first/last need the accumulator's has words")
+        acc_h = torch.zeros_like(acc_i)
     if active.is_cuda:
-        masked_reduce(cols, active, acc_f, acc_i)
+        masked_reduce(cols, active, acc_f, acc_i, acc_h)
     else:
-        masked_reduce_plain(cols, active, acc_f, acc_i)
+        masked_reduce_plain(cols, active, acc_f, acc_i, acc_h)
 
 
 def _min_f64(x: torch.Tensor) -> torch.Tensor:
@@ -109,14 +138,26 @@ def _max_f64(x: torch.Tensor) -> torch.Tensor:
 
 
 def masked_reduce_plain(cols, active: torch.Tensor, acc_f: torch.Tensor,
-                        acc_i: torch.Tensor) -> None:
+                        acc_i: torch.Tensor,
+                        acc_h: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch version of ``csrc/masked_reduce.cu``: ``cols`` is one
-    (data, valid, op) per accumulator slot, op in sum/min/max/count."""
+    (data, valid, op) per accumulator slot, op in
+    sum/min/max/count/first/last (first/last: the value at the first or
+    last row where ``active`` and ``valid`` hold, into acc_f or acc_i by
+    the value's type, ``acc_h`` marking that a batch had one; an earlier
+    batch's FIRST stays)."""
     if active.shape[0] == 0:
         return
     for j, (d, v, op) in enumerate(cols):
         m = active if v is None else active & v
-        if op == "count":
+        if op in ("first", "last"):
+            rows = m.nonzero().squeeze(1)
+            if rows.numel() == 0 or (op == "first" and bool(acc_h[j])):
+                continue
+            x = d[rows[0] if op == "first" else rows[-1]]
+            (acc_f if d.dtype == torch.float64 else acc_i)[j] = x
+            acc_h[j] = 1
+        elif op == "count":
             acc_i[j] += m.sum()
         elif d.dtype == torch.float64:
             if op == "sum":
@@ -145,14 +186,20 @@ def _check_column(t: torch.Tensor, n: int, dtypes, what: str) -> None:
 
 
 def masked_reduce(cols, active: torch.Tensor, acc_f: torch.Tensor,
-                  acc_i: torch.Tensor) -> None:
+                  acc_i: torch.Tensor,
+                  acc_h: Optional[torch.Tensor] = None) -> None:
     """Launch ``csrc/masked_reduce.cu`` on CUDA tensors (same arguments as
     :func:`masked_reduce_plain`).  Columns go in chunks of MR_MAX_COLS,
     one launch (two CUDA kernels) per chunk."""
     n = active.shape[0]
     _check_column(active, n, (torch.bool,), "active")
-    for acc, dtype in ((acc_f, torch.float64), (acc_i, torch.int64)):
+    if acc_h is None:
+        acc_h = torch.zeros_like(acc_i)
+    for acc, dtype in ((acc_f, torch.float64), (acc_i, torch.int64),
+                       (acc_h, torch.int64)):
         _check_column(acc, len(cols), (dtype,), "accumulator")
+    if n == 0:
+        return  # nothing to reduce (the plain version returns too)
     lib = kernels.load("masked_reduce")
     nblocks = min(max(1, -(-n // MR_THREADS)), MR_MAX_BLOCKS)
     stream = torch.cuda.current_stream(active.device).cuda_stream
@@ -175,12 +222,16 @@ def masked_reduce(cols, active: torch.Tensor, acc_f: torch.Tensor,
             active.data_ptr(), n, k, kernels.pointer_array(data),
             kernels.pointer_array(valid), kernels.int_array(ops),
             kernels.int_array(is_f64), partials.data_ptr(), nblocks,
-            acc_f[lo:].data_ptr(), acc_i[lo:].data_ptr(), stream)
+            acc_f[lo:].data_ptr(), acc_i[lo:].data_ptr(),
+            acc_h[lo:].data_ptr(), stream)
         kernels.check_launch(lib, "masked_reduce", rc)
         masked_reduce.launches += 1
+        if any(op in ("first", "last") for _, _, op in chunk):
+            masked_reduce.ordered_launches += 1
 
 
 masked_reduce.launches = 0
+masked_reduce.ordered_launches = 0  # the launches that pick FIRST/LAST
 
 
 # ---------------------------------------------------------------------------------
@@ -195,15 +246,19 @@ def grid_size(dims: Sequence[int]) -> int:
 
 
 def grid_uses_shared(G: int, nf: int, ni: int) -> bool:
-    """True when the kernel privatizes the grid in shared memory."""
-    return G * (nf + ni + 1) * 8 <= GRID_SHARED_BYTES
+    """True when the kernel privatizes the grid in shared memory (two
+    fixed-point words per float64 column, one per int64 column and the
+    presence count, per slot)."""
+    return G * (2 * nf + ni + 1) * 8 <= GRID_SHARED_BYTES
 
 
 class GridAccumulator:
     """The per-query device accumulator of the grid path.
 
     ``f`` [G, nf] float64 sums, ``i`` [G, ni] int64 sums and masked counts,
-    ``cnt`` [G] live rows per slot.  ``kinds`` gives, per contribution,
+    ``cnt`` [G] live rows per slot; ``fx`` [G, nf, 3] the kernel's
+    fixed-point words of a call (zero between calls).  ``kinds`` gives,
+    per contribution,
     where it lands, fixed before the first batch from the aggregates'
     nullability: "f" or "i" for a column of its own, "cnt" for a count of
     every live row, which the presence count already is."""
@@ -227,6 +282,7 @@ class GridAccumulator:
         self.f = torch.zeros((G, nf), dtype=torch.float64, device=device)
         self.i = torch.zeros((G, ni), dtype=torch.int64, device=device)
         self.cnt = torch.zeros(G, dtype=torch.int64, device=device)
+        self.fx = torch.zeros((G, nf, 3), dtype=torch.int64, device=device)
 
     @property
     def G(self) -> int:
@@ -273,6 +329,8 @@ class GridAccumulator:
             return out.index_add_(0, new_slot, t)
 
         self.f, self.i, self.cnt = move(self.f), move(self.i), move(self.cnt)
+        self.fx = torch.zeros((G,) + self.fx.shape[1:], dtype=torch.int64,
+                              device=self.fx.device)
         self.dims = dims
 
     def slot_codes(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -308,8 +366,12 @@ def grid_group_reduce(code_keys: List[Value], dims: Sequence[int],
                          f"{acc.dims}; regrid first")
     keys = [(_column(c, n), _column(v, n)) for c, v in code_keys]
     f_cols, i_cols = acc.route(contributions, n)
-    run = grid_agg if active.is_cuda else grid_agg_plain
-    run(keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i, acc.cnt)
+    if active.is_cuda:
+        grid_agg(keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i,
+                 acc.cnt, acc.fx)
+    else:
+        grid_agg_plain(keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i,
+                       acc.cnt)
 
 
 def _grid_ids(keys, dims, n, device) -> torch.Tensor:
@@ -342,9 +404,10 @@ def grid_agg_plain(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
 
 
 def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
-             acc_cnt) -> None:
-    """Launch ``csrc/grid_agg.cu`` on CUDA tensors (same arguments as
-    :func:`grid_agg_plain`)."""
+             acc_cnt, fx: Optional[torch.Tensor] = None) -> None:
+    """Launch ``csrc/grid_agg.cu`` on CUDA tensors (the arguments of
+    :func:`grid_agg_plain`, and ``fx``, the [G, nf, 3] fixed-point words,
+    zero between calls: made here when the caller keeps none)."""
     n = active.shape[0]
     G = acc_cnt.shape[0]
     nf, ni = len(f_cols), len(i_cols)
@@ -353,10 +416,12 @@ def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
         raise ValueError(f"grid_agg takes 1..{GA_MAX_KEYS} keys and at most "
                          f"{GA_MAX_COLS} float64 and {GA_MAX_COLS} int64 "
                          f"columns, got {len(keys)}, {nf}, {ni}")
+    if fx is None:
+        fx = torch.zeros((G, nf, 3), dtype=torch.int64, device=acc_f.device)
     if G != grid_size(dims) or acc_f.shape != (G, nf) \
-            or acc_i.shape != (G, ni):
+            or acc_i.shape != (G, ni) or fx.shape != (G, nf, 3):
         raise ValueError("accumulator shapes do not match the grid")
-    for acc in (acc_f, acc_i, acc_cnt):
+    for acc in (acc_f, acc_i, acc_cnt, fx):
         if not acc.is_contiguous() or not acc.is_cuda:
             raise ValueError("accumulators must be contiguous CUDA tensors")
     _check_column(active, n, (torch.bool,), "active")
@@ -387,7 +452,7 @@ def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
         kernels.pointer_array(codes), kernels.pointer_array(code_valid),
         kernels.int_array(list(dims)), len(keys), active.data_ptr(), n,
         f_data, f_valid, nf, i_data, i_valid, ni, acc_f.data_ptr(),
-        acc_i.data_ptr(), acc_cnt.data_ptr(), G,
+        acc_i.data_ptr(), acc_cnt.data_ptr(), fx.data_ptr(), G,
         int(grid_uses_shared(G, nf, ni)), stream)
     kernels.check_launch(lib, "grid_agg", rc)
     grid_agg.launches += 1
@@ -841,12 +906,12 @@ dense_agg_check.launches = 0
 # ---------------------------------------------------------------------------------
 
 HA_MAX_KEYS = 8             # csrc/hash_agg.cu HA_MAX_KEYS
-HA_MAX_CH = 16              # csrc/hash_agg.cu HA_MAX_CH
+HA_MAX_CH = 32              # csrc/hash_agg.cu HA_MAX_CH
 HA_LOAD = 0.5               # groups per slot the table is allowed
 HA_MIN_SLOTS = 1024
 HA_COMPACT_SLOTS = 1 << 20  # larger tables are compacted after a count fetch
 HA_READY = 2                # csrc/hash_agg.cu HA_READY
-_HA_OP = {"sum": 0, "min": 1, "max": 2, "count": 3}
+_HA_OP = {"sum": 0, "min": 1, "max": 2, "count": 3, "first": 4, "last": 5}
 _F64_SIGNLESS = 0x7FFFFFFFFFFFFFFF
 
 
@@ -891,6 +956,8 @@ def key_from_word(word: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _ha_init(op: str, is_f64: bool) -> float:
+    if op in ORDERED_OPS:
+        return 0
     if is_f64:
         if op in ("min", "max"):
             edge = float("inf") if op == "min" else float("-inf")
@@ -905,7 +972,10 @@ class HashAccumulator:
     batch adds into.
 
     ``channels`` holds (op, is_f64) per contribution, op in
-    sum/min/max/count.  ``update`` takes each batch's int64 key words with
+    sum/min/max/count and first/last/first_valid/last_valid (whose value
+    columns are float64 or int64 words, with one auxiliary int64 word per
+    slot, ``csrc/hash_agg.cu``).  ``update`` takes each batch's int64 key
+    words with
     their validity (:func:`key_word`), its contributions and its live
     mask.  The host keeps an upper bound on the number of groups (the rows
     added so far, or ``key_bound`` when the keys' domain is smaller); the
@@ -937,26 +1007,46 @@ class HashAccumulator:
         self.cap = 0
         self.bound = 0
         self.growths = 0
+        self.calls = 0
         self.ngroups = torch.zeros(1, dtype=torch.int64, device=self.device)
 
     def _limit_bound(self, n: int) -> int:
         return n if self.key_bound is None else min(n, self.key_bound)
 
     def _alloc(self, cap: int):
+        """(state, keys, nulls, accumulators, auxiliary words) of a table
+        of ``cap`` slots: a FIRST word starts at INT64_MAX, a LAST word at
+        -1; the plain version keeps its groups dense, with 0/1 "has"
+        words."""
         dev = self.device
-        acc = []
+        n = cap if self.kernel else 0
+        acc, aux = [], []
         for op, is_f64 in self.channels:
             init = _ha_init(op, is_f64)
-            dtype = torch.float64 if is_f64 and op == "sum" else torch.int64
-            n = cap if self.kernel else 0
+            dtype = torch.float64 if is_f64 and (
+                op == "sum" or op in ORDERED_OPS) else torch.int64
             acc.append(torch.full((n,), init, dtype=dtype, device=dev))
+            if op not in ORDERED_OPS:
+                aux.append(None)
+                continue
+            start = 0 if not self.kernel else (
+                _I64_MAX if op.startswith("first") else -1)
+            aux.append(torch.full((n,), start, dtype=torch.int64,
+                                  device=dev))
         if not self.kernel:  # the plain version keeps the groups dense
             return (None, torch.empty((self.nkeys, 0), dtype=torch.int64,
                                       device=dev),
-                    torch.empty(0, dtype=torch.int32, device=dev), acc)
+                    torch.empty(0, dtype=torch.int32, device=dev), acc, aux)
         return (torch.zeros(cap, dtype=torch.int32, device=dev),
                 torch.empty((self.nkeys, cap), dtype=torch.int64, device=dev),
-                torch.empty(cap, dtype=torch.int32, device=dev), acc)
+                torch.empty(cap, dtype=torch.int32, device=dev), acc, aux)
+
+    def _fixed_point(self, cap: int):
+        """The [cap, 3] fixed-point words of each float64 sum channel
+        (None for the others)."""
+        return [torch.zeros((cap, 3), dtype=torch.int64, device=self.device)
+                if self.kernel and is_f64 and op == "sum" else None
+                for op, is_f64 in self.channels]
 
     @staticmethod
     def _slots_for(groups: int) -> int:
@@ -968,8 +1058,9 @@ class HashAccumulator:
         grow only when the host's bound says the table could fill."""
         if self.cap == 0:
             self.cap = self._slots_for(self._limit_bound(2 * n))
-            self.state, self.keys, self.nulls, self.acc = \
+            self.state, self.keys, self.nulls, self.acc, self.aux = \
                 self._alloc(self.cap)
+            self.fx = self._fixed_point(self.cap)
             return
         limit = int(self.cap * HA_LOAD)
         if self._limit_bound(self.bound + n) <= limit:
@@ -982,11 +1073,13 @@ class HashAccumulator:
         self._grow(self._slots_for(self._limit_bound(2 * (self.bound + n))))
 
     def _grow(self, cap: int) -> None:
-        old = (self.state, self.keys, self.nulls, self.acc, self.cap)
+        old = (self.state, self.keys, self.nulls, self.acc, self.aux,
+               self.cap)
         new = self._alloc(cap)
         if self.kernel:
             hash_agg_rehash(self, old, new, cap)
-            self.state, self.keys, self.nulls, self.acc = new
+            self.state, self.keys, self.nulls, self.acc, self.aux = new
+            self.fx = self._fixed_point(cap)
         self.cap = cap
 
     def update(self, words: Sequence[Value],
@@ -998,17 +1091,20 @@ class HashAccumulator:
             raise ValueError("keys/contributions do not match the "
                              "accumulator's layout")
         self._reserve(n)
+        self.calls += 1
         words = [(_column(d, n), _column(v, n)) for d, v in words]
-        contributions = [(_column(d, n), _column(v, n))
-                         for d, v in contributions]
+        contributions = [(_column(d, n), _column(kernel_op(op, v)[1], n))
+                         for (d, v), (op, _) in zip(contributions,
+                                                     self.channels)]
         run = hash_agg_update if self.kernel else hash_agg_update_plain
         run(self, words, contributions, active, n)
         self.bound = self._limit_bound(self.bound + n)
 
     def finish(self):
         """(per key its int64 words and validity; per channel its values —
-        float64 min/max decoded from their images; the live mask or None),
-        every list in one slot order.  A table of more than
+        float64 min/max decoded from their images, FIRST/LAST as
+        (value, has) pairs; the live mask or None), every list in one slot
+        order.  A table of more than
         ``HA_COMPACT_SLOTS`` slots is compacted to its groups after one
         fetch of their count; a smaller one comes back whole under its
         live mask, with no fetch.  The plain version's groups are dense
@@ -1020,20 +1116,34 @@ class HashAccumulator:
             if self.cap > HA_COMPACT_SLOTS else None
         live = None
         words, nulls, acc = list(self.keys), self.nulls, self.acc
+        has = [x for x in self.aux if x is not None]
         if self.kernel and groups is None:
             live = self.state == HA_READY
         elif self.kernel:
             from .batch_utils import compact_columns
             cols = [(w, None) for w in words] + [(nulls, None)] \
-                + [(a, None) for a in acc]
+                + [(a, None) for a in acc] + [(x, None) for x in has]
             packed = [d for d, _ in compact_columns(
                 cols, self.state == HA_READY, groups)]
-            words, nulls, acc = (packed[:self.nkeys], packed[self.nkeys],
-                                 packed[self.nkeys + 1:])
+            k = self.nkeys + 1 + len(acc)
+            words, nulls, acc, has = (packed[:self.nkeys], packed[self.nkeys],
+                                      packed[self.nkeys + 1:k], packed[k:])
         keys = [(w, (nulls >> i) & 1 == 0) for i, w in enumerate(words)]
         values = []
+        has = iter(has)
         for (op, is_f64), a in zip(self.channels, acc):
-            values.append(f64_from_image(a) if is_f64 and op != "sum" else a)
+            if op in ORDERED_OPS:
+                x = next(has)
+                if not self.kernel:
+                    filled = x != 0
+                elif op.startswith("first"):
+                    filled = x == _I64_MIN
+                else:
+                    filled = x >= 0
+                values.append((a, filled))
+            else:
+                values.append(f64_from_image(a) if is_f64 and op != "sum"
+                              else a)
         return keys, values, live
 
 
@@ -1066,17 +1176,38 @@ def hash_agg_update_plain(acc: HashAccumulator, words, contributions,
     both = torch.cat([old, _tuple_matrix(bw, nulls)]) if bw else old
     uniq, inv = torch.unique(both, dim=0, return_inverse=True)
     groups = uniq.shape[0]
-    new_acc = []
-    for (op, is_f64), a in zip(acc.channels, acc.acc):
+    new_acc, new_aux = [], []
+    for (op, is_f64), a, x in zip(acc.channels, acc.acc, acc.aux):
         fresh = torch.full((groups,), _ha_init(op, is_f64), dtype=a.dtype,
                            device=dev)
         fresh[inv[:G]] = a
         new_acc.append(fresh)
+        if x is not None:
+            x_fresh = torch.zeros(groups, dtype=torch.int64, device=dev)
+            x_fresh[inv[:G]] = x
+            x = x_fresh
+        new_aux.append(x)
     slot = inv[G:]
-    for (d, v), (op, is_f64), a in zip(contributions, acc.channels, new_acc):
+    for (d, v), (op, is_f64), a, has in zip(contributions, acc.channels,
+                                            new_acc, new_aux):
         m = torch.ones(rows.numel(), dtype=torch.bool, device=dev) \
             if v is None else v[rows]
         s = slot[m]
+        if op in ORDERED_OPS:
+            if s.numel() == 0:
+                continue
+            # the batch's first (last) qualifying row of each group
+            pos = torch.arange(rows.numel(), device=dev)[m]
+            first = op.startswith("first")
+            pick = torch.full((groups,), rows.numel() if first else -1,
+                              dtype=torch.int64, device=dev)
+            pick.scatter_reduce_(0, s, pos, "amin" if first else "amax")
+            found = (pick < rows.numel()) & (pick >= 0)
+            take = found & (has == 0) if first else found
+            x = d[rows][pick.clamp(0, max(rows.numel() - 1, 0))]
+            a.copy_(torch.where(take, x.to(a.dtype), a))
+            has.copy_(torch.where(found, 1, has))
+            continue
         if op == "count":
             a.index_add_(0, s, torch.ones_like(s))
             continue
@@ -1091,6 +1222,7 @@ def hash_agg_update_plain(acc: HashAccumulator, words, contributions,
     acc.nulls = uniq[:, 0].to(torch.int32)
     acc.keys = uniq[:, 1:].T.contiguous()
     acc.acc = new_acc
+    acc.aux = new_aux
 
 
 def hash_agg_update(acc: HashAccumulator, words, contributions, active,
@@ -1114,41 +1246,51 @@ def hash_agg_update(acc: HashAccumulator, words, contributions, active,
             _check_column(v, n, (torch.bool,), "contribution valid")
         data.append(_opt_ptr(d))
         valid.append(_opt_ptr(v))
-        ops.append(_HA_OP[op])
+        ops.append(_HA_OP[kernel_op(op, None)[0]])
         f64.append(int(is_f64))
     if n == 0:
         return
+    per_row = any(x is not None for x in acc.aux) \
+        or any(x is not None for x in acc.fx)
+    rslot = torch.empty(n if per_row else 0, dtype=torch.int64,
+                        device=acc.device)
     P = kernels.pointer_array
     lib = kernels.load("hash_agg")
     rc = lib.hash_agg_update(
         acc.nkeys, P([d.data_ptr() for d, _ in words]),
         P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
         P(valid), kernels.int_array(ops), kernels.int_array(f64),
-        P([a.data_ptr() for a in acc.acc]), _opt_ptr(active), n,
+        P([a.data_ptr() for a in acc.acc]), P([_opt_ptr(x) for x in acc.aux]),
+        P([_opt_ptr(x) for x in acc.fx]), _opt_ptr(active), n,
         acc.state.data_ptr(), acc.keys.data_ptr(), acc.nulls.data_ptr(),
         acc.cap, int(acc.collide), acc.ngroups.data_ptr(),
+        rslot.data_ptr() if per_row else None, acc.calls,
         torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "hash_agg_update", rc)
     hash_agg_update.launches += 1
+    if any(x is not None for x in acc.aux):
+        hash_agg_update.ordered_launches += 1
 
 
 hash_agg_update.launches = 0
+hash_agg_update.ordered_launches = 0  # the launches that pick FIRST/LAST
 
 
 def hash_agg_rehash(acc: HashAccumulator, old, new, new_cap: int) -> None:
     """Launch ``hash_agg_rehash`` of ``csrc/hash_agg.cu``: every group of
     the ``old`` table (state, keys, nulls, accumulators, cap) into the
     empty ``new`` one of ``new_cap`` slots."""
-    o_state, o_keys, o_nulls, o_acc, o_cap = old
-    n_state, n_keys, n_nulls, n_acc = new
+    o_state, o_keys, o_nulls, o_acc, o_aux, o_cap = old
+    n_state, n_keys, n_nulls, n_acc, n_aux = new
     P = kernels.pointer_array
     lib = kernels.load("hash_agg")
     rc = lib.hash_agg_rehash(
         acc.nkeys, len(acc.channels), o_state.data_ptr(), o_keys.data_ptr(),
         o_nulls.data_ptr(), o_cap, P([a.data_ptr() for a in o_acc]),
-        n_state.data_ptr(), n_keys.data_ptr(), n_nulls.data_ptr(), new_cap,
-        P([a.data_ptr() for a in n_acc]), int(acc.collide),
-        torch.cuda.current_stream(acc.device).cuda_stream)
+        P([_opt_ptr(x) for x in o_aux]), n_state.data_ptr(),
+        n_keys.data_ptr(), n_nulls.data_ptr(), new_cap,
+        P([a.data_ptr() for a in n_acc]), P([_opt_ptr(x) for x in n_aux]),
+        int(acc.collide), torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "hash_agg_rehash", rc)
     hash_agg_rehash.launches += 1
 

@@ -207,8 +207,11 @@ def probe_join(keys: torch.Tensor, valid: Optional[torch.Tensor],
     live rows (left, whose unmatched rows get null payload).  Semi and anti
     take no payload.  In an inner join a payload column without a validity
     mask comes back without one: only selected rows count."""
+    from .wide_decimal import join_wide, split_wide
+    payload, layout = split_wide(payload)
     run = dense_join_probe if keys.is_cuda else dense_join_probe_plain
-    return run(keys, valid, active, kmin, table, payload, how)
+    sel, out = run(keys, valid, active, kmin, table, payload, how)
+    return sel, join_wide(out, layout)
 
 
 def dense_join_probe_plain(keys, valid, active, kmin: int, table, payload,
@@ -499,12 +502,14 @@ def gather_rows(idx: torch.Tensor, cols: Sequence[Value],
                 nullable: bool) -> List[Value]:
     """Each (data, valid) column's rows at ``idx`` (int64 or int32); with
     ``nullable``, idx < 0 gives a null row and every output has a
-    validity mask."""
+    validity mask.  Wide decimal limbs move as two columns."""
+    from .wide_decimal import join_wide, split_wide
+    cols, layout = split_wide(cols)
     run = csr_gather if idx.is_cuda else csr_gather_plain
     out: List[Value] = []
     for lo in range(0, len(cols), CJ_MAX_COLS):
         out += run(idx, cols[lo:lo + CJ_MAX_COLS], nullable)
-    return out
+    return join_wide(out, layout)
 
 
 def csr_gather_plain(idx, cols, nullable: bool) -> List[Value]:

@@ -281,12 +281,15 @@ range_key_kernel.launches = 0
 # ---------------------------------------------------------------------------------
 
 def gather_columns(cols: Sequence[Value], perm: torch.Tensor) -> List[Value]:
-    """Each (data, valid) column taken at the int32 permutation ``perm``."""
+    """Each (data, valid) column taken at the int32 permutation ``perm``
+    (wide decimal limbs move as two columns)."""
+    from .wide_decimal import join_wide, split_wide
+    cols, layout = split_wide(cols)
     run = gather_kernel if perm.is_cuda else gather_plain
     out: List[Value] = []
     for lo in range(0, len(cols), SO_MAX_COLS):
         out += run(cols[lo:lo + SO_MAX_COLS], perm)
-    return out
+    return join_wide(out, layout)
 
 
 def gather_plain(cols, perm) -> List[Value]:

@@ -523,7 +523,9 @@ def frame_sum(run: torch.Tensor, vals: Optional[torch.Tensor],
               hi: torch.Tensor) -> torch.Tensor:
     """The sum over [lo, hi] of the contributions (``vals`` where ``mask``;
     ``vals`` None: a count of ``mask``), from their partition running sum
-    ``run`` (int64 or float64).  Empty frames give 0."""
+    ``run`` (int64 or float64); where the running sum at either end is not
+    finite, the frame's own sum (Spark's result for a frame after a NaN or
+    an infinity).  Empty frames give 0."""
     if run.is_cuda:
         return frame_sum_kernel(run, vals, mask, lo, hi)
     return frame_sum_plain(run, vals, mask, lo, hi)
@@ -539,6 +541,23 @@ def frame_sum_plain(run, vals, mask, lo, hi) -> torch.Tensor:
     if mask is not None:
         first = torch.where(mask[a], first, torch.zeros_like(first))
     out = run[b] - run[a] + first
+    if vals is not None and run.is_floating_point():
+        bad = ((~torch.isfinite(run[a]) | ~torch.isfinite(run[b]))
+               & ~empty).nonzero().squeeze(1)
+        if bad.numel():
+            # the frame itself, added in row order as the kernel adds it
+            # (a masked row adds +0.0, which changes no sum that starts
+            # at +0.0)
+            fa, length = a[bad], b[bad] - a[bad] + 1
+            acc = torch.zeros(bad.numel(), dtype=run.dtype,
+                              device=run.device)
+            for j in range(int(length.max())):
+                at = torch.clamp(fa + j, max=n - 1)
+                inside = length > j
+                if mask is not None:
+                    inside = inside & mask[at]
+                acc = acc + torch.where(inside, vals[at], 0.0)
+            out[bad] = acc
     return torch.where(empty, torch.zeros_like(out), out)
 
 
@@ -616,6 +635,73 @@ def frame_minmax_kernel(vals, mask, op: str, lo, hi) -> Value:
 
 
 frame_minmax_kernel.launches = 0
+
+
+def frame_first_last(vals: torch.Tensor, valid: Optional[torch.Tensor],
+                     lo: torch.Tensor, hi: torch.Tensor, last: bool,
+                     ignore_nulls: bool) -> Value:
+    """FIRST or LAST of ``vals`` (float64 or int64) over the frames
+    [lo, hi]: the value at the frame's edge, or with ``ignore_nulls`` at
+    its first (last) row whose value is valid; (values, valid)."""
+    if vals.is_cuda:
+        return frame_first_last_kernel(vals, valid, lo, hi, last,
+                                       ignore_nulls)
+    return frame_first_last_plain(vals, valid, lo, hi, last, ignore_nulls)
+
+
+def frame_first_last_plain(vals, valid, lo, hi, last: bool,
+                           ignore_nulls: bool) -> Value:
+    """Plain PyTorch version of ``frame_first_last`` in
+    ``csrc/window_frame.cu`` (the reference's next/previous valid position
+    scans, ``windowfns.py:321``)."""
+    n = vals.shape[0]
+    if n == 0:
+        return vals.clone(), torch.zeros(0, dtype=torch.bool,
+                                         device=vals.device)
+    lo, hi = lo.long(), hi.long()
+    ok = hi >= lo
+    if ignore_nulls and valid is not None:
+        idx = torch.arange(n, device=vals.device)
+        if last:
+            prev = torch.cummax(torch.where(valid, idx, -1), 0).values
+            pos = prev[hi.clamp(0, n - 1)]
+            ok = ok & (pos >= lo)
+        else:
+            nxt = torch.flip(torch.cummin(torch.flip(
+                torch.where(valid, idx, n), [0]), 0).values, [0])
+            pos = nxt[lo.clamp(0, n - 1)]
+            ok = ok & (pos <= hi)
+        pos = pos.clamp(0, n - 1)
+    else:
+        pos = (hi if last else lo).clamp(0, n - 1)
+        if valid is not None:
+            ok = ok & valid[pos]
+    return torch.where(ok, vals[pos], torch.zeros_like(vals)), ok
+
+
+def frame_first_last_kernel(vals, valid, lo, hi, last: bool,
+                            ignore_nulls: bool) -> Value:
+    """Launch ``frame_first_last`` of ``csrc/window_frame.cu``."""
+    n = vals.shape[0]
+    _check([vals, valid, lo, hi], n)
+    if vals.dtype not in (torch.int64, torch.float64) \
+            or lo.dtype != torch.int32 or hi.dtype != torch.int32:
+        raise ValueError("frame_first_last takes 8-byte values and int32 "
+                         "frame bounds")
+    out = torch.empty_like(vals)
+    ok = torch.empty(n, dtype=torch.bool, device=vals.device)
+    if n == 0:
+        return out, ok
+    lib = kernels.load("window_frame")
+    rc = lib.frame_first_last(vals.data_ptr(), _ptr(valid), lo.data_ptr(),
+                              hi.data_ptr(), n, int(last), int(ignore_nulls),
+                              out.data_ptr(), ok.data_ptr(), _stream(out))
+    kernels.check_launch(lib, "frame_first_last", rc)
+    frame_first_last_kernel.launches += 1
+    return out, ok
+
+
+frame_first_last_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------------

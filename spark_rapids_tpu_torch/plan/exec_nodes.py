@@ -84,6 +84,17 @@ def _head(batch: ColumnBatch, n: int) -> ColumnBatch:
     return ColumnBatch(batch.schema, cols, n)
 
 
+def refuse_wide_keys(exprs) -> None:
+    """Raise for a DECIMAL(p > 18) sort key: the reference sorts its limbs
+    (``exec_nodes.py:175``); the port's sort images are one word
+    (ROADMAP.md item 7).  DECIMAL(p <= 18) keys sort as int64."""
+    for e in exprs:
+        if e.dtype is not None and e.dtype.is_wide_decimal:
+            raise NotImplementedError(
+                f"sorting by the {e.dtype} key {e!r} is not ported "
+                f"(ROADMAP.md item 7: wide decimal sort keys)")
+
+
 class TopKExec(TpuExec):
     """``Limit(Sort)`` as a running top-k: ``orders`` holds (bound key,
     ascending, nulls_first); ``n`` rows come out."""
@@ -96,6 +107,7 @@ class TopKExec(TpuExec):
                 f"a top-k on {len(orders)} sort keys is past the top-k "
                 f"kernel's {topk.TK_MAX_KEYS} (ROADMAP.md queue 2 row 8); "
                 f"the planner runs such a LIMIT over the full sort (row 8′)")
+        refuse_wide_keys(e for e, _, _ in orders)
         self.orders = orders
         self.n = n
 
@@ -135,6 +147,7 @@ class SortExec(TpuExec):
     def __init__(self, child: TpuExec,
                  orders: List[Tuple[Expression, bool, bool]]):
         super().__init__([child])
+        refuse_wide_keys(e for e, _, _ in orders)
         self.orders = orders
 
     @property

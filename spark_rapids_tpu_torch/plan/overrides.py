@@ -160,6 +160,15 @@ class NodeMeta:
                                 f"expression (device string kernels "
                                 f"pending)")
                         continue
+                    if core.dtype is not None and \
+                            core.dtype.is_wide_decimal:
+                        # the reference's one-word hash kernels
+                        # (overrides.py:236-239); DECIMAL(p <= 18) keys
+                        # join as int64
+                        self.will_not_work(
+                            f"{side} join key: decimal128 join keys run "
+                            "on CPU (one-word hash kernels)")
+                        continue
                     for r in expr_reasons(b, allow_string_passthrough=False):
                         self.will_not_work(f"{side} join key: {r}")
             if p.how not in ("inner", "left", "left_outer", "right",
@@ -196,6 +205,13 @@ class NodeMeta:
                         self.will_not_work(
                             f"group key {name} is a computed string "
                             f"expression (device string kernels pending)")
+                elif core.dtype is not None and core.dtype.is_wide_decimal:
+                    # the reference's one-word grouping kernels
+                    # (overrides.py:172-177); DECIMAL(p <= 18) keys group
+                    # as int64
+                    self.will_not_work(
+                        f"group key {name}: decimal128 grouping keys "
+                        "run on CPU")
                 else:
                     for r in expr_reasons(core,
                                           allow_string_passthrough=False):
@@ -275,7 +291,8 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
                 f"{'; '.join(meta.reasons)}")
         raise NotImplementedError(
             f"the CPU fallback for {type(p).__name__} is not ported yet "
-            f"(ROADMAP.md, modules to port): {'; '.join(meta.reasons)}")
+            f"(ROADMAP.md item 6, the cpu/ fallback operators): "
+            f"{'; '.join(meta.reasons)}")
 
     if isinstance(p, (L.Project, L.Filter)):
         chain: List[NodeMeta] = []

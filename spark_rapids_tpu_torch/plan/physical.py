@@ -242,6 +242,8 @@ class StageExec(TpuExec):
             d, v = val
             if d.dim() == 0:  # a literal projection
                 d = d.expand(b.num_rows).contiguous()
+            elif f.dtype.is_wide_decimal and d.dim() == 1:  # its limbs
+                d = d.expand(b.num_rows, 2).contiguous()
             if v is not None and v.dim() == 0:
                 v = v.expand(b.num_rows).contiguous()
             cols.append(DeviceColumn(f.dtype, d, v))
@@ -292,8 +294,11 @@ class AggregateExec(TpuExec):
       (``_execute_grouped`` :1697, ``group_reduce``), with the batches the
       rejecting path had consumed replayed into it.
 
-    FIRST and LAST raise ``NotImplementedError``: their order-sensitive
-    reductions are not ported (ROADMAP queue 2 row 4)."""
+    A grouped FIRST or LAST always takes the hash path (the reference's
+    dense path refuses them, ``physical.py:1068``, and the port's grid
+    only sums); a wide decimal SUM never takes the dense path (the
+    reference's refuses host-finalized sums, :1070) and is finalized on
+    the device (``wide_decimal.sum_finalize``)."""
 
     def __init__(self, child: TpuExec,
                  group_exprs: List[Tuple[str, Expression]],
@@ -317,28 +322,42 @@ class AggregateExec(TpuExec):
         vals = [c for _, agg in self.agg_exprs for c in agg.update(ectx)]
         return list(zip(vals, ops))
 
-    def _finalize(self, buffer_values: List[torch.Tensor]):
+    def _finalize(self, buffer_values: list):
         """Per aggregate, finalize its buffers' values (tensors of the
-        same shape) → [(data, valid)]."""
-        outs, i = [], 0
+        same length; FIRST/LAST buffers as (value, has) pairs) →
+        [(data, valid)].  Under ANSI mode a wide SUM that overflowed its
+        precision raises, after one fetch of the overflow flags."""
+        outs, i, over = [], 0, []
         for _, agg in self.agg_exprs:
             nb = len(agg.buffers())
-            data, valid = agg.finalize([(v, None)
-                                        for v in buffer_values[i:i + nb]])
+            data, valid = agg.finalize(
+                [v if isinstance(v, tuple) else (v, None)
+                 for v in buffer_values[i:i + nb]])
             outs.append((data.to(agg.dtype.torch_dtype), valid))
+            if getattr(agg, "overflowed", None) is not None:
+                over.append(agg.overflowed)
             i += nb
+        if self._ansi and over \
+                and bool(fetch_scalars(torch.cat(over).any())[0]):
+            raise OverflowError("sum overflowed its decimal precision "
+                                "(ANSI mode)")
         return outs
 
+    def _ordered(self) -> bool:
+        return any(op in groupby.ORDERED_OPS for _, op in self._buffers())
+
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
-        ordered = [n for n, a in self.agg_exprs if a.func in ("first",
-                                                              "last")]
-        if ordered:
+        self._ansi = ctx.conf["spark.rapids.tpu.sql.ansi.enabled"]
+        if not ctx.conf["spark.rapids.tpu.sql.agg.singleProcessComplete"]:
             raise NotImplementedError(
-                f"the aggregates {ordered} (first/last) are not ported yet "
-                f"(ROADMAP.md queue 2 row 4)")
+                "the partial/final aggregate split (the reference's row "
+                "5', plan/physical.py:2006) is not ported: it comes with "
+                "the distribution slice (ROADMAP.md item 10)")
         batches = self.children[0].execute(ctx)
         if not self.group_exprs:
             yield self._execute_ungrouped(ctx, batches)
+        elif self._ordered():
+            yield self._execute_hash(ctx, batches)
         elif self._dense_static_ok(ctx.conf):
             yield self._execute_dense(ctx, batches)
         elif self._grid_static_ok():
@@ -351,20 +370,25 @@ class AggregateExec(TpuExec):
         m = ctx.metric_set(self.op_id)
         specs = [(op, dt == T.FLOAT64) for dt, op in self._buffers()]
         acc_f, acc_i = groupby.init_scalars(specs, ctx.device)
+        acc_h = torch.zeros_like(acc_i)
         for b in batches:
             with m.time("opTime"):
                 active = b.active_mask(ctx.device)
                 ectx = EvalContext(_device_arrays(b), b.num_rows, ctx.device,
                                    active=active)
                 groupby.ungrouped_reduce(self._contributions(ectx), active,
-                                         acc_f, acc_i)
-        values = [acc_f[j] if f else acc_i[j]
-                  for j, (_, f) in enumerate(specs)]
+                                         acc_f, acc_i, acc_h)
+        values = []
+        for j, (op, f) in enumerate(specs):
+            v = (acc_f if f else acc_i)[j:j + 1]
+            values.append((v, acc_h[j:j + 1] > 0)
+                          if op in groupby.ORDERED_OPS else v)
         cols = []
-        for (name, agg), (data, valid) in zip(self.agg_exprs,
-                                              self._finalize(values)):
+        for (name, agg), (data, valid) in zip(
+                self.agg_exprs, self._finalize(values)):
             cols.append(DeviceColumn(
-                agg.dtype, data.reshape(1),
+                agg.dtype, data.reshape((1, 2) if agg.dtype.is_wide_decimal
+                                        else (1,)),
                 None if valid is None else valid.reshape(1)))
         m.add("numOutputRows", 1)
         return ColumnBatch(self._schema, cols, 1)
@@ -465,6 +489,8 @@ class AggregateExec(TpuExec):
                or (dt == T.FLOAT64 and op != "sum")
                for dt, op in self._buffers()):
             return False
+        if any(getattr(agg, "lanes", 0) for _, agg in self.agg_exprs):
+            return False  # a wide sum (the reference's host_finalize)
         refs = self._key_refs()
         if any(r is None or r.dtype is None for r in refs):
             return False
@@ -721,8 +747,8 @@ class AggregateExec(TpuExec):
                 cols.append(DeviceColumn(
                     f.dtype, groupby.key_from_word(word, f.dtype.torch_dtype),
                     valid))
-        for (name, agg), (data, valid) in zip(self.agg_exprs,
-                                              self._finalize(values)):
+        for (name, agg), (data, valid) in zip(
+                self.agg_exprs, self._finalize(values)):
             cols.append(DeviceColumn(agg.dtype, data, valid))
         return ColumnBatch(self._schema, cols, keys[0][0].shape[0], live)
 
@@ -732,8 +758,9 @@ class AggregateExec(TpuExec):
             if f.dtype.is_string:
                 cols.append(HostStringColumn(np.empty(0, dtype=object)))
             else:
-                cols.append(HostColumn(f.dtype,
-                                       np.empty(0, f.dtype.numpy_dtype)))
+                cols.append(HostColumn(f.dtype, np.empty(
+                    (0, 2) if f.dtype.is_wide_decimal else 0,
+                    f.dtype.numpy_dtype)))
         return ColumnBatch(self._schema, cols, 0)
 
 
@@ -761,7 +788,10 @@ class CollectExec(TpuExec):
 
 
 def _python_values(col: HostColumn) -> list:
-    if col.dtype.kind == T.TypeKind.DATE:
+    if col.dtype.is_decimal:
+        from ..batch import decimal_values
+        vals = decimal_values(col.dtype, col.data)
+    elif col.dtype.kind == T.TypeKind.DATE:
         vals = col.data.astype("datetime64[D]").tolist()
     elif col.dtype.kind == T.TypeKind.TIMESTAMP:
         vals = col.data.astype("datetime64[us]").tolist()

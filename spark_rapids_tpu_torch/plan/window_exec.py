@@ -31,6 +31,10 @@ class WindowExec(TpuExec):
     def __init__(self, child: TpuExec,
                  window_exprs: List[Tuple[str, WindowExpression]]):
         super().__init__([child])
+        from .exec_nodes import refuse_wide_keys
+        spec = window_exprs[0][1].spec
+        refuse_wide_keys(list(spec.partition_by)
+                         + [o.expr for o in spec.order_by])
         self.window_exprs = window_exprs
         fields = list(child.output_schema.fields)
         for name, e in window_exprs:

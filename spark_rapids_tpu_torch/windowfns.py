@@ -15,7 +15,12 @@ count(*), avg, min and max over unbounded frames (a partition reduction),
 running frames (a segmented scan, read at the peer group's last row for
 RANGE), bounded ROWS frames and bounded RANGE frames over one integral or
 date order key.  A frame with no valid value gives null (count gives 0).
-FIRST and LAST raise, as their grouped forms do (ROADMAP queue 2 row 4).
+FIRST and LAST (reference ``_first_last`` :321) over every frame kind are
+the value at the frame's edge, or with ignore-nulls at its first (last)
+valid row (``ops/window.frame_first_last``, ``csrc/window_frame.cu``):
+running and whole-partition frames pass their bounds, the partition's
+start and the row (ROWS), its peer group's end (RANGE) or the partition's
+end.
 """
 
 from __future__ import annotations
@@ -242,10 +247,12 @@ class WindowExpression(Expression):
         fname = agg.func
         frame = self.spec.frame
         if fname in ("first", "last"):
-            raise _not_ported(f"the window aggregate {fname}",
-                              "queue 2 row 4")
+            return self._first_last(w, ectx, agg)
         if fname not in ("count(*)", "count", "sum", "avg", "min", "max"):
             raise _not_ported(f"the window aggregate {fname}", "item 7")
+        if fname in ("sum", "avg") and agg.children[0].dtype.is_decimal:
+            raise _not_ported(f"the window aggregate {fname} of a decimal",
+                              "item 7")
         bounded = not (frame.is_unbounded_both or frame.is_running)
         pos = self._positions(w, ectx) if bounded else None
         if fname == "count(*)":
@@ -274,6 +281,23 @@ class WindowExpression(Expression):
         ok = cnt > 0
         return s / torch.where(ok, cnt, torch.ones_like(cnt)).to(
             torch.float64), ok
+
+    def _first_last(self, w, ectx, agg) -> Value:
+        frame = self.spec.frame
+        agg.buffers()  # refuses what the aggregate form refuses
+        d, v = w.full(agg.children[0].eval(ectx))
+        if frame.is_unbounded_both:
+            lo, hi = w.seg_start_pos, w.seg_end_pos
+        elif frame.is_running:
+            lo = w.seg_start_pos
+            hi = w.peer_end_pos if frame.kind == "range" else torch.arange(
+                w.n, dtype=torch.int32, device=w.device)
+        else:
+            lo, hi = self._positions(w, ectx)
+        wide = d.to(torch.float64 if d.is_floating_point() else torch.int64)
+        out, ok = W.frame_first_last(wide, v, lo, hi, agg.func == "last",
+                                     agg.ignore_nulls)
+        return out.to(self.dtype.torch_dtype), ok
 
     def _valid(self, w, pos, v) -> Optional[torch.Tensor]:
         """Whether each row's frame holds a valid value; None when every

@@ -266,11 +266,26 @@ def test_string_sort_keys_stay_on_the_host_sort():
 
 
 def test_decimal_columns_raise_naming_row_12():
+    """Row 12 is ported: a DECIMAL(p <= 18) column sorts as int64, equal
+    to the reference; a DECIMAL(p > 18) sort key (the reference sorts its
+    limbs) raises, naming ROADMAP item 7."""
     import decimal
-    tsess = tsrt.Session({}, device="cpu")
-    with pytest.raises(NotImplementedError, match="row 12"):
-        tsess.create_dataframe({"p": np.array([decimal.Decimal("1.5")],
-                                              dtype=object)})
+    import pyarrow as pa
+    vals = [decimal.Decimal(x) for x in ("1.5", "-0.25", "10", "1.50",
+                                         "-7.125")]
+    jsess, tsess = jsrt.Session({}), tsrt.Session({}, device="cpu")
+    data = {"p": np.array(vals, dtype=object),
+            "k": np.arange(len(vals), dtype=np.int64)}
+    got = tsess.create_dataframe(data).sort(TF.col("p").desc(),
+                                            "k").collect()
+    want = jsess.create_dataframe(pa.table(
+        {"p": pa.array(vals), "k": data["k"]})).sort(
+        JF.col("p").desc(), "k").collect()
+    assert got == want
+    wide = {"p": np.array([decimal.Decimal("1" * 20 + ".5")],
+                          dtype=object)}
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tsess.create_dataframe(wide).sort("p").collect()
 
 
 def test_limit_past_the_top_k_runs_the_full_sort():

@@ -143,18 +143,13 @@ def test_ungrouped_min_max_with_nulls_match_reference(sessions):
 def test_grouped_aggregation_off_the_grid_is_not_ported(sessions, data,
                                                          case):
     """Groupings neither the string grid nor the dense path takes — a
-    floating key, a float64 max over a string group — now run on the hash
-    aggregation and equal the reference's sort path; FIRST/LAST still
-    raise, naming the row."""
+    floating key, a float64 max over a string group, and (since row 4′ is
+    ported) a FIRST over a string group — run on the hash aggregation and
+    equal the reference's sort path."""
     jsess, tsess = sessions
-    if case == "first":
-        df = tsess.create_dataframe(data)
-        with pytest.raises(NotImplementedError, match="row 4"):
-            df.group_by("l_returnflag").agg(
-                TF.first(TF.col("l_tax"))).collect()
-        return
     key, agg = {"float_key": ("l_tax", "sum"),
-                "max_over_string_group": ("l_returnflag", "max")}[case]
+                "max_over_string_group": ("l_returnflag", "max"),
+                "first": ("l_returnflag", "first")}[case]
     col = "l_quantity" if agg == "sum" else "l_tax"
     rows = []
     for sess, F in ((tsess, TF), (jsess, JF)):

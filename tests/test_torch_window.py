@@ -252,17 +252,23 @@ def test_to_device_arrays_of_a_window(sessions, data):
 
 def test_unported_windows_raise(sessions):
     """A string partition key (the reference places the window on the
-    CPU) raises naming the CPU operators of item 3; FIRST/LAST over a
-    window raise naming queue 2 row 4; to_device_arrays refuses a string
-    column."""
+    CPU) raises naming the CPU operators of item 3; a windowed SUM of a
+    decimal raises naming item 7 (FIRST/LAST over a window, which raised
+    naming queue 2 row 4, are ported: test_torch_first_last.py);
+    to_device_arrays refuses a string column."""
+    import decimal
     _, tsess = sessions
     df = tsess.create_dataframe({"s": np.array(["a", "b", "a"]),
-                                 "x": np.arange(3, dtype=np.int64)})
+                                 "x": np.arange(3, dtype=np.int64),
+                                 "m": np.array([decimal.Decimal("1.5")] * 3,
+                                               dtype=object)})
     with pytest.raises(NotImplementedError, match="item 3"):
         df.select("x", TF.row_number().over(
             TW.partition_by("s").order_by("x")).alias("r")).collect()
-    with pytest.raises(NotImplementedError, match="row 4"):
-        df.select("x", TF.first(TF.col("x")).over(
+    with pytest.raises(NotImplementedError, match="item 7"):
+        df.select("x", TF.sum(TF.col("m")).over(
             TW.order_by("x")).alias("f")).collect()
+    assert df.select("x", TF.first(TF.col("x")).over(
+        TW.order_by("x")).alias("f")).collect() == [(0, 0), (1, 0), (2, 0)]
     with pytest.raises(TypeError, match="host-carried"):
         df.to_device_arrays()

@@ -11,7 +11,14 @@ packages, with conditioned semi and anti joins).  Besides them,
 ``sort_lineitem`` (S1: a global ORDER BY of a
 lineitem projection, out-of-core when lineitem spans several batches) and
 ``supplier_history`` (W1: two window specs over lineitem, filtered above
-them) run through ``to_device_arrays`` in both packages.
+them) and ``w2`` (W2: the same specs with windowed FIRST/LAST) run through
+``to_device_arrays`` in both packages.  The decimal and FIRST/LAST paths
+``q1_dec``, ``q6_dec``, ``q18_dec``, ``f1`` (through ``to_device_arrays``)
+and ``f1u`` run over the money columns as DECIMAL(12, 2): pyarrow
+``decimal128`` arrays for the reference, ``DecimalArray``s for the port,
+from the same integers.  The reference cannot run ``q18_dec`` (its HAVING
+reads a wide sum the reference finalizes into a host column); its line
+then carries the error instead of a count.
 
 Both packages run on the CPU over the same ``gen_db_arrays`` data (the
 reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
@@ -60,7 +67,13 @@ REST = ("q2", "q5", "q7", "q8", "q9", "q12", "q14", "q15", "q16", "q17",
 # device hand-offs: name -> (models/tpch function, numpy oracle)
 DEVICE_PATHS = {"sort_lineitem": ("sort_lineitem", "sort_lineitem_numpy"),
                 "supplier_history": ("supplier_history",
-                                     "supplier_history_numpy")}
+                                     "supplier_history_numpy"),
+                "w2": ("w2", "w2_numpy")}
+# decimal money columns: name -> (tables, ends in to_device_arrays)
+DECIMAL_PATHS = {"q1_dec": (("lineitem",), False),
+                 "q6_dec": (("lineitem",), False),
+                 "q18_dec": (("orders", "lineitem", "customer"), False),
+                 "f1": (("orders",), True), "f1u": (("lineitem",), False)}
 SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
 SF10_BROADCAST_THRESHOLD = 256 * 1024 * 1024
 
@@ -103,13 +116,24 @@ def _same_columns(got: dict, want: dict) -> bool:
     return True
 
 
+def _same_by_key(got: dict, want: dict) -> bool:
+    """Device columns whose row order is not specified (a hash aggregate's
+    output), sorted by their first column, against the oracle's."""
+    first = next(iter(want))
+    order = np.argsort(np.asarray(got[first][0]), kind="stable")
+    return _same_columns({c: (np.asarray(d)[order],
+                              None if v is None else np.asarray(v)[order])
+                          for c, (d, v) in got.items()}, want)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--package", choices=("reference", "port", "both"),
                     default="both")
     ap.add_argument("--queries", default=",".join(
-        list(QUERIES) + list(REST) + list(DEVICE_PATHS)))
+        list(QUERIES) + list(REST) + list(DEVICE_PATHS)
+        + list(DECIMAL_PATHS)))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     args = ap.parse_args()
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
@@ -126,13 +150,46 @@ def main() -> None:
                 SF10_BROADCAST_THRESHOLD * args.sf / 10)
         return dict(base, **extra)
     data = tpch.gen_db_arrays(args.sf)
+    dec = {t: tpch.decimal_columns(data[t], tpch.MONEY_COLUMNS[t])
+           for t in ("lineitem", "orders", "customer")}
+
+    def decimal_body(q, F):
+        body = getattr(tpch, q)
+        return lambda *dfs: body(*dfs, functions=F)
     runners = []
     if args.package in ("reference", "both"):
         import spark_rapids_tpu as jsrt
         from spark_rapids_tpu.models import tpch_suite
         from spark_rapids_tpu.utils.metrics import QueryStats
 
+        def ref_tables():
+            import pyarrow as pa
+            out = {}
+            for t, cols in dec.items():
+                out[t] = dict(cols)
+                for n in tpch.MONEY_COLUMNS[t]:
+                    u = cols[n].unscaled
+                    buf = np.stack([u, u >> 63], 1).tobytes()
+                    out[t][n] = pa.Array.from_buffers(
+                        pa.decimal128(12, 2), len(u),
+                        [None, pa.py_buffer(buf)])
+            return out
+
         def run_ref(q):
+            if q in DECIMAL_PATHS:
+                from spark_rapids_tpu.sql import functions as JF
+                tables, device = DECIMAL_PATHS[q]
+                jsess = jsrt.Session(base)
+                ref = ref_tables()
+                df = decimal_body(q, JF)(*(jsess.create_dataframe(ref[t])
+                                           for t in tables))
+                try:
+                    with QueryStats.scoped() as st:
+                        out = df.to_device_arrays() if device \
+                            else df.collect()
+                except TypeError as e:
+                    return f"{type(e).__name__}: {e}", None
+                return out, st.blocking_fetches
             if q in DEVICE_PATHS:
                 from spark_rapids_tpu.sql import functions as JF
                 from spark_rapids_tpu.sql.window import Window as JW
@@ -141,6 +198,8 @@ def main() -> None:
                 body = getattr(tpch, DEVICE_PATHS[q][0])
                 q_df = body(df, functions=JF) if q == "sort_lineitem" \
                     else body(df, functions=JF, window=JW)
+                if q == "w2":
+                    q_df = body(df, functions=JF, window=JW)
                 with QueryStats.scoped() as st:
                     out = q_df.to_device_arrays()
                 return out, st.blocking_fetches
@@ -165,6 +224,14 @@ def main() -> None:
 
         def run_port(q):
             # the scope counts every query the body runs (Q11 runs two)
+            if q in DECIMAL_PATHS:
+                tables, device = DECIMAL_PATHS[q]
+                tsess = tsrt.Session(base, device="cpu")
+                df = getattr(tpch, q)(*(tsess.create_dataframe(dec[t])
+                                        for t in tables))
+                with TStats.scoped() as st:
+                    out = df.to_device_arrays() if device else df.collect()
+                return out, st.blocking_fetches
             if q in DEVICE_PATHS:
                 tsess = tsrt.Session(base, device="cpu")
                 df = tsess.create_dataframe(data["lineitem"])
@@ -180,7 +247,13 @@ def main() -> None:
             return rows, st.blocking_fetches
         runners.append(("port", run_port))
     for q in args.queries.split(","):
-        if q in DEVICE_PATHS:
+        if q in DECIMAL_PATHS:
+            tables, device = DECIMAL_PATHS[q]
+            want = getattr(tpch, f"{q}_numpy")(*(data[t] for t in tables))
+            if q == "q6_dec":
+                want = [(want,)]
+            same = _same_by_key if device else _same
+        elif q in DEVICE_PATHS:
             want = getattr(tpch, DEVICE_PATHS[q][1])(data["lineitem"])
             same = _same_columns
         else:
@@ -190,6 +263,10 @@ def main() -> None:
         for package, run in runners:
             t0 = time.perf_counter()
             rows, fetches = run(q)
+            if fetches is None:  # the package could not run the query
+                print(json.dumps({"query": q, "package": package,
+                                  "sf": args.sf, "error": rows}), flush=True)
+                continue
             print(json.dumps({"query": q, "package": package, "sf": args.sf,
                               "batch_rows": args.batch_rows,
                               "blocking_fetches": fetches,
