@@ -18,7 +18,11 @@ the per-supplier window history (W1) and Q11 (at SF10 and SF1); and the
 rest of TPC-H at SF10 (Q2, Q5, Q7, Q8, Q9, Q12, Q14, Q15, Q16, Q17, Q19,
 Q20, Q22) with Q21 in its EXISTS form (conditioned semi and anti joins
 through ``csrc/cond_join.cu``), plus a small cross join and a small
-existence join.  It checks the results against numpy oracles and shows
+existence join; the decimal and FIRST/LAST paths; and the eighth slice's:
+Q1 over a seeded 1% lineitem sample (``csrc/sample.cu``), X1 and X1o
+(explodes of an orders table whose lists hold each order's lineitem
+quantities, ``csrc/explode.cu``) and the subquery forms of Q18 (IN), Q16
+(NOT IN) and Q22 (a scalar subquery).  It checks the results against numpy oracles and shows
 that each query went through its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -123,6 +127,22 @@ SLICE7_FETCH_CEILINGS = {
     "q1_dec": (2, _REF), "q6_dec": (1, "the reference's uncounted read"),
     "q18_dec": (37, "the reference's count for Q18's plan"),
     "f1": (5, _REF), "f1u": (1, _REF), "w2": (2, _REF)}
+# slice 8: the sample, explodes and subqueries at SF10, each with the
+# kernels it must launch at the least
+SLICE8_REQUIRE = {
+    "q1_sample": ("sample", "grid_agg"),
+    "x1": ("explode", "compact", "grid_agg"),
+    "x1o": ("explode",),
+    "q18_in": ("dense_agg", "dense_join_semi", "topk"),
+    "q16_notin": ("dense_join_semi",),
+    "q22_scalar": ("masked_reduce",)}
+# blocking fetch ceilings: the reference's count for the same plan
+# (tools/fetch_budget.py at SF1 with 400,000-row batches, which give
+# lineitem the 15 batches and orders the 4 it has at SF10)
+SLICE8_FETCH_CEILINGS = {
+    "q1_sample": (2, _REF), "x1": (6, _REF), "x1o": (5, _REF),
+    "q18_in": (37, _REF), "q16_notin": (12, _REF),
+    "q22_scalar": (6, _REF)}
 
 
 class SmokeFailure(Exception):
@@ -3168,6 +3188,315 @@ def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
     return out
 
 
+# ---------------------------------------------------------------------------------
+# Slice 8: the sample's keep mask and the explode
+# ---------------------------------------------------------------------------------
+
+# Random123's known-answer vectors for threefry2x32 with 20 rounds:
+# (key, counter) -> output
+THREEFRY_KAT = (((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0)))
+
+
+def _words(torch, a, device):
+    """uint32 words (numpy) as the int32 tensor of their bits."""
+    return torch.from_numpy(np.asarray(a, dtype=np.uint32).view(
+        np.int32)).to(device)
+
+
+def check_sample(torch, sample_ops, device) -> None:
+    """The sample kernel against its plain version: threefry on the
+    known-answer vectors and on random words, then keep masks for
+    negative, large and ordinary seeds, several batch indexes, odd and
+    even sizes, a batch with a selection, padding rows past num_rows, and
+    fractions 0 and 1.  Every mask is bit-exact."""
+    for key, (x0, x1), want in THREEFRY_KAT:
+        o0, o1 = sample_ops.threefry2x32_kernel(
+            key, _words(torch, [x0], device), _words(torch, [x1], device))
+        got = (int(o0.cpu().numpy().view(np.uint32)[0]),
+               int(o1.cpu().numpy().view(np.uint32)[0]))
+        check(got == want, f"threefry kernel {got} vs Random123 {want}")
+        p0, p1 = sample_ops.threefry2x32_plain(
+            key, torch.tensor([x0]), torch.tensor([x1]))
+        check((int(p0[0]), int(p1[0])) == want,
+              "threefry plain differs from Random123")
+    rng = np.random.default_rng(81)
+    w = rng.integers(0, 1 << 32, (2, 1 << 20), dtype=np.uint64)
+    key = (int(w[0, 0]), int(w[1, 0]))
+    k0, k1 = sample_ops.threefry2x32_kernel(
+        key, _words(torch, w[0], device), _words(torch, w[1], device))
+    p0, p1 = sample_ops.threefry2x32_plain(
+        key, torch.from_numpy(w[0].astype(np.int64)).to(device),
+        torch.from_numpy(w[1].astype(np.int64)).to(device))
+    torch.cuda.synchronize()
+    check(torch.equal(k0.to(torch.int64) & sample_ops.M32, p0)
+          and torch.equal(k1.to(torch.int64) & sample_ops.M32, p1),
+          "threefry kernel differs from plain on random words")
+    cases = 0
+    for seed in (0, 42, 2 ** 31 - 1, 2 ** 40 + 7, -1, -(2 ** 63)):
+        for idx in (0, 3, 14):
+            for n, cap, frac, with_sel in (
+                    (BATCH_ROWS, BATCH_ROWS, 0.01, False),
+                    (1001, 1001, 0.5, True), (1000, 1024, 0.3, False),
+                    (777, 4096, 0.7, True), (5000, 5000, 0.0, False),
+                    (5000, 5000, 1.0, True), (0, 16, 0.5, False)):
+                sel = torch.from_numpy(rng.random(n) < 0.6).to(device) \
+                    if with_sel else None
+                k = sample_ops.batch_key(seed, idx)
+                got = sample_ops.sample_mask_kernel(k, frac, sel, n, cap,
+                                                    device)
+                want = sample_ops.sample_mask_plain(k, frac, sel, n, cap,
+                                                    device)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"sample mask differs (seed "
+                      f"{seed}, batch {idx}, {n} of {cap} rows, fraction "
+                      f"{frac}, sel {with_sel})")
+                check(not bool(got[n:].any()), "a padding row became live")
+                if frac == 0.0:
+                    check(not bool(got.any()), "fraction 0 kept a row")
+                if frac == 1.0:
+                    check(torch.equal(got[:n], sel), "fraction 1 dropped a "
+                          "live row")
+                cases += 1
+    print(f"check sample: threefry equals Random123's 3 known answers and "
+          f"plain on 2^20 random words; {cases} keep masks (6 seeds incl. "
+          f"-1, -2^63 and 2^40+7, 3 batch indexes, sel, padding, fractions "
+          f"0 and 1) equal plain bit for bit: ok")
+
+
+def explode_case(torch, rng, device, lens, null_frac=0.0, elem_null=0.0,
+                 outer=False):
+    """A batch of lists of the given lengths (a ``null_frac`` of them null,
+    holding no element), elements float64 with an ``elem_null`` share of
+    nulls, and siblings of every width: int64 with nulls, int32 (a date),
+    int16, bool, float64, and the two limb columns of a wide decimal."""
+    n = len(lens)
+    null = rng.random(n) < null_frac
+    lens = np.where(null, 0, lens).astype(np.int64)
+    out_lens = np.maximum(lens, 1) if outer else lens
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=starts[1:])
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    t = _to_device(torch, device)
+    e = int(offs[-1])
+    values = t(rng.standard_normal(e))
+    values_valid = t(rng.random(e) >= elem_null) if elem_null else None
+    cols = [(t(rng.integers(-9, 9, n)), t(rng.random(n) < 0.9)),
+            (t(rng.integers(0, 9000, n).astype(np.int32)), None),
+            (t(rng.integers(0, 99, n).astype(np.int16)), None),
+            (t(rng.random(n) < 0.5), t(rng.random(n) < 0.5)),
+            (t(rng.standard_normal(n)), None),
+            (t(rng.integers(-1 << 62, 1 << 62, n)), None),  # wide limbs
+            (t(rng.integers(-1 << 62, 1 << 62, n)), None)]
+    return (t(starts), t(offs) if outer else None, values, values_valid,
+            cols, int(starts[-1]))
+
+
+def check_explode(torch, generate, device) -> None:
+    """The explode kernel against its plain version, every output exact:
+    random lists with null lists and null elements, with and without
+    OUTER, cut into chunks that split lists; every list empty (OUTER);
+    every list null under OUTER; one list longer than a chunk; more
+    sibling columns than one launch takes."""
+    rng = np.random.default_rng(82)
+    chunk = 4096
+    cases = {
+        "random": explode_case(torch, rng, device,
+                               rng.integers(0, 9, 20_000), 0.05, 0.1),
+        "random, outer": explode_case(torch, rng, device,
+                                      rng.integers(0, 9, 20_000), 0.05, 0.1,
+                                      outer=True),
+        "every list empty, outer": explode_case(
+            torch, rng, device, np.zeros(10_000, dtype=np.int64),
+            outer=True),
+        "every list null, outer": explode_case(
+            torch, rng, device, rng.integers(1, 5, 10_000), 1.0,
+            outer=True),
+        "one list longer than a chunk": explode_case(
+            torch, rng, device, np.where(np.arange(3000) == 1234,
+                                         3 * chunk + 17, 1), 0.0, 0.05),
+        "one long list, outer": explode_case(
+            torch, rng, device, np.where(np.arange(3000) == 5,
+                                         2 * chunk + 1, 0), 0.0, 0.0,
+            outer=True)}
+    for what, (starts, eoffs, values, vv, cols, total) in cases.items():
+        for lo in range(0, total, chunk):
+            m = min(chunk, total - lo)
+            flat = cols + cols[:2] * 6  # 18 columns: two launches
+            got = generate.explode_kernel(starts, eoffs, lo, m, values, vv,
+                                          flat, True)
+            want = generate.explode_plain(starts, eoffs, lo, m, values, vv,
+                                          flat, True)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0][0], want[0][0])
+                  and torch.equal(got[0][1], want[0][1]),
+                  f"explode elements differ ({what}, rows {lo}+{m})")
+            for (gd, gv), (wd_, wv) in zip(got[1], want[1]):
+                check(torch.equal(gd, wd_) and (gv is None) == (wv is None)
+                      and (gv is None or torch.equal(gv, wv)),
+                      f"explode siblings differ ({what}, rows {lo}+{m})")
+    print(f"check explode: {len(cases)} batches (null lists, null elements, "
+          f"every list empty or null under OUTER, a list longer than a "
+          f"chunk) in chunks of {chunk} rows, 18 sibling columns of 1-8 "
+          f"bytes, equal plain exactly: ok")
+
+
+def sample_batches(torch, sample_ops, n_rows: int, device) -> np.ndarray:
+    """The rows Q1-sample keeps: per lineitem batch, the kernel's keep
+    mask held to the plain version's bit for bit (launches outside the
+    counted runs); returns the plain masks as one host array."""
+    from spark_rapids_tpu_torch.models import tpch
+    parts = []
+    for idx, off in enumerate(range(0, n_rows, BATCH_ROWS)):
+        m = min(BATCH_ROWS, n_rows - off)
+        key = sample_ops.batch_key(tpch.Q1_SAMPLE_SEED, idx)
+        got = sample_ops.sample_mask_kernel(key, tpch.Q1_SAMPLE_FRACTION,
+                                            None, m, m, device)
+        want = sample_ops.sample_mask_plain(key, tpch.Q1_SAMPLE_FRACTION,
+                                            None, m, m, device)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"Q1-sample batch {idx}: the "
+              f"kernel's keep mask differs from the plain version's")
+        parts.append(want.cpu().numpy())
+    return np.concatenate(parts)
+
+
+# the card's peak rate for 32-bit integer instructions outside the tensor
+# cores, taken as the H100 SXM's non-tensor float32 peak rate
+INT32_OPS_PER_S = 67e12
+
+
+def time_slice8_kernels(torch, sample_ops, generate, batch_utils, device,
+                        per_wrapper, db, x1_lists, x1o_lists) -> list:
+    """The slice-8 kernels at the main path's shapes, each first held
+    against its plain version on the same inputs: the sample's keep mask
+    over one Q1-sample lineitem batch (4,194,304 rows, no selection), and
+    the explode of X1o's first chunk (the first 4,194,304 orders with
+    OUTER, their element values and o_orderkey).  Library yardsticks:
+    ``torch.rand`` in float64 and a compare (another generator: a
+    yardstick, not an equivalent), and ``repeat_interleave`` with
+    ``index_select``.  Also times the host compaction of an X1 batch
+    (row 3-rest, host half: one fetch of the mask and numpy filters; not
+    a kernel, so not in the kernels line)."""
+    from spark_rapids_tpu_torch.batch import (ColumnBatch, DeviceColumn,
+                                              Field, HostListColumn,
+                                              HostStringColumn, Schema)
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.models import tpch
+    out = []
+    n = BATCH_ROWS
+    key = sample_ops.batch_key(tpch.Q1_SAMPLE_SEED, 0)
+    frac = tpch.Q1_SAMPLE_FRACTION
+    got = sample_ops.sample_mask_kernel(key, frac, None, n, n, device)
+    want = sample_ops.sample_mask_plain(key, frac, None, n, n, device)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "sample mask differs at Q1-sample's shape")
+    ms = time_ms(torch, [lambda: sample_ops.sample_mask_kernel(
+        key, frac, None, n, n, device)], reps=32)
+    plain_ms = time_ms(torch, [lambda: sample_ops.sample_mask_plain(
+        key, frac, None, n, n, device)], reps=4)
+    lib_ms = time_ms(torch, [lambda: torch.rand(
+        n, dtype=torch.float64, device=device) < frac], reps=32)
+    ops_ms = sample_ops.OPS_PER_ROW * n / INT32_OPS_PER_S * 1e3
+    bytes_ms = n / HBM_BYTES_PER_S * 1e3  # the mask written, no sel read
+    out.append({"name": "sample_mask", "route": "cuda",
+                "source": "spark_rapids_tpu_torch/csrc/sample.cu",
+                "replaces": "spark_rapids_tpu/plan/exec_nodes.py:310",
+                "launches": per_wrapper.get("sample_mask_kernel", 0),
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": lib_ms})
+    print(f"kernel sample_mask: {ms:.4f} ms at {n} rows, fraction {frac} "
+          f"(bound {max(ops_ms, bytes_ms):.4f} ms: "
+          f"{sample_ops.OPS_PER_ROW * n} integer ops {ops_ms:.4f} ms, {n} B "
+          f"{bytes_ms:.4f} ms; plain {plain_ms:.4f} ms, torch.rand float64 "
+          f"and a compare {lib_ms:.4f} ms), bit-exact vs plain, "
+          f"{out[-1]['launches']} launches on the main path")
+    del got, want
+    # X1o's first chunk: the first batch of orders, OUTER
+    t = _to_device(torch, device)
+    lists = x1o_lists
+    offs = lists.offsets[:n + 1]
+    lens = np.diff(offs)
+    out_lens = np.maximum(lens, 1)
+    starts_h = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=starts_h[1:])
+    m = n
+    p_cnt = int(np.searchsorted(starts_h, m - 1, side="right"))
+    inputs = copies_for_l2([t(starts_h), t(offs - offs[0]),
+                            t(lists.values[offs[0]:offs[-1]]),
+                            t(db["orders"]["o_orderkey"][:n])])
+    s_, e_, v_, k_ = inputs[0]
+    got = generate.explode_kernel(s_, e_, 0, m, v_, None, [(k_, None)], True)
+    want = generate.explode_plain(s_, e_, 0, m, v_, None, [(k_, None)], True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0][0], want[0][0])
+          and torch.equal(got[0][1], want[0][1])
+          and torch.equal(got[1][0][0], want[1][0][0]),
+          "explode differs at X1o's shape")
+    del got, want
+    ms = time_ms(torch, [lambda x=x: generate.explode_kernel(
+        x[0], x[1], 0, m, x[2], None, [(x[3], None)], True)
+        for x in inputs], reps=4 * len(inputs))
+    # repeat_interleave sizes its output from the device: one call per
+    # event pair
+    plain_ms = time_ms_synced(torch, [lambda: generate.explode_plain(
+        s_, e_, 0, m, v_, None, [(k_, None)], True)], reps=4)
+    cnt = t(out_lens)
+    total = int(starts_h[-1])
+    ar = torch.arange(n, device=device)
+    lib_ms = time_ms(torch, [lambda: k_.index_select(
+        0, torch.repeat_interleave(ar, cnt, output_size=total)[:m])],
+        reps=8)
+    # per row the element (8 B read, 8 written), its validity (1 B) and
+    # o_orderkey written (8 B); per parent the starts, the offsets and
+    # o_orderkey read once (24 B)
+    nbytes = m * (8 + 8 + 1 + 8) + p_cnt * 24
+    out.append({"name": "explode", "route": "cuda",
+                "source": "spark_rapids_tpu_torch/csrc/explode.cu",
+                "replaces": "spark_rapids_tpu/plan/exec_nodes.py:466",
+                "launches": per_wrapper.get("explode_kernel", 0),
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": lib_ms})
+    print(f"kernel explode: {ms:.4f} ms at X1o's first chunk ({m} rows of "
+          f"{p_cnt} orders, OUTER, one int64 sibling; bound "
+          f"{out[-1]['bound_ms']:.4f} ms for {nbytes} B, plain "
+          f"{plain_ms:.4f} ms, repeat_interleave + index_select "
+          f"{lib_ms:.4f} ms), exact vs plain, {out[-1]['launches']} "
+          f"launches on the main path")
+    del inputs, s_, e_, v_, k_, cnt, ar
+    # row 3-rest, host half: compacting one X1 batch (the year's orders
+    # live) with its priority strings and quantity lists on the host
+    o = db["orders"]
+    lo_d, hi_d = (np.datetime64(d) for d in tpch.X1_YEAR)
+    live = (o["o_orderdate"][:n] >= lo_d) & (o["o_orderdate"][:n] < hi_d)
+    batch = ColumnBatch(
+        Schema([Field("o_orderkey", T.INT64), Field("o_orderpriority",
+                                                    T.STRING),
+                Field("o_qty", T.array(T.FLOAT64))]),
+        [DeviceColumn(T.INT64, t(o["o_orderkey"][:n])),
+         HostStringColumn(o["o_orderpriority"][:n]),
+         HostListColumn(x1_lists[:n])], n, t(live))
+    torch.cuda.synchronize()
+    reps, t0 = 4, time.perf_counter()
+    for _ in range(reps):
+        packed = batch_utils.compact(batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    check(packed.num_rows == int(live.sum()), "host compaction lost rows")
+    print(f"host compaction (row 3-rest, host half): {host_ms:.4f} ms per "
+          f"X1 batch ({n} orders, {int(live.sum())} live; one fetch of the "
+          f"{n}-byte mask, then the priority strings and the quantity "
+          f"lists filtered with numpy; host clock)")
+    return out
+
+
 def check_f1(out, want) -> float:
     """F1's device columns, sorted by o_custkey (the hash aggregate's
     output order is not specified), against the oracle exactly."""
@@ -3190,10 +3519,13 @@ def main() -> int:
         return 2
     try:
         from spark_rapids_tpu_torch import Session, kernels
+        from spark_rapids_tpu_torch.batch import numpy_column
         from spark_rapids_tpu_torch.models import tpch
         from spark_rapids_tpu_torch.ops import (batch_utils, groupby, hashing,
                                                 join, window)
         from spark_rapids_tpu_torch.ops import wide_decimal as wd
+        from spark_rapids_tpu_torch.ops import generate
+        from spark_rapids_tpu_torch.ops import sample as sample_ops
         from spark_rapids_tpu_torch.ops import sort as sort_ops
         from spark_rapids_tpu_torch.ops import topk as topk_mod
     except ImportError as e:
@@ -3243,6 +3575,8 @@ def main() -> int:
         worst["wide_decimal"] = check_wide_decimal(torch, wd, device)
         check_first_last(torch, groupby, window, device)
         check_float_sums_deterministic(torch, groupby, device)
+        check_sample(torch, sample_ops, device)
+        check_explode(torch, generate, device)
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -3313,6 +3647,41 @@ def main() -> int:
             t1 = time.perf_counter()
             db_want[q] = fn()
             took[q] = time.perf_counter() - t1
+        # slice 8: the lists of X1 and X1o, the rows the sample keeps (the
+        # kernel's mask held to the plain one on every batch), the oracles
+        t1 = time.perf_counter()
+        orders_cols = {c: db["orders"][c] for c in
+                       ("o_orderkey", "o_orderdate", "o_orderpriority")}
+        # lineitem in l_orderkey order: one stable sort on the card
+        order = torch.sort(torch.from_numpy(db["lineitem"]["l_orderkey"])
+                           .to(device), stable=True).indices.cpu().numpy()
+        x1_lists = tpch.order_quantities(db["orders"], db["lineitem"],
+                                         order=order)
+        x1o_lists = tpch.order_quantities(db["orders"], db["lineitem"],
+                                          null_frac=0.01, empty_frac=0.01,
+                                          order=order)
+        del order
+        x1_table = dict(orders_cols, o_qty=x1_lists)
+        x1o_table = {"o_orderkey": db["orders"]["o_orderkey"],
+                     "o_qty": x1o_lists}
+        took["x1 lists"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        keep = sample_batches(torch, sample_ops, DB_LINEITEM, device)
+        db_want["q1_sample"] = tpch.q1_sample_numpy(db["lineitem"], keep)
+        took["q1_sample"] = time.perf_counter() - t1
+        print(f"q1_sample: the kernel's keep mask equals the plain one on "
+              f"all {-(-DB_LINEITEM // BATCH_ROWS)} batches; "
+              f"{int(keep.sum())} of {DB_LINEITEM} rows kept")
+        del keep
+        for q, fn in (("x1", lambda: tpch.x1_numpy(db["orders"],
+                                                   db["lineitem"])),
+                      ("x1o", lambda: tpch.x1o_numpy(x1o_table, x1o_lists)),
+                      ("q18_in", lambda: db_want["q18"]),
+                      ("q16_notin", lambda: db_want["q16"]),
+                      ("q22_scalar", lambda: db_want["q22"])):
+            t1 = time.perf_counter()
+            db_want[q] = fn()
+            took[q] = time.perf_counter() - t1
         print("oracle rows: " + ", ".join(
             f"{q} {len(db_want[q])}" for q in REST_QUERIES))
         print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
@@ -3334,6 +3703,8 @@ def main() -> int:
         sbf = {t: shuf.create_dataframe(db[t]) for t in DB_QUERIES["q10"]}
         ddf = {t: sess.create_dataframe(cols) for t, cols in dec.items()}
         q11f = {t: sess.create_dataframe(sf1[t]) for t in Q11_TABLES}
+        x1f = sess.create_dataframe(x1_table)
+        x1of = sess.create_dataframe(x1o_table)
 
         counters = {
             "masked_reduce": [groupby.masked_reduce],
@@ -3368,7 +3739,9 @@ def main() -> int:
                                                 "ordered_launches")],
             "masked_reduce_first_last": [AttrCounter(groupby.masked_reduce,
                                                      "ordered_launches")],
-            "window_first_last": [window.frame_first_last_kernel]}
+            "window_first_last": [window.frame_first_last_kernel],
+            "sample": [sample_ops.sample_mask_kernel],
+            "explode": [generate.explode_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -3512,6 +3885,40 @@ def main() -> int:
             paths.append((name, df_fn, checker, db_want[name], ()))
             if result is to_device:
                 device_paths.add(name)
+        # slice 8: the sample, explodes and subqueries, every kernel counted
+        # from 0 before each
+        slice8 = [
+            ("q1_sample", lambda: tpch.q1_sample(dbf["lineitem"]),
+             check_q1, collect),
+            ("x1", lambda: tpch.x1(x1f), check_rows("X1"), collect),
+            ("x1o", lambda: tpch.x1o(x1of),
+             check_device_columns("X1o", exact_floats=True), to_device),
+            ("q18_in", lambda: tpch.q18_in(dbf["orders"], dbf["lineitem"],
+                                           dbf["customer"]),
+             check_rows("Q18-in"), collect),
+            ("q16_notin", lambda: tpch.q16_notin(
+                dbf["partsupp"], dbf["supplier"], dbf["part"]),
+             check_rows("Q16-notin"), collect),
+            ("q22_scalar", lambda: tpch.q22_scalar(dbf["customer"],
+                                                   dbf["orders"]),
+             check_rows("Q22-scalar"), collect)]
+        for name, df_fn, checker, result in slice8:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            runs_of[name] = run_query(torch, sess, df_fn, checker,
+                                      db_want[name], name, counters, result,
+                                      require=SLICE8_REQUIRE[name])
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            paths.append((name, df_fn, checker, db_want[name], ()))
+            if result is to_device:
+                device_paths.add(name)
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -3526,7 +3933,8 @@ def main() -> int:
               f"{Q10_SHUFFLED_REFERENCE_FETCHES}")
         for name, (ceiling, why) in list(SLICE5_FETCH_CEILINGS.items()) \
                 + list(REST_FETCH_CEILINGS.items()) \
-                + list(SLICE7_FETCH_CEILINGS.items()):
+                + list(SLICE7_FETCH_CEILINGS.items()) \
+                + list(SLICE8_FETCH_CEILINGS.items()):
             fetches = max(r["syncs"] for r in runs_of[name])
             check(fetches <= ceiling, f"{name} made {fetches} blocking "
                   f"fetches, more than {ceiling} ({why})")
@@ -3543,7 +3951,7 @@ def main() -> int:
                   f"{med['device_ms']:.2f} ms, syncs {warm[-1]['syncs']}, "
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
-        del df, cdf, odf, dbf, sbf, q11f, ddf, dec, sess, shuf
+        del df, cdf, odf, dbf, sbf, q11f, ddf, dec, x1f, x1of, sess, shuf
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -3557,6 +3965,9 @@ def main() -> int:
                                      worst, db["lineitem"])
         table += time_slice7_kernels(torch, groupby, window, wd, device,
                                      per_wrapper, db)
+        table += time_slice8_kernels(
+            torch, sample_ops, generate, batch_utils, device, per_wrapper,
+            db, numpy_column(x1_lists)[1], numpy_column(x1o_lists)[1])
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

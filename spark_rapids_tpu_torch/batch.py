@@ -18,7 +18,11 @@ that the reference's ``Session.create_dataframe`` is given
 (:func:`from_numpy`); a decimal column comes as an object array of
 ``decimal.Decimal`` (typed as pyarrow infers it) or as a
 :class:`DecimalArray`, the port's stand-in for a pyarrow ``decimal128``
-array.
+array.  A list column (ARRAY<element>) comes as an object array of Python
+lists and None (what the reference's ``pa.table`` turns into an arrow list
+array) or as a :class:`ListArray` (offsets and flat values, the port's
+stand-in for a ``pa.ListArray``), and rides on the host as a
+:class:`HostListColumn`.
 """
 
 from __future__ import annotations
@@ -35,10 +39,10 @@ from . import types as T
 from .types import DataType
 
 __all__ = ["Field", "Schema", "DeviceColumn", "HostColumn",
-           "HostStringColumn", "DictStringColumn", "ColumnBatch",
-           "DecimalArray", "numpy_column", "live_mask", "upload",
-           "from_numpy", "to_host", "wide_limbs", "limbs_to_ints",
-           "decimal_values"]
+           "HostStringColumn", "HostListColumn", "DictStringColumn",
+           "ColumnBatch", "DecimalArray", "ListArray", "numpy_column",
+           "live_mask", "upload", "from_numpy", "to_host", "wide_limbs",
+           "limbs_to_ints", "decimal_values"]
 
 
 @dataclass(frozen=True)
@@ -116,6 +120,84 @@ class HostStringColumn(HostColumn):
     def __init__(self, data: np.ndarray, valid: Optional[np.ndarray] = None):
         super().__init__(T.STRING, data, valid)
         self._enc_cache = None
+
+
+class ListArray:
+    """A list column in numpy, with no pyarrow: int64 ``offsets`` ``[n + 1]``
+    into the flat element ``values`` (list i holds ``values[offsets[i]:
+    offsets[i + 1]]``), an optional bool ``elem_valid`` per element and an
+    optional bool ``valid`` per list (True = valid), and the ``element``
+    type (inferred from ``values`` when not given).  Indexing with a slice,
+    a bool mask or an index array gives the selected lists as a new
+    ``ListArray``; a slice shares ``values`` (its offsets stay absolute)."""
+
+    def __init__(self, offsets: np.ndarray, values: np.ndarray,
+                 valid: Optional[np.ndarray] = None,
+                 elem_valid: Optional[np.ndarray] = None,
+                 element: Optional[DataType] = None):
+        self.offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        self.values = values
+        self.valid = None if valid is None else np.asarray(valid, bool)
+        self.elem_valid = None if elem_valid is None \
+            else np.asarray(elem_valid, bool)
+        if element is None and values.dtype.kind not in "OMU":
+            element = numpy_column(values)[0]
+        # None until typed from the values (batch.numpy_column)
+        self.element = element
+        if self.offsets.ndim != 1 or len(self.offsets) == 0:
+            raise ValueError("offsets are int64 [n + 1]")
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, idx) -> "ListArray":
+        valid = None if self.valid is None else self.valid[idx]
+        if isinstance(idx, slice):
+            lo, hi, step = idx.indices(len(self))
+            if step != 1:
+                raise ValueError("list columns slice with step 1")
+            return ListArray(self.offsets[lo:max(hi, lo) + 1], self.values,
+                             valid, self.elem_valid, self.element)
+        rows = np.asarray(idx)
+        if rows.dtype == bool:
+            rows = np.flatnonzero(rows)
+        starts = self.offsets[:-1][rows]
+        lens = self.offsets[1:][rows] - starts
+        offsets = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        at = np.repeat(starts - offsets[:-1], lens) \
+            + np.arange(offsets[-1], dtype=np.int64)
+        return ListArray(offsets, self.values[at], valid,
+                         None if self.elem_valid is None
+                         else self.elem_valid[at], self.element)
+
+    def to_pylist(self, values) -> list:
+        """Python lists (None for a null list) whose elements come from
+        ``values``, the flat elements as Python values (None for a null
+        element)."""
+        out = []
+        ok = None if self.valid is None else self.valid.tolist()
+        offs = self.offsets.tolist()
+        for i in range(len(self)):
+            if ok is not None and not ok[i]:
+                out.append(None)
+            else:
+                out.append(values[offs[i]:offs[i + 1]])
+        return out
+
+
+class HostListColumn(HostColumn):
+    """An ARRAY column on the host: ``data`` is a :class:`ListArray`
+    (offsets, flat values, element validity; a null list has no elements)
+    and ``valid`` the list validity, as the reference carries an arrow
+    list array in a host column.  What an explode reads of it (the output
+    starts and the flat elements, in pinned memory for a CUDA upload) is
+    cached on the object (``_explode_cache``): the in-memory scan hands
+    out the same column objects on every run."""
+
+    def __init__(self, data: ListArray, valid: Optional[np.ndarray] = None):
+        super().__init__(T.array(data.element), data, valid)
+        self._explode_cache = None
 
 
 class DictStringColumn:
@@ -248,6 +330,8 @@ def _object_column(arr: np.ndarray) -> Tuple[DataType, np.ndarray,
     valid = np.fromiter((x is not None for x in arr), dtype=bool,
                         count=len(arr))
     kinds = {type(x) for x in arr[valid]}
+    if kinds and kinds <= {list, tuple, np.ndarray}:
+        return _list_column(arr, valid)
     if kinds and kinds <= {decimal.Decimal}:
         dt = _infer_decimal(arr[valid])
         ints = [int(x.scaleb(dt.scale)) if ok else 0
@@ -278,12 +362,80 @@ def _object_column(arr: np.ndarray) -> Tuple[DataType, np.ndarray,
     return dt, data, (None if valid.all() else valid)
 
 
+def _list_column(arr: np.ndarray, valid: np.ndarray):
+    """An object array of lists and None → (ARRAY type, ListArray, list
+    validity), the element type inferred from the elements as pyarrow
+    infers it."""
+    lens = np.fromiter((len(x) if ok else 0 for x, ok in zip(arr, valid)),
+                       dtype=np.int64, count=len(arr))
+    flat = np.empty(int(lens.sum()), dtype=object)
+    at = 0
+    for x, ok in zip(arr, valid):
+        if ok:
+            flat[at:at + len(x)] = list(x)
+            at += len(x)
+    if any(isinstance(x, (list, tuple, np.ndarray)) for x in flat):
+        raise TypeError("nested arrays are not ported (ROADMAP.md item 8)")
+    offsets = np.zeros(len(arr) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return _normalized(ListArray(offsets, flat, valid), valid)
+
+
+def _normalized(arr: ListArray, valid: Optional[np.ndarray]):
+    """(ARRAY type, the lists rebased to offset 0 with typed element values,
+    zeros at null elements and no elements under a null list, list
+    validity or None)."""
+    offsets = arr.offsets - arr.offsets[0]
+    lo, hi = int(arr.offsets[0]), int(arr.offsets[-1])
+    values = arr.values[lo:hi]
+    ev = None if arr.elem_valid is None else arr.elem_valid[lo:hi]
+    if valid is not None and (np.diff(offsets)[~valid] != 0).any():
+        keep = np.repeat(valid, np.diff(offsets))
+        values = values[keep]
+        ev = None if ev is None else ev[keep]
+        offsets = np.zeros(len(valid) + 1, dtype=np.int64)
+        np.cumsum(np.where(valid, np.diff(arr.offsets), 0), out=offsets[1:])
+    elem = arr.element
+    if values.dtype.kind in "OMU" and not (elem is not None
+                                           and elem.is_nested):
+        if values.dtype.kind == "O" and all(x is None for x in values):
+            # no value to type the elements by: pyarrow's null type
+            elem = elem or T.NULLTYPE
+            ev = np.zeros(len(values), dtype=bool)
+            if not elem.is_host_carried:
+                values = np.zeros(len(values), dtype=elem.numpy_dtype)
+        else:
+            dt, values, vv = numpy_column(values)
+            if elem is None or elem.is_decimal:
+                elem = dt
+            elif not elem.is_host_carried:
+                values = values.astype(elem.numpy_dtype)
+            if vv is not None:
+                ev = vv if ev is None else ev & vv
+    if not elem.is_host_carried and not elem.is_decimal \
+            and values.dtype != elem.numpy_dtype:
+        values = values.astype(elem.numpy_dtype)
+    if ev is not None and not elem.is_host_carried:
+        values = np.where(ev if values.ndim == 1 else ev[:, None], values,
+                          0).astype(values.dtype)
+    if ev is not None and ev.all():
+        ev = None
+    ok = None if valid is None or valid.all() else valid
+    return T.array(elem), ListArray(offsets, values, None, ev, elem), ok
+
+
 def numpy_column(arr) -> Tuple[DataType, np.ndarray, Optional[np.ndarray]]:
     """One numpy input column → (logical type, physical data, valid).
 
     ``datetime64[D]`` becomes int32 days (date32), ``datetime64[us]``
     int64 microseconds; unicode arrays stay host strings; a
-    :class:`DecimalArray` keeps its type and unscaled values."""
+    :class:`DecimalArray` keeps its type and unscaled values; a
+    :class:`ListArray` (or an object array of lists) becomes the typed
+    lists and their validity."""
+    if isinstance(arr, ListArray):
+        return _normalized(ListArray(arr.offsets, arr.values, None,
+                                     arr.elem_valid, arr.element),
+                           arr.valid)
     if isinstance(arr, DecimalArray):
         valid = arr.valid
         data = arr.unscaled
@@ -344,7 +496,8 @@ def from_numpy(columns: Dict[str, np.ndarray],
             raise ValueError(f"column {name!r} has {len(data)} rows, not {n}")
         fields.append(Field(name, dt, valid is not None))
         if dt.is_host_carried:
-            cols.append(HostStringColumn(data, valid))
+            cols.append(HostListColumn(data, valid) if dt.is_nested
+                        else HostStringColumn(data, valid))
             continue
         dvalid = (None if valid is None
                   else upload(torch.from_numpy(valid), device))
@@ -384,7 +537,10 @@ def to_host(batch: ColumnBatch) -> List[HostColumn]:
             strings = np.empty(len(data), dtype=object)
             strings[ok] = col.dictionary[data[ok]]
             data = strings
-        cls = HostStringColumn if col.dtype.is_string else HostColumn
-        out.append(cls(data, valid) if cls is HostStringColumn
-                   else HostColumn(col.dtype, data, valid))
+        if col.dtype.is_string:
+            out.append(HostStringColumn(data, valid))
+        elif col.dtype.is_nested:
+            out.append(HostListColumn(data, valid))
+        else:
+            out.append(HostColumn(col.dtype, data, valid))
     return out

@@ -31,13 +31,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
            "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
-           "window_scan", "window_frame", "cond_join", "wide_decimal")
+           "window_scan", "window_frame", "cond_join", "wide_decimal",
+           "sample", "explode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # per kernel source: its C entry points and their ctypes argument types
 _SIGNATURES = {
     "masked_reduce": {
@@ -192,6 +194,19 @@ _SIGNATURES = {
         # nlanes, lanes[], count, m, precision, out, out_valid, overflowed,
         # stream
         "wd_sum_finalize": [_I, _P, _P, _L, _I, _P, _P, _P, _P],
+    },
+    "sample": {
+        # k0, k1, fraction, sel, num_rows, cap, out, stream
+        "sample_mask": [_L, _L, _D, _P, _L, _L, _P, _P],
+        # k0, k1, x0, x1, n, out0, out1, stream
+        "threefry": [_L, _L, _P, _P, _L, _P, _P, _P],
+    },
+    "explode": {
+        # n, starts, eoffs, lo, m, values, values_valid, elem_bytes,
+        # out_values, out_valid, ncols, in[], out[], vin[], vout[], elems[],
+        # stream
+        "explode": [_L, _P, _P, _L, _L, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                    _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

@@ -52,7 +52,11 @@ __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "q22_numpy", "q21_exists_numpy", "MONEY_COLUMNS",
            "decimal_columns", "q1_dec", "q6_dec", "q18_dec", "f1", "f1u",
            "w2", "q1_dec_numpy", "q6_dec_numpy", "q18_dec_numpy",
-           "f1_numpy", "f1u_numpy", "w2_numpy", "F1U_CUTOFF"]
+           "f1_numpy", "f1u_numpy", "w2_numpy", "F1U_CUTOFF",
+           "Q1_SAMPLE_FRACTION", "Q1_SAMPLE_SEED", "q1_sample",
+           "sample_keep", "q1_sample_numpy", "X1_YEAR", "order_quantities",
+           "x1", "x1_numpy", "x1o", "x1o_numpy", "q18_in", "q16_notin",
+           "q22_scalar"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
@@ -330,9 +334,9 @@ def q6(df):
                    .alias("revenue")))
 
 
-def q1(df, delta_days: int = 90):
+def q1(df, delta_days: int = 90, functions=None):
     """TPC-H Q1: the pricing summary report."""
-    from ..sql import functions as F
+    F = _functions(functions)
     cutoff = datetime.date(1998, 12, 1) - datetime.timedelta(days=delta_days)
     disc_price = F.col("l_extendedprice") * (1 - F.col("l_discount"))
     charge = disc_price * (1 + F.col("l_tax"))
@@ -1923,3 +1927,175 @@ def w2_numpy(lineitem: Dict[str, np.ndarray],
             "supp_first": (price[lo], None), "supp_last": (price[hi], None)}
     return {c: (a[k], None if v is None else v[k])
             for c, (a, v) in cols.items()}
+
+
+# ---------------------------------------------------------------------------------
+# Slice 8: the sample, explodes of lists, subqueries
+# ---------------------------------------------------------------------------------
+
+Q1_SAMPLE_FRACTION = 0.01
+Q1_SAMPLE_SEED = 20240101
+X1_YEAR = (datetime.date(1995, 1, 1), datetime.date(1996, 1, 1))
+
+
+def q1_sample(df, fraction: float = Q1_SAMPLE_FRACTION,
+              seed: int = Q1_SAMPLE_SEED, functions=None):
+    """TPC-H Q1 over a Bernoulli sample of lineitem."""
+    return q1(df.sample(fraction, seed=seed), functions=functions)
+
+
+def sample_keep(n_rows: int, batch_rows: int,
+                fraction: float = Q1_SAMPLE_FRACTION,
+                seed: int = Q1_SAMPLE_SEED) -> np.ndarray:
+    """Bool [n_rows]: the rows a sample over a scan of ``batch_rows``-row
+    batches keeps, from the plain version of the sample kernel (the
+    reference's draw, bit for bit)."""
+    from ..ops import sample
+    parts = [np.zeros(0, dtype=bool)]
+    for idx, off in enumerate(range(0, n_rows, batch_rows)):
+        m = min(batch_rows, n_rows - off)
+        parts.append(sample.sample_mask_plain(
+            sample.batch_key(seed, idx), fraction, None, m, m,
+            "cpu").numpy())
+    return np.concatenate(parts)
+
+
+def q1_sample_numpy(data: Dict[str, np.ndarray], keep: np.ndarray
+                    ) -> List[tuple]:
+    """Q1 over the rows ``keep`` marks."""
+    cols = ("l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+            "l_extendedprice", "l_discount", "l_tax")
+    return q1_numpy({c: data[c][keep] for c in cols})
+
+
+def order_quantities(orders: Dict[str, np.ndarray],
+                     lineitem: Dict[str, np.ndarray], null_frac: float = 0.0,
+                     empty_frac: float = 0.0, seed: int = 20240102,
+                     order: Optional[np.ndarray] = None):
+    """A ``ListArray`` with one list per order: the ``l_quantity`` of the
+    order's lineitems, in lineitem order (``o_orderkey`` is 1..n).  A
+    seeded ``null_frac`` of the lists is set null and an ``empty_frac``
+    emptied.  ``order`` is the stable sort permutation of ``l_orderkey``
+    when the caller has it."""
+    from ..batch import ListArray
+    okey = orders["o_orderkey"]
+    n = len(okey)
+    if not np.array_equal(okey, np.arange(1, n + 1)):
+        raise ValueError("order_quantities needs o_orderkey = 1..n")
+    lk = lineitem["l_orderkey"]
+    if order is None:
+        order = np.argsort(lk, kind="stable")
+    values = lineitem["l_quantity"][order]
+    lens = np.bincount(lk, minlength=n + 1)[1:].astype(np.int64)
+    valid = None
+    if null_frac or empty_frac:
+        r = np.random.default_rng(seed).random(n)
+        null = r < null_frac
+        gone = r < null_frac + empty_frac
+        values = values[np.repeat(~gone, lens)]
+        lens = np.where(gone, 0, lens)
+        valid = ~null
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return ListArray(offsets, values, valid=valid)
+
+
+def x1(orders, functions=None):
+    """X1: one year of orders, exploded to their lineitem quantities, then
+    per order priority the quantity's sum, count and average."""
+    F = _functions(functions)
+    lo, hi = X1_YEAR
+    return (orders.filter((F.col("o_orderdate") >= lo)
+                          & (F.col("o_orderdate") < hi))
+            .explode("o_qty", out_name="qty")
+            .group_by("o_orderpriority")
+            .agg(F.sum(F.col("qty")).alias("sum_qty"),
+                 F.count_star().alias("n"),
+                 F.avg(F.col("qty")).alias("avg_qty"))
+            .sort("o_orderpriority"))
+
+
+def x1_numpy(orders: Dict[str, np.ndarray], lineitem: Dict[str, np.ndarray]
+             ) -> List[tuple]:
+    """X1 as lineitem joined to its orders (``o_orderkey`` is 1..n)."""
+    lo, hi = (np.datetime64(d) for d in X1_YEAR)
+    date = orders["o_orderdate"]
+    prio = np.array(sorted(PRIORITIES))
+    code = np.searchsorted(prio, orders["o_orderpriority"])
+    o = lineitem["l_orderkey"] - 1
+    keep = (date[o] >= lo) & (date[o] < hi)
+    g = code[o[keep]]
+    qty = lineitem["l_quantity"][keep]
+    cnt = np.bincount(g, minlength=len(prio))
+    tot = np.bincount(g, weights=qty, minlength=len(prio))
+    return [(str(p), float(t), int(c), float(t) / int(c))
+            for p, t, c in zip(prio, tot, cnt) if c]
+
+
+def x1o(orders):
+    """X1o: every order's quantities, exploded with OUTER."""
+    return orders.select("o_orderkey", "o_qty").explode(
+        "o_qty", out_name="qty", outer=True)
+
+
+def x1o_numpy(orders: Dict[str, np.ndarray], lists) -> Dict[str, tuple]:
+    """X1o's columns in parent order: ``{"o_orderkey": (keys, None),
+    "qty": (values with 0 at nulls, validity)}``."""
+    lens = np.diff(lists.offsets)
+    out_lens = np.maximum(lens, 1)
+    keys = np.repeat(orders["o_orderkey"], out_lens)
+    starts = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=starts[1:])
+    has = np.repeat(lens > 0, out_lens)
+    qty = np.zeros(int(starts[-1]), dtype=lists.values.dtype)
+    qty[has] = lists.values[lists.offsets[0]:lists.offsets[-1]]
+    valid = has.copy()
+    if lists.elem_valid is not None:
+        valid[has] = lists.elem_valid
+    return {"o_orderkey": (keys, None), "qty": (qty, valid)}
+
+
+def q18_in(orders, lineitem, customer, functions=None):
+    """Q18 with its orders picked by ``IN (subquery)``."""
+    F = _functions(functions)
+    big = (lineitem.group_by("l_orderkey")
+           .agg(F.sum(F.col("l_quantity")).alias("qty"))
+           .filter(F.col("qty") > 300).select("l_orderkey"))
+    return (orders.filter(F.col("o_orderkey").isin_subquery(big))
+            .join(customer, on=[("o_custkey", "c_custkey")])
+            .select("c_name", "o_orderkey", "o_totalprice")
+            .sort(F.col("o_totalprice").desc(), F.col("o_orderkey"))
+            .limit(100))
+
+
+def q16_notin(partsupp, supplier, part, functions=None):
+    """Q16 with the complaining suppliers dropped by ``NOT IN
+    (subquery)``."""
+    F = _functions(functions)
+    bad = supplier.filter(F.col("s_acctbal") < 0).select("s_suppkey")
+    return (partsupp
+            .filter(~F.col("ps_suppkey").isin_subquery(bad))
+            .join(part.filter((F.col("p_brand") != "Brand#45")
+                              & (F.col("p_size").isin(1, 4, 7, 10, 14, 23))),
+                  on=[("ps_partkey", "p_partkey")])
+            .select("p_brand", "p_type", "p_size", "ps_suppkey").distinct()
+            .group_by("p_brand", "p_type", "p_size")
+            .agg(F.count_star().alias("supplier_cnt"))
+            .sort(F.col("supplier_cnt").desc(), "p_brand", "p_type",
+                  "p_size"))
+
+
+def q22_scalar(customer, orders, functions=None):
+    """Q22 with the average balance as a scalar subquery."""
+    F = _functions(functions)
+    cust = customer.with_column(
+        "cntrycode", F.substring(F.col("c_phone"), 1, 2))
+    in_codes = cust.filter(F.col("cntrycode").isin(*Q22_CODES))
+    avg_bal = F.scalar_subquery(in_codes.filter(F.col("c_acctbal") > 0.0)
+                                .agg(F.avg(F.col("c_acctbal")).alias("a")))
+    return (in_codes.filter(F.col("c_acctbal") > avg_bal)
+            .join(orders, on=[("c_custkey", "o_custkey")], how="anti")
+            .group_by("cntrycode")
+            .agg(F.count_star().alias("numcust"),
+                 F.sum(F.col("c_acctbal")).alias("totacctbal"))
+            .sort("cntrycode"))

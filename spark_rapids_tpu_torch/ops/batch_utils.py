@@ -7,9 +7,11 @@ whole batch by a permutation (``gather``).
 the hand-written kernel ``csrc/compact.cu`` (replacing the reference's
 ``_compact_fn`` :280), or its plain PyTorch version for CPU tensors;
 ``compact_columns`` is the dispatching wrapper and ``compact_kernel`` the
-launcher, which counts its launches.  ``concat_batches`` is ``torch.cat``
-of each column and ``slice_batch`` a view of each: plain copies and views,
-not kernels.  ``gather`` applies a permutation to every column through the
+launcher, which counts its launches.  Host-carried columns (strings and
+lists) are filtered on the host by the live mask, which comes over in the
+one counted fetch that also gives the live count (reference :217-222).
+``concat_batches`` is ``torch.cat`` of each column and ``slice_batch`` a
+view of each: plain copies and views, not kernels.  ``gather`` applies a permutation to every column through the
 full device sort's gather kernel (``ops/sort.py``, ``csrc/sort.cu``).
 """
 
@@ -22,11 +24,11 @@ import torch
 
 from .. import kernels
 from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn, HostColumn,
-                     HostStringColumn)
+                     HostListColumn, HostStringColumn)
 
 __all__ = ["compact_packed", "compact", "compact_columns", "compact_kernel",
-           "compact_plain", "concat_batches", "slice_batch", "gather",
-           "CP_MAX_COLS"]
+           "compact_plain", "host_rows", "concat_batches", "slice_batch",
+           "gather", "CP_MAX_COLS"]
 
 CP_MAX_COLS = 16            # csrc/compact.cu CP_MAX_COLS
 CP_TILE = 4096              # csrc/compact.cu CP_TILE
@@ -48,34 +50,49 @@ def compact_packed(batch: ColumnBatch, bound: int) -> ColumnBatch:
         if isinstance(c, DictStringColumn):
             cols.append(DictStringColumn(c.codes[:cap], valid, c.dictionary))
         elif isinstance(c, HostColumn):
-            cols.append(type(c)(c.data[:cap], valid) if c.dtype.is_string
-                        else HostColumn(c.dtype, c.data[:cap], valid))
+            cols.append(host_rows(c, slice(0, cap)))
         else:
             cols.append(DeviceColumn(c.dtype, c.data[:cap], valid))
     sel = None if batch.sel is None else batch.sel[:cap]
     return ColumnBatch(batch.schema, cols, cap, sel)
 
 
+def host_rows(c: HostColumn, rows) -> HostColumn:
+    """The rows ``rows`` (a slice, bool mask or index array) of a host
+    column, as a column of the same kind."""
+    valid = None if c.valid is None else c.valid[rows]
+    if isinstance(c, (HostStringColumn, HostListColumn)):
+        return type(c)(c.data[rows], valid)
+    return HostColumn(c.dtype, c.data[rows], valid)
+
+
 def compact(batch: ColumnBatch, n_live: Optional[int] = None) -> ColumnBatch:
     """The batch's live rows packed to the front, in row order, with no
     selection mask.  The live count is fetched (one counted fetch) unless
-    the caller already knows it."""
+    the caller already knows it; with host-carried columns the whole mask
+    comes over in that fetch and filters them with numpy."""
     if batch.sel is None:
         return batch
+    from ..utils.metrics import fetch
+    host_mask = None
     if any(isinstance(c, HostColumn) for c in batch.columns):
-        raise NotImplementedError(
-            "compacting host columns is not ported yet (ROADMAP.md queue 2 "
-            "row 3)")
-    if n_live is None:
-        from ..utils.metrics import fetch
+        host_mask = fetch(batch.sel)
+        n_live = int(host_mask.sum())
+    elif n_live is None:
         n_live = int(fetch(batch.sel.sum()))
-    packed = compact_columns(
+    device = [c for c in batch.columns if not isinstance(c, HostColumn)]
+    packed = iter(compact_columns(
         [(c.codes, c.valid) if isinstance(c, DictStringColumn)
-         else (c.data, c.valid) for c in batch.columns], batch.sel, n_live)
-    cols: List = [DictStringColumn(d, v, c.dictionary)
-                  if isinstance(c, DictStringColumn)
-                  else DeviceColumn(c.dtype, d, v)
-                  for c, (d, v) in zip(batch.columns, packed)]
+         else (c.data, c.valid) for c in device], batch.sel, n_live))
+    cols: List = []
+    for c in batch.columns:
+        if isinstance(c, HostColumn):
+            cols.append(host_rows(c, host_mask))
+            continue
+        d, v = next(packed)
+        cols.append(DictStringColumn(d, v, c.dictionary)
+                    if isinstance(c, DictStringColumn)
+                    else DeviceColumn(c.dtype, d, v))
     return ColumnBatch(batch.schema, cols, n_live)
 
 
@@ -211,10 +228,8 @@ def slice_batch(batch: ColumnBatch, start: int, length: int) -> ColumnBatch:
         if isinstance(c, DictStringColumn):
             cols.append(DictStringColumn(cut(c.codes), cut(c.valid),
                                          c.dictionary))
-        elif isinstance(c, HostStringColumn):
-            cols.append(HostStringColumn(cut(c.data), cut(c.valid)))
         elif isinstance(c, HostColumn):
-            cols.append(HostColumn(c.dtype, cut(c.data), cut(c.valid)))
+            cols.append(host_rows(c, slice(start, end)))
         else:
             cols.append(DeviceColumn(c.dtype, cut(c.data), cut(c.valid)))
     return ColumnBatch(batch.schema, cols, length, cut(batch.sel))

@@ -26,6 +26,23 @@ in order.  Stable sorts of run-ordered slices keep ties in input order,
 so the output equals one global stable sort.  ``LimitExec`` (reference
 ``LimitExec``) passes the first n rows of its input through: a LIMIT over
 a host ORDER BY, as the reference places TPC-H Q21's.
+
+``SampleExec`` (reference :293) ANDs a Bernoulli keep mask into each
+batch's selection: the reference's float64 threefry draw, bit for bit, by
+``csrc/sample.cu`` (``ops/sample.py``).  Row i is the child batch's
+position i, live or not, and the batch index counts every batch the child
+yields.  ``GenerateExec`` (reference :437) explodes a list column: each
+input batch is compacted (one fetch of its live mask when it has one; the
+list column filters on the host), the host takes each parent's output
+rows from the list offsets, and ``csrc/explode.cu`` (``ops/generate.py``)
+writes the rows in chunks of ``batchSizeRows``: the elements, and every
+device sibling column gathered by parent.  A host string sibling first
+becomes dictionary codes (its encoding cached on the input column, as the
+scan hands out the same columns every run) and its codes are gathered
+with the rest, where the reference gathers the strings on the host
+(:571-576): gathering millions of strings and encoding them again for
+the operator above costs the host more than the explode itself.  Other
+list siblings are gathered on the host.
 """
 
 from __future__ import annotations
@@ -36,14 +53,17 @@ import numpy as np
 import torch
 
 from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn, HostColumn,
-                     HostStringColumn, Schema)
+                     HostStringColumn, Schema, upload)
 from ..exprs import EvalContext, Expression
-from ..ops import batch_utils, topk
+from ..ops import batch_utils, generate, topk
+from ..ops import sample as sample_ops
 from ..ops import sort as sort_ops
-from ..utils.metrics import fetch
+from ..ops.strings import encode_column
+from ..utils.metrics import QueryStats, fetch
 from .physical import ExecContext, TpuExec, _device_arrays
 
-__all__ = ["TopKExec", "SortExec", "LimitExec", "sample_bounds"]
+__all__ = ["TopKExec", "SortExec", "LimitExec", "SampleExec",
+           "GenerateExec", "sample_bounds"]
 
 
 def _gather(batch: ColumnBatch, idx: torch.Tensor) -> ColumnBatch:
@@ -75,10 +95,8 @@ def _head(batch: ColumnBatch, n: int) -> ColumnBatch:
         valid = None if c.valid is None else c.valid[:n]
         if isinstance(c, DictStringColumn):
             cols.append(DictStringColumn(c.codes[:n], valid, c.dictionary))
-        elif isinstance(c, HostStringColumn):
-            cols.append(HostStringColumn(c.data[:n], valid))
         elif isinstance(c, HostColumn):
-            cols.append(HostColumn(c.dtype, c.data[:n], valid))
+            cols.append(batch_utils.host_rows(c, slice(0, n)))
         else:
             cols.append(DeviceColumn(c.dtype, c.data[:n], valid))
     return ColumnBatch(batch.schema, cols, n)
@@ -291,3 +309,153 @@ class LimitExec(TpuExec):
             take = min(left, b.num_rows)
             left -= take
             yield b if take == b.num_rows else _head(b, take)
+
+
+class SampleExec(TpuExec):
+    """A Bernoulli sample: each batch's selection ANDed with its keep mask
+    (no data moves)."""
+
+    def __init__(self, child: TpuExec, fraction: float, seed: int):
+        super().__init__([child])
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def node_desc(self) -> str:
+        return f"TpuSample {self.fraction} seed={self.seed}"
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
+        m = ctx.metric_set(self.op_id)
+        for idx, b in enumerate(self.children[0].execute(ctx)):
+            with m.time("opTime"):
+                sel = sample_ops.sample_mask(
+                    sample_ops.batch_key(self.seed, idx), self.fraction,
+                    b.sel, b.num_rows, b.num_rows, ctx.device)
+            yield ColumnBatch(b.schema, b.columns, b.num_rows, sel)
+
+
+class GenerateExec(TpuExec):
+    """Explode the list column ``column`` into ``out_name``, one row per
+    element (``outer``: an empty or null list gives one row with a null
+    element)."""
+
+    def __init__(self, child: TpuExec, column: str, out_name: str,
+                 outer: bool, out_schema: Schema):
+        super().__init__([child])
+        self.column = column
+        self.out_name = out_name
+        self.outer = outer
+        self._schema = out_schema
+        self._ordinal = child.output_schema.index_of(column)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def node_desc(self) -> str:
+        kind = "explode_outer" if self.outer else "explode"
+        return f"TpuGenerate {kind}({self.column}) as {self.out_name}"
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
+        m = ctx.metric_set(self.op_id)
+        batch_rows = ctx.conf["spark.rapids.tpu.sql.batchSizeRows"]
+        for batch in self.children[0].execute(ctx):
+            with m.time("opTime"):
+                b = batch_utils.compact(self._coded(batch, ctx.device))
+                prep = self._prepare(b, ctx.device) if b.num_rows else None
+            if prep is None:
+                continue
+            total = prep[0]
+            for lo in range(0, total, batch_rows):
+                with m.time("opTime"):
+                    out = self._chunk(b, prep, lo, min(batch_rows,
+                                                       total - lo))
+                m.add("numOutputRows", out.num_rows)
+                m.add("numOutputBatches", 1)
+                yield out
+
+    def _coded(self, b: ColumnBatch, device) -> ColumnBatch:
+        """``b`` with its host string siblings as dictionary codes."""
+        cols = list(b.columns)
+        for i, c in enumerate(cols):
+            if i != self._ordinal and isinstance(c, HostStringColumn):
+                d, codes, valid = encode_column(c, None, device)
+                cols[i] = DictStringColumn(codes, valid, d.values())
+        return ColumnBatch(b.schema, cols, b.num_rows, b.sel)
+
+    def _prepare(self, b: ColumnBatch, device):
+        """The batch's output row count and what its chunks read: the
+        starts (and OUTER's element offsets) and the flat elements, on the
+        device; None when the batch gives no row."""
+        col = b.columns[self._ordinal]
+        key = (self.outer, device.type)
+        host = col._explode_cache
+        if host is None or host[0] != key:
+            host = (key,) + self._host_inputs(col.data, device)
+            col._explode_cache = host
+        _, total, out_lens, arrays = host
+        if total == 0:
+            return None
+        dev = [upload(a, device) for a in arrays]
+        stats = QueryStats.get()
+        stats.uploads += 1
+        stats.upload_bytes += sum(a.nbytes for a in arrays)
+        eoffs = dev[2] if self.outer else None
+        values_valid = dev[-1] if col.data.elem_valid is not None else None
+        parent_host = None
+        if any(isinstance(c, HostColumn) for i, c in enumerate(b.columns)
+               if i != self._ordinal):
+            parent_host = np.repeat(np.arange(b.num_rows), out_lens)
+        return total, dev[0], eoffs, dev[1], values_valid, parent_host
+
+    def _host_inputs(self, lists, device):
+        """(output rows, rows per parent, [starts, flat elements, OUTER's
+        element offsets, element validity] as host tensors, pinned for a
+        CUDA upload)."""
+        offs = lists.offsets
+        lens = np.diff(offs)  # a null list holds no element
+        out_lens = np.maximum(lens, 1) if self.outer else lens
+        starts = np.zeros(len(lens) + 1, dtype=np.int64)
+        np.cumsum(out_lens, out=starts[1:])
+        lo, hi = int(offs[0]), int(offs[-1])
+        host = [starts, np.ascontiguousarray(lists.values[lo:hi])]
+        if self.outer:
+            host.append(offs - lo)
+        if lists.elem_valid is not None:
+            host.append(np.ascontiguousarray(lists.elem_valid[lo:hi]))
+        tensors = [torch.from_numpy(a) for a in host]
+        if device.type == "cuda":
+            tensors = [t.pin_memory() for t in tensors]
+        return int(starts[-1]), out_lens, tensors
+
+    def _chunk(self, b: ColumnBatch, prep, lo: int, rows: int
+               ) -> ColumnBatch:
+        """Output rows [lo, lo + rows) of batch ``b``."""
+        _, starts, eoffs, values, values_valid, parent_host = prep
+        siblings = [i for i, c in enumerate(b.columns)
+                    if i != self._ordinal and not isinstance(c, HostColumn)]
+        cols_in = [(b.columns[i].codes, b.columns[i].valid)
+                   if isinstance(b.columns[i], DictStringColumn)
+                   else (b.columns[i].data, b.columns[i].valid)
+                   for i in siblings]
+        (ed, ev), moved = generate.explode_rows(
+            starts, eoffs, lo, rows, values, values_valid, cols_in,
+            self.outer or values_valid is not None)
+        gathered = dict(zip(siblings, moved))
+        cols: List = []
+        for i, (f, c) in enumerate(zip(self._schema, b.columns)):
+            if i == self._ordinal:
+                cols.append(DeviceColumn(f.dtype, ed, ev))
+            elif isinstance(c, HostColumn):
+                cols.append(batch_utils.host_rows(
+                    c, parent_host[lo:lo + rows]))
+            elif isinstance(c, DictStringColumn):
+                d, v = gathered[i]
+                cols.append(DictStringColumn(d, v, c.dictionary))
+            else:
+                d, v = gathered[i]
+                cols.append(DeviceColumn(c.dtype, d, v))
+        return ColumnBatch(self._schema, cols, rows)

@@ -1,6 +1,6 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, distinct, sort, join, limit, window)."""
+aggregate, distinct, sort, join, limit, window, sample, generate)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ from ..batch import Field, Schema
 from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "Distinct", "Sort", "SortOrder", "Join", "Limit", "Window"]
+           "Distinct", "Sort", "SortOrder", "Join", "Limit", "Window",
+           "Sample", "Generate"]
 
 
 class LogicalPlan:
@@ -203,3 +204,43 @@ class Window(LogicalPlan):
 
     def node_desc(self):
         return f"Window [{', '.join(n for n, _ in self.window_exprs)}]"
+
+
+class Sample(LogicalPlan):
+    """A Bernoulli sample of the child's rows, each kept with probability
+    ``fraction`` under ``seed`` (reference :278)."""
+
+    def __init__(self, child: LogicalPlan, fraction: float, seed: int = 0):
+        self.children = (child,)
+        self.fraction = fraction
+        self.seed = seed
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class Generate(LogicalPlan):
+    """Explode an ARRAY column into one row per element (reference :209);
+    the element field ``out_name`` takes the array column's place, and
+    ``outer`` keeps an empty or null array as one row with a null
+    element."""
+
+    def __init__(self, child: LogicalPlan, column: str, out_name: str,
+                 outer: bool = False):
+        self.children = (child,)
+        self.column = column
+        self.out_name = out_name
+        self.outer = outer
+
+    def schema(self) -> Schema:
+        fields = []
+        for f in self.children[0].schema():
+            if f.name == self.column:
+                fields.append(Field(self.out_name, f.dtype.element, True))
+            else:
+                fields.append(f)
+        return Schema(fields)
+
+    def node_desc(self):
+        kind = "explode_outer" if self.outer else "explode"
+        return f"Generate {kind}({self.column}) as {self.out_name}"

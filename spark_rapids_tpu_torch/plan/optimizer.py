@@ -75,6 +75,8 @@ def _rebuild_join(node: L.Join, left, right) -> L.Join:
     out = L.Join(left, right, node.left_keys, node.right_keys,
                  how=node.how, condition=node.condition)
     out.using = node.using
+    if hasattr(node, "exists_col"):  # an existence join's named flag
+        out.exists_col = node.exists_col
     return out
 
 
@@ -282,6 +284,16 @@ def prune_columns(plan: L.LogicalPlan,
                       plan.global_sort)
     if isinstance(plan, L.Limit):
         return L.Limit(prune_columns(plan.children[0], required), plan.n)
+    if isinstance(plan, L.Sample):
+        # row positions do not depend on the columns: prune through it
+        # (reference pushdown.py:231)
+        return L.Sample(prune_columns(plan.children[0], required),
+                        plan.fraction, plan.seed)
+    if isinstance(plan, L.Generate):
+        # the reference's pruning passes no operator it does not know, so
+        # everything below a Generate is kept (pushdown.py:243)
+        return L.Generate(prune_columns(plan.children[0], None),
+                          plan.column, plan.out_name, plan.outer)
     if isinstance(plan, L.Window):
         # the child keeps what the plan above needs besides the window
         # columns, and every column the window expressions read (reference
@@ -312,8 +324,5 @@ def prune_columns(plan: L.LogicalPlan,
                 rreq |= crefs & rnames
         left = _prune_to(prune_columns(plan.children[0], lreq), lreq)
         right = _prune_to(prune_columns(plan.children[1], rreq), rreq)
-        out = L.Join(left, right, plan.left_keys, plan.right_keys,
-                     how=plan.how, condition=plan.condition)
-        out.using = plan.using
-        return out
+        return _rebuild_join(plan, left, right)
     raise NotImplementedError(f"no pruning rule for {type(plan).__name__}")

@@ -15,7 +15,10 @@ operator so far, the host sort that an ORDER BY on string keys needs
 (TPC-H Q1, Q4, Q21); any other fallback, and any device operator not
 ported yet, raises ``NotImplementedError`` naming its ROADMAP item.
 ``Distinct`` becomes an aggregate grouped on every column (reference
-``overrides.py:405``); a device ORDER BY becomes ``SortExec`` (reference
+``overrides.py:405``); ``Sample`` becomes ``SampleExec`` (:433) and
+``Generate`` ``GenerateExec`` (:465), tagged for the CPU as the reference
+tags it (:203-215: string, decimal or nested elements), where the port
+raises naming ROADMAP item 6; a device ORDER BY becomes ``SortExec`` (reference
 :412) and a LIMIT over a device ORDER BY ``TopKExec`` where the top-k
 kernel reaches (else ``LimitExec`` over the sort, as over anything else,
 ``exec_nodes.py``); a ``Window`` is tagged as the reference tags it
@@ -139,7 +142,20 @@ class NodeMeta:
                                   allow_string_preds=True):
                 self.will_not_work(f"condition: {r}")
             return
-        if isinstance(p, (L.Limit, L.Distinct)):
+        if isinstance(p, L.Generate):
+            f = next((f for f in p.children[0].schema()
+                      if f.name == p.column), None)
+            if f is None or f.dtype.element is None:
+                self.will_not_work(
+                    f"explode column {p.column!r} is not an ARRAY")
+            else:
+                elem = f.dtype.element
+                if elem.is_string or elem.is_nested or elem.is_decimal:
+                    self.will_not_work(
+                        f"explode of array<{elem}> runs on CPU (elements "
+                        f"have no device representation)")
+            return
+        if isinstance(p, (L.Limit, L.Distinct, L.Sample)):
             # Distinct groups by bare column references: string columns
             # go through dictionary codes like any group key
             return
@@ -347,6 +363,16 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
         schema = child.output_schema
         return WindowExec(child, [(n, strip_alias(bind(e, schema)))
                                   for n, e in p.window_exprs])
+
+    if isinstance(p, L.Sample):
+        from .exec_nodes import SampleExec
+        return SampleExec(_convert(meta.children[0], conf), p.fraction,
+                          p.seed)
+
+    if isinstance(p, L.Generate):
+        from .exec_nodes import GenerateExec
+        return GenerateExec(_convert(meta.children[0], conf), p.column,
+                            p.out_name, p.outer, p.schema())
 
     if isinstance(p, L.Limit):
         from .exec_nodes import LimitExec

@@ -22,7 +22,8 @@ import torch
 
 from .. import types as T
 from ..batch import (ColumnBatch, DeviceColumn, DictStringColumn, Field,
-                     HostColumn, HostStringColumn, Schema, upload)
+                     HostColumn, HostListColumn, HostStringColumn, Schema,
+                     upload)
 from ..config import TpuConf
 from ..exprs import AggregateExpression, BoundReference, EvalContext, \
     Expression
@@ -81,8 +82,9 @@ class MemorySource:
 
     Per column, the source keeps (shared by every pruned view of it) a
     pinned host copy for CUDA uploads, made the first time a query reads
-    the column, and one :class:`HostStringColumn` object per batch for
-    string columns, so their cached dictionary encodings serve every run.
+    the column, and one host column object per batch for string and list
+    columns, so the cached dictionary encodings of strings serve every
+    run.
     ``unpruned`` is the schema of the table before column pruning: the
     planner's size estimates read it, as the reference's do, since the
     reference's in-memory scans are not narrowed.
@@ -117,15 +119,17 @@ class MemorySource:
                 self._cache[key] = t
         return t
 
-    def _string_columns(self, name: str) -> List[HostStringColumn]:
-        cols = self._cache.get(("str", name))
+    def _host_columns(self, name: str) -> List[HostColumn]:
+        """The batches of a host-carried (string or list) column."""
+        cols = self._cache.get(("host", name))
         if cols is None:
-            _, data, valid = self.columns[name]
-            cols = [HostStringColumn(
+            dt, data, valid = self.columns[name]
+            cls = HostListColumn if dt.is_nested else HostStringColumn
+            cols = [cls(
                 data[off:off + self.batch_rows],
                 None if valid is None else valid[off:off + self.batch_rows])
                 for off in range(0, self.num_rows, self.batch_rows)]
-            self._cache[("str", name)] = cols
+            self._cache[("host", name)] = cols
         return cols
 
     def batches(self, device: torch.device) -> Iterator[ColumnBatch]:
@@ -140,7 +144,7 @@ class MemorySource:
             cols, nbytes = [], 0
             for name, (dt, data, valid) in self.columns.items():
                 if dt.is_host_carried:
-                    cols.append(self._string_columns(name)[bi])
+                    cols.append(self._host_columns(name)[bi])
                     continue
                 d = upload(self._host_tensor(("data", name), data,
                                              device)[off:off + m], device)
@@ -788,7 +792,12 @@ class CollectExec(TpuExec):
 
 
 def _python_values(col: HostColumn) -> list:
-    if col.dtype.is_decimal:
+    if col.dtype.is_nested:
+        lists = col.data
+        flat = _python_values(HostColumn(col.dtype.element, lists.values,
+                                         lists.elem_valid))
+        vals = lists.to_pylist(flat)
+    elif col.dtype.is_decimal:
         from ..batch import decimal_values
         vals = decimal_values(col.dtype, col.data)
     elif col.dtype.kind == T.TypeKind.DATE:

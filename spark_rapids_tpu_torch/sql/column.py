@@ -97,6 +97,13 @@ class Column:
             values[0], (list, tuple, set)) else values
         return Column(E.In(self.expr, list(vals)))
 
+    def isin_subquery(self, df) -> "Column":
+        """``col IN (one-column subquery)``: a left-semi join when the
+        query is collected; ``~`` gives SQL NOT IN with its null semantics
+        (``plan/subquery.py``)."""
+        from ..plan.subquery import in_subquery
+        return Column(in_subquery(self.expr, df._plan))
+
     def is_null(self) -> "Column":
         return Column(E.IsNull(self.expr))
 

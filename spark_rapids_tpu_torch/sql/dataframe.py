@@ -8,7 +8,7 @@ per (partition, order) spec (``_rewrite_windows``)."""
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 from .. import exprs as E
 from ..plan import logical as L
@@ -129,6 +129,25 @@ class DataFrame:
     def distinct(self) -> "DataFrame":
         """The distinct rows (a GROUP BY every column)."""
         return DataFrame(L.Distinct(self._plan), self.session)
+
+    def explode(self, column: str, out_name: Optional[str] = None,
+                outer: bool = False) -> "DataFrame":
+        """One row per element of the ARRAY column ``column``, named
+        ``out_name`` (default: the column's name) in the column's place;
+        ``outer`` keeps an empty or null array as one row with a null
+        element (reference :223)."""
+        return DataFrame(L.Generate(self._plan, column, out_name or column,
+                                    outer=outer), self.session)
+
+    def sample(self, fraction: float, seed: Optional[int] = None
+               ) -> "DataFrame":
+        """A Bernoulli sample without replacement: each row is kept with
+        probability ``fraction``; with no seed, one is drawn at random
+        (reference :243)."""
+        if seed is None:
+            import random
+            seed = random.randint(0, 2 ** 31 - 1)
+        return DataFrame(L.Sample(self._plan, fraction, seed), self.session)
 
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":

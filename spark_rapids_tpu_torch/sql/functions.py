@@ -1,7 +1,8 @@
 """Column functions (``spark_rapids_tpu/sql/functions.py`` counterpart):
 the column reference, literals, CASE WHEN (:317), ``coalesce``,
 ``isnull``, ``expr_abs``, the aggregates, the window functions
-(:418-460), ``year`` (:610), ``substring`` (:719) and ``like`` (:744)."""
+(:418-460), ``year`` (:610), ``substring`` (:719), ``like`` (:744) and
+``scalar_subquery`` (:70)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from .column import Column, to_expr
 __all__ = ["col", "lit", "when", "coalesce", "isnull", "expr_abs", "sum", "avg", "count", "count_star", "min", "max",
            "first", "last", "row_number", "rank", "dense_rank",
            "percent_rank", "cume_dist", "ntile", "lag", "lead", "year",
-           "substring", "like"]
+           "substring", "like", "scalar_subquery"]
 
 
 def col(name: str) -> Column:
@@ -156,3 +157,11 @@ def substring(c, pos, length) -> Column:  # noqa: A002
 def like(c, pattern: str, escape: str = "\\") -> Column:
     from ..stringfns import Like
     return Column(Like(_colref(c), pattern, escape))
+
+
+def scalar_subquery(df) -> Column:
+    """A one-row, one-column DataFrame as a value: it runs when the outer
+    query is collected (its own subqueries first) and its value replaces
+    it as a literal (``plan/subquery.py``)."""
+    from ..plan.subquery import ScalarSubquery
+    return Column(ScalarSubquery(df._plan))

@@ -3,7 +3,9 @@ counterpart).
 
 A session is bound to one ``torch.device``: the CUDA card unless the
 caller passes ``device="cpu"``.  Asking for CUDA where there is none
-raises; nothing falls back to the CPU.
+raises; nothing falls back to the CPU.  Every entry point resolves the
+plan's subqueries first (``plan/subquery.py``), running each subplan
+through ``_collect_rows``, as the reference does (session.py:320, :525).
 """
 
 from __future__ import annotations
@@ -75,6 +77,13 @@ class Session:
 
     # -- execution ----------------------------------------------------------------
     def _execute(self, plan: L.LogicalPlan):
+        from ..plan.subquery import resolve_subqueries
+        return self._collect_rows(resolve_subqueries(plan,
+                                                     self._collect_rows))
+
+    def _collect_rows(self, plan: L.LogicalPlan):
+        """A subquery-free plan's rows (the subquery resolver's executor
+        too)."""
         from ..plan.overrides import apply_overrides
         conf = self.conf()
         phys = apply_overrides(plan, conf)
@@ -91,6 +100,8 @@ class Session:
         per batch."""
         from ..ops import batch_utils
         from ..plan.overrides import apply_overrides
+        from ..plan.subquery import resolve_subqueries
+        plan = resolve_subqueries(plan, self._collect_rows)
         conf = self.conf()
         phys = apply_overrides(plan, conf)
         ctx = ExecContext(conf, self.device)

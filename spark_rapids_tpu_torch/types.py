@@ -6,7 +6,11 @@ physical torch dtypes here.  STRING has no device representation: string
 columns ride on the host and group on the device as int32 dictionary codes
 (``ops/strings.py``).  DECIMAL(p, s) is the scaled integer: int64 for
 p <= 18, and for 18 < p <= 38 two int64 limbs ``[lo, hi]`` of the 128-bit
-two's-complement value, a ``[n, 2]`` device tensor (``ops/wide_decimal.py``).  ``TypeSig`` mirrors the reference's support-signature
+two's-complement value, a ``[n, 2]`` device tensor (``ops/wide_decimal.py``).
+ARRAY<element> has no device representation either: a list column rides on
+the host as offsets and flat element values (``batch.HostListColumn``), as
+the reference's arrow list column does, until an explode moves its
+elements to the device.  ``TypeSig`` mirrors the reference's support-signature
 algebra (TypeChecks.scala:171): each expression declares the input and
 output types it supports on the device, and the planner tags unsupported
 nodes with a reason.
@@ -25,7 +29,8 @@ __all__ = [
     "DataType", "TypeKind",
     "BOOLEAN", "INT8", "INT16", "INT32", "INT64",
     "FLOAT32", "FLOAT64", "STRING", "DATE", "TIMESTAMP",
-    "NULLTYPE", "decimal", "integral_as_decimal", "common_type", "TypeSig",
+    "NULLTYPE", "decimal", "array", "integral_as_decimal", "common_type",
+    "TypeSig",
 ]
 
 
@@ -41,6 +46,7 @@ class TypeKind(enum.Enum):
     DATE = "date"              # days since epoch, int32 physical
     TIMESTAMP = "timestamp"    # microseconds since epoch, int64 physical
     DECIMAL = "decimal"        # scaled integer: int64, or two int64 limbs
+    ARRAY = "array"            # host offsets + flat element values
     NULL = "void"
 
 
@@ -71,12 +77,13 @@ _TORCH_OF_NUMPY = {
 @dataclass(frozen=True)
 class DataType:
     """A Spark-SQL-equivalent logical type; ``precision``/``scale`` are
-    DECIMAL's.  The nested types of the reference are not ported yet
-    (ROADMAP item 8)."""
+    DECIMAL's, ``element`` is ARRAY's.  The reference's STRUCT and MAP are
+    not ported (ROADMAP item 8)."""
 
     kind: TypeKind
     precision: int = 0
     scale: int = 0
+    element: Optional["DataType"] = None
 
     @property
     def is_numeric(self) -> bool:
@@ -109,13 +116,19 @@ class DataType:
         return self.is_decimal and 18 < self.precision <= 38
 
     @property
+    def is_nested(self) -> bool:
+        return self.kind == TypeKind.ARRAY
+
+    @property
     def is_host_carried(self) -> bool:
         """True if columns of this type ride as host columns in device
         batches (no device representation)."""
-        return self.is_string
+        return self.is_string or self.is_nested
 
     @property
     def numpy_dtype(self):
+        if self.is_nested:
+            raise TypeError(f"no flat physical dtype for {self}")
         return np.dtype(_NUMPY_PHYSICAL[self.kind])
 
     @property
@@ -125,6 +138,8 @@ class DataType:
     def __str__(self) -> str:
         if self.is_decimal:
             return f"decimal({self.precision},{self.scale})"
+        if self.is_nested:
+            return f"array<{self.element}>"
         return self.kind.value
 
 
@@ -147,6 +162,11 @@ def decimal(precision: int, scale: int) -> DataType:
     if not 1 <= precision <= 38 or not 0 <= scale <= precision:
         raise TypeError(f"decimal({precision},{scale}) is out of range")
     return DataType(TypeKind.DECIMAL, precision, scale)
+
+
+def array(element: DataType) -> DataType:
+    """ARRAY<element>: a host list column (``batch.HostListColumn``)."""
+    return DataType(TypeKind.ARRAY, element=element)
 
 
 _INT_WIDENING = [TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.INT64]

@@ -18,7 +18,12 @@ and ``f1u`` run over the money columns as DECIMAL(12, 2): pyarrow
 ``decimal128`` arrays for the reference, ``DecimalArray``s for the port,
 from the same integers.  The reference cannot run ``q18_dec`` (its HAVING
 reads a wide sum the reference finalizes into a host column); its line
-then carries the error instead of a count.
+then carries the error instead of a count.  The eighth slice's paths:
+``q1_sample`` (Q1 over a 1% lineitem sample), ``x1`` and ``x1o`` (explodes
+of orders' lineitem quantity lists: a ``pa.ListArray`` for the reference,
+a ``ListArray`` from the same offsets for the port; ``x1o`` through
+``to_device_arrays``), and the subquery forms ``q18_in``, ``q16_notin``
+and ``q22_scalar``, each built by the same body in both packages.
 
 Both packages run on the CPU over the same ``gen_db_arrays`` data (the
 reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
@@ -74,6 +79,13 @@ DECIMAL_PATHS = {"q1_dec": (("lineitem",), False),
                  "q6_dec": (("lineitem",), False),
                  "q18_dec": (("orders", "lineitem", "customer"), False),
                  "f1": (("orders",), True), "f1u": (("lineitem",), False)}
+# slice 8: name -> (tables, ends in to_device_arrays)
+SLICE8_PATHS = {"q1_sample": (("lineitem",), False),
+                "x1": (("orders", "lineitem"), False),
+                "x1o": (("orders", "lineitem"), True),
+                "q18_in": (("orders", "lineitem", "customer"), False),
+                "q16_notin": (("partsupp", "supplier", "part"), False),
+                "q22_scalar": (("customer", "orders"), False)}
 SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
 SF10_BROADCAST_THRESHOLD = 256 * 1024 * 1024
 
@@ -133,7 +145,7 @@ def main() -> None:
                     default="both")
     ap.add_argument("--queries", default=",".join(
         list(QUERIES) + list(REST) + list(DEVICE_PATHS)
-        + list(DECIMAL_PATHS)))
+        + list(DECIMAL_PATHS) + list(SLICE8_PATHS)))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     args = ap.parse_args()
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
@@ -156,6 +168,32 @@ def main() -> None:
     def decimal_body(q, F):
         body = getattr(tpch, q)
         return lambda *dfs: body(*dfs, functions=F)
+
+    lists = {}
+
+    def slice8_tables(q, arrow):
+        """The path's input tables; X1's and X1o's orders carry o_qty."""
+        tables, _ = SLICE8_PATHS[q]
+        if q not in ("x1", "x1o"):
+            return [data[t] for t in tables]
+        if q not in lists:
+            lists[q] = tpch.order_quantities(
+                data["orders"], data["lineitem"],
+                *((0.01, 0.01) if q == "x1o" else ()))
+        la = lists[q]
+        if arrow:
+            import pyarrow as pa
+            la = pa.ListArray.from_arrays(
+                pa.array(la.offsets.astype(np.int32)), pa.array(la.values),
+                mask=None if la.valid is None else pa.array(~la.valid))
+        cols = ("o_orderkey", "o_orderdate", "o_orderpriority") \
+            if q == "x1" else ("o_orderkey",)
+        return [dict({c: data["orders"][c] for c in cols}, o_qty=la)]
+
+    def slice8_df(q, dfs, F):
+        if q == "x1o":
+            return tpch.x1o(*dfs)
+        return getattr(tpch, q)(*dfs, functions=F)
     runners = []
     if args.package in ("reference", "both"):
         import spark_rapids_tpu as jsrt
@@ -176,6 +214,15 @@ def main() -> None:
             return out
 
         def run_ref(q):
+            if q in SLICE8_PATHS:
+                from spark_rapids_tpu.sql import functions as JF
+                jsess = jsrt.Session(base)
+                df = slice8_df(q, [jsess.create_dataframe(t) for t in
+                                   slice8_tables(q, True)], JF)
+                with QueryStats.scoped() as st:
+                    out = df.to_device_arrays() if SLICE8_PATHS[q][1] \
+                        else df.collect()
+                return out, st.blocking_fetches
             if q in DECIMAL_PATHS:
                 from spark_rapids_tpu.sql import functions as JF
                 tables, device = DECIMAL_PATHS[q]
@@ -224,6 +271,15 @@ def main() -> None:
 
         def run_port(q):
             # the scope counts every query the body runs (Q11 runs two)
+            if q in SLICE8_PATHS:
+                from spark_rapids_tpu_torch.sql import functions as TF
+                tsess = tsrt.Session(base, device="cpu")
+                df = slice8_df(q, [tsess.create_dataframe(t) for t in
+                                   slice8_tables(q, False)], TF)
+                with TStats.scoped() as st:
+                    out = df.to_device_arrays() if SLICE8_PATHS[q][1] \
+                        else df.collect()
+                return out, st.blocking_fetches
             if q in DECIMAL_PATHS:
                 tables, device = DECIMAL_PATHS[q]
                 tsess = tsrt.Session(base, device="cpu")
@@ -247,7 +303,23 @@ def main() -> None:
             return rows, st.blocking_fetches
         runners.append(("port", run_port))
     for q in args.queries.split(","):
-        if q in DECIMAL_PATHS:
+        if q in SLICE8_PATHS:
+            tables, device = SLICE8_PATHS[q]
+            same = _same_columns if device else _same
+            if q == "q1_sample":
+                n = len(data["lineitem"]["l_orderkey"])
+                want = tpch.q1_sample_numpy(
+                    data["lineitem"], tpch.sample_keep(n, args.batch_rows))
+            elif q == "x1":
+                want = tpch.x1_numpy(data["orders"], data["lineitem"])
+            elif q == "x1o":
+                want = tpch.x1o_numpy(slice8_tables(q, False)[0],
+                                      lists["x1o"])
+            else:
+                explicit = q.split("_")[0]
+                want = getattr(tpch, f"{explicit}_numpy")(
+                    *(data[t] for t in tables))
+        elif q in DECIMAL_PATHS:
             tables, device = DECIMAL_PATHS[q]
             want = getattr(tpch, f"{q}_numpy")(*(data[t] for t in tables))
             if q == "q6_dec":
