@@ -22,7 +22,11 @@ existence join; the decimal and FIRST/LAST paths; and the eighth slice's:
 Q1 over a seeded 1% lineitem sample (``csrc/sample.cu``), X1 and X1o
 (explodes of an orders table whose lists hold each order's lineitem
 quantities, ``csrc/explode.cu``) and the subquery forms of Q18 (IN), Q16
-(NOT IN) and Q22 (a scalar subquery).  It checks the results against numpy oracles and shows
+(NOT IN) and Q22 (a scalar subquery); and the ninth slice's: the
+reference suite's 22 queries over SF10 parquet that the port's
+``tpch.gen_db`` writes into ``build/tpch_parquet/``, read through
+``Session.read_parquet`` with the file cache on, as ``bench.py`` reads
+them, with the runtime join filters of ``csrc/key_stats.cu``.  It checks the results against numpy oracles and shows
 that each query went through its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -33,6 +37,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -143,6 +148,24 @@ SLICE8_FETCH_CEILINGS = {
     "q1_sample": (2, _REF), "x1": (6, _REF), "x1o": (5, _REF),
     "q18_in": (37, _REF), "q16_notin": (12, _REF),
     "q22_scalar": (6, _REF)}
+
+
+# slice 9: the reference suite's 22 queries over SF10 parquet files that
+# the port's gen_db writes (uncompressed: the reader's snappy decoder is
+# plain Python), read as bench.py reads them: fileCache.enabled, the
+# cross-query cache off; a query whose scans get runtime join filters
+# must launch key_stats
+PARQUET_DIR = "build/tpch_parquet"
+PARQUET_SETTINGS = {"spark.rapids.tpu.sql.fileCache.enabled": True}
+# blocking fetch ceilings of the parquet forms: the reference's count for
+# the same plan over parquet (tools/fetch_budget.py --parquet at SF1 with
+# 400,000-row batches, which give lineitem the 15 batches it has at SF10)
+SLICE9_FETCH_CEILINGS = {f"pq_{q}": (n, _REF) for q, n in (
+    ("q1", 2), ("q2", 12), ("q3", 40), ("q4", 8), ("q5", 6), ("q6", 1),
+    ("q7", 54), ("q8", 26), ("q9", 37), ("q10", 44), ("q11", 10),
+    ("q12", 203), ("q13", 9), ("q14", 18), ("q15", 9), ("q16", 9),
+    ("q17", 44), ("q18", 36), ("q19", 2), ("q20", 42), ("q21", 73),
+    ("q22", 6))}
 
 
 class SmokeFailure(Exception):
@@ -1059,7 +1082,7 @@ def to_device(df):
 
 
 def run_query(torch, sess, df_fn, checker, want, name, counters,
-              result=collect, require=None):
+              result=collect, require=None, on_run=None):
     """One cold and three warm runs; returns the per-run measurements and
     the kernel launches each run made.  Syncs and upload bytes count every
     query the path runs (Q11 runs two: its total, then the rest); upload
@@ -1068,7 +1091,8 @@ def run_query(torch, sess, df_fn, checker, want, name, counters,
     the host, or ``to_device_arrays``, whose tensors the checker reads
     after the timed span).  With ``require``, ``counters`` holds every
     kernel: the cold run must launch each required one, and every later
-    run each kernel the cold run launched."""
+    run each kernel the cold run launched.  ``on_run(i)`` is called after
+    run ``i``."""
     from spark_rapids_tpu_torch.utils.metrics import QueryStats
     runs = []
     watched = list(counters)
@@ -1106,6 +1130,8 @@ def run_query(torch, sess, df_fn, checker, want, name, counters,
                      "kernel_launches": launches, "max_rel_err": err,
                      "output_rows": out_rows})
         print(f"query {name} {runs[-1]['run']}: " + json.dumps(runs[-1]))
+        if on_run is not None:
+            on_run(i)
     return runs
 
 
@@ -3497,6 +3523,114 @@ def time_slice8_kernels(torch, sample_ops, generate, batch_utils, device,
     return out
 
 
+def check_key_stats(torch, rf, device) -> None:
+    """key_stats (row 15) against its plain version on the card: an empty
+    build, all keys null, one key, exactly maxInKeys and maxInKeys + 1
+    distinct keys (the IN list's edge), negative keys, the int64 extremes
+    (INT64_MAX as a valid key too), int32 and date keys, a live mask, and
+    a 15,000,000-row build.  The stats and the distinct prefix must be
+    equal."""
+    vcap = rf.in_list_capacity(10_000)
+    rng = np.random.default_rng(15)
+    i64 = np.iinfo(np.int64)
+    cases = [
+        ("empty", np.zeros(0, np.int64), None, None),
+        ("all null", rng.integers(0, 99, 1000), np.zeros(1000, bool), None),
+        ("one key", np.array([42], np.int64), None, None),
+        ("maxInKeys distinct", rng.permutation(np.repeat(
+            np.arange(10_000, dtype=np.int64) * 7 - 30_000, 3)), None, None),
+        ("maxInKeys + 1 distinct", rng.permutation(
+            np.arange(10_001, dtype=np.int64)), None, None),
+        ("negative", -rng.integers(1, 1 << 40, 50_000), None, None),
+        ("int64 extremes", np.array([i64.max, i64.min, 0, i64.max, -1,
+                                     i64.min + 1, i64.max - 1], np.int64),
+         None, None),
+        ("int32", rng.integers(-(1 << 31), (1 << 31) - 1, 200_000,
+                               dtype=np.int32), rng.random(200_000) < .9,
+         None),
+        ("date", (rng.integers(8000, 10500, 300_000)).astype(np.int32),
+         None, rng.random(300_000) < .3),
+        ("15 M rows", rng.permutation(np.arange(1, 15_000_001,
+                                                dtype=np.int64)),
+         rng.random(15_000_000) < .999, rng.random(15_000_000) < .0005)]
+    for name, key, valid, active in cases:
+        k = torch.from_numpy(np.ascontiguousarray(key)).to(device)
+        v = None if valid is None else torch.from_numpy(valid).to(device)
+        a = None if active is None else torch.from_numpy(active).to(device)
+        got = rf.key_stats_kernel(k, v, a, vcap)
+        want = rf.key_stats_plain(k, v, a, vcap)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"key_stats differs from plain on "
+              f"{name}: {got[:rf.HEADER].tolist()} vs "
+              f"{want[:rf.HEADER].tolist()}")
+    print(f"key_stats: equal to plain on {len(cases)} cases (empty, all "
+          f"null, one key, 10,000 and 10,001 distinct, negative, int64 "
+          f"extremes, int32, date, 15,000,000 rows)")
+
+
+def time_slice9_kernels(torch, rf, device, per_wrapper) -> list:
+    """key_stats at Q18's largest runtime-filter build at SF10: the
+    15,000,000 orders (o_orderkey) under the selection of the orders whose
+    quantity passes 300 (about 0.05% live), vcap 16,384 (maxInKeys
+    10,000).  Library yardstick: the live keys' ``torch.aminmax`` and
+    ``torch.unique(sorted=True)``."""
+    n = 15_000_000
+    vcap = rf.in_list_capacity(10_000)
+    rng = np.random.default_rng(18)
+    t = _to_device(torch, device)
+    inputs = copies_for_l2([t(np.arange(1, n + 1, dtype=np.int64)),
+                            t(rng.random(n) < 0.0005)])
+    k0, a0 = inputs[0]
+    got = rf.key_stats_kernel(k0, None, a0, vcap)
+    want = rf.key_stats_plain(k0, None, a0, vcap)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "key_stats differs at Q18's shape")
+    live = int(got[2])
+    ms = time_ms(torch, [lambda x=x: rf.key_stats_kernel(x[0], None, x[1],
+                                                         vcap)
+                         for x in inputs], reps=4 * len(inputs))
+    # the plain version reads its boolean-indexed sizes on the host
+    plain_ms = time_ms_synced(torch, [lambda: rf.key_stats_plain(
+        k0, None, a0, vcap)], reps=4)
+
+    def library():
+        sel = k0[a0]
+        return torch.aminmax(sel), torch.unique(sel, sorted=True)
+    lib_ms = time_ms_synced(torch, [library], reps=4)
+    # the key (8 B) and the live mask (1 B) read once, the stats and the
+    # distinct prefix written once
+    nbytes = n * 9 + (rf.HEADER + vcap) * 8
+    out = [{"name": "key_stats", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/key_stats.cu",
+            "replaces": "spark_rapids_tpu/plan/join_exec.py:161",
+            "launches": per_wrapper.get("key_stats_kernel", 0),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib_ms}]
+    print(f"kernel key_stats: {ms:.4f} ms at {n} rows, {live} live "
+          f"(bound {out[0]['bound_ms']:.4f} ms for {nbytes} B; plain "
+          f"{plain_ms:.4f} ms, aminmax + unique of the live keys "
+          f"{lib_ms:.4f} ms), exact vs plain, {out[0]['launches']} launches "
+          f"on the main path")
+    return out
+
+
+def scan_report(sess) -> dict:
+    """Scan rows, row groups read and total, and runtime predicates of the
+    last collect's file scans."""
+    ctx = sess.last_exec_context()
+    out = {"scan_rows": 0, "row_groups_read": 0, "row_groups_total": 0,
+           "runtime_predicates": 0}
+    for op, m in ctx.metrics.items():
+        if op.startswith("ScanExec"):
+            out["scan_rows"] += int(m.values.get("numOutputRows", 0))
+            out["row_groups_read"] += int(m.values.get("rowGroupsRead", 0))
+            out["row_groups_total"] += int(m.values.get("rowGroupsTotal", 0))
+            out["runtime_predicates"] += int(
+                m.values.get("runtimePredicates", 0))
+    return out
+
+
 def check_f1(out, want) -> float:
     """F1's device columns, sorted by o_custkey (the hash aggregate's
     output order is not specified), against the oracle exactly."""
@@ -3525,6 +3659,7 @@ def main() -> int:
                                                 join, window)
         from spark_rapids_tpu_torch.ops import wide_decimal as wd
         from spark_rapids_tpu_torch.ops import generate
+        from spark_rapids_tpu_torch.ops import runtime_filter as rf
         from spark_rapids_tpu_torch.ops import sample as sample_ops
         from spark_rapids_tpu_torch.ops import sort as sort_ops
         from spark_rapids_tpu_torch.ops import topk as topk_mod
@@ -3577,6 +3712,7 @@ def main() -> int:
         check_float_sums_deterministic(torch, groupby, device)
         check_sample(torch, sample_ops, device)
         check_explode(torch, generate, device)
+        check_key_stats(torch, rf, device)
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -3682,6 +3818,17 @@ def main() -> int:
             t1 = time.perf_counter()
             db_want[q] = fn()
             took[q] = time.perf_counter() - t1
+        # slice 9: the same tables as the files gen_db writes (orders with
+        # its constant o_shippriority, which the in-memory paths leave out)
+        full = dict(db, orders=dict(db["orders"], o_shippriority=np.zeros(
+            DB_ORDERS, dtype=np.int64)))
+        pq_want = {}
+        for q in tpch.SUITE_QUERIES:
+            t1 = time.perf_counter()
+            pq_want[q] = db_want[q] if q in db_want else (
+                tpch.q6_numpy(full["lineitem"]) if q == "q6"
+                else tpch.query_oracle(q, full))
+            took[f"pq_{q}"] = time.perf_counter() - t1
         print("oracle rows: " + ", ".join(
             f"{q} {len(db_want[q])}" for q in REST_QUERIES))
         print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
@@ -3741,7 +3888,8 @@ def main() -> int:
                                                      "ordered_launches")],
             "window_first_last": [window.frame_first_last_kernel],
             "sample": [sample_ops.sample_mask_kernel],
-            "explode": [generate.explode_kernel]}
+            "explode": [generate.explode_kernel],
+            "key_stats": [rf.key_stats_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -3919,6 +4067,49 @@ def main() -> int:
             paths.append((name, df_fn, checker, db_want[name], ()))
             if result is to_device:
                 device_paths.add(name)
+        # slice 9: the 22 queries over SF10 parquet written by the port's
+        # gen_db, every kernel counted from 0 before each
+        t1 = time.perf_counter()
+        ppaths = tpch.gen_db(SF, PARQUET_DIR, data=full)
+        mib = sum(os.path.getsize(p) for p in ppaths.values()) / 2**20
+        print(f"gen_db SF{SF:g}: {mib:.0f} MiB of uncompressed parquet "
+              f"written by the port in {time.perf_counter() - t1:.1f} s")
+        psess = Session(PARQUET_SETTINGS, device="cuda")
+        pdf = {t: psess.read_parquet(p) for t, p in ppaths.items()}
+        special = {"q1": check_q1, "q3": check_q3, "q6": check_q6}
+        filtered = []
+        for q, tabs in tpch.SUITE_QUERIES.items():
+            name = f"pq_{q}"
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            df_fn = (lambda tabs=tabs, q=q: getattr(tpch, q)(
+                *(pdf[t] for t in tabs)))
+            checker = special.get(q, check_rows(f"{q.upper()}-parquet"))
+            reports = []
+            runs_of[name] = run_query(
+                torch, psess, df_fn, checker, pq_want[q], name, counters,
+                collect, require=(),
+                on_run=lambda i: reports.append(scan_report(psess)))
+            scans = reports[0]
+            print(f"query {name} cold scans (last collect): "
+                  + json.dumps(scans))
+            launched = runs_of[name][0]["kernel_launches"].get("key_stats", 0)
+            check(launched or not scans["runtime_predicates"],
+                  f"{name} pushed runtime filters without key_stats")
+            if launched:
+                filtered.append(q)
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            # profiled now, while the file cache still holds its scans
+            profile_query(torch, df_fn, name)
+        check(filtered, "no parquet query launched key_stats")
+        print(f"runtime join filters (key_stats launched): {filtered}")
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -3934,7 +4125,8 @@ def main() -> int:
         for name, (ceiling, why) in list(SLICE5_FETCH_CEILINGS.items()) \
                 + list(REST_FETCH_CEILINGS.items()) \
                 + list(SLICE7_FETCH_CEILINGS.items()) \
-                + list(SLICE8_FETCH_CEILINGS.items()):
+                + list(SLICE8_FETCH_CEILINGS.items()) \
+                + list(SLICE9_FETCH_CEILINGS.items()):
             fetches = max(r["syncs"] for r in runs_of[name])
             check(fetches <= ceiling, f"{name} made {fetches} blocking "
                   f"fetches, more than {ceiling} ({why})")
@@ -3952,6 +4144,7 @@ def main() -> int:
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
         del df, cdf, odf, dbf, sbf, q11f, ddf, dec, x1f, x1of, sess, shuf
+        del pdf, psess
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -3968,6 +4161,7 @@ def main() -> int:
         table += time_slice8_kernels(
             torch, sample_ops, generate, batch_utils, device, per_wrapper,
             db, numpy_column(x1_lists)[1], numpy_column(x1o_lists)[1])
+        table += time_slice9_kernels(torch, rf, device, per_wrapper)
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

@@ -177,6 +177,66 @@ JOIN_SUBPARTITIONS = register(
     check=_positive)
 
 
+DPP_ENABLED = register(
+    "spark.rapids.tpu.sql.dpp.enabled", True,
+    "Runtime join filters: once a broadcast join's build side (or a "
+    "sort-merge join's left side, when it joins its sides whole) is "
+    "materialized, push its key range, or the exact key list when the "
+    "distinct count is small, into the other side's file scan as runtime "
+    "predicates for row-group pruning and the exact host filter.")
+
+DPP_MAX_IN_KEYS = register(
+    "spark.rapids.tpu.sql.dpp.maxInKeys", 10_000,
+    "Largest distinct build-key count pushed as an exact IN-list runtime "
+    "predicate; above it only the [min, max] range is pushed.",
+    check=_positive)
+
+READER_THREADS = register(
+    "spark.rapids.tpu.sql.multiThreadedRead.numThreads", 8,
+    "A value above 0 decodes file batches on a prefetch thread while the "
+    "device computes; 0 decodes them on the calling thread.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+SCAN_EXACT_FILTER = register(
+    "spark.rapids.tpu.sql.scan.exactFilterPushdown", True,
+    "Apply the pushed filter conjuncts exactly on the host during a file "
+    "scan, so filtered-out rows are never uploaded (the device filter "
+    "still evaluates the whole condition).")
+
+FILE_CACHE_ENABLED = register(
+    "spark.rapids.tpu.sql.fileCache.enabled", False,
+    "Keep the decoded host tables of scanned files (keyed by path, mtime, "
+    "size, columns, row groups and pushed predicates) so repeated scans "
+    "skip the parquet decode.")
+
+FILE_CACHE_MAX_BYTES = register(
+    "spark.rapids.tpu.sql.fileCache.maxBytes", 4 << 30,
+    "Byte budget of the decoded-file cache; least recently used files are "
+    "evicted beyond it.", check=_positive)
+
+FILE_CACHE_DEVICE_TIER = register(
+    "spark.rapids.tpu.sql.fileCache.deviceTier", True,
+    "With the file cache enabled, also keep the uploaded device batches of "
+    "repeated identical scans resident (LRU under "
+    "fileCache.device.maxBytes), so they skip the upload too.")
+
+FILE_CACHE_DEVICE_MAX_BYTES = register(
+    "spark.rapids.tpu.sql.fileCache.device.maxBytes", 2 << 30,
+    "Device byte budget of the file cache's device tier.", check=_positive)
+
+READER_BATCH_BYTES = register(
+    "spark.rapids.tpu.sql.reader.batchSizeBytes", 512 << 20,
+    "Soft cap on the bytes of file data decoded into one scan batch, "
+    "applied as a row cap from the schema's estimated row width.")
+
+CACHE_ENABLED = register(
+    "spark.rapids.tpu.sql.cache.enabled", False,
+    "The reference's cross-query device cache (spark_rapids_tpu/cache/). "
+    "Not ported: true raises (ROADMAP.md item 3).",
+    check=lambda v: ("the cross-query device cache is not ported yet "
+                     "(ROADMAP.md item 3)") if v else None)
+
+
 class TpuConf:
     """An immutable snapshot of settings; unset keys resolve to defaults."""
 

@@ -32,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
            "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
            "window_scan", "window_frame", "cond_join", "wide_decimal",
-           "sample", "explode")
+           "sample", "explode", "key_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -207,6 +207,12 @@ _SIGNATURES = {
         # stream
         "explode": [_L, _P, _P, _L, _L, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                     _P, _P, _P],
+    },
+    "key_stats": {
+        # key, elem, valid, active, n, word, ok, out, vcap, stream
+        "ks_prepare": [_P, _I, _P, _P, _L, _P, _P, _P, _L, _P],
+        # word, perm, n, out, vcap, tiles, stream
+        "ks_distinct": [_P, _P, _L, _P, _L, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -56,7 +57,8 @@ __all__ = ["LINEITEM_ROWS_PER_SF", "SEGMENTS", "PRIORITIES", "SHIPMODES",
            "Q1_SAMPLE_FRACTION", "Q1_SAMPLE_SEED", "q1_sample",
            "sample_keep", "q1_sample_numpy", "X1_YEAR", "order_quantities",
            "x1", "x1_numpy", "x1o", "x1o_numpy", "q18_in", "q16_notin",
-           "q22_scalar"]
+           "q22_scalar", "SUITE_QUERIES", "run_query", "query_oracle",
+           "gen_db", "load_db"]
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
@@ -921,6 +923,69 @@ QUERY_TABLES = {
     "q21_exists": ("lineitem", "orders", "supplier"),
 }
 D = datetime.date
+
+# The reference suite's 22 queries as bench.py runs them (tpch_suite.py
+# QUERIES and TABLES :915-944): each query's tables in the argument order
+# of its body here (and of its numpy oracle, ``<name>_numpy``)
+SUITE_QUERIES = {
+    "q1": ("lineitem",), "q2": QUERY_TABLES["q2"],
+    "q3": ("customer", "orders", "lineitem"), "q4": ("orders", "lineitem"),
+    "q5": QUERY_TABLES["q5"], "q6": ("lineitem",), "q7": QUERY_TABLES["q7"],
+    "q8": QUERY_TABLES["q8"], "q9": QUERY_TABLES["q9"],
+    "q10": ("customer", "orders", "lineitem"),
+    "q11": ("partsupp", "supplier", "nation"), "q12": QUERY_TABLES["q12"],
+    "q13": ("customer", "orders"), "q14": QUERY_TABLES["q14"],
+    "q15": QUERY_TABLES["q15"], "q16": QUERY_TABLES["q16"],
+    "q17": QUERY_TABLES["q17"], "q18": ("orders", "lineitem", "customer"),
+    "q19": QUERY_TABLES["q19"], "q20": QUERY_TABLES["q20"],
+    "q21": ("lineitem", "orders", "supplier"), "q22": QUERY_TABLES["q22"],
+}
+
+
+def run_query(name: str, dfs) -> list:
+    """Query ``name`` of :data:`SUITE_QUERIES` over ``dfs`` ({table:
+    DataFrame}), collected: the suite's ``run_<name>(dfs)``."""
+    return globals()[name](*(dfs[t] for t in SUITE_QUERIES[name])).collect()
+
+
+def query_oracle(name: str, tables) -> list:
+    """The numpy oracle of query ``name`` over ``tables`` ({table: dict of
+    numpy arrays}), as rows (Q6's single value as one row)."""
+    out = globals()[f"{name}_numpy"](*(tables[t]
+                                       for t in SUITE_QUERIES[name]))
+    return out if isinstance(out, list) else [(out,)]
+
+
+def gen_db(sf: float, out_dir: str, chunk: int = 1_000_000,
+           data: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+           codec: str = "UNCOMPRESSED") -> Dict[str, str]:
+    """The reference suite's ``gen_db`` (tpch_suite.py:45) with the port's
+    parquet writer: the eight tables of :func:`gen_db_arrays` (or of
+    ``data``, the same dicts already drawn) written to
+    ``<out_dir>/tpch_sf<sf>/<table>.parquet``, with pyarrow's row groups
+    (one per ``chunk`` rows of orders and lineitem, which the reference
+    writes chunk by chunk; 1,048,576-row groups of the other tables).
+    Returns {table: path}; tables already written are kept."""
+    from ..io.writers import ROW_GROUP_ROWS, write_table
+    root = os.path.join(out_dir, f"tpch_sf{sf}")
+    paths = {t: os.path.join(root, f"{t}.parquet") for t in DB_TABLES}
+    os.makedirs(root, exist_ok=True)
+    for t, path in paths.items():
+        if os.path.exists(path):
+            continue
+        cols = data[t] if data is not None \
+            else gen_db_arrays(sf, tables=(t,), chunk=chunk)[t]
+        tmp = path + ".tmp"
+        write_table(cols, tmp, codec, chunk if t in ("orders", "lineitem")
+                    else ROW_GROUP_ROWS)
+        os.replace(tmp, path)
+    return paths
+
+
+def load_db(sess, sf: float, out_dir: str):
+    """{table: ``sess.read_parquet``} over :func:`gen_db`'s files
+    (tpch_suite.py:181)."""
+    return {t: sess.read_parquet(p) for t, p in gen_db(sf, out_dir).items()}
 
 
 def _F():

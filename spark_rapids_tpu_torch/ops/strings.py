@@ -96,14 +96,20 @@ class StringDictionary:
             return len(self._pending)
         return len(self._values)
 
-    def encode(self, data: np.ndarray, valid: Optional[np.ndarray] = None
+    def encode(self, data: np.ndarray, valid: Optional[np.ndarray] = None,
+               distinct: Optional[tuple] = None
                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Host strings → (int32 codes, validity-or-None); null slots get
         code 0.  ``np.unique`` finds the batch's distinct values in C, so
-        only those pass through the Python map."""
+        only those pass through the Python map; ``distinct`` gives them
+        (the distinct live values and each live row's index) when the
+        caller has them already, as a file scan does from its dictionary
+        pages."""
         self._materialize()
-        live = data if valid is None else data[valid]
-        local, inverse = distinct_strings(live)
+        if distinct is None:
+            live = data if valid is None else data[valid]
+            distinct = distinct_strings(live)
+        local, inverse = distinct
         remap = np.empty(max(len(local), 1), dtype=np.int32)
         for i, v in enumerate(local.tolist()):
             code = self._code_of.get(v)
@@ -160,7 +166,8 @@ def encode_column(col, d: Optional[StringDictionary], device: torch.device):
             and (d is None or cached[0] is d):
         return cached
     d = d if d is not None else StringDictionary()
-    codes, valid = d.encode(col.data, col.valid)
+    codes, valid = d.encode(col.data, col.valid,
+                            col.__dict__.get("_distinct"))
     col._enc_cache = (d, upload(torch.from_numpy(codes), device),
                       None if valid is None
                       else upload(torch.from_numpy(valid), device))

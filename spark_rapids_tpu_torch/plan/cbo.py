@@ -22,7 +22,10 @@ __all__ = ["estimate_rows", "estimated_row_bytes", "estimated_bytes"]
 def estimate_rows(node: L.LogicalPlan) -> Optional[float]:
     """Bottom-up row estimate; None = unknown."""
     if isinstance(node, L.LogicalScan):
-        n = getattr(node.source, "num_rows", None)
+        # a file source counts its footers' rows (reference :23-41)
+        est = getattr(node.source, "estimated_rows", None)
+        n = est() if est is not None else getattr(node.source, "num_rows",
+                                                   None)
         return None if n is None else float(n)
     if isinstance(node, L.Filter):
         c = estimate_rows(node.children[0])
@@ -51,8 +54,9 @@ def estimated_row_bytes(schema) -> int:
 
 
 def estimated_bytes(node: L.LogicalPlan) -> Optional[float]:
-    """Rows times the planning row width; a scan is as wide as its table
-    before column pruning, as the reference's unnarrowed scans are."""
+    """Rows times the planning row width; an in-memory scan is as wide as
+    its table before column pruning, as the reference's unnarrowed scans
+    are (a file scan is narrowed in both packages)."""
     rows = estimate_rows(node)
     if rows is None:
         return None

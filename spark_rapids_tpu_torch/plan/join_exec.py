@@ -55,30 +55,47 @@ Joins that match on more than key equality (``csrc/cond_join.cu``):
 * a cross join pairs every left row with every right row (``_cross``
   :827), broadcast or its sides whole.
 
-The reference's runtime scan pruning
-(``_inject_dpp`` :1522, ``_inject_smj_filter`` :161) prunes parquet row
-groups and changes no result; the port reads in-memory columns, so it is
-not ported (ROADMAP.md item 9).
+Runtime join filters (row 15, ``csrc/key_stats.cu`` through
+``ops/runtime_filter.py``): when ``dpp.enabled`` is set and a join's other
+side passes its key unchanged from a file scan (``_scan_origin`` :1726),
+the build keys' min, max, counts and sorted distinct prefix become
+predicates on that scan (``_runtime_key_preds`` :1700: an empty IN list
+for an empty build, the exact IN list up to ``dpp.maxInKeys`` distinct
+keys, else the key range), which prune its row groups and filter its rows
+on the host before the upload; the join still matches every row, so no
+result changes:
+
+* a broadcast inner or semi join on the dense path (``_inject_dpp``
+  :1522) computes them in place of the dense stats, and they ride its
+  probe chain's one stats fetch; the scan resolves them at its first read;
+* a sort-merge join that joins its sides whole (``_inject_smj_filter``
+  :161: inner, left, semi, anti and existence) computes them over its
+  materialized left side and reads them in one fetch before it reads its
+  right side.
+
+Neither runs for an in-memory scan, so those paths keep their launches.
 """
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, Iterator, List, Optional
 
 import torch
 
 from .. import types as T
 from ..batch import ColumnBatch, DeviceColumn, DictStringColumn, Schema
-from ..exprs import EvalContext, bind
+from ..exprs import BoundReference, EvalContext, bind
 from ..batch import live_mask
-from ..ops import batch_utils, hashing, join
+from ..ops import batch_utils, hashing, join, runtime_filter
 from ..ops.strings import StringDictionary, encode_column
 from ..utils.metrics import fetch
 from . import logical as L
+from .planner import strip_alias
 from .cbo import estimate_rows, estimated_bytes
 from .exchange_exec import (ShuffleExchangeExec, _encoded, empty_batch,
                             key_values, split_by_pid)
-from .physical import ExecContext, StageExec, TpuExec
+from .physical import ExecContext, ScanExec, StageExec, TpuExec
 
 __all__ = ["BroadcastExchangeExec", "BroadcastJoinExec", "SortMergeJoinExec",
            "bound_join_keys", "plan_broadcast_join"]
@@ -204,6 +221,87 @@ def _column(dtype: T.DataType, data, valid, dictionary):
     if dictionary is not None:
         return DictStringColumn(data, valid, dictionary)
     return DeviceColumn(dtype, data, valid)
+
+
+def _runtime_key_preds(scol: str, ct: T.DataType, kmin: int, kmax: int,
+                       n_valid: int, n_distinct: int, conf,
+                       values_fn) -> list:
+    """The predicates a runtime join filter pushes (reference :1700): an
+    empty IN list for an empty build, the exact IN list up to
+    ``dpp.maxInKeys`` distinct keys, else the key range.  ``values_fn()``
+    gives the distinct key images (None: too many)."""
+    is_date = ct.kind == T.TypeKind.DATE
+
+    def conv(v):
+        if is_date:
+            return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
+        return int(v)
+
+    if n_valid == 0:
+        return [(scol, "in", [])]
+    preds = [(scol, ">=", conv(kmin)), (scol, "<=", conv(kmax))]
+    max_in = conf["spark.rapids.tpu.sql.dpp.maxInKeys"]
+    if 0 < n_distinct <= max_in and values_fn is not None:
+        vals = values_fn()
+        if vals is not None and len(vals) <= max_in:
+            preds = [(scol, "in", [conv(v) for v in vals])]
+    return preds
+
+
+def _scan_origin(node: TpuExec, out_name: str):
+    """(file ScanExec, its column) that output column ``out_name`` of
+    ``node`` passes through from unchanged, through stages' projections
+    (reference :1726); None when a step computes it or the scan is not a
+    file scan."""
+    name = out_name
+    while True:
+        if isinstance(node, StageExec):
+            cur = list(node.children[0].output_schema.names())
+            maps = []  # per projection: output name -> input name
+            for kind, payload in node.steps:
+                if kind != "project":
+                    continue
+                mp = {}
+                for pname, expr, _ in payload:
+                    if expr is None:
+                        continue  # host pass-through: strings, not keys
+                    core = strip_alias(expr)
+                    if isinstance(core, BoundReference) \
+                            and core.ordinal < len(cur):
+                        mp[pname] = cur[core.ordinal]
+                maps.append(mp)
+                cur = [pname for pname, _, _ in payload]
+            for mp in reversed(maps):
+                name = mp.get(name)
+                if name is None:
+                    return None
+            node = node.children[0]
+            continue
+        if isinstance(node, ScanExec) and hasattr(node.source,
+                                                  "with_pushdown"):
+            return (node, name) if name in node.output_schema.names() \
+                else None
+        return None
+
+
+def _integral_key(ct: T.DataType) -> bool:
+    """Keys a runtime filter takes: integers and dates (reference: numpy
+    kind ``iu``)."""
+    if ct.is_host_carried or ct.is_wide_decimal:
+        return False
+    return ct.numpy_dtype.kind in "iu"
+
+
+def _filter_target(plan_side: TpuExec, key, conf):
+    """(scan, scan column) a runtime filter on bound key ``key`` of the
+    side ``plan_side`` pushes into, or None."""
+    if not conf["spark.rapids.tpu.sql.dpp.enabled"]:
+        return None
+    core = strip_alias(key)
+    if not isinstance(core, BoundReference):
+        return None
+    return _scan_origin(plan_side,
+                        plan_side.output_schema.names()[core.ordinal])
 
 
 class _EquiJoin(TpuExec):
@@ -543,13 +641,58 @@ class BroadcastJoinExec(_EquiJoin):
             prep = (build, None, None, None)
             if self._dense_static_ok(ctx.conf):
                 cap = ctx.conf["spark.rapids.tpu.join.denseDomainCap"]
+                target = self._dpp_target(ctx.conf)
                 with m.time("buildTime"):
                     bkey, bvalid = self._dense_key(self.build_side, build,
                                                    ctx.device)
-                    prep = (build, bkey, bvalid, join.join_key_stats(
-                        bkey, bvalid, build.sel, cap))
+                    if target is None:
+                        stats = join.join_key_stats(bkey, bvalid, build.sel,
+                                                    cap)
+                    else:
+                        # the exact sort-based stats serve the dense
+                        # decision too, and the IN list rides the same fetch
+                        stats = runtime_filter.key_stats(
+                            bkey, bvalid, build.sel,
+                            runtime_filter.in_list_capacity(ctx.conf[
+                                "spark.rapids.tpu.sql.dpp.maxInKeys"]))
+                prep = (build, bkey, bvalid, stats)
+                if target is not None:
+                    self._inject_dpp(ctx, *target)
             self._prepared[id(ctx)] = prep
         return prep
+
+    def _dpp_target(self, conf):
+        """(scan, column) of the probe side that dynamic partition pruning
+        filters (reference ``_inject_dpp`` :1522: inner and semi joins on
+        an integer or date key the probe side passes from a file scan), or
+        None."""
+        if self.how not in ("inner", "semi") \
+                or not _integral_key(self.common[0]):
+            return None
+        probe_side = 1 - self.build_side
+        return _filter_target(self.children[probe_side],
+                              self.key_exprs[probe_side][0], conf)
+
+    def _inject_dpp(self, ctx: ExecContext, scan: ScanExec,
+                    scol: str) -> None:
+        """Install the runtime predicates on the probe scan as a thunk the
+        scan resolves at its first read, when this join's stats have been
+        fetched with its probe chain's."""
+        conf = ctx.conf
+        max_in = conf["spark.rapids.tpu.sql.dpp.maxInKeys"]
+        ct = self.common[0]
+
+        def preds_fn():
+            host = self._fetched(ctx)
+            kmin, kmax, n_valid, dup = (int(x) for x in host[:4])
+
+            def values_fn():
+                vals = host[runtime_filter.HEADER:]
+                vals = vals[vals != runtime_filter.BIG]
+                return vals.tolist() if len(vals) <= max_in else None
+            return _runtime_key_preds(scol, ct, kmin, kmax, n_valid,
+                                      n_valid - dup, conf, values_fn)
+        scan.runtime_predicates = preds_fn
 
     def _probe_chain(self) -> List["BroadcastJoinExec"]:
         """This join and the broadcast joins below it on the probe side,
@@ -568,11 +711,10 @@ class BroadcastJoinExec(_EquiJoin):
             else:
                 return chain
 
-    def _stats(self, ctx: ExecContext):
-        """This join's host build stats [min, max, count, duplicates],
-        fetched together with those of every not yet fetched dense join
-        of its probe chain."""
-        host = self._host_stats.pop(id(ctx), None)
+    def _fetched(self, ctx: ExecContext):
+        """This join's host stats vector, fetched together with those of
+        every not yet fetched dense join of its probe chain."""
+        host = self._host_stats.get(id(ctx))
         if host is None:
             chain = [j for j in self._probe_chain()
                      if id(ctx) not in j._host_stats]
@@ -581,8 +723,12 @@ class BroadcastJoinExec(_EquiJoin):
                      if p[3] is not None]
             for (j, _), h in zip(dense, fetch([t for _, t in dense])):
                 j._host_stats[id(ctx)] = h
-            host = self._host_stats.pop(id(ctx))
-        return [int(x) for x in host]
+            host = self._host_stats[id(ctx)]
+        return host
+
+    def _stats(self, ctx: ExecContext):
+        """This join's build stats [min, max, count, duplicates]."""
+        return [int(x) for x in self._fetched(ctx)[:4]]
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
         m = ctx.metric_set(self.op_id)
@@ -749,11 +895,46 @@ class SortMergeJoinExec(_EquiJoin):
                 lgen.close()
                 rgen.close()
             return
-        left, right = _whole(lchild, ctx), _whole(rchild, ctx)
+        left = _whole(lchild, ctx)
+        if self.how in ("inner", "left", "semi", "anti", "existence"):
+            # right rows no left key matches never come out: the left
+            # keys may filter the right side's scan before it is read
+            self._inject_smj_filter(ctx, left)
+        right = _whole(rchild, ctx)
         if left.num_rows or right.num_rows:
             out = self._join_pair(ctx, m, left, right)
             if out is not None:
                 yield out
+
+    def _inject_smj_filter(self, ctx: ExecContext, left: ColumnBatch
+                           ) -> None:
+        """The left side's key stats as runtime predicates on the right
+        side's file scan (reference :161, an exact range or IN list in
+        place of Spark's bloom filter): one fetch reads the stats and the
+        distinct prefix together."""
+        if len(self.common) != 1 or not _integral_key(self.common[0]):
+            return
+        target = _filter_target(self.children[1], self.key_exprs[1][0],
+                                ctx.conf)
+        if target is None:
+            return
+        scan, scol = target
+        d, v = self._keys(0, left, ctx.device)[0]
+        if d.dtype not in (torch.int32, torch.int64):
+            d = d.to(torch.int64)
+        host = fetch(runtime_filter.key_stats(
+            d.contiguous(), None if v is None else v.contiguous(), left.sel,
+            runtime_filter.in_list_capacity(
+                ctx.conf["spark.rapids.tpu.sql.dpp.maxInKeys"])))
+        kmin, kmax, n_valid, _, n_distinct = (
+            int(x) for x in host[:runtime_filter.HEADER])
+
+        def values_fn():
+            vals = host[runtime_filter.HEADER:]
+            return vals[vals != runtime_filter.BIG].tolist()
+        scan.runtime_predicates = _runtime_key_preds(
+            scol, self.common[0], kmin, kmax, n_valid, n_distinct, ctx.conf,
+            values_fn)
 
     def _try_runtime_broadcast(self, ctx: ExecContext, m):
         """Flip to a broadcast join when the smaller-estimated legal build

@@ -15,17 +15,24 @@ join conditions into projected booleans (the reference's
 ``prune_columns`` narrows every scan to the columns the plan above it
 references, so pruned columns are never uploaded, and puts a Project on a
 join input that carries columns the join does not need, as the reference
-does (``pushdown.py _prune_to``).  The scan keeps its description, so the
-explain string shows the same plan as the reference's.
+does (``pushdown.py _prune_to``).  An in-memory scan keeps its
+description, so the explain string shows the same plan as the reference's
+unnarrowed one; a file scan is rebuilt through ``with_pushdown`` with the
+columns and with the filter predicates that hold above it
+(``pushdown.extract_predicates``), and shows both, as the reference's
+``optimize_scans`` (``pushdown.py:75``) does in the same walk.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Set
+from typing import List, Optional, Sequence, Set
 
 from .. import exprs as E
 from . import logical as L
+from .pushdown import extract_predicates
+
+Predicate = tuple
 
 __all__ = ["push_filters", "prune_columns", "optimize"]
 
@@ -243,20 +250,32 @@ def _prune_to(node: L.LogicalPlan,
 
 
 def prune_columns(plan: L.LogicalPlan,
-                  required: Optional[Set[str]] = None) -> L.LogicalPlan:
+                  required: Optional[Set[str]] = None,
+                  preds: Sequence[Predicate] = ()) -> L.LogicalPlan:
     """``plan`` with every scan narrowed to ``required`` (None: all of the
-    node's output columns are needed)."""
+    node's output columns are needed), and every file scan given the
+    filter predicates ``preds`` that hold above it (``pushdown.py``; the
+    reference's ``optimize_scans`` walk, which stops predicates at
+    aggregates, limits, joins, windows and samples)."""
     if isinstance(plan, L.LogicalScan):
         names = plan.schema().names()
-        if required is None or not set(names) - required:
+        keep = None
+        if required is not None and set(names) - required:
+            keep = [n for n in names if n in required]
+            if not keep:
+                # count(*)-style plans reference no column; keep one (a
+                # device column where there is one) for row accounting
+                fields = plan.schema().fields
+                keep = [next((f.name for f in fields
+                              if not f.dtype.is_string), names[0])]
+        if hasattr(plan.source, "with_pushdown"):
+            scan_preds = [p for p in preds if p[0] in names]
+            if keep is None and not scan_preds:
+                return plan
+            src = plan.source.with_pushdown(keep, scan_preds)
+            return L.LogicalScan(src.schema(), src, src.describe(), plan.fmt)
+        if keep is None:
             return plan
-        keep = [n for n in names if n in required]
-        if not keep:
-            # count(*)-style plans reference no column; keep one (a device
-            # column where there is one) for row accounting
-            fields = plan.schema().fields
-            keep = [next((f.name for f in fields if not f.dtype.is_string),
-                         names[0])]
         src = plan.source.pruned(keep)
         return L.LogicalScan(src.schema(), src, plan.desc, plan.fmt)
     if isinstance(plan, L.Project):
@@ -264,12 +283,20 @@ def prune_columns(plan: L.LogicalPlan,
         if required is not None:
             kept = [(n, e) for n, e in plan.exprs if n in required] \
                 or plan.exprs[:1]
-        child = prune_columns(plan.children[0], _refs(e for _, e in kept))
+        # predicates pass through pure column pass-throughs
+        mapping = {n: e.name for n, e in kept
+                   if isinstance(e, E.UnresolvedColumn)}
+        child = prune_columns(plan.children[0], _refs(e for _, e in kept),
+                              [(mapping[c], op, v) for c, op, v in preds
+                               if c in mapping])
         return L.Project(child, kept)
     if isinstance(plan, L.Filter):
         need = None if required is None else (
             required | plan.condition.references())
-        return L.Filter(prune_columns(plan.children[0], need), plan.condition)
+        return L.Filter(prune_columns(
+            plan.children[0], need,
+            list(preds) + extract_predicates(plan.condition)),
+            plan.condition)
     if isinstance(plan, L.Aggregate):
         need = _refs(e for _, e in plan.group_exprs + plan.agg_exprs)
         return L.Aggregate(prune_columns(plan.children[0], need),
@@ -280,9 +307,11 @@ def prune_columns(plan: L.LogicalPlan,
     if isinstance(plan, L.Sort):
         need = None if required is None else (
             required | _refs(o.expr for o in plan.orders))
-        return L.Sort(prune_columns(plan.children[0], need), plan.orders,
-                      plan.global_sort)
+        return L.Sort(prune_columns(plan.children[0], need, preds),
+                      plan.orders, plan.global_sort)
     if isinstance(plan, L.Limit):
+        # predicates never cross a limit (they would change the rows it
+        # sees)
         return L.Limit(prune_columns(plan.children[0], required), plan.n)
     if isinstance(plan, L.Sample):
         # row positions do not depend on the columns: prune through it

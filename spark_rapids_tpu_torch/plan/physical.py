@@ -134,13 +134,9 @@ class MemorySource:
 
     def batches(self, device: torch.device) -> Iterator[ColumnBatch]:
         schema = self.schema()
-        stats = QueryStats.get()
         for bi, off in enumerate(range(0, self.num_rows, self.batch_rows)):
             m = min(self.batch_rows, self.num_rows - off)
-            timed = device.type == "cuda"
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
+            timer = _UploadTimer(device)
             cols, nbytes = [], 0
             for name, (dt, data, valid) in self.columns.items():
                 if dt.is_host_carried:
@@ -152,30 +148,141 @@ class MemorySource:
                     ("valid", name), valid, device)[off:off + m], device)
                 nbytes += d.nbytes + (0 if v is None else v.nbytes)
                 cols.append(DeviceColumn(dt, d, v))
-            if timed:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                stats.upload_events.append((start, end))
-            stats.uploads += 1
-            stats.upload_bytes += nbytes
+            timer.done(nbytes)
             yield ColumnBatch(schema, cols, m)
 
 
+class _UploadTimer:
+    """One uploaded batch in ``QueryStats``: counted, its bytes added, and
+    on CUDA timed by a pair of events around its copies."""
+
+    def __init__(self, device: torch.device):
+        self.start = None
+        if device.type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def done(self, nbytes: int) -> None:
+        stats = QueryStats.get()
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stats.upload_events.append((self.start, end))
+        stats.uploads += 1
+        stats.upload_bytes += nbytes
+
+
+def _pinned_upload(table, key, arr: np.ndarray,
+                   device: torch.device) -> torch.Tensor:
+    """A host table's column on ``device``; for CUDA the pinned copy is
+    made once and kept on the table (the file cache may serve it again)."""
+    if device.type != "cuda":
+        return torch.from_numpy(arr)
+    t = table.pinned.get(key)
+    if t is None:
+        t = table.pinned[key] = torch.from_numpy(arr).pin_memory()
+    return upload(t, device)
+
+
+def upload_table(table, schema: Schema, device: torch.device) -> ColumnBatch:
+    """One decoded file batch (``io/parquet.HostTable``) as a port batch:
+    its numeric columns uploaded (counted in ``QueryStats``, timed by CUDA
+    events), its string columns passed on as host columns."""
+    timer = _UploadTimer(device)
+    cols, nbytes = [], 0
+    for i, (f, c) in enumerate(zip(schema, table.columns)):
+        if not isinstance(c, tuple):
+            cols.append(c)
+            continue
+        data, valid = c
+        d = _pinned_upload(table, ("data", i), data, device)
+        v = None if valid is None else _pinned_upload(table, ("valid", i),
+                                                      valid, device)
+        nbytes += d.nbytes + (0 if v is None else v.nbytes)
+        cols.append(DeviceColumn(f.dtype, d, v))
+    timer.done(nbytes)
+    return ColumnBatch(schema, cols, table.num_rows)
+
+
 class ScanExec(TpuExec):
-    def __init__(self, schema: Schema, source: MemorySource):
+    """A scan: the batches of an in-memory source, or the decoded batches
+    of a file source (``io/parquet.ParquetSource``) uploaded, as the
+    reference's ``ScanExec`` (``physical.py:158-320``) does.
+
+    ``runtime_predicates`` are the predicates a join pushes into a file
+    scan at run time (``join_exec._inject_dpp``, ``_inject_smj_filter``):
+    a list, or a thunk resolved at the scan's first read
+    (``_effective_source``), by when the joins above it have fetched their
+    build stats.  With ``fileCache.enabled`` and ``fileCache.deviceTier``
+    the uploaded batches of a file scan stay on the device, keyed by the
+    source's ``cache_token`` (files, projection, predicates), and a repeated
+    identical scan hands them out again without decoding or uploading."""
+
+    def __init__(self, schema: Schema, source):
         super().__init__()
         self._schema = schema
         self.source = source
+        self.runtime_predicates = None
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
 
+    def _effective_source(self):
+        src = self.source
+        preds = self.runtime_predicates
+        if callable(preds):
+            preds = self.runtime_predicates = preds()
+        if preds and hasattr(src, "with_pushdown"):
+            src = src.with_pushdown(None, preds)
+        return src
+
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
         m = ctx.metric_set(self.op_id)
-        for b in self.source.batches(ctx.device):
+        batches = self._file_batches(ctx, m) \
+            if hasattr(self.source, "with_pushdown") \
+            else self.source.batches(ctx.device)
+        for b in batches:
             m.add("numOutputRows", b.num_rows)
             yield b
+
+    def _file_batches(self, ctx: ExecContext, m) -> Iterator[ColumnBatch]:
+        from ..io.filecache import get_device_cache
+        conf = ctx.conf
+        source = self._effective_source()
+        m.add("runtimePredicates", len(self.runtime_predicates or ()))
+        dcache = dkey = None
+        if conf["spark.rapids.tpu.sql.fileCache.enabled"] \
+                and conf["spark.rapids.tpu.sql.fileCache.deviceTier"]:
+            token = source.cache_token()
+            if token is not None:
+                dcache = get_device_cache(
+                    conf["spark.rapids.tpu.sql.fileCache.device.maxBytes"])
+                dkey = (token, str(ctx.device))
+                hit = dcache.get(dkey)
+                if hit is not None:
+                    for b in hit:  # fresh wrappers over the cached columns
+                        yield ColumnBatch(b.schema, b.columns, b.num_rows,
+                                          b.sel)
+                    return
+        # the accumulator is dropped once it passes the cache's budget: an
+        # over-budget scan streams on without pinning its batches
+        acc = [] if dcache is not None else None
+        acc_bytes = 0
+        for table in source(prefetch_depth=4):
+            b = upload_table(table, self._schema, ctx.device)
+            if acc is not None:
+                acc_bytes += dcache.batch_bytes(b)
+                if acc_bytes > dcache.max_bytes:
+                    acc = None
+                else:
+                    acc.append(b)
+                    b = ColumnBatch(b.schema, b.columns, b.num_rows, b.sel)
+            yield b
+        m.add("rowGroupsRead", source.row_groups_kept)
+        m.add("rowGroupsTotal", source.row_groups_total)
+        if acc is not None:
+            dcache.put(dkey, acc)
 
 
 # ---------------------------------------------------------------------------------

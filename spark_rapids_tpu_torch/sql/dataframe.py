@@ -208,6 +208,13 @@ class DataFrame:
     def explain_string(self) -> str:
         return self.session._explain(self._plan)
 
+    @property
+    def write(self):
+        """The writer: ``df.write.mode("overwrite").parquet(path)``
+        (``io/writers.py``)."""
+        from ..io.writers import DataFrameWriter
+        return DataFrameWriter(self)
+
 
 class GroupedData:
     def __init__(self, df: DataFrame, group_exprs):

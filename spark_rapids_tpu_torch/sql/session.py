@@ -75,6 +75,39 @@ class Session:
             columns, self.conf()["spark.rapids.tpu.sql.batchSizeRows"])
         return DataFrame(L.LogicalScan(src.schema(), src, "local"), self)
 
+    def _clamp_reader_rows(self, src):
+        """``reader.batchSizeBytes``: a soft byte cap on one scan batch,
+        applied as a row cap from the schema's estimated row width (the
+        source's ``with_pushdown`` rebuilds inherit it; reference :101)."""
+        from ..plan.cbo import estimated_row_bytes
+        byte_cap = self.conf()["spark.rapids.tpu.sql.reader.batchSizeBytes"]
+        if byte_cap > 0:
+            width = estimated_row_bytes(src.schema())
+            src.batch_rows = max(1, min(src.batch_rows, byte_cap // width))
+        return src
+
+    def read_parquet(self, path, columns=None) -> DataFrame:
+        """A DataFrame over parquet files (a file, a directory, hive
+        partition directories or a glob; reference :133), read by the
+        port's numpy reader (``io/parquet.py``) with the session's
+        ``fileCache.*``, ``scan.exactFilterPushdown``,
+        ``multiThreadedRead.numThreads`` and ``reader.batchSizeBytes``."""
+        from ..io.parquet import ParquetSource
+        conf = self.conf()
+        cache_bytes = (
+            conf["spark.rapids.tpu.sql.fileCache.maxBytes"]
+            if conf["spark.rapids.tpu.sql.fileCache.enabled"] else 0)
+        src = ParquetSource(
+            path, columns=columns,
+            batch_rows=conf["spark.rapids.tpu.sql.batchSizeRows"],
+            num_threads=conf[
+                "spark.rapids.tpu.sql.multiThreadedRead.numThreads"],
+            cache_bytes=cache_bytes,
+            exact_filter=conf["spark.rapids.tpu.sql.scan.exactFilterPushdown"])
+        src = self._clamp_reader_rows(src)
+        return DataFrame(L.LogicalScan(src.schema(), src, src.describe(),
+                                       fmt="parquet"), self)
+
     # -- execution ----------------------------------------------------------------
     def _execute(self, plan: L.LogicalPlan):
         from ..plan.subquery import resolve_subqueries

@@ -94,3 +94,47 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="kernel build failed"):
         kernels.build(["masked_reduce"])
     assert not list(tmp_path.glob("*.so"))
+
+
+def _host_forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("pyarrow", "pandas")
+
+
+def test_import_pulls_in_no_pyarrow_or_pandas():
+    """The card's machine has neither: the port, its parquet reader and
+    writer included, imports neither."""
+    code = ("import sys, spark_rapids_tpu_torch, "
+            "spark_rapids_tpu_torch.models.tpch, "
+            "spark_rapids_tpu_torch.io.parquet, "
+            "spark_rapids_tpu_torch.io.writers, "
+            "spark_rapids_tpu_torch.io.filecache, "
+            "spark_rapids_tpu_torch.io.sources, "
+            "spark_rapids_tpu_torch.plan.join_exec, "
+            "spark_rapids_tpu_torch.cpu.exec; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('pyarrow', 'pandas')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_pyarrow_or_pandas(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _host_forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _host_forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_key_stats_kernel_refuses_cpu_tensors():
+    from spark_rapids_tpu_torch.ops import runtime_filter
+    with pytest.raises(ValueError, match="CUDA"):
+        runtime_filter.key_stats_kernel(torch.arange(4), None, None, 1024)

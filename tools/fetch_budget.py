@@ -24,6 +24,12 @@ of orders' lineitem quantity lists: a ``pa.ListArray`` for the reference,
 a ``ListArray`` from the same offsets for the port; ``x1o`` through
 ``to_device_arrays``), and the subquery forms ``q18_in``, ``q16_notin``
 and ``q22_scalar``, each built by the same body in both packages.
+With ``--parquet DIR`` the ninth slice's forms run instead: ``pq_q1`` ..
+``pq_q22``, the reference suite's 22 queries over parquet as ``bench.py``
+runs them (``read_parquet`` per table, ``fileCache.enabled``), the
+reference over its own ``gen_db`` files (pyarrow) under ``DIR/reference``
+and the port over the files its ``gen_db`` writes under ``DIR/port`` (the
+same values and row groups; the codec does not change a fetch count).
 
 Both packages run on the CPU over the same ``gen_db_arrays`` data (the
 reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
@@ -147,6 +153,8 @@ def main() -> None:
         list(QUERIES) + list(REST) + list(DEVICE_PATHS)
         + list(DECIMAL_PATHS) + list(SLICE8_PATHS)))
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
+    ap.add_argument("--parquet", metavar="DIR", default=None,
+                    help="run the 22 queries over parquet files under DIR")
     args = ap.parse_args()
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
                              args.batch_rows})
@@ -154,6 +162,13 @@ def main() -> None:
     from spark_rapids_tpu_torch.models import tpch
     for q in REST:
         QUERIES[q] = (q, tpch.QUERY_TABLES[q], {})
+    parquet = {f"pq_{q}": q for q in tpch.SUITE_QUERIES}
+    if args.parquet:
+        args.queries = ",".join(parquet)
+        pq_settings = dict(base, **{
+            "spark.rapids.tpu.sql.fileCache.enabled": True,
+            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": int(
+                SF10_BROADCAST_THRESHOLD * args.sf / 10)})
 
     def settings(q):
         extra = dict(QUERIES[q][2])
@@ -214,6 +229,14 @@ def main() -> None:
             return out
 
         def run_ref(q):
+            if q in parquet:
+                paths = tpch_suite.gen_db(args.sf, f"{args.parquet}/reference")
+                jsess = jsrt.Session(pq_settings)
+                dfs = {t: jsess.read_parquet(paths[t])
+                       for t in tpch_suite.TABLES[parquet[q]]}
+                with QueryStats.scoped() as st:
+                    rows = tpch_suite.QUERIES[parquet[q]][0](dfs)
+                return rows, st.blocking_fetches
             if q in SLICE8_PATHS:
                 from spark_rapids_tpu.sql import functions as JF
                 jsess = jsrt.Session(base)
@@ -271,6 +294,14 @@ def main() -> None:
 
         def run_port(q):
             # the scope counts every query the body runs (Q11 runs two)
+            if q in parquet:
+                paths = tpch.gen_db(args.sf, f"{args.parquet}/port",
+                                    data=data)
+                tsess = tsrt.Session(pq_settings, device="cpu")
+                dfs = {t: tsess.read_parquet(p) for t, p in paths.items()}
+                with TStats.scoped() as st:
+                    rows = tpch.run_query(parquet[q], dfs)
+                return rows, st.blocking_fetches
             if q in SLICE8_PATHS:
                 from spark_rapids_tpu_torch.sql import functions as TF
                 tsess = tsrt.Session(base, device="cpu")
@@ -303,7 +334,10 @@ def main() -> None:
             return rows, st.blocking_fetches
         runners.append(("port", run_port))
     for q in args.queries.split(","):
-        if q in SLICE8_PATHS:
+        if q in parquet:
+            want = tpch.query_oracle(parquet[q], data)
+            same = _same
+        elif q in SLICE8_PATHS:
             tables, device = SLICE8_PATHS[q]
             same = _same_columns if device else _same
             if q == "q1_sample":
