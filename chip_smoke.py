@@ -23,11 +23,24 @@ Q1 over a seeded 1% lineitem sample (``csrc/sample.cu``), X1 and X1o
 (explodes of an orders table whose lists hold each order's lineitem
 quantities, ``csrc/explode.cu``) and the subquery forms of Q18 (IN), Q16
 (NOT IN) and Q22 (a scalar subquery); and the ninth slice's: the
-reference suite's 22 queries over SF10 parquet that the port's
+reference suite's 22 queries over parquet that the port's
 ``tpch.gen_db`` writes into ``build/tpch_parquet/``, read through
 ``Session.read_parquet`` with the file cache on, as ``bench.py`` reads
-them, with the runtime join filters of ``csrc/key_stats.cu``.  It checks the results against numpy oracles and shows
-that each query went through its kernels.  Prints per-query and per-kernel timings, a
+them, with the runtime join filters of ``csrc/key_stats.cu`` (Q1, Q6, Q18
+and Q21 at SF10, the other 18 at SF1: the phase's depth is cut so the
+run stays inside its time limit); and the
+tenth slice's: Q1, Q3 and Q18 with the partial/final aggregate split
+(``sql.agg.singleProcessComplete=false``: the skip probe of
+``csrc/group_ratio.cu``, the merge ops of ``csrc/hash_agg.cu``), Q18
+again with a buffer limit that makes its final re-partition (xxhash64 % n,
+``csrc/hashing.cu``), Q10 and Q18 through the HOST shuffle (frame files
+under ``build/spill``), Q3 over ``Session.ici_mesh()`` (the visible
+cards) and Q1 and Q3 over a mesh of 8 shards on the one card (a harness
+standing in for 8 devices; the exchange is ``csrc/bucketize.cu`` and a
+swap of the bucket axis), Q1 once more with 1-row buckets (the overflow
+retried at 4x), and one distributed aggregation step over 8 shards.  It
+checks the results against numpy oracles and shows that each query went
+through its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, when any phase fails or when no CUDA device is available.  Imports
@@ -157,15 +170,62 @@ SLICE8_FETCH_CEILINGS = {
 # must launch key_stats
 PARQUET_DIR = "build/tpch_parquet"
 PARQUET_SETTINGS = {"spark.rapids.tpu.sql.fileCache.enabled": True}
+# the parquet phase's depth, cut to keep the run inside its time limit:
+# these four at SF10, the other 18 at SF1 with the broadcast threshold
+# scaled to SF1 (SF10's plans), as tools/fetch_budget.py runs them
+PARQUET_SF10 = ("q1", "q6", "q18", "q21")
+PARQUET_SF1_SETTINGS = dict(PARQUET_SETTINGS, **{
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": (256 << 20) // 10})
 # blocking fetch ceilings of the parquet forms: the reference's count for
 # the same plan over parquet (tools/fetch_budget.py --parquet at SF1 with
 # 400,000-row batches, which give lineitem the 15 batches it has at SF10)
 SLICE9_FETCH_CEILINGS = {f"pq_{q}": (n, _REF) for q, n in (
-    ("q1", 2), ("q2", 12), ("q3", 40), ("q4", 8), ("q5", 6), ("q6", 1),
-    ("q7", 54), ("q8", 26), ("q9", 37), ("q10", 44), ("q11", 10),
-    ("q12", 203), ("q13", 9), ("q14", 18), ("q15", 9), ("q16", 9),
-    ("q17", 44), ("q18", 36), ("q19", 2), ("q20", 42), ("q21", 73),
-    ("q22", 6))}
+    ("q1", 2), ("q6", 1), ("q18", 36), ("q21", 73))}
+# the SF1 forms: the reference's count for the same plan at SF1 in
+# 4,194,304-row batches (tools/fetch_budget.py --parquet --sf 1)
+SLICE9_FETCH_CEILINGS.update({f"pq_{q}": (n, _REF + " at SF1") for q, n in (
+    ("q2", 8), ("q3", 5), ("q4", 5), ("q5", 5), ("q7", 11), ("q8", 9),
+    ("q9", 8), ("q10", 5), ("q11", 7), ("q12", 59), ("q13", 9),
+    ("q14", 4), ("q15", 7), ("q16", 7), ("q17", 4), ("q19", 2),
+    ("q20", 12), ("q22", 5))})
+
+
+# slice 10: the partial/final aggregate split (CACHE_ONLY), the HOST shuffle
+# and the mesh (ICI), each with the kernels it must launch at the least
+TWO_PHASE = {"spark.rapids.tpu.sql.agg.singleProcessComplete": False}
+ICI = {"spark.rapids.tpu.shuffle.mode": "ICI"}
+SPILL_DIR = "build/spill"      # the HOST shuffle's frame files (gitignored)
+# a buffer-row limit low enough that Q18's final re-partitions (about
+# 350,000 groups at 24-byte buffer rows, against about 1.9 M a partition)
+REPART_BYTES = 8 << 20
+DIST_ROWS = 8 << 20           # lineitem rows of the distributed agg step
+SLICE10_REQUIRE = {
+    "q1_2ph": ("group_ratio", "grid_agg", "hash_agg_merge"),
+    "q3_2ph": ("group_ratio", "hash_agg_merge", "hashing", "dense_join"),
+    "q18_2ph": ("group_ratio", "hash_agg_merge", "hashing"),
+    "q18_2ph_repart": ("group_ratio", "hash_agg_merge", "xxhash64_mod"),
+    "q10_host": ("group_ratio", "hash_agg_merge", "hashing"),
+    "q18_host": ("group_ratio", "hash_agg_merge", "hashing"),
+    "q3_ici": ("bucketize", "hash_agg", "hash_agg_merge", "hashing",
+               "sort_join", "csr_join"),
+    "q1_ici8": ("bucketize", "hash_agg", "hash_agg_merge", "hashing"),
+    "q3_ici8": ("bucketize", "hash_agg", "hash_agg_merge", "hashing",
+                "sort_join", "csr_join"),
+    "q1_ici8_small": ("bucketize", "hash_agg_merge")}
+# blocking fetch ceilings: the reference's count for the same plan and
+# mode (tools/fetch_budget.py at SF1 with 400,000-row batches, which give
+# lineitem the 15 batches it has at SF10; ICI over 1 and 8 devices); the
+# reference cannot carry Q10's string group keys through its HOST frames,
+# so Q10-host's ceiling is its count for the same plan (the split, no
+# broadcast flip) on the single-process transport
+SLICE10_FETCH_CEILINGS = {
+    "q1_2ph": (3, _REF), "q3_2ph": (12, _REF), "q18_2ph": (23, _REF),
+    "q18_2ph_repart": (24, _REF),
+    "q10_host": (33, "the reference's count for the same plan, "
+                     "single-process"),
+    "q18_host": (62, _REF), "q3_ici": (23, _REF), "q1_ici8": (19, _REF),
+    "q3_ici8": (23, _REF),
+    "q1_ici8_small": (19, "the reference's count for Q1-ici8")}
 
 
 class SmokeFailure(Exception):
@@ -1082,7 +1142,7 @@ def to_device(df):
 
 
 def run_query(torch, sess, df_fn, checker, want, name, counters,
-              result=collect, require=None, on_run=None):
+              result=collect, require=None, on_run=None, runs=4):
     """One cold and three warm runs; returns the per-run measurements and
     the kernel launches each run made.  Syncs and upload bytes count every
     query the path runs (Q11 runs two: its total, then the rest); upload
@@ -1092,11 +1152,11 @@ def run_query(torch, sess, df_fn, checker, want, name, counters,
     after the timed span).  With ``require``, ``counters`` holds every
     kernel: the cold run must launch each required one, and every later
     run each kernel the cold run launched.  ``on_run(i)`` is called after
-    run ``i``."""
+    run ``i``.  ``runs``: one cold run and ``runs - 1`` warm ones."""
     from spark_rapids_tpu_torch.utils.metrics import QueryStats
-    runs = []
+    n_runs, runs = runs, []
     watched = list(counters)
-    for i in range(4):
+    for i in range(n_runs):
         before = launch_counts(counters)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -3640,6 +3700,353 @@ def check_f1(out, want) -> float:
     return check_device_columns("F1", exact_floats=True)(sorted_out, want)
 
 
+# ---------------------------------------------------------------------------------
+# Slice 10: the partial/final aggregate (row 5') and the mesh exchange (row 10)
+# ---------------------------------------------------------------------------------
+
+def _bits(torch, t):
+    """A tensor's bits as an integer tensor (float64 NaN compared bitwise)."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _bucketize_case(torch, rng, device, n, n_parts, cap, dead, last=None):
+    """Destinations (uniform, or every row to the last bucket but ``last``
+    of them spread), a live mask, and payload arrays of every element
+    size: int64, int32, float64 with NaN, bool."""
+    t = _to_device(torch, device)
+    pids = rng.integers(0, n_parts, n).astype(np.int32)
+    if last is not None:
+        pids[:] = n_parts - 1
+        pids[rng.permutation(n)[:last]] = rng.integers(0, n_parts - 1, last)
+    x = rng.normal(size=n)
+    x[rng.random(n) < 0.01] = np.nan
+    arrays = [t(rng.integers(-2**62, 2**62, n)), t(rng.integers(
+        -2**31, 2**31 - 1, n).astype(np.int32)), t(x), t(rng.random(n) < .5)]
+    return t(pids), t(rng.random(n) >= dead), arrays
+
+
+def _compare_bucketize(torch, ex, pids, active, n_parts, cap, arrays):
+    """bucketize.cu vs its plain version: every bucket array bit for bit,
+    the sent counts and the overflow exact, and every live row either
+    sent or counted as overflow (none clamped into a slot)."""
+    kb, ks, ko = ex.bucketize_kernel(pids, active, n_parts, cap, arrays)
+    pb, ps, po = ex.bucketize_plain(pids, active, n_parts, cap, arrays)
+    torch.cuda.synchronize()
+    check(torch.equal(ks, ps) and int(ko) == int(po),
+          f"bucketize counts differ at n={pids.shape[0]} parts={n_parts} "
+          f"cap={cap}: overflow {int(ko)} vs {int(po)}")
+    for j, (a, b) in enumerate(zip(kb, pb)):
+        check(torch.equal(_bits(torch, a), _bits(torch, b)),
+              f"bucketize array {j} differs at n={pids.shape[0]} "
+              f"parts={n_parts} cap={cap}")
+    live = int(active.sum()) if active is not None else pids.shape[0]
+    check(int(ks.sum()) + int(ko) == live, "bucketize lost or invented rows")
+    return int(ko)
+
+
+def _merge_case(torch, rng, device, n, groups):
+    """Buffer rows of every merge op: an int64 sum, a float64 sum, a
+    count's partials (summed), int64 min, float64 max (NaN, -0.0), a
+    FIRST and a LAST (value, has) pair, and a wide-decimal SUM's two int64
+    lanes; keys over ``groups`` values with nulls."""
+    t = _to_device(torch, device)
+    x = rng.normal(size=n) * 1e3
+    x[rng.random(n) < 0.001] = np.nan
+    z = rng.choice(np.array([-0.0, 0.0, 2.5, np.nan, -1.0]), n)
+    words = [(t(rng.integers(0, groups, n)), t(rng.random(n) < .98))]
+    bufs = [(t(rng.integers(-10**12, 10**12, n)), None),
+            (t(x), t(rng.random(n) < .9)),
+            (t(rng.integers(0, 1000, n)), None),
+            (t(rng.integers(-10**15, 10**15, n)), t(rng.random(n) < .8)),
+            (t(z), None),
+            (t(rng.normal(size=n)), t(rng.random(n) < .6)),
+            (t(rng.integers(-99, 99, n)), t(rng.random(n) < .6)),
+            (t(rng.integers(-2**40, 2**40, n)), None),
+            (t(rng.integers(-2**40, 2**40, n)), None)]
+    channels = [("sum", False), ("sum", True), ("sum", False),
+                ("min", False), ("max", True), ("first_valid", True),
+                ("last_valid", False), ("sum", False), ("sum", False)]
+    return words, bufs, channels, t(rng.random(n) < .95)
+
+
+def _merge_groups(torch, acc):
+    """The merged groups sorted by key: (key matrix, per channel its
+    values, or (value, has) for FIRST/LAST, in key order)."""
+    keys, values, live = acc.finish()
+    cols = [w for w, _ in keys] + [ok.long() for _, ok in keys]
+    sel = torch.ones_like(cols[0], dtype=torch.bool) if live is None \
+        else live
+    m = torch.stack([c[sel] for c in cols], 1)
+    order = torch.arange(m.shape[0], device=m.device)
+    for c in reversed(range(m.shape[1])):
+        order = order[torch.sort(m[order, c], stable=True).indices]
+    out = [tuple(x[sel][order] for x in v) if isinstance(v, tuple)
+           else v[sel][order] for v in values]
+    return m[order], out
+
+
+def _run_merge(torch, groupby, case, batch, plain):
+    words, bufs, channels, active = case
+    acc = groupby.HashAccumulator(1, channels, active.device, plain=plain)
+    n = active.shape[0]
+    for lo in range(0, max(n, 1), batch):
+        sl = slice(lo, lo + batch)
+        acc.merge([(d[sl], v[sl]) for d, v in words],
+                  [(d[sl], None if v is None else v[sl]) for d, v in bufs],
+                  active[sl], len(active[sl]))
+    return acc
+
+
+def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
+    """bucketize.cu (8 and 64 destinations, overflow, a full last bucket,
+    every row dead, an empty batch, a lineitem batch), group_ratio.cu (up
+    to 2^18 sampled hashes), hashing.cu's xxhash64 % n and hash_agg.cu's
+    merge ops against their plain versions: integers, counts and bits
+    exact; the merge's float64 sums within F64_SUM_TOL x sum|x| of the
+    plain version and equal to the bit from run to run."""
+    rng = np.random.default_rng(10)
+    overflowed = 0
+    for n, n_parts, cap, dead, last in (
+            (0, 8, 64, 0.0, None), (1, 8, 1, 0.0, None),
+            (100_000, 8, 16_384, 0.1, None),
+            (100_000, 64, 1_024, 0.2, None),      # overflow everywhere
+            (80_000, 8, 8_192, 0.0, 8_192 * 7),   # last bucket 8,192 + 1
+            (50_000, 8, 4_096, 1.0, None),        # every row dead
+            (BATCH_ROWS, 8, 1 << 19, 0.3, None),
+            (BATCH_ROWS, 64, 1 << 16, 0.0, None)):
+        case = _bucketize_case(torch, rng, device, n, n_parts, cap, dead,
+                               None if last is None else n - cap - 1)
+        overflowed += _compare_bucketize(torch, ex, case[0], case[1],
+                                         n_parts, cap, case[2])
+    check(overflowed > 0, "no bucketize case overflowed")
+    t = _to_device(torch, device)
+    for n, distinct, dead in ((0, 1, 0.0), (1, 1, 0.0), (5000, 4, 0.0),
+                              (1 << 18, 1 << 17, 0.5), (1 << 18, 1 << 30,
+                                                        0.0),
+                              (1 << 18, 3, 1.0)):
+        keys = rng.integers(0, distinct, n)
+        h = hashing.hash_columns([(t(keys), None)])
+        a = t(rng.random(n) >= dead)
+        got = groupby.group_ratio_kernel(h, a)
+        want = groupby.group_ratio_plain(h, a)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"group_ratio {got.tolist()} vs "
+              f"plain {want.tolist()} at n={n}")
+    cols = [(t(rng.integers(-2**63, 2**63 - 1, 200_000, dtype=np.int64)),
+             t(rng.random(200_000) < .9)),
+            (t(rng.integers(-2**31, 2**31 - 1, 200_000).astype(np.int32)),
+             None),
+            (t(rng.choice(np.array([np.nan, -0.0, 0.0, 1.5]), 200_000)),
+             None)]
+    active = t(rng.random(200_000) < .9)
+    for nb in (1, 7, 64, 4096):
+        kc = torch.zeros(nb + 1, dtype=torch.int64, device=device)
+        pc = torch.zeros(nb + 1, dtype=torch.int64, device=device)
+        got = hashing.xxhash64_mod_kernel(cols, nb, active, kc)
+        want = hashing.xxhash64_mod_plain(cols, nb, active, pc)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(kc, pc),
+              f"xxhash64 % {nb} differs from plain")
+    worst = 0.0
+    for n, batch, groups in ((0, 1, 10), (1, 1, 10), (20_000, 20_000, 50),
+                             (60_000, 7_000, 40_000),
+                             (BATCH_ROWS, BATCH_ROWS, 1_000_000)):
+        case = _merge_case(torch, rng, device, n, groups)
+        km, kv = _merge_groups(torch, _run_merge(torch, groupby, case,
+                                                 batch, False))
+        pm, pv = _merge_groups(torch, _run_merge(torch, groupby, case,
+                                                 batch, True))
+        km2, kv2 = _merge_groups(torch, _run_merge(torch, groupby, case,
+                                                   batch, False))
+        torch.cuda.synchronize()
+        check(torch.equal(km, pm), f"merge groups differ at n={n}")
+        for j, ((op, f64), a, b, c) in enumerate(zip(case[2], kv, pv, kv2)):
+            if isinstance(a, tuple):
+                check(torch.equal(a[1], b[1]) and torch.equal(
+                    _bits(torch, a[0])[a[1]], _bits(torch, b[0])[b[1]]),
+                    f"merge channel {j} ({op}) differs at n={n}")
+            elif f64 and op == "sum":
+                check(torch.equal(_bits(torch, a), _bits(torch, c)),
+                      f"merge float64 sums differ between runs at n={n}")
+                nan = torch.isnan(b)
+                check(torch.equal(torch.isnan(a), nan), "merge NaN sums")
+                err = (a - b).abs()[~nan]
+                top = float(err.max()) if err.numel() else 0.0
+                scale = float(case[1][j][0].abs().nan_to_num().sum()) + 1.0
+                check(top <= F64_SUM_TOL * scale, f"merge sums differ by "
+                      f"{top}")
+                worst = max(worst, top)
+            else:
+                check(torch.equal(_bits(torch, a), _bits(torch, b)),
+                      f"merge channel {j} ({op}) differs at n={n}")
+    print(f"check slice 10: bucketize on 8 cases ({overflowed} rows "
+          f"overflowed, none clamped), group_ratio on 6, xxhash64 % n for "
+          f"n in (1, 7, 64, 4096), the merge ops on 5 (float64 sums equal "
+          f"to the bit between runs, max |err| vs plain {worst:.3e}): ok")
+    return {"bucketize": 0.0, "group_ratio": 0.0, "xxhash64_mod": 0.0,
+            "hash_agg_merge": worst}
+
+
+def time_slice10_kernels(torch, ex, groupby, hashing, device, per_wrapper,
+                         worst, db) -> list:
+    """The slice-10 kernels at the main path's shapes, each first held
+    against its plain version on the same inputs: bucketize at a lineitem
+    batch of Q3's exchange payload over 8 destinations, group_ratio at the
+    2^18-row sample, xxhash64 % 64 and the merge at one of Q18's final
+    partition batches (4,194,304 buffer rows keyed by l_orderkey)."""
+    rng = np.random.default_rng(1010)
+    t = _to_device(torch, device)
+    out = []
+    n = BATCH_ROWS
+    # bucketize: pids, live mask, 3 keys (int64, int32, int32) and 2
+    # float64 buffers, each with its validity
+    pids = t(rng.integers(0, 8, n).astype(np.int32))
+    active = t(rng.random(n) < 0.5)
+    cap = 1 << 19
+    payload = [t(rng.integers(0, 2**40, n)), t(rng.random(n) < 1),
+               t(rng.integers(0, 9999, n).astype(np.int32)),
+               t(rng.random(n) < 1), t(np.zeros(n, np.int32)),
+               t(rng.random(n) < 1), t(rng.normal(size=n)),
+               t(rng.random(n) < 1), t(rng.normal(size=n)),
+               t(rng.random(n) < 1)]
+    _compare_bucketize(torch, ex, pids, active, 8, cap, payload)
+    inputs = copies_for_l2([pids, active] + payload)
+    ms = time_ms(torch, [lambda x=x: ex.bucketize_kernel(
+        x[0], x[1], 8, cap, x[2:]) for x in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: ex.bucketize_plain(
+        pids, active, 8, cap, payload)], reps=3)
+    key = torch.where(active, pids.long(), 8)
+    perm0 = torch.argsort(key, stable=True)
+    sk = key[perm0]
+    within = torch.arange(n, device=device) - torch.searchsorted(sk, sk)
+    ok = (sk < 8) & (within < cap)
+    dst = (sk * cap + within)[ok]
+    src = perm0[ok]
+
+    def library():
+        torch.argsort(key, stable=True)
+        for a in payload:
+            torch.zeros(8 * cap, dtype=a.dtype, device=device).index_put_(
+                (dst,), a[src])
+    lib_ms = time_ms(torch, [library], reps=4)
+    elems = sum(a.element_size() for a in payload)
+    nbytes = n * (4 + 1 + elems) + 8 * cap * elems + 8 * 4 + 8
+    out.append(_row_of("bucketize", "bucketize", per_wrapper, 0.0, ms,
+                       plain_ms, nbytes, lib_ms,
+                       "spark_rapids_tpu/parallel/exchange.py:32"))
+    print(f"kernel bucketize: {ms:.4f} ms at {n} rows ({int(active.sum())} "
+          f"live), 8 destinations x {cap} rows, 10 arrays (bound "
+          f"{out[-1]['bound_ms']:.4f} ms for {nbytes} B; plain "
+          f"{plain_ms:.4f} ms; argsort(stable) + index_put_ {lib_ms:.4f} "
+          f"ms), exact vs plain, {out[-1]['launches']} launches on the main "
+          f"path")
+    # group_ratio: the first 2^18 lineitem orderkeys' murmur3 hashes
+    s = groupby.GR_MAX_ROWS
+    h = hashing.hash_columns([(t(db["lineitem"]["l_orderkey"][:s]), None)])
+    live = t(rng.random(s) < 0.9)
+    got = groupby.group_ratio_kernel(h, live)
+    want = groupby.group_ratio_plain(h, live)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "group_ratio differs at the sample")
+    ms = time_ms(torch, [lambda: groupby.group_ratio_kernel(h, live)],
+                 reps=16)
+    plain_ms = time_ms_synced(torch, [lambda: groupby.group_ratio_plain(
+        h, live)], reps=4)
+    lib_ms = time_ms_synced(torch, [lambda: torch.unique(h[live])], reps=4)
+    nbytes = s * 9 + 16
+    out.append(_row_of("group_ratio", "group_ratio", per_wrapper, 0.0, ms,
+                       plain_ms, nbytes, lib_ms,
+                       "spark_rapids_tpu/plan/physical.py:2006"))
+    print(f"kernel group_ratio: {ms:.4f} ms at {s} sampled hashes, "
+          f"{int(got[0])} distinct of {int(got[1])} live (bound "
+          f"{out[-1]['bound_ms']:.4f} ms for {nbytes} B; plain "
+          f"{plain_ms:.4f} ms; torch.unique of the live hashes {lib_ms:.4f} "
+          f"ms), exact vs plain, {out[-1]['launches']} launches on the main "
+          f"path")
+    # xxhash64 % 64 and the merge at a Q18 final partition batch
+    keys = t(db["lineitem"]["l_orderkey"][:n])
+    qty = t(db["lineitem"]["l_quantity"][:n].astype(np.float64))
+    got = hashing.xxhash64_mod_kernel([(keys, None)], 64)
+    want = hashing.xxhash64_mod_plain([(keys, None)], 64)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "xxhash64 % 64 differs at Q18's shape")
+    inputs = copies_for_l2([keys])
+    ms = time_ms(torch, [lambda x=x: hashing.xxhash64_mod_kernel(
+        [(x[0], None)], 64) for x in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: hashing.xxhash64_mod_plain(
+        [(keys, None)], 64)], reps=3)
+    nbytes = n * (8 + 4)
+    row = _row_of("hashing", "xxhash64_mod", per_wrapper, 0.0, ms, plain_ms,
+                  nbytes, None, "spark_rapids_tpu/plan/physical.py:2169")
+    out.append(row)
+    print(f"kernel xxhash64_mod: {ms:.4f} ms at {n} int64 keys, 64 buckets "
+          f"(no PyTorch call computes xxhash64) (bound {row['bound_ms']:.4f} "
+          f"ms for {nbytes} B; plain {plain_ms:.4f} ms), exact vs plain, "
+          f"{row['launches']} launches on the main path")
+    words = [(groupby.key_word(keys), None)]
+    bufs = [(qty, None)]
+
+    def merge(plain=False):
+        acc = groupby.HashAccumulator(1, [("sum", True)], device,
+                                      plain=plain)
+        acc.merge(words, bufs, None, n)
+        return acc
+    k = merge()
+    groups = int(k.ngroups[0])
+    km, kv = _merge_groups(torch, k)
+    pm, pv = _merge_groups(torch, merge(True))
+    torch.cuda.synchronize()
+    check(torch.equal(km, pm), "merge groups differ at Q18's shape")
+    err = float((kv[0] - pv[0]).abs().max())
+    ms = time_ms(torch, [merge], reps=8)
+    plain_ms = time_ms_synced(torch, [lambda: merge(True)], reps=3)
+
+    def library():
+        u, inv = torch.unique(keys, return_inverse=True)
+        torch.zeros(u.shape[0], dtype=torch.float64,
+                    device=device).index_add_(0, inv, qty)
+    lib_ms = time_ms_synced(torch, [library], reps=3)
+    nbytes = n * 16 + groups * (8 + 8)
+    row = {"name": "hash_agg_merge", "route": "cuda",
+           "source": "spark_rapids_tpu_torch/csrc/hash_agg.cu",
+           "replaces": "spark_rapids_tpu/plan/physical.py:2296",
+           "launches": per_wrapper.get("hash_agg_merge", 0),
+           "max_abs_err": max(err, worst.get("hash_agg_merge", 0.0)),
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": lib_ms}
+    out.append(row)
+    print(f"kernel hash_agg_merge: {ms:.4f} ms at {n} buffer rows into "
+          f"{groups} orderkey groups, one float64 sum buffer in fixed point "
+          f"(the table allocated in each call) (bound {row['bound_ms']:.4f} "
+          f"ms for {nbytes} B; plain {plain_ms:.4f} ms; unique + index_add_ "
+          f"{lib_ms:.4f} ms), max |err| vs plain {err:.3e}, "
+          f"{row['launches']} launches on the main path")
+    return out
+
+
+def skip_decision(key_cols, live) -> bool:
+    """The partial aggregate's skip decision by numpy over its sampled
+    rows: distinct key tuples among the live ones over the live count,
+    above the default skipPartialAggRatio 0.3.  (The engine counts
+    distinct 32-bit murmur3 hashes; a collision among 2^18 rows moves the
+    ratio by under 1e-4.)"""
+    n_live = int(live.sum())
+    if n_live == 0:
+        return False
+    codes = np.zeros(n_live, dtype=np.int64)
+    for c in key_cols:
+        _, inv = np.unique(np.asarray(c)[live], return_inverse=True)
+        codes = codes * (int(inv.max()) + 1) + inv.reshape(-1)
+    return len(np.unique(codes)) / n_live > 0.3
+
+
+def metric_sum(sess, name: str) -> float:
+    return sum(m.values.get(name, 0)
+               for m in sess.last_exec_context().metrics.values())
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3663,6 +4070,8 @@ def main() -> int:
         from spark_rapids_tpu_torch.ops import sample as sample_ops
         from spark_rapids_tpu_torch.ops import sort as sort_ops
         from spark_rapids_tpu_torch.ops import topk as topk_mod
+        from spark_rapids_tpu_torch.parallel import distributed as dist_mod
+        from spark_rapids_tpu_torch.parallel import exchange as ici_ex
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not importable ({e})",
               file=sys.stderr)
@@ -3713,6 +4122,8 @@ def main() -> int:
         check_sample(torch, sample_ops, device)
         check_explode(torch, generate, device)
         check_key_stats(torch, rf, device)
+        worst.update(check_slice10_kernels(torch, ici_ex, groupby, hashing,
+                                           device))
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -3823,11 +4234,15 @@ def main() -> int:
         full = dict(db, orders=dict(db["orders"], o_shippriority=np.zeros(
             DB_ORDERS, dtype=np.int64)))
         pq_want = {}
+        db1 = tpch.gen_db_arrays(1.0)
         for q in tpch.SUITE_QUERIES:
             t1 = time.perf_counter()
-            pq_want[q] = db_want[q] if q in db_want else (
-                tpch.q6_numpy(full["lineitem"]) if q == "q6"
-                else tpch.query_oracle(q, full))
+            if q not in PARQUET_SF10:
+                pq_want[q] = tpch.query_oracle(q, db1)
+            else:
+                pq_want[q] = db_want[q] if q in db_want else (
+                    tpch.q6_numpy(full["lineitem"]) if q == "q6"
+                    else tpch.query_oracle(q, full))
             took[f"pq_{q}"] = time.perf_counter() - t1
         print("oracle rows: " + ", ".join(
             f"{q} {len(db_want[q])}" for q in REST_QUERIES))
@@ -3889,7 +4304,11 @@ def main() -> int:
             "window_first_last": [window.frame_first_last_kernel],
             "sample": [sample_ops.sample_mask_kernel],
             "explode": [generate.explode_kernel],
-            "key_stats": [rf.key_stats_kernel]}
+            "key_stats": [rf.key_stats_kernel],
+            "group_ratio": [groupby.group_ratio_kernel],
+            "hash_agg_merge": [groupby.hash_agg_merge],
+            "bucketize": [ici_ex.bucketize_kernel],
+            "xxhash64_mod": [hashing.xxhash64_mod_kernel]}
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -4067,15 +4486,22 @@ def main() -> int:
             paths.append((name, df_fn, checker, db_want[name], ()))
             if result is to_device:
                 device_paths.add(name)
-        # slice 9: the 22 queries over SF10 parquet written by the port's
-        # gen_db, every kernel counted from 0 before each
+        # slice 9: the 22 queries over parquet written by the port's
+        # gen_db (PARQUET_SF10 at SF10, the rest at SF1), every kernel
+        # counted from 0 before each
         t1 = time.perf_counter()
-        ppaths = tpch.gen_db(SF, PARQUET_DIR, data=full)
-        mib = sum(os.path.getsize(p) for p in ppaths.values()) / 2**20
-        print(f"gen_db SF{SF:g}: {mib:.0f} MiB of uncompressed parquet "
-              f"written by the port in {time.perf_counter() - t1:.1f} s")
+        big = sorted({t for q in PARQUET_SF10 for t in tpch.SUITE_QUERIES[q]})
+        ppaths = tpch.gen_db(SF, PARQUET_DIR, data=full, tables=big)
+        ppaths1 = tpch.gen_db(1.0, PARQUET_DIR, data=db1)
+        mib = sum(os.path.getsize(p) for p in list(ppaths.values())
+                  + list(ppaths1.values())) / 2**20
+        print(f"gen_db: {mib:.0f} MiB of uncompressed parquet written by "
+              f"the port ({', '.join(big)} at SF{SF:g}, every table at SF1) "
+              f"in {time.perf_counter() - t1:.1f} s")
         psess = Session(PARQUET_SETTINGS, device="cuda")
+        psess1 = Session(PARQUET_SF1_SETTINGS, device="cuda")
         pdf = {t: psess.read_parquet(p) for t, p in ppaths.items()}
+        pdf1 = {t: psess1.read_parquet(p) for t, p in ppaths1.items()}
         special = {"q1": check_q1, "q3": check_q3, "q6": check_q6}
         filtered = []
         for q, tabs in tpch.SUITE_QUERIES.items():
@@ -4083,14 +4509,16 @@ def main() -> int:
             for fns in counters.values():
                 for fn in fns:
                     fn.launches = 0
-            df_fn = (lambda tabs=tabs, q=q: getattr(tpch, q)(
-                *(pdf[t] for t in tabs)))
+            qs, frames9 = (psess, pdf) if q in PARQUET_SF10 \
+                else (psess1, pdf1)
+            df_fn = (lambda tabs=tabs, q=q, frames9=frames9: getattr(
+                tpch, q)(*(frames9[t] for t in tabs)))
             checker = special.get(q, check_rows(f"{q.upper()}-parquet"))
             reports = []
             runs_of[name] = run_query(
-                torch, psess, df_fn, checker, pq_want[q], name, counters,
+                torch, qs, df_fn, checker, pq_want[q], name, counters,
                 collect, require=(),
-                on_run=lambda i: reports.append(scan_report(psess)))
+                on_run=lambda i, qs=qs: reports.append(scan_report(qs)))
             scans = reports[0]
             print(f"query {name} cold scans (last collect): "
                   + json.dumps(scans))
@@ -4110,6 +4538,182 @@ def main() -> int:
             profile_query(torch, df_fn, name)
         check(filtered, "no parquet query launched key_stats")
         print(f"runtime join filters (key_stats launched): {filtered}")
+        del pdf, psess, pdf1, psess1
+        # slice 10: the partial/final split (CACHE_ONLY), the HOST shuffle
+        # and the mesh (ICI) over the in-memory tables, their oracles
+        # reused; every kernel counted from 0 before each path
+        mesh8 = [device] * 8   # 8 shards on one card: a harness
+        two = Session(TWO_PHASE, device="cuda")
+        sessions10 = {
+            "two": two,
+            "repart": Session(dict(TWO_PHASE, **{
+                "spark.rapids.tpu.sql.batchSizeBytes": REPART_BYTES}),
+                device="cuda"),
+            "host": Session({"spark.rapids.tpu.shuffle.mode": "HOST",
+                             "spark.rapids.tpu.memory.spill.dir":
+                             SPILL_DIR}, device="cuda"),
+            "ici": Session(dict(ICI, **{
+                "spark.rapids.tpu.shuffle.ici.bucketRows": 1 << 21}),
+                device="cuda"),
+            "ici8_q1": Session(dict(ICI, **{
+                "spark.rapids.tpu.shuffle.ici.bucketRows": 64}),
+                device="cuda"),
+            "ici8_q3": Session(dict(ICI, **{
+                "spark.rapids.tpu.shuffle.ici.bucketRows": 1 << 18}),
+                device="cuda"),
+            "ici8_small": Session(dict(ICI, **{
+                "spark.rapids.tpu.shuffle.ici.bucketRows": 1}),
+                device="cuda")}
+        for k in ("ici8_q1", "ici8_q3", "ici8_small"):
+            sessions10[k].set_mesh(mesh8)
+        check(sessions10["ici"].ici_mesh() == [torch.device("cuda", i)
+                                               for i in range(
+                                                   torch.cuda.device_count())],
+              "ici_mesh() is not the visible cards")
+        frames = {k: {"data": sessions10[k].create_dataframe(data),
+                      "cust": sessions10[k].create_dataframe(cust),
+                      "orders": sessions10[k].create_dataframe(orders),
+                      **{t: sessions10[k].create_dataframe(db[t])
+                         for t in ("customer", "lineitem")},
+                      "db_orders": sessions10[k].create_dataframe(
+                          db["orders"])}
+                  for k in sessions10}
+
+        def q1_of(k):
+            return lambda: tpch.q1(frames[k]["data"])
+
+        def q3_of(k):
+            return lambda: tpch.q3(frames[k]["cust"], frames[k]["orders"],
+                                   frames[k]["data"])
+
+        def q18_of(k):
+            return lambda: tpch.q18(frames[k]["db_orders"],
+                                    frames[k]["lineitem"],
+                                    frames[k]["customer"])
+
+        def q10_of(k):
+            return lambda: tpch.q10(frames[k]["customer"],
+                                    frames[k]["db_orders"],
+                                    frames[k]["lineitem"])
+        slice10 = [
+            ("q1_2ph", "two", q1_of("two"), check_q1, q1_want, 4),
+            ("q3_2ph", "two", q3_of("two"), check_q3, q3_want, 4),
+            ("q18_2ph", "two", q18_of("two"), check_rows("Q18-2ph"),
+             db_want["q18"], 4),
+            ("q18_2ph_repart", "repart", q18_of("repart"),
+             check_rows("Q18-2ph-repart"), db_want["q18"], 2),
+            ("q10_host", "host", q10_of("host"), check_rows("Q10-host"),
+             db_want["q10"], 2),
+            ("q18_host", "host", q18_of("host"), check_rows("Q18-host"),
+             db_want["q18"], 2),
+            ("q3_ici", "ici", q3_of("ici"), check_q3, q3_want, 4),
+            ("q1_ici8", "ici8_q1", q1_of("ici8_q1"), check_q1, q1_want, 4),
+            ("q3_ici8", "ici8_q3", q3_of("ici8_q3"), check_q3, q3_want, 4),
+            ("q1_ici8_small", "ici8_small", q1_of("ici8_small"), check_q1,
+             q1_want, 2)]
+        # the skip probe's decision by numpy over the rows the partial
+        # samples: the first 2^18 rows of its first input batch
+        s10 = 1 << 18
+        li0 = {c: data[c][:s10] for c in ("l_returnflag", "l_linestatus",
+                                          "l_shipdate", "l_orderkey")}
+        cut1 = np.datetime64("1998-09-02")
+        cut3 = np.datetime64(tpch.Q3_CUTOFF)
+        ok_o = np.zeros(len(orders["o_orderkey"]) + 1, dtype=bool)
+        seg = cust["c_mktsegment"][orders["o_custkey"] - 1] == "BUILDING"
+        ok_o[orders["o_orderkey"]] = seg & (orders["o_orderdate"] < cut3)
+        expect_skip = {
+            "q1_2ph": skip_decision(
+                [li0["l_returnflag"], li0["l_linestatus"]],
+                li0["l_shipdate"] <= cut1),
+            "q3_2ph": skip_decision(
+                [li0["l_orderkey"]], (li0["l_shipdate"] > cut3)
+                & ok_o[li0["l_orderkey"]]),
+            "q18_2ph": skip_decision([db["lineitem"]["l_orderkey"][:s10]],
+                                     np.ones(s10, dtype=bool))}
+        for name, skey, df_fn, checker, want, n_runs in slice10:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            runs_of[name] = run_query(torch, sessions10[skey], df_fn,
+                                      checker, want, name, counters,
+                                      require=SLICE10_REQUIRE[name],
+                                      runs=n_runs)
+            st = sessions10[skey].last_query_stats()
+            skipped = metric_sum(sessions10[skey], "skippedPartialAgg")
+            print(f"query {name}: skippedPartialAgg {skipped:g}, "
+                  f"aggRepartitions "
+                  f"{metric_sum(sessions10[skey], 'aggRepartitions'):g}, "
+                  f"shuffle bytes written {st.shuffle_bytes_written} read "
+                  f"{st.shuffle_bytes_read}, ICI fragments "
+                  f"{st.ici_fragments} ({st.ici_fragment_rows} rows, "
+                  f"{st.ici_retries} overflow retries)")
+            if name in expect_skip:
+                check(skipped == expect_skip[name], f"{name} skipped "
+                      f"{skipped:g} times, numpy decides "
+                      f"{expect_skip[name]}")
+            if name.endswith("_host"):
+                check(st.shuffle_bytes_written == st.shuffle_bytes_read > 0,
+                      f"{name} wrote {st.shuffle_bytes_written} frame bytes "
+                      f"and read {st.shuffle_bytes_read}")
+            if "_ici" in name:
+                check(st.ici_fragments == 1, f"{name} ran "
+                      f"{st.ici_fragments} fragments")
+                check((st.ici_retries > 0) == name.endswith("_small"),
+                      f"{name} retried {st.ici_retries} times")
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            paths.append((name, df_fn, checker, want, ()))
+        # the one distributed aggregation step over the 8-shard mesh
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+        li = {c: db["lineitem"][c][:DIST_ROWS] for c in (
+            "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice")}
+        dist_df = two.create_dataframe(li).group_by(
+            "l_returnflag", "l_linestatus").agg(
+            F.sum(F.col("l_quantity")).alias("sum_qty"),
+            F.sum(F.col("l_extendedprice")).alias("sum_price"),
+            F.count_star().alias("n"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = dist_mod.distributed_agg_collect(dist_df, mesh8, li,
+                                               bucket_cap=64)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        pairs = np.char.add(li["l_returnflag"].astype(str),
+                            li["l_linestatus"].astype(str))
+        want_d = {}
+        for key in np.unique(pairs):
+            m = pairs == key
+            want_d[(key[0], key[1])] = (float(li["l_quantity"][m].sum()),
+                                        float(li["l_extendedprice"][m]
+                                              .sum()), int(m.sum()))
+        check(len(got) == len(want_d), f"distributed agg: {len(got)} "
+              f"groups, numpy {len(want_d)}")
+        for r in got:
+            w = want_d[(r[0], r[1])]
+            check(r[4] == w[2] and rel_err(r[2], w[0]) <= QUERY_REL_TOL
+                  and rel_err(r[3], w[1]) <= QUERY_REL_TOL,
+                  f"distributed agg row {r} vs numpy {w}")
+        dl = launch_counts(counters)
+        check(dl["bucketize"] > 0 and dl["hash_agg_merge"] > 0,
+              f"distributed agg launched {dl}")
+        for k, v in dl.items():
+            launches[k] = launches.get(k, 0) + v
+        for fns in counters.values():
+            for fn in fns:
+                if fn.launches:
+                    per_wrapper[fn.__name__] = \
+                        per_wrapper.get(fn.__name__, 0) + fn.launches
+        print(f"distributed agg: {DIST_ROWS} lineitem rows over 8 shards "
+              f"by (l_returnflag, l_linestatus): {len(got)} groups equal "
+              f"numpy's, {wall:.2f} ms (strings encoded on the host), "
+              f"launches {json.dumps({k: v for k, v in dl.items() if v})}")
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -4126,7 +4730,8 @@ def main() -> int:
                 + list(REST_FETCH_CEILINGS.items()) \
                 + list(SLICE7_FETCH_CEILINGS.items()) \
                 + list(SLICE8_FETCH_CEILINGS.items()) \
-                + list(SLICE9_FETCH_CEILINGS.items()):
+                + list(SLICE9_FETCH_CEILINGS.items()) \
+                + list(SLICE10_FETCH_CEILINGS.items()):
             fetches = max(r["syncs"] for r in runs_of[name])
             check(fetches <= ceiling, f"{name} made {fetches} blocking "
                   f"fetches, more than {ceiling} ({why})")
@@ -4144,7 +4749,7 @@ def main() -> int:
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
         del df, cdf, odf, dbf, sbf, q11f, ddf, dec, x1f, x1of, sess, shuf
-        del pdf, psess
+        del frames, sessions10, two
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -4162,6 +4767,8 @@ def main() -> int:
             torch, sample_ops, generate, batch_utils, device, per_wrapper,
             db, numpy_column(x1_lists)[1], numpy_column(x1o_lists)[1])
         table += time_slice9_kernels(torch, rf, device, per_wrapper)
+        table += time_slice10_kernels(torch, ici_ex, groupby, hashing, device,
+                                      per_wrapper, worst, db)
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

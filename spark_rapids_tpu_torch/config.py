@@ -45,6 +45,8 @@ def register(key: str, default: Any, doc: str, *,
         conv = _to_bool
     elif isinstance(default, int):
         conv = int
+    elif isinstance(default, float):
+        conv = float
     else:
         conv = str
     entry = ConfEntry(key, default, doc, conv, check)
@@ -157,17 +159,85 @@ SHUFFLE_PARTITIONS = register(
 
 SHUFFLE_MODE = register(
     "spark.rapids.tpu.shuffle.mode", "CACHE_ONLY",
-    "Shuffle transport: CACHE_ONLY (partitions stay on the device). HOST "
-    "and ICI are the reference's other transports; the port raises on "
-    "them (ROADMAP.md item 10).",
+    "Shuffle transport: CACHE_ONLY (partitions stay on the device), HOST "
+    "(partition slices leave the device as compressed, checksummed frame "
+    "files written by a thread pool and are read back one partition at a "
+    "time, parallel/host_shuffle.py), or ICI (exchange-bearing plan "
+    "fragments run shard by shard over the session's device mesh, the "
+    "exchange a bucketize and a swap of the bucket axis, "
+    "parallel/spmd.py).",
     check=_one_of("HOST", "ICI", "CACHE_ONLY"))
 
 AGG_SINGLE_PROCESS_COMPLETE = register(
     "spark.rapids.tpu.sql.agg.singleProcessComplete", True,
-    "Run an aggregate whose input is all in this process in one complete "
-    "pass. false asks for the reference's partial/final split (its row "
-    "5', with the skip-ratio probe); the port raises on it until the "
-    "distribution slice (ROADMAP.md item 10).")
+    "Under shuffle.mode=CACHE_ONLY, plan grouped aggregations as one "
+    "complete pass. false plans them as partial -> exchange -> final, as "
+    "HOST and ICI always do; the partial samples its first batch and "
+    "passes rows through unreduced when the keys barely reduce "
+    "(sql.agg.skipPartialAggRatio).")
+
+AGG_SKIP_PARTIAL_RATIO = register(
+    "spark.rapids.tpu.sql.agg.skipPartialAggRatio", 0.3,
+    "When the first batch's sampled distinct/live key ratio exceeds this "
+    "fraction, the partial aggregate passes rows through to the exchange "
+    "unreduced. 1.0 disables skipping.",
+    check=lambda v: None if 0.0 <= v <= 1.0 else "must be in [0, 1]")
+
+AGG_REPARTITION_BUCKETS = register(
+    "spark.rapids.tpu.sql.agg.repartitionBuckets", 64,
+    "Hash-bucket count of the final aggregate's re-partition fallback: a "
+    "merge whose groups outgrow sql.batchSizeBytes over the buffer's row "
+    "width splits into this many disjoint key buckets (xxhash64 % n), "
+    "each bounded by the same limit; a bucket past it raises.",
+    check=_positive)
+
+BATCH_SIZE_BYTES = register(
+    "spark.rapids.tpu.sql.batchSizeBytes", 1 << 30,
+    "Soft byte target of a batch: the partial aggregate emits, and the "
+    "final aggregate re-partitions, past this many bytes of buffer rows "
+    "(string keys counted as 4-byte codes).",
+    check=_positive)
+
+SHUFFLE_COMPRESS = register(
+    "spark.rapids.tpu.shuffle.compress", True,
+    "Compress HOST shuffle frames (zlib level 1; a frame that does not "
+    "shrink is stored raw).")
+
+SPILL_DIR = register(
+    "spark.rapids.tpu.memory.spill.dir", "/tmp/srt_spill",
+    "Directory of the HOST shuffle's frame files (one shuffle-<id> "
+    "directory per exchange, removed when it closes).")
+
+ICI_DEVICES = register(
+    "spark.rapids.tpu.shuffle.ici.devices", 0,
+    "Number of mesh devices for shuffle.mode=ICI (0 = every visible CUDA "
+    "device). Session.set_mesh() installs an explicit device list.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+ICI_BUCKET_ROWS = register(
+    "spark.rapids.tpu.shuffle.ici.bucketRows", 0,
+    "Per-destination send-bucket rows of an ICI exchange (0 = auto: the "
+    "sender's shard rows, which cannot overflow but costs n_devices x "
+    "shard rows on the receive side). Overflow is detected and retried, "
+    "never dropped.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+ICI_JOIN_OUT_ROWS = register(
+    "spark.rapids.tpu.shuffle.ici.joinOutputRows", 0,
+    "Per-shard output rows of an ICI join expansion (0 = auto: probe plus "
+    "build shard rows). Overflow is detected and retried, never dropped.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+ICI_OVERFLOW_RETRIES = register(
+    "spark.rapids.tpu.shuffle.ici.overflowRetries", 2,
+    "Retries of an ICI fragment whose bucket or join capacity overflowed, "
+    "each with every capacity scaled 4x; 0 raises at once.",
+    check=lambda v: None if v >= 0 else "must be >= 0")
+
+ICI_FALLBACK = register(
+    "spark.rapids.tpu.shuffle.ici.fallback", False,
+    "When true, exchanges that cannot be lowered onto the mesh run on the "
+    "single-process CACHE_ONLY path instead of failing the query.")
 
 JOIN_SUBPARTITIONS = register(
     "spark.rapids.tpu.sql.join.subPartitions", 16,

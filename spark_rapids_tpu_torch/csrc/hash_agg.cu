@@ -46,6 +46,19 @@
 //                    number of groups it created to a device counter (one
 //                    atomic per block), so the host can read the exact
 //                    group count when it needs to, and never per batch;
+//   hash_agg_merge   partial aggregation buffers into the table with their
+//                    merge ops (plan/physical.py:2296 _merge_fn, which
+//                    re-reduces concatenated partials with group_reduce):
+//                    the buffer column is the channel's data and its
+//                    validity the channel's mask, so a sum buffer (a sum's
+//                    or a count's partials, int64 or float64 in exact fixed
+//                    point) adds, a min or max buffer takes its extreme,
+//                    and a FIRST or LAST buffer — (value, has) — picks the
+//                    first or last partial row that had a qualifying row,
+//                    in stream order (the call number orders the batches);
+//                    a wide-decimal SUM's lanes are int64 sum buffers.  A
+//                    count channel (data nullptr) is refused: partials of
+//                    a count are summed.  Same device passes as the update;
 //   hash_agg_rehash  every ready slot of a table into a larger one, with its
 //                    channel values and auxiliary words: the table grows
 //                    only when the host's upper bound on the groups could
@@ -401,6 +414,26 @@ extern "C" int hash_agg_update(int nkeys, const void* const* words,
     ha_fold<<<blocks, HA_THREADS, 0, st>>>(c, cap);
   }
   return (int)cudaGetLastError();
+}
+
+// The merge ops: 0 sum, 1 min, 2 max, 4 first, 5 last, over buffer
+// columns (every channel has data); otherwise as hash_agg_update.
+extern "C" int hash_agg_merge(int nkeys, const void* const* words,
+                              const void* const* kvalid, int nch,
+                              const void* const* data,
+                              const void* const* valid, const int* ops,
+                              const int* f64, void* const* acc,
+                              void* const* aux, void* const* fx,
+                              const void* active, long long n, void* state,
+                              void* tkeys, void* tnulls, long long cap,
+                              int collide, void* ngroups, void* rslot,
+                              long long call, void* stream) {
+  for (int j = 0; j < nch && j < HA_MAX_CH; ++j)
+    if (ops[j] == OP_COUNT || data[j] == nullptr)
+      return (int)cudaErrorInvalidValue;
+  return hash_agg_update(nkeys, words, kvalid, nch, data, valid, ops, f64,
+                         acc, aux, fx, active, n, state, tkeys, tnulls, cap,
+                         collide, ngroups, rslot, call, stream);
 }
 
 // old_*: the full table; new_*: an empty table of new_cap slots (state

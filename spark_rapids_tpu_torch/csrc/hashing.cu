@@ -8,7 +8,10 @@
 // :265 xxhash64_columns, with the float normalizations :80
 // _normalize_float_bits and :102 f64_bit_pattern; and the partition-id
 // programs that call them (plan/exchange_exec.py:102 _pid_fn, the
-// sub-partition ids of plan/join_exec.py:362 _sub_partition_join).
+// sub-partition ids of plan/join_exec.py:362 _sub_partition_join, the
+// aggregate's re-partition bucket ids plan/physical.py:2169
+// _split_by_key_hash, the mesh exchange's parallel/exchange.py:26
+// hash_ids).
 //
 // Entry point:
 //   hash_rows  one thread per row folds every key column into the running
@@ -27,7 +30,11 @@
 //              Writes the hash (optional: uint32 as int64 for murmur3, the
 //              64 bits for xxhash64), and, when nparts > 0, the partition
 //              id (murmur3: pmod of the hash as int32, as Spark's
-//              HashPartitioning; xxhash64: pmod of the hash as int64) with
+//              HashPartitioning; xxhash64: pmod of the hash as int64;
+//              xxhash64 % n (algo 2): the remainder of the UNSIGNED 64-bit
+//              hash, which _split_by_key_hash takes as
+//              (h % uint64(n)).astype(int32) and which torch cannot take,
+//              having no uint64 remainder) with
 //              nparts for an inactive row, and adds each row to its
 //              partition's count (a block histogram in shared memory, one
 //              atomic per block and partition: a count is order-free).
@@ -46,6 +53,7 @@
 
 #define ALGO_MURMUR3 0
 #define ALGO_XXHASH64 1
+#define ALGO_XXHASH64_UMOD 2
 
 struct HSKeys {
   const void* data[HS_MAX_KEYS];
@@ -211,9 +219,11 @@ hs_rows(const __grid_constant__ HSKeys k, const uint8_t* __restrict__ active,
           if (algo == ALGO_MURMUR3) {
             const int m = (int)h32 % nparts;
             pid = m < 0 ? m + nparts : m;
-          } else {
+          } else if (algo == ALGO_XXHASH64) {
             const long long m = (long long)h64 % (long long)nparts;
             pid = (int)(m < 0 ? m + nparts : m);
+          } else {
+            pid = (int)(h64 % (unsigned long long)nparts);
           }
         }
         if (pid_out != nullptr) pid_out[r] = pid;
@@ -250,7 +260,7 @@ extern "C" int hash_rows(int nkeys, const void* const* data,
                          int algo, long long seed, int nparts, void* hash_out,
                          void* pid_out, void* counts, void* stream) {
   if (nkeys < 1 || nkeys > HS_MAX_KEYS || n < 0 ||
-      (algo != ALGO_MURMUR3 && algo != ALGO_XXHASH64) || nparts < 0 ||
+      algo < ALGO_MURMUR3 || algo > ALGO_XXHASH64_UMOD || nparts < 0 ||
       nparts > HS_MAX_PARTS || ((pid_out != nullptr || counts != nullptr) &&
                                 nparts == 0))
     return (int)cudaErrorInvalidValue;

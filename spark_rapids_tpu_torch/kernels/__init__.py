@@ -32,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = ("masked_reduce", "grid_agg", "dense_join", "dense_agg", "topk",
            "compact", "csr_join", "hash_agg", "hashing", "sort_join", "sort",
            "window_scan", "window_frame", "cond_join", "wide_decimal",
-           "sample", "explode", "key_stats")
+           "sample", "explode", "key_stats", "bucketize", "group_ratio")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +89,9 @@ _SIGNATURES = {
         # ngroups, rslot, call, stream
         "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
+        # the same arguments, buffer columns with their merge ops
+        "hash_agg_merge": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
         # nkeys, nch, old_state, old_keys, old_nulls, old_cap, old_acc[],
         # old_aux[], new_state, new_keys, new_nulls, new_cap, new_acc[],
         # new_aux[], collide, stream
@@ -213,6 +216,15 @@ _SIGNATURES = {
         "ks_prepare": [_P, _I, _P, _P, _L, _P, _P, _P, _L, _P],
         # word, perm, n, out, vcap, tiles, stream
         "ks_distinct": [_P, _P, _L, _P, _L, _P, _P],
+    },
+    "bucketize": {
+        # pids, active, n, nparts, cap, ncols, in[], out[], elems[], counts,
+        # sent, overflow, stream
+        "bucketize": [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "group_ratio": {
+        # h, active, n, set, out, stream
+        "group_ratio": [_P, _P, _L, _P, _P, _P],
     },
     "compact": {
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,

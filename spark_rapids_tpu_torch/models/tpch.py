@@ -958,17 +958,17 @@ def query_oracle(name: str, tables) -> list:
 
 def gen_db(sf: float, out_dir: str, chunk: int = 1_000_000,
            data: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
-           codec: str = "UNCOMPRESSED") -> Dict[str, str]:
+           codec: str = "UNCOMPRESSED", tables=DB_TABLES) -> Dict[str, str]:
     """The reference suite's ``gen_db`` (tpch_suite.py:45) with the port's
-    parquet writer: the eight tables of :func:`gen_db_arrays` (or of
-    ``data``, the same dicts already drawn) written to
+    parquet writer: the eight tables of :func:`gen_db_arrays` (or those of
+    ``tables``; or of ``data``, the same dicts already drawn) written to
     ``<out_dir>/tpch_sf<sf>/<table>.parquet``, with pyarrow's row groups
     (one per ``chunk`` rows of orders and lineitem, which the reference
     writes chunk by chunk; 1,048,576-row groups of the other tables).
     Returns {table: path}; tables already written are kept."""
     from ..io.writers import ROW_GROUP_ROWS, write_table
     root = os.path.join(out_dir, f"tpch_sf{sf}")
-    paths = {t: os.path.join(root, f"{t}.parquet") for t in DB_TABLES}
+    paths = {t: os.path.join(root, f"{t}.parquet") for t in tables}
     os.makedirs(root, exist_ok=True)
     for t, path in paths.items():
         if os.path.exists(path):

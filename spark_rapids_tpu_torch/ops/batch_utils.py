@@ -10,8 +10,11 @@ the hand-written kernel ``csrc/compact.cu`` (replacing the reference's
 launcher, which counts its launches.  Host-carried columns (strings and
 lists) are filtered on the host by the live mask, which comes over in the
 one counted fetch that also gives the live count (reference :217-222).
-``concat_batches`` is ``torch.cat`` of each column and ``slice_batch`` a
-view of each: plain copies and views, not kernels.  ``gather`` applies a permutation to every column through the
+``concat_batches`` is ``torch.cat`` of each column (dictionary codes of
+different dictionaries are first remapped into their union dictionary by
+a device gather through ``csrc/csr_join.cu csr_gather``, the dictionary
+half of the reference's ``_concat_fn`` :240) and ``slice_batch`` a view
+of each.  ``gather`` applies a permutation to every column through the
 full device sort's gather kernel (``ops/sort.py``, ``csrc/sort.cu``).
 """
 
@@ -183,13 +186,24 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
     for i, c in enumerate(first.columns):
         parts = [b.columns[i] for b in batches]
         if isinstance(c, DictStringColumn) and all(
-                isinstance(p, DictStringColumn)
-                and p.dictionary is c.dictionary for p in parts):
-            # codes of one dictionary: comparable as they are
+                isinstance(p, DictStringColumn) for p in parts):
+            # codes of one dictionary are comparable as they are; codes of
+            # different ones are remapped into their union first
+            union = None
+            codes = []
+            if all(p.dictionary is c.dictionary for p in parts):
+                codes = [p.codes for p in parts]
+                dictionary = c.dictionary
+            else:
+                from .strings import encode_column
+                for p in parts:
+                    union, x, _ = encode_column(p, union, p.codes.device)
+                    codes.append(x)
+                dictionary = union.values()
             cols.append(DictStringColumn(
-                torch.cat([p.codes for p in parts]),
+                torch.cat(codes),
                 cat_valid([p.valid for p in parts], lengths, c.codes),
-                c.dictionary))
+                dictionary))
             continue
         if all(isinstance(p, HostStringColumn) for p in parts):
             valids = [p.valid for p in parts]

@@ -45,7 +45,10 @@ __all__ = ["init_scalars", "ungrouped_reduce", "masked_reduce",
            "DenseAccumulator", "dense_agg_update", "dense_agg_update_plain",
            "dense_agg_check", "dense_agg_check_plain", "HashAccumulator",
            "hash_agg_update", "hash_agg_update_plain", "hash_agg_rehash",
-           "key_word", "key_from_word", "f64_image", "f64_from_image"]
+           "hash_agg_merge", "hash_agg_merge_plain", "merge_op",
+           "key_word", "key_from_word", "f64_image", "f64_from_image",
+           "group_ratio", "group_ratio_plain", "group_ratio_kernel",
+           "GR_MAX_ROWS"]
 
 Value = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -1100,20 +1103,45 @@ class HashAccumulator:
         run(self, words, contributions, active, n)
         self.bound = self._limit_bound(self.bound + n)
 
-    def finish(self):
+    def needs_count(self) -> bool:
+        """Does :meth:`finish` compact (and so need the group count)?"""
+        return self.cap > HA_COMPACT_SLOTS
+
+    def merge(self, words: Sequence[Value], buffers: Sequence[Value],
+              active: Optional[torch.Tensor], n: int) -> None:
+        """Adds one batch of ``n`` partial-aggregation buffer rows (in
+        place): each channel's op is its buffer's merge op
+        (:func:`merge_op`) and each buffer's validity its mask (a FIRST or
+        LAST buffer's: its ``has`` flag)."""
+        if len(words) != self.nkeys or len(buffers) != len(self.channels):
+            raise ValueError("keys/buffers do not match the accumulator's "
+                             "layout")
+        self._reserve(n)
+        self.calls += 1
+        words = [(_column(d, n), _column(v, n)) for d, v in words]
+        buffers = [(_column(d, n), _column(v, n)) for d, v in buffers]
+        run = hash_agg_merge if self.kernel else hash_agg_merge_plain
+        run(self, words, buffers, active, n)
+        self.bound = self._limit_bound(self.bound + n)
+
+    def finish(self, groups: Optional[int] = None, compact: bool = True):
         """(per key its int64 words and validity; per channel its values —
         float64 min/max decoded from their images, FIRST/LAST as
         (value, has) pairs; the live mask or None), every list in one slot
         order.  A table of more than
         ``HA_COMPACT_SLOTS`` slots is compacted to its groups after one
-        fetch of their count; a smaller one comes back whole under its
-        live mask, with no fetch.  The plain version's groups are dense
-        already; it makes the same fetch, so counts agree."""
+        fetch of their count (or to ``groups``, when the caller read the
+        count in a fetch of its own); a smaller one, or any with
+        ``compact=False``, comes back whole under its live mask, with no
+        fetch.  The plain version's groups are
+        dense already; it makes the same fetch, so counts agree."""
         from ..utils.metrics import fetch
         if self.cap == 0:
             self._reserve(0)
-        groups = int(fetch(self.ngroups)[0]) \
-            if self.cap > HA_COMPACT_SLOTS else None
+        if not compact or not self.needs_count():
+            groups = None
+        elif groups is None:
+            groups = int(fetch(self.ngroups)[0])
         live = None
         words, nulls, acc = list(self.keys), self.nulls, self.acc
         has = [x for x in self.aux if x is not None]
@@ -1225,9 +1253,9 @@ def hash_agg_update_plain(acc: HashAccumulator, words, contributions,
     acc.aux = new_aux
 
 
-def hash_agg_update(acc: HashAccumulator, words, contributions, active,
-                    n: int) -> None:
-    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
+def _ha_launch(acc: HashAccumulator, words, contributions, active, n: int,
+               entry: str) -> None:
+    """One ``csrc/hash_agg.cu`` update or merge launch after the checks."""
     if active is not None:
         _check_column(active, n, (torch.bool,), "active")
     for d, v in words:
@@ -1256,7 +1284,7 @@ def hash_agg_update(acc: HashAccumulator, words, contributions, active,
                         device=acc.device)
     P = kernels.pointer_array
     lib = kernels.load("hash_agg")
-    rc = lib.hash_agg_update(
+    rc = getattr(lib, entry)(
         acc.nkeys, P([d.data_ptr() for d, _ in words]),
         P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
         P(valid), kernels.int_array(ops), kernels.int_array(f64),
@@ -1266,7 +1294,15 @@ def hash_agg_update(acc: HashAccumulator, words, contributions, active,
         acc.cap, int(acc.collide), acc.ngroups.data_ptr(),
         rslot.data_ptr() if per_row else None, acc.calls,
         torch.cuda.current_stream(acc.device).cuda_stream)
-    kernels.check_launch(lib, "hash_agg_update", rc)
+    kernels.check_launch(lib, entry, rc)
+
+
+def hash_agg_update(acc: HashAccumulator, words, contributions, active,
+                    n: int) -> None:
+    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
+    _ha_launch(acc, words, contributions, active, n, "hash_agg_update")
+    if n == 0:
+        return
     hash_agg_update.launches += 1
     if any(x is not None for x in acc.aux):
         hash_agg_update.ordered_launches += 1
@@ -1274,6 +1310,102 @@ def hash_agg_update(acc: HashAccumulator, words, contributions, active,
 
 hash_agg_update.launches = 0
 hash_agg_update.ordered_launches = 0  # the launches that pick FIRST/LAST
+
+
+def merge_op(op: str) -> str:
+    """The channel op that merges partial buffers of a buffer op
+    (``aggfns`` ``buffers()``): FIRST/LAST pick among the partial rows
+    whose ``has`` holds, so both forms merge as their ``_valid`` form;
+    a count channel's partials are summed; every other op merges as
+    itself."""
+    if op == "count":
+        return "sum"
+    return op if op.endswith("_valid") or op not in ORDERED_OPS \
+        else op + "_valid"
+
+
+def hash_agg_merge_plain(acc: HashAccumulator, words, buffers, active,
+                         n: int) -> None:
+    """Plain version of ``hash_agg_merge``: the plain update with each
+    buffer's validity as its mask (``hash_agg_update_plain`` picks FIRST
+    and LAST among the masked rows)."""
+    if any(op == "count" for op, _ in acc.channels):
+        raise ValueError("a merge takes no count channel")
+    hash_agg_update_plain(acc, words, buffers, active, n)
+
+
+def hash_agg_merge(acc: HashAccumulator, words, buffers, active,
+                   n: int) -> None:
+    """Launch ``hash_agg_merge`` of ``csrc/hash_agg.cu``."""
+    if any(op == "count" for op, _ in acc.channels):
+        raise ValueError("a merge takes no count channel")
+    _ha_launch(acc, words, buffers, active, n, "hash_agg_merge")
+    if n:
+        hash_agg_merge.launches += 1
+
+
+hash_agg_merge.launches = 0
+
+
+# ---------------------------------------------------------------------------------
+# The partial aggregate's skip probe: distinct and live sampled key hashes
+# ---------------------------------------------------------------------------------
+
+GR_MAX_ROWS = 1 << 18       # csrc/group_ratio.cu GR_MAX_ROWS
+GR_SLOTS = 1 << 19          # csrc/group_ratio.cu GR_SLOTS
+
+
+def group_ratio_plain(h: torch.Tensor, active: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+    """Plain version of ``group_ratio_kernel``, the reference's program
+    (``plan/physical.py:2019``): sort ``where(active, h, INT64_MAX)`` and
+    count the adjacent distinct values below INT64_MAX."""
+    big = _I64_MAX
+    s = torch.sort(h if active is None else torch.where(active, h, big))[0]
+    n_live = h.numel() if active is None else int(active.sum())
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    n_distinct = int((first & (s != big)).sum())
+    return torch.tensor([n_distinct, n_live], dtype=torch.int64,
+                        device=h.device)
+
+
+def group_ratio_kernel(h: torch.Tensor, active: Optional[torch.Tensor]
+                       ) -> torch.Tensor:
+    """Launch ``group_ratio`` of ``csrc/group_ratio.cu``: int64 [2]
+    (distinct hashes, live rows) of at most ``GR_MAX_ROWS`` rows."""
+    n = h.shape[0]
+    if n > GR_MAX_ROWS:
+        raise ValueError(f"group_ratio takes at most {GR_MAX_ROWS} rows")
+    _check_column(h, n, (torch.int64,), "hashes")
+    if active is not None:
+        _check_column(active, n, (torch.bool,), "active")
+    out = torch.zeros(2, dtype=torch.int64, device=h.device)
+    if n == 0:
+        return out
+    table = torch.full((GR_SLOTS,), -1, dtype=torch.int64, device=h.device)
+    lib = kernels.load("group_ratio")
+    rc = lib.group_ratio(h.data_ptr(), _opt_ptr(active), n,
+                         table.data_ptr(), out.data_ptr(),
+                         torch.cuda.current_stream(h.device).cuda_stream)
+    kernels.check_launch(lib, "group_ratio", rc)
+    group_ratio_kernel.launches += 1
+    return out
+
+
+group_ratio_kernel.launches = 0
+
+
+def group_ratio(h: torch.Tensor, active: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """(distinct hash values, live rows) of the sampled rows as an int64
+    [2] tensor on ``h``'s device: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    h = h.contiguous()
+    active = None if active is None else active.contiguous()
+    if h.is_cuda:
+        return group_ratio_kernel(h, active)
+    return group_ratio_plain(h, active)
 
 
 def hash_agg_rehash(acc: HashAccumulator, old, new, new_cap: int) -> None:

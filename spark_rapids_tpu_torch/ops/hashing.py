@@ -15,12 +15,16 @@ XxHash64, seed 42), as the reference computes them:
   ROADMAP.md queue 3);
 * a partition id is the non-negative remainder of the hash by the
   partition count: of the murmur3 hash as int32 (Spark's
-  HashPartitioning), of the xxhash64 hash as int64.
+  HashPartitioning), of the xxhash64 hash as int64; the aggregate's
+  re-partition buckets (``xxhash64_mod``, reference
+  ``plan/physical.py:2169 _split_by_key_hash``) take the remainder of the
+  xxhash64 hash as an UNSIGNED 64-bit number.
 
 The dispatching functions (``hash_columns``, ``xxhash64_columns``,
-``spark_partition_id``, ``partition_ids``) launch ``csrc/hashing.cu`` for
-CUDA tensors (``hash_rows_kernel``, which counts its launches) and run the
-plain PyTorch versions for CPU tensors.  The plain versions hold unsigned
+``spark_partition_id``, ``partition_ids``, ``xxhash64_mod``) launch
+``csrc/hashing.cu`` for CUDA tensors (``hash_rows_kernel``, which counts
+its launches; ``xxhash64_mod_kernel`` counts its own) and run the plain
+PyTorch versions for CPU tensors.  The plain versions hold unsigned
 32- and 64-bit words in int64 tensors: 32-bit words are masked, 64-bit
 products wrap modulo 2^64 and right shifts are made logical by masks.
 """
@@ -37,14 +41,15 @@ __all__ = ["SPARK_PARTITION_SEED", "HS_MAX_KEYS", "HS_MAX_PARTS",
            "normalize_float_bits", "f64_bit_pattern", "hash_value",
            "hash_columns", "spark_partition_id", "xxhash64_value",
            "xxhash64_columns", "partition_ids", "hash_rows_plain",
-           "hash_rows_kernel"]
+           "hash_rows_kernel", "xxhash64_mod", "xxhash64_mod_plain",
+           "xxhash64_mod_kernel"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 SPARK_PARTITION_SEED = 42
 HS_MAX_KEYS = 8             # csrc/hashing.cu HS_MAX_KEYS
 HS_MAX_PARTS = 4096         # csrc/hashing.cu HS_MAX_PARTS
-_ALGO = {"murmur3": 0, "xxhash64": 1}
+_ALGO = {"murmur3": 0, "xxhash64": 1, "xxhash64_umod": 2}
 _M32 = 0xFFFFFFFF
 _FLT_MIN = 1.17549435e-38
 _DBL_MIN = 2.2250738585072014e-308
@@ -210,6 +215,15 @@ def hash_rows_kernel(keys: Sequence[Value], active: Optional[torch.Tensor],
     None, int32 [n] partition ids or None).  ``pid_out`` may be a
     contiguous int32 [n] view to write the ids into; ``counts`` (int64
     [nparts + 1]) is added to."""
+    out = _hash_rows(keys, active, algo, seed, nparts, counts, want_hash,
+                     pid_out)
+    hash_rows_kernel.launches += 1
+    return out
+
+
+def _hash_rows(keys, active, algo: str, seed: int, nparts: int, counts,
+               want_hash: bool, pid_out):
+    """One ``hash_rows`` launch after the checks (the callers count it)."""
     n = keys[0][0].shape[0]
     if not 1 <= len(keys) <= HS_MAX_KEYS:
         raise ValueError(f"hash_rows takes 1..{HS_MAX_KEYS} keys, got "
@@ -252,7 +266,6 @@ def hash_rows_kernel(keys: Sequence[Value], active: Optional[torch.Tensor],
         None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(lib, "hash_rows", rc)
-    hash_rows_kernel.launches += 1
     return h, pid
 
 
@@ -296,7 +309,7 @@ def partition_ids(keys: Sequence[Value], n_parts: int,
     ``active``), by murmur3 (the exchange) or xxhash64 (sub-partitions);
     each row is added to ``counts[pid]`` (int64 [n_parts + 1]) when given.
     ``pid_out`` (int32 [n]) receives the ids when given."""
-    if algo not in _ALGO:
+    if algo not in ("murmur3", "xxhash64"):
         raise ValueError(f"hash {algo!r} is not one of {list(_ALGO)}")
     keys = _contiguous(keys)
     if keys[0][0].is_cuda:
@@ -309,3 +322,55 @@ def partition_ids(keys: Sequence[Value], n_parts: int,
         pid_out.copy_(pid)
         return pid_out
     return pid
+
+
+def _umod(h: torch.Tensor, n: int) -> torch.Tensor:
+    """Remainder of int64-held unsigned 64-bit words by ``n`` (< 2^31):
+    2^64 = 2^32 * 2^32, so hi * (2^32 mod n) + lo folds in int64."""
+    hi = _lsr(h, 32) % n
+    lo = h & _M32
+    return (hi * ((1 << 32) % n) + lo % n) % n
+
+
+def xxhash64_mod_plain(keys: Sequence[Value], n: int,
+                       active: Optional[torch.Tensor] = None,
+                       counts: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain version of ``xxhash64_mod_kernel``."""
+    h, _ = hash_rows_plain(keys, None, "xxhash64", SPARK_PARTITION_SEED, 0)
+    pid = _umod(h, n).to(torch.int32)
+    if active is not None:
+        pid = torch.where(active, pid, n)
+    if counts is not None:
+        counts += torch.bincount(pid.to(torch.int64), minlength=n + 1)
+    return pid
+
+
+def xxhash64_mod_kernel(keys: Sequence[Value], n: int,
+                        active: Optional[torch.Tensor] = None,
+                        counts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Launch ``hash_rows`` of ``csrc/hashing.cu`` with the unsigned
+    remainder (algo 2): int32 [rows] bucket ids, ``n`` for an inactive
+    row; ``counts`` (int64 [n + 1]) is added to."""
+    keys = _contiguous(keys)
+    pid = _hash_rows(keys, active, "xxhash64_umod", SPARK_PARTITION_SEED, n,
+                     counts, False, None)[1]
+    xxhash64_mod_kernel.launches += 1
+    return pid
+
+
+xxhash64_mod_kernel.launches = 0
+
+
+def xxhash64_mod(keys: Sequence[Value], n: int,
+                 active: Optional[torch.Tensor] = None,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bucket id per row: ``xxhash64(keys, 42) % n`` of the unsigned hash
+    as int32 (``n`` for a row outside ``active``), the reference's
+    ``_split_by_key_hash`` ids; each row is added to ``counts[id]``
+    (int64 [n + 1]) when given."""
+    keys = _contiguous(keys)
+    if keys[0][0].is_cuda:
+        return xxhash64_mod_kernel(keys, n, active, counts)
+    return xxhash64_mod_plain(keys, n, active, counts)

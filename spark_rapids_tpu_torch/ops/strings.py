@@ -11,8 +11,8 @@ equality (grouping) only, never for ORDER BY.
 :func:`encode_column` gives any string column as device codes: a host
 column is encoded once and the encoding cached on the column object (the
 in-memory scan hands out the same objects on every run); dictionary codes
-that arrive from a join are adopted verbatim when their dictionary is the
-one in use, and remapped into it otherwise, so codes of different
+that arrive from a join or a partial aggregate are adopted verbatim when
+their dictionary is (a snapshot of) the one in use, and remapped into it otherwise, so codes of different
 dictionaries are never compared.
 """
 
@@ -76,6 +76,9 @@ class StringDictionary:
         self.source: Optional[np.ndarray] = None
         # id(values array) -> (values array, device remap into this one)
         self.remaps: Dict[int, tuple] = {}
+        # the snapshots values() handed out: codes are only ever appended,
+        # so codes coded against any of them are this dictionary's codes
+        self._issued: Dict[int, np.ndarray] = {}
 
     @classmethod
     def from_values(cls, values: np.ndarray) -> "StringDictionary":
@@ -134,7 +137,14 @@ class StringDictionary:
         if self._array is None or len(self._array) != len(self._values):
             self._array = np.empty(len(self._values), dtype=object)
             self._array[:] = self._values
+            self._issued[id(self._array)] = self._array
         return self._array
+
+    def issued(self, values: np.ndarray) -> bool:
+        """Is ``values`` a snapshot of this dictionary (its codes valid
+        here as they are)?"""
+        return values is self.source \
+            or self._issued.get(id(values)) is values
 
 
 def encode_column(col, d: Optional[StringDictionary], device: torch.device):
@@ -150,7 +160,7 @@ def encode_column(col, d: Optional[StringDictionary], device: torch.device):
     if isinstance(col, DictStringColumn):
         if d is None:
             d = StringDictionary.from_values(col.dictionary)
-        if d.source is col.dictionary:
+        if d.issued(col.dictionary):
             return d, col.codes, col.valid
         if len(col.dictionary) == 0:  # every row is null
             return d, torch.zeros_like(col.codes), col.valid
@@ -160,7 +170,10 @@ def encode_column(col, d: Optional[StringDictionary], device: torch.device):
             hit = (col.dictionary,
                    upload(torch.from_numpy(codes), col.codes.device))
             d.remaps[id(col.dictionary)] = hit
-        return d, hit[1][col.codes.to(torch.int64)], col.valid
+        from .join import gather_rows
+        (codes, _), = gather_rows(col.codes, [(hit[1], None)],
+                                  nullable=False)
+        return d, codes, col.valid
     cached = col._enc_cache
     if cached is not None and cached[1].device == device \
             and (d is None or cached[0] is d):

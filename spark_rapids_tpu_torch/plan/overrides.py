@@ -283,6 +283,36 @@ class NodeMeta:
         return lines
 
 
+def _plan_aggregate(child: TpuExec, group_bound, agg_bound,
+                    conf: TpuConf) -> TpuExec:
+    """A grouped aggregation as partial -> shuffle exchange -> final (the
+    reference's ``_plan_aggregate`` :322): under HOST and ICI always,
+    under CACHE_ONLY when ``sql.agg.singleProcessComplete`` is false; an
+    ungrouped aggregate, or exchanges off, is one complete pass.  The
+    partial and final share one string-dictionary registry, and the
+    exchange coalesces small partitions on read (the final needs whole
+    groups per batch, not partition alignment)."""
+    if not group_bound or not conf["spark.rapids.tpu.sql.exchange.enabled"]:
+        return AggregateExec(child, group_bound, agg_bound)
+    if conf["spark.rapids.tpu.shuffle.mode"] == "CACHE_ONLY" \
+            and conf["spark.rapids.tpu.sql.agg.singleProcessComplete"]:
+        return AggregateExec(child, group_bound, agg_bound)
+    from .exchange_exec import ShuffleExchangeExec
+    shared: dict = {}
+    partial = AggregateExec(child, group_bound, agg_bound, mode="partial",
+                            string_dicts=shared)
+    keys = [BoundReference(i, f.dtype, f.nullable, f.name)
+            for i, f in enumerate(
+                partial.output_schema.fields[:len(group_bound)])]
+    exchange = ShuffleExchangeExec(
+        partial, keys, conf["spark.rapids.tpu.sql.shuffle.partitions"],
+        shared, coalesce_output=True)
+    final_keys = [(n, BoundReference(i, e.dtype, e.nullable, n))
+                  for i, (n, e) in enumerate(group_bound)]
+    return AggregateExec(exchange, final_keys, agg_bound, mode="final",
+                         string_dicts=shared)
+
+
 def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
     p = meta.plan
     if not meta.on_device:
@@ -334,16 +364,17 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
     if isinstance(p, L.Aggregate):
         child = _convert(meta.children[0], conf)
         schema = child.output_schema
-        return AggregateExec(
+        return _plan_aggregate(
             child, [(n, bind(e, schema)) for n, e in p.group_exprs],
-            [(n, strip_alias(bind(e, schema))) for n, e in p.agg_exprs])
+            [(n, strip_alias(bind(e, schema))) for n, e in p.agg_exprs],
+            conf)
 
     if isinstance(p, L.Distinct):
         child = _convert(meta.children[0], conf)
         schema = child.output_schema
-        return AggregateExec(
+        return _plan_aggregate(
             child, [(f.name, BoundReference(i, f.dtype, f.nullable, f.name))
-                    for i, f in enumerate(schema)], [])
+                    for i, f in enumerate(schema)], [], conf)
 
     if isinstance(p, L.Sort):
         from .exec_nodes import SortExec

@@ -67,6 +67,16 @@ class TpuExec:
         raise NotImplementedError
 
 
+def _cat_values(parts):
+    """One (data, valid) from pieces (a missing validity filled True)."""
+    data = torch.cat([d for d, _ in parts])
+    if all(v is None for _, v in parts):
+        return data, None
+    return data, torch.cat([torch.ones(d.shape[0], dtype=torch.bool,
+                                       device=d.device) if v is None else v
+                            for d, v in parts])
+
+
 def _device_arrays(b: ColumnBatch) -> list:
     return [(c.data, c.valid) if isinstance(c, DeviceColumn) else None
             for c in b.columns]
@@ -413,17 +423,31 @@ class AggregateExec(TpuExec):
 
     def __init__(self, child: TpuExec,
                  group_exprs: List[Tuple[str, Expression]],
-                 agg_exprs: List[Tuple[str, AggregateExpression]]):
+                 agg_exprs: List[Tuple[str, AggregateExpression]],
+                 mode: str = "complete",
+                 string_dicts: Optional[Dict[int, StringDictionary]] = None):
         super().__init__([child])
+        if mode not in ("complete", "partial", "final"):
+            raise ValueError(f"unknown aggregate mode {mode!r}")
         self.group_exprs = group_exprs
         self.agg_exprs = agg_exprs
-        self._schema = Schema(
+        self.mode = mode
+        # group index -> dictionary of a string key, shared by the partial
+        # and the final around one exchange (the reference's
+        # ``shared_dicts``), so codes stay comparable across it
+        self.string_dicts = string_dicts if string_dicts is not None else {}
+        self._schema = self._buffer_schema() if mode == "partial" else Schema(
             [Field(n, e.dtype, e.nullable) for n, e in group_exprs]
             + [Field(n, a.dtype, a.nullable) for n, a in agg_exprs])
 
     @property
     def output_schema(self) -> Schema:
         return self._schema
+
+    def node_desc(self) -> str:
+        keys = [n for n, _ in self.group_exprs]
+        aggs = [f"{a.func}({n})" for n, a in self.agg_exprs]
+        return f"TpuHashAggregate [{self.mode}] keys={keys} aggs={aggs}"
 
     def _buffers(self) -> List[Tuple[T.DataType, str]]:
         return [buf for _, agg in self.agg_exprs for buf in agg.buffers()]
@@ -454,27 +478,46 @@ class AggregateExec(TpuExec):
                                 "(ANSI mode)")
         return outs
 
+    def _value_columns(self, buffer_values: list) -> List[DeviceColumn]:
+        """The output columns after the keys: a partial aggregate's buffer
+        columns (a FIRST/LAST buffer's ``has`` as its validity), else the
+        finalized aggregates."""
+        if self.mode != "partial":
+            return [DeviceColumn(agg.dtype, data, valid)
+                    for (_, agg), (data, valid) in zip(
+                        self.agg_exprs, self._finalize(buffer_values))]
+        return [DeviceColumn(dt, *(v if isinstance(v, tuple) else (v, None)))
+                for (dt, _), v in zip(self._buffers(), buffer_values)]
+
     def _ordered(self) -> bool:
         return any(op in groupby.ORDERED_OPS for _, op in self._buffers())
 
     def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
         self._ansi = ctx.conf["spark.rapids.tpu.sql.ansi.enabled"]
-        if not ctx.conf["spark.rapids.tpu.sql.agg.singleProcessComplete"]:
-            raise NotImplementedError(
-                "the partial/final aggregate split (the reference's row "
-                "5', plan/physical.py:2006) is not ported: it comes with "
-                "the distribution slice (ROADMAP.md item 10)")
         batches = self.children[0].execute(ctx)
         if not self.group_exprs:
             yield self._execute_ungrouped(ctx, batches)
+        elif self.mode == "final":
+            yield from self._execute_final(ctx, batches)
+        elif self.mode == "partial":
+            yield from self._execute_partial(ctx, batches)
         elif self._ordered():
-            yield self._execute_hash(ctx, batches)
+            yield from self._execute_hash(ctx, batches)
         elif self._dense_static_ok(ctx.conf):
-            yield self._execute_dense(ctx, batches)
+            yield from self._execute_dense(ctx, batches)
         elif self._grid_static_ok():
-            yield self._execute_grid(ctx, batches)
+            yield from self._execute_grid(ctx, batches)
         else:
-            yield self._execute_hash(ctx, batches)
+            yield from self._execute_hash(ctx, batches)
+
+    def _dicts(self) -> List[Optional[StringDictionary]]:
+        """Per group key, the dictionary its codes use so far."""
+        return [self.string_dicts.get(k) for k in range(len(self.group_exprs))]
+
+    def _keep_dicts(self, dicts) -> None:
+        for k, d in enumerate(dicts):
+            if d is not None:
+                self.string_dicts[k] = d
 
     # -- ungrouped ----------------------------------------------------------------
     def _execute_ungrouped(self, ctx: ExecContext, batches) -> ColumnBatch:
@@ -523,15 +566,17 @@ class AggregateExec(TpuExec):
                              else "f" if dt == T.FLOAT64 else "i")
         return kinds
 
-    def _execute_grid(self, ctx: ExecContext, batches) -> ColumnBatch:
+    def _execute_grid(self, ctx: ExecContext, batches
+                      ) -> Iterator[ColumnBatch]:
         """The grid over padded dictionary sizes; a grid that outgrows
         ``gridMaxGroups`` hands every batch seen so far, and the rest, to
-        the hash aggregation."""
+        the hash aggregation.  A partial aggregate's grid emits its
+        buffers."""
         from .planner import strip_alias
         m = ctx.metric_set(self.op_id)
         ords = [strip_alias(e).ordinal for _, e in self.group_exprs]
         grid_max = ctx.conf["spark.rapids.tpu.sql.agg.gridMaxGroups"]
-        dicts: List[Optional[StringDictionary]] = [None] * len(ords)
+        dicts = self._dicts()
         acc: Optional[groupby.GridAccumulator] = None
         seen: List[ColumnBatch] = []
         for b in batches:
@@ -548,8 +593,10 @@ class AggregateExec(TpuExec):
                              for d in dicts)
                 if groupby.grid_size(dims) > grid_max:
                     m.add("aggGridRejected", 1)
-                    return self._execute_hash(
+                    self._keep_dicts(dicts)
+                    yield from self._execute_hash(
                         ctx, itertools.chain(seen, [b], batches))
+                    return
                 seen.append(b)
                 active = b.active_mask(ctx.device)
                 ectx = EvalContext(_device_arrays(b), b.num_rows, ctx.device,
@@ -562,23 +609,25 @@ class AggregateExec(TpuExec):
                 groupby.grid_group_reduce(keys, dims,
                                           self._contributions(ectx), active,
                                           acc)
+        self._keep_dicts(dicts)
         if acc is None:
-            return self._empty()
+            yield self._empty()
+            return
         # observed slots packed to the front, in slot (key code) order
         observed = acc.cnt > 0
         pack = torch.argsort((~observed).to(torch.int8), stable=True)
         cols: List = []
         for (codes, valid), d in zip(acc.slot_codes(), dicts):
             cols.append(DictStringColumn(codes[pack], valid[pack], d.values()))
-        for (name, agg), (data, valid) in zip(
-                self.agg_exprs, self._finalize(acc.values())):
-            cols.append(DeviceColumn(agg.dtype, data[pack],
-                                     None if valid is None else valid[pack]))
+        for c in self._value_columns(acc.values()):
+            cols.append(DeviceColumn(c.dtype, c.data[pack],
+                                     None if c.valid is None
+                                     else c.valid[pack]))
         out = ColumnBatch(self._schema, cols, acc.G, observed[pack])
         bound = 1
         for d in dicts:
             bound *= len(d) + 1
-        return batch_utils.compact_packed(out, bound)
+        yield batch_utils.compact_packed(out, bound)
 
     # -- grouped: dense direct addressing on an integral primary key ----------
     def _key_refs(self) -> List[Optional[BoundReference]]:
@@ -593,7 +642,8 @@ class AggregateExec(TpuExec):
         column, one of them integral (a single key must be), every buffer
         a sum/min/max, and no float64 min/max (the dense channels add
         float64 but order only int64).  Floating keys ride as residuals."""
-        if not conf["spark.rapids.tpu.sql.agg.dense.enabled"] \
+        if self.mode != "complete" \
+                or not conf["spark.rapids.tpu.sql.agg.dense.enabled"] \
                 or not conf["spark.rapids.tpu.join.denseDomainCap"]:
             return False
         if any(op not in ("sum", "min", "max")
@@ -636,7 +686,8 @@ class AggregateExec(TpuExec):
                 for (dt, op), ((d, _), _) in zip(self._buffers(),
                                                  contributions)]
 
-    def _execute_dense(self, ctx: ExecContext, batches) -> ColumnBatch:
+    def _execute_dense(self, ctx: ExecContext, batches
+                       ) -> Iterator[ColumnBatch]:
         """The reference's ``_try_dense_grouped_multi`` (:1321) and, for one
         key, ``_try_dense_grouped`` (:1084), through the dense_agg kernel.
 
@@ -664,12 +715,12 @@ class AggregateExec(TpuExec):
         dicts: List[Optional[StringDictionary]] = [None] * n_keys
         seen: List[Tuple[ColumnBatch, list]] = []
 
-        def reject() -> ColumnBatch:
+        def reject() -> List[ColumnBatch]:
             """Every batch, the consumed ones first, into the hash
             aggregation."""
             m.add("aggDenseRejected", 1)
-            return self._execute_hash(ctx, itertools.chain(
-                (b for b, _ in seen), batches))
+            return list(self._execute_hash(ctx, itertools.chain(
+                (b for b, _ in seen), batches)))
 
         best = None
         for b in batches:
@@ -695,10 +746,12 @@ class AggregateExec(TpuExec):
             if best is None:
                 # no integral key has a domain within denseDomainCap and
                 # determines the others
-                return reject()
+                yield from reject()
+                return
             break
         if not seen:
-            return self._empty()
+            yield self._empty()
+            return
         # no valid primary in the whole input: every row has a null key
         domain, pidx, kmin, n_valid = best if best is not None \
             else (1, cand.index(True), 0, 1)
@@ -716,7 +769,8 @@ class AggregateExec(TpuExec):
         # tail fetch); keys beyond it overflow and widen
         D = domain
         if too_big(D):
-            return reject()
+            yield from reject()
+            return
         margin = DENSE_MARGIN_GAPS * -(-domain // n_valid)
         lo = max(kmin - margin, _I64_MIN)
         hi = min(kmin + domain - 1 + margin, _I64_MAX)
@@ -745,7 +799,8 @@ class AggregateExec(TpuExec):
         if n_over:
             lo, hi = min(acc.kmin, omin), max(acc.kmin + acc.D - 1, omax)
             if n_over > acc.cap or hi - lo + 1 > cap or too_big(hi - lo + 1):
-                return reject()  # the overflow outgrew the buffer or caps
+                yield from reject()  # the overflow outgrew the buffer or caps
+                return
             acc.widen(lo, hi - lo + 1)
             acc.replay_overflow(n_over)
             m.add("aggDenseWidened", 1)
@@ -753,9 +808,10 @@ class AggregateExec(TpuExec):
         if violated:
             # a residual key takes two values, or null and non-null, under
             # one primary key
-            return reject()
+            yield from reject()
+            return
         m.add("aggDensePath", 1)
-        return self._dense_output(acc, pidx, res_idx, dicts, n_groups)
+        yield self._dense_output(acc, pidx, res_idx, dicts, n_groups)
 
     def _dense_output(self, acc, pidx: int, res_idx: List[int], dicts,
                       n_groups: int) -> ColumnBatch:
@@ -819,15 +875,21 @@ class AggregateExec(TpuExec):
                 return None
         return bound
 
-    def _execute_hash(self, ctx: ExecContext, batches) -> ColumnBatch:
+    def _execute_hash(self, ctx: ExecContext, batches
+                      ) -> Iterator[ColumnBatch]:
         """The hash aggregation over every batch into one table, at one
         fetch for each time the table may have to grow, and one to
-        compact a large table's output."""
+        compact a large table's output.  A partial aggregate emits its
+        buffers, and starts a new table, once the host's bound on its
+        groups passes the buffer row limit and one fetch confirms it (the
+        reference's emit-when-over-limit, ``physical.py:1897-1922``)."""
         m = ctx.metric_set(self.op_id)
         device = ctx.device
-        dicts: List[Optional[StringDictionary]] = [None] * len(
-            self.group_exprs)
+        dicts = self._dicts()
+        limit = self._buffer_row_limit(ctx.conf) \
+            if self.mode == "partial" else None
         acc: Optional[groupby.HashAccumulator] = None
+        emitted = False
         for b in batches:
             if b.num_rows == 0:
                 continue
@@ -843,9 +905,25 @@ class AggregateExec(TpuExec):
                 acc.key_bound = self._key_bound(dicts)
                 acc.update(words, [v for v, _ in contributions], b.sel,
                            b.num_rows)
-        if acc is None:
-            return self._empty()
-        keys, values, live = acc.finish()
+                over = limit is not None and acc.bound > limit \
+                    and int(fetch(acc.ngroups)[0]) > limit
+            if over:
+                m.add("partialAggEmits", 1)
+                self._keep_dicts(dicts)
+                yield self._hash_output(m, acc, dicts)
+                acc, emitted = None, True
+        self._keep_dicts(dicts)
+        if acc is not None:
+            yield self._hash_output(m, acc, dicts)
+        elif not emitted:
+            yield self._empty()
+
+    def _hash_output(self, m, acc: groupby.HashAccumulator, dicts,
+                     groups: Optional[int] = None) -> ColumnBatch:
+        """A hash table's groups as a batch: the keys from their words
+        (strings as codes of their dictionaries), then the buffers or the
+        finalized aggregates (``groups``: their count, when read)."""
+        keys, values, live = acc.finish(groups)
         m.add("aggHashPath", 1)
         m.add("aggHashGrowths", acc.growths)
         cols: List = []
@@ -858,10 +936,265 @@ class AggregateExec(TpuExec):
                 cols.append(DeviceColumn(
                     f.dtype, groupby.key_from_word(word, f.dtype.torch_dtype),
                     valid))
-        for (name, agg), (data, valid) in zip(
-                self.agg_exprs, self._finalize(values)):
-            cols.append(DeviceColumn(agg.dtype, data, valid))
+        cols += self._value_columns(values)
         return ColumnBatch(self._schema, cols, keys[0][0].shape[0], live)
+
+    # -- partial and final around an exchange (the reference's row 5') ---------
+    def _buffer_row_limit(self, conf: TpuConf) -> int:
+        """``sql.batchSizeBytes`` over the buffer row's width (string keys
+        as 4-byte codes, reference ``physical.py:1910-1920``)."""
+        width = 0
+        for f in self._buffer_schema():
+            if f.dtype.is_string:
+                width += 4
+            elif f.dtype.is_host_carried:
+                width += 64
+            else:
+                width += np.dtype(f.dtype.numpy_dtype).itemsize * (
+                    2 if f.dtype.is_wide_decimal else 1)
+        return max(1, conf["spark.rapids.tpu.sql.batchSizeBytes"]
+                   // max(width, 1))
+
+    def _buffer_schema(self) -> Schema:
+        fields = [Field(n, e.dtype, e.nullable) for n, e in self.group_exprs]
+        return Schema(fields + [Field(f"{name}#buf{bi}", dt, True)
+                                for name, agg in self.agg_exprs
+                                for bi, (dt, _) in enumerate(agg.buffers())])
+
+    def _key_values(self, b: ColumnBatch, ectx: EvalContext, dicts,
+                    device) -> list:
+        """Per group key its (data, valid): strings as int32 codes of the
+        shared dictionaries, anything else evaluated."""
+        from .planner import strip_alias
+        out = []
+        for k, (_, e) in enumerate(self.group_exprs):
+            core = strip_alias(e)
+            if core.dtype.is_string:
+                dicts[k], codes, valid = encode_column(
+                    b.columns[core.ordinal], dicts[k], device)
+                out.append((codes, valid))
+                continue
+            d, v = e.eval(ectx)
+            out.append((groupby._column(d, b.num_rows),
+                        groupby._column(v, b.num_rows)))
+        return out
+
+    def _sample_group_ratio(self, b: ColumnBatch, dicts, device) -> float:
+        """distinct / live of the group keys' 32-bit murmur3 hashes over
+        the first ``min(num_rows, 2^18)`` rows of the first batch under
+        its selection (reference :2006): ``csrc/group_ratio.cu``, both
+        counts in one fetch."""
+        from ..ops.hashing import hash_columns
+        srows = min(b.num_rows, groupby.GR_MAX_ROWS)
+        ectx = EvalContext(_device_arrays(b), b.num_rows, device,
+                           active=b.sel)
+        keys = [(d[:srows], None if v is None else v[:srows])
+                for d, v in self._key_values(b, ectx, dicts, device)]
+        h = hash_columns(keys)
+        active = None if b.sel is None else b.sel[:srows]
+        n_distinct, n_live = (int(x) for x in fetch(
+            groupby.group_ratio(h, active)))
+        return 0.0 if n_live == 0 else n_distinct / n_live
+
+    def _pass_through(self, b: ColumnBatch, dicts, device) -> ColumnBatch:
+        """One batch as buffer rows, unreduced: its keys and per-row
+        contributions (a count's as 0/1, a FIRST/LAST value's ``has`` its
+        qualifying mask) under the batch's selection (the reference's
+        pass-through program :1884, elementwise: no kernel)."""
+        n = b.num_rows
+        ectx = EvalContext(_device_arrays(b), n, device, active=b.sel)
+        cols: List = []
+        for f, (d, v), dk in zip(self._schema.fields,
+                                 self._key_values(b, ectx, dicts, device),
+                                 dicts):
+            v = v if f.nullable else None
+            cols.append(DictStringColumn(d, v, dk.values())
+                        if f.dtype.is_string else DeviceColumn(f.dtype, d, v))
+        for (dt, op), ((d, v), _) in zip(self._buffers(),
+                                         self._contributions(ectx)):
+            v = groupby._column(groupby.kernel_op(op, v)[1], n)
+            if d is None:  # a count: 1 where the row counts
+                d = torch.ones(n, dtype=torch.int64, device=device) \
+                    if v is None else v.to(torch.int64)
+                v = None
+            cols.append(DeviceColumn(dt, groupby._column(d, n), v))
+        return ColumnBatch(self._schema, cols, n, b.sel)
+
+    def _execute_partial(self, ctx: ExecContext, batches
+                         ) -> Iterator[ColumnBatch]:
+        """The partial aggregate: the skip probe on the first batch
+        decides once; then every batch passes through unreduced
+        (``skippedPartialAgg``), or the grid (bare string keys, sums) or
+        the hash aggregation reduces the stream to buffer rows."""
+        m = ctx.metric_set(self.op_id)
+        device = ctx.device
+        first = next(batches, None)
+        if first is None:
+            yield self._empty()
+            return
+        batches = itertools.chain([first], batches)
+        skip = ctx.conf["spark.rapids.tpu.sql.agg.skipPartialAggRatio"]
+        if skip < 1.0:
+            dicts = self._dicts()
+            with m.time("opTime"):
+                ratio = self._sample_group_ratio(first, dicts, device)
+            self._keep_dicts(dicts)
+            if ratio > skip:
+                m.add("skippedPartialAgg", 1)
+                for b in batches:
+                    with m.time("opTime"):
+                        out = self._pass_through(b, dicts, device)
+                    self._keep_dicts(dicts)
+                    m.add("numOutputRows", b.num_rows)
+                    yield out
+                return
+        if self._grid_static_ok():
+            yield from self._execute_grid(ctx, batches)
+        else:
+            yield from self._execute_hash(ctx, batches)
+
+    def _merge_channels(self) -> List[Tuple[str, bool]]:
+        return [(groupby.merge_op(op), dt == T.FLOAT64)
+                for dt, op in self._buffers()]
+
+    def _execute_final(self, ctx: ExecContext, batches
+                       ) -> Iterator[ColumnBatch]:
+        """The final aggregate: buffer rows merged with their merge ops
+        (``groupby.HashAccumulator.merge``, hash_agg.cu's merge entry, the
+        reference's ``_merge_fn`` :2296) and finalized.  An exchange's
+        output batches each hold whole groups, so each is merged and
+        finalized alone (the reference's streaming final, :1805)."""
+        from .exchange_exec import ShuffleExchangeExec
+        m = ctx.metric_set(self.op_id)
+        if isinstance(self.children[0], ShuffleExchangeExec):
+            streams = ([b] for b in batches)
+        else:
+            streams = iter([batches])
+        any_out = False
+        for stream in streams:
+            for out in self._merge_stream(ctx, m, stream):
+                any_out = True
+                m.add("numOutputRows", out.num_rows)
+                yield out
+        if not any_out:
+            yield self._empty()
+
+    def _merge_stream(self, ctx: ExecContext, m, batches
+                      ) -> Iterator[ColumnBatch]:
+        """Merge buffer batches into one table; once its groups pass the
+        buffer row limit (a fetch confirms the host's bound), the table's
+        groups and every later row split into ``agg.repartitionBuckets``
+        disjoint buckets by ``xxhash64(keys) % n`` (``csrc/hashing.cu``,
+        the reference's ``_split_by_key_hash`` :2169 and
+        ``_merge_bucket`` :2194).  Past the host's bound, the table's
+        bucket ids are computed at once, so one fetch reads the group
+        count with the bucket counts.  Each bucket keeps its rows and
+        merges them once, at the end, into a table sized for them (so no
+        bucket table grows); one fetch of the bucket counts then raises on
+        a bucket past the limit."""
+        device = ctx.device
+        nk = len(self.group_exprs)
+        limit = self._buffer_row_limit(ctx.conf)
+        dicts = self._dicts()
+        channels = self._merge_channels()
+        n_buckets = ctx.conf["spark.rapids.tpu.sql.agg.repartitionBuckets"]
+        acc: Optional[groupby.HashAccumulator] = None
+        groups: Optional[int] = None   # the table's count, once read
+        buckets = None
+        for b in batches:
+            if b.num_rows == 0:
+                continue
+            with m.time("opTime"):
+                ectx = EvalContext(_device_arrays(b), b.num_rows, device,
+                                   active=b.sel)
+                words = self._hash_key_words(b, ectx, dicts, device)
+                bufs = [(c.data, c.valid) for c in b.columns[nk:]]
+                if buckets is not None:
+                    self._merge_buckets(buckets, words, bufs, b.sel,
+                                        b.num_rows, device)
+                    continue
+                if acc is None:
+                    acc = groupby.HashAccumulator(nk, channels, device)
+                acc.key_bound = self._key_bound(dicts)
+                acc.merge(words, bufs, b.sel, b.num_rows)
+                groups = None
+                if acc.bound <= limit:
+                    continue
+                # the whole table under its live mask: no fetch yet
+                keys, values, live = acc.finish(compact=False)
+                pids, counts = self._bucket_ids(keys, live, n_buckets,
+                                                device)
+                host = fetch(torch.cat([acc.ngroups, counts]))
+                groups = int(host[0])
+                if groups > limit:
+                    m.add("aggRepartitions", 1)
+                    buckets = [[] for _ in range(n_buckets)]
+                    self._split(buckets, pids, host[1:], list(keys) + [
+                        v if isinstance(v, tuple) else (v, None)
+                        for v in values])
+                    acc = None
+        self._keep_dicts(dicts)
+        if buckets is not None:
+            accs = []
+            for pieces in buckets:
+                if not pieces:
+                    continue
+                cols = [_cat_values([p[0][j] for p in pieces])
+                        for j in range(len(pieces[0][0]))]
+                n = sum(p[1] for p in pieces)
+                x = groupby.HashAccumulator(nk, channels, device)
+                x.merge(cols[:nk], cols[nk:], None, n)
+                accs.append(x)
+            # a bucket of at most ``limit`` rows holds at most ``limit``
+            # groups: only larger ones need their count read
+            big = [x for x, pieces in zip(accs, [p for p in buckets if p])
+                   if sum(r for _, r in pieces) > limit]
+            counts = fetch([x.ngroups for x in big]) if big else []
+            if any(int(c[0]) > limit for c in counts):
+                raise RuntimeError(
+                    "aggregate re-partition bucket overflowed "
+                    "spark.rapids.tpu.sql.batchSizeBytes: raise the conf "
+                    "(extreme key skew across hash buckets)")
+            # the buckets' groups as one batch: one fetch downstream, not
+            # one per bucket
+            yield batch_utils.concat_batches(
+                [self._hash_output(m, x, dicts) for x in accs])
+        elif acc is not None:
+            yield self._hash_output(m, acc, dicts, groups)
+
+    def _bucket_ids(self, words, active, n_buckets: int, device):
+        """(int32 bucket id per row, int64 [n + 1] counts on the device)
+        of ``xxhash64(keys) % n_buckets`` over the keys in their own types
+        (strings as codes), as the reference's ``_split_by_key_hash``
+        hashes them (``csrc/hashing.cu``)."""
+        from ..ops import hashing
+        keys = [(w.to(torch.int32) if f.dtype.is_string else
+                 groupby.key_from_word(w, f.dtype.torch_dtype), v)
+                for f, (w, v) in zip(self._schema.fields, words)]
+        counts = torch.zeros(n_buckets + 1, dtype=torch.int64, device=device)
+        return hashing.xxhash64_mod(keys, n_buckets, active,
+                                    counts=counts), counts
+
+    @staticmethod
+    def _split(buckets, pids, host_counts, cols) -> None:
+        """Each bucket's run of ``cols`` rows, by one stable placement by
+        bucket id (``ops/join.py partition_perm``)."""
+        from ..ops import join
+        nb = len(buckets)
+        perm = join.partition_perm(pids, nb)
+        starts = np.concatenate([[0], np.cumsum(host_counts[:nb])])
+        for i, x in enumerate(buckets):
+            lo, hi = int(starts[i]), int(starts[i + 1])
+            if hi > lo:
+                x.append((join.gather_rows(perm[lo:hi], cols,
+                                           nullable=False), hi - lo))
+
+    def _merge_buckets(self, buckets, words, bufs, active, n: int,
+                       device) -> None:
+        """A later batch's rows into the buckets: one fetch of its bucket
+        counts."""
+        pids, counts = self._bucket_ids(words, active, len(buckets), device)
+        self._split(buckets, pids, fetch(counts), list(words) + list(bufs))
 
     def _empty(self) -> ColumnBatch:
         cols = []

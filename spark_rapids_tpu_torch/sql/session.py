@@ -40,6 +40,9 @@ class Session:
         self._settings: Dict[str, Any] = dict(settings or {})
         self._last_ctx: Optional[ExecContext] = None
         self._last_stats: Optional[QueryStats] = None
+        self._mesh: Optional[list] = None
+        # the dictionary of the mesh fragments' string columns
+        self._ici_strings = None
 
     @classmethod
     def get_or_create(cls, settings: Optional[Dict[str, Any]] = None,
@@ -108,6 +111,43 @@ class Session:
         return DataFrame(L.LogicalScan(src.schema(), src, src.describe(),
                                        fmt="parquet"), self)
 
+    # -- ICI mesh -----------------------------------------------------------------
+    def set_mesh(self, devices) -> None:
+        """Install the device list ``shuffle.mode=ICI`` runs its fragments
+        over (None: back to :meth:`ici_mesh`'s own).  A list that names
+        one device several times (``[torch.device("cuda:0")] * 8``, or
+        ``"cpu"`` in the tests) runs that many shards on it: a harness
+        standing in for the reference's forced 8-device host, not a
+        deployment."""
+        self._mesh = None if devices is None \
+            else [torch.device(d) for d in devices]
+
+    def ici_mesh(self):
+        """The session's ICI mesh: the installed list, else the visible
+        CUDA devices (``shuffle.ici.devices`` bounds their count; a CPU
+        session's mesh is its one device, or that many copies of it)."""
+        if self._mesh is not None:
+            return self._mesh
+        n = self.conf()["spark.rapids.tpu.shuffle.ici.devices"]
+        if self.device.type != "cuda":
+            return [self.device] * max(n, 1)
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise RuntimeError(f"shuffle.ici.devices={n} but only {visible} "
+                               f"devices are visible")
+        return [torch.device("cuda", i) for i in range(n or visible)]
+
+    def _distribute_if_ici(self, phys, ctx):
+        """shuffle.mode=ICI: run the exchange-bearing fragments on the mesh
+        and return the rest of the plan (``parallel/spmd.py``)."""
+        if ctx.conf["spark.rapids.tpu.shuffle.mode"] != "ICI":
+            return phys
+        from ..ops.strings import StringDictionary
+        from ..parallel.spmd import distribute_plan
+        if self._ici_strings is None:
+            self._ici_strings = StringDictionary()
+        return distribute_plan(phys, ctx, self.ici_mesh(), self._ici_strings)
+
     # -- execution ----------------------------------------------------------------
     def _execute(self, plan: L.LogicalPlan):
         from ..plan.subquery import resolve_subqueries
@@ -124,6 +164,7 @@ class Session:
         self._last_ctx = ctx
         with QueryStats.scoped() as stats:
             self._last_stats = stats
+            phys = self._distribute_if_ici(phys, ctx)
             return CollectExec(phys).collect_rows(ctx)
 
     def _execute_device(self, plan: L.LogicalPlan):
@@ -141,6 +182,7 @@ class Session:
         self._last_ctx = ctx
         with QueryStats.scoped() as stats:
             self._last_stats = stats
+            phys = self._distribute_if_ici(phys, ctx)
             batches = [b for b in phys.execute(ctx) if b.num_rows > 0]
             if not batches:
                 return None

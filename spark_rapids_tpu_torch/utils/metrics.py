@@ -25,7 +25,9 @@ _STATS_STACK: "contextvars.ContextVar[tuple]" = \
     contextvars.ContextVar("srt_torch_query_stats", default=())
 
 _COUNTERS = ("blocking_fetches", "fetch_bytes", "fetch_wait_s", "uploads",
-             "upload_bytes", "shuffle_bytes")
+             "upload_bytes", "shuffle_bytes", "shuffle_bytes_written",
+             "shuffle_bytes_read", "ici_fragments", "ici_fragment_rows",
+             "ici_retries")
 
 
 class QueryStats:
@@ -48,6 +50,14 @@ class QueryStats:
         self.upload_bytes = 0
         # bytes of the batches shuffle exchanges partitioned
         self.shuffle_bytes = 0
+        # HOST shuffle: frame bytes written and read back
+        self.shuffle_bytes_written = 0
+        self.shuffle_bytes_read = 0
+        # ICI: mesh fragments run, the rows they put out, and their
+        # overflow retries
+        self.ici_fragments = 0
+        self.ici_fragment_rows = 0
+        self.ici_retries = 0
         self.upload_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] \
             = []
 

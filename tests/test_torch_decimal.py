@@ -208,15 +208,21 @@ def test_result_precision_is_spark(sessions):
 
 
 def test_two_phase_wide_sum_raises():
-    """The reference's partial/final split (row 5′) waits for the
-    distribution slice (ROADMAP item 10): the port raises on it."""
-    sess = tsrt.Session({"spark.rapids.tpu.sql.agg.singleProcessComplete":
-                         False}, device="cpu")
+    """The reference's partial/final split (row 5′) raised here until the
+    distribution slice ported it: a wide SUM's int64 lanes now merge as
+    sum buffers in the final, and the split's rows equal the one-pass
+    plan's, exactly."""
     u, _ = _unscaled(["8888888888888.88"] * 90, 2)
-    df = sess.create_dataframe({"k": np.arange(90) % 3,
-                                "d": DecimalArray(u, 15, 2)})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        df.group_by("k").agg(TF.sum(TF.col("d")).alias("s")).collect()
+    data = {"k": np.arange(90) % 3, "d": DecimalArray(u, 15, 2)}
+    rows = []
+    for complete in (False, True):
+        sess = tsrt.Session({
+            "spark.rapids.tpu.sql.agg.singleProcessComplete": complete},
+            device="cpu")
+        rows.append(sorted(sess.create_dataframe(data).group_by("k").agg(
+            TF.sum(TF.col("d")).alias("s")).collect()))
+    assert rows[0] == rows[1]
+    assert [r[1] for r in rows[0]] == [Decimal("266666666666666.40")] * 3
 
 
 @pytest.mark.parametrize("ansi", [False, True])

@@ -40,6 +40,21 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert out.stdout.strip() == "[]"
 
 
+def test_distribution_modules_import_no_jax():
+    """The mesh, HOST shuffle and distributed-aggregate modules."""
+    code = ("import sys, spark_rapids_tpu_torch.parallel.spmd, "
+            "spark_rapids_tpu_torch.parallel.distributed, "
+            "spark_rapids_tpu_torch.parallel.host_shuffle, "
+            "spark_rapids_tpu_torch.parallel.exchange; "
+            "print(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'spark_rapids_tpu.', "
+            "'pyarrow', 'pandas')) or m == 'spark_rapids_tpu'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", sorted(_port_sources()),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_no_jax(path):

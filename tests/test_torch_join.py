@@ -158,12 +158,12 @@ def test_joins_other_than_inner_raise(sessions, how):
                    tsess.last_exec_context().metrics)
 
 
-def test_unported_join_shapes_raise(sessions):
+def test_unported_join_shapes_raise(sessions, tmp_path):
     """The shapes that raised before the sorted broadcast path (row 6″) —
     two keys, a float key, a key domain over denseDomainCap, a probe
     estimated under denseMinProbeRows — now run and equal the reference,
-    as does the cross join since row 7′-rest; what is still queued (the
-    HOST and ICI shuffle transports) raises, naming its item."""
+    as does the cross join since row 7′-rest, and the HOST and ICI
+    shuffle transports since the distribution slice (ROADMAP item 10)."""
     jsess, tsess = sessions
     d = {"a": np.arange(5, dtype=np.int64), "b": np.arange(5, dtype=np.int64),
          "w": np.arange(5, dtype=np.float64)}
@@ -188,12 +188,16 @@ def test_unported_join_shapes_raise(sessions):
         for sess in (jsess, tsess)]
     assert crossed[1] == crossed[0] and len(crossed[1]) == 45
     for mode in ("HOST", "ICI"):
-        shuffled = tsrt.Session({
-            "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
-            "spark.rapids.tpu.shuffle.mode": mode}, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            shuffled.create_dataframe(f).join(
-                shuffled.create_dataframe(d), [("a2", "a")]).collect()
+        settings = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
+                    "spark.rapids.tpu.shuffle.mode": mode,
+                    "spark.rapids.tpu.memory.spill.dir": str(tmp_path)}
+        rows = []
+        for sess in (jsrt.Session(settings),
+                     tsrt.Session(settings, device="cpu")):
+            rows.append(sorted(sess.create_dataframe(f).join(
+                sess.create_dataframe(d), [("a2", "a")]).collect(),
+                key=_key))
+        assert rows[1] == rows[0] and rows[1], mode
 
 
 def test_join_phases_plain_versions():

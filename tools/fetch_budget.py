@@ -24,6 +24,17 @@ of orders' lineitem quantity lists: a ``pa.ListArray`` for the reference,
 a ``ListArray`` from the same offsets for the port; ``x1o`` through
 ``to_device_arrays``), and the subquery forms ``q18_in``, ``q16_notin``
 and ``q22_scalar``, each built by the same body in both packages.
+The tenth slice's paths run Q1, Q3, Q10 and Q18 with the partial/final
+aggregate split (``q1_2ph``, ``q3_2ph``, ``q18_2ph``), the
+the final's re-partition fallback (``q18_2ph_repart``: chip_smoke.py's
+8 MiB ``batchSizeBytes`` at SF10, scaled to ``--sf``), the HOST shuffle
+(``q10_host``, ``q18_host``: the reference cannot carry a
+string group key through its Arrow frames and fails ``q10_host``; the
+ceiling is then its ``q10_2ph_noaqe``, the same plan, which HOST runs
+without the broadcast flip, on the single-process transport) and the mesh (``q3_ici`` over one
+device, ``q1_ici8`` and ``q3_ici8`` over 8: run with
+``XLA_FLAGS=--xla_force_host_platform_device_count=8`` so the reference
+has its 8 virtual devices).
 With ``--parquet DIR`` the ninth slice's forms run instead: ``pq_q1`` ..
 ``pq_q22``, the reference suite's 22 queries over parquet as ``bench.py``
 runs them (``read_parquet`` per table, ``fileCache.enabled``), the
@@ -73,6 +84,33 @@ QUERIES = {"q4": ("q4", ("orders", "lineitem"), {}),
                         {"spark.rapids.tpu.sql.aqe.enabled": True}),
            "q10_shuffled": ("q10", Q10_TABLES,
                             {"spark.rapids.tpu.sql.aqe.enabled": False})}
+# slice 10: the partial/final split, the HOST shuffle and the mesh (ICI;
+# ``ici8``: 8 shards, ``spark.rapids.tpu.shuffle.ici.devices`` = 8, the
+# reference's 8 virtual devices and the port's ``["cpu"] * 8``)
+TWO_PHASE = {"spark.rapids.tpu.sql.agg.singleProcessComplete": False}
+HOST = {"spark.rapids.tpu.shuffle.mode": "HOST"}
+ICI = {"spark.rapids.tpu.shuffle.mode": "ICI"}
+Q3_TABLES = ("customer", "orders", "lineitem")
+Q18_TABLES = ("orders", "lineitem", "customer")
+SLICE10 = {"q1_2ph": ("q1", ("lineitem",), TWO_PHASE),
+           "q3_2ph": ("q3", Q3_TABLES, TWO_PHASE),
+           "q18_2ph": ("q18", Q18_TABLES, TWO_PHASE),
+           # the final re-partitions: chip_smoke.py's 8 MiB buffer limit
+           # at SF10, scaled to --sf below
+           "q18_2ph_repart": ("q18", Q18_TABLES, TWO_PHASE),
+           # the plan HOST runs (no broadcast flip) on the reference's
+           # single-process transport
+           "q10_2ph_noaqe": ("q10", Q10_TABLES, dict(TWO_PHASE, **{
+               "spark.rapids.tpu.sql.aqe.enabled": False})),
+           "q10_host": ("q10", Q10_TABLES, HOST),
+           "q18_host": ("q18", Q18_TABLES, HOST),
+           "q3_ici": ("q3", Q3_TABLES, dict(
+               ICI, **{"spark.rapids.tpu.shuffle.ici.devices": 1})),
+           "q1_ici8": ("q1", ("lineitem",), dict(
+               ICI, **{"spark.rapids.tpu.shuffle.ici.devices": 8})),
+           "q3_ici8": ("q3", Q3_TABLES, dict(
+               ICI, **{"spark.rapids.tpu.shuffle.ici.devices": 8}))}
+QUERIES.update(SLICE10)
 REST = ("q2", "q5", "q7", "q8", "q9", "q12", "q14", "q15", "q16", "q17",
         "q19", "q20", "q22", "q21_exists")
 # device hand-offs: name -> (models/tpch function, numpy oracle)
@@ -94,6 +132,7 @@ SLICE8_PATHS = {"q1_sample": (("lineitem",), False),
                 "q22_scalar": (("customer", "orders"), False)}
 SETTINGS = {"spark.rapids.tpu.join.denseMinProbeRows": 0}
 SF10_BROADCAST_THRESHOLD = 256 * 1024 * 1024
+REPART_BYTES_SF10 = 8 << 20
 
 
 def _same(got, want) -> bool:
@@ -170,8 +209,16 @@ def main() -> None:
             "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": int(
                 SF10_BROADCAST_THRESHOLD * args.sf / 10)})
 
+    import tempfile
+    spill = tempfile.mkdtemp(prefix="fetch_budget_spill_")
+
     def settings(q):
         extra = dict(QUERIES[q][2])
+        if extra.get("spark.rapids.tpu.shuffle.mode") == "HOST":
+            extra["spark.rapids.tpu.memory.spill.dir"] = spill
+        if q == "q18_2ph_repart":
+            extra["spark.rapids.tpu.sql.batchSizeBytes"] = int(
+                REPART_BYTES_SF10 * args.sf / 10)
         if QUERIES[q][0] == "q10" or q in REST:
             extra["spark.rapids.tpu.sql.autoBroadcastJoinThreshold"] = int(
                 SF10_BROADCAST_THRESHOLD * args.sf / 10)
@@ -276,6 +323,13 @@ def main() -> None:
             jsess = jsrt.Session(settings(q))
             body, tables, _ = QUERIES[q]
             dfs = {t: jsess.create_dataframe(data[t]) for t in tables}
+            if q in SLICE10:
+                try:
+                    with QueryStats.scoped() as st:
+                        rows = getattr(tpch_suite, f"run_{body}")(dfs)
+                except Exception as e:   # HOST with string keys
+                    return f"{type(e).__name__}: {e}", None
+                return rows, st.blocking_fetches
             with QueryStats.scoped() as st:
                 if body == "q21_exists":
                     import spark_rapids_tpu.plan.logical as JL
