@@ -212,6 +212,13 @@ SLICE10_REQUIRE = {
     "q3_ici8": ("bucketize", "hash_agg", "hash_agg_merge", "hashing",
                 "sort_join", "csr_join"),
     "q1_ici8_small": ("bucketize", "hash_agg_merge")}
+# slice 11: the reference's ICI programs as written, and a union of two
+# string-keyed aggregations under a device sort (the codes of two
+# dictionaries concatenated, remapped by csr_join.cu's gather)
+SLICE11_REQUIRE = {
+    "q1_ici8_compound": ("bucketize", "hash_agg", "hash_agg_merge"),
+    "union_ici8": ("bucketize", "hash_agg", "hash_agg_merge"),
+    "union_sort": ("sort", "csr_join")}
 # blocking fetch ceilings: the reference's count for the same plan and
 # mode (tools/fetch_budget.py at SF1 with 400,000-row batches, which give
 # lineitem the 15 batches it has at SF10; ICI over 1 and 8 devices); the
@@ -2059,9 +2066,23 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
         lambda k=k, a=a, b=b, v=v: groupby.dense_agg_update_plain(
             pacc, (k, None), [(a, None), (b, None)], [(v, None)], None))
         for k, a, b, v in inputs[:2]], reps=2)
+    # the same function in PyTorch calls: the sum, each residual's min
+    # and max per slot, and the presence byte
     sums = torch.zeros(D + 1, dtype=torch.float64, device=device)
-    lib_ms = time_ms(torch, [(lambda k=k, v=v: sums.index_add_(0, k - 1, v))
-                             for k, _, _, v in inputs], reps=8 * len(inputs))
+    present = torch.zeros(D + 1, dtype=torch.bool, device=device)
+    r_lo = [torch.zeros(D + 1, dtype=r.dtype, device=device)
+            for r in (res[0][0], res[1][0])]
+    r_hi = [torch.zeros_like(x) for x in r_lo]
+
+    def library(k, a, b, v):
+        slot = k - 1
+        sums.index_add_(0, slot, v)
+        for lo, hi, r in zip(r_lo, r_hi, (a, b)):
+            lo.scatter_reduce_(0, slot, r, "amin")
+            hi.scatter_reduce_(0, slot, r, "amax")
+        present.index_fill_(0, slot, True)
+    lib_ms = time_ms(torch, [(lambda k=k, a=a, b=b, v=v: library(k, a, b, v))
+                             for k, a, b, v in inputs], reps=8 * len(inputs))
     slots = tk - 1
     # key, two residuals and the value read once; per row the sectors of
     # its slot in the sum, presence and the four words of each residual
@@ -2074,7 +2095,8 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
     out.append(row)
     notes.append(f"{n10} rows over {D} slots, an int32 and a float64 "
                  f"residual, one float64 sum (library: index_add_ of the "
-                 f"sum)")
+                 f"sum, scatter_reduce_ amin and amax of each residual, "
+                 f"index_fill_ of the presence byte)")
     synced = {("hashing", "plain"), ("sort_join", "plain"),
               ("dense_agg_f64_residual", "plain")}
     for row, note in zip(out, notes):
@@ -3613,6 +3635,31 @@ def check_key_stats(torch, rf, device) -> None:
         ("15 M rows", rng.permutation(np.arange(1, 15_000_001,
                                                 dtype=np.int64)),
          rng.random(15_000_000) < .999, rng.random(15_000_000) < .0005)]
+    # the edges of the one-block sort: exactly SMALL_KEYS valid keys and
+    # one more (the radix passes); a range over all of int64 (8 passes);
+    # every row live; all keys equal past the limit (no pass at all)
+    small = rf.SMALL_KEYS
+    for name, n_valid, n_rows, lo, hi in (
+            ("single-block limit", small, 3_000_000, -500, 9_000),
+            ("one past the limit", small + 1, 3_000_000, 0, 1 << 40),
+            ("one past, int32", small + 1, 100_000, -(1 << 31),
+             (1 << 31) - 1)):
+        key = rng.integers(lo, hi, n_rows, dtype=np.int64)
+        if name.endswith("int32"):
+            key = key.astype(np.int32)
+        ok = np.zeros(n_rows, bool)
+        ok[rng.choice(n_rows, n_valid, replace=False)] = True
+        valid = ok | (rng.random(n_rows) < .5)
+        cases.append((name, key, valid, ok | ~valid))
+    cases += [
+        ("full int64 range", np.concatenate([
+            np.array([i64.max, i64.min, i64.min, i64.max], np.int64),
+            rng.integers(i64.min, i64.max, 1_000_000, dtype=np.int64)]),
+         None, None),
+        ("all rows live", rng.integers(1, 60_000_001, 15_000_000,
+                                       dtype=np.int64), None, None),
+        ("all equal past the limit", np.full(small * 3, -9, np.int64),
+         None, None)]
     for name, key, valid, active in cases:
         k = torch.from_numpy(np.ascontiguousarray(key)).to(device)
         v = None if valid is None else torch.from_numpy(valid).to(device)
@@ -3625,7 +3672,9 @@ def check_key_stats(torch, rf, device) -> None:
               f"{want[:rf.HEADER].tolist()}")
     print(f"key_stats: equal to plain on {len(cases)} cases (empty, all "
           f"null, one key, 10,000 and 10,001 distinct, negative, int64 "
-          f"extremes, int32, date, 15,000,000 rows)")
+          f"extremes, int32, date, 15,000,000 rows; {small:,} and "
+          f"{small + 1:,} valid keys, a range over all of int64, 15,000,000 "
+          f"live rows, all keys equal)")
 
 
 def time_slice9_kernels(torch, rf, device, per_wrapper) -> list:
@@ -3672,6 +3721,36 @@ def time_slice9_kernels(torch, rf, device, per_wrapper) -> list:
           f"{plain_ms:.4f} ms, aminmax + unique of the live keys "
           f"{lib_ms:.4f} ms), exact vs plain, {out[0]['launches']} launches "
           f"on the main path")
+    # a fully live build of the same size (a sort-merge join's filter
+    # over 15,000,000 orders): the radix path over the key range's bytes
+    del inputs, k0, a0
+    keys = rng.permutation(np.arange(1, 4 * n + 1, 4, dtype=np.int64))
+    inputs = copies_for_l2([t(keys)])
+    k0 = inputs[0][0]
+    got = rf.key_stats_kernel(k0, None, None, vcap)
+    want = rf.key_stats_plain(k0, None, None, vcap)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "key_stats differs on a live build")
+    ms = time_ms(torch, [lambda x=x: rf.key_stats_kernel(x[0], None, None,
+                                                         vcap)
+                         for x in inputs], reps=4 * len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda: rf.key_stats_plain(
+        k0, None, None, vcap)], reps=4)
+    lib_ms = time_ms_synced(torch, [lambda: (
+        torch.aminmax(k0), torch.unique(k0, sorted=True))], reps=4)
+    nbytes = n * 8 + (rf.HEADER + vcap) * 8
+    out.append({"name": "key_stats_all_live", "route": "cuda",
+                "source": "spark_rapids_tpu_torch/csrc/key_stats.cu",
+                "replaces": "spark_rapids_tpu/plan/join_exec.py:161",
+                "launches": per_wrapper.get("key_stats_kernel", 0),
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": lib_ms})
+    print(f"kernel key_stats_all_live: {ms:.4f} ms at {n} rows, all live "
+          f"(keys spanning {int(got[1] - got[0]).bit_length()} bits) "
+          f"(bound {out[-1]['bound_ms']:.4f} ms for {nbytes} B; plain "
+          f"{plain_ms:.4f} ms, aminmax + unique {lib_ms:.4f} ms), exact "
+          f"vs plain")
     return out
 
 
@@ -3785,9 +3864,10 @@ def _merge_groups(torch, acc):
     return m[order], out
 
 
-def _run_merge(torch, groupby, case, batch, plain):
+def _run_merge(torch, groupby, case, batch, plain, pool=None):
     words, bufs, channels, active = case
-    acc = groupby.HashAccumulator(1, channels, active.device, plain=plain)
+    acc = groupby.HashAccumulator(1, channels, active.device, plain=plain,
+                                  pool=pool)
     n = active.shape[0]
     for lo in range(0, max(n, 1), batch):
         sl = slice(lo, lo + batch)
@@ -3795,6 +3875,70 @@ def _run_merge(torch, groupby, case, batch, plain):
                   [(d[sl], None if v is None else v[sl]) for d, v in bufs],
                   active[sl], len(active[sl]))
     return acc
+
+
+def check_merge_pool(torch, groupby, device) -> float:
+    """The merge table kept across the streams of one final aggregate:
+    consecutive streams of different sizes and group counts (one of them
+    in three batches, so the pooled table grows and re-places its slots)
+    through one ``MergePool``, each released before the next.  Each equals
+    a fresh table bit for bit and the plain version (float64 sums within
+    F64_SUM_TOL x sum|x|), and the float64 sums are equal to the bit over
+    3 runs of the whole sequence."""
+    rng = np.random.default_rng(11)
+    shapes = ((300_000, 200_000, 300_000), (5_000, 40, 5_000),
+              (1_000_000, 900_000, 400_000), (20_000, 20_000, 20_000),
+              (BATCH_ROWS, 1_000_000, BATCH_ROWS))
+    cases = [_merge_case(torch, rng, device, n, g) for n, g, _ in shapes]
+    pool = groupby.MergePool(device)
+    runs, worst = [], 0.0
+    for _ in range(3):
+        got = []
+        for case, (n, _, batch) in zip(cases, shapes):
+            acc = _run_merge(torch, groupby, case, batch, False, pool)
+            got.append(_merge_groups(torch, acc))
+            acc.release()
+        runs.append(got)
+    torch.cuda.synchronize()
+    for case, (n, _, batch), (km, kv), (km2, kv2), (km3, kv3) in zip(
+            cases, shapes, *runs):
+        fm, fv = _merge_groups(torch, _run_merge(torch, groupby, case,
+                                                 batch, False))
+        pm, pv = _merge_groups(torch, _run_merge(torch, groupby, case,
+                                                 batch, True))
+        torch.cuda.synchronize()
+        check(torch.equal(km, fm) and torch.equal(km, pm)
+              and torch.equal(km, km2) and torch.equal(km, km3),
+              f"pooled merge groups differ at n={n}")
+        for j, ((op, f64), a, f, b, a2, a3) in enumerate(zip(
+                case[2], kv, fv, pv, kv2, kv3)):
+            if isinstance(a, tuple):
+                check(all(torch.equal(a[1], x[1]) and torch.equal(
+                    _bits(torch, a[0])[a[1]], _bits(torch, x[0])[x[1]])
+                    for x in (f, b, a2, a3)),
+                    f"pooled merge channel {j} ({op}) differs at n={n}")
+                continue
+            check(all(torch.equal(_bits(torch, a), _bits(torch, x))
+                      for x in (f, a2, a3)),
+                  f"pooled merge channel {j} ({op}) differs from a fresh "
+                  f"table or between runs at n={n}")
+            if f64 and op == "sum":
+                nan = torch.isnan(b)
+                check(torch.equal(torch.isnan(a), nan), "merge NaN sums")
+                err = (a - b).abs()[~nan]
+                top = float(err.max()) if err.numel() else 0.0
+                scale = float(case[1][j][0].abs().nan_to_num().sum()) + 1.0
+                check(top <= F64_SUM_TOL * scale, f"pooled merge sums "
+                      f"differ by {top}")
+                worst = max(worst, top)
+            else:
+                check(torch.equal(_bits(torch, a), _bits(torch, b)),
+                      f"pooled merge channel {j} ({op}) differs from plain")
+    print(f"check merge pool: {len(shapes)} streams through one pooled "
+          f"table, 3 runs: equal to fresh tables and to plain, float64 "
+          f"sums equal to the bit over the runs (max |err| vs plain "
+          f"{worst:.3e}): ok")
+    return worst
 
 
 def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
@@ -3985,20 +4129,25 @@ def time_slice10_kernels(torch, ex, groupby, hashing, device, per_wrapper,
           f"{row['launches']} launches on the main path")
     words = [(groupby.key_word(keys), None)]
     bufs = [(qty, None)]
+    pool = groupby.MergePool(device)
 
-    def merge(plain=False):
+    def merge(plain=False, w=words, b=bufs, m=n):
         acc = groupby.HashAccumulator(1, [("sum", True)], device,
-                                      plain=plain)
-        acc.merge(words, bufs, None, n)
+                                      plain=plain, pool=None if plain
+                                      else pool)
+        acc.merge(w, b, None, m)
         return acc
     k = merge()
     groups = int(k.ngroups[0])
     km, kv = _merge_groups(torch, k)
+    k.release()
     pm, pv = _merge_groups(torch, merge(True))
     torch.cuda.synchronize()
     check(torch.equal(km, pm), "merge groups differ at Q18's shape")
     err = float((kv[0] - pv[0]).abs().max())
-    ms = time_ms(torch, [merge], reps=8)
+    # one call as a final stream makes it: the pooled table's merge and
+    # the release that empties its claimed slots
+    ms = time_ms(torch, [lambda: merge().release()], reps=8)
     plain_ms = time_ms_synced(torch, [lambda: merge(True)], reps=3)
 
     def library():
@@ -4018,11 +4167,155 @@ def time_slice10_kernels(torch, ex, groupby, hashing, device, per_wrapper,
     out.append(row)
     print(f"kernel hash_agg_merge: {ms:.4f} ms at {n} buffer rows into "
           f"{groups} orderkey groups, one float64 sum buffer in fixed point "
-          f"(the table allocated in each call) (bound {row['bound_ms']:.4f} "
-          f"ms for {nbytes} B; plain {plain_ms:.4f} ms; unique + index_add_ "
-          f"{lib_ms:.4f} ms), max |err| vs plain {err:.3e}, "
-          f"{row['launches']} launches on the main path")
+          f"(the pooled table: merge and release) (bound "
+          f"{row['bound_ms']:.4f} ms for {nbytes} B; plain {plain_ms:.4f} "
+          f"ms; unique + index_add_ {lib_ms:.4f} ms), max |err| vs plain "
+          f"{err:.3e}, {row['launches']} launches on the main path")
+    # the merge as a re-partitioned final stream runs it (Q18-2ph-repart):
+    # the same buffer rows in 64 buckets by xxhash64 % 64, each merged
+    # into the pooled table, its groups copied out and the table released
+    pids = hashing.xxhash64_mod_kernel([(keys, None)], 64)
+    order = torch.argsort(pids, stable=True)
+    sizes = torch.bincount(pids, minlength=64).tolist()
+    sk, sq = words[0][0][order], qty[order]
+    pieces, lo = [], 0
+    for m in sizes:
+        if m:
+            pieces.append(([(sk[lo:lo + m], None)], [(sq[lo:lo + m], None)],
+                           m))
+        lo += m
+
+    def sequence(plain=False):
+        outs = []
+        for w, b, m in pieces:
+            acc = merge(plain, w, b, m)
+            outs.append(acc.finish())
+            acc.release()
+        return outs
+    kseq, pseq = sequence(), sequence(True)
+    torch.cuda.synchronize()
+    seq_groups, seq_err = 0, 0.0
+    for (kk, kvals, klive), (pk, pvals, plive) in zip(kseq, pseq):
+        ksel = torch.ones_like(kk[0][0], dtype=torch.bool) if klive is None \
+            else klive
+        psel = torch.ones_like(pk[0][0], dtype=torch.bool) if plive is None \
+            else plive
+        ko, po = torch.sort(kk[0][0][ksel]), torch.sort(pk[0][0][psel])
+        check(torch.equal(ko.values, po.values),
+              "merge sequence groups differ from plain")
+        seq_err = max(seq_err, float((kvals[0][ksel][ko.indices]
+                                      - pvals[0][psel][po.indices])
+                                     .abs().max()))
+        seq_groups += int(ksel.sum())
+    check(seq_groups == groups, f"merge sequence made {seq_groups} groups, "
+          f"one call {groups}")
+    # each sequence between its own event pair: the host's work between
+    # the buckets' launches shows as it does on the main path
+    ms = time_ms_synced(torch, [sequence], reps=4)
+    plain_ms = time_ms_synced(torch, [lambda: sequence(True)], reps=2)
+
+    def library_seq():
+        for (w, _), (q, _) in ((p[0][0], p[1][0]) for p in pieces):
+            u, inv = torch.unique(w, return_inverse=True)
+            torch.zeros(u.shape[0], dtype=torch.float64,
+                        device=device).index_add_(0, inv, q)
+    lib_ms = time_ms_synced(torch, [library_seq], reps=3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sequence()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    row = dict(row, name="hash_agg_merge_sequence", ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               max_abs_err=max(seq_err, row["max_abs_err"]))
+    out.append(row)
+    print(f"kernel hash_agg_merge_sequence: {ms:.4f} ms (one event pair "
+          f"a sequence) for {len(pieces)} "
+          f"buckets of {n} buffer rows into {groups} groups, each merged, "
+          f"finished and released through one pooled table ({host_ms:.4f} "
+          f"ms on the host clock) (bound {row['bound_ms']:.4f} ms for "
+          f"{nbytes} B; plain {plain_ms:.4f} ms; unique + index_add_ per "
+          f"bucket {lib_ms:.4f} ms), max |err| vs plain {seq_err:.3e}")
     return out
+
+
+def time_slice11_kernels(torch, join, batch_utils, device, per_wrapper,
+                         db) -> list:
+    """Row 3-rest at the union-sort path's shape: the concatenation of two
+    aggregations' string-keyed batches, whose codes belong to two
+    dictionaries (the customers of nations 0-2 and 22-24).  The second
+    batch's dictionary is encoded into the union on the host, then its
+    codes are remapped by ``csr_join.cu``'s gather, the kernel timed here
+    (held against its plain version); the host clock of the whole
+    concatenation is printed beside it.  Library yardstick:
+    ``torch.index_select`` of the remap table."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.batch import (ColumnBatch, DeviceColumn,
+                                              DictStringColumn, Field,
+                                              Schema)
+    from spark_rapids_tpu_torch.ops.strings import encode_column
+    t = _to_device(torch, device)
+    cu = db["customer"]
+    schema = Schema([Field("c_name", T.STRING, False),
+                     Field("v", T.FLOAT64, False)])
+    parts = []
+    for m in (cu["c_nationkey"] < 3, cu["c_nationkey"] >= 22):
+        names = cu["c_name"][m]
+        uniq, codes = np.unique(names, return_inverse=True)
+        parts.append(ColumnBatch(schema, [
+            DictStringColumn(t(codes.astype(np.int32)), None,
+                             uniq.astype(object)),
+            DeviceColumn(T.FLOAT64, t(cu["c_acctbal"][m]), None)],
+            len(names)))
+    n = parts[1].num_rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = batch_utils.concat_batches(parts)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    got = np.asarray(whole.columns[0].dictionary, dtype=object)[
+        whole.columns[0].codes.cpu().numpy()]
+    check(got.tolist() == np.concatenate(
+        [cu["c_name"][cu["c_nationkey"] < 3],
+         cu["c_name"][cu["c_nationkey"] >= 22]]).tolist(),
+        "the concatenated codes do not spell the branches' strings")
+    union, _, _ = encode_column(parts[0].columns[0], None, device)
+    _, _, _ = encode_column(parts[1].columns[0], union, device)
+    remap = union.remaps[id(parts[1].columns[0].dictionary)][1]
+    codes = parts[1].columns[0].codes
+    inputs = copies_for_l2([codes, remap])
+    k = join.csr_gather(codes, [(remap, None)], False)[0][0]
+    p = join.csr_gather_plain(codes, [(remap, None)], False)[0][0]
+    torch.cuda.synchronize()
+    check(torch.equal(k, p), "the dictionary remap differs from plain")
+    # one call per event pair: the path makes one remap per concatenation,
+    # right after the host has encoded the dictionary
+    ms = time_ms_synced(torch, [lambda x=x: join.csr_gather(
+        x[0], [(x[1], None)], False) for x in inputs], reps=len(inputs))
+    plain_ms = time_ms_synced(torch, [lambda x=x: join.csr_gather_plain(
+        x[0], [(x[1], None)], False) for x in inputs], reps=len(inputs))
+    lib_ms = time_ms_synced(torch, [lambda x=x: torch.index_select(
+        x[1], 0, x[0].to(torch.int64)) for x in inputs], reps=len(inputs))
+    # the codes read and the remapped codes written once; the remap table
+    # read by sector at the codes
+    nbytes = n * 4 * 2 + sector_bytes(torch, codes.to(torch.int64),
+                                      remap.element_size())
+    row = {"name": "concat_remap", "route": "cuda",
+           "source": "spark_rapids_tpu_torch/csrc/csr_join.cu",
+           "replaces": "spark_rapids_tpu/ops/batch_utils.py:240",
+           "launches": per_wrapper.get("concat_remap", 0),
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": lib_ms}
+    print(f"kernel concat_remap: {ms:.4f} ms (one event pair a call) "
+          f"remapping {n} codes of one "
+          f"dictionary into the union of two ({len(union.values())} "
+          f"strings; the whole concatenation {host_ms:.2f} ms on the host "
+          f"clock, the dictionary encoded on the host) (bound "
+          f"{row['bound_ms']:.4f} ms for {nbytes} B; plain {plain_ms:.4f} "
+          f"ms; index_select {lib_ms:.4f} ms), exact vs plain, "
+          f"{row['launches']} launches on the main path")
+    return [row]
 
 
 def skip_decision(key_cols, live) -> bool:
@@ -4124,6 +4417,9 @@ def main() -> int:
         check_key_stats(torch, rf, device)
         worst.update(check_slice10_kernels(torch, ici_ex, groupby, hashing,
                                            device))
+        worst["hash_agg_merge"] = max(worst["hash_agg_merge"],
+                                      check_merge_pool(torch, groupby,
+                                                       device))
         if "--checks-only" in sys.argv[1:]:
             print("chip_smoke: every kernel matches its plain version; "
                   "--checks-only stops before the main path")
@@ -4714,6 +5010,96 @@ def main() -> int:
               f"by (l_returnflag, l_linestatus): {len(got)} groups equal "
               f"numpy's, {wall:.2f} ms (strings encoded on the host), "
               f"launches {json.dumps({k: v for k, v in dl.items() if v})}")
+        # slice 11: the reference's two ICI programs that the port ran
+        # only in a changed form, as written, over 8 shards of ici_mesh()
+        # (Q1's aggregate with arithmetic inside agg; a union of two
+        # aggregations, one fragment each), and a union of two
+        # string-keyed aggregations under a device sort, which
+        # concatenates codes of two dictionaries (row 3-rest)
+        ici11 = Session(ICI, device="cuda")
+        ici11.set_mesh((ici11.ici_mesh() * 8)[:8])
+        li11 = dict(li, l_discount=db["lineitem"]["l_discount"][:DIST_ROWS])
+        lif = ici11.create_dataframe(li11)
+        want11 = {"q1_ici8_compound": [], "union_ici8": []}
+        for key in np.unique(pairs):
+            m = pairs == key
+            price = li11["l_extendedprice"][m]
+            want11["q1_ici8_compound"].append(
+                (key[0], key[1], float(li11["l_quantity"][m].sum()) * 0.2,
+                 float(price.max() - price.min()), int(m.sum())))
+        for col, fn in (("l_returnflag", np.sum), ("l_linestatus", np.min)):
+            vals = li11["l_quantity" if fn is np.sum else "l_discount"]
+            for key in np.unique(li11[col]):
+                want11["union_ici8"].append(
+                    (key, float(fn(vals[li11[col] == key]))))
+        want11["union_ici8"].sort()
+        # two customer tables (each scan codes its strings in its own
+        # dictionary): the nations below 3 and those from 22
+        cu = db["customer"]
+        cfs = [sess.create_dataframe({c: cu[c][m] for c in (
+            "c_name", "c_custkey", "c_acctbal")}) for m in (
+            cu["c_nationkey"] < 3, cu["c_nationkey"] >= 22)]
+        pick = (cu["c_nationkey"] < 3) | (cu["c_nationkey"] >= 22)
+        order = np.lexsort((cu["c_custkey"][pick], -cu["c_acctbal"][pick]))
+        want11["union_sort"] = list(zip(
+            cu["c_name"][pick][order].tolist(),
+            cu["c_custkey"][pick][order].tolist(),
+            cu["c_acctbal"][pick][order].astype(float).tolist()))
+
+        def q1_compound():
+            return lif.group_by("l_returnflag", "l_linestatus").agg(
+                (F.sum(F.col("l_quantity")) * 0.2).alias("fifth"),
+                (F.max(F.col("l_extendedprice"))
+                 - F.min(F.col("l_extendedprice"))).alias("spread"),
+                F.count_star().alias("n")).sort("l_returnflag",
+                                                "l_linestatus")
+
+        def union_ici():
+            a = lif.group_by("l_returnflag").agg(
+                F.sum(F.col("l_quantity")).alias("v"))
+            b = lif.group_by("l_linestatus").agg(
+                F.min(F.col("l_discount")).alias("v"))
+            return a.union(b)
+
+        def union_sort():
+            keys = ("c_name", "c_custkey")
+            a = cfs[0].group_by(*keys).agg(F.sum(F.col("c_acctbal"))
+                                           .alias("v"))
+            b = cfs[1].group_by(*keys).agg(F.max(F.col("c_acctbal"))
+                                           .alias("v"))
+            return a.union(b).sort(F.col("v").desc(), F.col("c_custkey"))
+
+        def sorted_rows(name):
+            inner = check_rows(name)
+            return lambda rows, want: inner(sorted(rows), want)
+        slice11 = [
+            ("q1_ici8_compound", ici11, q1_compound,
+             check_rows("Q1-ici8-compound"), 1),
+            ("union_ici8", ici11, union_ici, sorted_rows("union-ici8"), 2),
+            ("union_sort", sess, union_sort, check_rows("union-sort"), 0)]
+        for name, qsess, df_fn, checker, frags in slice11:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+            runs_of[name] = run_query(torch, qsess, df_fn, checker,
+                                      want11[name], name, counters,
+                                      require=SLICE11_REQUIRE[name],
+                                      runs=2 if name == "union_sort" else 4)
+            st = qsess.last_query_stats()
+            check(st.ici_fragments == frags, f"{name} ran "
+                  f"{st.ici_fragments} ICI fragments, not {frags}")
+            for k, v in launch_counts(counters).items():
+                launches[k] = launches.get(k, 0) + v
+            for fns in counters.values():
+                for fn in fns:
+                    if fn.launches:
+                        per_wrapper[fn.__name__] = \
+                            per_wrapper.get(fn.__name__, 0) + fn.launches
+            if name == "union_sort":
+                per_wrapper["concat_remap"] = sum(
+                    r["kernel_launches"].get("csr_join", 0)
+                    for r in runs_of[name])
+            paths.append((name, df_fn, checker, want11[name], ()))
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")
@@ -4749,7 +5135,7 @@ def main() -> int:
                   f"{warm[-1]['kernel_launches']} kernel launches per query")
 
         del df, cdf, odf, dbf, sbf, q11f, ddf, dec, x1f, x1of, sess, shuf
-        del frames, sessions10, two
+        del frames, sessions10, two, lif, cfs, ici11
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
@@ -4769,6 +5155,8 @@ def main() -> int:
         table += time_slice9_kernels(torch, rf, device, per_wrapper)
         table += time_slice10_kernels(torch, ici_ex, groupby, hashing, device,
                                       per_wrapper, worst, db)
+        table += time_slice11_kernels(torch, join, batch_utils, device,
+                                      per_wrapper, db)
         check(sorted({r["source"] for r in table}) == sorted(
             f"spark_rapids_tpu_torch/csrc/{k}.cu" for k in kernels.KERNELS),
             "the kernels line misses a kernel source")

@@ -89,9 +89,13 @@ _SIGNATURES = {
         # ngroups, rslot, call, stream
         "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
-        # the same arguments, buffer columns with their merge ops
-        "hash_agg_merge": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
+        # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
+        # offs[], W, init, active, n, recs, stride, cap, collide, meta,
+        # vals, gbound, ngroups, rgid, call, stream
+        "hash_agg_merge": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                           _L, _P, _I, _L, _I, _P, _P, _L, _P, _P, _L, _P],
+        # nkeys, recs, stride, cap, collide, meta, ngroups, gbound, stream
+        "hash_agg_reinsert": [_I, _P, _I, _L, _I, _P, _P, _L, _P],
         # nkeys, nch, old_state, old_keys, old_nulls, old_cap, old_acc[],
         # old_aux[], new_state, new_keys, new_nulls, new_cap, new_acc[],
         # new_aux[], collide, stream
@@ -212,10 +216,9 @@ _SIGNATURES = {
                     _P, _P, _P],
     },
     "key_stats": {
-        # key, elem, valid, active, n, word, ok, out, vcap, stream
-        "ks_prepare": [_P, _I, _P, _P, _L, _P, _P, _P, _L, _P],
-        # word, perm, n, out, vcap, tiles, stream
-        "ks_distinct": [_P, _P, _L, _P, _L, _P, _P],
+        # key, elem, valid, active, n, pre, alt, out, vcap, hist, tiles,
+        # blocks, stream
+        "key_stats": [_P, _I, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _P],
     },
     "bucketize": {
         # pids, active, n, nparts, cap, ncols, in[], out[], elems[], counts,

@@ -31,7 +31,7 @@ run on every path (``csrc/fixed128.cuh``).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,7 +45,8 @@ __all__ = ["init_scalars", "ungrouped_reduce", "masked_reduce",
            "DenseAccumulator", "dense_agg_update", "dense_agg_update_plain",
            "dense_agg_check", "dense_agg_check_plain", "HashAccumulator",
            "hash_agg_update", "hash_agg_update_plain", "hash_agg_rehash",
-           "hash_agg_merge", "hash_agg_merge_plain", "merge_op",
+           "hash_agg_merge", "hash_agg_merge_plain", "hash_agg_reinsert",
+           "MergePool", "merge_op",
            "key_word", "key_from_word", "f64_image", "f64_from_image",
            "group_ratio", "group_ratio_plain", "group_ratio_kernel",
            "GR_MAX_ROWS"]
@@ -996,7 +997,8 @@ class HashAccumulator:
 
     def __init__(self, nkeys: int, channels: Sequence[Tuple[str, bool]],
                  device, key_bound: Optional[int] = None,
-                 collide: bool = False, plain: Optional[bool] = None):
+                 collide: bool = False, plain: Optional[bool] = None,
+                 pool: Optional["MergePool"] = None):
         if not 1 <= nkeys <= HA_MAX_KEYS or len(channels) > HA_MAX_CH:
             raise ValueError(f"the hash aggregation takes 1..{HA_MAX_KEYS} "
                              f"keys and at most {HA_MAX_CH} channels")
@@ -1012,6 +1014,9 @@ class HashAccumulator:
         self.growths = 0
         self.calls = 0
         self.ngroups = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.merging = False   # merge calls use the merge table
+        self.pool = pool
+        self.gids = 0          # the merge table's gid capacity
 
     def _limit_bound(self, n: int) -> int:
         return n if self.key_bound is None else min(n, self.key_bound)
@@ -1093,6 +1098,9 @@ class HashAccumulator:
                 self.channels):
             raise ValueError("keys/contributions do not match the "
                              "accumulator's layout")
+        if self.merging:
+            raise ValueError("an accumulator takes updates or merges, not "
+                             "both")
         self._reserve(n)
         self.calls += 1
         words = [(_column(d, n), _column(v, n)) for d, v in words]
@@ -1104,8 +1112,104 @@ class HashAccumulator:
         self.bound = self._limit_bound(self.bound + n)
 
     def needs_count(self) -> bool:
-        """Does :meth:`finish` compact (and so need the group count)?"""
+        """Does :meth:`finish` compact (and so need the group count)?  A
+        merge table asks when the table the update's rule would size for
+        its rows (twice them) passes ``HA_COMPACT_SLOTS``."""
+        if self.merging:
+            return self._slots_for(self._limit_bound(2 * self.bound)) \
+                > HA_COMPACT_SLOTS
         return self.cap > HA_COMPACT_SLOTS
+
+    # -- the merge table (csrc/hash_agg.cu hash_agg_merge) ----------------------
+    def _merge_layout(self):
+        """(per channel its first word in a value record, a fresh value
+        record): the accumulator word; a FIRST/LAST word after it
+        (INT64_MAX, -1); a float64 sum's three fixed-point words."""
+        offs, init = [], []
+        for op, is_f64 in self.channels:
+            offs.append(len(init))
+            init.append(int(_ha_init(op, is_f64)))
+            if op in ORDERED_OPS:
+                init.append(_I64_MAX if op.startswith("first") else -1)
+            elif is_f64 and op == "sum":
+                init += [0, 0, 0]
+        return offs, init
+
+    def _reserve_merge(self, n: int) -> None:
+        """Room for ``n`` more buffer rows' groups, without a fetch: the
+        gid capacity is the host's bound on the groups, the slots twice it
+        (load at most ``HA_LOAD``).  A table that must grow takes larger
+        buffers from its pool and re-places its gids' slots."""
+        bound = self._limit_bound(self.bound + n)
+        if not self.merging:
+            self.merging = True
+            self.cap = self._slots_for(bound)
+            if not self.kernel:
+                self.state, self.keys, self.nulls, self.acc, self.aux = \
+                    self._alloc(0)
+                self.fx = [None] * len(self.channels)
+                return
+            if self.pool is None:
+                self.pool = MergePool(self.device)
+            self.pool.acquire(self)
+            self.stride = 1 << self.nkeys.bit_length()  # >= 1 + nkeys
+            self.offs, init = self._merge_layout()
+            self.init = self.pool.fresh_record(init)
+            self.meta, self.vals = self.pool.dense(bound, self.nkeys,
+                                                   len(init), 0)
+            self.recs = self.pool.records(self.cap * self.stride)
+            self.gids = bound
+            return
+        if not self.kernel:
+            return
+        if bound > self.gids:
+            self.meta, self.vals = self.pool.dense(
+                bound, self.nkeys, self.vals.shape[1], self.gids)
+        cap = self._slots_for(bound)
+        if cap > self.cap:
+            self.growths += 1
+            self._clear_slots()   # wider records re-placed from the gids
+            self.recs = self.pool.records(cap * self.stride)
+            self.cap = cap
+            hash_agg_reinsert(self)
+        self.gids = max(self.gids, bound)
+
+    def _clear_slots(self) -> None:
+        """Zero (empty) the table's own slot records in the pool."""
+        self.recs[:self.cap * self.stride].zero_()
+
+    def release(self) -> None:
+        """Hand a merge table's buffers back to its pool with its slots
+        emptied (after :meth:`finish`; the accumulator is done)."""
+        if self.merging and self.kernel and self.pool is not None \
+                and self.pool.holder is self:
+            self._clear_slots()
+            self.pool.holder = None
+
+    def _finish_merge(self, groups: Optional[int]):
+        """:meth:`finish` of a merge table: the first ``groups`` gids' meta
+        and value records (copied out, so the pool can be reused), or
+        every gid record under the live mask gid < ngroups."""
+        rows = self.gids if groups is None else groups
+        live = None if groups is not None else (
+            torch.arange(rows, device=self.device) < self.ngroups)
+        meta, vals = self.meta[:rows], self.vals[:rows]
+        nulls = meta[:, 1]
+        keys = [(meta[:, 2 + i].clone(), (nulls >> i) & 1 == 0)
+                for i in range(self.nkeys)]
+        values = []
+        for (op, is_f64), off in zip(self.channels, self.offs):
+            a = vals[:, off].clone()
+            if is_f64 and (op == "sum" or op in ORDERED_OPS):
+                a = a.view(torch.float64)
+            if op in ORDERED_OPS:
+                x = vals[:, off + 1]
+                values.append((a, x == _I64_MIN if op.startswith("first")
+                               else x >= 0))
+            else:
+                values.append(f64_from_image(a) if is_f64 and op != "sum"
+                              else a)
+        return keys, values, live
 
     def merge(self, words: Sequence[Value], buffers: Sequence[Value],
               active: Optional[torch.Tensor], n: int) -> None:
@@ -1116,7 +1220,10 @@ class HashAccumulator:
         if len(words) != self.nkeys or len(buffers) != len(self.channels):
             raise ValueError("keys/buffers do not match the accumulator's "
                              "layout")
-        self._reserve(n)
+        if self.cap and not self.merging:
+            raise ValueError("an accumulator takes updates or merges, not "
+                             "both")
+        self._reserve_merge(n)
         self.calls += 1
         words = [(_column(d, n), _column(v, n)) for d, v in words]
         buffers = [(_column(d, n), _column(v, n)) for d, v in buffers]
@@ -1142,6 +1249,8 @@ class HashAccumulator:
             groups = None
         elif groups is None:
             groups = int(fetch(self.ngroups)[0])
+        if self.merging and self.kernel:
+            return self._finish_merge(groups)
         live = None
         words, nulls, acc = list(self.keys), self.nulls, self.acc
         has = [x for x in self.aux if x is not None]
@@ -1253,15 +1362,21 @@ def hash_agg_update_plain(acc: HashAccumulator, words, contributions,
     acc.aux = new_aux
 
 
-def _ha_launch(acc: HashAccumulator, words, contributions, active, n: int,
-               entry: str) -> None:
-    """One ``csrc/hash_agg.cu`` update or merge launch after the checks."""
+def _check_keys(words, active, n: int) -> None:
+    """The int64 key words, their masks and the live mask of ``n`` rows, as
+    ``csrc/hash_agg.cu`` takes them."""
     if active is not None:
         _check_column(active, n, (torch.bool,), "active")
     for d, v in words:
         _check_column(d, n, (torch.int64,), "key word")
         if v is not None:
             _check_column(v, n, (torch.bool,), "key valid")
+
+
+def hash_agg_update(acc: HashAccumulator, words, contributions, active,
+                    n: int) -> None:
+    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
+    _check_keys(words, active, n)
     data, valid, ops, f64 = [], [], [], []
     for (d, v), (op, is_f64) in zip(contributions, acc.channels):
         if op == "count":
@@ -1284,7 +1399,7 @@ def _ha_launch(acc: HashAccumulator, words, contributions, active, n: int,
                         device=acc.device)
     P = kernels.pointer_array
     lib = kernels.load("hash_agg")
-    rc = getattr(lib, entry)(
+    rc = lib.hash_agg_update(
         acc.nkeys, P([d.data_ptr() for d, _ in words]),
         P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
         P(valid), kernels.int_array(ops), kernels.int_array(f64),
@@ -1294,15 +1409,7 @@ def _ha_launch(acc: HashAccumulator, words, contributions, active, n: int,
         acc.cap, int(acc.collide), acc.ngroups.data_ptr(),
         rslot.data_ptr() if per_row else None, acc.calls,
         torch.cuda.current_stream(acc.device).cuda_stream)
-    kernels.check_launch(lib, entry, rc)
-
-
-def hash_agg_update(acc: HashAccumulator, words, contributions, active,
-                    n: int) -> None:
-    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
-    _ha_launch(acc, words, contributions, active, n, "hash_agg_update")
-    if n == 0:
-        return
+    kernels.check_launch(lib, "hash_agg_update", rc)
     hash_agg_update.launches += 1
     if any(x is not None for x in acc.aux):
         hash_agg_update.ordered_launches += 1
@@ -1336,15 +1443,116 @@ def hash_agg_merge_plain(acc: HashAccumulator, words, buffers, active,
 
 def hash_agg_merge(acc: HashAccumulator, words, buffers, active,
                    n: int) -> None:
-    """Launch ``hash_agg_merge`` of ``csrc/hash_agg.cu``."""
+    """Launch ``hash_agg_merge`` of ``csrc/hash_agg.cu`` into the
+    accumulator's merge table."""
     if any(op == "count" for op, _ in acc.channels):
         raise ValueError("a merge takes no count channel")
-    _ha_launch(acc, words, buffers, active, n, "hash_agg_merge")
-    if n:
-        hash_agg_merge.launches += 1
+    _check_keys(words, active, n)
+    data, valid, ops, f64 = [], [], [], []
+    for (d, v), (op, is_f64) in zip(buffers, acc.channels):
+        _check_column(d, n, (torch.float64 if is_f64 else torch.int64,),
+                      "buffer")
+        if v is not None:
+            _check_column(v, n, (torch.bool,), "buffer valid")
+        data.append(d.data_ptr())
+        valid.append(_opt_ptr(v))
+        ops.append(_HA_OP[kernel_op(op, None)[0]])
+        f64.append(int(is_f64))
+    if n == 0:
+        return
+    per_row = any(op in ORDERED_OPS or (f and op == "sum")
+                  for op, f in acc.channels)
+    rgid = torch.empty(n if per_row else 0, dtype=torch.int32,
+                       device=acc.device)
+    P = kernels.pointer_array
+    lib = kernels.load("hash_agg")
+    rc = lib.hash_agg_merge(
+        acc.nkeys, P([d.data_ptr() for d, _ in words]),
+        P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
+        P(valid), kernels.int_array(ops), kernels.int_array(f64),
+        kernels.int_array(acc.offs), acc.vals.shape[1],
+        acc.init.data_ptr(), _opt_ptr(active), n, acc.recs.data_ptr(),
+        acc.stride, acc.cap, int(acc.collide), acc.meta.data_ptr(),
+        acc.vals.data_ptr(), acc.gids, acc.ngroups.data_ptr(),
+        rgid.data_ptr() if per_row else None, acc.calls,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "hash_agg_merge", rc)
+    hash_agg_merge.launches += 1
 
 
 hash_agg_merge.launches = 0
+
+
+def hash_agg_reinsert(acc: HashAccumulator) -> None:
+    """Launch ``hash_agg_reinsert``: every group of the merge table into
+    its (empty) records of ``acc.cap`` slots."""
+    lib = kernels.load("hash_agg")
+    rc = lib.hash_agg_reinsert(
+        acc.nkeys, acc.recs.data_ptr(), acc.stride, acc.cap,
+        int(acc.collide), acc.meta.data_ptr(), acc.ngroups.data_ptr(),
+        acc.gids, torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "hash_agg_reinsert", rc)
+
+
+class MergePool:
+    """The device buffers of the merge tables of one final aggregate
+    (``csrc/hash_agg.cu`` hash_agg_merge), lent to one
+    :class:`HashAccumulator` at a time: slot records, all empty while no
+    table holds them (a released table zeroes the slots it used, so a
+    table sized for a small bucket clears no more), and the gid-indexed
+    meta and value records, which a table writes as it claims groups.
+    Buffers only grow."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.recs: Optional[torch.Tensor] = None
+        self.meta: Optional[torch.Tensor] = None
+        self.vals: Optional[torch.Tensor] = None
+        self.inits: Dict[tuple, torch.Tensor] = {}
+        self.holder: Optional[HashAccumulator] = None
+
+    def acquire(self, acc: HashAccumulator) -> None:
+        if self.holder is not None:
+            raise RuntimeError("the merge pool's table is held by another "
+                               "accumulator (release it first)")
+        self.holder = acc
+
+    def fresh_record(self, words: Sequence[int]) -> torch.Tensor:
+        """The device copy of a fresh value record, made once per layout
+        with fills (no host-to-device copy, so nothing waits)."""
+        key = tuple(words)
+        if key not in self.inits:
+            t = torch.zeros(max(len(key), 1), dtype=torch.int64,
+                            device=self.device)
+            for j, w in enumerate(key):
+                if w:
+                    t[j] = w
+            self.inits[key] = t
+        return self.inits[key]
+
+    def records(self, words: int) -> torch.Tensor:
+        """At least ``words`` int64 words of empty slot records (zero)."""
+        if self.recs is None or self.recs.numel() < words:
+            self.recs = torch.zeros(words, dtype=torch.int64,
+                                    device=self.device)
+        return self.recs
+
+    def dense(self, gids: int, nkeys: int, W: int, keep: int):
+        """(meta [gids, 2 + nkeys], vals [gids, W]) int64 views; a larger
+        buffer keeps the first ``keep`` records of each."""
+        M, gids = 2 + nkeys, max(gids, 1)
+        out = []
+        for name, width in (("meta", M), ("vals", W)):
+            buf = getattr(self, name)
+            if buf is None or buf.numel() < gids * width:
+                new = torch.empty(gids * width, dtype=torch.int64,
+                                  device=self.device)
+                if keep:
+                    new[:keep * width].copy_(buf[:keep * width])
+                setattr(self, name, new)
+                buf = new
+            out.append(buf[:gids * width].view(gids, width))
+        return out
 
 
 # ---------------------------------------------------------------------------------

@@ -14,9 +14,12 @@ below BIG, the first ``vcap`` of them, padded with BIG.
 
 :func:`key_stats` returns them as one int64 tensor ``[HEADER + vcap]``:
 ``kmin, kmax, n_valid, dup, n_distinct`` (the distinct keys below BIG),
-then the keys.  On CUDA tensors it launches ``csrc/key_stats.cu`` (the
-sort is ``csrc/sort.cu``'s radix ``sort_perm``) or raises; on CPU tensors
-it runs the plain PyTorch version, :func:`key_stats_plain`.
+then the keys.  On CUDA tensors it launches ``csrc/key_stats.cu`` or
+raises; on CPU tensors
+it runs the plain PyTorch version, :func:`key_stats_plain`.  The kernel
+sorts only the valid keys, compacted in one pass: in one block's shared
+memory when there are at most ``SMALL_KEYS`` of them, else by radix passes
+over the bytes of their range; the count decides on the device.
 """
 
 from __future__ import annotations
@@ -26,13 +29,14 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from . import sort
 
-__all__ = ["BIG", "HEADER", "in_list_capacity", "key_stats",
+__all__ = ["BIG", "HEADER", "SMALL_KEYS", "in_list_capacity", "key_stats",
            "key_stats_plain", "key_stats_kernel"]
 
 BIG = (1 << 63) - 1
 HEADER = 5
+SMALL_KEYS = 16384          # csrc/key_stats.cu KS_SMALL: the one-block sort
+RADIX_BLOCKS_PER_SM = 4     # the large path's persistent blocks
 
 
 def in_list_capacity(max_in_keys: int) -> int:
@@ -80,7 +84,9 @@ def key_stats_plain(key, valid, active, vcap: int) -> torch.Tensor:
 
 
 def key_stats_kernel(key, valid, active, vcap: int) -> torch.Tensor:
-    """Launch ``csrc/key_stats.cu`` around ``sort.cu``'s ``sort_perm``."""
+    """Launch ``csrc/key_stats.cu``: one pass compacts the valid keys,
+    then one block sorts them in shared memory (at most ``SMALL_KEYS``) or
+    radix passes over the key range's bytes do, as the device decides."""
     n = key.shape[0]
     if key.dtype not in (torch.int32, torch.int64) or not key.is_cuda \
             or not key.is_contiguous() or key.dim() != 1:
@@ -95,23 +101,26 @@ def key_stats_kernel(key, valid, active, vcap: int) -> torch.Tensor:
         raise ValueError("vcap must be positive")
     dev = key.device
     out = torch.empty(HEADER + vcap, dtype=torch.int64, device=dev)
-    word = torch.empty(n, dtype=torch.int64, device=dev)
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    large = n > SMALL_KEYS
+    bufs = torch.empty((2 if large else 1, max(n, 1)), dtype=torch.int64,
+                       device=dev)
+    blocks = RADIX_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    hist = torch.empty(256 * blocks if large else 0, dtype=torch.int64,
+                       device=dev)
+    tiles = torch.empty(2 * (-(-n // 1024)) if large else 0,
+                        dtype=torch.int64, device=dev)
     lib = kernels.load("key_stats")
-    rc = lib.ks_prepare(key.data_ptr(), key.element_size(),
-                        None if valid is None else valid.data_ptr(),
-                        None if active is None else active.data_ptr(), n,
-                        word.data_ptr(), ok.data_ptr(), out.data_ptr(),
-                        vcap, stream)
-    kernels.check_launch(lib, "ks_prepare", rc)
-    if n:
-        perm = sort.sort_perm([(word, 8)], ok, n)
-        tiles = torch.empty(2 * (-(-n // 1024)), dtype=torch.int64,
-                            device=dev)
-        rc = lib.ks_distinct(word.data_ptr(), perm.data_ptr(), n,
-                             out.data_ptr(), vcap, tiles.data_ptr(), stream)
-        kernels.check_launch(lib, "ks_distinct", rc)
+    rc = lib.key_stats(key.data_ptr(), key.element_size(),
+                       None if valid is None else valid.data_ptr(),
+                       None if active is None else active.data_ptr(), n,
+                       bufs[0].data_ptr(),
+                       bufs[1].data_ptr() if large else None,
+                       out.data_ptr(), vcap,
+                       hist.data_ptr() if large else None,
+                       tiles.data_ptr() if large else None, blocks,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(lib, "key_stats", rc)
     key_stats_kernel.launches += 1
     return out
 

@@ -31,7 +31,10 @@ Dataflow per query, as the reference's:
   4. The fragment's shards, concatenated on the session's device with
      their live masks, replace it as an in-memory input; the rest of the
      plan (sort, top-k, limit, ...) runs on the normal executor.  Repeat
-     until no lowerable fragment remains.
+     until no lowerable fragment remains.  An operator that does not
+     lower, such as a ``UnionExec`` (reference :554), would be a leaf
+     holding an exchange, which is refused, so each exchange-bearing
+     branch under it runs as a fragment of its own.
 
 Blocking fetches: the reference's step is one program and one fetch of its
 overflow counters.  Here a node that must read a count fetches it for

@@ -42,6 +42,9 @@ def estimate_rows(node: L.LogicalPlan) -> Optional[float]:
         l = estimate_rows(node.children[0])
         r = estimate_rows(node.children[1])
         return None if l is None or r is None else max(l, r)
+    if isinstance(node, L.Union):
+        parts = [estimate_rows(c) for c in node.children]
+        return None if any(p is None for p in parts) else sum(parts)
     if node.children:
         return estimate_rows(node.children[0])
     return None

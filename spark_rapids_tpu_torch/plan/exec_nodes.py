@@ -1,6 +1,6 @@
 """Sort-shaped operators (``spark_rapids_tpu/plan/exec_nodes.py``
 counterpart): the running top-k that ``ORDER BY ... LIMIT k`` becomes, the
-device ORDER BY, and LIMIT.
+device ORDER BY, LIMIT and UNION ALL.
 
 ``TopKExec`` (reference :236) keeps at most k rows on the device: each
 input batch, behind the rows held so far, goes through the top-k kernel
@@ -62,7 +62,7 @@ from ..ops.strings import encode_column
 from ..utils.metrics import QueryStats, fetch
 from .physical import ExecContext, TpuExec, _device_arrays
 
-__all__ = ["TopKExec", "SortExec", "LimitExec", "SampleExec",
+__all__ = ["TopKExec", "SortExec", "LimitExec", "UnionExec", "SampleExec",
            "GenerateExec", "sample_bounds"]
 
 
@@ -309,6 +309,29 @@ class LimitExec(TpuExec):
             take = min(left, b.num_rows)
             left -= take
             yield b if take == b.num_rows else _head(b, take)
+
+
+class UnionExec(TpuExec):
+    """UNION ALL (reference :388): each child's batches in child order,
+    under the union's schema (a column is nullable when any branch's is).
+    String columns keep their branch's dictionary; an operator that
+    concatenates batches of two branches remaps the codes into the union
+    of the dictionaries (``batch_utils.concat_batches``).  Under ICI a
+    union does not lower: each exchange-bearing branch runs as its own
+    mesh fragment (``parallel/spmd.py``)."""
+
+    def __init__(self, children: List[TpuExec], schema: Schema):
+        super().__init__(children)
+        self._schema = schema
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
+        for c in self.children:
+            for b in c.execute(ctx):
+                yield ColumnBatch(self._schema, b.columns, b.num_rows, b.sel)
 
 
 class SampleExec(TpuExec):

@@ -1,16 +1,17 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, distinct, sort, join, limit, window, sample, generate)."""
+aggregate, distinct, sort, join, limit, union, window, sample,
+generate)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from ..batch import Field, Schema
 from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
-           "Distinct", "Sort", "SortOrder", "Join", "Limit", "Window",
+           "Distinct", "Sort", "SortOrder", "Join", "Limit", "Union", "Window",
            "Sample", "Generate"]
 
 
@@ -180,6 +181,31 @@ class Limit(LogicalPlan):
 
     def node_desc(self):
         return f"Limit {self.n}"
+
+
+class Union(LogicalPlan):
+    """UNION ALL of the children's rows, in child order (reference :178;
+    explained as ``Union``, as there).  The columns pair by position and
+    take the first child's names; each pair must have one type, and a
+    column is nullable when any child's is."""
+
+    def __init__(self, plans: Sequence[LogicalPlan]):
+        self.children = tuple(plans)
+
+    def schema(self) -> Schema:
+        first = self.children[0].schema()
+        nullable = [f.nullable for f in first]
+        for c in self.children[1:]:
+            other = c.schema()
+            if len(other) != len(first) or any(
+                    a.dtype != b.dtype for a, b in zip(first, other)):
+                raise ValueError(
+                    f"union: the inputs' columns differ: "
+                    f"{[(f.name, str(f.dtype)) for f in first]} vs "
+                    f"{[(f.name, str(f.dtype)) for f in other]}")
+            nullable = [n or f.nullable for n, f in zip(nullable, other)]
+        return Schema([Field(f.name, f.dtype, n)
+                       for f, n in zip(first, nullable)])
 
 
 class Window(LogicalPlan):

@@ -10,7 +10,8 @@ and from a disjunction each side gets the OR of its branches' side-only
 conjuncts.  The port's expressions are deterministic, so every conjunct
 may move.  Not ported: the extraction of string predicates out of residual
 join conditions into projected booleans (the reference's
-``_extract_bool_subtrees``), and Union.
+``_extract_bool_subtrees``).  A filter above a union moves into every
+branch.
 
 ``prune_columns`` narrows every scan to the columns the plan above it
 references, so pruned columns are never uploaded, and puts a Project on a
@@ -177,6 +178,11 @@ def _push_filter(node: L.Filter) -> L.LogicalPlan:
         inner = push_filters(L.Filter(inner, _and_all(moved))) if moved \
             else push_filters(inner)
         return _wrap(L.Project(inner, child.exprs), kept)
+    if isinstance(child, L.Union):
+        # every branch gets the whole filter (reference :274-278)
+        cond = _and_all(conjs)
+        return L.Union([push_filters(L.Filter(c, cond))
+                        for c in child.children])
     return _wrap(push_filters(child), conjs)
 
 
@@ -335,6 +341,12 @@ def prune_columns(plan: L.LogicalPlan,
                     | _refs(e for _, e in plan.window_exprs))
         return L.Window(prune_columns(plan.children[0], need),
                         plan.window_exprs)
+    if isinstance(plan, L.Union):
+        # the branches stay aligned column by column: nothing is pruned
+        # through a union, and no predicate crosses it (reference
+        # pushdown.py:206-208; the filters above were pushed into each
+        # branch)
+        return L.Union([prune_columns(c, None) for c in plan.children])
     if isinstance(plan, L.Join):
         lnames = set(plan.children[0].schema().names())
         rnames = set(plan.children[1].schema().names())

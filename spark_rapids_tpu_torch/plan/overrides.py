@@ -24,14 +24,14 @@ kernel reaches (else ``LimitExec`` over the sort, as over anything else,
 ``exec_nodes.py``); a ``Window`` is tagged as the reference tags it
 (:279-300) and becomes ``WindowExec`` (:457).  A window the reference
 sends to the CPU (string partition or order keys) raises: the CPU window
-is not ported (ROADMAP item 3).
+is not ported (ROADMAP item 6).  A ``Union`` becomes ``UnionExec``
+(reference :442), on the device as there (:216).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-from ..aggfns import AggregateExpression
 from ..batch import Schema
 from ..config import TpuConf
 from ..exprs import BoundReference, Expression, bind
@@ -155,7 +155,7 @@ class NodeMeta:
                         f"explode of array<{elem}> runs on CPU (elements "
                         f"have no device representation)")
             return
-        if isinstance(p, (L.Limit, L.Distinct, L.Sample)):
+        if isinstance(p, (L.Limit, L.Union, L.Distinct, L.Sample)):
             # Distinct groups by bare column references: string columns
             # go through dictionary codes like any group key
             return
@@ -232,12 +232,11 @@ class NodeMeta:
                     for r in expr_reasons(core,
                                           allow_string_passthrough=False):
                         self.will_not_work(f"group key {name}: {r}")
+            # the DataFrame splits arithmetic over aggregate calls into a
+            # projection above (dataframe._decompose_agg_exprs): only plain
+            # calls reach an Aggregate
             for name, e in p.agg_exprs:
                 b = strip_alias(bind(e, schema))
-                if not isinstance(b, AggregateExpression):
-                    self.will_not_work(
-                        f"aggregate {name} is not a plain aggregate call")
-                    continue
                 for c in b.children:
                     for r in expr_reasons(c, allow_string_passthrough=False):
                         self.will_not_work(f"aggregate {name}: {r}")
@@ -333,7 +332,7 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
         if isinstance(p, L.Window):
             raise NotImplementedError(
                 f"the CPU window operator is not ported yet (ROADMAP.md "
-                f"item 3, the cpu/ fallback operators): "
+                f"item 6, the cpu/ fallback operators): "
                 f"{'; '.join(meta.reasons)}")
         raise NotImplementedError(
             f"the CPU fallback for {type(p).__name__} is not ported yet "
@@ -404,6 +403,11 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
         from .exec_nodes import GenerateExec
         return GenerateExec(_convert(meta.children[0], conf), p.column,
                             p.out_name, p.outer, p.schema())
+
+    if isinstance(p, L.Union):
+        from .exec_nodes import UnionExec
+        return UnionExec([_convert(c, conf) for c in meta.children],
+                         p.schema())
 
     if isinstance(p, L.Limit):
         from .exec_nodes import LimitExec

@@ -1070,16 +1070,18 @@ class AggregateExec(TpuExec):
             streams = ([b] for b in batches)
         else:
             streams = iter([batches])
+        # one merge table's buffers serve every stream and bucket in turn
+        pool = groupby.MergePool(ctx.device)
         any_out = False
         for stream in streams:
-            for out in self._merge_stream(ctx, m, stream):
+            for out in self._merge_stream(ctx, m, stream, pool):
                 any_out = True
                 m.add("numOutputRows", out.num_rows)
                 yield out
         if not any_out:
             yield self._empty()
 
-    def _merge_stream(self, ctx: ExecContext, m, batches
+    def _merge_stream(self, ctx: ExecContext, m, batches, pool
                       ) -> Iterator[ColumnBatch]:
         """Merge buffer batches into one table; once its groups pass the
         buffer row limit (a fetch confirms the host's bound), the table's
@@ -1091,7 +1093,8 @@ class AggregateExec(TpuExec):
         count with the bucket counts.  Each bucket keeps its rows and
         merges them once, at the end, into a table sized for them (so no
         bucket table grows); one fetch of the bucket counts then raises on
-        a bucket past the limit."""
+        a bucket past the limit.  Every table takes its buffers from
+        ``pool`` and hands them back once its groups are copied out."""
         device = ctx.device
         nk = len(self.group_exprs)
         limit = self._buffer_row_limit(ctx.conf)
@@ -1114,7 +1117,8 @@ class AggregateExec(TpuExec):
                                         b.num_rows, device)
                     continue
                 if acc is None:
-                    acc = groupby.HashAccumulator(nk, channels, device)
+                    acc = groupby.HashAccumulator(nk, channels, device,
+                                                  pool=pool)
                 acc.key_bound = self._key_bound(dicts)
                 acc.merge(words, bufs, b.sel, b.num_rows)
                 groups = None
@@ -1132,24 +1136,26 @@ class AggregateExec(TpuExec):
                     self._split(buckets, pids, host[1:], list(keys) + [
                         v if isinstance(v, tuple) else (v, None)
                         for v in values])
+                    acc.release()
                     acc = None
         self._keep_dicts(dicts)
         if buckets is not None:
-            accs = []
+            outs, big = [], []
             for pieces in buckets:
                 if not pieces:
                     continue
                 cols = [_cat_values([p[0][j] for p in pieces])
                         for j in range(len(pieces[0][0]))]
                 n = sum(p[1] for p in pieces)
-                x = groupby.HashAccumulator(nk, channels, device)
+                x = groupby.HashAccumulator(nk, channels, device, pool=pool)
                 x.merge(cols[:nk], cols[nk:], None, n)
-                accs.append(x)
-            # a bucket of at most ``limit`` rows holds at most ``limit``
-            # groups: only larger ones need their count read
-            big = [x for x, pieces in zip(accs, [p for p in buckets if p])
-                   if sum(r for _, r in pieces) > limit]
-            counts = fetch([x.ngroups for x in big]) if big else []
+                # a bucket of at most ``limit`` rows holds at most
+                # ``limit`` groups: only larger ones need their count read
+                if n > limit:
+                    big.append(x.ngroups)
+                outs.append(self._hash_output(m, x, dicts))
+                x.release()
+            counts = fetch(big) if big else []
             if any(int(c[0]) > limit for c in counts):
                 raise RuntimeError(
                     "aggregate re-partition bucket overflowed "
@@ -1157,10 +1163,11 @@ class AggregateExec(TpuExec):
                     "(extreme key skew across hash buckets)")
             # the buckets' groups as one batch: one fetch downstream, not
             # one per bucket
-            yield batch_utils.concat_batches(
-                [self._hash_output(m, x, dicts) for x in accs])
+            yield batch_utils.concat_batches(outs)
         elif acc is not None:
-            yield self._hash_output(m, acc, dicts, groups)
+            out = self._hash_output(m, acc, dicts, groups)
+            acc.release()
+            yield out
 
     def _bucket_ids(self, words, active, n_buckets: int, device):
         """(int32 bucket id per row, int64 [n + 1] counts on the device)

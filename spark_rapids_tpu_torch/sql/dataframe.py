@@ -3,7 +3,9 @@ counterpart).  Transformations build a logical plan; ``collect`` plans and
 runs it on the session's device and brings the rows to the host;
 ``to_device_arrays`` leaves the result on the device.  Window expressions
 in ``select`` and ``with_column`` become a chain of ``Window`` nodes, one
-per (partition, order) spec (``_rewrite_windows``)."""
+per (partition, order) spec (``_rewrite_windows``); arithmetic over
+aggregate calls in ``agg`` becomes an ``Aggregate`` of the plain calls
+under a ``Project`` (``_decompose_agg_exprs``)."""
 
 from __future__ import annotations
 
@@ -21,6 +23,57 @@ def _named(c: Union[str, Column]) -> tuple:
     if isinstance(c, str):
         return (c, E.UnresolvedColumn(c))
     return (c.name, c.expr)
+
+
+def _decompose_agg_exprs(child: L.LogicalPlan, group_exprs, agg_exprs
+                         ) -> L.LogicalPlan:
+    """The Aggregate node of ``agg``, with compound aggregate expressions
+    split as Spark splits a physical aggregate's result expressions
+    (reference :28): ``agg((sum(v) * 0.2).alias("lim"))`` becomes
+    ``Aggregate(__agg0=sum(v))`` under ``Project(lim=__agg0 * 0.2)``.
+    Structurally equal aggregate calls are computed once.  An ``agg``
+    without any aggregate call, or one that reads a column that is neither
+    grouped nor inside an aggregate call, raises ``ValueError`` with the
+    reference's message."""
+    from ..plan.planner import strip_alias
+
+    agg_exprs = [(n, strip_alias(e)) for n, e in agg_exprs]
+    if all(isinstance(e, E.AggregateExpression) for _, e in agg_exprs):
+        return L.Aggregate(child, group_exprs, agg_exprs)
+
+    internal: List[tuple] = []
+    by_fp: Dict[str, str] = {}
+
+    def rewrite(e: E.Expression) -> E.Expression:
+        e = strip_alias(e)
+        if isinstance(e, E.AggregateExpression):
+            fp = e.fingerprint()
+            if fp not in by_fp:
+                by_fp[fp] = f"__agg{len(internal)}"
+                internal.append((by_fp[fp], e))
+            return E.UnresolvedColumn(by_fp[fp])
+        if not e.children:
+            return e
+        node = copy.copy(e)
+        node.children = tuple(rewrite(c) for c in e.children)
+        return node
+
+    finals = [(name, rewrite(e)) for name, e in agg_exprs]
+    if not internal:
+        raise ValueError(
+            "agg() expressions must contain at least one aggregate "
+            "function (use select() for row-wise expressions)")
+    valid = {n for n, _ in group_exprs} | {n for n, _ in internal}
+    for name, e in finals:
+        stray = {r for r in e.references() if r not in valid}
+        if stray:
+            raise ValueError(
+                f"agg() expression {name!r} references non-grouping "
+                f"column(s) {sorted(stray)}: every column must be inside "
+                f"an aggregate function or be a grouping column")
+    node = L.Aggregate(child, group_exprs, internal)
+    return L.Project(node, [(n, E.UnresolvedColumn(n))
+                            for n, _ in group_exprs] + finals)
 
 
 def _rewrite_windows(plan: L.LogicalPlan, exprs: List[tuple]):
@@ -149,6 +202,14 @@ class DataFrame:
             seed = random.randint(0, 2 ** 31 - 1)
         return DataFrame(L.Sample(self._plan, fraction, seed), self.session)
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """The rows of both inputs, this one's first, duplicates kept
+        (UNION ALL, reference :251); the schemas must agree column by
+        column in type."""
+        return DataFrame(L.Union([self._plan, other._plan]), self.session)
+
+    unionAll = union
+
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join with ``other``: ``on`` is a column name or list of
@@ -222,6 +283,6 @@ class GroupedData:
         self._group_exprs = group_exprs
 
     def agg(self, *cols: Column) -> DataFrame:
-        node = L.Aggregate(self._df._plan, self._group_exprs,
-                           [_named(c) for c in cols])
+        node = _decompose_agg_exprs(self._df._plan, self._group_exprs,
+                                    [_named(c) for c in cols])
         return DataFrame(node, self._df.session)

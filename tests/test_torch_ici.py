@@ -188,6 +188,24 @@ def test_ici_two_fragments(rng):
     assert st.ici_fragments == 2
 
 
+def test_ici_two_fragments_union(rng):
+    """The reference's case as written: a union of two aggregations.  A
+    union does not lower, so each aggregation runs as its own mesh
+    fragment."""
+    n = 2000
+    t = {"k": rng.integers(0, 11, n), "v": rng.uniform(0, 5, n)}
+
+    def q(F, d):
+        d1 = d["t"].group_by("k").agg(F.sum(F.col("v")).alias("s"))
+        d2 = d["t"].group_by("k").agg(F.min(F.col("v")).alias("s"))
+        return d1.union(d2)
+    with TStats.scoped() as st:
+        got = _check(q, {"t": t})
+    assert len(got) == 22
+    # the reference's run does not count in the port's stats
+    assert st.ici_fragments == 2
+
+
 def test_ici_host_predicate_above_join(rng):
     """A host string predicate over a shuffled join's output."""
     tables = _tables(rng, no=200, nl=1200)
@@ -270,10 +288,10 @@ def test_ici_exchange_never_silently_degrades():
 
 
 def test_ici_avg_and_compound_aggs(rng):
-    """The reference's case computes ``sum(v) * 0.2`` and ``max - min``
-    inside ``agg``; the port's planner takes arithmetic over aggregate
-    calls only as a projection above them (ROADMAP item 6), so both
-    packages run that form here."""
+    """The reference's aggregates with their arithmetic in a projection
+    above them (the form the port ran before it split ``agg``'s
+    expressions; ``test_ici_avg_and_compound_aggs_as_written`` runs the
+    reference's own)."""
     n = 3000
     t = {"k": rng.integers(0, 23, n), "v": rng.uniform(0, 100, n)}
     _check(lambda F, d: d["t"].group_by("k").agg(
@@ -282,6 +300,21 @@ def test_ici_avg_and_compound_aggs(rng):
         .select(F.col("k"), (F.col("s") * 0.2).alias("fifth"),
                 (F.col("mx") - F.col("mn")).alias("spread"), F.col("a")),
         {"t": t})
+
+
+def test_ici_avg_and_compound_aggs_as_written(rng):
+    """The reference's case as written: ``sum(v) * 0.2`` and ``max - min``
+    inside ``agg``, split into an aggregate of plain calls and a
+    projection above it."""
+    n = 3000
+    t = {"k": rng.integers(0, 23, n), "v": rng.uniform(0, 100, n)}
+    with TStats.scoped() as st:
+        got = _check(lambda F, d: d["t"].group_by("k").agg(
+            (F.sum(F.col("v")) * 0.2).alias("fifth"),
+            (F.max(F.col("v")) - F.min(F.col("v"))).alias("spread")),
+            {"t": t})
+    assert len(got) == 23
+    assert st.ici_fragments == 1
 
 
 @pytest.mark.parametrize("how", ["inner", "left", "left_semi", "left_anti"])

@@ -394,6 +394,63 @@ def test_merge_ops_plain_match_reference_group_reduce(rng):
                 assert g == w, (key, j)
 
 
+def _merged(acc):
+    """{key: per channel its value, or (value, has)} of a finished
+    accumulator's live groups."""
+    keys, values, live = acc.finish()
+    out = {}
+    for i in range(keys[0][0].shape[0]):
+        if live is not None and not bool(live[i]):
+            continue
+        key = int(keys[0][0][i]) if bool(keys[0][1][i]) else None
+        out[key] = [tuple(x[i].item() for x in v) if isinstance(v, tuple)
+                    else v[i].item() for v in values]
+    return out
+
+
+def test_merges_through_one_pool_equal_fresh_tables():
+    """A final aggregate lends one merge pool to each stream's table in
+    turn: streams of different sizes and groups, one of them merged in
+    three calls, each released before the next, give what fresh tables
+    give, and a table refuses an update once it has merged."""
+    rng = np.random.default_rng(31)
+    channels = [("sum", True), ("sum", False), ("min", False), ("max", True),
+                ("first_valid", True), ("last_valid", False)]
+    pool = groupby.MergePool("cpu")
+    for n, groups, batch in ((3000, 2000, 3000), (500, 7, 200),
+                             (5000, 4000, 1700)):
+        k = groupby.key_word(torch.from_numpy(rng.integers(0, groups, n)))
+        kv = torch.from_numpy(rng.random(n) < 0.97)
+        bufs = [(torch.from_numpy(rng.normal(size=n)), None),
+                (torch.from_numpy(rng.integers(-99, 99, n)), None),
+                (torch.from_numpy(rng.integers(-99, 99, n)),
+                 torch.from_numpy(rng.random(n) < 0.8)),
+                (torch.from_numpy(rng.normal(size=n)), None),
+                (torch.from_numpy(rng.normal(size=n)),
+                 torch.from_numpy(rng.random(n) < 0.5)),
+                (torch.from_numpy(rng.integers(-99, 99, n)),
+                 torch.from_numpy(rng.random(n) < 0.5))]
+        active = torch.from_numpy(rng.random(n) < 0.95)
+        got = []
+        for p in (pool, None):
+            acc = groupby.HashAccumulator(1, channels, "cpu", pool=p)
+            for lo in range(0, n, batch):
+                sl = slice(lo, lo + batch)
+                acc.merge([(k[sl], kv[sl])],
+                          [(d[sl], None if v is None else v[sl])
+                           for d, v in bufs], active[sl],
+                          int(active[sl].shape[0]))
+            got.append(_merged(acc))
+            acc.release()
+            with pytest.raises(ValueError, match="updates or merges"):
+                acc.update([(k, kv)], [(d, v) for d, v in bufs], active, n)
+        assert got[0].keys() == got[1].keys()
+        for key in got[0]:
+            for a, b in zip(got[0][key], got[1][key]):
+                assert a == b or (a != a and b != b), (key, a, b)
+    assert pool.holder is None
+
+
 def test_merge_refuses_a_count_channel():
     acc = groupby.HashAccumulator(1, [("count", False)], "cpu")
     with pytest.raises(ValueError, match="count"):

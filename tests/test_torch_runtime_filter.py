@@ -260,6 +260,33 @@ KEY_CASES = {
 }
 
 
+def _edge_keys(n_valid, n_rows, seed, lo=0, hi=1 << 40):
+    """``n_rows`` keys in [lo, hi), exactly ``n_valid`` of them live and
+    valid: the edges of the kernel's one-block path."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(lo, hi, n_rows, dtype=np.int64)
+    ok = np.zeros(n_rows, bool)
+    ok[rng.choice(n_rows, n_valid, replace=False)] = True
+    valid = ok | (rng.random(n_rows) < .5)
+    return key, valid, ok | ~valid
+
+
+# the kernel sorts at most SMALL_KEYS valid keys in one block, more by
+# radix passes over the bytes of their range: the plain version is pinned
+# on both sides of that edge, over a range that spans all of int64, and on
+# a build whose every row is live
+KEY_CASES.update({
+    "single-block limit": _edge_keys(rf.SMALL_KEYS, 40_000, 4, -500, 9000),
+    "one past the limit": _edge_keys(rf.SMALL_KEYS + 1, 40_000, 5),
+    "full int64 range": (np.concatenate([
+        np.array([2**63 - 1, -2**63, -2**63, 2**63 - 1], np.int64),
+        np.random.default_rng(6).integers(-2**63, 2**63 - 1, 30_000,
+                                          dtype=np.int64)]), None, None),
+    "all rows live": (np.random.default_rng(7).integers(
+        0, 60_000, 200_000, dtype=np.int64), None, None),
+})
+
+
 @pytest.mark.parametrize("case", list(KEY_CASES))
 def test_key_stats_plain_matches_numpy(case):
     key, valid, active = KEY_CASES[case]

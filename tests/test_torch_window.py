@@ -252,7 +252,7 @@ def test_to_device_arrays_of_a_window(sessions, data):
 
 def test_unported_windows_raise(sessions):
     """A string partition key (the reference places the window on the
-    CPU) raises naming the CPU operators of item 3; a windowed SUM of a
+    CPU) raises naming the CPU operators of item 6; a windowed SUM of a
     decimal raises naming item 7 (FIRST/LAST over a window, which raised
     naming queue 2 row 4, are ported: test_torch_first_last.py);
     to_device_arrays refuses a string column."""
@@ -262,7 +262,7 @@ def test_unported_windows_raise(sessions):
                                  "x": np.arange(3, dtype=np.int64),
                                  "m": np.array([decimal.Decimal("1.5")] * 3,
                                                dtype=object)})
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         df.select("x", TF.row_number().over(
             TW.partition_by("s").order_by("x")).alias("r")).collect()
     with pytest.raises(NotImplementedError, match="item 7"):
