@@ -1772,6 +1772,40 @@ def check_hashing(torch, hashing, device) -> float:
     return 0.0
 
 
+RADIX_EDGES = ("one", "tile-1", "tile", "tile+1", "equal", "top_byte",
+               "flag_only", "ties", "sorted", "reversed", "interleaved")
+
+
+def radix_edge_case(rng, shape: str, tile: int):
+    """(int64 keys, validity or None, live mask or None) of one shape the
+    one-sweep radix pass makes risky: n = 1 and n at a tile boundary; every
+    key equal (every pass skipped); keys that vary only in their top byte;
+    only the dead or invalid flag varying; ties that span tiles; sorted
+    and reverse-sorted input; dead rows and null keys interleaved."""
+    n = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "ties": 5 * tile + 3, "sorted": 300_001,
+         "reversed": 300_001}.get(shape, 3 * tile + 7)
+    keys = rng.integers(-2**62, 2**62, n)
+    valid = active = None
+    if shape == "equal":
+        keys = np.full(n, 123456789, dtype=np.int64)
+    elif shape == "top_byte":
+        keys = rng.integers(-128, 128, n) << 56
+    elif shape == "flag_only":
+        keys = np.full(n, -5, dtype=np.int64)
+        valid, active = rng.random(n) < 0.7, rng.random(n) < 0.6
+    elif shape == "ties":
+        keys = rng.integers(0, 3, n)
+    elif shape in ("sorted", "reversed"):
+        keys = np.arange(n, dtype=np.int64) * 7 - 5
+        keys = keys if shape == "sorted" else keys[::-1].copy()
+    elif shape == "interleaved":
+        keys = rng.integers(0, 1000, n)
+        i = np.arange(n)
+        valid, active = i % 2 == 0, i % 3 != 0
+    return keys.astype(np.int64), valid, active
+
+
 def sort_case(torch, n, seed, device, kind, span=50):
     """Keys of one kind with nulls and a live mask: integers over
     ``span`` values, floats drawn from -0.0/+0.0/NaN/+-inf/subnormal and
@@ -1831,6 +1865,24 @@ def check_sort_join(torch, join, device) -> float:
         torch.cuda.synchronize()
         check(torch.equal(km, pm) and torch.equal(kc, pc),
               f"sort_join unmatched build rows differ ({kind})")
+    from spark_rapids_tpu_torch.ops.sort import RADIX_TILE
+    rng = np.random.default_rng(19)
+    t = _to_device(torch, device)
+    for shape in RADIX_EDGES:
+        bk, bv, ba = radix_edge_case(rng, shape, RADIX_TILE)
+        keys = [(t(bk), None if bv is None else t(bv))]
+        act = None if ba is None else t(ba)
+        kb = join.sorted_build_kernel(keys, act)
+        pb = join.sorted_build_plain(keys, act)
+        probe = [(t(np.concatenate([bk[::3], bk[:50] + 1])), None)]
+        ko = join.sorted_probe_kernel(probe, None, kb, "inner")
+        po = join.sorted_probe_plain(probe, None, pb, "inner")
+        torch.cuda.synchronize()
+        check(torch.equal(kb.n_valid, pb.n_valid)
+              and torch.equal(kb.b_perm, pb.b_perm)
+              and torch.equal(kb.words, pb.words)
+              and all(torch.equal(x, y) for x, y in zip(ko, po)),
+              f"sort_join differs on the {shape} shape (n={len(bk)})")
     rng = np.random.default_rng(9)
     for n, nparts in ((0, 8), (1, 8), (BATCH_ROWS + 17, 8),
                       (100_000, 300)):
@@ -1845,8 +1897,11 @@ def check_sort_join(torch, join, device) -> float:
           "float64/float32 keys with -0.0/+0.0, NaN, +-inf, subnormals, "
           "nulls and dead rows, and an (int64, float64) key pair: b_perm, "
           "n_valid, sorted images, inner/full/semi/anti probes and the "
-          "unmatched build rows exact; partition placement (8 and 300 "
-          "partitions) exact: ok")
+          "unmatched build rows exact; the one-sweep edge shapes (n = 1, "
+          "a tile -1/0/+1, equal keys, the top byte alone, the flag alone, "
+          "ties across tiles, sorted, reversed, nulls and dead rows "
+          "interleaved) exact; partition placement (8 and 300 partitions) "
+          "exact: ok")
     return 0.0
 
 
@@ -2006,8 +2061,8 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
             [(p, None)], None, join.sorted_build_kernel([(b, None)], None),
             "inner")
 
-    # one call launches ~55 kernels (a 5-launch radix pass per key byte):
-    # each copy once keeps the queue under the stream's launch depth
+    # one call launches ~15 kernels (one per key byte, most exiting at
+    # once): each copy once keeps the queue under the stream's launch depth
     inputs = copies_for_l2([bk, pk])
     ms = time_ms(torch, [kernel_call(b, p) for b, p in inputs],
                  reps=len(inputs))
@@ -2145,7 +2200,67 @@ def _same(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check_sort(torch, sort_ops, device) -> float:
+# the paths whose plans run the full sort or the sorted join (Q11 at SF1:
+# at SF10 no row passes its HAVING into the sort)
+SORT_PATHS = ("s1", "w1", "w2", "q11_sf1", "q13", "union_sort",
+              "q10_shuffled", "q21_exists")
+
+
+def check_sorts_on_paths(torch, sort_ops, join, paths, device_paths) -> None:
+    """One more run of each path of SORT_PATHS, untimed and after its
+    launches are counted, with ``sort_perm_kernel`` and
+    ``sorted_build_kernel`` wrapped so that every call's result is held to
+    the plain version on the same inputs, exactly."""
+    perm_kernel, build_kernel = sort_ops.sort_perm_kernel, \
+        join.sorted_build_kernel
+    seen = {"path": "", "calls": 0}
+
+    def perm_checked(words, active, n):
+        got = perm_kernel(words, active, n)
+        want = sort_ops.sort_perm_plain(words, active, n, got.device)
+        check(torch.equal(got, want), f"sort_perm differs from plain on "
+              f"{seen['path']} (n={n}, {len(words)} words)")
+        seen["calls"] += 1
+        return got
+
+    def build_checked(keys, active):
+        got = build_kernel(keys, active)
+        want = join.sorted_build_plain(keys, active)
+        check(torch.equal(got.b_perm, want.b_perm)
+              and torch.equal(got.n_valid, want.n_valid)
+              and torch.equal(got.words, want.words),
+              f"sort_build differs from plain on {seen['path']} "
+              f"(n={got.n}, {len(keys)} keys)")
+        seen["calls"] += 1
+        return got
+
+    # the kernels count their launches under their module names, which
+    # name these wrappers meanwhile
+    perm_checked.launches = build_checked.launches = 0
+    fns = {p[0]: p[1] for p in paths}
+    calls = {}
+    sort_ops.sort_perm_kernel = perm_checked
+    join.sorted_build_kernel = build_checked
+    try:
+        for name in SORT_PATHS:
+            seen.update(path=name, calls=0)
+            df = fns[name]()
+            if name in device_paths:
+                to_device(df)
+            else:
+                collect(df)
+            torch.cuda.synchronize()
+            check(seen["calls"] > 0, f"{name} made no sort call")
+            calls[name] = seen["calls"]
+    finally:
+        sort_ops.sort_perm_kernel = perm_kernel
+        join.sorted_build_kernel = build_kernel
+    print("check sorts on their paths: every sort_perm and sort_build call "
+          "equal to its plain version (calls: " + ", ".join(
+              f"{k} {v}" for k, v in calls.items()) + "): ok")
+
+
+def check_sort(torch, sort_ops, kernels, device) -> float:
     """sort.cu against its plain versions: the images of every key type
     (asc/desc, nulls first/last, NaN, +-0.0, ties), the permutation with
     and without a live mask (exact), constant keys (every pass skipped),
@@ -2196,6 +2311,36 @@ def check_sort(torch, sort_ops, device) -> float:
         check(all(_same(torch, a[0], b[0]) and (
             (a[1] is None and b[1] is None) or torch.equal(a[1], b[1]))
             for a, b in zip(kg, pg)), f"sort gather differs ({spec})")
+    lib = kernels.load("sort")
+    check(lib.sort_tile_rows() == sort_ops.RADIX_TILE, f"sort.cu's tile is "
+          f"{lib.sort_tile_rows()} rows, ops/sort.py says "
+          f"{sort_ops.RADIX_TILE}")
+    rng = np.random.default_rng(52)
+    for shape in RADIX_EDGES:
+        d, v, a = radix_edge_case(rng, shape, sort_ops.RADIX_TILE)
+        n = len(d)
+        for asc, nf in ((True, True), (False, False)):
+            keys = [(t(d), None if v is None else t(v), asc, nf)]
+            act = None if a is None else t(a)
+            kp = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(keys),
+                                           act, n)
+            pp = sort_ops.sort_perm_plain(sort_ops.sort_images_plain(keys),
+                                          act, n, device)
+            torch.cuda.synchronize()
+            check(torch.equal(kp, pp), f"sort permutation differs on the "
+                  f"{shape} shape (n={n}, asc {asc})")
+    # past 2^24 rows: each pass's look-back crosses ~4,900 tiles
+    n = 20_000_000
+    keys = [(t(rng.integers(8036, 8036 + 2526, n).astype(np.int32)), None,
+             True, True),
+            (t(rng.integers(-2**62, 2**62, n)), None, False, True)]
+    act = t(rng.random(n) < 0.9)
+    kp = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(keys), act, n)
+    pp = sort_ops.sort_perm_plain(sort_ops.sort_images_plain(keys), act, n,
+                                  device)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, pp), f"sort permutation differs at n={n}")
+    del keys, act, kp, pp
     # constant keys: every pass skips on the device, the order stays
     n = 100_000
     keys = [(t(np.full(n, 7, dtype=np.int64)), None, True, True),
@@ -2208,7 +2353,10 @@ def check_sort(torch, sort_ops, device) -> float:
           "over int8/int16/int32/date/int64/float32/float64/bool/code keys, "
           "asc/desc x nulls first/last, NaN/+-0.0/+-inf, ties, live masks, "
           "0/1/5000/300001/4194304 rows, three-key sorts, constant keys "
-          "(every pass skipped): ok")
+          "(every pass skipped), the one-sweep edge shapes (n = 1, a tile "
+          "-1/0/+1, equal keys, the top byte alone, the dead flag alone, "
+          "ties across tiles, sorted, reversed, nulls and dead rows "
+          "interleaved) and 20000000 rows under two keys: ok")
     return 0.0
 
 
@@ -2449,25 +2597,24 @@ def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
         return run
 
     inputs = copies_for_l2(cols)
-    # one call launches ~70 kernels: each copy once keeps the queue under
-    # the stream's launch depth
+    # one call launches ~30 kernels: each copy once keeps the queue under
+    # the stream's launch depth; the chained library sorts are queued alike
     ms = time_ms(torch, [kernel_call(c) for c in inputs], reps=len(inputs))
     plain_ms = time_ms_synced(torch, [plain_call(c) for c in inputs[:2]],
                               reps=2)
-    lib_ms = time_ms_synced(torch, [library_call(c) for c in inputs[:2]],
-                            reps=2)
-    # keys read once (4 + 8 + 8 B), the three images written once, per
-    # radix pass that runs the word and the row number read and written
-    # (24 B), per word its gather (8 B read at a row, 8 written), the
-    # permutation written (4 B) and the 6 columns gathered (read and
-    # written once, 40 B each way)
-    nbytes = n * (20 + 24 + 24 * passes + 16 * len(pw) + 4 + 80)
+    lib_ms = time_ms(torch, [library_call(c) for c in inputs],
+                     reps=len(inputs))
+    # what the function must move: the keys read once, the permutation
+    # written once, the 6 columns read and written once (the radix passes'
+    # own traffic is the design's, not the function's)
+    nbytes = n * (sum(c.element_size() for c in cols[:3]) + 4
+                  + 2 * sum(c.element_size() for c in cols))
     out.append(_row("sort", launches, 0.0, ms, plain_ms, nbytes, lib_ms,
                     "spark_rapids_tpu/plan/exec_nodes.py:219"))
     notes.append(f"n={n} rows, 3 keys (date asc, float64 desc, int64 asc), "
                  f"{passes} of {total} radix passes run, 6 columns gathered "
                  f"(library: torch.sort(stable=True) chained over the keys "
-                 f"and the gathers)")
+                 f"and the gathers, queued like the kernel)")
     del cols, keys, gcols, kp, pp, kg, inputs
 
     # W1's rows in (supplier, ship date) order, on the device
@@ -2544,7 +2691,8 @@ def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
         nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
         lib = "none" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
-        lib = lib if row["library_ms"] is None else lib + " †"
+        # window_scan's cumsum is timed one call per event pair
+        lib = lib + " †" if row["name"] == "window_scan" else lib
         print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
               f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
               f"{row['plain_ms']:.4f} ms †, library {lib}), max |err| vs "
@@ -4405,7 +4553,7 @@ def main() -> int:
         worst["dense_agg"] = max(worst["dense_agg"], check_dense_agg_f64(
             torch, groupby, device))
         check_dense_agg_deterministic(torch, groupby, device)
-        worst["sort"] = check_sort(torch, sort_ops, device)
+        worst["sort"] = check_sort(torch, sort_ops, kernels, device)
         worst["window_scan"] = check_window(torch, window, device)
         worst["window_frame"] = worst["window_scan"]
         worst["cond_join"] = check_cond_join(torch, join, device)
@@ -5100,6 +5248,7 @@ def main() -> int:
                     r["kernel_launches"].get("csr_join", 0)
                     for r in runs_of[name])
             paths.append((name, df_fn, checker, want11[name], ()))
+        check_sorts_on_paths(torch, sort_ops, join, paths, device_paths)
         q3_runs = runs_of["q3"]
         check(all(launches.values()), f"a kernel of the main path was never "
               f"launched: {launches}")

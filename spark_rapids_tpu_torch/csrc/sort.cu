@@ -19,25 +19,28 @@
 //   * flag = nulls_first ? valid : !valid, so nulls go first or last as the
 //     order says, whatever the direction.  A null row keeps its payload's
 //     view, as the reference's lexsort does.
-// Permutation (sort_perm): a stable LSD radix sort of int32 row numbers:
-// per word from the least significant, the word gathered in the current
-// order, then one 8-bit pass of radix.cuh per byte; last, when there is a
-// live mask, a pass on the dead flag, so dead rows park after every live
-// row.  Stability (radix.cuh orders equal digits by position, without
-// atomics) keeps ties in input order, which makes the permutation equal
-// the reference's lexsort exactly.  A pass whose digit is the same in
-// every row is skipped on the device (radix_pass_sel): keys that vary in
-// 2-3 of their 8 bytes run 2-3 passes, and the host never waits.
+// Permutation (sort_perm): a stable LSD radix sort of int32 row numbers,
+// radix.cuh's one-sweep sort: per word from the least significant, ONE
+// kernel (os_gather_hist over SOWord) gathers the word's radix digits in
+// the current order and counts all of its bytes, then one pass kernel per
+// byte; last, when there is a live mask, the dead flag as a 1-byte
+// word, so dead rows park after every live row.  Stability (the passes rank
+// equal digits by position, without atomics) keeps ties in input order,
+// which makes the permutation equal the reference's lexsort exactly.  A
+// byte whose digit is the same in every row is skipped on the device: its
+// pass kernel reads the byte's counts and exits, so keys that vary in 2-3
+// of their 8 bytes run 2-3 passes, and the host never waits.
 // Range key (sort_range_key): _range_key_fn's view of the primary key in
 // output order (desc complemented, nulls as INT64_MIN or INT64_MAX).
 // Gather (sort_gather): out[c][i] = in[c][perm[i]] for up to 16 columns of
 // 1, 2, 4 or 8-byte elements with their validity bytes.
 //
-// Bound: device memory.  Each radix pass reads and writes the 8-byte word
-// and the 4-byte row number of every row (24 B/row) after a histogram read
-// (8 B/row); each word's gather reads its image at a random row (one
-// sector per row).  Simple first: passes launch per digit and nothing is
-// fused across passes.
+// Bound: device memory.  The function must read the keys once and write
+// the permutation (and the gathered columns) once.  The sort moves more:
+// per running pass the word and the row number are read and written (24
+// B/row, in coalesced runs); per word its gather reads the image at a
+// random row (one sector per row) beside the permutation.  A skipped pass
+// costs one launch whose blocks read 1 KB of counts and exit.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -98,38 +101,29 @@ so_image(const void* __restrict__ data, const uint8_t* __restrict__ valid,
 // permutation
 // ---------------------------------------------------------------------------
 
+// out[i] = i: the permutation of a sort with no pass.
 __global__ void __launch_bounds__(SO_THREADS)
-so_iota(int* __restrict__ vals, long long n, int* __restrict__ state) {
+so_iota(int* __restrict__ out, long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    vals[i] = (int)i;
-  if (blockIdx.x == 0 && threadIdx.x == 0) state[0] = 0;
+    out[i] = (int)i;
 }
 
-// keys[side][i] = radix digits of word at row vals[side][i], side =
-// state[p]; word == nullptr: the dead flag of that row.
-__global__ void __launch_bounds__(SO_THREADS)
-so_gather_word(const __grid_constant__ RSBufs<unsigned long long> b,
-               const int* __restrict__ state, int p,
-               const long long* __restrict__ word, int bytes,
-               const uint8_t* __restrict__ active, long long n) {
-  const int side = state[p];
-  const int* __restrict__ perm = b.vals[side];
-  unsigned long long* __restrict__ keys = b.keys[side];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int r = perm[i];
-    keys[i] = word != nullptr ? so_radix(word[r], bytes)
-                              : (unsigned long long)(active[r] ? 0 : 1);
+// The radix digits of one word at row r (word == nullptr: the dead flag).
+struct SOWord {
+  const long long* word;
+  int bytes;
+  const uint8_t* active;
+  __device__ __forceinline__ unsigned long long operator()(long long r) const {
+    return word != nullptr ? so_radix(word[r], bytes)
+                           : (unsigned long long)(active[r] ? 0 : 1);
   }
-}
+};
 
 __global__ void __launch_bounds__(SO_THREADS)
-so_copy_perm(const __grid_constant__ RSBufs<unsigned long long> b,
-             const int* __restrict__ state, int p, long long n,
-             int* __restrict__ out) {
+so_copy_perm(const __grid_constant__ OSBufs b, const int* __restrict__ state,
+             int p, long long n, int* __restrict__ out) {
   const int* __restrict__ perm = b.vals[state[p]];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -229,16 +223,22 @@ extern "C" int sort_image(const void* data, const void* valid, int elem,
   return (int)cudaGetLastError();
 }
 
+// Scratch bytes of sort_perm for n rows and `passes` passes (the words'
+// radix bytes, + 1 with a live mask).
+extern "C" long long sort_perm_scratch(long long n, int passes) {
+  return (long long)os_scratch(n, passes, nullptr, nullptr);
+}
+
+// Rows of one tile of the one-sweep pass.
+extern "C" int sort_tile_rows() { return OS_TILE; }
+
 // words[w]: [n] int64 images, most significant first, each with its radix
 // byte count (1..8; a word of fewer than 8 bytes is non-negative and below
-// 2^(8 * bytes)); active: [n] bool or nullptr; perm: [n] int32 out.
-// Scratch: ka, kb [n] uint64; va, vb [n] int32; state: passes + 1 int32;
-// hist 256 * ceil(n / RS_TILE) int32; offs that + 1 int64; sums
-// ceil(256 * ceil(n / RS_TILE) / SCAN_TILE) int64.
+// 2^(8 * bytes)); active: [n] bool or nullptr; perm: [n] int32 out;
+// scratch: sort_perm_scratch(n, passes) bytes.
 extern "C" int sort_perm(int nwords, const void* const* words,
                          const int* bytes, const void* active, long long n,
-                         void* perm, void* ka, void* kb, void* va, void* vb,
-                         void* state, void* hist, void* offs, void* sums,
+                         void* perm, void* scratch, long long scratch_bytes,
                          void* stream) {
   if (nwords < 0 || n < 0 || n >= INT_MAX || perm == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -254,37 +254,39 @@ extern "C" int sort_perm(int nwords, const void* const* words,
   int blocks = 1;
   cudaError_t err = so_grid(n, 8, &blocks);
   if (err != cudaSuccess) return (int)err;
-  RSBufs<unsigned long long> b;
-  b.keys[0] = static_cast<unsigned long long*>(ka);
-  b.keys[1] = static_cast<unsigned long long*>(kb);
-  b.vals[0] = static_cast<int*>(va);
-  b.vals[1] = static_cast<int*>(vb);
-  int* st = static_cast<int*>(state);
-  so_iota<<<blocks, SO_THREADS, 0, s>>>(b.vals[0], n, st);
-  err = cudaGetLastError();
+  int* out = static_cast<int*>(perm);
+  if (passes == 0) {
+    so_iota<<<blocks, SO_THREADS, 0, s>>>(out, n);
+    return (int)cudaGetLastError();
+  }
+  OSScratch sc;
+  if (scratch == nullptr ||
+      (long long)os_scratch(n, passes, scratch, &sc) > scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  int hblocks = 1;
+  err = os_hist_blocks(n, &hblocks);
+  if (err == cudaSuccess) err = os_clear(sc, s);
   if (err != cudaSuccess) return (int)err;
-  int* hi = static_cast<int*>(hist);
-  long long* of = static_cast<long long*>(offs);
-  long long* su = static_cast<long long*>(sums);
   const uint8_t* act = static_cast<const uint8_t*>(active);
   int p = 0;
   // least significant word first; the dead flag last (most significant)
   for (int step = nwords - 1; step >= -1; --step) {
     if (step < 0 && act == nullptr) break;
-    const long long* word =
-        step >= 0 ? static_cast<const long long*>(words[step]) : nullptr;
-    const int nb = step >= 0 ? bytes[step] : 1;
-    so_gather_word<<<blocks, SO_THREADS, 0, s>>>(b, st, p, word, nb, act, n);
+    SOWord src;
+    src.word = step >= 0 ? static_cast<const long long*>(words[step])
+                         : nullptr;
+    src.bytes = step >= 0 ? bytes[step] : 1;
+    src.active = act;
+    os_gather_hist<SOWord><<<hblocks, OS_HIST_THREADS, 0, s>>>(
+        sc.b, sc.state, p, p == 0, src, src.bytes, n, sc.hist);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    for (int byte = 0; byte < nb; ++byte, ++p) {
-      err = radix_pass_sel<unsigned long long>(b, st, p, n, 8 * byte, hi,
-                                               of, su, s);
+    for (int byte = 0; byte < src.bytes; ++byte, ++p) {
+      err = os_pass_launch(sc, p, n, 8 * byte, s);
       if (err != cudaSuccess) return (int)err;
     }
   }
-  so_copy_perm<<<blocks, SO_THREADS, 0, s>>>(b, st, p, n,
-                                             static_cast<int*>(perm));
+  so_copy_perm<<<blocks, SO_THREADS, 0, s>>>(sc.b, sc.state, p, n, out);
   return (int)cudaGetLastError();
 }
 

@@ -19,18 +19,19 @@
 //
 // Entry points:
 //   sort_build     a stable LSD radix sort of row numbers over (invalid,
-//                  key 0, ..., key k-1): per key from the last, its images
-//                  gathered in the current order, then one 8-bit pass per
-//                  byte of the key (4 for 4-byte keys, 8 for 8-byte ones);
-//                  last a pass on the invalid flag (a dead row or a null
-//                  key), so invalid rows park at the end, ordered by key.
-//                  Each pass is radix.cuh's stable 8-bit pass, shared with
-//                  csr_join.cu, over 64-bit words.  Outputs the
-//                  sorted images of every key, b_perm and n_valid (the
-//                  valid rows, counted by a block reduction).  The pass
-//                  machinery sorts any 64-bit words with int32 values, so
-//                  the full device sort (ROADMAP queue 2 row 8') can reuse
-//                  it.
+//                  key 0, ..., key k-1), radix.cuh's one-sweep sort (shared
+//                  with sort.cu): per key from the last, ONE kernel gathers
+//                  its images' radix digits in the current order and counts
+//                  every byte of them, then one pass kernel per byte (4 for
+//                  4-byte keys, 8 for 8-byte ones); last the invalid flag
+//                  (a dead row or a null key) as a 1-byte word, so invalid
+//                  rows park at the end, ordered by key.  A byte whose
+//                  digit is the same in every row (a constant high byte,
+//                  the flag when every row is valid) is skipped on the
+//                  device: its pass kernel reads the byte's counts and
+//                  exits.  Outputs the sorted images of every key, b_perm
+//                  and n_valid (the valid rows, counted by a block
+//                  reduction).
 //   sort_probe     one thread per probe row: lower and upper bound of its
 //                  key tuple in the sorted images [0, n_valid) by binary
 //                  search, giving lo and matches (0 for a dead or null-key
@@ -42,11 +43,12 @@
 //                  and counts them (a full outer join's unmatched build
 //                  rows).
 //
-// Bound: device memory.  The build moves 12 bytes per row and pass (image
-// and row number, read and written) plus one random image read per row and
-// key; the probe reads log2(n_valid) images per row and key at dependent
-// random positions (the top levels stay in L2).  Simple first: every pass
-// runs even when a byte is the same in every row.
+// Bound: device memory.  The build moves 24 bytes per row and running
+// pass (the 8-byte image and 4-byte row number, read and written, in
+// coalesced runs) plus one random image read per row and key; a skipped
+// pass is one launch whose blocks read 1 KB of counts and exit.  The probe
+// reads log2(n_valid) images per row and key at dependent random positions
+// (the top levels stay in L2).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -151,39 +153,31 @@ sj_flags(const __grid_constant__ SJKeys k, const uint8_t* __restrict__ active,
   }
 }
 
-// words[i] = radix word of key c at row perm[i] (perm == nullptr: row i).
-__global__ void __launch_bounds__(SJ_THREADS)
-sj_gather_words(const __grid_constant__ SJKeys k, int c,
-                const int* __restrict__ perm, long long n,
-                unsigned long long* __restrict__ words) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long r = perm == nullptr ? i : perm[i];
-    words[i] = radix_word(image(k, c, r), k.elem[c]);
+// The radix digits of key c's image at row r, or (flags != nullptr) the
+// invalid flag of row r.
+struct SJWord {
+  SJKeys k;
+  int c;
+  const unsigned long long* flags;
+  __device__ __forceinline__ unsigned long long operator()(long long r) const {
+    return flags != nullptr ? flags[r]
+                            : radix_word(image(k, c, r), k.elem[c]);
   }
-}
+};
 
-// words[i] = flag of row perm[i].
-__global__ void __launch_bounds__(SJ_THREADS)
-sj_gather_flags(const unsigned long long* __restrict__ flags,
-                const int* __restrict__ perm, long long n,
-                unsigned long long* __restrict__ words) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    words[i] = flags[perm == nullptr ? i : perm[i]];
-}
-
-// out[c][i] = image of key c at row perm[i].
+// b_perm[i] = the row at sorted position i (the current side after pass
+// p - 1); out[c][i] = image of key c at that row.
 __global__ void __launch_bounds__(SJ_THREADS)
 sj_sorted_images(const __grid_constant__ SJKeys k,
-                 const int* __restrict__ perm, long long n,
-                 long long* __restrict__ out) {
+                 const __grid_constant__ OSBufs b,
+                 const int* __restrict__ state, int p, long long n,
+                 int* __restrict__ b_perm, long long* __restrict__ out) {
+  const int* __restrict__ perm = b.vals[state[p]];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const long long r = perm[i];
+    const int r = perm[i];
+    b_perm[i] = r;
     for (int c = 0; c < k.nkeys; ++c) out[(long long)c * n + i] = image(k, c, r);
   }
 }
@@ -322,68 +316,68 @@ static int fill_keys(SJKeys* k, int nkeys, const void* const* data,
   return 1;
 }
 
+// Scratch bytes of sort_build for n rows and `passes` passes (the keys'
+// bytes + 1): the one-sweep sort's, then the [n] uint64 flags.
+extern "C" long long sort_build_scratch(long long n, int passes) {
+  return (long long)(os_scratch(n, passes, nullptr, nullptr) +
+                     os_align((size_t)(n > 0 ? n : 1) * 8));
+}
+
 // Sorts the n build rows.  words: [nkeys][n] int64 out (sorted images);
-// b_perm: [n] int32 out; n_valid: one uint64 word, zeroed by the caller.
-// Scratch: flags, wa, wb [n] uint64; pa, pb [n] int32; hist
-// 256 * ceil(n / RS_TILE) int32; offs that + 1 int64; sums
-// ceil(256 * ceil(n / RS_TILE) / SCAN_TILE) int64.
+// b_perm: [n] int32 out; n_valid: one uint64 word, zeroed by the caller;
+// scratch: sort_build_scratch(n, sum of elems + 1) bytes.
 extern "C" int sort_build(int nkeys, const void* const* data,
                           const void* const* valid, const int* elems,
                           const int* kinds, const void* active, long long n,
                           void* words, void* b_perm, void* n_valid,
-                          void* flags, void* wa, void* wb, void* pa, void* pb,
-                          void* hist, void* offs, void* sums, void* stream) {
+                          void* scratch, long long scratch_bytes,
+                          void* stream) {
   SJKeys k = {};
   if (!fill_keys(&k, nkeys, data, valid, elems, kinds) || n < 0 ||
       n >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
+  int passes = 1;
+  for (int c = 0; c < nkeys; ++c) passes += k.elem[c];
+  OSScratch sc;
+  const size_t sort_bytes = os_scratch(n, passes, scratch, &sc);
+  if (scratch == nullptr ||
+      sort_build_scratch(n, passes) > scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* fl = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + sort_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* act = static_cast<const uint8_t*>(active);
-  int blocks = 1;
+  int blocks = 1, hblocks = 1;
   cudaError_t err = grid_for(n, 8, &blocks);
+  if (err == cudaSuccess) err = os_hist_blocks(n, &hblocks);
+  if (err == cudaSuccess) err = os_clear(sc, s);
   if (err != cudaSuccess) return (int)err;
-  unsigned long long* fl = static_cast<unsigned long long*>(flags);
   sj_flags<<<blocks, SJ_THREADS, 0, s>>>(
       k, act, n, fl, static_cast<unsigned long long*>(n_valid));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  unsigned long long* w_in = static_cast<unsigned long long*>(wa);
-  unsigned long long* w_out = static_cast<unsigned long long*>(wb);
-  int* p_in = nullptr;  // identity before the first pass
-  int* p_bufs[2] = {static_cast<int*>(pa), static_cast<int*>(pb)};
-  int next = 0;
-  int* hi = static_cast<int*>(hist);
-  long long* of = static_cast<long long*>(offs);
-  long long* su = static_cast<long long*>(sums);
-  // passes: each key's bytes from the last key, then the invalid flag
+  int p = 0;
+  // each key's bytes from the last key, then the invalid flag
   for (int step = 0; step <= nkeys; ++step) {
     const bool flag_pass = step == nkeys;
-    const int c = nkeys - 1 - step;
-    if (flag_pass)
-      sj_gather_flags<<<blocks, SJ_THREADS, 0, s>>>(fl, p_in, n, w_in);
-    else
-      sj_gather_words<<<blocks, SJ_THREADS, 0, s>>>(k, c, p_in, n, w_in);
+    SJWord src;
+    src.k = k;
+    src.c = flag_pass ? 0 : nkeys - 1 - step;
+    src.flags = flag_pass ? fl : nullptr;
+    const int bytes = flag_pass ? 1 : k.elem[src.c];
+    os_gather_hist<SJWord><<<hblocks, OS_HIST_THREADS, 0, s>>>(
+        sc.b, sc.state, p, p == 0, src, bytes, n, sc.hist);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int bytes = flag_pass ? 1 : k.elem[c];
-    for (int b = 0; b < bytes; ++b) {
-      int* p_out = p_bufs[next];
-      next ^= 1;
-      err = radix_pass<unsigned long long>(w_in, p_in, w_out, p_out, n, 8 * b,
-                                           hi, of, su, s);
+    for (int b = 0; b < bytes; ++b, ++p) {
+      err = os_pass_launch(sc, p, n, 8 * b, s);
       if (err != cudaSuccess) return (int)err;
-      unsigned long long* t = w_in;
-      w_in = w_out;
-      w_out = t;
-      p_in = p_out;
     }
   }
-  err = cudaMemcpyAsync(b_perm, p_in, (size_t)n * sizeof(int),
-                        cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return (int)err;
   sj_sorted_images<<<blocks, SJ_THREADS, 0, s>>>(
-      k, static_cast<const int*>(b_perm), n, static_cast<long long*>(words));
+      k, sc.b, sc.state, p, n, static_cast<int*>(b_perm),
+      static_cast<long long*>(words));
   return (int)cudaGetLastError();
 }
 

@@ -129,10 +129,11 @@ _SIGNATURES = {
         "hash_rows": [_I, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P, _P],
     },
     "sort_join": {
+        # n, passes
+        "sort_build_scratch": [_L, _I],
         # nkeys, data[], valid[], elems[], kinds[], active, n, words, b_perm,
-        # n_valid, flags, wa, wb, pa, pb, hist, offs, sums, stream
-        "sort_build": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P],
+        # n_valid, scratch, scratch_bytes, stream
+        "sort_build": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _L, _P],
         # nkeys, data[], valid[], elems[], kinds[], active, n, words, nb,
         # n_valid, mode, lo, matches, cnt, sel, stream
         "sort_probe": [_I, _P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _P, _P, _P,
@@ -144,10 +145,12 @@ _SIGNATURES = {
         # data, valid, elem, kind, desc, nulls_first, n, word, flag_word,
         # stream
         "sort_image": [_P, _P, _I, _I, _I, _I, _L, _P, _P, _P],
-        # nwords, words[], bytes[], active, n, perm, ka, kb, va, vb, state,
-        # hist, offs, sums, stream
-        "sort_perm": [_I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P],
+        # n, passes
+        "sort_perm_scratch": [_L, _I],
+        "sort_tile_rows": [],
+        # nwords, words[], bytes[], active, n, perm, scratch, scratch_bytes,
+        # stream
+        "sort_perm": [_I, _P, _P, _P, _L, _P, _P, _L, _P],
         # data, valid, elem, kind, desc, nulls_first, perm, n, out, stream
         "sort_range_key": [_P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
         # ncols, in[], out[], vin[], vout[], elems[], perm, n, stream
@@ -236,6 +239,9 @@ _SIGNATURES = {
     },
 }
 
+# entries that return other than a CUDA error code
+_RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -304,7 +310,7 @@ def load(name: str) -> ctypes.CDLL:
             for entry, argtypes in _SIGNATURES[name].items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(entry, ctypes.c_int)
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -692,19 +692,13 @@ def sorted_build_kernel(keys, active) -> SortedBuild:
     words = torch.empty((len(keys), n), dtype=torch.int64, device=dev)
     b_perm = torch.empty(n, dtype=torch.int32, device=dev)
     n_valid = torch.zeros(1, dtype=torch.int64, device=dev)
-    tiles = max(1, -(-n // RS_TILE))
-    u64 = dict(dtype=torch.int64, device=dev)
-    flags, wa, wb = (torch.empty(n, **u64) for _ in range(3))
-    pa, pb = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2))
-    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    offs = torch.empty(256 * tiles + 1, **u64)
-    sums = torch.empty(max(1, -(-256 * tiles // SCAN_TILE)), **u64)
     lib = kernels.load("sort_join")
+    nbytes = lib.sort_build_scratch(
+        n, sum(d.element_size() for d, _ in keys) + 1)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = lib.sort_build(*_sort_key_args(keys), _ptr(active), n,
                         words.data_ptr(), b_perm.data_ptr(),
-                        n_valid.data_ptr(), flags.data_ptr(), wa.data_ptr(),
-                        wb.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-                        hist.data_ptr(), offs.data_ptr(), sums.data_ptr(),
+                        n_valid.data_ptr(), scratch.data_ptr(), nbytes,
                         _stream(keys[0][0]))
     kernels.check_launch(lib, "sort_build", rc)
     sorted_build_kernel.launches += 1

@@ -32,15 +32,17 @@ import torch
 from .. import kernels
 from .topk import sortable_view
 
-__all__ = ["SO_MAX_COLS", "SortKey", "Word", "sort_images",
+__all__ = ["SO_MAX_COLS", "RADIX_TILE", "SortKey", "Word", "sort_images",
            "sort_images_plain", "sort_images_kernel", "sort_perm",
            "sort_perm_plain", "sort_perm_kernel", "range_key",
            "range_key_plain", "range_key_kernel", "gather_columns",
            "gather_plain", "gather_kernel", "key_args", "sort_keys_perm"]
 
 SO_MAX_COLS = 16            # csrc/sort.cu SO_MAX_COLS
-_RS_TILE = 256 * 16         # csrc/radix.cuh RS_TILE
-_SCAN_TILE = 512 * 8        # csrc/radix.cuh SCAN_TILE
+# rows of one tile of the one-sweep radix pass (csrc/radix.cuh OS_TILE, as
+# sort.cu's sort_tile_rows returns it): the shapes where a look-back
+# crosses a tile boundary
+RADIX_TILE = 4096
 _FLOATS = (torch.float32, torch.float64)
 
 # (data, valid-or-None, ascending, nulls_first)
@@ -186,24 +188,14 @@ def sort_perm_kernel(words: Sequence[Word], active: Optional[torch.Tensor],
     if n == 0:
         return perm
     passes = sum(b for _, b in words) + (active is not None)
-    tiles = max(1, -(-n // _RS_TILE))
-    ka = torch.empty(n, dtype=torch.int64, device=dev)
-    kb = torch.empty_like(ka)
-    va = torch.empty(n, dtype=torch.int32, device=dev)
-    vb = torch.empty_like(va)
-    state = torch.empty(passes + 1, dtype=torch.int32, device=dev)
-    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    offs = torch.empty(256 * tiles + 1, dtype=torch.int64, device=dev)
-    sums = torch.empty(max(1, -(-256 * tiles // _SCAN_TILE)),
-                       dtype=torch.int64, device=dev)
     lib = kernels.load("sort")
+    nbytes = lib.sort_perm_scratch(n, passes)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     P = kernels.pointer_array
     rc = lib.sort_perm(len(words), P([w.data_ptr() for w, _ in words]),
                        kernels.int_array([b for _, b in words]),
-                       _ptr(active), n, perm.data_ptr(), ka.data_ptr(),
-                       kb.data_ptr(), va.data_ptr(), vb.data_ptr(),
-                       state.data_ptr(), hist.data_ptr(), offs.data_ptr(),
-                       sums.data_ptr(), _stream(perm))
+                       _ptr(active), n, perm.data_ptr(), scratch.data_ptr(),
+                       nbytes, _stream(perm))
     kernels.check_launch(lib, "sort_perm", rc)
     sort_perm_kernel.launches += 1
     return perm

@@ -6,6 +6,7 @@ against the JAX package's BroadcastJoinExec and SortMergeJoinExec.  Joins
 without ORDER BY leave row order open, so rows compare as sorted lists;
 values are exact (the joins move values, they compute none)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,8 @@ from spark_rapids_tpu.utils.metrics import QueryStats as JStats
 import spark_rapids_tpu_torch as tsrt
 from spark_rapids_tpu_torch.ops import join as tj
 from spark_rapids_tpu_torch.sql import functions as TF
+
+from .test_torch_sort import RADIX_EDGES, radix_edge_case
 
 SETTINGS = {"spark.rapids.tpu.sql.batchSizeRows": 1024,
             "spark.rapids.tpu.join.denseMinProbeRows": 0}
@@ -718,6 +721,54 @@ def test_sorted_match_state_matches_reference(key):
         np.testing.assert_array_equal(lo[hit], lo_r[:npr][hit])
         nv = int(state.n_valid[0])
         np.testing.assert_array_equal(perm[:nv], perm_r[:nv])
+
+
+@pytest.mark.parametrize("shape", RADIX_EDGES)
+def test_sorted_build_edge_shapes_match_reference(shape):
+    """The sorted build over the one-sweep pass's risky shapes against the
+    reference's sorted broadcast match state (``_match_state`` :932): n =
+    1, a tile boundary -1/0/+1, equal keys, the top byte alone, the flags
+    alone, ties across tiles, sorted, reversed, nulls and dead rows
+    interleaved.  The reference's build is one compacted batch, so a dead
+    row rides as a null key there; n_valid, b_perm over the valid rows,
+    lo and matches exact, and the invalid rows after them in key order."""
+    from spark_rapids_tpu.batch import DeviceColumn as JColumn
+    from spark_rapids_tpu.batch import from_numpy as jfrom_numpy
+    rng = np.random.default_rng(300 + RADIX_EDGES.index(shape))
+    keys, valid, active = radix_edge_case(rng, shape)
+    n = len(keys)
+    ok = np.ones(n, bool) if valid is None else valid.copy()
+    if active is not None:
+        ok &= active
+    probe = {"pk": np.concatenate([keys[::3], keys[:50] + 1])}
+    settings = {"spark.rapids.tpu.join.denseMinProbeRows": 10**9,
+                "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1 << 30}
+    node = _reference_node(settings, probe, {"bk": keys}, [("pk", "bk")],
+                           "BroadcastJoinExec")
+    build = jfrom_numpy({"bk": keys})
+    col = build.columns[0]
+    cap = col.data.shape[0]
+    build.columns[0] = JColumn(col.dtype, col.data,
+                               jnp.asarray(np.pad(ok, (0, cap - n))))
+    lo_r, m_r, perm_r = (np.asarray(x) for x in node._match_state(
+        jfrom_numpy(probe), build, probe_side=0))
+    state = tj.sorted_build(
+        [(torch.from_numpy(keys),
+          None if valid is None else torch.from_numpy(valid))],
+        None if active is None else torch.from_numpy(active))
+    lo, m, _ = tj.sorted_probe([(torch.from_numpy(probe["pk"]), None)],
+                               None, state, "inner")
+    npr, nv = len(probe["pk"]), int(ok.sum())
+    perm, lo, m = state.b_perm.numpy(), lo.numpy(), m.numpy()
+    assert int(state.n_valid[0]) == nv
+    np.testing.assert_array_equal(perm[:nv], perm_r[:nv])
+    tail = np.flatnonzero(~ok)
+    np.testing.assert_array_equal(
+        perm[nv:], tail[np.argsort(keys[tail], kind="stable")])
+    np.testing.assert_array_equal(m, m_r[:npr])
+    hit = m > 0
+    np.testing.assert_array_equal(lo[hit], lo_r[:npr][hit])
+    np.testing.assert_array_equal(state.words[0].numpy(), keys[perm])
 
 
 def test_sorted_phases_plain_versions():

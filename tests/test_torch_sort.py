@@ -101,6 +101,57 @@ def test_multi_key_permutation_equals_reference(seed):
     np.testing.assert_array_equal(got, want)
 
 
+RADIX_EDGES = ("one", "tile-1", "tile", "tile+1", "equal", "top_byte",
+               "flag_only", "ties", "sorted", "reversed", "interleaved")
+
+
+def radix_edge_case(rng, shape: str, tile: int = S.RADIX_TILE):
+    """(int64 keys, validity or None, live mask or None) of a shape the
+    one-sweep radix pass makes risky: n = 1 and n at a tile boundary;
+    every key equal (every pass skipped); keys that vary only in their top
+    byte; only the dead and null flags varying; ties that span tiles;
+    sorted and reverse-sorted input; dead rows and null keys interleaved
+    (``chip_smoke.py radix_edge_case`` runs the same shapes on the card)."""
+    n = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "ties": 5 * tile + 3, "sorted": 300_001,
+         "reversed": 300_001}.get(shape, 3 * tile + 7)
+    keys = rng.integers(-2**62, 2**62, n)
+    valid = active = None
+    if shape == "equal":
+        keys = np.full(n, 123456789, dtype=np.int64)
+    elif shape == "top_byte":
+        keys = rng.integers(-128, 128, n) << 56
+    elif shape == "flag_only":
+        keys = np.full(n, -5, dtype=np.int64)
+        valid, active = rng.random(n) < 0.7, rng.random(n) < 0.6
+    elif shape == "ties":
+        keys = rng.integers(0, 3, n)
+    elif shape in ("sorted", "reversed"):
+        keys = np.arange(n, dtype=np.int64) * 7 - 5
+        keys = keys if shape == "sorted" else keys[::-1].copy()
+    elif shape == "interleaved":
+        keys = rng.integers(0, 1000, n)
+        i = np.arange(n)
+        valid, active = i % 2 == 0, i % 3 != 0
+    return keys.astype(np.int64), valid, active
+
+
+@pytest.mark.parametrize("shape", RADIX_EDGES)
+@pytest.mark.parametrize("asc,nf", [(True, True), (False, False)])
+def test_radix_edge_shapes_permutation_equals_reference(shape, asc, nf):
+    """The permutation over the one-sweep pass's risky shapes (n = 1, a
+    tile boundary -1/0/+1, equal keys, the top byte alone, the flags
+    alone, ties across tiles, sorted, reversed, nulls and dead rows
+    interleaved) equals ``sort_indices_for_keys``'s."""
+    rng = np.random.default_rng(200 + RADIX_EDGES.index(shape))
+    keys, valid, active = radix_edge_case(rng, shape)
+    n = len(keys)
+    live = np.ones(n, bool) if active is None else active
+    want = reference_perm([keys], [valid], live, [asc], [nf])
+    got = port_perm([keys], [valid], active, [asc], [nf], n)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_images_fold_small_keys_and_split_wide_ones():
     """A key of at most 4 bytes is one 5-byte word; an 8-byte key with
     nulls is a flag word above its view."""

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of the runtime-filter statistics and the final aggregate's
-merge of one checkout of the port, for comparing two checkouts on one
-CUDA card.
+"""Device times of the runtime-filter statistics, the final aggregate's
+merge, the full sort and the sorted join of one checkout of the port, for
+comparing two checkouts on one CUDA card.
 
-    python3 tools/kernel_ab.py [--root DIR] [--label NAME]
+    python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
+        [--only key_stats,merge,sort,sort_join]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -18,7 +19,17 @@ the bucket sequence one event pair a sequence, its host work included):
   * the merge of 4,194,304 float64 sum buffer rows keyed by 15,000,000
     order keys (about 3,660,000 groups; Q18's final at SF10) in one call,
     and as 64 buckets by key % 64 (a re-partitioned final), each merged,
-    finished and, where the checkout has a merge pool, released.
+    finished and, where the checkout has a merge pool, released;
+  * ``sort`` at one S1 run's shape: 4,194,304 rows drawn as SF10's
+    lineitem draws them (ship date, price, order key, part key, supplier
+    key, discount), sorted by ship date, price descending and order key,
+    the 6 columns gathered (images, permutation, gather), beside the
+    chained ``torch.sort(stable=True)`` yardstick queued alike;
+  * ``sort_join`` at one Q10-shuffled partition pair's shape: a build of
+    2,500,000 order keys drawn from 15,000,000, an inner probe of 71,700
+    distinct ones, the build alone too, beside ``torch.sort(stable=True)``
+    + 2 ``torch.searchsorted``.
+Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
 power limit.
@@ -83,7 +94,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parent.parent))
     ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="key_stats,merge,sort,sort_join")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     sys.path.insert(0, args.root)
     import torch
     if not torch.cuda.is_available():
@@ -102,11 +115,25 @@ def main() -> int:
                           "what": what, "ms": ms, **extra,
                           "device": smi}), flush=True)
 
+    if "sort" in only and time_sort(torch, dev, emit) != 0:
+        return 1
+    if "sort_join" in only and time_sort_join(torch, dev, emit) != 0:
+        return 1
+    if "key_stats" in only and time_key_stats(torch, dev, rng, rf,
+                                               emit) != 0:
+        return 1
+    if "merge" in only:
+        time_merge(torch, dev, rng, groupby, emit)
+    return 0
+
+
+def time_key_stats(torch, dev, rng, rf, emit) -> int:
+    """The runtime-filter statistics of Q18's build, and fully live."""
     n, vcap = 15_000_000, rf.in_list_capacity(10_000)
     keys = torch.from_numpy(rng.permutation(
         np.arange(1, 4 * n + 1, 4, dtype=np.int64))).to(dev)
     live = torch.from_numpy(rng.random(n) < 0.0005).to(dev)
-    copies = [(keys, live), (keys.clone(), live.clone())]
+    pairs = [(keys, live), (keys.clone(), live.clone())]
     for what, act in (("key_stats_q18", True), ("key_stats_all_live",
                                                  False)):
         got = rf.key_stats(keys, None, live if act else None, vcap)
@@ -117,10 +144,13 @@ def main() -> int:
             return 1
         emit(what, time_ms(torch, [
             lambda k=k, a=a: rf.key_stats(k, None, a if act else None, vcap)
-            for k, a in copies], reps=8), live_keys=int(got[2]))
-    del keys, live, copies
+            for k, a in pairs], reps=8), live_keys=int(got[2]))
+    return 0
 
-    m = 4 << 20
+
+def time_merge(torch, dev, rng, groupby, emit) -> None:
+    """The merge of Q18's final at SF10, in one call and in 64 buckets."""
+    n, m = 15_000_000, 4 << 20
     okeys = torch.from_numpy(rng.integers(1, n + 1, m)).to(dev)
     qty = torch.from_numpy(rng.integers(1, 51, m).astype(np.float64)).to(dev)
     pooled = "pool" in inspect.signature(groupby.HashAccumulator).parameters
@@ -157,6 +187,104 @@ def main() -> int:
             merge(w, q, rows, True)
     emit("merge_64_buckets", time_ms_synced(torch, sequence, reps=4),
          rows=m, groups=groups, pooled=pooled)
+
+
+def copies(tensors, count: int) -> list:
+    """The tensors and ``count - 1`` clones: more than twice the L2 at the
+    shapes below.  Each is timed once a turn, which keeps the parent's ~70
+    launches a call under the stream's launch depth."""
+    return [tensors] + [[t.clone() for t in tensors]
+                        for _ in range(count - 1)]
+
+
+def time_sort(torch, dev, emit) -> int:
+    """One S1 run: images, permutation and the 6-column gather."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.ops import sort as sort_ops
+    rng = np.random.default_rng(51)
+    n = 4 << 20
+    cols = [torch.from_numpy(a).to(dev) for a in (
+        (8035 + rng.integers(0, 2526, n)).astype(np.int32),
+        np.round(rng.uniform(900.0, 105000.0, n), 2),
+        rng.integers(1, tpch.db_rows("orders", 10) + 1, n),
+        rng.integers(1, tpch.db_rows("part", 10) + 1, n),
+        rng.integers(1, tpch.db_rows("supplier", 10) + 1, n),
+        rng.integers(0, 11, n).astype(np.float64) / 100.0)]
+
+    def keys(c):
+        return [(c[0], None, True, True), (c[1], None, False, False),
+                (c[2], None, True, True)]
+
+    def kernel(c):
+        return lambda: sort_ops.gather_kernel(
+            [(x, None) for x in c], sort_ops.sort_perm_kernel(
+                sort_ops.sort_images_kernel(keys(c)), None, n))
+
+    def library(c):
+        def run():
+            order = torch.arange(n, device=dev)
+            for x, desc in ((c[2], False), (c[1], True), (c[0], False)):
+                order = order[torch.sort(x[order], stable=True,
+                                         descending=desc).indices]
+            return [x[order] for x in c]
+        return run
+
+    got = sort_ops.sort_perm_kernel(sort_ops.sort_images_kernel(keys(cols)),
+                                    None, n)
+    want = sort_ops.sort_perm_plain(sort_ops.sort_images_plain(keys(cols)),
+                                    None, n, dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        print("kernel_ab: sort differs from plain", file=sys.stderr)
+        return 1
+    inputs = copies(cols, 6)
+    emit("sort_s1", time_ms(torch, [kernel(c) for c in inputs],
+                            reps=len(inputs)), rows=n)
+    emit("sort_s1_library", time_ms(torch, [library(c) for c in inputs],
+                                    reps=len(inputs)), rows=n)
+    return 0
+
+
+def time_sort_join(torch, dev, emit) -> int:
+    """One Q10-shuffled partition pair: the sorted build and an inner
+    probe."""
+    from spark_rapids_tpu_torch.ops import join
+    rng = np.random.default_rng(8)
+    nb, npr = 2_500_000, 71_700
+    bk = torch.from_numpy(rng.integers(1, 15_000_001, nb)).to(dev)
+    pk = torch.from_numpy(rng.choice(np.arange(1, 15_000_001), npr,
+                                     replace=False)).to(dev)
+    kb = join.sorted_build_kernel([(bk, None)], None)
+    pb = join.sorted_build_plain([(bk, None)], None)
+    ko = join.sorted_probe_kernel([(pk, None)], None, kb, "inner")
+    po = join.sorted_probe_plain([(pk, None)], None, pb, "inner")
+    torch.cuda.synchronize()
+    if not (torch.equal(kb.b_perm, pb.b_perm) and all(
+            torch.equal(x, y) for x, y in zip(ko, po))):
+        print("kernel_ab: sort_join differs from plain", file=sys.stderr)
+        return 1
+
+    def kernel(b, p):
+        return lambda: join.sorted_probe_kernel(
+            [(p, None)], None, join.sorted_build_kernel([(b, None)], None),
+            "inner")
+
+    def build(b, p):
+        return lambda: join.sorted_build_kernel([(b, None)], None)
+
+    def library(b, p):
+        def run():
+            sk, perm = torch.sort(b, stable=True)
+            return (torch.searchsorted(sk, p),
+                    torch.searchsorted(sk, p, right=True), perm)
+        return run
+
+    inputs = copies([bk, pk], 8)
+    for what, fn in (("sort_join_q10", kernel), ("sort_build_q10", build),
+                     ("sort_join_q10_library", library)):
+        emit(what, time_ms(torch, [fn(b, p) for b, p in inputs],
+                           reps=len(inputs)), build_rows=nb,
+             probe_rows=npr)
     return 0
 
 

@@ -3,7 +3,8 @@
 CUDA card.
 
     python3 tools/path_walls.py [--root DIR] [--sf 10] [--runs 5] \
-        [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18]
+        [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18,
+                   s1,w1,q10_shuffled,q21_exists]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts of the port in turns on
@@ -15,7 +16,12 @@ one cold run, then ``--runs`` warm runs, each a host clock around
 ``_2ph_repart`` also with ``sql.batchSizeBytes`` at 8 MiB (the final
 re-partitions); ``pq_<q>`` runs over parquet files that ``tpch.gen_db``
 writes once under ``build/tpch_parquet`` (kept between runs), read with
-``fileCache.enabled``, as ``chip_smoke.py`` reads them.  Prints one JSON
+``fileCache.enabled``, as ``chip_smoke.py`` reads them.  ``_shuffled``
+runs on a session with ``sql.aqe.enabled`` false (Q10-shuffled: the
+sorted join over 8 hash partition pairs); ``s1`` (``tpch.sort_lineitem``)
+and ``w1`` (``tpch.supplier_history``) end in ``to_device_arrays()``, as
+``chip_smoke.py`` runs them; ``q21_exists`` runs on the default session
+(8 shuffle partition pairs).  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
 fetches of the last warm run, with the card's name and power limit.
 """
@@ -36,15 +42,20 @@ VARIANTS = {
     "2ph": TWO_PHASE,
     "2ph_repart": dict(TWO_PHASE, **{
         "spark.rapids.tpu.sql.batchSizeBytes": 8 << 20}),
-    "pq": {"spark.rapids.tpu.sql.fileCache.enabled": True}}
+    "pq": {"spark.rapids.tpu.sql.fileCache.enabled": True},
+    "shuffled": {"spark.rapids.tpu.sql.aqe.enabled": False}}
 PARQUET_DIR = "build/tpch_parquet"
+# paths that are not TPC-H queries: (tpch function, tables); their results
+# stay on the device
+DEVICE_PATHS = {"s1": ("sort_lineitem", ("lineitem",)),
+                "w1": ("supplier_history", ("lineitem",))}
 
 
 def split(name: str):
     """(TPC-H query, variant) of a path name."""
     if name.startswith("pq_"):
         return name[3:], "pq"
-    for suffix in ("_2ph_repart", "_2ph"):
+    for suffix in ("_2ph_repart", "_2ph", "_shuffled"):
         if name.endswith(suffix):
             return name[:-len(suffix)], suffix[1:]
     return name, ""
@@ -73,9 +84,12 @@ def main() -> int:
     paths = args.queries.split(",")
     tables = {"q1": ("lineitem",), "q3": ("customer", "orders", "lineitem"),
               "q18": ("orders", "lineitem", "customer")}
+    funcs = {q: getattr(tpch, f) for q, (f, _) in DEVICE_PATHS.items()}
     for name in paths:
         q = split(name)[0]
-        if q not in tables:
+        if q in DEVICE_PATHS:
+            tables[q] = DEVICE_PATHS[q][1]
+        elif q not in tables:
             tables[q] = tpch.QUERY_TABLES.get(q) or tpch.SUITE_QUERIES[q]
     needed = sorted({t for name in paths for t in tables[split(name)[0]]})
     db = tpch.gen_db_arrays(args.sf, tables=needed)
@@ -105,7 +119,12 @@ def main() -> int:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with QueryStats.scoped() as st:
-                getattr(tpch, q)(*(dfs[t] for t in tables[q])).collect()
+                df = (funcs.get(q) or getattr(tpch, q))(
+                    *(dfs[t] for t in tables[q]))
+                if q in DEVICE_PATHS:
+                    df.to_device_arrays()
+                else:
+                    df.collect()
             torch.cuda.synchronize()
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
