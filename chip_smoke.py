@@ -312,6 +312,14 @@ def sector_bytes(torch, rows, itemsize: int) -> int:
     return 32 * int(torch.unique(rows * itemsize // 32).numel())
 
 
+def dense_state_bytes(torch, slots, words: int) -> int:
+    """Bytes a dense aggregate must move at the slots ``slots``: its
+    ``words`` 8-byte words of state a slot and a presence byte, each
+    sector read and written once."""
+    return 2 * (sector_bytes(torch, slots, 8 * words)
+                + sector_bytes(torch, slots, 1))
+
+
 def column_bytes(torch, live, d, v) -> int:
     """Bytes read from one (data, valid) column over the live rows: the
     mask where the row is live, the data where it is also valid."""
@@ -612,14 +620,49 @@ def _overflow_rows(torch, acc):
     return m
 
 
+def compare_dense_records(torch, groupby, ka, pa, what: str):
+    """The kernel's violation check on the kernel's accumulator equal to
+    the plain check on the plain one (each check folds its own float64
+    sums); then both hold the same records: presence, state words and
+    int64 channels exact, each residual's claimed word exact where no
+    conflict was seen (which of two conflicting values claims the word is
+    timing), and every float64 channel's fixed-point words back at zero
+    in the kernel's records (the per-call sector by the touched-slot fold,
+    the query-scale pair by the check).  Returns the kernel's check."""
+    kc = groupby.dense_agg_check(ka)
+    check(torch.equal(kc, groupby.dense_agg_check_plain(pa)),
+          f"{what}: violation check differs")
+    check(torch.equal(ka.present, pa.present), f"{what}: presence differs")
+    if ka.nres:
+        ks = ka.rec[:, ka.state_off]
+        check(torch.equal(ks, pa.rec[:, pa.state_off]),
+              f"{what}: residual state words differ")
+        calm = ((ks >> 62) & 1) == 0
+        for i, off in enumerate(ka.res_off):
+            check(torch.equal(ka.rec[calm, off], pa.rec[calm, off]),
+                  f"{what}: residual {i}'s claimed words differ")
+    for j, (_, is_f64) in enumerate(ka.channels):
+        off = ka.ch_off[j]
+        if is_f64:
+            q = ka.ch_q[j]
+            check(not bool(ka.rec[:, off:off + 3].any())
+                  and not bool(ka.rec[:, q:q + 2].any()),
+                  f"{what}: float64 channel {j}'s fixed-point words were "
+                  f"not folded and cleared")
+        else:
+            check(torch.equal(ka.acc[j], pa.acc[j]),
+                  f"{what}: int64 channel {j} differs")
+    return kc
+
+
 def compare_dense_agg(torch, groupby, kmin, D, keys, contribs, channels,
                       active, cap=1 << 12) -> float:
     """Stats and the dependence probe exact; after one update, presence,
     int64 channels, residual channels, overflow count and bounds exact,
     the buffered overflow rows equal as a set (the kernel's atomic cursor
     orders them freely) when they fit, float64 sums per slot within
-    F64_SUM_TOL x sum|x|; the violation check exact.  Returns the largest
-    float64 difference."""
+    F64_SUM_TOL x sum|x|; the violation check exact (compare_dense_records).
+    Returns the largest float64 difference."""
     cand = [True, True, False]
     ks, kf = groupby.dense_agg_stats(keys, cand, active)
     ps, pf = groupby.dense_agg_stats_plain(keys, cand, active)
@@ -635,16 +678,15 @@ def compare_dense_agg(torch, groupby, kmin, D, keys, contribs, channels,
             for c, (_, f) in zip(contribs, channels)]
     sa = run_dense_agg(torch, groupby, groupby.dense_agg_update_plain, kmin,
                        D, keys, absf, channels, active, cap)
+    groupby.dense_agg_check_plain(sa)
     torch.cuda.synchronize()
-    check(torch.equal(ka.present, pa.present), "dense_agg presence differs")
-    for name in ("vmin", "vmax", "vdmin", "vdmax", "ocount", "obounds"):
+    compare_dense_records(torch, groupby, ka, pa, "dense_agg")
+    for name in ("ocount", "obounds"):
         check(torch.equal(getattr(ka, name), getattr(pa, name)),
               f"dense_agg {name} differs")
     worst = 0.0
     for j, (_, is_f64) in enumerate(channels):
         if not is_f64:
-            check(torch.equal(ka.acc[j], pa.acc[j]),
-                  f"dense_agg int64 channel {j} differs")
             continue
         err = (ka.acc[j] - pa.acc[j]).abs()
         check(bool((err <= F64_SUM_TOL * sa.acc[j]).all()),
@@ -655,9 +697,6 @@ def compare_dense_agg(torch, groupby, kmin, D, keys, contribs, channels,
         check(torch.equal(_overflow_rows(torch, ka),
                           _overflow_rows(torch, pa)),
               "dense_agg overflow rows differ")
-    check(torch.equal(groupby.dense_agg_check(ka),
-                      groupby.dense_agg_check_plain(pa)),
-          "dense_agg violation check differs")
     return worst
 
 
@@ -677,6 +716,47 @@ def topk_case(torch, n, seed, device):
              (t(rng.integers(0, 50, n).astype(np.int32)), None, True, True),
              (t(rng.random(n) < 0.5), t(rng.random(n) < 0.8), True, False)],
             t(rng.random(n) < 0.8))
+
+
+TOPK_EDGES = ("sorted", "reversed", "equal", "nulls_first", "nulls_last",
+              "few_live", "four_keys")
+
+
+def topk_edge_case(torch, shape: str, n: int, seed: int, device):
+    """The filter route's risky inputs, under ORDER BY x DESC, d: input
+    already in that order (each warp's first rows are its best), reversed
+    (every row beats every threshold), every key equal (row numbers
+    decide), a key with nulls first or last, fewer live rows than k, and
+    four keys with nulls (eight words a row: the most shared memory)."""
+    rng = np.random.default_rng(seed)
+    t = _to_device(torch, device)
+    x = np.round(rng.uniform(0.0, 1000.0, n), 1)
+    d = rng.integers(0, 30, n).astype(np.int32)
+    active = None
+    if shape == "sorted":
+        x, d = np.sort(x)[::-1], np.sort(d)
+    elif shape == "reversed":
+        x, d = np.sort(x), np.sort(d)[::-1]
+    elif shape == "equal":
+        x, d = np.full(n, 2.5), np.zeros(n, dtype=np.int32)
+        active = t(rng.random(n) < 0.5)
+    elif shape == "few_live":
+        active = np.zeros(n, dtype=bool)
+        active[rng.choice(n, 37, replace=False)] = True
+        active = t(active)
+    if shape in ("nulls_first", "nulls_last"):
+        nf = shape == "nulls_first"
+        return ([(t(x), t(rng.random(n) < 0.7), nf, nf),
+                 (t(d), None, True, True)], active)
+    if shape == "four_keys":
+        return ([(t(rng.integers(0, 40, n)), t(rng.random(n) < 0.9), False,
+                  True),
+                 (t(rng.integers(0, 3, n).astype(np.float32)),
+                  t(rng.random(n) < 0.9), True, False),
+                 (t(rng.random(n) < 0.5), t(rng.random(n) < 0.9), False,
+                  False),
+                 (t(d), t(rng.random(n) < 0.9), True, True)], active)
+    return [(t(x), None, False, False), (t(d), None, True, True)], active
 
 
 def compare_topk(torch, topk_mod, keys, active, n, k) -> float:
@@ -790,6 +870,15 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
         torch, topk_mod, keys, torch.zeros_like(active), 3000, 10))
     print("check topk: n up to 1300001, k in (1, 10, 1000, 1024), NaN, "
           "+-0.0, +-inf, nulls first and last, ties, all-inactive: ok")
+    for shape in TOPK_EDGES:
+        n = 1_300_001 if shape in ("sorted", "reversed") else 100_003
+        for k in (1, 10, 100, 128, 129):
+            keys, active = topk_edge_case(torch, shape, n, k, device)
+            worst["topk"] = max(worst["topk"], compare_topk(
+                torch, topk_mod, keys, active, n, k))
+    print(f"check topk: {', '.join(TOPK_EDGES)} at k in (1, 10, 100, 128, "
+          f"129) (the filter route's edge and the bitonic route's first k): "
+          f"ok")
     for n, live in ((0, 0.5), (1, 1.0), (4097, 0.5), (5000, 0.0),
                     (BATCH_ROWS + 17, 0.3), (Q3_ORDERS + 1, 0.08)):
         cols, active = compact_case(torch, n, n + 1, device, live)
@@ -1444,18 +1533,14 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
         lib_calls.append(lambda k=k, vals=vals: target.index_add_(
             0, k - 1, vals))
     lib_ms = time_ms(torch, lib_calls, reps=8 * len(inputs))
-    # the sum, the count and the presence byte change at every live row:
-    # read and write of their slot sectors; each residual's vmin, vmax
-    # (int64) and vdmax (int32) are read, and written only when a row
-    # changes them, which these repeated calls never do
+    # the function's state at a slot is its sum, its count and the two
+    # residual values (32 bytes) and a presence flag: read and written
+    # once at each live row's slot
     live = act.nonzero().squeeze(1)
     slots = key[live] - 1
     nbytes = n + sum(sector_bytes(torch, live, x.element_size())
                      for x in (key, date, prio, rev)) \
-        + 2 * (2 * sector_bytes(torch, slots, 8)
-               + sector_bytes(torch, slots, 1)) \
-        + 2 * (2 * sector_bytes(torch, slots, 8)
-               + sector_bytes(torch, slots, 4))
+        + dense_state_bytes(torch, slots, 4)
     out.append(_row("dense_agg", launches, max(err, worst["dense_agg"]), ms,
                     plain_ms, nbytes, lib_ms,
                     "spark_rapids_tpu/plan/physical.py:1321"))
@@ -1463,31 +1548,46 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     del acc, pacc, target, inputs, lib_calls
 
     # topk: Q3's ORDER BY revenue DESC, o_orderdate LIMIT 10 over its
-    # 1,287,275 groups
+    # 1,287,275 groups, and the same at k = 100 (Q2's, Q18's and Q21's k)
     g = Q3_GROUPS
     rev = t(rng.uniform(0.0, 8e5, g))
     rvalid = torch.ones(g, dtype=torch.bool, device=device)
     odate = t(rng.integers(8036, 8036 + 2406, g).astype(np.int32))
-    k = 10
-    keys = [(rev, rvalid, False, False), (odate, None, True, True)]
-    err = compare_topk(torch, topk_mod, keys, None, g, k)
     inputs = copies_for_l2([rev, rvalid, odate])
-
-    def topk_call(fn, r, v, d):
-        return lambda: fn([(r, v, False, False), (d, None, True, True)],
-                          None, g, k)
-
-    ms = time_ms(torch, [topk_call(topk_mod.topk, *c) for c in inputs],
-                 reps=8 * len(inputs))
-    plain_ms = time_ms_synced(torch, [topk_call(topk_mod.topk_plain, *c)
-                                      for c in inputs], reps=2 * len(inputs))
+    # the yardstick: one torch.topk of the revenue key's image; it waits on
+    # the device itself, so it is timed one call per event pair, and the
+    # kernel is timed that way too (``ms_synced``) beside its queued time
     composite = [~topk_mod.sortable_view(r) for r, _, _ in inputs]
-    lib_ms = time_ms_synced(torch, [(lambda c=c: torch.topk(
-        c, k, largest=False)) for c in composite], reps=8 * len(inputs))
-    nbytes = g * (8 + 1 + 4) + k * 8
-    out.append(_row("topk", launches, max(err, worst["topk"]), ms, plain_ms,
-                    nbytes, lib_ms, "spark_rapids_tpu/plan/exec_nodes.py:236"))
-    notes.append(f"n={g} rows, k={k}")
+    for k in (10, 100):
+        keys = [(rev, rvalid, False, False), (odate, None, True, True)]
+        err = compare_topk(torch, topk_mod, keys, None, g, k)
+
+        def topk_call(fn, r, v, d, k=k):
+            return lambda: fn([(r, v, False, False), (d, None, True, True)],
+                              None, g, k)
+
+        ms = time_ms(torch, [topk_call(topk_mod.topk, *c) for c in inputs],
+                     reps=8 * len(inputs))
+        plain_ms = time_ms_synced(torch, [topk_call(topk_mod.topk_plain, *c)
+                                          for c in inputs],
+                                  reps=2 * len(inputs))
+        synced_ms = time_ms_synced(torch, [topk_call(topk_mod.topk, *c)
+                                           for c in inputs],
+                                   reps=8 * len(inputs))
+        lib_ms = time_ms_synced(torch, [(lambda c=c, k=k: torch.topk(
+            c, k, largest=False)) for c in composite], reps=8 * len(inputs))
+        nbytes = g * (8 + 1 + 4) + k * 8
+        row = _row("topk", launches, max(err, worst["topk"]), ms, plain_ms,
+                   nbytes, lib_ms, "spark_rapids_tpu/plan/exec_nodes.py:236")
+        row["ms_synced"] = synced_ms
+        if k != 10:
+            # a second timing of the topk row's kernel: its launches are
+            # that row's, so they are not counted again here
+            row.update(name=f"topk_k{k}", launches=0, timing_of="topk")
+        out.append(row)
+        notes.append(f"n={g} rows, k={k}; one call per event pair like the "
+                     f"library: {synced_ms:.4f} ms (library: torch.topk of "
+                     f"the first key's image)")
     del inputs, composite
 
     # compact: Q3's aggregate output, 15,003,037 slots (the domain and the
@@ -1525,6 +1625,7 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     notes.append(f"n={S} slots, {Q3_GROUPS} live, 4 columns")
     # the calls that wait on the device themselves, timed by time_ms_synced
     synced = {("dense_agg", "plain"), ("topk", "plain"), ("topk", "library"),
+              ("topk_k100", "plain"), ("topk_k100", "library"),
               ("compact", "plain"), ("compact", "library")}
 
     def mark(row, which):
@@ -1927,11 +2028,14 @@ def check_dense_agg_deterministic(torch, groupby, device) -> None:
         batches.append(((t(key), None), [(t(val), None)],
                         t(rng.random(n) < 0.9)))
     runs = []
-    for update in (groupby.dense_agg_update, groupby.dense_agg_update,
-                   groupby.dense_agg_update, groupby.dense_agg_update_plain):
+    kernel = (groupby.dense_agg_update, groupby.dense_agg_check)
+    for update, tail in (kernel, kernel, kernel,
+                         (groupby.dense_agg_update_plain,
+                          groupby.dense_agg_check_plain)):
         acc = groupby.DenseAccumulator(0, D, 0, [("sum", True)], device)
         for key, contrib, active in batches:
             update(acc, key, [], contrib, active)
+        tail(acc)  # folds the query-scale sums
         runs.append(acc.acc[0])
     scale = torch.zeros(D + 1, dtype=torch.float64, device=device)
     for key, contrib, active in batches:
@@ -1952,6 +2056,163 @@ def check_dense_agg_deterministic(torch, groupby, device) -> None:
     check(err <= F64_SUM_TOL, f"dense_agg float64 sums off by {err:.3e}")
     print(f"check dense_agg float64 sums: 3 runs of 3 batches of {n} rows "
           f"equal bit for bit, specials as plain, max rel err {err:.3e}: ok")
+
+
+F64_BAND_TOL = 1e-14  # dense sums vs the exact sum, relative, per slot
+
+
+def check_dense_agg_query_scale(torch, groupby, device) -> float:
+    """float64 sums of terms far below the first batch's largest |x|: one
+    row of M = 1.5 x 2^20 in the first batch sets the query scale (M 2^53
+    is about 2^73), and every other row, in three batches, adds M 2^-u
+    with u uniform in [30, 33] to one of 4,096 slots.  Each slot's sum,
+    kernel and plain, within F64_BAND_TOL of its exact sum (math.fsum)
+    relative.  Adding those terms truncated at the query scale (2^-53,
+    as a fast range down to |x| 2^s = 2^40 would) loses about 1e-13 of
+    each slot's sum: the data is checked to be that sensitive, so a
+    truncating add fails here.  Returns the kernel's largest error
+    relative to its slot's sum."""
+    import math
+    rng = np.random.default_rng(52)
+    t = _to_device(torch, device)
+    D, n, M = 4096, 1 << 18, 1.5 * 2.0 ** 20
+    keys, vals = [], []
+    for b in range(3):
+        key = rng.integers(1, D, n)
+        val = M * 2.0 ** -rng.uniform(30.0, 33.0, n)
+        if b == 0:
+            key[0], val[0] = 0, M
+        keys.append(key)
+        vals.append(val)
+    key, val = np.concatenate(keys), np.concatenate(vals)
+    order = np.argsort(key, kind="stable")
+    bounds = np.searchsorted(key[order], np.arange(D + 1))
+    groups = [val[order[bounds[s]:bounds[s + 1]]] for s in range(D)]
+    exact = np.array([math.fsum(g) for g in groups])
+    trunc = np.array([math.fsum(np.floor(g * 2.0 ** 53) * 2.0 ** -53)
+                      for g in groups])
+    lost = float((np.abs(exact - trunc) / exact)[1:].min())
+    check(lost > 4 * F64_BAND_TOL, f"dense_agg band data: a truncating add "
+          f"would lose only {lost:.3e} of a slot's sum")
+    out = []
+    for update, tail in ((groupby.dense_agg_update, groupby.dense_agg_check),
+                         (groupby.dense_agg_update_plain,
+                          groupby.dense_agg_check_plain)):
+        acc = groupby.DenseAccumulator(0, D, 0, [("sum", True)], device)
+        for k, v in zip(keys, vals):
+            update(acc, (t(k), None), [], [(t(v), None)], None)
+        tail(acc)
+        out.append(acc.acc[0][:D].cpu().numpy())
+    errs = [float((np.abs(o - exact) / exact).max()) for o in out]
+    check(errs[0] <= F64_BAND_TOL and errs[1] <= F64_BAND_TOL,
+          f"dense_agg sums far below the query scale's max: relative error "
+          f"{errs[0]:.3e} (kernel), {errs[1]:.3e} (plain), tolerance "
+          f"{F64_BAND_TOL}")
+    print(f"check dense_agg sums at 2^-30..2^-33 of the first max: relative "
+          f"error {errs[0]:.3e} (kernel), {errs[1]:.3e} (plain) vs exact; a "
+          f"truncating add would lose >= {lost:.3e}: ok")
+    return float(np.abs(out[0] - out[1]).max())
+
+
+DENSE_EDGES = ("int64_extremes", "empty_beside_value", "signed_zero", "nan",
+               "null_mixed", "two_values")
+
+
+def dense_edge_case(torch, shape: str, n: int, D: int, device):
+    """A primary key over D slots, an int64 residual and a float64 one
+    (with nulls), a float64 sum and a count, for one of DENSE_EDGES: int64
+    residuals at INT64_MIN (the unclaimed word's pattern) and INT64_MAX;
+    INT64_MIN beside another value under one key; -0.0 and +0.0 under one
+    key; a NaN; a null beside valid rows; two values under one key.
+    Returns (key, residuals, contributions, whether it is a violation)."""
+    rng = np.random.default_rng(len(shape))
+    t = _to_device(torch, device)
+    key = rng.integers(0, D, n)
+    r0 = key * 3 - 5000
+    r0[key % 5 == 0] = np.iinfo(np.int64).min
+    r0[key % 5 == 1] = np.iinfo(np.int64).max
+    r1 = key * 0.25 - 100.0
+    r1_valid = key % 7 != 3
+    bad = shape not in ("int64_extremes", "signed_zero")
+    if shape == "empty_beside_value":  # a key of INT64_MIN rows gets a 7
+        r0[np.flatnonzero(key % 5 == 0)[:1]] = 7
+    if shape == "signed_zero":
+        zero = key % 64 == 0
+        r1[zero] = rng.choice(np.array([0.0, -0.0]), int(zero.sum()))
+    if shape == "nan":
+        r1[np.flatnonzero(r1_valid)[:1]] = np.nan
+    if shape == "null_mixed":
+        r1_valid[np.flatnonzero(r1_valid)[:1]] = False
+    if shape == "two_values":
+        r0[np.flatnonzero(key % 5 > 1)[:1]] += 1
+    res = [(t(r0.astype(np.int64)), None), (t(r1), t(r1_valid))]
+    contribs = [(t(rng.normal(size=n) * 1e3), None), (None, None)]
+    return (t(key.astype(np.int64)), None), res, contribs, bad
+
+
+def check_dense_records(torch, groupby, device) -> float:
+    """dense_agg.cu's record layout on its risky inputs (DENSE_EDGES),
+    kernel against plain: records (compare_dense_records), the violation
+    check, the decoded residuals of every slot where no violation is seen,
+    the float64 sums within F64_SUM_TOL x sum |x|; then the touched-slot
+    fold after a widen: a small first domain whose overflow rows are
+    replayed into the widened records, then a batch more."""
+    n, D, worst = 200_003, 4096, 0.0
+    channels = [("sum", True), ("count", False)]
+    for shape in DENSE_EDGES:
+        key, res, contribs, bad = dense_edge_case(torch, shape, n, D, device)
+        accs = []
+        for update in (groupby.dense_agg_update,
+                       groupby.dense_agg_update_plain):
+            acc = groupby.DenseAccumulator(0, D, 2, channels, device,
+                                           res_f64=[False, True])
+            update(acc, key, res, contribs, None)
+            accs.append(acc)
+        ka, pa = accs
+        torch.cuda.synchronize()
+        kc = compare_dense_records(torch, groupby, ka, pa,
+                                   f"dense_agg {shape}")
+        check(int(kc[0]) == int(bad), f"dense_agg {shape}: violation "
+              f"{int(kc[0])}, expected {int(bad)}")
+        if not bad:
+            for i in range(2):
+                (kv, kval), (pv, pval) = ka.residual(i), pa.residual(i)
+                check(torch.equal(kval, pval) and torch.equal(
+                    kv[kval].view(torch.int64), pv[pval].view(torch.int64)),
+                    f"dense_agg {shape}: residual {i} decodes differently")
+        worst = max(worst, max_abs_diff(ka.acc[0], pa.acc[0]))
+    # the fold after a widen: the first domain holds a quarter of the keys
+    key, res, contribs, _ = dense_edge_case(torch, "int64_extremes", n, D,
+                                            device)
+    accs = []
+    for update, tail in ((groupby.dense_agg_update, groupby.dense_agg_check),
+                         (groupby.dense_agg_update_plain,
+                          groupby.dense_agg_check_plain)):
+        acc = groupby.DenseAccumulator(D // 4, D // 4, 2, channels, device,
+                                       res_f64=[False, True])
+        # the replay and the tail go through the same version as the batches
+        acc.update = lambda k, r, c, a, acc=acc, update=update: update(
+            acc, k, r, c, a)
+        acc.check = lambda acc=acc, tail=tail: tail(acc)
+        update(acc, key, res, contribs, None)
+        _, _, n_over, lo, hi = (int(x) for x in acc.tail())
+        acc.widen(min(lo, acc.kmin), max(hi, acc.kmin + acc.D - 1)
+                  - min(lo, acc.kmin) + 1)
+        acc.replay_overflow(n_over)
+        update(acc, key, res, contribs, None)
+        accs.append(acc)
+    ka, pa = accs
+    torch.cuda.synchronize()
+    compare_dense_records(torch, groupby, ka, pa, "dense_agg after a widen")
+    scale = 2 * contribs[0][0].abs().sum()
+    err = max_abs_diff(ka.acc[0], pa.acc[0])
+    check(err <= F64_SUM_TOL * float(scale),
+          f"dense_agg after a widen: float64 sums off by {err:.3e}")
+    worst = max(worst, err)
+    print(f"check dense_agg records: {', '.join(DENSE_EDGES)} (records, "
+          f"check, decoded residuals), the touched-slot fold after a widen "
+          f"and replay: ok")
+    return worst
 
 
 def check_dense_agg_f64(torch, groupby, device) -> float:
@@ -1983,12 +2244,8 @@ def check_dense_agg_f64(torch, groupby, device) -> float:
             accs.append(acc)
         ka, pa = accs
         torch.cuda.synchronize()
-        for name in ("present", "vmin", "vmax", "vdmin", "vdmax"):
-            check(torch.equal(getattr(ka, name), getattr(pa, name)),
-                  f"dense_agg float residual {name} differs (n={n})")
-        kc, pc = groupby.dense_agg_check(ka), groupby.dense_agg_check_plain(
-            pa)
-        check(torch.equal(kc, pc), "dense_agg float residual check differs")
+        kc = compare_dense_records(torch, groupby, ka, pa,
+                                   f"dense_agg float residuals (n={n})")
         check(int(kc[0]) == int(nan and n > 1), f"dense_agg float residual "
               f"violation {int(kc[0])} with{'' if nan else 'out'} a NaN")
         kv, pv = ka.residual(1)[0], pa.residual(1)[0]
@@ -2107,9 +2364,8 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
         update(acc, (tk, None), res, [(vol, None)], None)
         accs.append(acc)
     torch.cuda.synchronize()
-    check(torch.equal(accs[0].vmin, accs[1].vmin)
-          and torch.equal(accs[0].vmax, accs[1].vmax),
-          "dense_agg float residual channels differ at Q10's shape")
+    compare_dense_records(torch, groupby, accs[0], accs[1],
+                          "dense_agg float residuals at Q10's shape")
     err = max_abs_diff(accs[0].acc[0], accs[1].acc[0])
     kacc = accs[0]
     inputs = copies_for_l2([tk, res[0][0], res[1][0], vol])
@@ -2139,14 +2395,16 @@ def time_slice4_kernels(torch, hashing, join, groupby, device, launches,
     lib_ms = time_ms(torch, [(lambda k=k, a=a, b=b, v=v: library(k, a, b, v))
                              for k, a, b, v in inputs], reps=8 * len(inputs))
     slots = tk - 1
-    # key, two residuals and the value read once; per row the sectors of
-    # its slot in the sum, presence and the four words of each residual
-    nbytes = n10 * (8 + 4 + 8 + 8) + sector_bytes(torch, slots, 8) * 5 \
-        + sector_bytes(torch, slots, 1) + sector_bytes(torch, slots, 4) * 4
+    # key, two residuals and the value read once; the state at each row's
+    # slot (the sum and the two residual values, 24 bytes, and a presence
+    # flag) read and written
+    nbytes = n10 * (8 + 4 + 8 + 8) + dense_state_bytes(torch, slots, 3)
     row = _row("dense_agg", launches, max(err, worst["dense_agg"]), ms,
                plain_ms, nbytes, lib_ms,
                "spark_rapids_tpu/plan/physical.py:1321")
-    row["name"] = "dense_agg_f64_residual"
+    # a second timing of the dense_agg row's kernel (its launches there)
+    row.update(name="dense_agg_f64_residual", launches=0,
+               timing_of="dense_agg")
     out.append(row)
     notes.append(f"{n10} rows over {D} slots, an int32 and a float64 "
                  f"residual, one float64 sum (library: index_add_ of the "
@@ -4553,6 +4811,11 @@ def main() -> int:
         worst["dense_agg"] = max(worst["dense_agg"], check_dense_agg_f64(
             torch, groupby, device))
         check_dense_agg_deterministic(torch, groupby, device)
+        worst["dense_agg"] = max(worst["dense_agg"],
+                                 check_dense_agg_query_scale(torch, groupby,
+                                                             device))
+        worst["dense_agg"] = max(worst["dense_agg"], check_dense_records(
+            torch, groupby, device))
         worst["sort"] = check_sort(torch, sort_ops, kernels, device)
         worst["window_scan"] = check_window(torch, window, device)
         worst["window_frame"] = worst["window_scan"]

@@ -18,6 +18,11 @@
 // bypass the fixed point (their sums do not depend on the order).  The
 // loss: bits below the slot's largest |x| x 2^-100 or so.
 //
+// dense_agg.cu adds most x at one scale for the whole query instead, and
+// folds at the query's tail (its header): only an x that is an integer at
+// that scale takes it, so those adds lose nothing; every other x takes the
+// per-call scale above.
+//
 // A slot's words are three uint64: [lo, hi, largest |x| bits].
 
 #pragma once
@@ -68,18 +73,24 @@ __device__ __forceinline__ void fx_add(unsigned long long* w, double x,
   fx_add_words(w, lo, hi);
 }
 
-// The float64 value of a slot's words [lo, hi, largest |x| bits] for a
-// call of `rows` rows; 0 when the slot saw no finite non-zero x.
-__device__ __forceinline__ double fx_value(const unsigned long long* w,
-                                           long long rows) {
-  const unsigned long long m_bits = w[2];
-  if (m_bits == 0ULL) return 0.0;
-  unsigned long long lo = w[0], hi = w[1];
+// The float64 value of the 128-bit two's-complement integer (lo, hi)
+// scaled by 2^-k.
+__device__ __forceinline__ double fx_to_double(unsigned long long lo,
+                                               unsigned long long hi, int k) {
   const bool neg = (long long)hi < 0;
   if (neg) {
     lo = ~lo + 1ULL;
     hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
   }
   const double mag = (double)hi * 0x1p64 + (double)lo;
-  return scalbn(neg ? -mag : mag, -fx_scale(m_bits, rows));
+  return scalbn(neg ? -mag : mag, -k);
+}
+
+// The float64 value of a slot's words [lo, hi, largest |x| bits] for a
+// call of `rows` rows; 0 when the slot saw no finite non-zero x.
+__device__ __forceinline__ double fx_value(const unsigned long long* w,
+                                           long long rows) {
+  const unsigned long long m_bits = w[2];
+  if (m_bits == 0ULL) return 0.0;
+  return fx_to_double(w[0], w[1], fx_scale(m_bits, rows));
 }

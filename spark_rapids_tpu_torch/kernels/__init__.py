@@ -107,21 +107,24 @@ _SIGNATURES = {
         # fd, stream
         "dense_agg_stats": [_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
         # key, key_valid, key_elem, nres, res[], res_valid[], res_elem[],
-        # res_f64[], nch, ch[], ch_valid[], ch_op[], ch_f64[], active, n,
-        # kmin, D, acc[], present, vmin[], vmax[], vdmin[], vdmax[], cap,
-        # ocount, obounds, okey, ores[], ores_valid[], och[], och_valid[],
-        # fx[], stream
-        "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                             _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L,
-                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
-        # nres, vmin[], vmax[], vdmin[], vdmax[], res_f64[], present, S, out,
-        # stream
-        "dense_agg_check": [_I, _P, _P, _P, _P, _P, _P, _L, _P, _P],
+        # res_f64[], res_off[], nch, ch[], ch_valid[], ch_op[], ch_f64[],
+        # ch_off[], ch_q[], active, n, kmin, D, rec, R, state_off, present,
+        # cap, ocount, obounds, okey, ores[], ores_valid[], och[],
+        # och_valid[], fwords, work, stream
+        "dense_agg_update": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _L, _L, _L, _P, _I, _I, _P,
+                             _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # nres, res_off[], rec, R, state_off, present, S, nf, q_off[],
+        # acc_off[], fwords, out, stream
+        "dense_agg_check": [_I, _P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _P,
+                            _P],
     },
     "topk": {
         # nkeys, data[], valid[], kinds[], desc[], nulls_first[], active, n,
         # k, scratch, out, stream
         "topk": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P],
+        # n, k, nwords
+        "topk_scratch": [_L, _I, _I],
     },
     "hashing": {
         # nkeys, data[], valid[], elems[], is_float[], active, n, algo, seed,
@@ -240,7 +243,8 @@ _SIGNATURES = {
 }
 
 # entries that return other than a CUDA error code
-_RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L}
+_RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
+             "topk_scratch": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -575,20 +575,70 @@ def dense_agg_stats(keys, cand, active):
 dense_agg_stats.launches = 0
 
 
+DA_EMPTY = _I64_MIN         # csrc/dense_agg.cu DA_EMPTY: an unclaimed value
+DA_NO_SCALE = _I64_MIN      # csrc/dense_agg.cu DA_NO_SCALE
+_DA_CONFLICT_BIT = 62       # csrc/dense_agg.cu DA_CONFLICT
+
+
+def _null_bit(i: int) -> int:
+    return 3 * i
+
+
+def _seen_empty_bit(i: int) -> int:
+    return 3 * i + 1
+
+
+def _negz_bit(i: int) -> int:
+    return 3 * i + 2
+
+
+def dense_layout(nres: int, channels: Sequence[Tuple[str, bool]]
+                 ) -> Tuple[int, int, List[int], List[int], List[int]]:
+    """The dense aggregation's per-slot record (csrc/dense_agg.cu, "The
+    record"): (R words a record, the state word, each residual's value
+    word, each channel's word, each float64 channel's query-scale pair).
+    First the state word (with residuals), the residual value words and
+    one word per int64 channel; then, at an even word, a pair [low, high]
+    per float64 sum (its 128-bit integer at the query's scale); then, on
+    32-byte sectors, a sector [low, high, largest |x|, float64 word] per
+    float64 sum (the channel's word: the per-call fallback and the float64
+    part of the sum).  R is 1 or 2 words when that is all, else a multiple
+    of 4, so records start on sectors."""
+    state = 0 if nres else -1
+    w = 1 if nres else 0
+    res_off = list(range(w, w + nres))
+    w += nres
+    ch_off, ch_q = [0] * len(channels), [-1] * len(channels)
+    for j, (_, is_f64) in enumerate(channels):
+        if not is_f64:
+            ch_off[j], w = w, w + 1
+    f64 = [j for j, (_, is_f64) in enumerate(channels) if is_f64]
+    if not f64:
+        return (max(w, 1) if w <= 2 else -(-w // 4) * 4), state, res_off, \
+            ch_off, ch_q
+    w += w % 2
+    for j in f64:
+        ch_q[j], w = w, w + 2
+    w = -(-w // 4) * 4
+    for j in f64:
+        ch_off[j], w = w, w + 4
+    return w, state, res_off, ch_off, ch_q
+
+
 class DenseAccumulator:
     """The per-query device state of the dense aggregation.
 
     Slots [0, D) hold keys kmin..kmin+D-1; slot D holds the null key.
-    ``acc[j]`` is channel j's [D + 1] accumulator (float64 sums, or int64
-    sum/min/max; a channel whose contribution has no data counts rows);
-    ``present`` marks observed slots; per residual key, ``vmin``/``vmax``
-    (int64) and ``vdmin``/``vdmax`` (int32 0/1 validity) prove that it
-    depends on the primary.  A float64 residual (``res_f64``) keeps the
-    :func:`f64_image` of its values (-0.0 just below +0.0), and a NaN
-    sets its slot's vmin and vmax to the two images no number has, which
-    the check reads as a violation.  Rows whose key falls outside the
-    domain go to the overflow buffer (``cap`` rows), which :meth:`widen`
-    folds in."""
+    ``rec`` holds one record of ``R`` int64 words a slot
+    (:func:`dense_layout`): each channel's accumulator (float64 sums, or
+    int64 sum/min/max; a channel whose contribution has no data counts
+    rows), the residual keys' claimed value words (``DA_EMPTY`` until a
+    valid row claims one; a float64 residual claims its bits, -0.0 as
+    +0.0) and a state word of per-residual NULL, SEEN_EMPTY and NEGZ bits
+    and a CONFLICT bit, which prove that each residual depends on the
+    primary.  ``present`` marks observed slots.  Rows whose key falls
+    outside the domain go to the overflow buffer (``cap`` rows), which
+    :meth:`widen` folds in."""
 
     def __init__(self, kmin: int, D: int, nres: int,
                  channels: Sequence[Tuple[str, bool]], device,
@@ -610,9 +660,19 @@ class DenseAccumulator:
         self.nres = nres
         self.device = device
         self.cap = int(cap)
+        self.R, self.state_off, self.res_off, self.ch_off, self.ch_q = \
+            dense_layout(nres, self.channels)
         self._alloc(self.D)
         nch = len(self.channels)
         i64 = dict(dtype=torch.int64, device=device)
+        nf = sum(f for _, f in self.channels)
+        # per float64 channel: the largest |x| of the first call with one,
+        # then the query scale (``DA_NO_SCALE`` until that call)
+        self.fwords = upload(torch.tensor([0] * nf + [DA_NO_SCALE] * nf,
+                                          dtype=torch.int64), device)
+        # the kernel's per-call lists, made at the first launch
+        # (``dense_agg_update``)
+        self.work = None
         self.ocount = torch.zeros(1, **i64)
         self.obounds = upload(torch.tensor([_I64_MAX, _I64_MIN],
                                            dtype=torch.int64), device)
@@ -629,28 +689,28 @@ class DenseAccumulator:
         return self.D + 1
 
     def _alloc(self, D: int) -> None:
-        S, dev = D + 1, self.device
-        self.acc = []
-        for op, is_f64 in self.channels:
-            if is_f64:
-                self.acc.append(torch.zeros(S, dtype=torch.float64,
-                                            device=dev))
-            else:
-                fill = {"sum": 0, "count": 0, "min": _I64_MAX,
-                        "max": _I64_MIN}[op]
-                self.acc.append(torch.full((S,), fill, dtype=torch.int64,
-                                           device=dev))
-        self.present = torch.zeros(S, dtype=torch.uint8, device=dev)
-        r = self.nres
-        self.vmin = torch.full((r, S), _I64_MAX, dtype=torch.int64,
-                               device=dev)
-        self.vmax = torch.full((r, S), _I64_MIN, dtype=torch.int64,
-                               device=dev)
-        self.vdmin = torch.ones((r, S), dtype=torch.int32, device=dev)
-        self.vdmax = torch.zeros((r, S), dtype=torch.int32, device=dev)
-        # the kernel's words of float64 sums, made at the first launch
-        # (``dense_agg_update``)
-        self.fx = None
+        empty = torch.zeros(self.R, dtype=torch.int64)
+        for (op, is_f64), off in zip(self.channels, self.ch_off):
+            if not is_f64:
+                empty[off] = {"sum": 0, "count": 0, "min": _I64_MAX,
+                              "max": _I64_MIN}[op]
+        empty[self.res_off] = DA_EMPTY
+        self.rec = upload(empty, self.device).expand(D + 1, self.R) \
+            .contiguous()
+        self.present = torch.zeros(D + 1, dtype=torch.uint8,
+                                   device=self.device)
+
+    @property
+    def acc(self) -> List[torch.Tensor]:
+        """Channel j's value in every slot (a float64 sum is whole after
+        :meth:`check`, which folds its query-scale pair into its word)."""
+        return self.channel_values(self.rec)
+
+    def channel_values(self, rows: torch.Tensor) -> List[torch.Tensor]:
+        """Each channel's values in the records ``rows`` ([m, R])."""
+        return [rows[:, off + 3].view(torch.float64) if is_f64
+                else rows[:, off]
+                for off, (_, is_f64) in zip(self.ch_off, self.channels)]
 
     def update(self, key: Value, residuals: Sequence[Value],
                contributions: Sequence[Value],
@@ -667,7 +727,8 @@ class DenseAccumulator:
 
     def check(self) -> torch.Tensor:
         """int64 [2] device tensor: (1 if a residual does not depend on the
-        primary, else 0; the number of observed slots)."""
+        primary, else 0; the number of observed slots).  Also folds each
+        float64 sum's query-scale pair into its float64 word."""
         run = dense_agg_check if self.present.is_cuda \
             else dense_agg_check_plain
         return run(self)
@@ -678,23 +739,17 @@ class DenseAccumulator:
         return torch.cat([self.check(), self.ocount, self.obounds])
 
     def widen(self, kmin: int, D: int) -> None:
-        """Re-lay the accumulators onto [kmin, kmin + D), which contains
-        the old domain: old slots land at their keys' new slots, the null
-        slot stays last."""
+        """Re-lay the records onto [kmin, kmin + D), which contains the old
+        domain: old slots land at their keys' new slots, the null slot
+        stays last."""
         off = self.kmin - kmin
         if off < 0 or off + self.D > D:
             raise ValueError("the new domain must contain the old one")
-        old = (self.acc, self.present, self.vmin, self.vmax, self.vdmin,
-               self.vdmax)
-        oD = self.D
+        rec, present, oD = self.rec, self.present, self.D
         self._alloc(D)
-        for new, o in zip(self.acc + [self.present], old[0] + [old[1]]):
-            new[off:off + oD] = o[:oD]
-            new[D] = o[oD]
-        for new, o in zip((self.vmin, self.vmax, self.vdmin, self.vdmax),
-                          old[2:]):
-            new[:, off:off + oD] = o[:, :oD]
-            new[:, D] = o[:, oD]
+        for new, old in ((self.rec, rec), (self.present, present)):
+            new[off:off + oD] = old[:oD]
+            new[D] = old[oD]
         self.kmin, self.D = int(kmin), int(D)
 
     def replay_overflow(self, count: int) -> None:
@@ -718,25 +773,47 @@ class DenseAccumulator:
         self.obounds[1] = _I64_MIN
         self.update(rows[0], rows[1], rows[2], None)
 
-    def slot_keys(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(int64 key of every slot, its validity: False for the null
-        slot)."""
-        slot = torch.arange(self.S, dtype=torch.int64, device=self.device)
-        return slot + self.kmin, slot < self.D
+    def slot_keys(self, slots: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(int64 key of every slot, or of ``slots``; its validity: False
+        for the null slot)."""
+        if slots is None:
+            slots = torch.arange(self.S, dtype=torch.int64,
+                                 device=self.device)
+        return slots + self.kmin, slots < self.D
 
-    def residual(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(residual i's value in every slot: int64, or float64 decoded
-        from its images; its validity)."""
-        v = self.vmin[i]
-        if self.res_f64[i]:
-            v = f64_from_image(v)
-        return v, self.vdmax[i] == 1
+    def residual(self, i: int, rows: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(residual i's value in every slot, or in the records ``rows``:
+        int64, or float64 with -0.0 where a -0.0 was seen; its validity)."""
+        rows = self.rec if rows is None else rows
+        word = rows[:, self.res_off[i]].contiguous()
+        state = rows[:, self.state_off]
+        valid = (word != DA_EMPTY) | (
+            (state >> _seen_empty_bit(i)) & 1).bool()
+        if not self.res_f64[i]:
+            return word, valid
+        value = word.view(torch.float64)
+        negz = ((state >> _negz_bit(i)) & 1).bool()
+        return torch.where(negz, torch.full_like(value, -0.0), value), valid
+
+    def live_slots(self, n_groups: int) -> torch.Tensor:
+        """int64 [n_groups]: the observed slots in slot order (one compact
+        of the slot numbers under ``present``)."""
+        from .batch_utils import compact_columns
+        slots = torch.arange(self.S, dtype=torch.int64, device=self.device)
+        return compact_columns([(slots, None)], self.present.bool(),
+                               n_groups)[0][0]
 
 
 def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
                            contributions, active) -> None:
-    """Plain PyTorch version of ``dense_agg_update``: overflow rows land in
-    row order (the kernel's atomic cursor gives no fixed order)."""
+    """Plain PyTorch version of ``dense_agg_update``: the same records,
+    float64 sums added directly (the kernel's fixed-point words stay zero
+    between calls), a residual word claimed by its slot's first valid row
+    (the kernel's by whichever row gets there first: they differ only
+    where CONFLICT is set); overflow rows land in row order (the kernel's
+    atomic cursor gives no fixed order)."""
     d, v = key
     n, dev = d.shape[0], d.device
     live = torch.ones(n, dtype=torch.bool, device=dev) if active is None \
@@ -748,30 +825,55 @@ def dense_agg_update_plain(acc: DenseAccumulator, key, residuals,
     rows = in_dom | (live & ~kv)
     slot = torch.where(in_dom, k64 - acc.kmin, acc.D)
     acc.present[slot[rows]] = 1
+    rec, S = acc.rec, acc.S
     for j, ((cd, cv), (op, is_f64)) in enumerate(zip(contributions,
                                                      acc.channels)):
         m = rows if cv is None else rows & cv
         x = torch.ones(n, dtype=torch.int64, device=dev) if cd is None \
             else cd
+        word = acc.ch_off[j] + (3 if is_f64 else 0)
+        col = rec[:, word].clone()
+        if is_f64:
+            col = col.view(torch.float64)
         if op in ("sum", "count"):
-            acc.acc[j].index_add_(0, slot[m], x[m].to(acc.acc[j].dtype))
+            col.index_add_(0, slot[m], x[m].to(col.dtype))
         else:
-            acc.acc[j].scatter_reduce_(0, slot[m], x[m],
-                                       "amin" if op == "min" else "amax")
-    for i, (rd, rv) in enumerate(residuals):
-        ok = rows if rv is None else rows & rv
-        if acc.res_f64[i]:
-            nan = torch.isnan(rd)
-            x = f64_image(rd, 0)
-            lo, hi = torch.where(nan, _I64_MIN, x), torch.where(nan, _I64_MAX,
-                                                                 x)
-        else:
-            lo = hi = rd.to(torch.int64)
-        acc.vmin[i].scatter_reduce_(0, slot[ok], lo[ok], "amin")
-        acc.vmax[i].scatter_reduce_(0, slot[ok], hi[ok], "amax")
-        acc.vdmax[i][slot[ok]] = 1
-        if rv is not None:
-            acc.vdmin[i][slot[rows & ~rv]] = 0
+            col.scatter_reduce_(0, slot[m], x[m],
+                                "amin" if op == "min" else "amax")
+        rec[:, word] = col.view(torch.int64)
+    if acc.nres:
+        state = rec[:, acc.state_off].clone()
+
+        def mark(bit: int, slots: torch.Tensor) -> None:
+            flag = torch.zeros(S, dtype=torch.int64, device=dev)
+            flag[slots] = 1
+            state.bitwise_or_(flag << bit)
+
+        for i, (rd, rv) in enumerate(residuals):
+            ok = rows if rv is None else rows & rv
+            if rv is not None:
+                mark(_null_bit(i), slot[rows & ~rv])
+            if acc.res_f64[i]:
+                nan, zero = torch.isnan(rd), rd == 0
+                bits = rd.contiguous().view(torch.int64)
+                val = torch.where(zero, 0, bits)
+                mark(_DA_CONFLICT_BIT, slot[ok & nan])
+                mark(_negz_bit(i), slot[ok & zero & (bits < 0)])
+                ok = ok & ~nan
+            else:
+                val = rd.to(torch.int64)
+            mark(_seen_empty_bit(i), slot[ok & (val == DA_EMPTY)])
+            idx = (ok & (val != DA_EMPTY)).nonzero().squeeze(1)
+            word = rec[:, acc.res_off[i]].clone()
+            if idx.numel():
+                s, x = slot[idx], val[idx]
+                first = torch.full((S,), n, dtype=torch.int64, device=dev)
+                first.scatter_reduce_(0, s, idx, "amin")
+                claim = (word == DA_EMPTY) & (first < n)
+                word[claim] = val[first[claim]]
+                mark(_DA_CONFLICT_BIT, s[x != word[s]])
+            rec[:, acc.res_off[i]] = word
+        rec[:, acc.state_off] = state
     o = out.nonzero().squeeze(1)
     if o.numel() == 0:
         return
@@ -830,37 +932,34 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
         ch_valid.append(_opt_ptr(cv))
         ch_op.append(_DA_OP["sum" if op == "count" else op])
         ch_f64.append(int(is_f64))
-    for t in acc.acc + [acc.present, acc.vmin, acc.okey]:
+    for t in (acc.rec, acc.present, acc.okey):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError("accumulators must be contiguous CUDA tensors")
     if n == 0:
         return  # no rows (and no data pointers): no launch
-    S = acc.D + 1
-    if acc.fx is None:
-        # per float64 channel the [S, 3] words of its deterministic sums
-        # (zero between calls: the kernel folds and clears them)
-        acc.fx = [torch.zeros((S, 3), dtype=torch.int64, device=d.device)
-                  if f64 else None for _, f64 in acc.channels]
-    P = kernels.pointer_array
+    nf = sum(ch_f64)
+    if nf and (acc.work is None or acc.work.numel() < 2 + 2 * n * nf):
+        # two counts, then the fallback and the touched lists: at most one
+        # entry per live row and float64 channel each
+        acc.work = torch.empty(2 + 2 * n * nf, dtype=torch.int64,
+                               device=d.device)
+    P, I = kernels.pointer_array, kernels.int_array
     nres = acc.nres
     lib = kernels.load("dense_agg")
     rc = lib.dense_agg_update(
         d.data_ptr(), _opt_ptr(v), d.element_size(), nres, P(res),
-        P(res_valid), kernels.int_array(res_elem),
-        kernels.int_array([int(f) for f in acc.res_f64]), len(ch), P(ch),
-        P(ch_valid), kernels.int_array(ch_op), kernels.int_array(ch_f64),
-        _opt_ptr(active), n, acc.kmin, acc.D, P([a.data_ptr() for a in acc.acc]),
-        acc.present.data_ptr(), P([acc.vmin[i].data_ptr() for i in range(nres)]),
-        P([acc.vmax[i].data_ptr() for i in range(nres)]),
-        P([acc.vdmin[i].data_ptr() for i in range(nres)]),
-        P([acc.vdmax[i].data_ptr() for i in range(nres)]), acc.cap,
-        acc.ocount.data_ptr(), acc.obounds.data_ptr(), acc.okey.data_ptr(),
-        P([acc.ores[i].data_ptr() for i in range(nres)]),
+        P(res_valid), I(res_elem), I([int(f) for f in acc.res_f64]),
+        I(acc.res_off), len(ch), P(ch), P(ch_valid), I(ch_op), I(ch_f64),
+        I(acc.ch_off), I(acc.ch_q), _opt_ptr(active), n, acc.kmin, acc.D,
+        acc.rec.data_ptr(), acc.R, acc.state_off, acc.present.data_ptr(),
+        acc.cap, acc.ocount.data_ptr(), acc.obounds.data_ptr(),
+        acc.okey.data_ptr(), P([acc.ores[i].data_ptr() for i in range(nres)]),
         P([acc.ores_valid[i].data_ptr() for i in range(nres)]),
         P([None if op == "count" else acc.och[j].data_ptr()
            for j, (op, _) in enumerate(acc.channels)]),
         P([acc.och_valid[j].data_ptr() for j in range(len(acc.channels))]),
-        P([_opt_ptr(w) for w in acc.fx]),
+        acc.fwords.data_ptr() if nf else None,
+        _opt_ptr(acc.work) if nf else None,
         torch.cuda.current_stream(d.device).cuda_stream)
     kernels.check_launch(lib, "dense_agg_update", rc)
     dense_agg_update.launches += 1
@@ -869,16 +968,55 @@ def dense_agg_update(acc: DenseAccumulator, key, residuals, contributions,
 dense_agg_update.launches = 0
 
 
+def _dense_violations(acc: DenseAccumulator, rows: torch.Tensor
+                      ) -> torch.Tensor:
+    """bool [m]: records of ``rows`` whose residual proof failed."""
+    bad = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    if not acc.nres:
+        return bad
+    state = rows[:, acc.state_off]
+    bad |= ((state >> _DA_CONFLICT_BIT) & 1).bool()
+    for i in range(acc.nres):
+        seen = ((state >> _seen_empty_bit(i)) & 1).bool()
+        claimed = rows[:, acc.res_off[i]] != DA_EMPTY
+        null = ((state >> _null_bit(i)) & 1).bool()
+        bad |= (seen & claimed) | ((seen | claimed) & null)
+    return bad
+
+
+def _fold_query_scale(acc: DenseAccumulator) -> None:
+    """Each float64 channel's query-scale pair, converted back as
+    ``fx_to_double`` does, added to its float64 word where it is not zero,
+    and cleared (the plain update keeps its pairs at zero)."""
+    f64 = [j for j, (_, f) in enumerate(acc.channels) if f]
+    for q, j in enumerate(f64):
+        scale = int(acc.fwords[len(f64) + q])
+        lo, hi = acc.rec[:, acc.ch_q[j]], acc.rec[:, acc.ch_q[j] + 1]
+        nz = (lo != 0) | (hi != 0)
+        if scale == DA_NO_SCALE or not bool(nz.any()):
+            continue
+        neg = hi < 0
+        nlo = ~lo + 1
+        lo, hi = torch.where(neg, nlo, lo), torch.where(
+            neg, ~hi + (nlo == 0).to(torch.int64), hi)
+        # lo as unsigned, rounded once: its two 32-bit halves are exact
+        lo_u = ((lo >> 32) & 0xFFFFFFFF).double() * 2.0 ** 32 \
+            + (lo & 0xFFFFFFFF).double()
+        mag = hi.double() * 2.0 ** 64 + lo_u
+        half = scale // 2
+        val = torch.where(neg, -mag, mag) * 2.0 ** -half \
+            * 2.0 ** -(scale - half)
+        word = acc.rec[:, acc.ch_off[j] + 3].view(torch.float64)
+        acc.rec[:, acc.ch_off[j] + 3] = torch.where(
+            nz, word + val, word).view(torch.int64)
+        acc.rec[:, acc.ch_q[j]:acc.ch_q[j] + 2] = 0
+
+
 def dense_agg_check_plain(acc: DenseAccumulator) -> torch.Tensor:
     """Plain PyTorch version of ``dense_agg_check``."""
+    _fold_query_scale(acc)
     present = acc.present.bool()
-    bad = torch.zeros_like(present)
-    for i in range(acc.nres):
-        has = acc.vdmax[i] == 1
-        same = acc.vmin[i] == acc.vmax[i]
-        if acc.res_f64[i]:  # -0.0 (image -1) and +0.0 (image 0) are equal
-            same |= (acc.vmin[i] == -1) & (acc.vmax[i] == 0)
-        bad |= has & ((acc.vdmin[i] == 0) | ~same)
+    bad = _dense_violations(acc, acc.rec)
     return torch.stack([(present & bad).any().to(torch.int64),
                         present.sum()])
 
@@ -886,16 +1024,14 @@ def dense_agg_check_plain(acc: DenseAccumulator) -> torch.Tensor:
 def dense_agg_check(acc: DenseAccumulator) -> torch.Tensor:
     """Launch ``dense_agg_check`` of ``csrc/dense_agg.cu``."""
     out = torch.zeros(2, dtype=torch.int64, device=acc.device)
-    nres = acc.nres
-    P = kernels.pointer_array
+    f64 = [j for j, (_, f) in enumerate(acc.channels) if f]
+    I = kernels.int_array
     lib = kernels.load("dense_agg")
     rc = lib.dense_agg_check(
-        nres, P([acc.vmin[i].data_ptr() for i in range(nres)]),
-        P([acc.vmax[i].data_ptr() for i in range(nres)]),
-        P([acc.vdmin[i].data_ptr() for i in range(nres)]),
-        P([acc.vdmax[i].data_ptr() for i in range(nres)]),
-        kernels.int_array([int(f) for f in acc.res_f64]),
-        acc.present.data_ptr(), acc.S, out.data_ptr(),
+        acc.nres, I(acc.res_off), acc.rec.data_ptr(), acc.R, acc.state_off,
+        acc.present.data_ptr(), acc.S, len(f64),
+        I([acc.ch_q[j] for j in f64]), I([acc.ch_off[j] + 3 for j in f64]),
+        acc.fwords.data_ptr() if f64 else None, out.data_ptr(),
         torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "dense_agg_check", rc)
     dense_agg_check.launches += 1

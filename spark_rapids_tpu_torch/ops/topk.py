@@ -6,6 +6,9 @@ Counterpart of the key encoding of ``spark_rapids_tpu/ops/groupby.py``
 lexsort whose first k live rows are kept.  ``topk_indices`` returns those
 rows' indices; on CUDA tensors it launches ``csrc/topk.cu`` (or raises), on
 CPU tensors it runs the plain version, a stable sort of the same words.
+The kernel filters the rows against running k-th entries for k <= 128
+(``csrc/topk.cu`` TK_FILTER_MAX_K) and sorts chunks for larger k; both
+give the plain version's rows.
 
 Order: per key, a null word when the key has a validity mask (nulls first:
 null 0, valid 1; nulls last: the reverse), then the value word —
@@ -118,11 +121,12 @@ def topk(keys, active, n: int, k: int) -> torch.Tensor:
     if active is not None and active.dtype != torch.bool:
         raise ValueError("active must be bool")
     nwords = sum(2 if v is not None else 1 for _, v, _, _ in keys)
-    blocks = max(1, -(-n // TK_CHUNK))
-    scratch = torch.empty(2 * blocks * k * (nwords + 1), dtype=torch.int64,
-                          device=dev)
-    out = torch.empty(k, dtype=torch.int64, device=dev)
     lib = kernels.load("topk")
+    nbytes = lib.topk_scratch(n, k, nwords)
+    if nbytes < 0:
+        kernels.check_launch(lib, "topk_scratch", -nbytes)
+    scratch = torch.empty(max(1, nbytes // 8), dtype=torch.int64, device=dev)
+    out = torch.empty(k, dtype=torch.int64, device=dev)
     rc = lib.topk(
         len(keys), kernels.pointer_array([d.data_ptr() for d, _, _, _ in keys]),
         kernels.pointer_array([None if v is None else v.data_ptr()

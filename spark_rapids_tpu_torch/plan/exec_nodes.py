@@ -3,11 +3,12 @@ counterpart): the running top-k that ``ORDER BY ... LIMIT k`` becomes, the
 device ORDER BY, LIMIT and UNION ALL.
 
 ``TopKExec`` (reference :236) keeps at most k rows on the device: each
-input batch, behind the rows held so far, goes through the top-k kernel
-(``ops/topk.py``, ``csrc/topk.cu``), which returns the indices of the
-first k live rows under the reference's stable order, and those rows are
-gathered.  Held rows come first, so ties keep input order as the
-reference's stable per-batch sort and merge do.
+input batch goes through the top-k kernel (``ops/topk.py``,
+``csrc/topk.cu``), which returns the indices of its first k live rows
+under the reference's stable order, and only those rows are gathered;
+they then join the k rows held so far, behind them, for one more top-k
+over at most 2k rows.  Held rows come first, so ties keep input order as
+the reference's stable per-batch sort and merge do.
 
 ``SortExec`` (reference :27) is the full device sort (``ops/sort.py``,
 ``csrc/sort.cu``): the stable permutation over the keys' order images,
@@ -149,13 +150,18 @@ class TopKExec(TpuExec):
             if b.num_rows == 0:
                 continue
             with m.time("opTime"):
-                cand = b if top is None \
-                    else batch_utils.concat_batches([top, b])
-                idx = topk.topk_indices(self._keys(cand, ctx.device),
-                                        cand.sel, cand.num_rows, self.n)
-                top = _gather(cand, idx)
+                # only the batch's own k winners join the running top's k
+                # rows, the top first: ties keep the earlier rows
+                win = self._top(b, ctx.device)
+                top = win if top is None else self._top(
+                    batch_utils.concat_batches([top, win]), ctx.device)
         if top is not None:
             yield top
+
+    def _top(self, b: ColumnBatch, device) -> ColumnBatch:
+        """The first ``n`` live rows of ``b`` in key order."""
+        return _gather(b, topk.topk_indices(self._keys(b, device), b.sel,
+                                            b.num_rows, self.n))
 
 
 class SortExec(TpuExec):

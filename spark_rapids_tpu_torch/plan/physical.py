@@ -816,15 +816,18 @@ class AggregateExec(TpuExec):
     def _dense_output(self, acc, pidx: int, res_idx: List[int], dicts,
                       n_groups: int) -> ColumnBatch:
         """The accumulator's observed slots as the output batch (keys in
-        the query's order, then the aggregates), compacted."""
+        the query's order, then the aggregates), in slot order: one
+        compact of the slot numbers, then their records gathered."""
         fields = self._schema.fields
+        slots = acc.live_slots(n_groups)
+        rows = acc.rec.index_select(0, slots)
         cols: List = []
         for i in range(len(self._key_refs())):
             f = fields[i]
             if i == pidx:
-                data, valid = acc.slot_keys()
+                data, valid = acc.slot_keys(slots)
             else:
-                data, valid = acc.residual(res_idx.index(i))
+                data, valid = acc.residual(res_idx.index(i), rows)
             valid = valid if f.nullable else None
             if f.dtype.is_string:
                 cols.append(DictStringColumn(data.to(torch.int32), valid,
@@ -833,11 +836,11 @@ class AggregateExec(TpuExec):
                 cols.append(DeviceColumn(f.dtype,
                                          data.to(f.dtype.torch_dtype),
                                          valid))
+        values = [v.contiguous() for v in acc.channel_values(rows)]
         for (name, agg), (data, valid) in zip(self.agg_exprs,
-                                              self._finalize(acc.acc)):
+                                              self._finalize(values)):
             cols.append(DeviceColumn(agg.dtype, data, valid))
-        out = ColumnBatch(self._schema, cols, acc.S, acc.present.bool())
-        return batch_utils.compact(out, n_live=n_groups)
+        return ColumnBatch(self._schema, cols, n_groups)
 
     # -- grouped: the hash aggregation ------------------------------------------
     def _hash_key_words(self, b: ColumnBatch, ectx: EvalContext, dicts,

@@ -736,3 +736,129 @@ def test_dense_float_residual_plain_channels():
     assert run([2.5, 3.0])[0][0] == 1
     assert run([2.5, float("nan")])[0][0] == 1
     assert run([float("nan")])[0][0] == 1
+
+
+# ---------------------------------------------------------------------------------
+# The dense records (one per slot: claimed residual words and state bits)
+# against the JAX package's min/max residual channels
+# ---------------------------------------------------------------------------------
+
+_I64 = np.iinfo(np.int64)
+
+
+def _layout_case(case):
+    """(data, the path the port must take): a primary key over 300 groups,
+    a residual ``r`` and a float sum, 5 batches."""
+    rng = np.random.default_rng(41)
+    n, groups = 5000, 300
+    gid = rng.integers(0, groups, n)
+    if case == "widen_replay":  # later batches reach past the first's span
+        gid = np.concatenate([rng.integers(140, 160, 1000),
+                              rng.integers(0, groups, n - 1000)])
+    per = (gid * 5 - 700).astype(np.int64)
+    per[gid % 3 == 0] = _I64.min
+    per[gid % 3 == 1] = _I64.max
+    r = per.astype(object)
+    path = "aggDensePath"
+    if case in ("signed_zero", "nan"):
+        r = np.round(gid * 0.5 - 40.0, 1)
+        zero = np.flatnonzero(gid == 80)  # one key sees both zeros
+        r[zero] = rng.choice(np.array([0.0, -0.0]), len(zero))
+        r[zero[:2]] = [0.0, -0.0]
+        if case == "nan":
+            r[np.flatnonzero(gid == 9)[:1]] = np.nan
+            path = "aggHashPath"
+    if case == "null_mixed":
+        r[np.flatnonzero(gid == 12)[:1]] = None
+        path = "aggHashPath"
+    if case == "two_values":  # INT64_MIN beside another value of one key
+        r[np.flatnonzero(gid == 30)[:1]] = 7
+        path = "aggHashPath"
+    return {"k": (gid * 11 + 3).astype(np.int64), "r": r,
+            "x": rng.uniform(-50, 50, n)}, path
+
+
+@pytest.mark.parametrize("case", ["int64_extremes", "signed_zero", "nan",
+                                  "null_mixed", "two_values",
+                                  "widen_replay"])
+def test_dense_records_match_reference(case):
+    """The plain dense update over the record layout, Session against
+    Session: int64 residuals at INT64_MIN (the unclaimed word's pattern)
+    and INT64_MAX stay on the dense path with their values; -0.0 and +0.0
+    under one key are one value that decodes to -0.0; a NaN, a null beside
+    valid rows and two values under one key each send the query to the
+    hash aggregation; a domain widened at the tail replays its overflow
+    rows into the same records."""
+    data, path = _layout_case(case)
+
+    def q(F, df):
+        return df.group_by("k", "r").agg(F.sum(F.col("x")).alias("s"),
+                                          F.count_star().alias("n"))
+
+    got, want, tsess = _run_both(q, data)
+    _assert_same_groups(_nan_marked(got), _nan_marked(want))
+    metrics = tsess.last_exec_context().metrics
+    assert any(m.values.get(path) for m in metrics.values()), path
+    if case == "widen_replay":
+        assert any(m.values.get("aggDenseWidened") for m in metrics.values())
+    if case == "signed_zero":
+        zero = [r for r in got if r[0] == 80 * 11 + 3]
+        assert len(zero) == 1 and np.signbit(zero[0][1])
+
+
+def test_dense_records_decode_claimed_words():
+    """The plain update's records directly: a claimed word decodes to its
+    value whatever its bits, INT64_MIN rows set SEEN_EMPTY instead of
+    claiming, a residual that is null in every row stays null, and
+    SEEN_EMPTY beside a claimed word is a violation."""
+    acc = tg.DenseAccumulator(0, 4, 2, [("count", False)], CPU)
+    key = torch.tensor([0, 0, 1, 1, 2, 3], dtype=torch.int64)
+    r0 = torch.tensor([_I64.min, _I64.min, _I64.max, _I64.max, -1, 5])
+    r1 = torch.tensor([1, 1, 2, 2, 3, 4], dtype=torch.int32)
+    r1_valid = torch.tensor([True, True, True, True, True, False])
+    acc.update((key, None), [(r0, None), (r1, r1_valid)], [(None, None)],
+               None)
+    assert acc.check().tolist() == [0, 4]
+    value, valid = acc.residual(0)
+    assert value[:4].tolist() == [_I64.min, _I64.max, -1, 5]
+    assert valid[:4].tolist() == [True] * 4 and not valid[4]
+    assert acc.residual(1)[1][:4].tolist() == [True, True, True, False]
+    assert acc.acc[0][:4].tolist() == [2, 2, 1, 1]
+    acc.update((torch.tensor([0]), None),
+               [(torch.tensor([3]), None),
+                (torch.tensor([1], dtype=torch.int32), None)],
+               [(None, None)], None)
+    assert acc.check().tolist() == [1, 4]
+
+
+def test_dense_check_folds_query_scale_pairs():
+    """The plain check folds each float64 sum's 128-bit query-scale pair
+    into its float64 word as the kernel's tail does, and clears it: a
+    negative pair, a pair whose low word has its top bit set, a zero pair
+    beside a -0.0 word (left as it is), and a channel whose scale was
+    never set (left as it is)."""
+    acc = tg.DenseAccumulator(0, 3, 0, [("sum", True), ("sum", True)], CPU)
+    q0, q1 = acc.ch_q
+    w0, w1 = acc.ch_off[0] + 3, acc.ch_off[1] + 3
+    acc.present[:] = 1
+    acc.fwords[2] = 20                      # channel 0's scale; 1 has none
+
+    def word(v):  # an unsigned 64-bit word as int64
+        return v - 2 ** 64 if v >= 2 ** 63 else v
+
+    neg = -(2 ** 70 + 2 ** 20)              # -(2^50 + 1) at scale 20
+    acc.rec[0, q0] = word(neg & (2 ** 64 - 1))
+    acc.rec[0, q0 + 1] = neg >> 64
+    acc.rec[1, q0] = word(2 ** 63 + 2 ** 20)  # 2^43 + 1: low's top bit set
+    acc.rec[:, w0] = torch.tensor([0.5, 0.25, -0.0, 0.0],
+                                  dtype=torch.float64).view(torch.int64)
+    acc.rec[0, q1] = 12345
+    acc.rec[:, w1] = torch.tensor([1.0, 2.0, 3.0, 4.0],
+                                  dtype=torch.float64).view(torch.int64)
+    assert acc.check().tolist() == [0, 4]
+    got = acc.acc[0].tolist()
+    assert got[:2] == [-(2.0 ** 50 + 0.5), 2.0 ** 43 + 1.25]
+    assert str(got[2]) == "-0.0"
+    assert acc.rec[:, q0:q0 + 2].eq(0).all()
+    assert acc.acc[1].tolist() == [1.0, 2.0, 3.0, 4.0]
+    assert int(acc.rec[0, q1]) == 12345

@@ -135,3 +135,33 @@ def test_limit_without_a_device_sort_is_not_ported(sessions):
         rows.append((df.limit(3).collect(), df.sort("s").limit(3).collect()))
     assert rows[0] == rows[1]
     assert rows[0][1] == [(0, "a"), (1, "b"), (2, "c")]
+
+
+@pytest.mark.parametrize("k", [100, 1000])
+def test_topk_across_many_batches_keeps_earlier_ties(k):
+    """LIMIT over 4 keys with few distinct values across 14 batches of 150
+    rows: most rows tie in every key, so the rows kept are decided by input
+    order, which the running top must keep when it joins only each batch's
+    winners.  A string column from a joined dimension table rides along
+    (string ORDER BY keys run on the host, in both packages)."""
+    rng = np.random.default_rng(33)
+    n = 2000
+    b = rng.integers(0, 3, n).astype(object)
+    b[rng.random(n) < 0.1] = None
+    x = rng.choice(np.array([-0.0, 0.0, 1.5, np.nan]), n).astype(object)
+    x[rng.random(n) < 0.1] = None
+    fact = {"g": rng.integers(0, 5, n), "b": b, "x": x,
+            "day": np.datetime64("1995-01-01")
+            + rng.integers(0, 2, n).astype("timedelta64[D]"),
+            "i": np.arange(n, dtype=np.int64)}
+    dim = {"g": np.arange(5), "name": np.array(["e", "d", "c", "b", "a"])}
+    settings = {"spark.rapids.tpu.sql.batchSizeRows": 150}
+    sessions = (jsrt.Session(settings), tsrt.Session(settings, device="cpu"))
+    got, want = [
+        sess.create_dataframe(fact).join(sess.create_dataframe(dim), "g")
+        .sort(F.col("g").desc(), _nulls_last(F, "b"), F.col("x").desc(),
+              F.col("day")).limit(k).collect()
+        for sess, F in zip(sessions[::-1], (TF, JF))]
+    assert len(got) == len(want) == k
+    for g, w in zip(got, want):
+        assert all(_same(a, c) for a, c in zip(g, w)), (g, w)

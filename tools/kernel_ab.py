@@ -4,7 +4,7 @@ merge, the full sort and the sorted join of one checkout of the port, for
 comparing two checkouts on one CUDA card.
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
-        [--only key_stats,merge,sort,sort_join]
+        [--only key_stats,merge,sort,sort_join,topk,dense_agg]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -28,7 +28,19 @@ the bucket sequence one event pair a sequence, its host work included):
   * ``sort_join`` at one Q10-shuffled partition pair's shape: a build of
     2,500,000 order keys drawn from 15,000,000, an inner probe of 71,700
     distinct ones, the build alone too, beside ``torch.sort(stable=True)``
-    + 2 ``torch.searchsorted``.
+    + 2 ``torch.searchsorted``;
+  * ``topk`` at Q3's shape (1,287,275 rows, ORDER BY a float64 revenue
+    with a validity mask DESC, an int32 date), k = 10 and k = 100, over
+    random input, input already in that order and reversed, queued and
+    one call per event pair, beside ``torch.topk`` of the revenue key's
+    image (which waits on the device: one call per event pair);
+  * ``dense_agg`` (the update) at Q3's shape (4,194,304 rows, 5.2% live,
+    into 15,003,036 slots: an int32 and an int64 residual, a float64 sum
+    and a count) and at Q10's (765,000 rows into 1,500,000 slots: an int32
+    and a float64 residual, a float64 sum), each into an accumulator that
+    has seen one call, beside their PyTorch yardsticks (``index_add_`` of
+    the sums; the same with ``scatter_reduce_`` of the residuals and
+    ``index_fill_`` of the presence at Q10's).
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -94,7 +106,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parent.parent))
     ap.add_argument("--label", default="")
-    ap.add_argument("--only", default="key_stats,merge,sort,sort_join")
+    ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
+                    "dense_agg")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -124,6 +137,131 @@ def main() -> int:
         return 1
     if "merge" in only:
         time_merge(torch, dev, rng, groupby, emit)
+    if "topk" in only and time_topk(torch, dev, emit) != 0:
+        return 1
+    if "dense_agg" in only and time_dense_agg(torch, dev, groupby,
+                                              emit) != 0:
+        return 1
+    return 0
+
+
+def time_topk(torch, dev, emit) -> int:
+    """Q3's ORDER BY revenue DESC, o_orderdate LIMIT k over its groups."""
+    from spark_rapids_tpu_torch.ops import topk as topk_mod
+    rng = np.random.default_rng(3)
+    g = 1_287_275
+    rev = rng.uniform(0.0, 8e5, g)
+    odate = rng.integers(8036, 8036 + 2406, g).astype(np.int32)
+    for order in ("random", "in_order", "reversed"):
+        r, d = rev, odate
+        if order != "random":
+            r, d = np.sort(rev)[::-1], np.sort(odate)
+            if order == "reversed":
+                r, d = r[::-1], d[::-1]
+        cols = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (r, d)]
+        cols.insert(1, torch.ones(g, dtype=torch.bool, device=dev))
+        inputs = copies(cols, 8)
+        for k in (10, 100):
+            def call(c, k=k):
+                return lambda: topk_mod.topk(
+                    [(c[0], c[1], False, False), (c[2], None, True, True)],
+                    None, g, k)
+            got = call(cols)()
+            want = topk_mod.topk_plain(
+                [(cols[0], cols[1], False, False), (cols[2], None, True,
+                                                    True)], None, g, k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                print(f"kernel_ab: topk {order} k={k} differs from plain",
+                      file=sys.stderr)
+                return 1
+            emit(f"topk_q3_{order}_k{k}", time_ms(
+                torch, [call(c) for c in inputs], reps=8 * len(inputs)),
+                rows=g, k=k)
+            # torch.topk waits on the device: it and the kernel are timed
+            # one call per event pair for the comparison
+            emit(f"topk_q3_{order}_k{k}_synced", time_ms_synced(
+                torch, lambda c=inputs[0]: call(c)(), reps=32), rows=g, k=k)
+            image = ~topk_mod.sortable_view(cols[0])
+            emit(f"topk_q3_{order}_k{k}_library_synced", time_ms_synced(
+                torch, lambda x=image, k=k: torch.topk(x, k, largest=False),
+                reps=32), rows=g, k=k)
+    return 0
+
+
+def time_dense_agg(torch, dev, groupby, emit) -> int:
+    """The dense update at Q3's and Q10's shapes."""
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n, D = 4 << 20, 15_003_036
+    key = t(rng.integers(1, D + 1, n).astype(np.int64))
+    q3 = [key, (key % 2406 + 8036).to(torch.int32),
+          torch.zeros(n, dtype=torch.int64, device=dev),
+          t(rng.uniform(900.0, 105000.0, n)), t(rng.random(n) < 0.052)]
+    n10, D10 = 765_000, 1_500_000
+    k10 = rng.integers(1, D10 + 1, n10)
+    q10 = [t(k10.astype(np.int64)), t((k10 % 1_000_000).astype(np.int32)),
+           t(np.round(k10 * 0.37 - 999.99, 2)),
+           t(rng.uniform(800, 100_000, n10))]
+
+    def q3_call(update, acc, c):
+        return lambda: update(acc, (c[0], None), [(c[1], None), (c[2], None)],
+                              [(c[3], None), (None, None)], c[4])
+
+    def q10_call(update, acc, c):
+        return lambda: update(acc, (c[0], None), [(c[1], None), (c[2], None)],
+                              [(c[3], None)], None)
+
+    shapes = (("dense_agg_q3", q3, D, [False, False], [("sum", True),
+                                                      ("count", False)],
+               q3_call),
+              ("dense_agg_q10_f64_residual", q10, D10, [False, True],
+               [("sum", True)], q10_call))
+    for what, cols, dom, res_f64, channels, call in shapes:
+        accs = [groupby.DenseAccumulator(1, dom, 2, channels, dev,
+                                         res_f64=res_f64) for _ in range(2)]
+        call(groupby.dense_agg_update, accs[0], cols)()
+        call(groupby.dense_agg_update_plain, accs[1], cols)()
+        torch.cuda.synchronize()
+        ka, pa = accs
+        # each check folds its accumulator's float64 sums
+        same = torch.equal(groupby.dense_agg_check(ka),
+                           groupby.dense_agg_check_plain(pa))
+        err = float((ka.acc[0] - pa.acc[0]).abs().max())
+        if not (same and torch.equal(ka.present, pa.present)
+                and err <= 1e-9 * 105000.0):
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        inputs = copies(cols, 6 if what == "dense_agg_q3" else 8)
+        emit(what, time_ms(torch, [call(groupby.dense_agg_update, ka, c)
+                                   for c in inputs], reps=8 * len(inputs)),
+             rows=int(cols[0].numel()), slots=dom)
+        # as chip_smoke.py times them: Q3's two sums in one index_add_ of
+        # rows made beforehand (dead rows add zeros at their own key)
+        pairs = torch.zeros((dom + 1, 2), dtype=torch.float64, device=dev)
+        target = torch.zeros(dom + 1, dtype=torch.float64, device=dev)
+        present = torch.zeros(dom + 1, dtype=torch.bool, device=dev)
+        lo = [torch.zeros(dom + 1, dtype=c.dtype, device=dev)
+              for c in cols[1:3]]
+        hi = [torch.zeros_like(x) for x in lo]
+
+        def library(c, q3_shape=what == "dense_agg_q3"):
+            if q3_shape:
+                vals = torch.stack([c[3], torch.ones_like(c[3])], 1) \
+                    * c[4][:, None]
+                return lambda: pairs.index_add_(0, c[0], vals)
+
+            def run():
+                target.index_add_(0, c[0], c[3])
+                for a, b, r in zip(lo, hi, c[1:3]):
+                    a.scatter_reduce_(0, c[0], r, "amin")
+                    b.scatter_reduce_(0, c[0], r, "amax")
+                present.index_fill_(0, c[0], True)
+            return run
+        emit(f"{what}_library", time_ms(torch, [library(c) for c in inputs],
+                                        reps=8 * len(inputs)),
+             rows=int(cols[0].numel()), slots=dom)
     return 0
 
 
