@@ -370,6 +370,36 @@ def masked_reduce_case(torch, n: int, seed: int, device, all_inactive=False):
     return cols, t(active)
 
 
+def at_offset(torch, x, offset: int):
+    """A copy of ``x`` as a view at ``offset`` elements into a larger
+    tensor: its data_ptr is not 16-byte aligned for an odd offset."""
+    if x is None:
+        return None
+    y = torch.empty(x.shape[0] + offset, dtype=x.dtype, device=x.device)
+    y[offset:] = x
+    return y[offset:]
+
+
+def masked_reduce_edges(torch, device):
+    """(what, cols, active) of masked_reduce.cu's risky shapes: n of 1, 15,
+    16, 17 and 4,194,321; every column and mask a view at an odd storage
+    offset; every live row in one aligned 16-byte word of the mask."""
+    for n in (1, 15, 16, 17, BATCH_ROWS + 17):
+        cols, active = masked_reduce_case(torch, n, 100 + n, device)
+        yield f"n={n}", cols, active
+    for n, offsets in ((1000, (3, 1, 5)), (17, (1, 3, 7)),
+                       (BATCH_ROWS + 17, (7, 3, 1))):
+        cols, active = masked_reduce_case(torch, n, 200 + n, device)
+        oa, od, ov = offsets
+        yield (f"views at offsets {offsets}, n={n}",
+               [(at_offset(torch, d, od), at_offset(torch, v, ov), op)
+                for d, v, op in cols], at_offset(torch, active, oa))
+    cols, active = masked_reduce_case(torch, 1000, 7, device)
+    one = torch.zeros_like(active)
+    one[32:48] = True  # a fresh allocation: rows 32..47 are one word
+    yield "every live row in one 16-byte word", cols, one
+
+
 def run_masked_reduce(torch, groupby, fn, cols, active):
     specs = [(op if op != "count" else "sum",
               d is not None and d.dtype == torch.float64)
@@ -474,11 +504,26 @@ def check_kernels(torch, groupby, device) -> dict:
         worst["masked_reduce"] = max(worst["masked_reduce"],
                                      compare_masked_reduce(torch, groupby,
                                                            cols, active))
-    cols, active = masked_reduce_case(torch, 1000, 7, device,
-                                      all_inactive=True)
-    compare_masked_reduce(torch, groupby, cols, active)
-    print("check masked_reduce: n in (1, 1000, 4194321) and all-inactive: "
-          f"ok, max |sum err| {worst['masked_reduce']:.3e} "
+    for n in (1000, BATCH_ROWS + 17):
+        cols, active = masked_reduce_case(torch, n, 7, device,
+                                          all_inactive=True)
+        compare_masked_reduce(torch, groupby, cols, active)
+    for what, cols, active in masked_reduce_edges(torch, device):
+        try:
+            worst["masked_reduce"] = max(worst["masked_reduce"],
+                                         compare_masked_reduce(
+                                             torch, groupby, cols, active))
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e} ({what})") from None
+    # the determinism check twice more at the batch size (each compares
+    # two kernel runs bit for bit)
+    cols, active = masked_reduce_case(torch, BATCH_ROWS, 11, device)
+    for _ in range(2):
+        compare_masked_reduce(torch, groupby, cols, active)
+    print("check masked_reduce: n in (1, 15, 16, 17, 1000, 4194321), "
+          "all-dead batches, every column and mask a view at an odd storage "
+          "offset, every live row in one 16-byte word, repeated runs equal "
+          f"to the bit: ok, max |sum err| {worst['masked_reduce']:.3e} "
           f"(tolerance {F64_SUM_TOL} x sum|x|)")
     for dims, nf, shared in (((4, 2), 7, True), ((63, 63), 2, False)):
         G = groupby.grid_size(dims)
@@ -925,28 +970,30 @@ def _same_values(torch, a, b, what: str) -> float:
     return err
 
 
-def compare_csr_join(torch, join, build, probe, payload) -> float:
-    """The build (counts, starts, b_perm: the stable order makes the
-    permutation unique), every probe mode, the expansion and the gathers
-    exact against the plain versions; returns the largest difference."""
+def compare_csr_join(torch, join, build, probe, payload, D=None) -> float:
+    """The build (starts, b_perm: the stable order makes the permutation
+    unique), every probe mode, the expansion and the gathers exact against
+    the plain versions; returns the largest difference.  ``D``: the slots,
+    instead of the live keys' range (the keys' minimum stays kmin)."""
     bk, bv, ba = build
     st = join.dense_join_stats_plain(bk, bv, ba, 1 << 26).tolist()
-    kmin, D = (st[0], st[1] - st[0] + 1) if st[2] else (0, 1)
+    kmin, span = (st[0], st[1] - st[0] + 1) if st[2] else (0, 1)
+    D = span if D is None else D
     kb = join.csr_build_kernel(bk, bv, ba, kmin, D)
     pb = join.csr_build_plain(bk, bv, ba, kmin, D)
     torch.cuda.synchronize()
-    for name, x, y in zip(("counts", "starts", "b_perm"), kb, pb):
-        check(torch.equal(x, y), f"csr_join build {name} differs")
-    counts, starts, b_perm = kb
+    for name, x, y in zip(("starts", "b_perm"), kb, pb):
+        check(torch.equal(x, y), f"csr_join build {name} differs (D={D})")
+    starts, b_perm = kb
     err = 0.0
     for how in ("semi", "anti"):
-        ks = join.csr_probe_kernel(*probe, kmin, counts, starts, how)
-        ps = join.csr_probe_plain(*probe, kmin, counts, starts, how)
+        ks = join.csr_probe_kernel(*probe, kmin, starts, how)
+        ps = join.csr_probe_plain(*probe, kmin, starts, how)
         torch.cuda.synchronize()
         check(torch.equal(ks, ps), f"csr_join {how} selections differ")
     for how in ("inner", "left"):
-        klo, koff = join.csr_probe_kernel(*probe, kmin, counts, starts, how)
-        plo, poff = join.csr_probe_plain(*probe, kmin, counts, starts, how)
+        klo, koff = join.csr_probe_kernel(*probe, kmin, starts, how)
+        plo, poff = join.csr_probe_plain(*probe, kmin, starts, how)
         torch.cuda.synchronize()
         check(torch.equal(klo, plo) and torch.equal(koff, poff),
               f"csr_join {how} probe differs")
@@ -965,6 +1012,33 @@ def compare_csr_join(torch, join, build, probe, payload) -> float:
     return err
 
 
+def check_partition_perm(torch, join, device) -> None:
+    """partition_perm against its plain version, exact: 1, 2, 8, 64, 256
+    and 300 partitions, dead rows (the id nparts) among them; every row in
+    one partition (a pass that skips on the device); ids whose low byte
+    is constant and whose high byte is not."""
+    rng = np.random.default_rng(9)
+    t = _to_device(torch, device)
+    cases = [(n, p, rng.integers(0, p + 1, n))
+             for n, p in ((0, 8), (1, 8), (BATCH_ROWS + 17, 1),
+                          (BATCH_ROWS + 17, 2), (BATCH_ROWS + 17, 8),
+                          (BATCH_ROWS, 64), (BATCH_ROWS + 17, 256),
+                          (100_000, 300))]
+    cases += [(100_000, 64, np.full(100_000, 5)),
+              (100_000, 300, np.full(100_000, 299)),
+              (100_000, 300, rng.choice([0, 256], 100_000))]
+    for n, nparts, ids in cases:
+        pids = t(ids.astype(np.int32))
+        kp = join.partition_perm_kernel(pids, nparts)
+        pp = join.partition_perm_plain(pids, nparts)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, pp), f"partition placement differs "
+              f"(n={n}, {nparts} partitions)")
+    print("check partition_perm: 1, 2, 8, 64, 256 and 300 partitions with "
+          "dead rows, one partition holding every row, a constant low byte: "
+          "exact: ok")
+
+
 def check_csr_join(torch, join, device) -> float:
     worst = 0.0
     for nb, npr, span, seed, kw in ((0, 100, 10, 1, {}), (1, 1, 1, 2, {}),
@@ -976,10 +1050,32 @@ def check_csr_join(torch, join, device) -> float:
                                      {})):
         worst = max(worst, compare_csr_join(torch, join, *csr_case(
             torch, nb, npr, span, seed, device, **kw)))
+    # slot counts at the byte boundaries: the last byte's pass, a constant
+    # byte skipped on the device, slots far apart
+    for D, nb in ((255, 3000), (256, 3000), (65_536, 200_000),
+                  ((1 << 24) + 1, 20_000)):
+        build, probe, payload = csr_case(torch, nb, 5000, min(D, 50_000),
+                                         D, device)
+        worst = max(worst, compare_csr_join(torch, join, build, probe,
+                                            payload, D=D))
+        build = (build[0], build[1], torch.zeros_like(build[2]))
+        worst = max(worst, compare_csr_join(torch, join, build, probe,
+                                            payload, D=D))
+    # the expansion's skew: every build row holds one key, and each of the
+    # probe's hot rows matches ~1,520,000 of them
+    build, _, payload = csr_case(torch, 2_000_003, 1, 1, 12, device)
+    t = _to_device(torch, device)
+    probe = (t(np.array([1000, 999, 1000, 1000, 1001, 1000, 1000, 1000])),
+             t(np.array([True, True, False, True, True, True, True, True])),
+             t(np.array([True, True, True, False, True, True, True, True])))
+    worst = max(worst, compare_csr_join(torch, join, build, probe, payload))
     print("check csr_join: build 0/1/3000/5000 (one key)/2000003 rows (one "
           "all-inactive), probe up to 4194321 rows with null, missing and "
-          "out-of-domain keys; build, semi/anti/inner/left probe, "
+          "out-of-domain keys; D = 255, 256, 65536 and 2^24 + 1 slots, "
+          "each also all-dead; 2000003 build rows of one key expanded for "
+          "4 hot probe rows; starts, b_perm, semi/anti/inner/left probe, "
           "expansion and gathers exact: ok")
+    check_partition_perm(torch, join, device)
     return worst
 
 
@@ -1644,7 +1740,7 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
 
 
 def time_slice3_kernels(torch, join, groupby, device, launches,
-                        worst) -> list:
+                        worst, per_wrapper) -> list:
     """The dense join's semi probe, the CSR join and the hash aggregate at
     the shapes Q18, Q13 and Q21 give them at SF10, each first held against
     its plain version on the same inputs."""
@@ -1688,35 +1784,37 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
 
     # csr_join: Q13's left join — build the orders that are not urgent
     # (15,000,000 rows, ~80% live, o_custkey over 1,500,000 slots), probe
-    # the 1,500,000 customers, expand, gather o_orderkey and o_custkey
+    # the 1,500,000 customers, expand, gather o_orderkey and o_custkey: the
+    # whole join, then each phase alone on the same inputs
     nb, C = DB_ORDERS, DB_CUSTOMERS
     ckey = t(rng.integers(1, C + 1, nb))
     okey = torch.arange(1, nb + 1, dtype=torch.int64, device=device)
     act = t(rng.random(nb) < 0.8)
     probe = torch.arange(1, C + 1, dtype=torch.int64, device=device)
     payload = [(okey, None), (ckey, None)]
+    kfns = (join.csr_build_kernel, join.csr_probe_kernel,
+            join.csr_expand_kernel, join.csr_gather)
+    pfns = (join.csr_build_plain, join.csr_probe_plain,
+            join.csr_expand_plain, join.csr_gather_plain)
 
-    def join_call(build, probe_keys, total, expand, gather):
+    def join_call(fns, total):
+        build, probe_fn, expand, gather = fns
+
         def run():
-            counts, starts, b_perm = build(ckey, None, act, 1, C)
-            lo, off = (join.csr_probe_kernel if build is join.csr_build_kernel
-                       else join.csr_probe_plain)(probe_keys, None, None, 1,
-                                                  counts, starts, "left")
+            starts, b_perm = build(ckey, None, act, 1, C)
+            lo, off = probe_fn(probe, None, None, 1, starts, "left")
             pi, bi = expand(off, lo, b_perm, total)
-            return gather(pi, [(probe_keys, None)], False) + gather(
+            return gather(pi, [(probe, None)], False) + gather(
                 bi, payload, True)
         return run
 
-    counts, starts, b_perm = join.csr_build_kernel(ckey, None, act, 1, C)
-    lo, off = join.csr_probe_kernel(probe, None, None, 1, counts, starts,
-                                    "left")
+    starts, b_perm = join.csr_build_kernel(ckey, None, act, 1, C)
+    lo, off = join.csr_probe_kernel(probe, None, None, 1, starts, "left")
     total = int(off[-1])
-    kernel = join_call(join.csr_build_kernel, probe, total,
-                       join.csr_expand_kernel, join.csr_gather)
-    plain = join_call(join.csr_build_plain, probe, total,
-                      join.csr_expand_plain, join.csr_gather_plain)
+    kernel, plain = join_call(kfns, total), join_call(pfns, total)
     err = _same_values(torch, kernel(), plain(), "csr_join at Q13's shape")
     ms = time_ms(torch, [kernel], reps=8)
+    ms_synced = time_ms_synced(torch, [kernel], reps=8)
     plain_ms = time_ms_synced(torch, [plain], reps=2)
 
     def library():
@@ -1737,16 +1835,116 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
     # the function's inputs once (build keys and mask, probe keys, the
     # two build columns at the matched rows, by sector) and its outputs
     # (three int64 columns and two validity masks per output row); the
-    # counts, starts, permutation and gather maps are its own scratch
-    bi = b_perm[:int(starts[-1])]
-    nbytes = nb * (8 + 1) + C * 8 + 2 * sector_bytes(torch, bi, 8) \
+    # starts, permutation and gather maps are its own scratch
+    live = int(starts[-1])
+    matched = b_perm[:live]
+    nbytes = nb * (8 + 1) + C * 8 + 2 * sector_bytes(torch, matched, 8) \
         + total * (3 * 8 + 2)
-    out.append(_row("csr_join", launches, max(err, worst["csr_join"]), ms,
-                    plain_ms, nbytes, lib_ms,
-                    "spark_rapids_tpu/plan/join_exec.py:1040"))
-    notes.append(f"build {nb} rows ({int(act.sum())} live) over {C} slots, "
-                 f"probe {C} rows, {total} output rows, 3 columns gathered")
-    del ckey, okey, act, payload, counts, starts, b_perm, lo, off, bi
+    row = _row("csr_join", launches, max(err, worst["csr_join"]), ms,
+               plain_ms, nbytes, lib_ms,
+               "spark_rapids_tpu/plan/join_exec.py:1040")
+    row["ms_synced"] = ms_synced
+    out.append(row)
+    notes.append(f"build {nb} rows ({live} live) over {C} slots, probe {C} "
+                 f"rows, {total} output rows, 3 columns gathered; one call "
+                 f"per event pair {ms_synced:.4f} ms")
+
+    # each phase alone, held to its plain version on the same inputs
+    pb = join.csr_build_plain(ckey, None, act, 1, C)
+    plo, poff = join.csr_probe_plain(probe, None, None, 1, pb[0], "left")
+    pi, bi = join.csr_expand_kernel(off, lo, b_perm, total)
+    ppi, pbi = join.csr_expand_plain(off, lo, b_perm, total)
+    torch.cuda.synchronize()
+    check(torch.equal(starts, pb[0]) and torch.equal(b_perm, pb[1]),
+          "csr_build differs at Q13's shape")
+    check(torch.equal(lo, plo) and torch.equal(off, poff),
+          "csr_probe differs at Q13's shape")
+    check(torch.equal(pi, ppi) and torch.equal(bi, pbi),
+          "csr_expand differs at Q13's shape")
+    del pb, plo, poff, ppi, pbi
+    idx = probe - 1
+    cnt = off.diff()
+    slot_order = torch.arange(C + 1, device=device)
+
+    def lib_build():
+        sk, perm = torch.sort(torch.where(act, ckey - 1, C), stable=True)
+        return torch.searchsorted(sk, slot_order), perm
+
+    def gathers(gather):
+        return lambda: gather(pi, [(probe, None)], False) + gather(
+            bi, payload, True)
+
+    def lib_gathers():
+        at = bi.clamp(min=0)
+        return [probe.index_select(0, pi), okey.index_select(0, at),
+                ckey.index_select(0, at)]
+
+    phases = [
+        ("csr_join_build", "csr_build_kernel",
+         lambda: join.csr_build_kernel(ckey, None, act, 1, C),
+         lambda: join.csr_build_plain(ckey, None, act, 1, C), True,
+         lib_build, nb * (8 + 1 + 4) + (C + 1) * 8,
+         "spark_rapids_tpu/plan/join_exec.py:1085",
+         "build: 15,000,000 keys into starts and b_perm"),
+        ("csr_join_probe", "csr_probe_kernel",
+         lambda: join.csr_probe_kernel(probe, None, None, 1, starts, "left"),
+         lambda: join.csr_probe_plain(probe, None, None, 1, starts, "left"),
+         False, None,
+         C * 8 + sector_bytes(torch, torch.cat([idx, idx + 1]), 8)
+         + C * (4 + 8),
+         "spark_rapids_tpu/plan/join_exec.py:1040",
+         "probe (left) and the scan of its counts: 1,500,000 rows"),
+        ("csr_join_expand", "csr_expand_kernel",
+         lambda: join.csr_expand_kernel(off, lo, b_perm, total),
+         lambda: join.csr_expand_plain(off, lo, b_perm, total), True,
+         lambda: torch.repeat_interleave(
+             torch.arange(C, device=device), cnt, output_size=total),
+         (C + 1) * 8 + C * 4 + live * 4 + total * (8 + 4),
+         "spark_rapids_tpu/plan/join_exec.py:1649",
+         f"expansion into {total} output rows (library: pi only)"),
+        ("csr_join_gather", "csr_gather", gathers(join.csr_gather),
+         gathers(join.csr_gather_plain), False, lib_gathers,
+         total * (8 + 4) + sector_bytes(torch, pi, 8)
+         + 2 * sector_bytes(torch, matched, 8) + total * (3 * 8 + 2),
+         "spark_rapids_tpu/plan/join_exec.py:1904",
+         f"gathers of {total} rows: the probe key by pi, two build columns "
+         f"with validity by bi (library: index_select, no validity)")]
+    for name, wrapper, kfn, pfn, plain_syncs, lib, nbytes, replaces, note \
+            in phases:
+        kms = time_ms(torch, [kfn], reps=8)
+        pms = (time_ms_synced if plain_syncs else time_ms)(torch, [pfn],
+                                                            reps=2)
+        lms = None if lib is None else time_ms(torch, [lib], reps=8)
+        row = _row("csr_join", launches, 0.0, kms, pms, nbytes, lms,
+                   replaces)
+        row.update(name=name, launches=per_wrapper.get(wrapper, 0),
+                   part_of="csr_join")
+        out.append(row)
+        notes.append(note + (" (plain †)" if plain_syncs else ""))
+    del idx, cnt, slot_order, pi, bi, matched
+
+    # partition_perm at Q18-2ph-repart's shape: one lineitem batch placed
+    # in 64 buckets
+    n = BATCH_ROWS
+    pids = t(rng.integers(0, 64, n).astype(np.int32))
+    check(torch.equal(join.partition_perm_kernel(pids, 64),
+                      join.partition_perm_plain(pids, 64)),
+          "partition_perm differs at Q18-2ph-repart's shape")
+    inputs = copies_for_l2([pids])
+    kms = time_ms(torch, [lambda p=p: join.partition_perm_kernel(p, 64)
+                          for p, in inputs], reps=8 * len(inputs))
+    pms = time_ms(torch, [lambda p=p: join.partition_perm_plain(p, 64)
+                          for p, in inputs], reps=2 * len(inputs))
+    lms = time_ms(torch, [lambda p=p: torch.sort(p, stable=True).indices
+                          for p, in inputs], reps=8 * len(inputs))
+    row = _row("csr_join", launches, 0.0, kms, pms, n * (4 + 4), lms,
+               "spark_rapids_tpu/plan/exchange_exec.py:267")
+    row.update(name="partition_perm",
+               launches=per_wrapper.get("partition_perm_kernel", 0),
+               part_of="csr_join")
+    out.append(row)
+    notes.append(f"{n} rows into 64 partitions (library: sort(stable=True))")
+    del ckey, okey, act, payload, starts, b_perm, lo, off, pids, inputs
 
     # hash_agg: Q21's DISTINCT (l_orderkey, l_suppkey) on one lineitem
     # batch, ~2/3 live, into a table that holds the batch's groups
@@ -1802,10 +2000,12 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
         mark = {w: "†" if (row["name"], w) in synced else ""
                 for w in ("plain", "library")}
         nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        lib = "none" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f} ms"
         print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
               f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
               f"{row['plain_ms']:.4f} ms"
-              f"{mark['plain']}, library {row['library_ms']:.4f} ms"
+              f"{mark['plain']}, library {lib}"
               f"{mark['library']}), max |err| vs plain "
               f"{row['max_abs_err']:.3e}, {row['launches']} launches on the "
               f"main path")
@@ -1930,8 +2130,7 @@ def sort_case(torch, n, seed, device, kind, span=50):
 def check_sort_join(torch, join, device) -> float:
     """The sorted build (b_perm, n_valid, sorted images), the probe in
     every mode and the unmatched build rows exact against the plain
-    versions; and the partition placement that reuses csr_join's radix
-    pass."""
+    versions."""
     for nb, npr, kind, seed in ((0, 100, "int64", 1), (1, 1, "int32", 2),
                                 (3000, 5000, "int64", 3),
                                 (3000, 5000, "int32", 4),
@@ -1984,16 +2183,6 @@ def check_sort_join(torch, join, device) -> float:
               and torch.equal(kb.words, pb.words)
               and all(torch.equal(x, y) for x, y in zip(ko, po)),
               f"sort_join differs on the {shape} shape (n={len(bk)})")
-    rng = np.random.default_rng(9)
-    for n, nparts in ((0, 8), (1, 8), (BATCH_ROWS + 17, 8),
-                      (100_000, 300)):
-        pids = _to_device(torch, device)(
-            rng.integers(0, nparts + 1, n).astype(np.int32))
-        kp = join.partition_perm_kernel(pids, nparts)
-        pp = join.partition_perm_plain(pids, nparts)
-        torch.cuda.synchronize()
-        check(torch.equal(kp, pp), f"partition placement differs "
-              f"(n={n}, {nparts} partitions)")
     print("check sort_join: build 0/1/3000/2500003 rows, int64/int32/"
           "float64/float32 keys with -0.0/+0.0, NaN, +-inf, subnormals, "
           "nulls and dead rows, and an (int64, float64) key pair: b_perm, "
@@ -2001,8 +2190,7 @@ def check_sort_join(torch, join, device) -> float:
           "unmatched build rows exact; the one-sweep edge shapes (n = 1, "
           "a tile -1/0/+1, equal keys, the top byte alone, the flag alone, "
           "ties across tiles, sorted, reversed, nulls and dead rows "
-          "interleaved) exact; partition placement (8 and 300 partitions) "
-          "exact: ok")
+          "interleaved) exact: ok")
     return 0.0
 
 
@@ -5552,7 +5740,7 @@ def main() -> int:
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst)
         table += time_slice3_kernels(torch, join, groupby, device, launches,
-                                     worst)
+                                     worst, per_wrapper)
         table += time_slice4_kernels(torch, hashing, join, groupby, device,
                                      launches, worst)
         table += time_slice5_kernels(torch, sort_ops, window, device,

@@ -1,32 +1,30 @@
-// radix.cuh: the exclusive scan and the stable LSD radix passes that
-// csr_join.cu (the CSR build's slot order, shuffle partition placement),
-// sort_join.cu (the sorted build over 64-bit key images) and sort.cu (the
-// full device sort) share.
+// radix.cuh: the one-sweep stable LSD radix sort that sort.cu (the full
+// device sort), sort_join.cu (the sorted build over 64-bit key images) and
+// csr_join.cu (the CSR build's slot order, a shuffle exchange's placement
+// of rows by partition) share.
 //
-//   scan_i32    exclusive scan of int32 counts into int64 offsets, the
-//               total in out[n]: block scans, a scan of the block sums in
-//               one block, and a pass that adds them;
-//   radix_pass  one stable 8-bit pass of int32 values by the digit at
-//               `shift` of their keys (int32 or uint64): per-tile digit
-//               histograms, their scan (digit major), and a scatter that
-//               ranks equal digits in row order (__match_any_sync within a
-//               warp, per-warp counts in shared memory across warps, a
-//               running base across the tile's rounds), so the order is
-//               fixed without atomics.  vals_in == nullptr: the values are
-//               the row numbers.  csr_join.cu's.
 //   os_gather_hist, os_pass
-//               the one-sweep sort of sort.cu and sort_join.cu (Merrill and
-//               Garland's decoupled look-back as Adinets and Merrill's
-//               Onesweep, 2022, applies it to LSD radix sorting): 64-bit
-//               words, int32 values, ping-pong buffers whose current side
-//               is read on the device (state[p]).  Per word, ONE kernel
-//               gathers the word in the current order and counts every
-//               byte of it at once (os_gather_hist); then ONE kernel per
-//               byte (os_pass) reads that byte's 256 counts, exits at once
-//               when one digit holds all n rows (state[p + 1] = state[p]),
-//               and otherwise ranks, looks back and scatters its tile.  The
-//               host launches the same kernels whatever the data and never
-//               waits.
+//               Merrill and Garland's decoupled look-back as Adinets and
+//               Merrill's Onesweep (2022) applies it to LSD radix sorting:
+//               64-bit words, int32 values, ping-pong buffers whose current
+//               side is read on the device (state[p]).  Per word, ONE
+//               kernel gathers the word in the current order and counts
+//               every byte of it at once (os_gather_hist; with STORE false
+//               it only counts, for a first word whose first pass reads the
+//               source itself); then ONE kernel per byte (os_pass) reads
+//               that byte's 256 counts, exits at once when one digit holds
+//               all n rows (state[p + 1] = state[p]), and otherwise ranks,
+//               looks back and scatters its tile.  The host launches the
+//               same kernels whatever the data and never waits.
+//   FROM_SRC, OUT
+//               two forms of os_pass for a sort whose rows start in input
+//               order (csr_join.cu's): FROM_SRC, the first pass, reads each
+//               row's word from the source functor and its value is the row
+//               number, so no kernel materializes the word beforehand; OUT,
+//               the last pass, writes only the values, straight into the
+//               caller's permutation.  A skipped pass in either form still
+//               carries its input to its output (the source's words and row
+//               numbers to side 0, the current values to the permutation).
 //
 // The one-sweep pass, per 4,096-row tile (OS_TILE):
 //   * its tile number comes from an atomic counter, so a block only waits
@@ -80,241 +78,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SCAN_THREADS 512
-#define SCAN_ITEMS 8
-#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
-#define RS_THREADS 256
-#define RS_WARPS (RS_THREADS / 32)
-#define RS_ITEMS 16
-#define RS_TILE (RS_THREADS * RS_ITEMS)
-
-// ---------------------------------------------------------------------------
-// Exclusive scan: int32 in, int64 out (out[n] = total)
-// ---------------------------------------------------------------------------
-
-// Scans one SCAN_TILE tile per block; writes the tile's total to sums.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles(const int* __restrict__ in, long long* __restrict__ out,
-           long long n, long long* __restrict__ sums) {
-  __shared__ long long s_warp[SCAN_THREADS / 32];
-  const long long base = (long long)blockIdx.x * SCAN_TILE
-                         + (long long)threadIdx.x * SCAN_ITEMS;
-  long long vals[SCAN_ITEMS];
-  long long run = 0;
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long r = base + i;
-    vals[i] = run;
-    run += r < n ? in[r] : 0;
-  }
-  // block-wide exclusive scan of the per-thread totals
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  long long incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = lane < SCAN_THREADS / 32 ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long v = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += v;
-    }
-    if (lane < SCAN_THREADS / 32) s_warp[lane] = w;  // inclusive per warp
-  }
-  __syncthreads();
-  const long long offset =
-      (incl - run) + (warp > 0 ? s_warp[warp - 1] : 0);
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long r = base + i;
-    if (r < n) out[r] = offset + vals[i];
-  }
-  if (threadIdx.x == SCAN_THREADS - 1)
-    sums[blockIdx.x] = offset + run;
-}
-
-// One block: exclusive scan of the tile totals in place, chunk by chunk
-// with a carry; total[0] receives the grand total.
-__global__ void __launch_bounds__(1024)
-scan_sums(long long* __restrict__ sums, long long nb,
-          long long* __restrict__ total) {
-  __shared__ long long s_warp[32];
-  __shared__ long long s_carry;
-  if (threadIdx.x == 0) s_carry = 0;
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (long long c = 0; c < nb; c += 1024) {
-    const long long r = c + threadIdx.x;
-    const long long v = r < nb ? sums[r] : 0;
-    long long incl = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += u;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      long long w = s_warp[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const long long u = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += u;
-      }
-      s_warp[lane] = w;
-    }
-    __syncthreads();
-    const long long excl = s_carry + incl - v
-                           + (warp > 0 ? s_warp[warp - 1] : 0);
-    if (r < nb) sums[r] = excl;
-    __syncthreads();
-    if (threadIdx.x == 1023) s_carry = excl + v;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *total = s_carry;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_add(long long* __restrict__ out, long long n,
-         const long long* __restrict__ sums) {
-  const long long add = sums[blockIdx.x];
-  const long long base = (long long)blockIdx.x * SCAN_TILE;
-  for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
-    const long long r = base + i;
-    if (r < n) out[r] += add;
-  }
-}
-
-static long long scan_blocks(long long n) {
-  return n <= 0 ? 1 : (n + SCAN_TILE - 1) / SCAN_TILE;
-}
-
-// out[0..n) = exclusive scan of in, out[n] = total; sums: scan_blocks(n)
-// int64 words of scratch.
-static cudaError_t scan_i32(const int* in, long long* out, long long n,
-                            long long* sums, cudaStream_t s) {
-  const long long nb = scan_blocks(n);
-  scan_tiles<<<(unsigned)nb, SCAN_THREADS, 0, s>>>(in, out, n, sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_sums<<<1, 1024, 0, s>>>(sums, nb, out + n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_add<<<(unsigned)nb, SCAN_THREADS, 0, s>>>(out, n, sums);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Stable LSD radix pass: 8 bits of int32 or uint64 keys, int32 values
-// ---------------------------------------------------------------------------
-
-template <typename K>
-__device__ __forceinline__ int rs_digit(K key, int shift) {
-  return static_cast<int>((key >> shift) & static_cast<K>(255));
-}
-
-// hist[d * nblocks + b]: rows of tile b whose digit is d.
-template <typename K>
-__device__ __forceinline__ void rs_hist_tile(const K* __restrict__ keys,
-                                             long long n, int shift,
-                                             int* __restrict__ hist,
-                                             int nblocks) {
-  __shared__ int s[256];
-  s[threadIdx.x] = 0;
-  __syncthreads();
-  const long long tile = (long long)blockIdx.x * RS_TILE;
-  for (int i = 0; i < RS_ITEMS; ++i) {
-    const long long r = tile + (long long)i * RS_THREADS + threadIdx.x;
-    if (r < n) atomicAdd(&s[rs_digit(keys[r], shift)], 1);
-  }
-  __syncthreads();
-  hist[(long long)threadIdx.x * nblocks + blockIdx.x] = s[threadIdx.x];
-}
-
-template <typename K>
-__global__ void __launch_bounds__(RS_THREADS)
-rs_hist(const K* __restrict__ keys, long long n, int shift,
-        int* __restrict__ hist, int nblocks) {
-  rs_hist_tile<K>(keys, n, shift, hist, nblocks);
-}
-
-// Row r of tile b goes to offs[d * nblocks + b] + (rows before r in tile
-// b with digit d).
-template <typename K>
-__device__ __forceinline__ void rs_scatter_tile(
-    const K* __restrict__ keys_in, const int* __restrict__ vals_in,
-    K* __restrict__ keys_out, int* __restrict__ vals_out, long long n,
-    int shift, const long long* __restrict__ offs, int nblocks,
-    long long* s_base, int (*s_cnt)[257]) {
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  s_base[t] = offs[(long long)t * nblocks + blockIdx.x];
-  for (int w = 0; w < RS_WARPS; ++w) s_cnt[w][t] = 0;
-  if (t < RS_WARPS) s_cnt[t][256] = 0;
-  __syncthreads();
-  const long long tile = (long long)blockIdx.x * RS_TILE;
-  for (int i = 0; i < RS_ITEMS; ++i) {
-    const long long r = tile + (long long)i * RS_THREADS + t;
-    const bool ok = r < n;
-    const K k = ok ? keys_in[r] : static_cast<K>(0);
-    const int d = ok ? rs_digit(k, shift) : 256;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (lane == __ffs(peers) - 1) s_cnt[warp][d] = __popc(peers);
-    __syncthreads();
-    if (ok) {
-      long long pos = s_base[d] + rank;
-      for (int w = 0; w < warp; ++w) pos += s_cnt[w][d];
-      keys_out[pos] = k;
-      vals_out[pos] = vals_in == nullptr ? (int)r : vals_in[r];
-    }
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < RS_WARPS; ++w) {
-      total += s_cnt[w][t];
-      s_cnt[w][t] = 0;
-    }
-    s_base[t] += total;
-    __syncthreads();
-  }
-}
-
-template <typename K>
-__global__ void __launch_bounds__(RS_THREADS)
-rs_scatter(const K* __restrict__ keys_in, const int* __restrict__ vals_in,
-           K* __restrict__ keys_out, int* __restrict__ vals_out,
-           long long n, int shift, const long long* __restrict__ offs,
-           int nblocks) {
-  __shared__ long long s_base[256];
-  __shared__ int s_cnt[RS_WARPS][257];
-  rs_scatter_tile<K>(keys_in, vals_in, keys_out, vals_out, n, shift, offs,
-                     nblocks, s_base, s_cnt);
-}
-
-static long long sort_tiles(long long n) {
-  return n <= 0 ? 1 : (n + RS_TILE - 1) / RS_TILE;
-}
-
-// One pass over bits [shift, shift + 8) of n rows.  Scratch: hist
-// 256 * sort_tiles(n) int32, offs 256 * sort_tiles(n) + 1 int64, sums
-// scan_blocks(256 * sort_tiles(n)) int64.
-template <typename K>
-static cudaError_t radix_pass(const K* keys_in, const int* vals_in,
-                              K* keys_out, int* vals_out, long long n,
-                              int shift, int* hist, long long* offs,
-                              long long* sums, cudaStream_t s) {
-  const long long tiles = sort_tiles(n);
-  rs_hist<K><<<(unsigned)tiles, RS_THREADS, 0, s>>>(keys_in, n, shift, hist,
-                                                    (int)tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = scan_i32(hist, offs, 256 * tiles, sums, s);
-  if (err != cudaSuccess) return err;
-  rs_scatter<K><<<(unsigned)tiles, RS_THREADS, 0, s>>>(
-      keys_in, vals_in, keys_out, vals_out, n, shift, offs, (int)tiles);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // One-sweep stable LSD radix sort: 64-bit words, int32 values
 // ---------------------------------------------------------------------------
@@ -332,6 +95,13 @@ static cudaError_t radix_pass(const K* keys_in, const int* vals_in,
 #define OS_FLAG_AGG 1ull
 #define OS_FLAG_INC 2ull
 #define OS_COUNT_MASK ((1ull << 46) - 1ull)
+
+// The word source of sorts whose words are gathered beforehand.
+struct OSNoSrc {
+  __device__ __forceinline__ unsigned long long operator()(long long) const {
+    return 0ull;
+  }
+};
 
 // Ping-pong buffers whose current side is state[p] (0 or 1).
 struct OSBufs {
@@ -359,9 +129,11 @@ static long long os_tiles(long long n) {
 static size_t os_align(size_t bytes) { return (bytes + 255) & ~(size_t)255; }
 
 // Bytes of scratch for n rows and `passes` passes; with s != nullptr,
-// also carves *s from base.
-static size_t os_scratch(long long n, int passes, void* base, OSScratch* s) {
-  const size_t rows = (size_t)(n > 0 ? n : 1);
+// also carves *s from base.  bufs false: no ping-pong buffers (a sort of
+// one FROM_SRC and OUT pass moves no row through them).
+static size_t os_scratch(long long n, int passes, void* base, OSScratch* s,
+                         bool bufs = true) {
+  const size_t rows = bufs ? (size_t)(n > 0 ? n : 1) : 0;
   const size_t sizes[9] = {rows * 8, rows * 8, rows * 4, rows * 4,
                            (size_t)(passes + 1) * 4,
                            (size_t)passes * 256 * 4, (size_t)passes * 4,
@@ -409,8 +181,9 @@ static cudaError_t os_hist_blocks(long long n, int* blocks) {
 // keys[side][i] = src(row at position i) for the word whose first pass is
 // p, side = state[p]: the row is vals[side][i], or i for the first word of
 // a sort (which also writes vals[0][i] = i and state[0] = 0).  Counts each
-// of the word's nbytes bytes into hist[p + byte][digit].
-template <class Src>
+// of the word's nbytes bytes into hist[p + byte][digit].  STORE false:
+// only counts (and sets state[0] for a first word).
+template <class Src, bool STORE = true>
 __global__ void __launch_bounds__(OS_HIST_THREADS)
 os_gather_hist(const __grid_constant__ OSBufs b, int* __restrict__ state,
                int p, int first, const __grid_constant__ Src src, int nbytes,
@@ -419,7 +192,7 @@ os_gather_hist(const __grid_constant__ OSBufs b, int* __restrict__ state,
   const int t = threadIdx.x, lane = t & 31;
   for (int j = t; j < nbytes * 256; j += OS_HIST_THREADS) s_h[j] = 0;
   __syncthreads();
-  const int side = first ? 0 : state[p];
+  const int side = first || !STORE ? 0 : state[p];
   const int* __restrict__ perm = b.vals[side];
   unsigned long long* __restrict__ keys = b.keys[side];
   int* __restrict__ iota = b.vals[0];
@@ -439,7 +212,7 @@ os_gather_hist(const __grid_constant__ OSBufs b, int* __restrict__ state,
     for (int u = 0; u < OS_HIST_ROWS; ++u) {
       const long long i = c + (long long)u * OS_HIST_THREADS + t;
       const bool ok = i < n;
-      if (ok) {
+      if (STORE && ok) {
         keys[i] = w[u];
         if (first) iota[i] = (int)i;
       }
@@ -508,12 +281,16 @@ __device__ __forceinline__ unsigned long long os_look_back(
 
 // Pass p over bits [shift, shift + 8) of the current side: hist is this
 // pass's 256 counts, ctr its tile counter, epoch p + 1.  Threads t < 256
-// also stand for digit t.
+// also stand for digit t.  FROM_SRC: the pass is the sort's first, its
+// rows are src(r) with value r in input order; OUT: the sort's last, only
+// the values leave, into out.
+template <class Src, bool FROM_SRC, bool OUT>
 __global__ void __launch_bounds__(OS_THREADS, OS_MIN_BLOCKS)
 os_pass(const __grid_constant__ OSBufs b, int* __restrict__ state, int p,
         long long n, int shift, const unsigned* __restrict__ hist,
         unsigned* __restrict__ ctr, unsigned long long* status,
-        unsigned epoch) {
+        unsigned epoch, const __grid_constant__ Src src,
+        int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char os_smem[];
   unsigned long long* s_keys = reinterpret_cast<unsigned long long*>(os_smem);
   int* s_vals = reinterpret_cast<int*>(os_smem + (size_t)OS_TILE * 8);
@@ -530,9 +307,23 @@ os_pass(const __grid_constant__ OSBufs b, int* __restrict__ state, int p,
   const bool dig = t < 256;
   const unsigned count = dig ? hist[t] : 0u;
   const int skip = __syncthreads_or(dig && (long long)count == n);
-  const int side = state[p];
+  const int side = FROM_SRC ? 0 : state[p];
   if (blockIdx.x == 0 && t == 0) state[p + 1] = skip ? side : 1 - side;
-  if (skip) return;
+  if (skip) {
+    if (FROM_SRC || OUT) {  // block b carries tile b to the output
+      const long long r0 = (long long)blockIdx.x * OS_TILE;
+      const long long r1 = r0 + OS_TILE < n ? r0 + OS_TILE : n;
+      for (long long r = r0 + t; r < r1; r += OS_THREADS) {
+        if (OUT) {
+          out[r] = FROM_SRC ? (int)r : b.vals[side][r];
+        } else {
+          b.keys[0][r] = src(r);
+          b.vals[0][r] = (int)r;
+        }
+      }
+    }
+    return;
+  }
 
   const unsigned digit_start = os_scan(count, s_warp);
   if (t == 0) s_tile = atomicAdd(ctr, 1u);
@@ -549,8 +340,13 @@ os_pass(const __grid_constant__ OSBufs b, int* __restrict__ state, int p,
 #pragma unroll
   for (int i = 0; i < OS_ITEMS; ++i) {
     const long long r = row0 + i * 32;
-    k[i] = r < n ? kin[r] : 0ull;
-    v[i] = r < n ? vin[r] : 0;
+    if (FROM_SRC) {
+      k[i] = r < n ? src(r) : 0ull;
+      v[i] = (int)r;
+    } else {
+      k[i] = r < n ? kin[r] : 0ull;
+      v[i] = r < n ? vin[r] : 0;
+    }
   }
   // rank within the warp, rows in order: item i of lane l is row
   // row0 + 32 i (warp-major, then item, then lane).  The lanes of one
@@ -626,20 +422,52 @@ os_pass(const __grid_constant__ OSBufs b, int* __restrict__ state, int p,
   for (int j = t; j < rows; j += OS_THREADS) {
     const unsigned long long key = s_keys[j];
     const long long g = s_out[(int)((key >> shift) & 255ull)] + j;
-    kout[g] = key;
-    vout[g] = s_vals[j];
+    if (OUT) {
+      out[g] = s_vals[j];
+    } else {
+      kout[g] = key;
+      vout[g] = s_vals[j];
+    }
   }
+}
+
+template <class Src, bool FROM_SRC, bool OUT>
+static cudaError_t os_pass_run(const OSScratch& s, int p, long long n,
+                               int shift, cudaStream_t st, const Src& src,
+                               int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      os_pass<Src, FROM_SRC, OUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, OS_SMEM);
+  if (err != cudaSuccess) return err;
+  os_pass<Src, FROM_SRC, OUT><<<(unsigned)os_tiles(n), OS_THREADS, OS_SMEM,
+                                st>>>(
+      s.b, s.state, p, n, shift, s.hist + (size_t)p * 256, s.ctr + p,
+      s.status, (unsigned)(p + 1), src, out);
+  return cudaGetLastError();
 }
 
 // Pass p over bits [shift, shift + 8) of n rows; its counts are in
 // s.hist[p], filled by the word's os_gather_hist.
 static cudaError_t os_pass_launch(const OSScratch& s, int p, long long n,
                                   int shift, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      os_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, OS_SMEM);
-  if (err != cudaSuccess) return err;
-  os_pass<<<(unsigned)os_tiles(n), OS_THREADS, OS_SMEM, st>>>(
-      s.b, s.state, p, n, shift, s.hist + (size_t)p * 256, s.ctr + p,
-      s.status, (unsigned)(p + 1));
-  return cudaGetLastError();
+  return os_pass_run<OSNoSrc, false, false>(s, p, n, shift, st, OSNoSrc(),
+                                            nullptr);
+}
+
+// The same for a sort that starts from src in input order: from_src for
+// its first pass, out (non-null) for its last.
+template <class Src>
+static cudaError_t os_pass_launch_src(const OSScratch& s, int p, long long n,
+                                      int shift, cudaStream_t st,
+                                      const Src& src, bool from_src,
+                                      int* out) {
+  if (from_src)
+    return out != nullptr
+               ? os_pass_run<Src, true, true>(s, p, n, shift, st, src, out)
+               : os_pass_run<Src, true, false>(s, p, n, shift, st, src,
+                                               nullptr);
+  return out != nullptr
+             ? os_pass_run<Src, false, true>(s, p, n, shift, st, src, out)
+             : os_pass_run<Src, false, false>(s, p, n, shift, st, src,
+                                              nullptr);
 }

@@ -43,8 +43,8 @@ _D = ctypes.c_double
 # per kernel source: its C entry points and their ctypes argument types
 _SIGNATURES = {
     "masked_reduce": {
-        # active, n, k, data[], valid[], ops[], is_f64[], partials, nblocks,
-        # acc_f, acc_i, acc_h, stream
+        # active, n, k, data[], valid[], ops[], is_f64[], scratch,
+        # scratch_blocks, acc_f, acc_i, acc_h, stream
         "masked_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                           _P],
     },
@@ -66,22 +66,25 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P],
     },
     "csr_join": {
-        # keys, elem, key_valid, active, n, kmin, D, slots, counts, stream
-        "csr_slots": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P],
+        # n, D
+        "csr_build_scratch": [_L, _L],
+        # keys, elem, key_valid, active, n, kmin, D, starts, b_perm,
+        # scratch, scratch_bytes, stream
+        "csr_build": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P, _L, _P],
         # in, n, out, sums, stream
         "csr_scan": [_P, _L, _P, _P, _P],
-        # keys_in, vals_in, keys_out, vals_out, n, shift, hist, offs, sums,
-        # stream
-        "csr_sort_pass": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _P],
-        # keys, elem, key_valid, active, n, kmin, D, counts, starts, mode,
-        # lo, cnt, sel, stream
-        "csr_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _I, _P, _P, _P,
-                      _P],
-        # offsets, lo, b_perm, n, pi, bi, stream
-        "csr_expand": [_P, _P, _P, _L, _P, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, starts, mode, lo, cnt,
+        # sel, stream
+        "csr_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _I, _P, _P, _P, _P],
+        # offsets, lo, b_perm, n, total, pi, bi, stream
+        "csr_expand": [_P, _P, _P, _L, _L, _P, _P, _P],
         # idx, idx_elem, n, ncols, data[], valid[], elems[], out[],
         # out_valid[], stream
         "csr_gather": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P],
+        # n, nparts
+        "partition_perm_scratch": [_L, _L],
+        # pids, n, nparts, perm, scratch, scratch_bytes, stream
+        "partition_perm": [_P, _L, _L, _P, _P, _L, _P],
     },
     "hash_agg": {
         # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
@@ -244,7 +247,8 @@ _SIGNATURES = {
 
 # entries that return other than a CUDA error code
 _RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
-             "topk_scratch": _L}
+             "topk_scratch": _L, "csr_build_scratch": _L,
+             "partition_perm_scratch": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

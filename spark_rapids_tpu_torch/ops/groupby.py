@@ -57,8 +57,7 @@ _I64_MAX = torch.iinfo(torch.int64).max
 _I64_MIN = torch.iinfo(torch.int64).min
 _OPCODE = {"sum": 0, "min": 1, "max": 2, "count": 3, "first": 4, "last": 5}
 ORDERED_OPS = ("first", "last", "first_valid", "last_valid")
-MR_THREADS = 256        # csrc/masked_reduce.cu MR_THREADS
-MR_MAX_BLOCKS = 1024    # first-pass grid size cap (scratch = blocks x k)
+MR_MAX_BLOCKS = 4096    # the scratch's partials: blocks x MR_MAX_COLS
 MR_MAX_COLS = 16        # csrc/masked_reduce.cu MR_MAX_COLS
 GA_MAX_KEYS = 8         # csrc/grid_agg.cu GA_MAX_KEYS
 GA_MAX_COLS = 32        # csrc/grid_agg.cu GA_MAX_COLS
@@ -117,10 +116,8 @@ def ungrouped_reduce(contributions: List[Tuple[Value, str]],
     for (d, v), op in contributions:
         op, v = kernel_op("count" if d is None else op, v)
         cols.append((_column(d, n), _column(v, n), op))
-    if acc_h is None:
-        if any(op in ("first", "last") for _, _, op in cols):
-            raise ValueError("first/last need the accumulator's has words")
-        acc_h = torch.zeros_like(acc_i)
+    if acc_h is None and any(op in ("first", "last") for _, _, op in cols):
+        raise ValueError("first/last need the accumulator's has words")
     if active.is_cuda:
         masked_reduce(cols, active, acc_f, acc_i, acc_h)
     else:
@@ -189,24 +186,40 @@ def _check_column(t: torch.Tensor, n: int, dtypes, what: str) -> None:
                          f"{t.device}")
 
 
+_MR_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _mr_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's partials and ticket for one stream, made (zeroed) once
+    per process: the kernel leaves the ticket at 0 for the next call."""
+    key = (device, stream)
+    if key not in _MR_SCRATCH:
+        _MR_SCRATCH[key] = torch.zeros(MR_MAX_BLOCKS * MR_MAX_COLS + 1,
+                                       dtype=torch.int64, device=device)
+    return _MR_SCRATCH[key]
+
+
 def masked_reduce(cols, active: torch.Tensor, acc_f: torch.Tensor,
                   acc_i: torch.Tensor,
                   acc_h: Optional[torch.Tensor] = None) -> None:
     """Launch ``csrc/masked_reduce.cu`` on CUDA tensors (same arguments as
-    :func:`masked_reduce_plain`).  Columns go in chunks of MR_MAX_COLS,
-    one launch (two CUDA kernels) per chunk."""
+    :func:`masked_reduce_plain`; ``acc_h`` may be None when no column is
+    first or last).  Columns go in chunks of MR_MAX_COLS, one kernel per
+    chunk."""
     n = active.shape[0]
     _check_column(active, n, (torch.bool,), "active")
-    if acc_h is None:
-        acc_h = torch.zeros_like(acc_i)
+    picks = any(op in ("first", "last") for _, _, op in cols)
+    if picks and acc_h is None:
+        raise ValueError("first/last need the accumulator's has words")
     for acc, dtype in ((acc_f, torch.float64), (acc_i, torch.int64),
                        (acc_h, torch.int64)):
-        _check_column(acc, len(cols), (dtype,), "accumulator")
+        if acc is not None:
+            _check_column(acc, len(cols), (dtype,), "accumulator")
     if n == 0:
         return  # nothing to reduce (the plain version returns too)
     lib = kernels.load("masked_reduce")
-    nblocks = min(max(1, -(-n // MR_THREADS)), MR_MAX_BLOCKS)
     stream = torch.cuda.current_stream(active.device).cuda_stream
+    scratch = _mr_scratch(active.device, stream)
     for lo in range(0, len(cols), MR_MAX_COLS):
         chunk = cols[lo:lo + MR_MAX_COLS]
         data, valid, ops, is_f64 = [], [], [], []
@@ -219,15 +232,12 @@ def masked_reduce(cols, active: torch.Tensor, acc_f: torch.Tensor,
             valid.append(None if v is None else v.data_ptr())
             ops.append(_OPCODE[op])
             is_f64.append(int(d is not None and d.dtype == torch.float64))
-        k = len(chunk)
-        partials = torch.empty(nblocks * k, dtype=torch.int64,
-                               device=active.device)
         rc = lib.masked_reduce(
-            active.data_ptr(), n, k, kernels.pointer_array(data),
+            active.data_ptr(), n, len(chunk), kernels.pointer_array(data),
             kernels.pointer_array(valid), kernels.int_array(ops),
-            kernels.int_array(is_f64), partials.data_ptr(), nblocks,
+            kernels.int_array(is_f64), scratch.data_ptr(), MR_MAX_BLOCKS,
             acc_f[lo:].data_ptr(), acc_i[lo:].data_ptr(),
-            acc_h[lo:].data_ptr(), stream)
+            None if acc_h is None else acc_h[lo:].data_ptr(), stream)
         kernels.check_launch(lib, "masked_reduce", rc)
         masked_reduce.launches += 1
         if any(op in ("first", "last") for _, _, op in chunk):

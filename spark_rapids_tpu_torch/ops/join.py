@@ -65,7 +65,6 @@ Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 DJ_MAX_COLS = 16            # csrc/dense_join.cu DJ_MAX_COLS
 CJ_MAX_COLS = 16            # csrc/csr_join.cu CJ_MAX_COLS
 SCAN_TILE = 4096            # csrc/csr_join.cu SCAN_TILE
-RS_TILE = 4096              # csrc/csr_join.cu RS_TILE
 JOIN_MODES = {"inner": 0, "semi": 1, "anti": 2, "left": 3}
 _I64_MAX = torch.iinfo(torch.int64).max
 _I64_MIN = torch.iinfo(torch.int64).min
@@ -290,17 +289,17 @@ dense_join_probe.launches_by_how = dict.fromkeys(JOIN_MODES, 0)
 
 
 # ---------------------------------------------------------------------------------
-# CSR build: per-slot counts and starts, and the build rows grouped by slot
+# CSR build: per-slot starts, and the build rows grouped by slot
 # ---------------------------------------------------------------------------------
 
 def csr_build(keys: torch.Tensor, valid: Optional[torch.Tensor],
               active: Optional[torch.Tensor], kmin: int, D: int
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(int32 [D] counts of live valid keys per slot key - kmin, int64
-    [D + 1] their exclusive scan (starts; the last entry is the total),
-    int32 [n] b_perm: the build rows in slot order, each slot's rows in
-    build order, the rows with no slot last).  Keys must lie in
-    [kmin, kmin + D)."""
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64 [D + 1] starts: the first position in b_perm of each slot
+    key - kmin, so slot s holds starts[s + 1] - starts[s] live valid keys
+    and the last entry is their total; int32 [n] b_perm: the build rows in
+    slot order, each slot's rows in build order, the rows with no slot
+    last).  Keys must lie in [kmin, kmin + D)."""
     run = csr_build_kernel if keys.is_cuda else csr_build_plain
     return run(keys, valid, active, kmin, D)
 
@@ -315,11 +314,11 @@ def _slots_plain(keys, valid, active, kmin: int, D: int) -> torch.Tensor:
 def csr_build_plain(keys, valid, active, kmin: int, D: int):
     """Plain PyTorch version of ``csr_build_kernel``."""
     slots = _slots_plain(keys, valid, active, kmin, D)
-    counts = torch.bincount(slots, minlength=D + 1)[:D].to(torch.int32)
+    counts = torch.bincount(slots, minlength=D + 1)[:D]
     starts = torch.zeros(D + 1, dtype=torch.int64, device=keys.device)
     starts[1:] = torch.cumsum(counts, 0)
     b_perm = torch.sort(slots, stable=True).indices.to(torch.int32)
-    return counts, starts, b_perm
+    return starts, b_perm
 
 
 def _scan(counts: torch.Tensor, lib) -> torch.Tensor:
@@ -335,44 +334,28 @@ def _scan(counts: torch.Tensor, lib) -> torch.Tensor:
 
 
 def csr_build_kernel(keys, valid, active, kmin: int, D: int):
-    """Launch the build phase of ``csrc/csr_join.cu``: slots and counts,
-    the scan of the counts, and the radix passes of the stable sort."""
+    """Launch ``csr_build`` of ``csrc/csr_join.cu``: the stable one-sweep
+    sort of the rows by slot and the starts of every slot."""
     n = keys.shape[0]
     _check(keys, n, _KEY_TYPES, "join keys")
     _check(valid, n, (torch.bool,), "key valid")
     _check(active, n, (torch.bool,), "active")
-    if n >= 2**31 - 1 or D >= 2**31 - 1:
+    if n >= 2**31 - 1 or not 1 <= D < 2**31 - 1:
         raise ValueError(f"the CSR join holds int32 rows and slots; the build "
                          f"side has {n} rows over {D} slots")
     dev = keys.device
     lib = kernels.load("csr_join")
-    stream = _stream(keys)
-    slots = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(D, dtype=torch.int32, device=dev)
-    rc = lib.csr_slots(keys.data_ptr(), keys.element_size(), _ptr(valid),
-                       _ptr(active), n, kmin, D, slots.data_ptr(),
-                       counts.data_ptr(), stream)
-    kernels.check_launch(lib, "csr_slots", rc)
-    starts = _scan(counts, lib)
-    tiles = max(1, -(-n // RS_TILE))
-    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    offs = torch.empty(256 * tiles + 1, dtype=torch.int64, device=dev)
-    sums = torch.empty(max(1, -(-256 * tiles // SCAN_TILE)),
-                       dtype=torch.int64, device=dev)
-    keys_b = torch.empty_like(slots)
-    vals_a = torch.empty_like(slots)
-    vals_b = torch.empty_like(slots)
-    k_in, v_in, k_out, v_out = slots, None, keys_b, vals_a
-    for shift in range(0, max(D.bit_length(), 1), 8):
-        rc = lib.csr_sort_pass(k_in.data_ptr(), _ptr(v_in), k_out.data_ptr(),
-                               v_out.data_ptr(), n, shift, hist.data_ptr(),
-                               offs.data_ptr(), sums.data_ptr(), stream)
-        kernels.check_launch(lib, "csr_sort_pass", rc)
-        k_in, v_in = k_out, v_out
-        k_out = slots if k_in is keys_b else keys_b
-        v_out = vals_b if v_in is vals_a else vals_a
+    starts = torch.empty(D + 1, dtype=torch.int64, device=dev)
+    b_perm = torch.empty(n, dtype=torch.int32, device=dev)
+    nbytes = lib.csr_build_scratch(n, D)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rc = lib.csr_build(keys.data_ptr(), keys.element_size(), _ptr(valid),
+                       _ptr(active), n, kmin, D, starts.data_ptr(),
+                       b_perm.data_ptr(), scratch.data_ptr(), nbytes,
+                       _stream(keys))
+    kernels.check_launch(lib, "csr_build", rc)
     csr_build_kernel.launches += 1
-    return counts, starts, v_in
+    return starts, b_perm
 
 
 csr_build_kernel.launches = 0
@@ -384,24 +367,23 @@ csr_build_kernel.launches = 0
 
 def csr_probe(keys: torch.Tensor, valid: Optional[torch.Tensor],
               active: Optional[torch.Tensor], kmin: int,
-              counts: torch.Tensor, starts: torch.Tensor, how: str):
+              starts: torch.Tensor, how: str):
     """Semi and anti: the bool [n] selection.  Inner and left: (int32 [n]
     lo, each row's first position in b_perm, -1 without a match; int64
     [n + 1] offsets of each row's output rows, the total last)."""
     run = csr_probe_kernel if keys.is_cuda else csr_probe_plain
-    return run(keys, valid, active, kmin, counts, starts, how)
+    return run(keys, valid, active, kmin, starts, how)
 
 
-def csr_probe_plain(keys, valid, active, kmin: int, counts, starts,
-                    how: str):
+def csr_probe_plain(keys, valid, active, kmin: int, starts, how: str):
     """Plain PyTorch version of ``csr_probe_kernel``."""
     mode = _mode(how)
-    n, D = keys.shape[0], counts.shape[0]
+    n, D = keys.shape[0], starts.shape[0] - 1
     row_live = live_mask(n, None, active, keys.device)
     slots = _slots_plain(keys, valid, active, kmin, D)
     found = slots < D
     safe = slots.clamp(max=D - 1)
-    matches = torch.where(found, counts[safe].to(torch.int64), 0)
+    matches = torch.where(found, starts[safe + 1] - starts[safe], 0)
     if mode == 1:
         return matches > 0
     if mode == 2:
@@ -414,16 +396,14 @@ def csr_probe_plain(keys, valid, active, kmin: int, counts, starts,
     return lo, offsets
 
 
-def csr_probe_kernel(keys, valid, active, kmin: int, counts, starts,
-                     how: str):
+def csr_probe_kernel(keys, valid, active, kmin: int, starts, how: str):
     """Launch ``csr_probe`` of ``csrc/csr_join.cu`` (and, for inner and
     left, ``csr_scan`` of the output counts)."""
     mode = _mode(how)
-    n, D = keys.shape[0], counts.shape[0]
+    n, D = keys.shape[0], starts.shape[0] - 1
     _check(keys, n, _KEY_TYPES, "join keys")
     _check(valid, n, (torch.bool,), "key valid")
     _check(active, n, (torch.bool,), "active")
-    _check(counts, D, (torch.int32,), "counts")
     _check(starts, D + 1, (torch.int64,), "starts")
     dev = keys.device
     lib = kernels.load("csr_join")
@@ -434,9 +414,8 @@ def csr_probe_kernel(keys, valid, active, kmin: int, counts, starts,
         lo = torch.empty(n, dtype=torch.int32, device=dev)
         cnt = torch.empty(n, dtype=torch.int32, device=dev)
     rc = lib.csr_probe(keys.data_ptr(), keys.element_size(), _ptr(valid),
-                       _ptr(active), n, kmin, D, counts.data_ptr(),
-                       starts.data_ptr(), mode, _ptr(lo), _ptr(cnt),
-                       _ptr(sel), _stream(keys))
+                       _ptr(active), n, kmin, D, starts.data_ptr(), mode,
+                       _ptr(lo), _ptr(cnt), _ptr(sel), _stream(keys))
     kernels.check_launch(lib, "csr_probe", rc)
     csr_probe_kernel.launches += 1
     if sel is not None:
@@ -485,7 +464,7 @@ def csr_expand_kernel(offsets, lo, b_perm, total: int):
     bi = torch.empty(total, dtype=torch.int32, device=lo.device)
     lib = kernels.load("csr_join")
     rc = lib.csr_expand(offsets.data_ptr(), lo.data_ptr(), b_perm.data_ptr(),
-                        n, pi.data_ptr(), bi.data_ptr(), _stream(lo))
+                        n, total, pi.data_ptr(), bi.data_ptr(), _stream(lo))
     kernels.check_launch(lib, "csr_expand", rc)
     csr_expand_kernel.launches += 1
     return pi, bi
@@ -864,36 +843,24 @@ def partition_perm_plain(pids, nparts: int) -> torch.Tensor:
 
 
 def partition_perm_kernel(pids, nparts: int) -> torch.Tensor:
-    """Launch ``csr_sort_pass`` of ``csrc/csr_join.cu`` once per 8 bits of
-    ``nparts`` (one pass for up to 255 partitions), the partition id being
-    the digit."""
+    """Launch ``partition_perm`` of ``csrc/csr_join.cu``: the one-sweep
+    pass once per byte of ``nparts`` (one pass up to 255 partitions), the
+    partition id being the digit."""
     n = pids.shape[0]
     _check(pids, n, (torch.int32,), "partition ids")
-    if n >= 2**31 - 1 or not 0 <= nparts < 2**24:
-        raise ValueError(f"partition placement takes int32 rows and fewer "
-                         f"than 2^24 partitions; got {n} rows, {nparts}")
+    if n >= 2**31 - 1 or not 0 <= nparts < 2**31 - 1:
+        raise ValueError(f"partition placement takes int32 rows and ids; "
+                         f"got {n} rows, {nparts} partitions")
     dev = pids.device
     lib = kernels.load("csr_join")
-    tiles = max(1, -(-n // RS_TILE))
-    hist = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    offs = torch.empty(256 * tiles + 1, dtype=torch.int64, device=dev)
-    sums = torch.empty(max(1, -(-256 * tiles // SCAN_TILE)),
-                       dtype=torch.int64, device=dev)
-    keys_b = torch.empty_like(pids)
-    vals_a = torch.empty_like(pids)
-    vals_b = torch.empty_like(pids)
-    k_in, v_in, k_out, v_out = pids, None, keys_b, vals_a
-    spare_k = torch.empty_like(pids)
-    for shift in range(0, max(nparts.bit_length(), 1), 8):
-        rc = lib.csr_sort_pass(k_in.data_ptr(), _ptr(v_in), k_out.data_ptr(),
-                               v_out.data_ptr(), n, shift, hist.data_ptr(),
-                               offs.data_ptr(), sums.data_ptr(), _stream(pids))
-        kernels.check_launch(lib, "csr_sort_pass", rc)
-        k_in, v_in = k_out, v_out
-        k_out = spare_k if k_in is keys_b else keys_b
-        v_out = vals_b if v_in is vals_a else vals_a
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    nbytes = lib.partition_perm_scratch(n, nparts)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rc = lib.partition_perm(pids.data_ptr(), n, nparts, perm.data_ptr(),
+                            scratch.data_ptr(), nbytes, _stream(pids))
+    kernels.check_launch(lib, "partition_perm", rc)
     partition_perm_kernel.launches += 1
-    return v_in
+    return perm
 
 
 partition_perm_kernel.launches = 0

@@ -8,8 +8,8 @@ partitions stay on the device: every staged batch gets its rows'
 Spark-exact murmur3 partition ids and per-partition counts from
 ``csrc/hashing.cu`` (``ops/hashing.partition_ids``), one fetch reads the
 counts of the whole exchange, and one stable placement of the staged rows
-by partition id (``ops/join.partition_perm``, a radix pass of
-``csrc/csr_join.cu`` with the id as the digit) makes each partition one
+by partition id (``ops/join.partition_perm``, the one-sweep radix pass
+of ``csrc/csr_join.cu`` with the id as the digit) makes each partition one
 contiguous run of row numbers, in (batch, row) order, which a gather
 (``csrc/csr_join.cu csr_gather``) turns into the partition's batch.  The
 reference instead compacts the concatenation of every staged batch once per

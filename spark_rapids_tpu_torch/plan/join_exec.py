@@ -826,20 +826,19 @@ class BroadcastJoinExec(_EquiJoin):
                 probe.num_rows, sel), device)
 
     def _csr(self, ctx, m, build, bkey, bvalid, kmin: int, D: int):
-        """Repeated build keys: counts, starts and the stable build
+        """Repeated build keys: the slots' starts and the stable build
         permutation once; per probe batch a selection (semi, anti) or the
         gather maps of its output rows (inner, left: one fetch of the
         output size)."""
         device = ctx.device
         with m.time("buildTime"):
-            counts, starts, b_perm = join.csr_build(bkey, bvalid, build.sel,
-                                                    kmin, D)
+            starts, b_perm = join.csr_build(bkey, bvalid, build.sel, kmin, D)
         for probe in self._probe_batches(ctx):
             with m.time("opTime"):
                 pkey, pvalid = self._dense_key(1 - self.build_side, probe,
                                                device)
-                got = join.csr_probe(pkey, pvalid, probe.sel, kmin, counts,
-                                     starts, "semi" if self.how == "existence"
+                got = join.csr_probe(pkey, pvalid, probe.sel, kmin, starts,
+                                     "semi" if self.how == "existence"
                                      else self.how)
             m.add("numOutputBatches", 1)
             if self.how in ("semi", "anti", "existence"):

@@ -524,7 +524,9 @@ class AggregateExec(TpuExec):
         m = ctx.metric_set(self.op_id)
         specs = [(op, dt == T.FLOAT64) for dt, op in self._buffers()]
         acc_f, acc_i = groupby.init_scalars(specs, ctx.device)
-        acc_h = torch.zeros_like(acc_i)
+        # the FIRST/LAST slots' "some batch had a row" words, once a query
+        acc_h = torch.zeros_like(acc_i) if any(
+            op in groupby.ORDERED_OPS for op, _ in specs) else None
         for b in batches:
             with m.time("opTime"):
                 active = b.active_mask(ctx.device)

@@ -113,6 +113,63 @@ def test_ungrouped_reduce_accumulates_across_batches():
         assert _same(got, whole[j], cols[j][2]), (j, got, whole[j])
 
 
+def _at_offset(a, offset):
+    """``a`` as a torch view ``offset`` elements into a larger tensor (a
+    data_ptr off the 16-byte alignment the kernel's wide loads want)."""
+    if a is None:
+        return None
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    y = torch.zeros(t.shape[0] + offset, dtype=t.dtype)
+    y[offset:] = t
+    return y[offset:]
+
+
+def _edge_batches(shape):
+    """The batches of one of masked_reduce.cu's risky shapes, each as
+    (cols, active)."""
+    if shape in ("n15", "n16", "n17"):
+        return [_ungrouped_case(int(shape[1:]), 40)]
+    cols, active = _ungrouped_case(4000, 41)
+    if shape == "one_word":  # every live row in rows 32..47
+        return [(cols, np.arange(4000) // 16 == 2)]
+    if shape == "empty_between":
+        empty = [(None if d is None else d[:0], None if v is None else v[:0],
+                  op) for d, v, op in cols]
+        return [_ungrouped_case(3001, 42), (empty, active[:0]),
+                (cols, active)]
+    dead, _ = _ungrouped_case(1000, 43, all_inactive=True)
+    return [(dead, np.zeros(1000, bool)), (cols, active)]  # all_dead
+
+
+@pytest.mark.parametrize("shape", ["n15", "n16", "n17", "one_word",
+                                   "empty_between", "all_dead"])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_ungrouped_reduce_edge_batches_match_reference(shape, offset):
+    """The shapes the kernel handles apart (a partial 16-row unit, a live
+    word, an empty and an all-dead batch, every tensor a view at an odd
+    storage offset), batch by batch into one accumulator, against the
+    reference over the batches' rows together."""
+    batches = _edge_batches(shape)
+    cols = [(None if d is None else np.concatenate([b[0][j][0]
+                                                   for b in batches]),
+             None if v is None else np.concatenate([b[0][j][1]
+                                                   for b in batches]), op)
+            for j, (d, v, op) in enumerate(batches[-1][0])]
+    active = np.concatenate([a for _, a in batches])
+    want = _reference_scalars(cols, active)
+    specs = [(op, d is not None and d.dtype == np.float64)
+             for d, _, op in cols]
+    acc_f, acc_i = tg.init_scalars(specs, CPU)
+    for bcols, bactive in batches:
+        tg.ungrouped_reduce(
+            [((_at_offset(d, offset + 1), _at_offset(v, offset + 2)), op)
+             for d, v, op in bcols], _at_offset(bactive, offset), acc_f,
+            acc_i)
+    for j, ((_, _, op), (_, f)) in enumerate(zip(cols, specs)):
+        got = (acc_f if f else acc_i)[j].item()
+        assert _same(want[j], got, op), (j, op, want[j], got)
+
+
 def _grid_case(n, dims, seed, all_inactive=False):
     rng = np.random.default_rng(seed)
     keys = [(rng.integers(0, d, n).astype(np.int32), rng.random(n) < 0.85)

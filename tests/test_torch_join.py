@@ -249,7 +249,6 @@ def test_join_kernel_wrappers_refuse_cpu_tensors():
         tj.csr_build_kernel(keys, None, None, 0, 1)
     with pytest.raises(ValueError, match="CUDA"):
         tj.csr_probe_kernel(keys, None, None, 0,
-                            torch.zeros(1, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int64), "semi")
     with pytest.raises(ValueError, match="CUDA"):
         tj.csr_expand_kernel(torch.zeros(5, dtype=torch.int64),
@@ -339,17 +338,36 @@ def _repeated(seed: int, n_build: int = 3000, n_probe: int = 4000,
 
 
 @pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
-@pytest.mark.parametrize("case", ["repeated", "empty_build", "no_match"])
+@pytest.mark.parametrize("case", ["repeated", "empty_build", "no_match",
+                                  "one_key", "slots255", "slots256",
+                                  "slots65536"])
 def test_csr_join_matches_reference(sessions, how, case):
     """Repeated build keys take the CSR path in both packages: counts and
     starts over the key domain, a stable build permutation, and for inner
     and left the expansion into gather maps.  Null keys on both sides, a
     probe-side filter, an empty build side and a probe side that matches
-    nothing; string columns on both sides ride as dictionary codes."""
+    nothing; string columns on both sides ride as dictionary codes.  And
+    the build's sort at its edges: one key in every build row (each hit
+    expands to all of them), and key domains of 255, 256 and 65,536 slots
+    (the last byte of a one-byte sort, a second byte, a third byte that
+    only the rows with no slot set)."""
     build, probe = _repeated(seed=16)
     if case == "no_match":
         probe["p_key"] = np.where(probe["p_key"] == None, None,  # noqa: E711
                                   10_000 + np.arange(len(probe["p_key"])))
+    if case == "one_key":
+        build["b_key"] = np.where(build["b_key"] == None, None,  # noqa: E711
+                                  130).astype(object)
+    if case.startswith("slots"):
+        D = int(case[5:])
+        rng = np.random.default_rng(D)
+        bk = rng.integers(100, 100 + D, len(build["b_key"])).astype(object)
+        bk[rng.random(len(bk)) < 0.05] = None
+        bk[:4] = [100, 100 + D - 1, 100, 100 + D - 1]  # the domain's ends
+        build["b_key"] = bk
+        pk = rng.integers(90, 100 + D + 10, len(probe["p_key"]))
+        probe["p_key"] = np.where(probe["p_key"] == None, None,  # noqa: E711
+                                  pk).astype(object)
 
     def q(F, b, p):
         if case == "empty_build":
@@ -361,7 +379,7 @@ def test_csr_join_matches_reference(sessions, how, case):
     assert sorted(trows, key=_key) == sorted(jrows, key=_key)
     assert texp.splitlines()[2:] == jexp.splitlines()[2:]
     assert tf <= jf
-    if case == "repeated":
+    if case not in ("empty_build", "no_match"):
         assert trows
         _check_path(sessions[1], "joinCsrPath")
 
@@ -408,24 +426,58 @@ def test_csr_phases_plain_versions():
     (probe row, build row) pair, -1 for a left join's miss."""
     keys = torch.tensor([7, 5, 7, 9, 7, 5], dtype=torch.int64)
     valid = torch.tensor([True, True, True, True, False, True])
-    counts, starts, b_perm = tj.csr_build(keys, valid, None, 5, 5)
-    assert counts.tolist() == [2, 0, 2, 0, 1]
+    starts, b_perm = tj.csr_build(keys, valid, None, 5, 5)
+    assert starts.diff().tolist() == [2, 0, 2, 0, 1]
     assert starts.tolist() == [0, 2, 2, 4, 4, 5]
     assert b_perm[:5].tolist() == [1, 5, 0, 2, 3]
     probe = torch.tensor([7, 8, 5, 11], dtype=torch.int32)
     active = torch.tensor([True, True, True, False])
-    lo, offsets = tj.csr_probe(probe, None, active, 5, counts, starts,
-                               "left")
+    lo, offsets = tj.csr_probe(probe, None, active, 5, starts, "left")
     assert lo.tolist() == [2, -1, 0, -1]
     assert offsets.tolist() == [0, 2, 3, 5, 5]
     pi, bi = tj.csr_expand(offsets, lo, b_perm, 5)
     assert pi.tolist() == [0, 0, 1, 2, 2]
     assert bi.tolist() == [0, 2, -1, 1, 5]
-    assert tj.csr_probe(probe, None, active, 5, counts, starts,
+    assert tj.csr_probe(probe, None, active, 5, starts,
                         "anti").tolist() == [False, True, False, False]
     out = tj.gather_rows(bi, [(keys, valid)], nullable=True)
     assert out[0][0].tolist() == [7, 7, 0, 5, 5]
     assert out[0][1].tolist() == [True, True, False, True, True]
+
+
+@pytest.mark.parametrize("nparts", [1, 2, 64, 256, 300])
+def test_partition_perm_plain_keeps_input_order(nparts):
+    """The placement by partition id (the id nparts: a dead row) is
+    numpy's stable argsort: each partition's rows one run, in input
+    order."""
+    rng = np.random.default_rng(nparts)
+    pids = rng.integers(0, nparts + 1, 5000).astype(np.int32)
+    perm = tj.partition_perm(torch.from_numpy(pids), nparts).numpy()
+    assert perm.dtype == np.int32
+    assert (perm == np.argsort(pids, kind="stable")).all()
+    assert (np.diff(pids[perm]) >= 0).all()
+    for p in np.unique(pids):
+        rows = perm[pids[perm] == p]
+        assert (np.diff(rows) > 0).all()
+
+
+def test_csr_build_plain_at_byte_boundaries():
+    """The CSR build's starts and permutation against numpy at slot
+    counts around each byte boundary of the sort, with dead, null and
+    out-of-domain rows (slot D, last)."""
+    rng = np.random.default_rng(20)
+    for D in (1, 255, 256, 257, 65_535, 65_536, 65_537):
+        n = 3000
+        keys = rng.integers(-5, D + 5, n).astype(np.int64)
+        valid, active = rng.random(n) < 0.9, rng.random(n) < 0.8
+        starts, b_perm = tj.csr_build(torch.from_numpy(keys),
+                                      torch.from_numpy(valid),
+                                      torch.from_numpy(active), 0, D)
+        ok = valid & active & (keys >= 0) & (keys < D)
+        slot = np.where(ok, keys, D)
+        assert (b_perm.numpy() == np.argsort(slot, kind="stable")).all()
+        want = np.searchsorted(np.sort(slot), np.arange(D + 1))
+        assert (starts.numpy() == want).all()
 
 
 # ---------------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Device times of the runtime-filter statistics, the final aggregate's
-merge, the full sort and the sorted join of one checkout of the port, for
-comparing two checkouts on one CUDA card.
+"""Device times of kernels of one checkout of the port (the
+runtime-filter statistics, the final aggregate's merge, the full sort,
+the sorted join, the top-k, the dense update, the ungrouped reduction and
+the CSR join with the partition placement), for comparing two checkouts
+on one CUDA card.
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
-        [--only key_stats,merge,sort,sort_join,topk,dense_agg]
+        [--only key_stats,merge,sort,sort_join,topk,dense_agg,
+                masked_reduce,csr_join]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -40,7 +43,19 @@ the bucket sequence one event pair a sequence, its host work included):
     and a float64 residual, a float64 sum), each into an accumulator that
     has seen one call, beside their PyTorch yardsticks (``index_add_`` of
     the sums; the same with ``scatter_reduce_`` of the residuals and
-    ``index_fill_`` of the presence at Q10's).
+    ``index_fill_`` of the presence at Q10's);
+  * ``masked_reduce`` at Q6's shape (4,194,304 rows, 2% live, a float64
+    sum and a count) and at F1u's (5 FIRST/LAST columns, 203,181 of
+    4,194,304 rows live, two with a validity mask), each beside its
+    ``torch.where`` + ``sum`` of the first column;
+  * ``csr_join`` at Q13's shape as ``chip_smoke.py`` times it (a left join
+    of 1,500,000 customers against 15,000,000 orders, 80% live, over
+    1,500,000 slots; the probe key and two build columns gathered), the
+    whole join queued and one call per event pair, and each phase alone
+    (build, probe with its scan, expansion, gathers); and
+    ``partition_perm`` at Q18-2ph-repart's shape (4,194,304 rows into 64
+    partitions).  A checkout whose CSR build also returns the counts is
+    called as it expects.
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -107,7 +122,7 @@ def main() -> int:
                                           .parent.parent))
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
-                    "dense_agg")
+                    "dense_agg,masked_reduce,csr_join")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -142,6 +157,179 @@ def main() -> int:
     if "dense_agg" in only and time_dense_agg(torch, dev, groupby,
                                               emit) != 0:
         return 1
+    if "masked_reduce" in only and time_masked_reduce(torch, dev, groupby,
+                                                      emit) != 0:
+        return 1
+    if "csr_join" in only and time_csr_join(torch, dev, emit) != 0:
+        return 1
+    return 0
+
+
+def time_masked_reduce(torch, dev, groupby, emit) -> int:
+    """The ungrouped reduction at Q6's and F1u's shapes."""
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = 4 << 20
+    x = t(rng.uniform(900.0, 105000.0, n) * 0.06)
+    q6 = [x, t(rng.random(n) < 0.02)]
+    day = t(rng.integers(8036, 10_600, n))
+    price = t(rng.integers(90_000, 10_500_000, n))
+    key = t(rng.integers(1, 60_000_000, n))
+    f1u = [t(rng.random(n) < 203_181 / n), t(rng.random(n) < 0.25),
+           t(rng.random(n) < 0.5)]
+
+    def q6_cols(c):
+        return [(c[0], None, "sum"), (None, None, "count")], c[1]
+
+    def f1u_cols(c):
+        return [(day, None, "first"), (price, None, "last"),
+                (key, None, "last"), (key, c[1], "first"),
+                (day, c[2], "last")], c[0]
+
+    shapes = (("masked_reduce_q6", q6, q6_cols,
+               [("sum", True), ("sum", False)]),
+              ("masked_reduce_f1u", f1u, f1u_cols,
+               [(op, False) for op in ("first", "last", "last", "first",
+                                       "last")]))
+    # the floor of one queued launch: a one-element add
+    tiny = torch.zeros(1, device=dev)
+    emit("launch_floor", time_ms(torch, [lambda: tiny.add_(1.0)], reps=64))
+
+    def library(cols, active):
+        """torch.where + sum of the first column over the live rows."""
+        d = cols[0][0]
+        zero = torch.zeros((), dtype=d.dtype, device=dev)
+        return lambda: torch.where(active, d, zero).sum()
+
+    for what, cols, make, specs in shapes:
+        accs = []
+        for fn in (groupby.masked_reduce, groupby.masked_reduce_plain):
+            acc_f, acc_i = groupby.init_scalars(specs, dev)
+            acc = (acc_f, acc_i, torch.zeros_like(acc_i))
+            fn(*make(cols), *acc)
+            accs.append(acc)
+        torch.cuda.synchronize()
+        (kf, ki, kh), (pf, pi, ph) = accs
+        same = torch.equal(ki, pi) and torch.equal(kh, ph)
+        if what == "masked_reduce_q6":  # the sums add in other orders
+            same &= float((kf - pf).abs().max()) <= 1e-9 * float(
+                pf.abs().max())
+        else:
+            same &= torch.equal(kf.view(torch.int64), pf.view(torch.int64))
+        if not same:
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        acc = accs[0]
+        inputs = copies(cols, 8)
+        live = int(make(cols)[1].sum())
+        emit(what, time_ms(torch, [lambda c=c: groupby.masked_reduce(
+            *make(c), *acc) for c in inputs], reps=8 * len(inputs)),
+            rows=n, live=live)
+        emit(f"{what}_library", time_ms(torch, [library(*make(c))
+                                                for c in inputs],
+                                        reps=8 * len(inputs)), rows=n)
+    return 0
+
+
+def time_csr_join(torch, dev, emit) -> int:
+    """Q13's CSR left join, whole and by phase, and the partition
+    placement of Q18-2ph-repart."""
+    from spark_rapids_tpu_torch.ops import join
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nb, C = 15_000_000, 1_500_000
+    ckey = t(rng.integers(1, C + 1, nb))
+    okey = torch.arange(1, nb + 1, dtype=torch.int64, device=dev)
+    act = t(rng.random(nb) < 0.8)
+    probe = torch.arange(1, C + 1, dtype=torch.int64, device=dev)
+    payload = [(okey, None), (ckey, None)]
+
+    def build(kernel=True):
+        got = (join.csr_build_kernel if kernel else join.csr_build_plain)(
+            ckey, None, act, 1, C)
+        return got[:-1], got[-1]  # the tables the probe takes, b_perm
+
+    def probe_call(tables, kernel=True):
+        return (join.csr_probe_kernel if kernel else join.csr_probe_plain)(
+            probe, None, None, 1, *tables, "left")
+
+    def whole(total):
+        def run():
+            tables, b_perm = build()
+            lo, off = probe_call(tables)
+            pi, bi = join.csr_expand_kernel(off, lo, b_perm, total)
+            return join.csr_gather(pi, [(probe, None)], False) \
+                + join.csr_gather(bi, payload, True)
+        return run
+
+    tables, b_perm = build()
+    lo, off = probe_call(tables)
+    total = int(off[-1])
+    pi, bi = join.csr_expand_kernel(off, lo, b_perm, total)
+    ptables, pperm = build(False)
+    plo, poff = probe_call(ptables, False)
+    ppi, pbi = join.csr_expand_plain(poff, plo, pperm, total)
+    got = whole(total)()
+    want = join.csr_gather_plain(ppi, [(probe, None)], False) \
+        + join.csr_gather_plain(pbi, payload, True)
+    torch.cuda.synchronize()
+    same = torch.equal(b_perm, pperm) and torch.equal(lo, plo) \
+        and torch.equal(off, poff) and torch.equal(pi, ppi) \
+        and torch.equal(bi, pbi) and all(
+            torch.equal(a[0], b[0]) and (a[1] is None) == (b[1] is None)
+            and (a[1] is None or torch.equal(a[1], b[1]))
+            for a, b in zip(got, want))
+    if not same:
+        print("kernel_ab: csr_join differs from plain", file=sys.stderr)
+        return 1
+    del ptables, pperm, plo, poff, ppi, pbi, want, got
+    shape = dict(build_rows=nb, slots=C, probe_rows=C, output_rows=total)
+    emit("csr_join_q13", time_ms(torch, [whole(total)], reps=8), **shape)
+    emit("csr_join_q13_synced", time_ms_synced(torch, whole(total), reps=8),
+         **shape)
+    emit("csr_join_q13_build", time_ms(torch, [build], reps=8), **shape)
+    emit("csr_join_q13_probe", time_ms(torch, [lambda: probe_call(tables)],
+                                       reps=8), **shape)
+    emit("csr_join_q13_expand", time_ms(torch, [
+        lambda: join.csr_expand_kernel(off, lo, b_perm, total)], reps=8),
+        **shape)
+    emit("csr_join_q13_gather_pi", time_ms(torch, [
+        lambda: join.csr_gather(pi, [(probe, None)], False)], reps=8),
+        **shape)
+    emit("csr_join_q13_gather_bi", time_ms(torch, [
+        lambda: join.csr_gather(bi, payload, True)], reps=8), **shape)
+
+    def library():
+        k = torch.where(act, ckey, C + 1)
+        sk, perm = torch.sort(k, stable=True)
+        lo_ = torch.searchsorted(sk, probe)
+        hi_ = torch.searchsorted(sk, probe, right=True)
+        cnt = (hi_ - lo_).clamp(min=1)
+        pi_ = torch.repeat_interleave(torch.arange(C, device=dev), cnt,
+                                      output_size=total)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = torch.arange(total, device=dev) - first[pi_] + lo_[pi_]
+        hit = j < hi_[pi_]
+        bi_ = torch.where(hit, perm[j.clamp(max=nb - 1)], -1)
+        return probe[pi_], [d[bi_.clamp(min=0)] for d, _ in payload], hit
+    emit("csr_join_q13_library_synced", time_ms_synced(torch, library,
+                                                       reps=8), **shape)
+    del tables, b_perm, lo, off, pi, bi
+
+    n = 4 << 20
+    pids = t(rng.integers(0, 64, n).astype(np.int32))
+    if not torch.equal(join.partition_perm_kernel(pids, 64),
+                       join.partition_perm_plain(pids, 64)):
+        print("kernel_ab: partition_perm differs from plain",
+              file=sys.stderr)
+        return 1
+    inputs = copies([pids], 8)
+    emit("partition_perm_q18_repart", time_ms(torch, [
+        lambda p=p: join.partition_perm_kernel(p, 64) for p, in inputs],
+        reps=8 * len(inputs)), rows=n, partitions=64)
+    emit("partition_perm_q18_repart_library", time_ms(torch, [
+        lambda p=p: torch.sort(p, stable=True).indices for p, in inputs],
+        reps=8 * len(inputs)), rows=n, partitions=64)
     return 0
 
 

@@ -1,8 +1,8 @@
 // onesweep_bench: one pass of csrc/radix.cuh's one-sweep sort alone on the
-// card, beside a plain copy of the same 12 bytes a row and the older
-// 5-launch radix_pass.  n random 64-bit keys (xorshift), int32 row
-// numbers: the gather-histogram kernel, then the 8 byte passes, each timed
-// between its own pair of events, 10 runs after one warm-up; the sorted
+// card, beside a plain copy of the same 12 bytes a row.  n random 64-bit
+// keys (xorshift), int32 row numbers: the gather-histogram kernel, then
+// the 8 byte passes, each timed between its own pair of events, 10 runs
+// after one warm-up; the sorted
 // keys are checked at the end.  tools/onesweep_bench.sh builds it over
 // variants of the header (-I points at the header's directory).
 //
@@ -93,21 +93,6 @@ int main(int argc, char** argv) {
   cudaEventRecord(e[1]);
   cudaEventSynchronize(e[1]);
   cudaEventElapsedTime(&ms, e[0], e[1]);
-  printf("copy of 12 B a row %.4f ms", ms / reps);
-  const long long tiles = sort_tiles(n);
-  int* hist;
-  long long *offs, *sums;
-  cudaMalloc(&hist, 256 * tiles * 4);
-  cudaMalloc(&offs, (256 * tiles + 1) * 8);
-  cudaMalloc(&sums, scan_blocks(256 * tiles) * 8);
-  cudaEventRecord(e[0]);
-  for (int r = 0; r < reps; ++r)
-    radix_pass<unsigned long long>(sc.b.keys[0], sc.b.vals[0], sc.b.keys[1],
-                                   sc.b.vals[1], n, 8 * (r % 8), hist, offs,
-                                   sums, 0);
-  cudaEventRecord(e[1]);
-  cudaEventSynchronize(e[1]);
-  cudaEventElapsedTime(&ms, e[0], e[1]);
-  printf(", radix_pass (5 launches) %.4f ms\n", ms / reps);
+  printf("copy of 12 B a row %.4f ms\n", ms / reps);
   return 0;
 }

@@ -4,7 +4,7 @@ CUDA card.
 
     python3 tools/path_walls.py [--root DIR] [--sf 10] [--runs 5] \
         [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18,
-                   s1,w1,q10_shuffled,q21_exists]
+                   s1,w1,q10_shuffled,q10_flip,q21_exists]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts of the port in turns on
@@ -21,7 +21,8 @@ runs on a session with ``sql.aqe.enabled`` false (Q10-shuffled: the
 sorted join over 8 hash partition pairs); ``s1`` (``tpch.sort_lineitem``)
 and ``w1`` (``tpch.supplier_history``) end in ``to_device_arrays()``, as
 ``chip_smoke.py`` runs them; ``q21_exists`` runs on the default session
-(8 shuffle partition pairs).  Prints one JSON
+(8 shuffle partition pairs), and so does ``q10_flip`` (Q10 with the
+defaults: its second join flips to a broadcast).  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
 fetches of the last warm run, with the card's name and power limit.
 """
@@ -55,6 +56,8 @@ def split(name: str):
     """(TPC-H query, variant) of a path name."""
     if name.startswith("pq_"):
         return name[3:], "pq"
+    if name.endswith("_flip"):  # the defaults: the runtime flip
+        return name[:-len("_flip")], ""
     for suffix in ("_2ph_repart", "_2ph", "_shuffled"):
         if name.endswith(suffix):
             return name[:-len(suffix)], suffix[1:]
