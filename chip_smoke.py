@@ -465,34 +465,129 @@ def grid_case(torch, n, dims, nf, seed, device, all_inactive=False):
     return keys, f_cols, i_cols, active
 
 
-def run_grid(torch, fn, dims, keys, f_cols, i_cols, active, G):
-    dev = active.device
-    acc_f = torch.zeros((G, len(f_cols)), dtype=torch.float64, device=dev)
-    acc_i = torch.zeros((G, len(i_cols)), dtype=torch.int64, device=dev)
-    acc_c = torch.zeros(G, dtype=torch.int64, device=dev)
-    fn(keys, dims, f_cols, i_cols, active, acc_f, acc_i, acc_c)
-    return acc_f, acc_i, acc_c
-
-
 def compare_grid(torch, groupby, dims, keys, f_cols, i_cols, active) -> float:
-    """Kernel vs plain; int64 and counts exact, float64 per slot within
-    F64_SUM_TOL * sum|x| of the slot (f64 atomics add in no fixed
-    order).  Returns the largest absolute float64 difference."""
-    G = groupby.grid_size(dims)
-    kf, ki, kc = run_grid(torch, groupby.grid_agg, dims, keys, f_cols,
-                          i_cols, active, G)
-    pf, pi, pc = run_grid(torch, groupby.grid_agg_plain, dims, keys, f_cols,
-                          i_cols, active, G)
-    absf = [(d.abs(), v) for d, v in f_cols]
-    sf, _, _ = run_grid(torch, groupby.grid_agg_plain, dims, keys, absf, [],
-                        active, G)
+    """Kernel vs plain over one call (its own float64 sum state: the first
+    call's fallback path); see compare_grid_calls."""
+    return compare_grid_calls(torch, groupby, dims,
+                              [(keys, f_cols, i_cols, active)])
+
+
+def _grid_run(torch, groupby, dims, batches, kernel, regrid=None):
+    """A GridAccumulator over `batches` (the kernel keeps its float64 sum
+    state across them); `regrid`: (after batch i, new dims) re-lays the
+    accumulator between calls.  Returns (f, i, cnt) after the fold."""
+    keys0, f0, i0, _ = batches[0]
+    kinds = ["f"] * len(f0) + ["i"] * len(i0)
+    acc = groupby.GridAccumulator(dims, kinds, batches[0][3].device)
+    for b, (keys, f_cols, i_cols, active) in enumerate(batches):
+        if regrid is not None and b == regrid[0]:
+            acc.regrid(regrid[1])
+        fn = groupby.grid_agg if kernel else groupby.grid_agg_plain
+        args = (keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i,
+                acc.cnt)
+        fn(*args, acc.sums) if kernel else fn(*args)
+    acc.values()
+    return acc.f, acc.i, acc.cnt
+
+
+def compare_grid_calls(torch, groupby, dims, batches, regrid=None) -> float:
+    """Kernel vs plain over a sequence of calls into one accumulator:
+    presence counts, int64 sums and counts exact; float64 sums within
+    F64_SUM_TOL x the slot's sum|x| (the plain version adds in index_add_'s
+    order) and, over two kernel runs, equal to the bit.  Returns the
+    largest absolute float64 difference."""
+    k1 = _grid_run(torch, groupby, dims, batches, True, regrid)
+    k2 = _grid_run(torch, groupby, dims, batches, True, regrid)
+    p = _grid_run(torch, groupby, dims, batches, False, regrid)
+    absb = [(keys, [(d.abs(), v) for d, v in f], [], a)
+            for keys, f, _, a in batches]
+    sf = _grid_run(torch, groupby, dims, absb, False, regrid)[0]
     torch.cuda.synchronize()
-    check(torch.equal(kc, pc), "grid_agg presence counts differ")
-    check(torch.equal(ki, pi), "grid_agg int64 sums/counts differ")
-    err = (kf - pf).abs()
-    check(bool((err <= F64_SUM_TOL * sf).all()),
-          f"grid_agg float64 sums differ by up to {float(err.max())}")
+    check(torch.equal(k1[2], p[2]), "grid_agg presence counts differ")
+    check(torch.equal(k1[1], p[1]), "grid_agg int64 sums/counts differ")
+    check(torch.equal(k1[0].view(torch.int64), k2[0].view(torch.int64)),
+          "grid_agg float64 sums differ between two runs")
+    kf, pf = k1[0], p[0]
+    nan = torch.isnan(pf)
+    check(torch.equal(torch.isnan(kf), nan), "grid_agg NaN sums differ")
+    fin = torch.isfinite(pf)
+    check(torch.equal(kf[~fin & ~nan], pf[~fin & ~nan]),
+          "grid_agg infinite sums differ")
+    err = (kf - pf).abs()[fin]
+    check(bool((err <= F64_SUM_TOL * sf[fin]).all()),
+          f"grid_agg float64 sums differ by up to "
+          f"{float(err.max()) if err.numel() else 0.0}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def grid_edges(torch, groupby, device):
+    """(what, dims, batches, regrid) of grid_agg.cu's risky shapes."""
+    t = _to_device(torch, device)
+    rng = np.random.default_rng(41)
+
+    def batch(n, dims, nf, ni=2, live=0.7, null_keys=0.1, scale=None,
+              offset=0):
+        keys = [(t(rng.integers(0, max(d, 1), n).astype(np.int32)),
+                 t(rng.random(n) >= (1.0 if d == 0 else null_keys)))
+                for d in dims]
+        f_cols = []
+        for j in range(nf):
+            x = rng.normal(size=n) * 10.0 ** (j % 4)
+            if scale is not None:
+                x = scale(x, j)
+            f_cols.append((t(x), t(rng.random(n) < 0.8) if j == 0 else None))
+        i_cols = [(t(rng.integers(-10**12, 10**12, n)), None),
+                  (None, t(rng.random(n) < 0.6))][:ni]
+        out = (keys, f_cols, i_cols, t(rng.random(n) < live))
+        if offset:
+            out = ([(at_offset(torch, c, offset), at_offset(torch, v, offset))
+                    for c, v in out[0]],
+                   [(at_offset(torch, d, offset), at_offset(torch, v, offset))
+                    for d, v in out[1]],
+                   [(at_offset(torch, d, offset), at_offset(torch, v, offset))
+                    for d, v in out[2]], at_offset(torch, out[3], offset))
+        return out
+
+    def far(x, j):
+        # 1e-30 and 1e30 beside values near 1.0, and the specials
+        x = x.copy()
+        k = len(x)
+        x[rng.random(k) < 0.05] = 1e-30
+        x[rng.random(k) < 0.05] = -1e30
+        x[:7] = [np.inf, -np.inf, np.nan, 1e30, -1e-30, 2.0 ** -1074, 0.0]
+        return x
+
+    shared_max = groupby.GRID_SHARED_BYTES // (8 * (2 * 1 + 1 + 1))
+    out = [("G=1 (every key null)", (0,), [batch(5000, (0,), 2)] * 2, None),
+           (f"G={shared_max} (the shared grid's largest at nf 1, ni 1)",
+            (shared_max - 1,), [batch(BATCH_ROWS, (shared_max - 1,), 1, 1),
+                                batch(70_001, (shared_max - 1,), 1, 1)],
+            None),
+           (f"G={shared_max + 1} (one slot past it)", (shared_max,),
+            [batch(BATCH_ROWS, (shared_max,), 1, 1),
+             batch(70_001, (shared_max,), 1, 1)], None),
+           ("nf=0, int64 channels only", (4, 2),
+            [batch(100_003, (4, 2), 0), batch(17, (4, 2), 0)], None),
+           ("float values outside the query scale's range", (4, 2),
+            [batch(BATCH_ROWS, (4, 2), 3),
+             batch(BATCH_ROWS, (4, 2), 3, scale=far),
+             batch(1000, (4, 2), 3)], None),
+           ("first call all fallback, then far values", (63, 63),
+            [batch(200_000, (63, 63), 2, scale=far),
+             batch(200_000, (63, 63), 2)], None),
+           ("a regrid between calls", (2, 1),
+            [batch(50_000, (2, 1), 2), batch(60_000, (4, 2), 2)],
+            (1, (4, 2))),
+           ("views at an odd storage offset", (4, 2),
+            [batch(BATCH_ROWS + 17, (4, 2), 7, offset=1),
+             batch(1001, (4, 2), 7, offset=3)], None),
+           ("n = 1, 15, 16, 17", (4, 2),
+            [batch(1, (4, 2), 2), batch(15, (4, 2), 2),
+             batch(16, (4, 2), 2), batch(17, (4, 2), 2)], None),
+           ("all-dead batches", (4, 2),
+            [batch(1000, (4, 2), 2, live=0.0), batch(33, (4, 2), 2),
+             batch(1000, (4, 2), 2, live=0.0)], None)]
+    return out
 
 
 def check_kernels(torch, groupby, device) -> dict:
@@ -534,12 +629,32 @@ def check_kernels(torch, groupby, device) -> dict:
             case = grid_case(torch, n, dims, nf, n + G, device)
             worst["grid_agg"] = max(worst["grid_agg"],
                                     compare_grid(torch, groupby, dims, *case))
+        # two calls into one accumulator: the second adds at the query
+        # scale the first set
+        calls = [grid_case(torch, BATCH_ROWS, dims, nf, 5 + c, device)
+                 for c in range(2)]
+        worst["grid_agg"] = max(worst["grid_agg"], compare_grid_calls(
+            torch, groupby, dims, calls))
         case = grid_case(torch, 1000, dims, nf, 3, device, all_inactive=True)
         compare_grid(torch, groupby, dims, *case)
         print(f"check grid_agg G={G} ({'shared' if shared else 'global'} "
-              f"variant): n in (1, 1000, 4194321) and all-inactive: ok")
+              f"variant): n in (1, 1000, 4194321), two calls, "
+              f"all-inactive: ok")
+    shared_max = groupby.GRID_SHARED_BYTES // (8 * 4)
+    check(groupby.grid_uses_shared(shared_max, 1, 1)
+          and not groupby.grid_uses_shared(shared_max + 1, 1, 1),
+          "grid_uses_shared's edge moved")
+    for what, dims, batches, regrid in grid_edges(torch, groupby, device):
+        # held to the tolerance; their absolute errors (sums of 1e30s)
+        # stay out of the main path's row
+        try:
+            err = compare_grid_calls(torch, groupby, dims, batches, regrid)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e} ({what})") from None
+        print(f"check grid_agg edge: {what}: ok (max |f64 err| {err:.3e})")
     print(f"check grid_agg: max |f64 err| {worst['grid_agg']:.3e} "
-          f"(tolerance {F64_SUM_TOL} x per-slot sum|x|)")
+          f"(tolerance {F64_SUM_TOL} x per-slot sum|x|; two kernel runs "
+          f"equal to the bit)")
     return worst
 
 
@@ -1136,8 +1251,11 @@ def run_hash_agg(torch, groupby, case, batch, plain, collide=False,
     acc = groupby.HashAccumulator(len(words), channels, active.device,
                                   collide=collide, plain=plain)
     n = active.shape[0]
-    for lo in range(0, max(n, 1), batch):
-        sl = slice(lo, lo + batch)
+    # batch: a batch size, or a tuple of the batches' first rows
+    starts = list(batch) if isinstance(batch, tuple) \
+        else list(range(0, max(n, 1), batch))
+    for lo, hi in zip(starts, starts[1:] + [max(n, 1)]):
+        sl = slice(lo, hi)
         acc.update([(d[sl], None if v is None else v[sl]) for d, v in words],
                    [(None if d is None else d[sl],
                      None if v is None else v[sl]) for d, v in contribs],
@@ -1158,18 +1276,29 @@ def compare_hash_agg(torch, groupby, case, batch, collide=False) -> float:
     km, kv = _hash_groups(torch, kacc)
     pm, pv = _hash_groups(torch, pacc)
     _, sv = _hash_groups(torch, sacc)
+    # a second kernel run: float64 sums equal to the bit
+    _, kv2 = _hash_groups(torch, run_hash_agg(torch, groupby, case, batch,
+                                              False, collide))
     torch.cuda.synchronize()
     check(torch.equal(km, pm), f"hash_agg groups differ ({km.shape[0]} vs "
           f"{pm.shape[0]})")
     worst = 0.0
-    for j, ((op, f64), a, b, s) in enumerate(zip(case[2], kv, pv, sv)):
+    for j, ((op, f64), a, b, s, a2) in enumerate(zip(case[2], kv, pv, sv,
+                                                     kv2)):
+        if f64:
+            check(torch.equal(a.view(torch.int64), a2.view(torch.int64)),
+                  f"hash_agg channel {j} ({op}) differs between two runs")
         if f64 and op == "sum":
             nan = torch.isnan(b)
             check(torch.equal(torch.isnan(a), nan), f"hash_agg channel {j} "
                   f"NaN sums differ")
-            err = (a - b).abs()[~nan]
+            inf = torch.isinf(b)
+            check(torch.equal(a[inf], b[inf]), f"hash_agg channel {j} "
+                  f"infinite sums differ")
+            fin = torch.isfinite(b)
+            err = (a - b).abs()[fin]
             top = float(err.max()) if err.numel() else 0.0
-            check(bool((err <= F64_SUM_TOL * s[~nan]).all()),
+            check(bool((err <= F64_SUM_TOL * s[fin]).all()),
                   f"hash_agg channel {j} sums differ by up to {top}")
             worst = max(worst, top)
         elif f64:
@@ -1180,24 +1309,117 @@ def compare_hash_agg(torch, groupby, case, batch, collide=False) -> float:
     return worst
 
 
+def hash_edges(torch, device):
+    """(what, case, batch) of hash_agg.cu's risky shapes, each a case as
+    hash_case makes it."""
+    rng = np.random.default_rng(43)
+    t = _to_device(torch, device)
+    out = []
+    # one group for every row, every channel kind (the worst contention)
+    words, contribs, channels, active = hash_case(torch, BATCH_ROWS, 44,
+                                                  device)
+    one = [(torch.zeros_like(words[1][0]), None)]
+    out.append(("one group for every row", (one, contribs, channels,
+                                            active), BATCH_ROWS))
+    # 8 keys with nulls over small domains
+    n = 300_000
+    w8 = [(t(rng.integers(0, 3, n)), t(rng.random(n) < 0.9))
+          for _ in range(8)]
+    out.append(("8 keys", (w8, [(t(rng.normal(size=n)), None),
+                               (None, None)],
+        [("sum", True), ("count", False)], t(rng.random(n) < 0.8)), 70_000))
+    # float64 values far outside the query scale's range, after a first
+    # batch that set it, and specials; few groups so sums mix magnitudes
+    n = 3 * 100_000
+    x = rng.normal(size=n)
+    later = np.arange(n) >= 100_000
+    pick = rng.random(n)
+    x[later & (pick < 0.05)] = 1e-30
+    x[later & (pick > 0.95)] = 1e30
+    x[100_000:100_006] = [np.inf, -np.inf, np.nan, -1e30, 2.0 ** -1074, 0.0]
+    keys = rng.integers(0, 50, n)
+    keys[100_002] = 7                       # a NaN sum beside others
+    words = [(t(keys), t(rng.random(n) < 0.95))]
+    contribs = [(t(x), t(rng.random(n) < 0.9)), (None, None),
+                (t(x), None), (t(x), None)]
+    channels = [("sum", True), ("count", False), ("min", True),
+                ("max", True)]
+    out.append(("float values outside the query scale's range",
+                (words, contribs, channels, t(np.ones(n, dtype=bool))),
+                100_000))
+    # far values in many groups of one call: a long touched list, folded
+    # over the grid
+    n = 3 * 200_000
+    x = rng.uniform(1.0, 1e5, n)
+    later = np.arange(n) >= 200_000
+    pick = rng.random(n)
+    x[later & (pick < 1 / 8)] = 1e-30
+    x[later & (pick > 1 - 1 / 64)] = 1e30
+    words = [(t(rng.integers(0, 400_000, n)), None)]
+    out.append(("far values in ~100,000 groups of a call",
+                (words, [(t(x), None), (None, None)],
+                 [("sum", True), ("count", False)],
+                 t(np.ones(n, dtype=bool))), 200_000))
+    # far values in every batch of a table that grows between them: each
+    # call's list is folded by the next call, after the growth
+    n = 40_000
+    x = rng.uniform(1.0, 1e5, n)
+    pick = rng.random(n)
+    x[(np.arange(n) >= 2000) & (pick < 1 / 8)] = 1e-30
+    x[(np.arange(n) >= 2000) & (pick > 1 - 1 / 64)] = 1e30
+    words = [(t(rng.integers(0, 30_000, n)), None)]
+    case = (words, [(t(x), None), (None, None)],
+            [("sum", True), ("count", False)], t(np.ones(n, dtype=bool)))
+    out.append(("far values across growth", case, 2000))
+    # batches of 2000, 6000 and 32000 rows: each call's list outgrows the
+    # last call's, which the call folds first
+    out.append(("far values in batches that grow", case, (0, 2000, 8000)))
+    # n = 17; a first batch of one row
+    out.append(("n = 17", hash_case(torch, 17, 45, device), 17))
+    out.append(("n = 17 in batches of 1, 5, 11", hash_case(torch, 17, 46,
+                                                          device), 6))
+    return out
+
+
 def check_hash_agg(torch, groupby, device) -> float:
     worst = 0.0
     for n, batch, seed, groups, collide in (
             (0, 1, 1, None, False), (1, 1, 2, None, False),
             (5000, 5000, 3, None, False), (20_000, 1000, 4, None, False),
             (3000, 3000, 5, 200, True),
-            (BATCH_ROWS + 17, BATCH_ROWS + 17, 6, 1_000_000, False)):
+            (BATCH_ROWS + 17, BATCH_ROWS + 17, 6, 1_000_000, False),
+            (BATCH_ROWS, BATCH_ROWS, 8, 25, False),
+            (BATCH_ROWS, BATCH_ROWS, 9, 2, False)):
         case = hash_case(torch, n, seed, device, groups)
         worst = max(worst, compare_hash_agg(torch, groupby, case, batch,
                                             collide))
     case = hash_case(torch, 5000, 7, device)
     case = case[:3] + (torch.zeros_like(case[3]),)
     compare_hash_agg(torch, groupby, case, 5000)
-    print(f"check hash_agg: n in (0, 1, 5000, 20000 in 1000-row batches "
-          f"with growth, 4194321), all-inactive, every key kind with nulls, "
-          f"-0.0/+0.0 and NaN keys and values, 1400 keys forced into one "
-          f"bucket: ok, max |f64 err| {worst:.3e} (tolerance "
-          f"{F64_SUM_TOL} x per-group sum|x|)")
+    for what, case, batch in hash_edges(torch, device):
+        try:
+            err = compare_hash_agg(torch, groupby, case, batch)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e} ({what})") from None
+        print(f"check hash_agg edge: {what}: ok (max |f64 err| {err:.3e})")
+    # a partial aggregate that emits and starts a fresh table: each table
+    # against the plain version over its own batches
+    case = hash_case(torch, 40_000, 47, device, 3000)
+    for lo, hi in ((0, 25_000), (25_000, 40_000)):
+        part = ([(d[lo:hi], v) for d, v in case[0]],
+                [(None if d is None else d[lo:hi],
+                  None if v is None else v[lo:hi]) for d, v in case[1]],
+                case[2], case[3][lo:hi])
+        worst = max(worst, compare_hash_agg(torch, groupby, part, 5000))
+    print(f"check hash_agg: n in (0, 1, 17, 5000, 20000 in 1000-row batches "
+          f"with growth, 4194321), 4194304 rows into 175 and 14 groups and "
+          f"into one, all-inactive, every key kind with nulls, 8 keys, "
+          f"-0.0/+0.0 and NaN keys and values, float values outside the "
+          f"query scale's range (also in ~100,000 groups of a call, and "
+          f"across growth), 1400 keys forced into one bucket, a table "
+          f"emitted and a fresh one: ok, max |f64 err| {worst:.3e} "
+          f"(tolerance {F64_SUM_TOL} x per-group sum|x|; two kernel runs "
+          f"equal to the bit)")
     return worst
 
 
@@ -1481,16 +1703,21 @@ def time_kernels(torch, groupby, device, launches, worst) -> list:
     acc_f = torch.zeros((G, 7), dtype=torch.float64, device=device)
     acc_i = torch.zeros((G, 0), dtype=torch.int64, device=device)
     acc_c = torch.zeros(G, dtype=torch.int64, device=device)
+    # the float64 sums' state of a query that has seen one batch: its
+    # query scale is set, so the timed calls add at it (one pass a call)
+    sums = groupby.GridSums(G, 7, device)
+    groupby.grid_agg(keys, dims, f_cols, [], active, acc_f, acc_i, acc_c,
+                     sums)
     inputs = copies_for_l2(codes + f_data + [active])
 
-    def call(fn, c0, c1, *rest):
+    def call(fn, c0, c1, *rest, **kw):
         *fs, ac = rest
         return lambda: fn([(c0, None), (c1, None)], dims,
                           [(d, None) for d in fs], [], ac, acc_f, acc_i,
-                          acc_c)
+                          acc_c, **kw)
 
-    ms = time_ms(torch, [call(groupby.grid_agg, *c) for c in inputs],
-                 reps=8 * len(inputs))
+    ms = time_ms(torch, [call(groupby.grid_agg, *c, sums=sums)
+                         for c in inputs], reps=8 * len(inputs))
     plain_ms = time_ms(torch, [call(groupby.grid_agg_plain, *c)
                                for c in inputs], reps=2 * len(inputs))
     target = torch.zeros((G + 1, 8), dtype=torch.float64, device=device)
@@ -1985,7 +2212,7 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
     # the mask, each live row's two key words, and the sectors of every
     # group's slot in the state, the null bits and both key columns (read:
     # the timed calls find every group)
-    slots = (kacc.state == groupby.HA_READY).nonzero().squeeze(1)
+    slots = kacc.meta[:groups, 0]  # each group's slot in the table
     nbytes = n + sector_bytes(torch, active.nonzero().squeeze(1), 8) * 2 \
         + 2 * sector_bytes(torch, slots, 4) \
         + 2 * sector_bytes(torch, slots, 8)
@@ -3528,10 +3755,16 @@ def check_first_last(torch, groupby, window, device) -> float:
         case = (words, contribs, channels, t(active))
         kacc = run_hash_agg(torch, groupby, case, batch, False, collide)
         pacc = run_hash_agg(torch, groupby, case, batch, True)
+        sacc = run_hash_agg(torch, groupby, case, batch, True,
+                            abs_values=True)
         grew = grew or kacc.growths > 0
         kk, kv = _fl_groups(torch, kacc)
         pk, pv = _fl_groups(torch, pacc)
+        _, sv = _fl_groups(torch, sacc)
         torch.cuda.synchronize()
+        # the float64 sum, carried through the growth
+        check(bool(((kv[5] - pv[5]).abs() <= F64_SUM_TOL * sv[5]).all()),
+              "hash_agg float64 sum differs after growth")
         check(torch.equal(kk, pk), "hash_agg first/last groups differ")
         for j, (a, b) in enumerate(zip(kv, pv)):
             if isinstance(a, tuple):
@@ -3636,8 +3869,10 @@ def check_float_sums_deterministic(torch, groupby, device) -> None:
                                                acc.cnt)
                     else:
                         groupby.grid_agg(keys, (3, 5), [(val, None)], [],
-                                         act, acc.f, acc.i, acc.cnt, acc.fx)
-                slot, sums = torch.arange(acc.G, device=device), acc.f[:, 0]
+                                         act, acc.f, acc.i, acc.cnt,
+                                         acc.sums)
+                slot, sums = torch.arange(acc.G, device=device), \
+                    acc.values()[0]
             runs.append((slot, sums.clone()))
         scale = torch.zeros(max(D, 24), dtype=torch.float64, device=device)
         for key, val, act, _, _, gid in batches:
@@ -3683,9 +3918,11 @@ def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
     Q18-dec's HAVING and the wide-sum finalize over its groups (every
     distinct l_orderkey at SF10), masked_reduce's FIRST/LAST over an F1u
     batch, hash_agg's FIRST/LAST over an F1 batch into a table that holds
-    its customers, and frame_first_last over W2's sorted lineitem.  No
-    PyTorch call computes any of them (no 128-bit integers, no FIRST/LAST
-    reduction): library_ms is null."""
+    its customers, hash_agg's float64 sum and count at Q18's shape and at
+    Q9's and Q7's few groups, and frame_first_last over W2's sorted
+    lineitem.  No PyTorch call computes the wide-decimal, FIRST/LAST or
+    window rows (no 128-bit integers, no FIRST/LAST reduction): their
+    library_ms is null; the hash_agg sums' is the unique_chain."""
     t = _to_device(torch, device)
     li, orders = db["lineitem"], db["orders"]
     out, notes = [], []
@@ -3806,8 +4043,8 @@ def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
                                                 None, n)], reps=8)
     plain_ms = time_ms_synced(torch, [lambda: accs[1].update(
         [(ck, None)], contribs, None, n)], reps=2)
-    # per row its key, 4 values and 2 masks; per group its state, key,
-    # null bits, and 5 accumulators and 4 words, read and written
+    # per row its key, 4 values and 2 masks; per group its tag, key and
+    # null bits and 9 value words (5 picks and values), read and written
     nbytes = n * (8 + 4 * 8 + 2) + 2 * groups * (4 + 8 + 4 + 5 * 8 + 4 * 8)
     out.append(_row7("hash_agg_first_last", "hash_agg",
                      per_wrapper.get("hash_agg_update[ordered_launches]", 0),
@@ -3841,14 +4078,61 @@ def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
                                                 None, n)], reps=8)
     plain_ms = time_ms_synced(torch, [lambda: accs[1].update(
         [(okeys, None)], contribs, None, n)], reps=2)
+    lib_ms = time_ms_synced(torch, [unique_chain(torch, [okeys], rev)],
+                            reps=4)
     out.append(_row7("hash_agg_f64_sum", "hash_agg",
                      per_wrapper.get("hash_agg_update", 0), err, ms,
                      plain_ms, n * 16 + 2 * groups * (4 + 8 + 4 + 8 + 8),
                      "spark_rapids_tpu/ops/groupby.py:251"))
+    out[-1]["library_ms"] = lib_ms
     notes.append(f"{n} lineitems into {groups} order groups, one float64 "
-                 f"sum (the fixed point: a largest-|x| pass, the adds, a "
-                 f"fold over the table) and a count")
+                 f"sum (at the query scale: one pass, no fold over the "
+                 f"table) and a count; library: unique(return_inverse) + "
+                 f"index_add_ + bincount†")
     del accs, contribs
+    # few groups, as Q9 (nation x year: 175) and Q7 (2 x 2 nations: 4)
+    # aggregate: every row live, two int64 keys, a float64 sum and a count
+    rng = np.random.default_rng(97)
+    x = t(np.round(rng.uniform(900.0, 105000.0, n), 2))
+    for name, d0, d1 in (("hash_agg_q9_groups", 25, 7),
+                         ("hash_agg_q7_groups", 2, 2)):
+        k0 = t(rng.integers(0, d0, n))
+        k1 = t(rng.integers(1992, 1992 + d1, n))
+        words = [(k0, None), (k1, None)]
+        contribs = [(x, None), (None, None)]
+        accs = []
+        for plain in (False, True):
+            acc = groupby.HashAccumulator(
+                2, [("sum", True), ("count", False)], device, plain=plain,
+                key_bound=d0 * d1)
+            acc.update(words, contribs, None, n)
+            accs.append(acc)
+        km, kv = _hash_groups(torch, accs[0])
+        pm, pv = _hash_groups(torch, accs[1])
+        torch.cuda.synchronize()
+        err = float((kv[0] - pv[0]).abs().max())
+        check(torch.equal(km, pm) and torch.equal(kv[1], pv[1])
+              and err <= F64_SUM_TOL * float(x.abs().sum()),
+              f"hash_agg differs at {name}'s shape")
+        inputs = copies_for_l2([k0, k1, x])
+        ms = time_ms(torch, [lambda a=a, b=b, c=c: accs[0].update(
+            [(a, None), (b, None)], [(c, None), (None, None)], None, n)
+            for a, b, c in inputs], reps=4 * len(inputs))
+        plain_ms = time_ms_synced(torch, [lambda: accs[1].update(
+            words, contribs, None, n)], reps=2)
+        lib_ms = time_ms_synced(torch, [unique_chain(torch, [k0, k1], x)],
+                                reps=4)
+        # per row two key words and a value; per group its slot and value
+        # records, read and written
+        out.append(_row7(name, "hash_agg", 0, err, ms, plain_ms,
+                         n * 24 + 2 * d0 * d1 * (32 + 64),
+                         "spark_rapids_tpu/ops/groupby.py:251"))
+        out[-1].update(library_ms=lib_ms, timing_of="hash_agg")
+        notes.append(f"{n} rows, all live, into {d0 * d1} groups of two "
+                     f"int64 keys, a float64 sum and a count; library: "
+                     f"unique(dim=0, return_inverse) + index_add_ + "
+                     f"bincount†")
+        del accs, inputs
     # W2: the whole lineitem in supplier order, ROWS -6..0, LAST ignoring
     # nulls of the returned lines' prices
     order = np.argsort(li["l_suppkey"], kind="stable")
@@ -3882,12 +4166,30 @@ def time_slice7_kernels(torch, groupby, window, wd, device, per_wrapper,
                  f"nulls")
     for row, note in zip(out, notes):
         nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+        lib = "no library call" if row["library_ms"] is None \
+            else f"library {row['library_ms']:.4f} ms"
         print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
               f"{row['bound_ms']:.4f} ms for {nbytes} B, plain "
-              f"{row['plain_ms']:.4f} ms, no library call), max |err| vs "
+              f"{row['plain_ms']:.4f} ms, {lib}), max |err| vs "
               f"plain {row['max_abs_err']:.3e}, {row['launches']} launches "
               f"on the main path")
     return out
+
+
+def unique_chain(torch, keys, x):
+    """One PyTorch call chain that groups `keys` and sums `x` and counts
+    per group: torch.unique(return_inverse=True) (dim=0 over several keys)
+    + index_add_ + bincount.  It waits on the device (unique's size), so
+    it is timed one call per event pair."""
+    def run():
+        k = keys[0] if len(keys) == 1 else torch.stack(keys, 1)
+        uniq, inv = torch.unique(k, dim=None if len(keys) == 1 else 0,
+                                 return_inverse=True)
+        g = uniq.shape[0]
+        sums = torch.zeros(g, dtype=torch.float64, device=x.device)
+        sums.index_add_(0, inv, x)
+        return sums, torch.bincount(inv, minlength=g)
+    return run
 
 
 # ---------------------------------------------------------------------------------
@@ -5165,7 +5467,7 @@ def main() -> int:
 
         counters = {
             "masked_reduce": [groupby.masked_reduce],
-            "grid_agg": [groupby.grid_agg],
+            "grid_agg": [groupby.grid_agg, groupby.grid_agg_fold],
             "dense_join": [join.dense_join_stats, join.dense_join_build,
                            join.dense_join_probe],
             "dense_agg": [groupby.dense_agg_stats, groupby.dense_agg_update,
@@ -5176,7 +5478,7 @@ def main() -> int:
             "csr_join": [join.csr_build_kernel, join.csr_probe_kernel,
                          join.csr_expand_kernel, join.csr_gather,
                          join.partition_perm_kernel],
-            "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_rehash],
+            "hash_agg": [groupby.hash_agg_update, groupby.hash_agg_fold],
             "hashing": [hashing.hash_rows_kernel],
             "sort_join": [join.sorted_build_kernel, join.sorted_probe_kernel,
                           join.unmatched_build_kernel],

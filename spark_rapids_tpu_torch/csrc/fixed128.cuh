@@ -24,6 +24,15 @@
 // per-call scale above.
 //
 // A slot's words are three uint64: [lo, hi, largest |x| bits].
+//
+// The query scale of hash_agg.cu and grid_agg.cu (dense_agg.cu keeps its
+// own copy): per float64 channel, s = FX_SCALE_TOP - ilogb(the first
+// call's largest finite |x|), kept for the query in a device word that
+// starts at 0 (fx_scale_word).  A finite x with |x| 2^s in [2^52, 2^93)
+// (fx_in_range: 2^-21 to 2^19 times that largest |x|) is an integer at
+// that scale and adds exactly, once, at its row; sums of up to 2^34 rows a
+// slot stay below 2^127.  Every other finite non-zero x takes the per-call
+// scale above (the fallback).
 
 #pragma once
 
@@ -59,17 +68,26 @@ __device__ __forceinline__ void fx_add_words(unsigned long long* w,
   atomicAdd(w + 1, hi + (old + lo < old ? 1ULL : 0ULL));
 }
 
+// The 128-bit two's-complement integer (lo, hi) of x * 2^k (finite; the
+// fraction, if any, truncated).
+__device__ __forceinline__ void fx_int(double x, int k,
+                                       unsigned long long* lo,
+                                       unsigned long long* hi) {
+  const double y = fabs(scalbn(x, k));
+  const double hi_d = trunc(y * 0x1p-64);
+  *hi = __double2ull_rz(hi_d);
+  *lo = __double2ull_rz(y - hi_d * 0x1p64);
+  if (x < 0.0) {  // two's complement of the 128-bit magnitude
+    *lo = ~*lo + 1ULL;
+    *hi = ~*hi + (*lo == 0ULL ? 1ULL : 0ULL);
+  }
+}
+
 // x * 2^k (finite) added exactly to the 128-bit word pair w.
 __device__ __forceinline__ void fx_add(unsigned long long* w, double x,
                                        int k) {
-  const double y = fabs(scalbn(x, k));
-  const double hi_d = trunc(y * 0x1p-64);
-  unsigned long long hi = __double2ull_rz(hi_d);
-  unsigned long long lo = __double2ull_rz(y - hi_d * 0x1p64);
-  if (x < 0.0) {  // two's complement of the 128-bit magnitude
-    lo = ~lo + 1ULL;
-    hi = ~hi + (lo == 0ULL ? 1ULL : 0ULL);
-  }
+  unsigned long long lo, hi;
+  fx_int(x, k, &lo, &hi);
   fx_add_words(w, lo, hi);
 }
 
@@ -84,6 +102,38 @@ __device__ __forceinline__ double fx_to_double(unsigned long long lo,
   }
   const double mag = (double)hi * 0x1p64 + (double)lo;
   return scalbn(neg ? -mag : mag, -k);
+}
+
+#define FX_FAST_LO 52
+#define FX_FAST_HI 92
+#define FX_SCALE_TOP 73
+#define FX_SCALE_BIAS (1LL << 32)  // a scale word: 0 none, else s + bias
+
+// The scale word (a set query scale s, stored as s + FX_SCALE_BIAS, so a
+// zeroed word means no scale yet) made from the largest finite |x| bits
+// m_bits (non-zero).
+__device__ __forceinline__ long long fx_scale_word(
+    unsigned long long m_bits) {
+  return FX_SCALE_TOP - ilogb(__longlong_as_double((long long)m_bits))
+      + FX_SCALE_BIAS;
+}
+
+__device__ __forceinline__ int fx_scale_of(long long word) {
+  return (int)(word - FX_SCALE_BIAS);
+}
+
+// Whether finite non-zero x adds exactly at the query scale of `word` (0:
+// no scale yet, so no).
+__device__ __forceinline__ bool fx_in_range(double x, long long word) {
+  if (word == 0) return false;
+  const long long e = ilogb(x) + fx_scale_of(word);
+  return e >= FX_FAST_LO && e <= FX_FAST_HI;
+}
+
+// Finite and non-zero.
+__device__ __forceinline__ bool fx_finite_nonzero(double x) {
+  const double a = fabs(x);
+  return a <= 1.7976931348623157e308 && a != 0.0;
 }
 
 // The float64 value of a slot's words [lo, hi, largest |x| bits] for a

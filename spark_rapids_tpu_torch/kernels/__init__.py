@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "build_log", "load",
-           "check_launch", "pointer_array", "int_array"]
+           "check_launch", "pointer_array", "int_array", "int64_array"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,10 +50,12 @@ _SIGNATURES = {
     },
     "grid_agg": {
         # codes[], code_valid[], dims[], nkeys, active, n, f[], f_valid[],
-        # nf, i[], i_valid[], ni, acc_f, acc_i, acc_cnt, fx, G, use_shared,
-        # stream
+        # nf, i[], i_valid[], ni, acc_f, acc_i, acc_cnt, q, fb, words, call,
+        # G, use_shared, stream
         "grid_agg": [_P, _P, _P, _I, _P, _L, _P, _P, _I, _P, _P, _I, _P, _P,
-                     _P, _P, _I, _I, _P],
+                     _P, _P, _P, _P, _L, _I, _I, _P],
+        # q, acc_f, words, nf, cells, stream
+        "grid_agg_fold": [_P, _P, _P, _I, _L, _P],
     },
     "dense_join": {
         # keys, elem, key_valid, active, n, cap, bitmap, out, stream
@@ -88,22 +90,17 @@ _SIGNATURES = {
     },
     "hash_agg": {
         # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
-        # acc[], aux[], fx[], active, n, state, tkeys, tnulls, cap, collide,
-        # ngroups, rslot, call, stream
-        "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _L, _P, _P, _P, _L, _I, _P, _P, _L, _P],
-        # nkeys, words[], kvalid[], nch, data[], valid[], ops[], f64[],
-        # offs[], W, init, active, n, recs, stride, cap, collide, meta,
-        # vals, gbound, ngroups, rgid, call, stream
-        "hash_agg_merge": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
-                           _L, _P, _I, _L, _I, _P, _P, _L, _P, _P, _L, _P],
+        # hot[], cold[], W, H, init[] (host), active, n, recs, stride, cap,
+        # collide, meta, vals, ngroups, fwords, rgid, fbprev, fblist, call,
+        # stream
+        "hash_agg_update": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _P, _P, _L, _P, _I, _L, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _L, _P],
+        # nch, ops[], f64[], hot[], cold[], vals, W, ngroups, fwords, gbound,
+        # stream
+        "hash_agg_fold": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _L, _P],
         # nkeys, recs, stride, cap, collide, meta, ngroups, gbound, stream
         "hash_agg_reinsert": [_I, _P, _I, _L, _I, _P, _P, _L, _P],
-        # nkeys, nch, old_state, old_keys, old_nulls, old_cap, old_acc[],
-        # old_aux[], new_state, new_keys, new_nulls, new_cap, new_acc[],
-        # new_aux[], collide, stream
-        "hash_agg_rehash": [_I, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L,
-                            _P, _P, _I, _P],
     },
     "dense_agg": {
         # nkeys, data[], valid[], elems[], cand[], active, n, stats, tables,
@@ -343,3 +340,8 @@ def pointer_array(ptrs) -> ctypes.Array:
 def int_array(vals) -> ctypes.Array:
     """A host array of C ints."""
     return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+def int64_array(vals) -> ctypes.Array:
+    """A host array of C int64s."""
+    return (ctypes.c_longlong * max(len(vals), 1))(*vals)

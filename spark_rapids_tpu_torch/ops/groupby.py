@@ -31,6 +31,7 @@ run on every path (``csrc/fixed128.cuh``).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -40,11 +41,13 @@ from ..batch import live_mask, upload
 
 __all__ = ["init_scalars", "ungrouped_reduce", "masked_reduce",
            "masked_reduce_plain", "GridAccumulator", "grid_group_reduce",
-           "grid_agg", "grid_agg_plain", "grid_size", "grid_uses_shared",
+           "grid_agg", "grid_agg_plain", "grid_agg_fold", "GridSums",
+           "grid_size", "grid_uses_shared", "query_scale", "in_query_range",
            "dense_key_stats", "dense_agg_stats", "dense_agg_stats_plain",
            "DenseAccumulator", "dense_agg_update", "dense_agg_update_plain",
            "dense_agg_check", "dense_agg_check_plain", "HashAccumulator",
-           "hash_agg_update", "hash_agg_update_plain", "hash_agg_rehash",
+           "hash_agg_update", "hash_agg_update_plain", "hash_agg_fold",
+           "record_layout",
            "hash_agg_merge", "hash_agg_merge_plain", "hash_agg_reinsert",
            "MergePool", "merge_op",
            "key_word", "key_from_word", "f64_image", "f64_from_image",
@@ -266,16 +269,65 @@ def grid_uses_shared(G: int, nf: int, ni: int) -> bool:
     return G * (2 * nf + ni + 1) * 8 <= GRID_SHARED_BYTES
 
 
+FX_FAST_LO = 52             # csrc/fixed128.cuh: |x| 2^s in [2^52, 2^93)
+FX_FAST_HI = 92
+FX_SCALE_TOP = 73           # s = 73 - ilogb(the first call's largest |x|)
+
+
+def query_scale(largest: float) -> int:
+    """The query scale s that ``csrc/fixed128.cuh`` ``fx_scale_word`` makes
+    (and stores as s + 2^32) from a float64 channel's largest finite
+    non-zero |x|."""
+    return FX_SCALE_TOP - (math.frexp(largest)[1] - 1)
+
+
+def in_query_range(x: float, scale: Optional[int]) -> bool:
+    """Whether finite non-zero ``x`` adds exactly at ``scale`` (an integer
+    below 2^93 there), as ``fx_in_range`` decides; None (no scale yet) and
+    values 2^-21 below or 2^19 above the largest |x| take the fallback."""
+    if scale is None or x == 0.0 or not math.isfinite(x):
+        return False
+    e = math.frexp(x)[1] - 1 + scale
+    return FX_FAST_LO <= e <= FX_FAST_HI
+
+
+class GridSums:
+    """The float64 sum state of ``csrc/grid_agg.cu``, kept across calls:
+    ``q`` [G, nf, 2] each cell's exact integer at its column's query
+    scale, ``fb`` [G, nf, 3] the per-call fallback words (zero between
+    calls) and ``words`` [2 nf + 3] (per column its first calls' largest
+    |x| bits and its scale word, then two fallback flags and a ticket),
+    all zero at the start."""
+
+    def __init__(self, G: int, nf: int, device):
+        i64 = dict(dtype=torch.int64, device=device)
+        self.nf = nf
+        self.q = torch.zeros((G, nf, 2), **i64)
+        self.fb = torch.zeros((G, nf, 3), **i64)
+        self.words = torch.zeros(2 * nf + 3, **i64)
+        self.calls = 0
+
+    def regrid(self, new_slot: torch.Tensor, G: int) -> None:
+        """Each old slot's integers at its new slot (no two old slots share
+        one); the scales stay."""
+        q = torch.zeros((G,) + self.q.shape[1:], dtype=torch.int64,
+                        device=self.q.device)
+        q[new_slot] = self.q
+        self.q = q
+        self.fb = torch.zeros((G,) + self.fb.shape[1:], dtype=torch.int64,
+                              device=self.fb.device)
+
+
 class GridAccumulator:
     """The per-query device accumulator of the grid path.
 
     ``f`` [G, nf] float64 sums, ``i`` [G, ni] int64 sums and masked counts,
-    ``cnt`` [G] live rows per slot; ``fx`` [G, nf, 3] the kernel's
-    fixed-point words of a call (zero between calls).  ``kinds`` gives,
-    per contribution,
-    where it lands, fixed before the first batch from the aggregates'
-    nullability: "f" or "i" for a column of its own, "cnt" for a count of
-    every live row, which the presence count already is."""
+    ``cnt`` [G] live rows per slot; ``sums`` the kernel's float64 sum
+    state (:class:`GridSums`), whose query-scale integers fold into ``f``
+    when the output is read (:meth:`values`).  ``kinds`` gives, per
+    contribution, where it lands, fixed before the first batch from the
+    aggregates' nullability: "f" or "i" for a column of its own, "cnt" for
+    a count of every live row, which the presence count already is."""
 
     def __init__(self, dims: Sequence[int], kinds: Sequence[str], device):
         self.dims = tuple(dims)
@@ -296,7 +348,7 @@ class GridAccumulator:
         self.f = torch.zeros((G, nf), dtype=torch.float64, device=device)
         self.i = torch.zeros((G, ni), dtype=torch.int64, device=device)
         self.cnt = torch.zeros(G, dtype=torch.int64, device=device)
-        self.fx = torch.zeros((G, nf, 3), dtype=torch.int64, device=device)
+        self.sums = GridSums(G, nf, device)
 
     @property
     def G(self) -> int:
@@ -324,7 +376,8 @@ class GridAccumulator:
     def regrid(self, dims: Sequence[int]) -> None:
         """Re-lay the accumulator onto larger dims (a dictionary grew past
         its padded size): each old slot's codes, NULL slots included, map
-        to their new slot."""
+        to their new slot; the float64 sums' integers and scales move
+        along."""
         dims = tuple(dims)
         old_slot = torch.arange(self.G, device=self.cnt.device)
         new_slot = torch.zeros_like(old_slot)
@@ -343,8 +396,7 @@ class GridAccumulator:
             return out.index_add_(0, new_slot, t)
 
         self.f, self.i, self.cnt = move(self.f), move(self.i), move(self.cnt)
-        self.fx = torch.zeros((G,) + self.fx.shape[1:], dtype=torch.int64,
-                              device=self.fx.device)
+        self.sums.regrid(new_slot, G)
         self.dims = dims
 
     def slot_codes(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -360,8 +412,15 @@ class GridAccumulator:
                         code != d))
         return out
 
+    def fold(self) -> None:
+        """The kernel's query-scale integers into ``f`` (a float64 sum is
+        whole after this; the plain version adds into ``f`` directly)."""
+        if self.f.is_cuda and self.sums.calls and self.f.shape[1]:
+            grid_agg_fold(self.sums, self.f)
+
     def values(self) -> List[torch.Tensor]:
         """Per contribution, its [G] accumulated sums."""
+        self.fold()
         out = []
         for kind, j in self.where:
             out.append(self.cnt if kind == "cnt"
@@ -382,7 +441,7 @@ def grid_group_reduce(code_keys: List[Value], dims: Sequence[int],
     f_cols, i_cols = acc.route(contributions, n)
     if active.is_cuda:
         grid_agg(keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i,
-                 acc.cnt, acc.fx)
+                 acc.cnt, acc.sums)
     else:
         grid_agg_plain(keys, acc.dims, f_cols, i_cols, active, acc.f, acc.i,
                        acc.cnt)
@@ -418,10 +477,11 @@ def grid_agg_plain(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
 
 
 def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
-             acc_cnt, fx: Optional[torch.Tensor] = None) -> None:
+             acc_cnt, sums: GridSums) -> None:
     """Launch ``csrc/grid_agg.cu`` on CUDA tensors (the arguments of
-    :func:`grid_agg_plain`, and ``fx``, the [G, nf, 3] fixed-point words,
-    zero between calls: made here when the caller keeps none)."""
+    :func:`grid_agg_plain`, and ``sums``, the float64 sums' state kept
+    across calls, whose integers :func:`grid_agg_fold` turns into
+    ``acc_f`` when the output is read)."""
     n = active.shape[0]
     G = acc_cnt.shape[0]
     nf, ni = len(f_cols), len(i_cols)
@@ -430,12 +490,11 @@ def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
         raise ValueError(f"grid_agg takes 1..{GA_MAX_KEYS} keys and at most "
                          f"{GA_MAX_COLS} float64 and {GA_MAX_COLS} int64 "
                          f"columns, got {len(keys)}, {nf}, {ni}")
-    if fx is None:
-        fx = torch.zeros((G, nf, 3), dtype=torch.int64, device=acc_f.device)
     if G != grid_size(dims) or acc_f.shape != (G, nf) \
-            or acc_i.shape != (G, ni) or fx.shape != (G, nf, 3):
+            or acc_i.shape != (G, ni) or sums.q.shape != (G, nf, 2) \
+            or sums.fb.shape != (G, nf, 3):
         raise ValueError("accumulator shapes do not match the grid")
-    for acc in (acc_f, acc_i, acc_cnt, fx):
+    for acc in (acc_f, acc_i, acc_cnt, sums.q, sums.fb, sums.words):
         if not acc.is_contiguous() or not acc.is_cuda:
             raise ValueError("accumulators must be contiguous CUDA tensors")
     _check_column(active, n, (torch.bool,), "active")
@@ -460,19 +519,37 @@ def grid_agg(keys, dims, f_cols, i_cols, active, acc_f, acc_i,
 
     f_data, f_valid = ptrs(f_cols, torch.float64)
     i_data, i_valid = ptrs(i_cols, torch.int64)
+    if n == 0:
+        return
+    sums.calls += 1
     lib = kernels.load("grid_agg")
     stream = torch.cuda.current_stream(active.device).cuda_stream
     rc = lib.grid_agg(
         kernels.pointer_array(codes), kernels.pointer_array(code_valid),
         kernels.int_array(list(dims)), len(keys), active.data_ptr(), n,
         f_data, f_valid, nf, i_data, i_valid, ni, acc_f.data_ptr(),
-        acc_i.data_ptr(), acc_cnt.data_ptr(), fx.data_ptr(), G,
+        acc_i.data_ptr(), acc_cnt.data_ptr(), sums.q.data_ptr(),
+        sums.fb.data_ptr(), sums.words.data_ptr(), sums.calls, G,
         int(grid_uses_shared(G, nf, ni)), stream)
     kernels.check_launch(lib, "grid_agg", rc)
     grid_agg.launches += 1
 
 
 grid_agg.launches = 0
+
+
+def grid_agg_fold(sums: GridSums, acc_f: torch.Tensor) -> None:
+    """Launch ``grid_agg_fold`` of ``csrc/grid_agg.cu``: every cell's
+    query-scale integer into ``acc_f`` [G, nf], cleared."""
+    lib = kernels.load("grid_agg")
+    rc = lib.grid_agg_fold(
+        sums.q.data_ptr(), acc_f.data_ptr(), sums.words.data_ptr(), sums.nf,
+        acc_f.numel(), torch.cuda.current_stream(acc_f.device).cuda_stream)
+    kernels.check_launch(lib, "grid_agg_fold", rc)
+    grid_agg_fold.launches += 1
+
+
+grid_agg_fold.launches = 0
 
 
 # ---------------------------------------------------------------------------------
@@ -1060,7 +1137,6 @@ HA_MAX_CH = 32              # csrc/hash_agg.cu HA_MAX_CH
 HA_LOAD = 0.5               # groups per slot the table is allowed
 HA_MIN_SLOTS = 1024
 HA_COMPACT_SLOTS = 1 << 20  # larger tables are compacted after a count fetch
-HA_READY = 2                # csrc/hash_agg.cu HA_READY
 _HA_OP = {"sum": 0, "min": 1, "max": 2, "count": 3, "first": 4, "last": 5}
 _F64_SIGNLESS = 0x7FFFFFFFFFFFFFFF
 
@@ -1117,29 +1193,67 @@ def _ha_init(op: str, is_f64: bool) -> float:
     return {"sum": 0, "count": 0, "min": _I64_MAX, "max": _I64_MIN}[op]
 
 
+def record_layout(channels: Sequence[Tuple[str, bool]]):
+    """The value record of ``csrc/hash_agg.cu`` for (op, is_f64) channels:
+    (hot offsets, cold offsets, W, H, a fresh record's W words).  The H hot
+    words, where a row adds, come first: per channel its accumulator word
+    (a float64 min/max as its image), a float64 sum's query-scale pair
+    [lo, hi], a FIRST/LAST row word (INT64_MAX for FIRST, -1 for LAST).
+    Then the cold words (-1: none): a float64 sum's [float64 word, the
+    call's largest |x|, fallback lo, hi], a FIRST/LAST value word.  W is a
+    multiple of 4 past 2 words, so records start on 32-byte sectors."""
+    hot, init = [], []
+    for op, is_f64 in channels:
+        hot.append(len(init))
+        if op in ORDERED_OPS:
+            init.append(_I64_MAX if op.startswith("first") else -1)
+        elif is_f64 and op == "sum":
+            init += [0, 0]
+        else:
+            init.append(int(_ha_init(op, is_f64)))
+    H = len(init)
+    cold = []
+    for op, is_f64 in channels:
+        if op in ORDERED_OPS:
+            cold.append(len(init))
+            init.append(0)
+        elif is_f64 and op == "sum":
+            cold.append(len(init))
+            init += [0, 0, 0, 0]
+        else:
+            cold.append(-1)
+    W = len(init) if len(init) <= 2 else -(-len(init) // 4) * 4
+    return hot, cold, W, H, init + [0] * (W - len(init))
+
+
 class HashAccumulator:
     """The per-query state of the hash aggregation: one table that every
     batch adds into.
 
     ``channels`` holds (op, is_f64) per contribution, op in
     sum/min/max/count and first/last/first_valid/last_valid (whose value
-    columns are float64 or int64 words, with one auxiliary int64 word per
-    slot, ``csrc/hash_agg.cu``).  ``update`` takes each batch's int64 key
-    words with
-    their validity (:func:`key_word`), its contributions and its live
-    mask.  The host keeps an upper bound on the number of groups (the rows
-    added so far, or ``key_bound`` when the keys' domain is smaller); the
-    table grows only when that bound could pass ``HA_LOAD`` of its slots,
-    and then one fetch reads the exact group count first.  ``finish``
-    returns the groups: a large table compacted after one more fetch of
-    their count, a small one under its live mask.
+    columns are float64 or int64 words).  ``update`` takes each batch's
+    int64 key words with their validity (:func:`key_word`), its
+    contributions and its live mask.  The host keeps an upper bound on the
+    number of groups (the rows added so far, or ``key_bound`` when the
+    keys' domain is smaller); the table grows only when that bound could
+    pass ``HA_LOAD`` of its slots, and then one fetch reads the exact group
+    count first.  ``finish`` returns the groups in gid order: a large
+    table's first ``groups`` after one more fetch of their count, a small
+    one's under its live mask.
 
-    On a CUDA device the table is open addressing over ``cap`` slots
-    (``csrc/hash_agg.cu``); on the CPU, or with ``plain=True`` on either
-    device, the plain version keeps the groups dense
-    (``hash_agg_update_plain``), with the same growth decisions and
-    fetches.  ``collide`` sends every key to one bucket (a test of the
-    kernel's probing)."""
+    On a CUDA device the table is open addressing over ``cap`` slot
+    records with a dense value record per group (``csrc/hash_agg.cu``,
+    :func:`record_layout`): ``recs`` [cap, stride], ``meta`` [gids,
+    2 + nkeys] and ``vals`` [gids, W], where ``gids`` is the most groups
+    the table may hold (``HA_LOAD`` of its slots for updates, the host's
+    bound for a merge), ``fwords`` the float64 sums' query scales and the
+    count of the last call's fallback list, and ``fblist`` that list (the
+    next call, or :meth:`finish`, folds it).  On the CPU, or with
+    ``plain=True`` on either device, the plain version keeps the groups
+    dense (``hash_agg_update_plain``), with the same growth decisions and
+    fetches.  ``collide`` sends every
+    key to one bucket (a test of the kernel's probing)."""
 
     def __init__(self, nkeys: int, channels: Sequence[Tuple[str, bool]],
                  device, key_bound: Optional[int] = None,
@@ -1162,59 +1276,77 @@ class HashAccumulator:
         self.ngroups = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.merging = False   # merge calls use the merge table
         self.pool = pool
-        self.gids = 0          # the merge table's gid capacity
+        self.gids = 0          # the groups the value records have room for
+        self.ops = [_HA_OP[kernel_op(op, None)[0]] for op, _ in self.channels]
+        self.f64 = [int(f) for _, f in self.channels]
+        self.nf = sum(1 for op, f in zip(self.ops, self.f64)
+                      if f and op == _HA_OP["sum"])  # float64 sums
+        self.fblist: Optional[torch.Tensor] = None
+        self._c_layout = None  # the ctypes arrays of the layout, once
+        self.hot, self.cold, self.W, self.H, self.fresh = \
+            record_layout(self.channels)
+        self.stride = 1 << self.nkeys.bit_length()  # >= 1 + nkeys
 
     def _limit_bound(self, n: int) -> int:
         return n if self.key_bound is None else min(n, self.key_bound)
 
-    def _alloc(self, cap: int):
-        """(state, keys, nulls, accumulators, auxiliary words) of a table
-        of ``cap`` slots: a FIRST word starts at INT64_MAX, a LAST word at
-        -1; the plain version keeps its groups dense, with 0/1 "has"
+    def _alloc_plain(self) -> None:
+        """The plain version's dense, empty groups: keys [nkeys, 0], null
+        bits, per channel its accumulator and (FIRST/LAST) its 0/1 "has"
         words."""
         dev = self.device
-        n = cap if self.kernel else 0
-        acc, aux = [], []
+        self.keys = torch.empty((self.nkeys, 0), dtype=torch.int64,
+                                device=dev)
+        self.nulls = torch.empty(0, dtype=torch.int32, device=dev)
+        self.acc, self.aux = [], []
         for op, is_f64 in self.channels:
-            init = _ha_init(op, is_f64)
             dtype = torch.float64 if is_f64 and (
                 op == "sum" or op in ORDERED_OPS) else torch.int64
-            acc.append(torch.full((n,), init, dtype=dtype, device=dev))
-            if op not in ORDERED_OPS:
-                aux.append(None)
-                continue
-            start = 0 if not self.kernel else (
-                _I64_MAX if op.startswith("first") else -1)
-            aux.append(torch.full((n,), start, dtype=torch.int64,
-                                  device=dev))
-        if not self.kernel:  # the plain version keeps the groups dense
-            return (None, torch.empty((self.nkeys, 0), dtype=torch.int64,
-                                      device=dev),
-                    torch.empty(0, dtype=torch.int32, device=dev), acc, aux)
-        return (torch.zeros(cap, dtype=torch.int32, device=dev),
-                torch.empty((self.nkeys, cap), dtype=torch.int64, device=dev),
-                torch.empty(cap, dtype=torch.int32, device=dev), acc, aux)
+            self.acc.append(torch.full((0,), _ha_init(op, is_f64),
+                                       dtype=dtype, device=dev))
+            self.aux.append(torch.zeros(0, dtype=torch.int64, device=dev)
+                            if op in ORDERED_OPS else None)
 
-    def _fixed_point(self, cap: int):
-        """The [cap, 3] fixed-point words of each float64 sum channel
-        (None for the others)."""
-        return [torch.zeros((cap, 3), dtype=torch.int64, device=self.device)
-                if self.kernel and is_f64 and op == "sum" else None
-                for op, is_f64 in self.channels]
+    def _kernel_words(self) -> None:
+        """The kernel's table words, zero at the start (per float64 sum its
+        largest |x| bits and scale word, the count of the last call's
+        fallback list, the group count each launch starts from, a ticket,
+        the rows of the list's call)."""
+        self.fwords = torch.zeros(2 * self.nf + 4, dtype=torch.int64,
+                                  device=self.device)
 
     @staticmethod
     def _slots_for(groups: int) -> int:
         need = max(HA_MIN_SLOTS, int(groups / HA_LOAD))
         return 1 << (need - 1).bit_length()
 
+    def _records(self, cap: int, keep: int) -> None:
+        """An update table of ``cap`` slots: empty slot records and value
+        records for ``HA_LOAD`` of them, the first ``keep`` groups'
+        records kept."""
+        dev, gids = self.device, max(1, int(cap * HA_LOAD))
+        meta = torch.empty((gids, 2 + self.nkeys), dtype=torch.int64,
+                           device=dev)
+        vals = torch.empty((gids, self.W), dtype=torch.int64, device=dev)
+        if keep:
+            meta[:keep] = self.meta[:keep]
+            vals[:keep] = self.vals[:keep]
+        self.meta, self.vals, self.gids = meta, vals, gids
+        self.recs = torch.zeros(cap * self.stride, dtype=torch.int64,
+                                device=dev)
+        self.cap = cap
+
     def _reserve(self, n: int) -> None:
         """Make room for ``n`` more rows' groups: fetch the exact count and
         grow only when the host's bound says the table could fill."""
         if self.cap == 0:
-            self.cap = self._slots_for(self._limit_bound(2 * n))
-            self.state, self.keys, self.nulls, self.acc, self.aux = \
-                self._alloc(self.cap)
-            self.fx = self._fixed_point(self.cap)
+            cap = self._slots_for(self._limit_bound(2 * n))
+            if self.kernel:
+                self._kernel_words()
+                self._records(cap, 0)
+            else:
+                self._alloc_plain()
+                self.cap = cap
             return
         limit = int(self.cap * HA_LOAD)
         if self._limit_bound(self.bound + n) <= limit:
@@ -1224,17 +1356,14 @@ class HashAccumulator:
         if self._limit_bound(self.bound + n) <= limit:
             return
         self.growths += 1
-        self._grow(self._slots_for(self._limit_bound(2 * (self.bound + n))))
-
-    def _grow(self, cap: int) -> None:
-        old = (self.state, self.keys, self.nulls, self.acc, self.aux,
-               self.cap)
-        new = self._alloc(cap)
+        cap = self._slots_for(self._limit_bound(2 * (self.bound + n)))
         if self.kernel:
-            hash_agg_rehash(self, old, new, cap)
-            self.state, self.keys, self.nulls, self.acc, self.aux = new
-            self.fx = self._fixed_point(cap)
-        self.cap = cap
+            # the count was just read: the first `bound` gids are every
+            # group
+            self._records(cap, self.bound)
+            hash_agg_reinsert(self)
+        else:
+            self.cap = cap
 
     def update(self, words: Sequence[Value],
                contributions: Sequence[Value],
@@ -1266,21 +1395,7 @@ class HashAccumulator:
                 > HA_COMPACT_SLOTS
         return self.cap > HA_COMPACT_SLOTS
 
-    # -- the merge table (csrc/hash_agg.cu hash_agg_merge) ----------------------
-    def _merge_layout(self):
-        """(per channel its first word in a value record, a fresh value
-        record): the accumulator word; a FIRST/LAST word after it
-        (INT64_MAX, -1); a float64 sum's three fixed-point words."""
-        offs, init = [], []
-        for op, is_f64 in self.channels:
-            offs.append(len(init))
-            init.append(int(_ha_init(op, is_f64)))
-            if op in ORDERED_OPS:
-                init.append(_I64_MAX if op.startswith("first") else -1)
-            elif is_f64 and op == "sum":
-                init += [0, 0, 0]
-        return offs, init
-
+    # -- the merge table (partial buffers, hash_agg.cu's same kernels) --------
     def _reserve_merge(self, n: int) -> None:
         """Room for ``n`` more buffer rows' groups, without a fetch: the
         gid capacity is the host's bound on the groups, the slots twice it
@@ -1291,32 +1406,29 @@ class HashAccumulator:
             self.merging = True
             self.cap = self._slots_for(bound)
             if not self.kernel:
-                self.state, self.keys, self.nulls, self.acc, self.aux = \
-                    self._alloc(0)
-                self.fx = [None] * len(self.channels)
+                self._alloc_plain()
                 return
             if self.pool is None:
                 self.pool = MergePool(self.device)
             self.pool.acquire(self)
-            self.stride = 1 << self.nkeys.bit_length()  # >= 1 + nkeys
-            self.offs, init = self._merge_layout()
-            self.init = self.pool.fresh_record(init)
-            self.meta, self.vals = self.pool.dense(bound, self.nkeys,
-                                                   len(init), 0)
+            self._kernel_words()
+            self.meta, self.vals = self.pool.dense(bound, self.nkeys, self.W,
+                                                   0)
             self.recs = self.pool.records(self.cap * self.stride)
             self.gids = bound
             return
         if not self.kernel:
             return
         if bound > self.gids:
-            self.meta, self.vals = self.pool.dense(
-                bound, self.nkeys, self.vals.shape[1], self.gids)
+            self.meta, self.vals = self.pool.dense(bound, self.nkeys, self.W,
+                                                   self.gids)
         cap = self._slots_for(bound)
         if cap > self.cap:
             self.growths += 1
             self._clear_slots()   # wider records re-placed from the gids
             self.recs = self.pool.records(cap * self.stride)
             self.cap = cap
+            self.gids = max(self.gids, bound)
             hash_agg_reinsert(self)
         self.gids = max(self.gids, bound)
 
@@ -1331,31 +1443,6 @@ class HashAccumulator:
                 and self.pool.holder is self:
             self._clear_slots()
             self.pool.holder = None
-
-    def _finish_merge(self, groups: Optional[int]):
-        """:meth:`finish` of a merge table: the first ``groups`` gids' meta
-        and value records (copied out, so the pool can be reused), or
-        every gid record under the live mask gid < ngroups."""
-        rows = self.gids if groups is None else groups
-        live = None if groups is not None else (
-            torch.arange(rows, device=self.device) < self.ngroups)
-        meta, vals = self.meta[:rows], self.vals[:rows]
-        nulls = meta[:, 1]
-        keys = [(meta[:, 2 + i].clone(), (nulls >> i) & 1 == 0)
-                for i in range(self.nkeys)]
-        values = []
-        for (op, is_f64), off in zip(self.channels, self.offs):
-            a = vals[:, off].clone()
-            if is_f64 and (op == "sum" or op in ORDERED_OPS):
-                a = a.view(torch.float64)
-            if op in ORDERED_OPS:
-                x = vals[:, off + 1]
-                values.append((a, x == _I64_MIN if op.startswith("first")
-                               else x >= 0))
-            else:
-                values.append(f64_from_image(a) if is_f64 and op != "sum"
-                              else a)
-        return keys, values, live
 
     def merge(self, words: Sequence[Value], buffers: Sequence[Value],
               active: Optional[torch.Tensor], n: int) -> None:
@@ -1377,17 +1464,55 @@ class HashAccumulator:
         run(self, words, buffers, active, n)
         self.bound = self._limit_bound(self.bound + n)
 
+    def _finish_records(self, groups: Optional[int]):
+        """:meth:`finish` of the kernel's table: the float64 sums folded,
+        then the first ``groups`` gids' keys and values (copied out, so a
+        pool can be reused), or every gid record under the live mask
+        gid < ngroups."""
+        if any(f and op == "sum" for op, f in self.channels):
+            hash_agg_fold(self)
+        rows = self.gids if groups is None else groups
+        live = None if groups is not None else (
+            torch.arange(rows, device=self.device) < self.ngroups)
+        meta, vals = self.meta[:rows], self.vals[:rows]
+        nulls = meta[:, 1]
+        if live is None:
+            keys = [(meta[:, 2 + i].clone(), (nulls >> i) & 1 == 0)
+                    for i in range(self.nkeys)]
+        else:
+            # rows past the groups hold whatever their memory held: their
+            # keys become 0 and null, so no code indexes out of a
+            # dictionary downstream
+            keys = [(torch.where(live, meta[:, 2 + i], 0),
+                     live & ((nulls >> i) & 1 == 0))
+                    for i in range(self.nkeys)]
+        values = []
+        for (op, is_f64), hot, cold in zip(self.channels, self.hot,
+                                           self.cold):
+            if op in ORDERED_OPS:
+                a = vals[:, cold].clone()
+                x = vals[:, hot]
+                values.append((a.view(torch.float64) if is_f64 else a,
+                               x == _I64_MIN if op.startswith("first")
+                               else x >= 0))
+            elif is_f64 and op == "sum":
+                values.append(vals[:, cold].clone().view(torch.float64))
+            elif is_f64:
+                values.append(f64_from_image(vals[:, hot]))
+            else:
+                values.append(vals[:, hot].clone())
+        return keys, values, live
+
     def finish(self, groups: Optional[int] = None, compact: bool = True):
         """(per key its int64 words and validity; per channel its values —
         float64 min/max decoded from their images, FIRST/LAST as
-        (value, has) pairs; the live mask or None), every list in one slot
-        order.  A table of more than
-        ``HA_COMPACT_SLOTS`` slots is compacted to its groups after one
-        fetch of their count (or to ``groups``, when the caller read the
-        count in a fetch of its own); a smaller one, or any with
-        ``compact=False``, comes back whole under its live mask, with no
-        fetch.  The plain version's groups are
-        dense already; it makes the same fetch, so counts agree."""
+        (value, has) pairs; the live mask or None), every list in one
+        group order.  A table of more than ``HA_COMPACT_SLOTS`` slots comes
+        back as its groups after one fetch of their count (or ``groups``,
+        when the caller read the count in a fetch of its own); a smaller
+        one, or any with ``compact=False``, comes back whole under its live
+        mask, with no fetch.  The plain version's groups are dense already;
+        it makes the same fetch, so counts agree."""
         from ..utils.metrics import fetch
         if self.cap == 0:
             self._reserve(0)
@@ -1395,39 +1520,18 @@ class HashAccumulator:
             groups = None
         elif groups is None:
             groups = int(fetch(self.ngroups)[0])
-        if self.merging and self.kernel:
-            return self._finish_merge(groups)
-        live = None
-        words, nulls, acc = list(self.keys), self.nulls, self.acc
-        has = [x for x in self.aux if x is not None]
-        if self.kernel and groups is None:
-            live = self.state == HA_READY
-        elif self.kernel:
-            from .batch_utils import compact_columns
-            cols = [(w, None) for w in words] + [(nulls, None)] \
-                + [(a, None) for a in acc] + [(x, None) for x in has]
-            packed = [d for d, _ in compact_columns(
-                cols, self.state == HA_READY, groups)]
-            k = self.nkeys + 1 + len(acc)
-            words, nulls, acc, has = (packed[:self.nkeys], packed[self.nkeys],
-                                      packed[self.nkeys + 1:k], packed[k:])
-        keys = [(w, (nulls >> i) & 1 == 0) for i, w in enumerate(words)]
+        if self.kernel:
+            return self._finish_records(groups)
+        keys = [(w, (self.nulls >> i) & 1 == 0)
+                for i, w in enumerate(self.keys)]
         values = []
-        has = iter(has)
-        for (op, is_f64), a in zip(self.channels, acc):
+        for (op, is_f64), a, x in zip(self.channels, self.acc, self.aux):
             if op in ORDERED_OPS:
-                x = next(has)
-                if not self.kernel:
-                    filled = x != 0
-                elif op.startswith("first"):
-                    filled = x == _I64_MIN
-                else:
-                    filled = x >= 0
-                values.append((a, filled))
+                values.append((a, x != 0))
             else:
                 values.append(f64_from_image(a) if is_f64 and op != "sum"
                               else a)
-        return keys, values, live
+        return keys, values, None
 
 
 def _tuple_matrix(words, nulls) -> torch.Tensor:
@@ -1519,50 +1623,93 @@ def _check_keys(words, active, n: int) -> None:
             _check_column(v, n, (torch.bool,), "key valid")
 
 
-def hash_agg_update(acc: HashAccumulator, words, contributions, active,
-                    n: int) -> None:
-    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``."""
+def _c_layout(acc: HashAccumulator):
+    """The accumulator's ops, float64 flags, hot and cold offsets and fresh
+    record as ctypes arrays, made once (every launch passes them)."""
+    if acc._c_layout is None:
+        I = kernels.int_array
+        acc._c_layout = (I(acc.ops), I(acc.f64), I(acc.hot), I(acc.cold),
+                         kernels.int64_array(acc.fresh))
+    return acc._c_layout
+
+
+def _launch_hash(acc: HashAccumulator, words, cols, active, n: int,
+                 what: str) -> bool:
+    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu`` (the update's and
+    the merge's kernels); False when there are no rows."""
     _check_keys(words, active, n)
-    data, valid, ops, f64 = [], [], [], []
-    for (d, v), (op, is_f64) in zip(contributions, acc.channels):
+    data, valid = [], []
+    for (d, v), (op, is_f64) in zip(cols, acc.channels):
         if op == "count":
             if d is not None:
                 raise ValueError("a count channel takes no data")
         else:
             _check_column(d, n, (torch.float64 if is_f64 else torch.int64,),
-                          "contribution")
+                          what)
         if v is not None:
-            _check_column(v, n, (torch.bool,), "contribution valid")
+            _check_column(v, n, (torch.bool,), f"{what} valid")
         data.append(_opt_ptr(d))
         valid.append(_opt_ptr(v))
-        ops.append(_HA_OP[kernel_op(op, None)[0]])
-        f64.append(int(is_f64))
     if n == 0:
-        return
-    per_row = any(x is not None for x in acc.aux) \
-        or any(x is not None for x in acc.fx)
-    rslot = torch.empty(n if per_row else 0, dtype=torch.int64,
-                        device=acc.device)
+        return False
+    ordered = any(op in ORDERED_OPS for op, _ in acc.channels)
+    rgid = torch.empty(n, dtype=torch.int32, device=acc.device) \
+        if ordered else None
+    # the call's list of (group, float64 sum) pairs that took the fallback;
+    # the last call's list stays until this call's first launch folds it
+    fbprev = fblist = acc.fblist
+    if acc.nf and (fblist is None or fblist.numel() < n * acc.nf):
+        fblist = torch.empty(n * acc.nf, dtype=torch.int64,
+                             device=acc.device)
+        fbprev = fblist if fbprev is None else fbprev
+    acc.fblist = fblist
+    ops, f64, hot, cold, fresh = _c_layout(acc)
     P = kernels.pointer_array
     lib = kernels.load("hash_agg")
     rc = lib.hash_agg_update(
         acc.nkeys, P([d.data_ptr() for d, _ in words]),
         P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
-        P(valid), kernels.int_array(ops), kernels.int_array(f64),
-        P([a.data_ptr() for a in acc.acc]), P([_opt_ptr(x) for x in acc.aux]),
-        P([_opt_ptr(x) for x in acc.fx]), _opt_ptr(active), n,
-        acc.state.data_ptr(), acc.keys.data_ptr(), acc.nulls.data_ptr(),
-        acc.cap, int(acc.collide), acc.ngroups.data_ptr(),
-        rslot.data_ptr() if per_row else None, acc.calls,
+        P(valid), ops, f64, hot, cold, acc.W, acc.H, fresh, _opt_ptr(active),
+        n, acc.recs.data_ptr(), acc.stride, acc.cap, int(acc.collide),
+        acc.meta.data_ptr(),
+        acc.vals.data_ptr(), acc.ngroups.data_ptr(), acc.fwords.data_ptr(),
+        _opt_ptr(rgid), _opt_ptr(fbprev), _opt_ptr(fblist), acc.calls,
         torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "hash_agg_update", rc)
+    return True
+
+
+def hash_agg_update(acc: HashAccumulator, words, contributions, active,
+                    n: int) -> None:
+    """Launch ``hash_agg_update`` of ``csrc/hash_agg.cu``: one batch into
+    the accumulator's table."""
+    if not _launch_hash(acc, words, contributions, active, n,
+                        "contribution"):
+        return
     hash_agg_update.launches += 1
-    if any(x is not None for x in acc.aux):
+    if any(op in ORDERED_OPS for op, _ in acc.channels):
         hash_agg_update.ordered_launches += 1
 
 
 hash_agg_update.launches = 0
 hash_agg_update.ordered_launches = 0  # the launches that pick FIRST/LAST
+
+
+def hash_agg_fold(acc: HashAccumulator) -> None:
+    """Launch ``hash_agg_fold``: every group's float64 sums' query-scale
+    integers, and the last call's fallback integers, into their float64
+    words (the output's fold)."""
+    lib = kernels.load("hash_agg")
+    ops, f64, hot, cold, _ = _c_layout(acc)
+    rc = lib.hash_agg_fold(
+        len(acc.channels), ops, f64, hot, cold, acc.vals.data_ptr(), acc.W,
+        acc.ngroups.data_ptr(), acc.fwords.data_ptr(), acc.gids,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    kernels.check_launch(lib, "hash_agg_fold", rc)
+    hash_agg_fold.launches += 1
+
+
+hash_agg_fold.launches = 0
 
 
 def merge_op(op: str) -> str:
@@ -1589,60 +1736,35 @@ def hash_agg_merge_plain(acc: HashAccumulator, words, buffers, active,
 
 def hash_agg_merge(acc: HashAccumulator, words, buffers, active,
                    n: int) -> None:
-    """Launch ``hash_agg_merge`` of ``csrc/hash_agg.cu`` into the
-    accumulator's merge table."""
+    """Launch ``csrc/hash_agg.cu``'s kernels for a batch of partial
+    buffers into the accumulator's merge table."""
     if any(op == "count" for op, _ in acc.channels):
         raise ValueError("a merge takes no count channel")
-    _check_keys(words, active, n)
-    data, valid, ops, f64 = [], [], [], []
-    for (d, v), (op, is_f64) in zip(buffers, acc.channels):
-        _check_column(d, n, (torch.float64 if is_f64 else torch.int64,),
-                      "buffer")
-        if v is not None:
-            _check_column(v, n, (torch.bool,), "buffer valid")
-        data.append(d.data_ptr())
-        valid.append(_opt_ptr(v))
-        ops.append(_HA_OP[kernel_op(op, None)[0]])
-        f64.append(int(is_f64))
-    if n == 0:
-        return
-    per_row = any(op in ORDERED_OPS or (f and op == "sum")
-                  for op, f in acc.channels)
-    rgid = torch.empty(n if per_row else 0, dtype=torch.int32,
-                       device=acc.device)
-    P = kernels.pointer_array
-    lib = kernels.load("hash_agg")
-    rc = lib.hash_agg_merge(
-        acc.nkeys, P([d.data_ptr() for d, _ in words]),
-        P([_opt_ptr(v) for _, v in words]), len(acc.channels), P(data),
-        P(valid), kernels.int_array(ops), kernels.int_array(f64),
-        kernels.int_array(acc.offs), acc.vals.shape[1],
-        acc.init.data_ptr(), _opt_ptr(active), n, acc.recs.data_ptr(),
-        acc.stride, acc.cap, int(acc.collide), acc.meta.data_ptr(),
-        acc.vals.data_ptr(), acc.gids, acc.ngroups.data_ptr(),
-        rgid.data_ptr() if per_row else None, acc.calls,
-        torch.cuda.current_stream(acc.device).cuda_stream)
-    kernels.check_launch(lib, "hash_agg_merge", rc)
-    hash_agg_merge.launches += 1
+    if _launch_hash(acc, words, buffers, active, n, "buffer"):
+        hash_agg_merge.launches += 1
 
 
 hash_agg_merge.launches = 0
 
 
 def hash_agg_reinsert(acc: HashAccumulator) -> None:
-    """Launch ``hash_agg_reinsert``: every group of the merge table into
-    its (empty) records of ``acc.cap`` slots."""
+    """Launch ``hash_agg_reinsert``: every group of the table into its
+    (empty) records of ``acc.cap`` slots."""
     lib = kernels.load("hash_agg")
     rc = lib.hash_agg_reinsert(
         acc.nkeys, acc.recs.data_ptr(), acc.stride, acc.cap,
         int(acc.collide), acc.meta.data_ptr(), acc.ngroups.data_ptr(),
         acc.gids, torch.cuda.current_stream(acc.device).cuda_stream)
     kernels.check_launch(lib, "hash_agg_reinsert", rc)
+    hash_agg_reinsert.launches += 1
+
+
+hash_agg_reinsert.launches = 0
 
 
 class MergePool:
     """The device buffers of the merge tables of one final aggregate
-    (``csrc/hash_agg.cu`` hash_agg_merge), lent to one
+    (``csrc/hash_agg.cu``, through :func:`hash_agg_merge`), lent to one
     :class:`HashAccumulator` at a time: slot records, all empty while no
     table holds them (a released table zeroes the slots it used, so a
     table sized for a small bucket clears no more), and the gid-indexed
@@ -1654,7 +1776,6 @@ class MergePool:
         self.recs: Optional[torch.Tensor] = None
         self.meta: Optional[torch.Tensor] = None
         self.vals: Optional[torch.Tensor] = None
-        self.inits: Dict[tuple, torch.Tensor] = {}
         self.holder: Optional[HashAccumulator] = None
 
     def acquire(self, acc: HashAccumulator) -> None:
@@ -1662,19 +1783,6 @@ class MergePool:
             raise RuntimeError("the merge pool's table is held by another "
                                "accumulator (release it first)")
         self.holder = acc
-
-    def fresh_record(self, words: Sequence[int]) -> torch.Tensor:
-        """The device copy of a fresh value record, made once per layout
-        with fills (no host-to-device copy, so nothing waits)."""
-        key = tuple(words)
-        if key not in self.inits:
-            t = torch.zeros(max(len(key), 1), dtype=torch.int64,
-                            device=self.device)
-            for j, w in enumerate(key):
-                if w:
-                    t[j] = w
-            self.inits[key] = t
-        return self.inits[key]
 
     def records(self, words: int) -> torch.Tensor:
         """At least ``words`` int64 words of empty slot records (zero)."""
@@ -1760,25 +1868,3 @@ def group_ratio(h: torch.Tensor, active: Optional[torch.Tensor]
     if h.is_cuda:
         return group_ratio_kernel(h, active)
     return group_ratio_plain(h, active)
-
-
-def hash_agg_rehash(acc: HashAccumulator, old, new, new_cap: int) -> None:
-    """Launch ``hash_agg_rehash`` of ``csrc/hash_agg.cu``: every group of
-    the ``old`` table (state, keys, nulls, accumulators, cap) into the
-    empty ``new`` one of ``new_cap`` slots."""
-    o_state, o_keys, o_nulls, o_acc, o_aux, o_cap = old
-    n_state, n_keys, n_nulls, n_acc, n_aux = new
-    P = kernels.pointer_array
-    lib = kernels.load("hash_agg")
-    rc = lib.hash_agg_rehash(
-        acc.nkeys, len(acc.channels), o_state.data_ptr(), o_keys.data_ptr(),
-        o_nulls.data_ptr(), o_cap, P([a.data_ptr() for a in o_acc]),
-        P([_opt_ptr(x) for x in o_aux]), n_state.data_ptr(),
-        n_keys.data_ptr(), n_nulls.data_ptr(), new_cap,
-        P([a.data_ptr() for a in n_acc]), P([_opt_ptr(x) for x in n_aux]),
-        int(acc.collide), torch.cuda.current_stream(acc.device).cuda_stream)
-    kernels.check_launch(lib, "hash_agg_rehash", rc)
-    hash_agg_rehash.launches += 1
-
-
-hash_agg_rehash.launches = 0

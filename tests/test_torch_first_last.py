@@ -418,3 +418,53 @@ def test_frame_first_last_plain_matches_numpy(last, ignore_nulls):
         assert bool(ok[i]) == want_ok
         if want_ok:
             assert out[i].item() == vals[pos]
+
+
+@pytest.mark.parametrize("shape", ["one_group", "n17", "dead_batches",
+                                   "growth"])
+def test_hash_agg_plain_first_last_edges(shape):
+    """Grouped first/last/first_valid/last_valid on the hash kernel's risky
+    shapes, into the plain accumulator, against numpy over the
+    concatenated rows: one group for every row, 17 rows in batches of 5,
+    batches with every row dead between live ones, and a table that grows
+    (its groups' picks carried across the growth)."""
+    rng = np.random.default_rng(91)
+    channels = [("first", False), ("last", False), ("first_valid", True),
+                ("last_valid", True)]
+    acc = tg.HashAccumulator(1, channels, "cpu")
+    sizes = {"one_group": [300] * 4, "n17": [5, 5, 5, 2],
+             "dead_batches": [200] * 5, "growth": [700] * 6}[shape]
+    keys, vals, fvals, valid, act = [], [], [], [], []
+    for b, n in enumerate(sizes):
+        k = np.zeros(n, np.int64) if shape == "one_group" \
+            else rng.integers(0, 10**9 if shape == "growth" else 30, n)
+        v = rng.integers(-10**12, 10**12, n)
+        f = rng.normal(size=n)
+        ok = rng.random(n) < 0.4
+        a = rng.random(n) < (0.0 if shape == "dead_batches" and b % 2
+                             else 0.6)
+        acc.update([(torch.from_numpy(k), None)],
+                   [(torch.from_numpy(v), None), (torch.from_numpy(v), None),
+                    (torch.from_numpy(f), torch.from_numpy(ok)),
+                    (torch.from_numpy(f), torch.from_numpy(ok))],
+                   torch.from_numpy(a), n)
+        for lst, x in ((keys, k), (vals, v), (fvals, f), (valid, ok),
+                       (act, a)):
+            lst.append(x)
+    if shape == "growth":
+        assert acc.growths >= 1
+    k, v, f, ok, a = (np.concatenate(x) for x in (keys, vals, fvals, valid,
+                                                   act))
+    out_keys, values, _ = acc.finish()
+    words = out_keys[0][0]
+    assert sorted(words.tolist()) == sorted(set(k[a].tolist()))
+    for g, key in enumerate(words.tolist()):
+        m = a & (k == key)
+        rows, vrows = np.flatnonzero(m), np.flatnonzero(m & ok)
+        assert values[0][0][g].item() == v[rows[0]]
+        assert values[1][0][g].item() == v[rows[-1]]
+        assert bool(values[2][1][g]) == bool(len(vrows))
+        assert bool(values[3][1][g]) == bool(len(vrows))
+        if len(vrows):
+            assert values[2][0][g].item() == f[vrows[0]]
+            assert values[3][0][g].item() == f[vrows[-1]]

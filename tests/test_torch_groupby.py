@@ -5,6 +5,7 @@ within rel 1e-12 (the two sum in different orders); min/max identical,
 NaN and the sign of zero included."""
 
 import datetime
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -700,7 +701,7 @@ def test_hash_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tg.hash_agg_update(acc, [(torch.zeros(4, dtype=torch.int64), None)],
                            [(None, None)], None, 4)
-    assert tg.hash_agg_update.launches == tg.hash_agg_rehash.launches == 0
+    assert tg.hash_agg_update.launches == tg.hash_agg_fold.launches == 0
 
 
 @pytest.mark.parametrize("cols", [("name",), ("fk",), ("name", "i"),
@@ -919,3 +920,319 @@ def test_dense_check_folds_query_scale_pairs():
     assert acc.rec[:, q0:q0 + 2].eq(0).all()
     assert acc.acc[1].tolist() == [1.0, 2.0, 3.0, 4.0]
     assert int(acc.rec[0, q1]) == 12345
+
+
+# -- the redesigned grid and hash aggregates: edge shapes and host logic ------
+
+def _far_floats(rng, n, specials=True):
+    """Values near 1 with 1e-30 and 1e30 among them (and the specials):
+    the values the kernels' query scale leaves to their fallback."""
+    x = rng.normal(size=n)
+    pick = rng.random(n)
+    x[pick < 0.05] = 1e-30
+    x[pick > 0.95] = 1e30
+    x[:6] = [np.inf, -np.inf, np.nan, 1e30, 2.0 ** -1074, 0.0] if specials \
+        else [1e30, 1e-30, -1e-30, 1e30, 2.0 ** -1074, 0.0]
+    return x
+
+
+def _grid_edge(shape):
+    """(keys, dims, contribs, active) of grid_agg.cu's risky shapes that the
+    plain version reaches."""
+    rng = np.random.default_rng(61)
+    n = 3000
+    if shape == "one_slot":          # dims (0,): every key null, G = 1
+        keys = [(np.zeros(n, np.int32), np.zeros(n, bool))]
+        dims = (0,)
+    else:
+        dims = (4, 2)
+        keys = [(rng.integers(0, d, n).astype(np.int32),
+                 rng.random(n) < 0.8) for d in dims]
+    contribs = [((rng.integers(-10**12, 10**12, n), None), "sum"),
+                ((None, rng.random(n) < 0.6), "sum"), ((None, None), "sum")]
+    if shape != "int64_only":
+        # the reference's grid is a one-hot product, which spreads a NaN
+        # or an infinity to every slot: specials are held to numpy below
+        x = _far_floats(rng, n, specials=False) if shape == "far_floats" \
+            else rng.normal(size=n) * 100
+        contribs = [((x, rng.random(n) < 0.9), "sum")] + contribs
+    active = rng.random(n) < (0.0 if shape == "all_dead" else 0.7)
+    return keys, dims, contribs, active
+
+
+@pytest.mark.parametrize("shape", ["one_slot", "int64_only", "far_floats",
+                                   "all_dead"])
+def test_grid_group_reduce_edges_match_reference(shape):
+    """The grid's plain version on the kernel's risky shapes (one slot,
+    int64 channels only, float values outside any query scale's range with
+    infinities and NaN, every row dead) against the reference's
+    grid_group_reduce."""
+    keys, dims, contribs, active = _grid_edge(shape)
+    want_keys, want_vals = _reference_grid(keys, dims, contribs, active)
+    got_keys, got_vals = _port_groups(_port_grid(keys, dims, contribs,
+                                                 active))
+    for (wc, wv), (gc, gv) in zip(want_keys, got_keys):
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gc[gv], wc[wv])
+    for w, g in zip(want_vals, got_vals):
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=REL, atol=0)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+def test_grid_specials_match_numpy():
+    """Infinities and NaN in a float64 sum stay in their own slots (numpy's
+    per-slot sums): +inf, -inf, both (NaN), NaN, and finite slots."""
+    rng = np.random.default_rng(66)
+    n = 2000
+    codes = rng.integers(0, 4, n).astype(np.int32)
+    x = rng.normal(size=n)
+    for code, vals in ((0, [np.inf]), (1, [-np.inf]), (2, [np.inf, -np.inf]),
+                       (3, [np.nan])):
+        at = np.flatnonzero(codes == code)[:len(vals)]
+        x[at] = vals
+    codes[codes == 3] = np.where(rng.random((codes == 3).sum()) < 0.5, 3, 4)
+    dims = (5,)
+    active = np.ones(n, bool)
+    acc = _port_grid([(codes, None)], dims, [((x, None), "sum")], active)
+    want = np.zeros(6)
+    with np.errstate(invalid="ignore"):
+        np.add.at(want, codes, x)
+    got = acc.values()[0].numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(got[~fin & ~np.isnan(want)],
+                                  want[~fin & ~np.isnan(want)])
+    np.testing.assert_allclose(got[fin], want[fin], rtol=REL, atol=1e-12)
+
+
+def test_grid_views_at_an_odd_offset_match_aligned_columns():
+    """Keys, values and masks as views at odd storage offsets (the kernel
+    reads them a row at a time) give the reference's grid_group_reduce
+    over the aligned columns."""
+    keys, dims, contribs, active = _grid_edge("plain")
+    want_keys, want_vals = _reference_grid(keys, dims, contribs, active)
+
+    def off(a, k):
+        if a is None:
+            return None
+        t = torch.from_numpy(np.concatenate([a[:k], a]))[k:]
+        assert t.storage_offset() == k
+        return t
+
+    tc = [((off(d, 1), off(v, 3)), op) for (d, v), op in contribs]
+    acc = tg.GridAccumulator(dims, _kinds(contribs), CPU)
+    tg.grid_group_reduce([(off(c, 1), off(v, 5)) for c, v in keys], dims,
+                         tc, off(active, 7), acc)
+    got_keys, got_vals = _port_groups(acc)
+    for (wc, wv), (gc, gv) in zip(want_keys, got_keys):
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gc[gv], wc[wv])
+    for w, g in zip(want_vals, got_vals):
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=REL, atol=0)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+def test_grid_sums_regrid_move_integers_and_keep_scales():
+    """A regrid moves each slot's query-scale integers to its new slot and
+    keeps the scales; the fallback words start empty."""
+    acc = tg.GridAccumulator((2, 1), ["f", "i", "f"], CPU)
+    q = torch.arange(acc.G * 2 * 2, dtype=torch.int64).view(acc.G, 2, 2)
+    acc.sums.q.copy_(q)
+    acc.sums.words[2:4] = torch.tensor([40, 41])
+    acc.sums.fb.fill_(7)
+    acc.regrid((4, 2))
+    slot = lambda c0, c1: c0 * 3 + c1  # noqa: E731 (dims (4, 2))
+    moved = {(0, 0): slot(0, 0), (0, 1): slot(0, 2), (1, 0): slot(1, 0),
+             (1, 1): slot(1, 2), (2, 0): slot(4, 0), (2, 1): slot(4, 2)}
+    for (c0, c1), new in moved.items():
+        assert torch.equal(acc.sums.q[new], q[c0 * 2 + c1])
+    assert int(acc.sums.q.abs().sum()) == int(q.abs().sum())
+    assert acc.sums.words[2:4].tolist() == [40, 41]
+    assert acc.sums.words[:2].tolist() == [0, 0]
+    assert int(acc.sums.fb.abs().sum()) == 0 and acc.sums.fb.shape[0] == 15
+
+
+@pytest.mark.parametrize("largest", [1.0, 104_949.5, 3e-300, 1e300, 0.07])
+def test_query_scale_and_fallback_rule(largest):
+    """The scale from a channel's largest |x| puts that |x| at 2^73; values
+    from 2^-21 to just under 2^20 of it (ilogb within [-21, 19] of its) add
+    exactly, as integers below 2^93; anything else, no scale, zero and the
+    specials take the fallback."""
+    from fractions import Fraction
+    s = tg.query_scale(largest)
+    e = math.frexp(largest)[1] - 1
+    assert 73 <= math.log2(largest) + s < 74
+    for k, inside in ((-22, False), (-21, True), (0, True), (19, True),
+                      (20, False)):
+        x = math.ldexp(1.5, e + k)
+        if not math.isfinite(x) or x == 0.0:
+            continue
+        assert tg.in_query_range(x, s) == inside, (k, x)
+        assert tg.in_query_range(-x, s) == inside
+        if inside:
+            y = Fraction(x) * Fraction(2) ** s
+            assert y.denominator == 1 and abs(y) < 2 ** 93
+    for x in (0.0, math.inf, -math.inf, math.nan):
+        assert not tg.in_query_range(x, s)
+    assert not tg.in_query_range(largest, None)
+
+
+def test_query_scale_sums_are_exact():
+    """Integers at the query scale add exactly: their sum, scaled back, is
+    the exact rational sum of the values (the kernels' sums do not depend
+    on the order)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(62)
+    x = np.round(rng.uniform(900.0, 105_000.0, 5000), 2) * (
+        1 - rng.integers(0, 11, 5000) / 100.0)
+    s = tg.query_scale(float(np.abs(x).max()))
+    assert all(tg.in_query_range(float(v), s) for v in x)
+    total = sum(int(Fraction(float(v)) * 2 ** s) for v in x)
+    assert Fraction(total, 2 ** s) == sum(Fraction(float(v)) for v in x)
+    shuffled = sum(int(Fraction(float(v)) * 2 ** s)
+                   for v in rng.permutation(x))
+    assert shuffled == total
+
+
+@pytest.mark.parametrize("channels,hot,cold,W,H", [
+    ([], [], [], 0, 0),
+    ([("sum", True), ("count", False)], [0, 2], [3, -1], 8, 3),
+    ([("count", False)], [0], [-1], 1, 1),
+    ([("min", True), ("max", False)], [0, 1], [-1, -1], 2, 2),
+    ([("first", False), ("last", False), ("last", False),
+      ("first_valid", False), ("last_valid", False), ("count", False)],
+     [0, 1, 2, 3, 4, 5], [6, 7, 8, 9, 10, -1], 12, 6),
+    ([("sum", False), ("sum", True), ("first_valid", True)],
+     [0, 1, 3], [-1, 4, 8], 12, 4)])
+def test_record_layout(channels, hot, cold, W, H):
+    """hash_agg.cu's value record: the hot words first (a float64 sum's
+    query-scale pair takes two), then the cold words, W a multiple of 4
+    past 2 words; a fresh record holds each word's identity."""
+    h, c, w, hh, init = tg.record_layout(channels)
+    assert (h, c, w, hh) == (hot, cold, W, H)
+    assert len(init) == W
+    for (op, f), at in zip(channels, h):
+        if op in tg.ORDERED_OPS:
+            assert init[at] == (tg._I64_MAX if op.startswith("first")
+                                else -1)
+        elif op == "min" and not f:
+            assert init[at] == tg._I64_MAX
+        elif op == "min":
+            assert init[at] == int(tg.f64_image(
+                torch.tensor([math.inf], dtype=torch.float64), 0)[0])
+        elif op == "max" and not f:
+            assert init[at] == tg._I64_MIN
+        else:
+            assert init[at] == 0
+    assert all(x == 0 for x in init[H:])
+
+
+@pytest.mark.parametrize("channels,nf", [
+    ([("sum", True), ("count", False)], 1),
+    ([("sum", False), ("min", True), ("max", True), ("first", True)], 0),
+    ([("sum", True), ("last_valid", True), ("sum", True)], 2)],
+    ids=["q18", "no_float_sum", "two_float_sums"])
+def test_hash_table_words_follow_the_float64_sums(channels, nf):
+    """The kernel's table words hold, per float64 sum, its largest |x| and
+    scale word, then the fallback list's count, the launch's starting
+    group count, a ticket and the rows of the list's call, all zero; only
+    float64 sums count (a call's fallback list has room for n of each)."""
+    acc = tg.HashAccumulator(1, channels, CPU, plain=False)
+    assert acc.nf == nf
+    acc._kernel_words()
+    assert acc.fwords.tolist() == [0] * (2 * nf + 4)
+
+
+def test_update_table_growth_keeps_groups():
+    """An update table grows into empty slot records and value records for
+    HA_LOAD of its slots, keeping the first `bound` groups' records (the
+    count was just read), with the scales untouched."""
+    acc = tg.HashAccumulator(2, [("sum", True), ("count", False)], CPU,
+                             plain=False)
+    acc._kernel_words()
+    acc._records(2048, 0)
+    assert acc.gids == 1024 and acc.recs.shape == (2048 * acc.stride,)
+    assert acc.stride == 4 and int(acc.recs.abs().sum()) == 0
+    acc.meta.copy_(torch.arange(acc.meta.numel()).view(acc.meta.shape))
+    acc.vals.copy_(torch.arange(acc.vals.numel()).view(acc.vals.shape))
+    meta, vals = acc.meta.clone(), acc.vals.clone()
+    acc.recs.fill_(5)
+    acc._records(8192, 300)
+    assert acc.cap == 8192 and acc.gids == 4096
+    assert torch.equal(acc.meta[:300], meta[:300])
+    assert torch.equal(acc.vals[:300], vals[:300])
+    assert int(acc.recs.abs().sum()) == 0
+    assert acc.fwords.tolist() == [0] * 6
+    assert acc.fresh == [0] * 8
+
+
+def _hash_edge(shape):
+    """(keys, contribs, active, batch) of hash_agg.cu's risky shapes that
+    the plain version reaches."""
+    keys, contribs, active = _hash_case(6000, 63)
+    n = len(active)
+    rng = np.random.default_rng(64)
+    if shape == "n17":
+        keys, contribs, active = _hash_case(17, 65)
+        return keys, contribs, active, 5
+    if shape == "all_dead":
+        return keys, contribs, np.zeros(n, bool), 2000
+    if shape == "one_group":
+        return [(np.zeros(n, np.int64), None)], contribs, active, 6000
+    if shape == "eight_keys":
+        keys = [(rng.integers(0, 3, n).astype(np.int64),
+                 rng.random(n) < 0.9) for _ in range(8)]
+        return keys, contribs, active, 1500
+    x = _far_floats(rng, n)                      # far_floats
+    contribs = [(x, rng.random(n) < 0.9, "sum", True),
+                (x, None, "min", True), (x, None, "max", True),
+                (None, None, "count", False)]
+    return [(rng.integers(0, 40, n).astype(np.int64), None)], contribs, \
+        active, 2000
+
+
+@pytest.mark.parametrize("shape", ["n17", "all_dead", "one_group",
+                                   "eight_keys", "far_floats"])
+def test_hash_aggregate_edges_match_group_reduce(shape):
+    """The hash aggregate's plain version on the kernel's risky shapes (17
+    rows in batches of 5, every row dead, one group for every row, 8 keys,
+    float values outside any query scale's range with infinities and NaN)
+    against the reference's group_reduce."""
+    keys, contribs, active, batch = _hash_edge(shape)
+    want = _reference_hash_groups(keys, contribs, active)
+    got, _ = _port_hash_groups(keys, contribs, active, batch)
+    assert got.keys() == want.keys()
+    for k, vals in want.items():
+        for a, b, (_, _, op, _) in zip(got[k], vals, contribs):
+            if isinstance(b, float) and math.isinf(b):
+                assert a == b, (k, op, a, b)
+            else:
+                assert _same(a, b, "sum" if op in ("sum", "count") else op), \
+                    (k, op, a, b)
+
+
+def test_table_output_masks_rows_past_the_groups():
+    """A small table comes back whole under its live mask (gid < ngroups):
+    the rows past the groups, whose records were never written, come back
+    with key words 0 and null, so no garbage code reaches a dictionary."""
+    acc = tg.HashAccumulator(2, [("count", False), ("max", False)], CPU,
+                             plain=False)
+    acc._kernel_words()
+    acc._records(1024, 0)
+    acc.meta.fill_(-123456789)
+    acc.meta[:3, 1] = torch.tensor([0, 1, 2])
+    acc.meta[:3, 2:] = torch.tensor([[5, 6], [7, 8], [9, 10]])
+    acc.vals.zero_()
+    acc.ngroups.fill_(3)
+    keys, values, live = acc._finish_records(None)
+    assert live.tolist() == [True] * 3 + [False] * (acc.gids - 3)
+    (w0, v0), (w1, v1) = keys
+    assert w0[:3].tolist() == [5, 7, 9] and w1[:3].tolist() == [6, 8, 10]
+    assert v0[:3].tolist() == [True, False, True]
+    assert v1[:3].tolist() == [True, True, False]
+    assert int(w0[3:].abs().sum()) == 0 and int(w1[3:].abs().sum()) == 0
+    assert not bool(v0[3:].any()) and not bool(v1[3:].any())

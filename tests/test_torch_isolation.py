@@ -96,7 +96,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         groupby.grid_agg(keys, (1,), [], [], active,
                          torch.zeros((2, 0), dtype=torch.float64),
                          torch.zeros((2, 0), dtype=torch.int64),
-                         torch.zeros(2, dtype=torch.int64))
+                         torch.zeros(2, dtype=torch.int64),
+                         groupby.GridSums(2, 0, torch.device("cpu")))
     assert groupby.masked_reduce.launches == 0
     assert groupby.grid_agg.launches == 0
 

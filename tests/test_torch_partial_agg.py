@@ -496,3 +496,64 @@ def test_concat_of_codes_of_different_dictionaries():
     assert got == ["SHIP", "MAIL", "AIR", "AIR", "TRUCK", "MAIL", None,
                    "AIR", "TRUCK"]
     assert len(set(col.dictionary.tolist())) == len(col.dictionary) == 5
+
+
+@pytest.mark.parametrize("shape", ["one_group", "far_floats", "all_dead"])
+def test_merge_edges_match_reference_group_reduce(shape):
+    """The plain merge on the hash kernel's risky shapes (every buffer row
+    in one group, float64 sum buffers far outside any query scale's range,
+    every row dead) against the reference's ``group_reduce`` with the same
+    merge ops."""
+    rng = np.random.default_rng(92)
+    n = 3000
+    k = np.zeros(n, np.int64) if shape == "one_group" \
+        else rng.integers(0, 200, n)
+    kv = rng.random(n) < 0.95
+    x = rng.uniform(-1e6, 1e6, n)
+    if shape == "far_floats":
+        pick = rng.random(n)
+        x[pick < 0.05] = 1e-30
+        x[pick > 0.95] = 1e30
+    cols = [(rng.integers(-2**40, 2**40, n), "sum"),
+            (rng.integers(-10**6, 10**6, n), "min"),
+            (rng.uniform(-1e6, 1e6, n), "max"), (x, "sum")]
+    valid = [rng.random(n) < 0.9 for _ in cols]
+    active = rng.random(n) < (0.0 if shape == "all_dead" else 0.97)
+    ok, ov, _, gmask = jgroupby.group_reduce(
+        [(jnp.asarray(k), jnp.asarray(kv))],
+        [((jnp.asarray(d), jnp.asarray(v)), op)
+         for (d, op), v in zip(cols, valid)], jnp.asarray(active))
+
+    def at(v, i):
+        v = None if v is None else np.asarray(v)
+        return True if v is None or v.ndim == 0 else bool(v[i])
+    want = {}
+    for i in np.nonzero(np.asarray(gmask))[0]:
+        key = int(ok[0][0][i]) if at(ok[0][1], i) else None
+        want[key] = [(np.asarray(d)[i].item(), at(v, i)) for d, v in ov]
+    acc = groupby.HashAccumulator(
+        1, [(op, d.dtype == np.float64) for d, op in cols], "cpu")
+    for lo in range(0, n, 1100):
+        sl = slice(lo, lo + 1100)
+        acc.merge([(groupby.key_word(torch.from_numpy(k[sl])),
+                    torch.from_numpy(kv[sl]))],
+                  [(torch.from_numpy(d[sl]), torch.from_numpy(v[sl]))
+                   for (d, _), v in zip(cols, valid)],
+                  torch.from_numpy(active[sl]), len(k[sl]))
+    keys, values, live = acc.finish()
+    got = {}
+    for i in range(keys[0][0].shape[0]):
+        if live is not None and not bool(live[i]):
+            continue
+        key = int(keys[0][0][i]) if bool(keys[0][1][i]) else None
+        got[key] = [float(v[i]) if v.dtype == torch.float64 else int(v[i])
+                    for v in values]
+    assert set(got) == set(want)
+    for key, row in want.items():
+        for j, ((w, has), g, (d, op)) in enumerate(zip(row, got[key], cols)):
+            if not has:
+                continue
+            if op == "sum" and d.dtype == np.float64:
+                assert abs(g - w) <= 1e-12 * max(1.0, abs(w)), (key, j)
+            else:
+                assert g == w, (key, j)

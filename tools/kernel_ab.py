@@ -55,7 +55,20 @@ the bucket sequence one event pair a sequence, its host work included):
     (build, probe with its scan, expansion, gathers); and
     ``partition_perm`` at Q18-2ph-repart's shape (4,194,304 rows into 64
     partitions).  A checkout whose CSR build also returns the counts is
-    called as it expects.
+    called as it expects;
+  * ``hash_agg`` (the update, into a table that has seen one call, so the
+    timed calls find every group): the keys only at Q21's DISTINCT
+    (l_orderkey, l_suppkey) as ``chip_smoke.py`` times it (4,194,304 rows,
+    63% live, keys drawn from 15,000,000 and 100,000), a float64 sum and a
+    count at Q18's shape (4,194,304 order keys drawn from 15,000,000,
+    about 3,660,000 groups), F1's five FIRST/LAST channels and a count
+    (4,194,304 orders by customer, 1,500,000 customers), and every row
+    live into few groups of two int64 keys, a float64 sum and a count: 25
+    x 7 (Q9's 175) and 2 x 2 (Q7's 4), and into one group (the worst
+    contention); and Q18's shape with one value (and every 16th value) at
+    1e-30, far below the query scale's range (the fallback); and
+  * ``grid_agg`` at Q1's shape (4,194,304 rows, 98% live, codes over (4,
+    2), seven float64 sums), into an accumulator that has seen one call.
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -122,7 +135,7 @@ def main() -> int:
                                           .parent.parent))
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
-                    "dense_agg,masked_reduce,csr_join")
+                    "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -162,6 +175,159 @@ def main() -> int:
         return 1
     if "csr_join" in only and time_csr_join(torch, dev, emit) != 0:
         return 1
+    if "hash_agg" in only and time_hash_agg(torch, dev, groupby, emit) != 0:
+        return 1
+    if "grid_agg" in only and time_grid_agg(torch, dev, groupby, emit) != 0:
+        return 1
+    return 0
+
+
+def _sorted_groups(torch, acc):
+    """A hash accumulator's groups as (key matrix, values) in key order,
+    FIRST/LAST values where their has flag holds (0 elsewhere)."""
+    keys, values, live = acc.finish()
+    cols = [w for w, _ in keys] + [ok.long() for _, ok in keys]
+    vals = []
+    for v in values:
+        if isinstance(v, tuple):
+            v = torch.where(v[1], v[0], torch.zeros_like(v[0])), v[1]
+        vals += list(v) if isinstance(v, tuple) else [v]
+    if live is not None:
+        cols = [c[live] for c in cols]
+        vals = [v[live] for v in vals]
+    m = torch.stack(cols, 1)
+    order = torch.arange(m.shape[0], device=m.device)
+    for c in reversed(range(m.shape[1])):
+        order = order[torch.sort(m[order, c], stable=True).indices]
+    return m[order], [v[order] for v in vals]
+
+
+def time_hash_agg(torch, dev, groupby, emit) -> int:
+    """The hash aggregate's update at Q21's, Q18's (also with far values),
+    F1's, Q9's and Q7's shapes, each against the plain version first."""
+    rng = np.random.default_rng(15)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = 4 << 20
+    rev = t(rng.uniform(900.0, 105000.0, n) * (1 - rng.integers(0, 11, n)
+                                                / 100.0))
+    ck = t(rng.integers(1, 1_500_001, n))
+    days = t(rng.integers(8036, 10592, n))
+    okey = t(rng.integers(1, 60_000_001, n))
+    q21_words = [t(rng.integers(1, 15_000_001, n)),
+                 t(rng.integers(1, 100_001, n))]
+    q21_active = t(rng.random(n) < 0.63)
+    q18_keys = t(rng.integers(1, 15_000_001, n))
+    # Q18's shape with values far below the query scale's range (1e-30
+    # beside ~1e5): at one row, and at every 16th row (about 250,000
+    # groups take the fallback)
+    far_one, far_16 = rev.clone(), rev.clone()
+    far_one[n // 3] = 1e-30
+    far_16[::16] = 1e-30
+    shapes = [
+        # name, words, contributions, channels, active, key_bound
+        ("hash_agg_q21_keys", q21_words, [], [], q21_active, None),
+        ("hash_agg_q18_f64_sum", [q18_keys],
+         [(rev, None), (None, None)], [("sum", True), ("count", False)],
+         None, n),
+        ("hash_agg_q18_far_one", [q18_keys],
+         [(far_one, None), (None, None)], [("sum", True), ("count", False)],
+         None, n),
+        ("hash_agg_q18_far_16th", [q18_keys],
+         [(far_16, None), (None, None)], [("sum", True), ("count", False)],
+         None, n),
+        ("hash_agg_f1_first_last", [ck],
+         [(days, None), (okey, None), (okey, None),
+          (okey, t(rng.random(n) < 0.2)), (days, t(rng.random(n) < 0.49)),
+          (None, None)],
+         [("first", False), ("last", False), ("last", False),
+          ("first_valid", False), ("last_valid", False), ("count", False)],
+         None, 1_500_000),
+        ("hash_agg_q9_groups", [t(rng.integers(0, 25, n)),
+                                t(rng.integers(1992, 1999, n))],
+         [(rev, None), (None, None)], [("sum", True), ("count", False)],
+         None, 175),
+        ("hash_agg_q7_groups", [t(rng.integers(0, 2, n)),
+                                t(rng.integers(1995, 1997, n))],
+         [(rev, None), (None, None)], [("sum", True), ("count", False)],
+         None, 4),
+        # every row in one group: the worst contention
+        ("hash_agg_one_group", [t(np.zeros(n, dtype=np.int64))],
+         [(rev, None), (None, None)], [("sum", True), ("count", False)],
+         None, 1)]
+    for what, words, contribs, channels, active, bound in shapes:
+        words = [(w, None) for w in words]
+        accs = []
+        for plain in (False, True):
+            acc = groupby.HashAccumulator(len(words), channels, dev,
+                                          plain=plain, key_bound=bound)
+            acc.update(words, contribs, active, n)
+            accs.append(acc)
+        km, kv = _sorted_groups(torch, accs[0])
+        pm, pv = _sorted_groups(torch, accs[1])
+        torch.cuda.synchronize()
+        same = torch.equal(km, pm)
+        mass = sum(float(d.abs().sum()) for (d, _), (op, f64) in zip(
+            contribs, channels) if f64 and op == "sum")
+        for (op, f64), a, b in zip([c for c in channels for _ in (
+                (0, 1) if c[0] in groupby.ORDERED_OPS else (0,))], kv, pv):
+            if f64 and op == "sum":
+                same = same and float((a - b).abs().max()) <= 1e-12 * mass
+            else:
+                same = same and torch.equal(a, b)
+        if not same:
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        acc = accs[0]
+        if what == "hash_agg_q21_keys":
+            # as chip_smoke.py times it: the wrapper alone, over copies
+            inputs = copies([w for w, _ in words] + [active], 4)
+            calls = [lambda c=c: groupby.hash_agg_update(
+                acc, [(c[0], None), (c[1], None)], [], c[2], n)
+                for c in inputs]
+            ms = time_ms(torch, calls, reps=8 * len(inputs))
+        else:
+            ms = time_ms(torch, [lambda: acc.update(words, contribs, active,
+                                                    n)], reps=8)
+        emit(what, ms, rows=n, groups=int(km.shape[0]))
+        del accs, acc
+    return 0
+
+
+def time_grid_agg(torch, dev, groupby, emit) -> int:
+    """The grid aggregate at Q1's shape, into an accumulator that has seen
+    one call, against the plain version first."""
+    rng = np.random.default_rng(16)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n, dims = 4 << 20, (4, 2)
+    codes = [t(rng.integers(0, 3, n).astype(np.int32)),
+             t(rng.integers(0, 2, n).astype(np.int32))]
+    f_data = [t(rng.uniform(1.0, 1e5, n)) for _ in range(7)]
+    active = t(rng.random(n) < 0.98)
+    keys = [(c, None) for c in codes]
+    contribs = [((d, None), "sum") for d in f_data]
+    accs = []
+    for plain in (False, True):
+        acc = groupby.GridAccumulator(dims, ["f"] * 7, dev)
+        if plain:
+            groupby.grid_agg_plain(keys, dims, [(d, None) for d in f_data],
+                                   [], active, acc.f, acc.i, acc.cnt)
+        else:
+            groupby.grid_group_reduce(keys, dims, contribs, active, acc)
+        accs.append(acc)
+    kv, pv = accs[0].values(), accs[1].values()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(kv, pv))
+    if not torch.equal(accs[0].cnt, accs[1].cnt) or \
+            err > 1e-12 * float(sum(d.abs().sum() for d in f_data)):
+        print("kernel_ab: grid_agg differs from plain", file=sys.stderr)
+        return 1
+    inputs = copies(codes + f_data + [active], 3)
+    acc = accs[0]
+    ms = time_ms(torch, [lambda c=c: groupby.grid_group_reduce(
+        [(c[0], None), (c[1], None)], dims,
+        [((d, None), "sum") for d in c[2:9]], c[9], acc) for c in inputs],
+        reps=8 * len(inputs))
+    emit("grid_agg_q1", ms, rows=n, slots=groupby.grid_size(dims))
     return 0
 
 
