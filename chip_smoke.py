@@ -55,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -62,6 +63,7 @@ SF = 10.0                     # TPC-H scale factor of the main path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 L2_BYTES = 50 << 20           # H100 L2; timed inputs rotate over more
 BATCH_ROWS = 4 << 20          # spark.rapids.tpu.sql.batchSizeRows default
+ORACLE_THREADS = 4            # threads computing the numpy oracles
 F64_SUM_TOL = 1e-12           # kernel vs plain: |a - b| <= tol * sum |x|
 QUERY_REL_TOL = 1e-9          # engine vs numpy oracle, float64 results
 # blocking fetches of the reference's Q3 plan at SF10, 4,194,304-row
@@ -663,11 +665,11 @@ def check_kernels(torch, groupby, device) -> dict:
 # ---------------------------------------------------------------------------------
 
 def join_case(torch, n_build, n_probe, seed, device, dup=False,
-              all_inactive=False):
+              all_inactive=False, odd=False):
     """A build side of unique int64 keys (a few null, a mask), optionally
     one repeated key, and a probe side whose int64 keys hit, miss (below
-    and above the domain) and are null; payload of 8, 4 and 1-byte
-    columns, one with nulls."""
+    and above the domain) and are null (with ``odd``, views at storage
+    offset 1); payload of 8, 4, 2 and 1-byte columns, two with nulls."""
     rng = np.random.default_rng(seed)
     t = _to_device(torch, device)
     bkeys = (rng.permutation(n_build) * 3 + 1000).astype(np.int64)
@@ -682,15 +684,20 @@ def join_case(torch, n_build, n_probe, seed, device, dup=False,
     payload = [(t(rng.integers(-10**12, 10**12, n_build)),
                 t(rng.random(n_build) < 0.9)),
                (t(rng.integers(0, 10**6, n_build).astype(np.int32)), None),
+               (t(rng.integers(-3000, 3000, n_build).astype(np.int16)),
+                t(rng.random(n_build) < 0.7)),
                (t(rng.random(n_build) < 0.5), None)]
-    return ((t(bkeys), t(bvalid), t(bactive)),
-            (t(pkeys), t(rng.random(n_probe) < 0.95),
-             t(rng.random(n_probe) < 0.8)), payload)
+    probe = [t(pkeys), t(rng.random(n_probe) < 0.95),
+             t(rng.random(n_probe) < 0.8)]
+    if odd and n_probe > 1:  # every probe column a view at storage offset 1
+        probe = [at_offset(torch, x, 1) for x in probe]
+    return (t(bkeys), t(bvalid), t(bactive)), tuple(probe), payload
 
 
 def compare_dense_join(torch, join, build, probe, payload) -> int:
     """Stats exact, the duplicate count included; where the keys are
-    unique, the table exact and the probe on it exact for every join type
+    unique, both layouts exact (the direct table; the sparse layout's
+    blocks and rows) and the probe on each exact for every join type
     (inner and left with the payload, semi and anti without): selection,
     data and validity.  Returns the duplicate count and the largest
     difference of the probe's outputs."""
@@ -707,25 +714,35 @@ def compare_dense_join(torch, join, build, probe, payload) -> int:
     D = kmax - kmin + 1
     kt = join.dense_join_build(bk, bv, ba, kmin, D)
     pt = join.dense_join_build_plain(bk, bv, ba, kmin, D)
+    ksp = join.dense_join_build_sparse(bk, bv, ba, kmin, D, count)
+    psp = join.dense_join_build_sparse_plain(bk, bv, ba, kmin, D, count)
     torch.cuda.synchronize()
     check(torch.equal(kt, pt), "dense_join tables differ")
+    check(torch.equal(ksp.blk, psp.blk) and torch.equal(ksp.rows, psp.rows),
+          "dense_join sparse layouts differ")
     err = 0.0
-    for how in ("inner", "semi", "anti", "left"):
-        pay = payload if how in ("inner", "left") else []
-        ksel, kcols = join.dense_join_probe(*probe, kmin, kt, pay, how)
-        psel, pcols = join.dense_join_probe_plain(*probe, kmin, kt, pay, how)
-        torch.cuda.synchronize()
-        check(torch.equal(ksel, psel), f"dense_join {how} selections differ")
-        err = max(err, max_abs_diff(ksel, psel))
-        for j, ((kd_, kv_), (pd_, pv_)) in enumerate(zip(kcols, pcols)):
-            check(torch.equal(kd_, pd_),
-                  f"dense_join {how} payload {j} data differs")
-            check((kv_ is None) == (pv_ is None)
-                  and (kv_ is None or torch.equal(kv_, pv_)),
-                  f"dense_join {how} payload {j} validity differs")
-            err = max(err, max_abs_diff(kd_, pd_))
-            if kv_ is not None:
-                err = max(err, max_abs_diff(kv_, pv_))
+    for table in (kt, ksp):
+        layout = "sparse" if isinstance(table, join.SparseTable) \
+            else "direct"
+        for how in ("inner", "semi", "anti", "left"):
+            pay = payload if how in ("inner", "left") else []
+            ksel, kcols = join.dense_join_probe(*probe, kmin, table, pay, how)
+            psel, pcols = join.dense_join_probe_plain(*probe, kmin, table,
+                                                      pay, how)
+            torch.cuda.synchronize()
+            check(torch.equal(ksel, psel),
+                  f"dense_join {layout} {how} selections differ")
+            err = max(err, max_abs_diff(ksel, psel))
+            for j, ((kd_, kv_), (pd_, pv_)) in enumerate(zip(kcols, pcols)):
+                check(torch.equal(kd_, pd_),
+                      f"dense_join {layout} {how} payload {j} data differs")
+                check((kv_ is None) == (pv_ is None)
+                      and (kv_ is None or torch.equal(kv_, pv_)),
+                      f"dense_join {layout} {how} payload {j} validity "
+                      f"differs")
+                err = max(err, max_abs_diff(kd_, pd_))
+                if kv_ is not None:
+                    err = max(err, max_abs_diff(kv_, pv_))
     return 0, err
 
 
@@ -974,6 +991,7 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
     for nb, npr, seed, kw in ((0, 100, 1, {}), (1, 1, 2, {}),
                               (1000, 5000, 3, {}),
                               (1000, 5000, 4, {"all_inactive": True}),
+                              (1000, 5003, 7, {"odd": True}),
                               (200_003, BATCH_ROWS + 17, 5, {})):
         _, err = compare_dense_join(torch, join, *join_case(
             torch, nb, npr, seed, device, **kw))
@@ -982,9 +1000,10 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
         torch, 1000, 100, 6, device, dup=True))
     check(dups == 1, f"dense_join reported {dups} repeated keys, not 1")
     print("check dense_join: build 0/1/1000/200003 rows (one all-inactive), "
-          "probe up to 4194321 rows with null, missing and out-of-domain "
-          "keys, inner/semi/anti/left: ok; a repeated build key counted "
-          "exactly: ok")
+          "the direct table and the sparse layout, probe up to 4194321 rows "
+          "with null, missing and out-of-domain keys, payload of 8, 4, 2 "
+          "and 1 bytes, inner/semi/anti/left, views at an odd offset: ok; "
+          "a repeated build key counted exactly: ok")
     kmin, D = 10_000, 4096
     cases = [(0, {}, 1 << 12), (1, {}, 1 << 12), (5000, {}, 1 << 12),
              (5000, {"all_inactive": True}, 1 << 12),
@@ -1762,7 +1781,7 @@ def _row(name, launches, err, ms, plain_ms, nbytes, lib_ms, replaces):
 
 
 def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
-                     launches, worst) -> list:
+                     launches, worst, per_wrapper) -> list:
     """dense_join (probe), dense_agg (update), topk and compact at Q3's
     SF10 shapes, with their plain versions and a library yardstick, each
     first held against its plain version on the same inputs."""
@@ -1771,13 +1790,19 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     n = BATCH_ROWS
     out, notes = [], []
 
-    # dense_join probe: join 2 -- a 15,003,036-slot table over the
+    # dense_join probe: join 2 -- a 15,003,036-slot domain over the
     # (customer x orders) build side (~9.7% live), payload o_orderkey,
-    # o_orderdate, o_shippriority; probe one lineitem batch, ~54% live
+    # o_orderdate, o_shippriority; probe one lineitem batch, ~54% live.
+    # The main path's layout rule picks the sparse layout here.
     D = Q3_ORDERS
     bkeys = torch.arange(1, D + 1, dtype=torch.int64, device=device)
     bactive = t(rng.random(D) < 0.097)
-    table = join.dense_join_build(bkeys, None, bactive, 1, D)
+    count = int(bactive.sum())
+    layout = join.dense_layout(D, count)
+    check(layout == "sparse", f"Q3's second join takes the {layout} layout")
+    build_calls = [lambda: join.build_join_table(bkeys, None, bactive, 1, D,
+                                                 count)]
+    table = build_calls[0]()
     payload = [(bkeys, None),
                (t(rng.integers(8036, 8036 + 2406, D).astype(np.int32)),
                 None), (torch.zeros(D, dtype=torch.int64, device=device),
@@ -1788,17 +1813,20 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
                                 (pk, None, pa), payload)
     inputs = copies_for_l2([pk, pa])
 
-    def probe_call(fn, k, a):
-        return lambda: fn(k, None, a, 1, table, payload)
+    def probe_call(fn, k, a, tab=table):
+        return lambda: fn(k, None, a, 1, tab, payload)
 
     ms = time_ms(torch, [probe_call(join.dense_join_probe, *c)
                          for c in inputs], reps=8 * len(inputs))
     plain_ms = time_ms(torch, [probe_call(join.dense_join_probe_plain, *c)
                                for c in inputs], reps=2 * len(inputs))
+    direct = join.dense_join_build(bkeys, None, bactive, 1, D)
+    direct_ms = time_ms(torch, [probe_call(join.dense_join_probe, *c, direct)
+                                for c in inputs], reps=8 * len(inputs))
 
     def lib_call(k, a):
         def run():
-            bi = table.index_select(0, torch.where(a, k - 1, 0))
+            bi = direct.index_select(0, torch.where(a, k - 1, 0))
             safe = bi.clamp(min=0)
             return [d.index_select(0, safe) for d, _ in payload]
         return run
@@ -1807,17 +1835,51 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
                      reps=8 * len(inputs))
     live = pa.nonzero().squeeze(1)
     slot = pk[live] - 1
-    bi = table[slot].long()
+    bi = direct[slot].long()
     hit = bi[bi >= 0]
-    nbytes = n + sector_bytes(torch, live, 8) + sector_bytes(torch, slot, 4) \
+    layout_bytes = 4 * (table.blk.numel() + table.rows.numel())
+    stream = n + sector_bytes(torch, live, 8) \
         + sum(sector_bytes(torch, hit, d.element_size()) for d, _ in payload) \
         + n * (1 + sum(d.element_size() for d, _ in payload))
-    out.append(_row("dense_join", launches, max(err, worst["dense_join"]),
-                    ms, plain_ms, nbytes, lib_ms,
-                    "spark_rapids_tpu/plan/join_exec.py:1410"))
+    # the sparse layout stays in L2: counted once (not a DRAM sector a
+    # live row, as a direct table past L2 needs); both counts kept
+    nbytes = stream + layout_bytes
+    direct_bytes = stream + sector_bytes(torch, slot, 4)
+    row = _row("dense_join", launches, max(err, worst["dense_join"]), ms,
+               plain_ms, nbytes, lib_ms,
+               "spark_rapids_tpu/plan/join_exec.py:1410")
+    row.update(bound_ms_direct_table=direct_bytes / HBM_BYTES_PER_S * 1e3,
+               direct_table_ms=direct_ms)
+    out.append(row)
     notes.append(f"n={n} probe rows, {live.numel()} live, {hit.numel()} "
-                 f"matched, table {D} slots")
-    del table, payload, bkeys, bactive, inputs
+                 f"matched, {D} slots in the sparse layout ({layout_bytes} "
+                 f"B counted once; a direct table's sectors would count "
+                 f"{direct_bytes} B; the direct table's probe "
+                 f"{direct_ms:.4f} ms)")
+
+    # the dense build at the same shape: the sparse layout, three launches
+    # (bits, rank words, rows) and the zeroed blocks
+    bcopies = copies_for_l2([bactive])
+    bms = time_ms(torch, [(lambda a=a: join.build_join_table(
+        bkeys, None, a, 1, D, count)) for a, in bcopies], reps=4 * len(
+            bcopies))
+    bplain_ms = time_ms_synced(torch, [
+        lambda: join.dense_join_build_sparse_plain(bkeys, None, bactive, 1,
+                                                   D, count)], reps=2)
+    direct_build_ms = time_ms(torch, [(lambda a=a: join.dense_join_build(
+        bkeys, None, a, 1, D)) for a, in bcopies], reps=4 * len(bcopies))
+    # keys (8 B) and mask (1 B) read, the layout written
+    row = _row("dense_join", launches, 0.0, bms, bplain_ms,
+               D * 9 + layout_bytes, None,
+               "spark_rapids_tpu/plan/join_exec.py:1353")
+    row.update(name="dense_join_build",
+               launches=per_wrapper.get("dense_join_build", 0)
+               + per_wrapper.get("dense_join_build_sparse", 0),
+               part_of="dense_join", direct_table_build_ms=direct_build_ms)
+    out.append(row)
+    notes.append(f"{D} build rows, {count} live, the sparse layout (the "
+                 f"direct table's build {direct_build_ms:.4f} ms)")
+    del table, direct, payload, bkeys, bactive, inputs, bcopies
 
     # dense_agg update: one lineitem batch of join 2's output, ~5.2% live,
     # key l_orderkey, residuals o_orderdate (int32) and o_shippriority,
@@ -1949,16 +2011,18 @@ def time_new_kernels(torch, join, groupby, topk_mod, batch_utils, device,
     # the calls that wait on the device themselves, timed by time_ms_synced
     synced = {("dense_agg", "plain"), ("topk", "plain"), ("topk", "library"),
               ("topk_k100", "plain"), ("topk_k100", "library"),
-              ("compact", "plain"), ("compact", "library")}
+              ("compact", "plain"), ("compact", "library"),
+              ("dense_join_build", "plain")}
 
     def mark(row, which):
         return "\u2020" if (row["name"], which) in synced else ""
 
     for row, note in zip(out, notes):
+        lib = "none" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f} ms{mark(row, 'library')}"
         print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
               f"{row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
-              f"{mark(row, 'plain')}, library {row['library_ms']:.4f} ms"
-              f"{mark(row, 'library')}), max |err| vs plain "
+              f"{mark(row, 'plain')}, library {lib}), max |err| vs plain "
               f"{row['max_abs_err']:.3e}, {row['launches']} launches on the "
               f"main path")
     print("\u2020 the call waits on the device itself: timed one call per "
@@ -1977,11 +2041,15 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
     out, notes = [], []
 
     # dense_join semi probe: Q18's orders batch (o_orderkey 1..) against
-    # the table of the orders whose quantity passes 300 (~0.1% of the
-    # 15,000,000-slot domain)
+    # the orders whose quantity passes 300 (~0.1% of the 15,000,000-slot
+    # domain): the sparse layout
     D = DB_ORDERS
     bkeys = torch.arange(1, D + 1, dtype=torch.int64, device=device)
-    table = join.dense_join_build(bkeys, None, t(rng.random(D) < 0.001), 1, D)
+    bact = t(rng.random(D) < 0.001)
+    count = int(bact.sum())
+    table = join.build_join_table(bkeys, None, bact, 1, D, count)
+    check(isinstance(table, join.SparseTable),
+          "Q18's semi join does not take the sparse layout")
     pk = torch.arange(1, n + 1, dtype=torch.int64, device=device)
     ksel, _ = join.dense_join_probe(pk, None, None, 1, table, [], "semi")
     psel, _ = join.dense_join_probe_plain(pk, None, None, 1, table, [],
@@ -1996,18 +2064,22 @@ def time_slice3_kernels(torch, join, groupby, device, launches,
     plain_ms = time_ms(torch, [(lambda k=k: join.dense_join_probe_plain(
         k, None, None, 1, table, [], "semi")) for k, in inputs],
         reps=2 * len(inputs))
-    lib_ms = time_ms(torch, [(lambda k=k: table.index_select(0, k - 1) >= 0)
+    direct = join.dense_join_build(bkeys, None, bact, 1, D)
+    lib_ms = time_ms(torch, [(lambda k=k: direct.index_select(0, k - 1) >= 0)
                              for k, in inputs], reps=8 * len(inputs))
-    nbytes = n * 8 + sector_bytes(torch, pk - 1, 4) + n
+    layout_bytes = 4 * (table.blk.numel() + table.rows.numel())
+    nbytes = n * 8 + n + layout_bytes
     row = _row("dense_join", launches, max_abs_diff(ksel, psel), ms,
                plain_ms, nbytes, lib_ms,
                "spark_rapids_tpu/plan/join_exec.py:1410")
     row.update(name="dense_join_semi",
-               launches=launches["dense_join_semi"])
+               launches=launches["dense_join_semi"],
+               bound_ms_direct_table=(n * 8 + sector_bytes(torch, pk - 1, 4)
+                                      + n) / HBM_BYTES_PER_S * 1e3)
     out.append(row)
-    notes.append(f"n={n} probe rows, {int(ksel.sum())} matched, table {D} "
-                 f"slots")
-    del table, bkeys, inputs
+    notes.append(f"n={n} probe rows, {int(ksel.sum())} matched, {D} slots "
+                 f"in the sparse layout ({layout_bytes} B counted once)")
+    del table, direct, bkeys, bact, inputs
 
     # csr_join: Q13's left join — build the orders that are not urgent
     # (15,000,000 rows, ~80% live, o_custkey over 1,500,000 slots), probe
@@ -3034,22 +3106,23 @@ def check_sort(torch, sort_ops, kernels, device) -> float:
 
 
 class _Ctx:
-    """A window context's positions, for holding each function's kernel
+    """A window context's flags and positions (``win_context``'s six
+    outputs) and the dense count, for holding each function's kernel
     against its plain version on the same positions."""
 
-    def __init__(self, torch, window, seg, peer, n, device, scan):
-        i32 = torch.int32
+    def __init__(self, torch, ctx, n, device, scan):
         self.n, self.device = n, device
-        self.seg_start, self.peer_start = seg, peer
-        self.seg_start_pos = scan(i32, "max", "start_pos", n, flags=seg)
-        self.seg_end_pos = scan(i32, "min", "end_pos", n, flags=seg)
-        self.peer_start_pos = scan(i32, "max", "start_pos", n, flags=peer)
-        self.peer_end_pos = scan(i32, "min", "end_pos", n, flags=peer)
-        self._dense = scan(i32, "sum", "flag_count", n, flags=peer,
-                           reset=seg)
+        (self.seg_start, self.peer_start, self.seg_start_pos,
+         self.seg_end_pos, self.peer_start_pos, self.peer_end_pos) = ctx
+        self._dense = scan(torch.int32, "sum", "flag_count", n,
+                           flags=self.peer_start, reset=self.seg_start)
 
     def dense_count(self):
         return self._dense
+
+
+CONTEXT_FIELDS = ("seg_start", "peer_start", "seg_start_pos", "seg_end_pos",
+                  "peer_start_pos", "peer_end_pos")
 
 
 def _kw(fn):
@@ -3081,26 +3154,30 @@ def check_window(torch, window, device) -> float:
     rng = np.random.default_rng(52)
     t = _to_device(torch, device)
     worst = 0.0
-    for n, parts, days, nulls in ((1, 1, 1, False), (5000, 40, 90, True),
+    for n, parts, days, nulls in ((1, 1, 1, False), (4095, 3, 5, True),
+                                  (4097, 1, 1, False),
+                                  (5000, 40, 90, True),
                                   (300_001, 500, 2526, True),
                                   (BATCH_ROWS, 7000, 2526, False)):
         (pd, pv), (dd, dv) = window_case(torch, rng, n, device, parts, days,
                                          nulls)
         keys = [(pd, pv), (dd, dv)]
-        kseg, kpeer = window.win_flags_kernel(keys, 1, n)
-        pseg, ppeer = window.win_flags_plain(keys, 1, n, device)
+        for ks, npart in ((keys, 1), (keys, 2), (keys[1:], 0), ([], 0),
+                          ([(dd.to(torch.float64).masked_fill(
+                              dd % 7 == 0, float("nan")), dv)], 0)):
+            kc = window.win_context_kernel(ks, npart, n, device)
+            pc = window.win_context_plain(ks, npart, n, device)
+            torch.cuda.synchronize()
+            for a, x, y in zip(CONTEXT_FIELDS, kc, pc):
+                check(torch.equal(x, y), f"window context {a} differs (n="
+                      f"{n}, {len(ks)} keys, {npart} partition keys)")
+        kc = window.win_context_kernel(keys, 1, n, device)
+        kseg = kc[0]
+        kw = _Ctx(torch, kc, n, device, _kw(window.win_scan_kernel))
+        pw = _Ctx(torch, kc, n, device, _kw(window.win_scan_plain))
         torch.cuda.synchronize()
-        check(torch.equal(kseg, pseg) and torch.equal(kpeer, ppeer),
-              f"window flags differ (n={n})")
-        kw = _Ctx(torch, window, kseg, kpeer, n, device,
-                  _kw(window.win_scan_kernel))
-        pw = _Ctx(torch, window, kseg, kpeer, n, device,
-                  _kw(window.win_scan_plain))
-        torch.cuda.synchronize()
-        for a in ("seg_start_pos", "seg_end_pos", "peer_start_pos",
-                  "peer_end_pos", "_dense"):
-            check(torch.equal(getattr(kw, a), getattr(pw, a)),
-                  f"window positions {a} differ (n={n})")
+        check(torch.equal(kw._dense, pw._dense),
+              f"window dense count differs (n={n})")
         x64 = t(rng.integers(-1000, 1000, n).astype(np.int64))
         xf = rng.uniform(-1e4, 1e4, n)
         xf[rng.random(n) < 0.001] = np.nan
@@ -3198,10 +3275,12 @@ def check_window(torch, window, device) -> float:
                         check(torch.equal(k[1], p[1]) and _same(
                             torch, k[0], p[0]), f"framed {op} differs "
                             f"({lo},{hi})")
-    print(f"check window: flags, positions, int64 scans, ranks, ntile, "
-          f"lag/lead, take, ROWS/RANGE bounds, framed sums and min/max "
-          f"exact; float64 sum scans within {worst:.3e} x the running "
-          f"sum of |x| (1/5000/300001/4194304 rows, nulls, NaN): ok")
+    print(f"check window: the two-pass context (flags and positions; 0, 1 "
+          f"and 2 keys, float keys with NaN) equal to the plain five-scan "
+          f"one, int64 scans, ranks, ntile, lag/lead, take, ROWS/RANGE "
+          f"bounds, framed sums and min/max exact; float64 sum scans within "
+          f"{worst:.3e} x the running sum of |x| (1/4095/4097/5000/300001/"
+          f"4194304 rows, nulls, NaN): ok")
     return worst
 
 
@@ -3218,7 +3297,7 @@ def _passes_run(torch, words) -> int:
 
 
 def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
-                        lineitem) -> list:
+                        lineitem, per_wrapper) -> list:
     """sort (one S1 run: 4,194,304 lineitem rows by ship date, price desc,
     order key, and the gather of its 6 columns), window_scan (W1's running
     revenue: a segmented sum over 60,012,150 rows in supplier order) and
@@ -3300,6 +3379,28 @@ def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
     (supp, _), (date, _), (price, _) = sort_ops.gather_kernel(
         [(supp, None), (date, None), (price, None)], perm)
     del perm
+    # the window context: W1's first spec (supplier, ship date) in two
+    # launches, held to the plain five-scan context
+    wkeys = [(supp, None), (date, None)]
+    kc = window.win_context_kernel(wkeys, 1, m, device)
+    pc = window.win_context_plain(wkeys, 1, m, device)
+    torch.cuda.synchronize()
+    for a, x, y in zip(CONTEXT_FIELDS, kc, pc):
+        check(torch.equal(x, y), f"window context {a} differs at W1's shape")
+    del kc, pc
+    ms = time_ms(torch, [lambda: window.win_context_kernel(wkeys, 1, m,
+                                                           device)], reps=8)
+    plain_ms = time_ms_synced(torch, [lambda: window.win_context_plain(
+        wkeys, 1, m, device)], reps=2)
+    # keys read (8 + 4 B), two flag bytes and four int32 positions written
+    row = _row("window_scan", launches, 0.0, ms, plain_ms, m * 30, None,
+               "spark_rapids_tpu/ops/window.py:35")
+    row.update(name="window_context", part_of="window_scan",
+               launches=per_wrapper.get("win_context_kernel", 0))
+    out.append(row)
+    notes.append(f"{m} rows, W1's (supplier, ship date) spec: flags and "
+                 f"four positions in two launches (no PyTorch call computes "
+                 f"them)")
     w = window.SortedWindowContext([(supp, None)], [(date, None)], m,
                                    device)
     seg = w.seg_start
@@ -3314,7 +3415,70 @@ def time_slice5_kernels(torch, sort_ops, window, device, launches, worst,
     torch.cuda.synchronize()
     err = float(((k - p).abs() / torch.clamp(scale, min=1.0)).max())
     check(err <= F64_SUM_TOL, f"window_scan running sum off by {err:.3e}")
-    del k, p, scale
+    # equal to the bit from run to run: W1's sum 5 times, and one partition
+    # of every row (the longest look-back) 3 times
+    bits = k.view(torch.int64)
+    for _ in range(4):
+        again = window.win_scan_kernel(torch.float64, "sum", "values", m,
+                                       price, None, None, seg)
+        check(torch.equal(again.view(torch.int64), bits),
+              "window_scan's running sum differs between runs")
+    del k, p, scale, bits, again
+    first = torch.zeros(m, dtype=torch.bool, device=device)
+    first[0] = True
+    one = [window.win_scan_kernel(torch.float64, "sum", "values", m, price,
+                                  None, None, first) for _ in range(3)]
+    p = window.win_scan_plain(torch.float64, "sum", "values", m, price, None,
+                              None, first)
+    scale = window.win_scan_plain(torch.float64, "sum", "values", m,
+                                  price.abs(), None, None, first)
+    torch.cuda.synchronize()
+    err1 = float(((one[0] - p).abs() / torch.clamp(scale, min=1.0)).max())
+    check(err1 <= F64_SUM_TOL, f"window_scan over one {m}-row partition off "
+          f"by {err1:.3e}")
+    check(all(torch.equal(x.view(torch.int64), one[0].view(torch.int64))
+              for x in one[1:]),
+          "window_scan over one partition differs between runs")
+    err = max(err, err1)
+    print(f"check window_scan: W1's running sum 5 runs and one {m}-row "
+          f"partition 3 runs equal to the bit; within {err:.3e} x the "
+          f"running sum of |x| of the plain scan: ok")
+    del one, p, scale, first
+    # smaller calls on the same stream after the long ones (a look-back's
+    # status words and tile counter must not carry over): a 60,012,150-row
+    # context with no partition key, then 1-tile and 1,024-tile scans and
+    # contexts, each held to its plain version
+    wide = [(date, None)]
+    kc = window.win_context_kernel(wide, 0, m, device)
+    pc = window.win_context_plain(wide, 0, m, device)
+    torch.cuda.synchronize()
+    for a, x, y in zip(CONTEXT_FIELDS, kc, pc):
+        check(torch.equal(x, y), f"window context {a} differs over {m} "
+              f"rows with no partition key")
+    del kc, pc
+    for n in (100, 1024 * 4096):
+        ks = [(supp[:n], None), (date[:n], None)]
+        for keys, npart in ((ks, 1), (ks[1:], 0)):
+            kc = window.win_context_kernel(keys, npart, n, device)
+            pc = window.win_context_plain(keys, npart, n, device)
+            torch.cuda.synchronize()
+            for a, x, y in zip(CONTEXT_FIELDS, kc, pc):
+                check(torch.equal(x, y), f"window context {a} differs after "
+                      f"the long calls (n={n}, {npart} partition keys)")
+        for reset in (seg[:n], None):
+            k = window.win_scan_kernel(torch.int64, "sum", "values", n,
+                                       supp[:n].to(torch.int64), None, None,
+                                       reset)
+            p = window.win_scan_plain(torch.int64, "sum", "values", n,
+                                      supp[:n].to(torch.int64), None, None,
+                                      reset)
+            torch.cuda.synchronize()
+            check(torch.equal(k, p), f"window_scan differs after the long "
+                  f"calls (n={n}, resets {reset is not None})")
+    del kc, pc, k, p
+    print(f"check window_scan: after a {m}-row context with no partition "
+          f"key, 1-tile and 1,024-tile contexts and int64 scans (with and "
+          f"without resets) on the same stream equal the plain versions: ok")
     ms = time_ms(torch, [lambda: window.win_scan_kernel(
         torch.float64, "sum", "values", m, price, None, None, seg)], reps=8)
     plain_ms = time_ms_synced(torch, [lambda: window.win_scan_plain(
@@ -5355,31 +5519,39 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         took = {}
         t0 = time.perf_counter()
-        q6_want, q1_want = tpch.q6_numpy(data), tpch.q1_numpy(data)
-        q3_want = tpch.q3_numpy(cust, orders, data)
-        took["q6, q1, q3"] = time.perf_counter() - t0
-        db_want = {}
+        # the numpy oracles run in a pool of threads (numpy's sorts and
+        # reductions release the GIL) while the steps that use the card
+        # run here
+        pool = ThreadPoolExecutor(ORACLE_THREADS)
+
+        def oracle(name, fn):
+            def run():
+                t1 = time.perf_counter()
+                out = fn()
+                took[name] = time.perf_counter() - t1
+                return out
+            return pool.submit(run)
+
+        first3 = oracle("q6, q1, q3", lambda: (
+            tpch.q6_numpy(data), tpch.q1_numpy(data),
+            tpch.q3_numpy(cust, orders, data)))
+        db_fut = {}
         for q, tabs in DB_QUERIES.items():
-            t1 = time.perf_counter()
-            db_want[q] = getattr(tpch, f"{q}_numpy")(*(db[t] for t in tabs))
-            took[q] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        db_want["q11_sf1"] = tpch.q11_numpy(*(sf1[t] for t in Q11_TABLES))
-        took["q11_sf1"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        s1_want = tpch.sort_lineitem_numpy(db["lineitem"])
-        took["s1"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        w1_want = tpch.supplier_history_numpy(db["lineitem"])
-        took["w1"] = time.perf_counter() - t1
+            db_fut[q] = oracle(q, lambda q=q, tabs=tabs: getattr(
+                tpch, f"{q}_numpy")(*(db[t] for t in tabs)))
+        db_fut["q11_sf1"] = oracle("q11_sf1", lambda: tpch.q11_numpy(
+            *(sf1[t] for t in Q11_TABLES)))
+        s1_fut = oracle("s1", lambda: tpch.sort_lineitem_numpy(
+            db["lineitem"]))
+        w1_fut = oracle("w1", lambda: tpch.supplier_history_numpy(
+            db["lineitem"]))
         for q in REST_QUERIES:
-            t1 = time.perf_counter()
-            db_want[q] = getattr(tpch, f"{q}_numpy")(
-                *(db[t] for t in tpch.QUERY_TABLES[q]))
-            took[q] = time.perf_counter() - t1
-        db_want.update(small_join_oracles(db))
-        dec = {t: tpch.decimal_columns(db[t], tpch.MONEY_COLUMNS[t])
-               for t in ("lineitem", "orders", "customer")}
+            db_fut[q] = oracle(q, lambda q=q: getattr(tpch, f"{q}_numpy")(
+                *(db[t] for t in tpch.QUERY_TABLES[q])))
+        small_fut = pool.submit(small_join_oracles, db)
+        dec_fut = pool.submit(lambda: {
+            t: tpch.decimal_columns(db[t], tpch.MONEY_COLUMNS[t])
+            for t in ("lineitem", "orders", "customer")})
         for q, fn in (("q1_dec", lambda: tpch.q1_dec_numpy(db["lineitem"])),
                       ("q6_dec", lambda: [(tpch.q6_dec_numpy(
                           db["lineitem"]),)]),
@@ -5387,10 +5559,23 @@ def main() -> int:
                           db["orders"], db["lineitem"], db["customer"])),
                       ("f1", lambda: tpch.f1_numpy(db["orders"])),
                       ("f1u", lambda: tpch.f1u_numpy(db["lineitem"])),
-                      ("w2", lambda: tpch.w2_numpy(db["lineitem"]))):
-            t1 = time.perf_counter()
-            db_want[q] = fn()
-            took[q] = time.perf_counter() - t1
+                      ("w2", lambda: tpch.w2_numpy(db["lineitem"])),
+                      ("x1", lambda: tpch.x1_numpy(db["orders"],
+                                                   db["lineitem"]))):
+            db_fut[q] = oracle(q, fn)
+        # slice 9: the same tables as the files gen_db writes (orders with
+        # its constant o_shippriority, which the in-memory paths leave out)
+        full = dict(db, orders=dict(db["orders"], o_shippriority=np.zeros(
+            DB_ORDERS, dtype=np.int64)))
+        pq_fut = {"q1": oracle("pq_q1", lambda: tpch.query_oracle("q1",
+                                                                   full)),
+                  "q6": oracle("pq_q6", lambda: tpch.q6_numpy(
+                      full["lineitem"]))}
+        db1 = tpch.gen_db_arrays(1.0)
+        for q in tpch.SUITE_QUERIES:
+            if q not in PARQUET_SF10:
+                pq_fut[q] = oracle(f"pq_{q}", lambda q=q: tpch.query_oracle(
+                    q, db1))
         # slice 8: the lists of X1 and X1o, the rows the sample keeps (the
         # kernel's mask held to the plain one on every batch), the oracles
         t1 = time.perf_counter()
@@ -5409,38 +5594,30 @@ def main() -> int:
         x1o_table = {"o_orderkey": db["orders"]["o_orderkey"],
                      "o_qty": x1o_lists}
         took["x1 lists"] = time.perf_counter() - t1
+        x1o_fut = oracle("x1o", lambda: tpch.x1o_numpy(x1o_table, x1o_lists))
         t1 = time.perf_counter()
         keep = sample_batches(torch, sample_ops, DB_LINEITEM, device)
-        db_want["q1_sample"] = tpch.q1_sample_numpy(db["lineitem"], keep)
-        took["q1_sample"] = time.perf_counter() - t1
+        q1_sample_fut = oracle("q1_sample", lambda: tpch.q1_sample_numpy(
+            db["lineitem"], keep))
+        took["q1_sample mask"] = time.perf_counter() - t1
         print(f"q1_sample: the kernel's keep mask equals the plain one on "
               f"all {-(-DB_LINEITEM // BATCH_ROWS)} batches; "
               f"{int(keep.sum())} of {DB_LINEITEM} rows kept")
+        q6_want, q1_want, q3_want = first3.result()
+        db_want = {q: f.result() for q, f in db_fut.items()}
+        s1_want, w1_want = s1_fut.result(), w1_fut.result()
+        db_want.update(small_fut.result())
+        dec = dec_fut.result()
+        db_want["x1o"] = x1o_fut.result()
+        db_want["q1_sample"] = q1_sample_fut.result()
         del keep
-        for q, fn in (("x1", lambda: tpch.x1_numpy(db["orders"],
-                                                   db["lineitem"])),
-                      ("x1o", lambda: tpch.x1o_numpy(x1o_table, x1o_lists)),
-                      ("q18_in", lambda: db_want["q18"]),
-                      ("q16_notin", lambda: db_want["q16"]),
-                      ("q22_scalar", lambda: db_want["q22"])):
-            t1 = time.perf_counter()
-            db_want[q] = fn()
-            took[q] = time.perf_counter() - t1
-        # slice 9: the same tables as the files gen_db writes (orders with
-        # its constant o_shippriority, which the in-memory paths leave out)
-        full = dict(db, orders=dict(db["orders"], o_shippriority=np.zeros(
-            DB_ORDERS, dtype=np.int64)))
-        pq_want = {}
-        db1 = tpch.gen_db_arrays(1.0)
-        for q in tpch.SUITE_QUERIES:
-            t1 = time.perf_counter()
-            if q not in PARQUET_SF10:
-                pq_want[q] = tpch.query_oracle(q, db1)
-            else:
-                pq_want[q] = db_want[q] if q in db_want else (
-                    tpch.q6_numpy(full["lineitem"]) if q == "q6"
-                    else tpch.query_oracle(q, full))
-            took[f"pq_{q}"] = time.perf_counter() - t1
+        for q, same in (("q18_in", "q18"), ("q16_notin", "q16"),
+                        ("q22_scalar", "q22")):
+            db_want[q] = db_want[same]
+        pq_want = {q: f.result() for q, f in pq_fut.items()}
+        for q in ("q18", "q21"):
+            pq_want[q] = db_want[q]
+        pool.shutdown()
         print("oracle rows: " + ", ".join(
             f"{q} {len(db_want[q])}" for q in REST_QUERIES))
         print(f"oracle rows: Q11 {len(db_want['q11'])} at SF{SF:g}, "
@@ -5469,6 +5646,7 @@ def main() -> int:
             "masked_reduce": [groupby.masked_reduce],
             "grid_agg": [groupby.grid_agg, groupby.grid_agg_fold],
             "dense_join": [join.dense_join_stats, join.dense_join_build,
+                           join.dense_join_build_sparse,
                            join.dense_join_probe],
             "dense_agg": [groupby.dense_agg_stats, groupby.dense_agg_update,
                           groupby.dense_agg_check],
@@ -5484,7 +5662,8 @@ def main() -> int:
                           join.unmatched_build_kernel],
             "sort": [sort_ops.sort_images_kernel, sort_ops.sort_perm_kernel,
                      sort_ops.range_key_kernel, sort_ops.gather_kernel],
-            "window_scan": [window.win_flags_kernel, window.win_scan_kernel,
+            "window_scan": [window.win_context_kernel,
+                            window.win_scan_kernel,
                             window.win_take_kernel, window.win_rank_kernel,
                             window.win_shift_kernel],
             "window_frame": [window.frame_rows_kernel,
@@ -6040,13 +6219,15 @@ def main() -> int:
         del frames, sessions10, two, lif, cfs, ici11
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
-                                  batch_utils, device, launches, worst)
+                                  batch_utils, device, launches, worst,
+                                  per_wrapper)
         table += time_slice3_kernels(torch, join, groupby, device, launches,
                                      worst, per_wrapper)
         table += time_slice4_kernels(torch, hashing, join, groupby, device,
                                      launches, worst)
         table += time_slice5_kernels(torch, sort_ops, window, device,
-                                     launches, worst, db["lineitem"])
+                                     launches, worst, db["lineitem"],
+                                     per_wrapper)
         table += time_slice6_kernels(torch, join, device, per_wrapper,
                                      worst, db["lineitem"])
         table += time_slice7_kernels(torch, groupby, window, wd, device,

@@ -62,10 +62,15 @@ _SIGNATURES = {
         "dense_join_stats": [_P, _I, _P, _P, _L, _L, _P, _P, _P],
         # keys, elem, key_valid, active, n, kmin, D, table, stream
         "dense_join_build": [_P, _I, _P, _P, _L, _L, _L, _P, _P],
-        # keys, elem, key_valid, active, n, kmin, D, table, mode, ncols,
-        # data[], valid[], elems[], out[], out_valid[], out_sel, stream
-        "dense_join_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _I, _I, _P, _P,
-                             _P, _P, _P, _P, _P],
+        # keys, elem, key_valid, active, n, kmin, D, blk, status, ctr,
+        # rows, list, cap, stream
+        "dense_join_build_sparse": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P,
+                                    _P, _P, _L, _P],
+        # keys, elem, key_valid, active, n, kmin, D, table, blk, rows, mode,
+        # ncols, data[], valid[], elems[], out[], out_valid[], out_sel,
+        # stream
+        "dense_join_probe": [_P, _I, _P, _P, _L, _L, _L, _P, _P, _P, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P],
     },
     "csr_join": {
         # n, D
@@ -160,12 +165,15 @@ _SIGNATURES = {
         "sort_gather": [_I, _P, _P, _P, _P, _P, _P, _L, _P],
     },
     "window_scan": {
+        # n
+        "win_scratch_bytes": [_L],
         # npart, nkeys, data[], valid[], elems[], kinds[], n, seg_start,
-        # peer_start, stream
-        "win_flags": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P],
+        # peer_start, seg_pos, seg_end, peer_pos, peer_end, scratch, stream
+        "win_context": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
         # type, op, mode, vals, mask, flags, reset, identity_bits, n, out,
-        # agg_v, agg_f, stream
-        "win_scan": [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P],
+        # scratch, stream
+        "win_scan": [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P],
         # src, elem, idx, n, out, stream
         "win_take": [_P, _I, _P, _L, _P, _P],
         # fn, tiles, seg_start, seg_end, peer_start, peer_end, dense, n, out,
@@ -245,7 +253,7 @@ _SIGNATURES = {
 # entries that return other than a CUDA error code
 _RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
              "topk_scratch": _L, "csr_build_scratch": _L,
-             "partition_perm_scratch": _L}
+             "partition_perm_scratch": _L, "win_scratch_bytes": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

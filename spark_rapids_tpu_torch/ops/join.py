@@ -35,7 +35,7 @@ matches nothing, and an anti join keeps it.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,7 +45,9 @@ from ..batch import live_mask, upload
 __all__ = ["DJ_MAX_COLS", "CJ_MAX_COLS", "JOIN_MODES", "join_key_stats",
            "build_join_table", "probe_join", "dense_join_stats",
            "dense_join_stats_plain", "dense_join_build",
-           "dense_join_build_plain", "dense_join_probe",
+           "dense_join_build_plain", "SparseTable", "dense_layout",
+           "dense_join_build_sparse", "dense_join_build_sparse_plain",
+           "dense_join_probe",
            "dense_join_probe_plain", "csr_build", "csr_build_kernel",
            "csr_build_plain", "csr_probe", "csr_probe_kernel",
            "csr_probe_plain", "csr_expand", "csr_expand_kernel",
@@ -63,6 +65,15 @@ __all__ = ["DJ_MAX_COLS", "CJ_MAX_COLS", "JOIN_MODES", "join_key_stats",
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 DJ_MAX_COLS = 16            # csrc/dense_join.cu DJ_MAX_COLS
+DJ_BLOCK_SLOTS = 224        # csrc/dense_join.cu DJ_BLOCK_SLOTS
+DJ_RANK_TILE = 2048         # csrc/dense_join.cu DJ_RANK_TILE
+# The dense layout rule (dense_layout): a direct table past DIRECT_L2_BYTES
+# does not stay in the H100's 50 MB L2 beside a probe's streams
+# (tools/dense_probe_bench.cu: the probe at Q3's shape with its table read
+# from a 16 MB array ran 0.095 ms against 0.126 from the 60 MB table); the
+# sparse layout is taken where it is at most SPARSE_L2_BYTES.
+DIRECT_L2_BYTES = 16 << 20
+SPARSE_L2_BYTES = 16 << 20
 CJ_MAX_COLS = 16            # csrc/csr_join.cu CJ_MAX_COLS
 SCAN_TILE = 4096            # csrc/csr_join.cu SCAN_TILE
 JOIN_MODES = {"inner": 0, "semi": 1, "anti": 2, "left": 3}
@@ -150,13 +161,44 @@ dense_join_stats.launches = 0
 # Dense build: table[key - kmin] = build row (unique keys)
 # ---------------------------------------------------------------------------------
 
+class SparseTable(NamedTuple):
+    """The sparse layout of a dense join's D slots: ``blk`` int32
+    [ceil(D / 224) * 8], per 224 slots a rank word (the live slots before
+    them) and 7 bitmap words; ``rows`` int32 [count], the live build rows
+    in slot order."""
+    blk: torch.Tensor
+    rows: torch.Tensor
+    D: int
+
+
+DenseTable = Union[torch.Tensor, SparseTable]
+
+
+def _sparse_blocks(D: int) -> int:
+    return -(-D // DJ_BLOCK_SLOTS)
+
+
+def dense_layout(D: int, count: int) -> str:
+    """"sparse" where a direct table of ``D`` slots would not stay in L2
+    and the sparse layout of ``count`` live keys would, else "direct"."""
+    sparse = 32 * _sparse_blocks(D) + 4 * count
+    return "sparse" if 4 * D > DIRECT_L2_BYTES and sparse <= SPARSE_L2_BYTES \
+        else "direct"
+
+
 def build_join_table(keys: torch.Tensor, valid: Optional[torch.Tensor],
-                     active: Optional[torch.Tensor], kmin: int, D: int
-                     ) -> torch.Tensor:
-    """int32 [D] table of build rows, -1 where no key.  Keys must be
+                     active: Optional[torch.Tensor], kmin: int, D: int,
+                     count: Optional[int] = None) -> DenseTable:
+    """The build rows of the live valid keys by slot key - kmin: an int32
+    [D] table (-1 where no key), or with ``count`` (the live valid keys,
+    from the stats) the layout :func:`dense_layout` picks.  Keys must be
     unique and lie in [kmin, kmin + D), as the stats guarantee."""
-    run = dense_join_build if keys.is_cuda else dense_join_build_plain
-    return run(keys, valid, active, kmin, D)
+    if count is None or dense_layout(D, count) == "direct":
+        run = dense_join_build if keys.is_cuda else dense_join_build_plain
+        return run(keys, valid, active, kmin, D)
+    run = dense_join_build_sparse if keys.is_cuda \
+        else dense_join_build_sparse_plain
+    return run(keys, valid, active, kmin, D, count)
 
 
 def dense_join_build_plain(keys, valid, active, kmin: int, D: int):
@@ -192,15 +234,81 @@ def dense_join_build(keys, valid, active, kmin: int, D: int):
 dense_join_build.launches = 0
 
 
+def _unpack_bits(blk: torch.Tensor) -> torch.Tensor:
+    """bool [blocks, 224]: the sparse layout's bitmap, slot by slot."""
+    words = blk.view(-1, 8)[:, 1:].to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, device=blk.device)
+    return ((words.unsqueeze(2) >> shifts) & 1).bool().reshape(
+        words.shape[0], DJ_BLOCK_SLOTS)
+
+
+def dense_join_build_sparse_plain(keys, valid, active, kmin: int, D: int,
+                                  count: int) -> SparseTable:
+    """Plain PyTorch version of ``dense_join_build_sparse``."""
+    dev = keys.device
+    live = live_mask(keys.shape[0], valid, active, dev)
+    rows = live.nonzero().squeeze(1)
+    idx = keys.to(torch.int64)[rows] - kmin
+    keep = (idx >= 0) & (idx < D)
+    rows, idx = rows[keep], idx[keep]
+    nb = _sparse_blocks(D)
+    bits = torch.zeros(nb * DJ_BLOCK_SLOTS, dtype=torch.bool, device=dev)
+    bits[idx] = True
+    bits = bits.view(nb, 7, 32).to(torch.int64)
+    words = (bits << torch.arange(32, device=dev)).sum(2)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    pop = bits.sum((1, 2))
+    rank = torch.cumsum(pop, 0) - pop
+    blk = torch.cat([rank.unsqueeze(1), words], 1).to(torch.int32)
+    placed = rows[torch.argsort(idx)].to(torch.int32)
+    out = torch.zeros(count, dtype=torch.int32, device=dev)
+    out[:min(count, placed.numel())] = placed[:count]
+    return SparseTable(blk.reshape(-1), out, D)
+
+
+def dense_join_build_sparse(keys, valid, active, kmin: int, D: int,
+                            count: int) -> SparseTable:
+    """Launch ``dense_join_build_sparse`` of ``csrc/dense_join.cu`` (three
+    kernels: the bits, the rank words, the placed rows)."""
+    n = keys.shape[0]
+    _check(keys, n, _KEY_TYPES, "join keys")
+    _check(valid, n, (torch.bool,), "key valid")
+    _check(active, n, (torch.bool,), "active")
+    if n >= 2**31 or D >= 2**31:
+        raise ValueError(f"the sparse layout holds int32 build rows and "
+                         f"slots; the build side has {n} rows over {D}")
+    nb = _sparse_blocks(D)
+    tiles = -(-nb // DJ_RANK_TILE)
+    # the blocks, then the rank scan's status words, its tile counter and
+    # the live rows' count: all zeroed in one fill
+    words = torch.zeros(nb * 8 + 2 * tiles + 2, dtype=torch.int32,
+                        device=keys.device)
+    rows = torch.empty(count, dtype=torch.int32, device=keys.device)
+    listed = torch.empty(count, dtype=torch.int64, device=keys.device)
+    lib = kernels.load("dense_join")
+    base = words.data_ptr()
+    rc = lib.dense_join_build_sparse(
+        keys.data_ptr(), keys.element_size(), _ptr(valid), _ptr(active), n,
+        kmin, D, base, base + 4 * nb * 8, base + 4 * (nb * 8 + 2 * tiles),
+        rows.data_ptr(), listed.data_ptr(), count, _stream(keys))
+    kernels.check_launch(lib, "dense_join_build_sparse", rc)
+    dense_join_build_sparse.launches += 1
+    return SparseTable(words[:nb * 8], rows, D)
+
+
+dense_join_build_sparse.launches = 0
+
+
 # ---------------------------------------------------------------------------------
 # Dense probe: lookup, selection and payload gathers
 # ---------------------------------------------------------------------------------
 
 def probe_join(keys: torch.Tensor, valid: Optional[torch.Tensor],
-               active: Optional[torch.Tensor], kmin: int, table: torch.Tensor,
+               active: Optional[torch.Tensor], kmin: int, table: DenseTable,
                payload: Sequence[Value], how: str = "inner"
                ) -> Tuple[torch.Tensor, List[Value]]:
-    """Probe of one batch: (bool [n] selection, [(data, valid)] of every
+    """Probe of one batch against either layout of
+    :func:`build_join_table`: (bool [n] selection, [(data, valid)] of every
     payload column gathered from the matched build row).  The selection is
     the matched rows (inner, semi), the live unmatched rows (anti) or the
     live rows (left, whose unmatched rows get null payload).  Semi and anti
@@ -213,16 +321,39 @@ def probe_join(keys: torch.Tensor, valid: Optional[torch.Tensor],
     return sel, join_wide(out, layout)
 
 
+def _lookup_plain(table: DenseTable, idx: torch.Tensor, ok: torch.Tensor
+                  ) -> torch.Tensor:
+    """int64 build row of each slot ``idx`` where ``ok``, else -1."""
+    if isinstance(table, SparseTable):
+        nb = table.blk.shape[0] // 8
+        bits = _unpack_bits(table.blk)
+        flat = bits.reshape(-1)
+        slot = torch.where(ok, idx, 0).clamp(0, nb * DJ_BLOCK_SLOTS - 1)
+        hit = ok & flat[slot]
+        # position = the block's rank + the set bits before the slot in it
+        before = (torch.cumsum(bits.to(torch.int64), 1) - bits.to(
+            torch.int64)).reshape(-1)
+        rank = table.blk.view(nb, 8)[:, 0].to(torch.int64)
+        pos = rank[slot // DJ_BLOCK_SLOTS] + before[slot]
+        safe = pos.clamp(0, max(table.rows.shape[0] - 1, 0))
+        got = table.rows[safe].to(torch.int64) if table.rows.numel() \
+            else torch.zeros_like(safe)
+        return torch.where(hit, got, -1)
+    D = table.shape[0]
+    return torch.where(ok, table[idx.clamp(0, D - 1)].to(torch.int64), -1)
+
+
 def dense_join_probe_plain(keys, valid, active, kmin: int, table, payload,
                            how: str = "inner"):
-    """Plain PyTorch version of ``dense_join_probe``."""
+    """Plain PyTorch version of ``dense_join_probe`` (either layout)."""
     mode = _mode(how)
-    n, D = keys.shape[0], table.shape[0]
+    n = keys.shape[0]
+    D = table.D if isinstance(table, SparseTable) else table.shape[0]
     idx = keys.to(torch.int64) - kmin
     row_live = live_mask(n, None, active, keys.device)
     ok = row_live & (True if valid is None else valid) & (idx >= 0) \
         & (idx < D)
-    bi = torch.where(ok, table[idx.clamp(0, D - 1)].to(torch.int64), -1)
+    bi = _lookup_plain(table, idx, ok)
     matched = bi >= 0
     sel = {0: matched, 1: matched, 2: row_live & ~matched,
            3: row_live}[mode]
@@ -243,13 +374,24 @@ def dense_join_probe_plain(keys, valid, active, kmin: int, table, payload,
 
 def dense_join_probe(keys, valid, active, kmin: int, table, payload,
                      how: str = "inner"):
-    """Launch ``dense_join_probe`` of ``csrc/dense_join.cu``."""
+    """Launch ``dense_join_probe`` of ``csrc/dense_join.cu`` (either
+    layout)."""
     mode = _mode(how)
-    n, D = keys.shape[0], table.shape[0]
+    n = keys.shape[0]
     _check(keys, n, _KEY_TYPES, "join keys")
     _check(valid, n, (torch.bool,), "key valid")
     _check(active, n, (torch.bool,), "active")
-    _check(table, D, (torch.int32,), "join table")
+    if isinstance(table, SparseTable):
+        D = table.D
+        _check(table.blk, _sparse_blocks(D) * 8, (torch.int32,),
+               "sparse join blocks")
+        _check(table.rows, table.rows.shape[0], (torch.int32,),
+               "sparse join rows")
+        direct, blk, rows = None, table.blk, table.rows
+    else:
+        D = table.shape[0]
+        _check(table, D, (torch.int32,), "join table")
+        direct, blk, rows = table, None, None
     if len(payload) > DJ_MAX_COLS:
         raise ValueError(f"dense_join_probe gathers at most {DJ_MAX_COLS} "
                          f"payload columns, got {len(payload)}")
@@ -274,7 +416,7 @@ def dense_join_probe(keys, valid, active, kmin: int, table, payload,
     lib = kernels.load("dense_join")
     rc = lib.dense_join_probe(
         keys.data_ptr(), keys.element_size(), _ptr(valid), _ptr(active), n,
-        kmin, D, table.data_ptr(), mode, len(payload),
+        kmin, D, _ptr(direct), _ptr(blk), _ptr(rows), mode, len(payload),
         kernels.pointer_array(data), kernels.pointer_array(vals),
         kernels.int_array(elems), kernels.pointer_array(outs),
         kernels.pointer_array(out_vals), sel.data_ptr(), _stream(keys))

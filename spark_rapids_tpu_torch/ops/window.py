@@ -7,9 +7,10 @@ over the sorted rows the partitions and their peer groups become flags
 and positions (:class:`SortedWindowContext`, the reference's :35); every
 window function is then an elementwise pass over the positions or a
 segmented scan, computed by ``csrc/window_scan.cu``
-(flags, scans, ranks, lag/lead) and ``csrc/window_frame.cu`` (frame
-bounds, framed sums and min/max).  On CUDA tensors each wrapper launches
-its kernel (or raises); on CPU tensors it runs the plain PyTorch version.
+(the context's flags and positions, scans, ranks, lag/lead) and
+``csrc/window_frame.cu`` (frame bounds, framed sums and min/max).  On
+CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
+it runs the plain PyTorch version.
 
 Every value here is in sorted order.  Positions are int32.  Sums run as
 int64 or float64, min/max over int64 or float64 images of the column
@@ -27,15 +28,15 @@ from .. import kernels
 from . import sort as S
 from .topk import sortable_view
 
-__all__ = ["SortedWindowContext", "win_flags", "win_scan", "win_take",
+__all__ = ["SortedWindowContext", "win_context", "win_context_plain",
+           "win_context_kernel", "win_flags_plain", "win_scan", "win_take",
            "win_rank", "win_shift", "frame_rows", "frame_range",
            "frame_sum", "frame_minmax", "running", "running_count",
            "partition_reduce", "full_column", "WS_MAX_KEYS"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
-WS_MAX_KEYS = 16            # csrc/window_scan.cu WS_MAX_KEYS
-_WS_TILE = 256 * 8          # csrc/window_scan.cu WS_TILE
+WS_MAX_KEYS = 16  # csrc/window_scan.cu WS_MAX_KEYS
 _OPS = {"sum": 0, "min": 1, "max": 2}
 _MODES = {"values": 0, "start_pos": 1, "end_pos": 2, "flag_count": 3}
 _TYPES = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
@@ -79,16 +80,14 @@ def _bits(value, dtype: torch.dtype) -> int:
 
 
 # ---------------------------------------------------------------------------------
-# window_scan.cu: flags
+# window_scan.cu: the look-back scratch, the context's flags and positions
 # ---------------------------------------------------------------------------------
 
-def win_flags(keys: Sequence[Value], npart: int, n: int):
-    """(seg_start, peer_start) bool [n] over sorted keys: the first
-    ``npart`` are partition keys, the rest order keys."""
-    dev = keys[0][0].device if keys else None
-    if dev is not None and dev.type == "cuda":
-        return win_flags_kernel(keys, npart, n)
-    return win_flags_plain(keys, npart, n, dev)
+def _look_back(like: torch.Tensor, n: int, lib) -> torch.Tensor:
+    """The look-back scratch of a call over ``n`` rows on ``like``'s
+    device (the kernel clears what it needs cleared)."""
+    return torch.empty(int(lib.win_scratch_bytes(n)), dtype=torch.uint8,
+                       device=like.device)
 
 
 def _differs(d, v):
@@ -101,7 +100,9 @@ def _differs(d, v):
 
 
 def win_flags_plain(keys, npart: int, n: int, device=None):
-    """Plain PyTorch version of ``win_flags`` in ``csrc/window_scan.cu``."""
+    """(seg_start, peer_start) bool [n] over sorted keys: the first
+    ``npart`` are partition keys, the rest order keys (the forward half of
+    ``win_context`` in ``csrc/window_scan.cu``)."""
     seg = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=device)
     peer = seg.clone()
     for c, (d, v) in enumerate(keys):
@@ -113,31 +114,62 @@ def win_flags_plain(keys, npart: int, n: int, device=None):
     return torch.cat([first, seg]), torch.cat([first, peer])
 
 
-def win_flags_kernel(keys, npart: int, n: int):
-    """Launch ``win_flags`` of ``csrc/window_scan.cu``."""
-    if not 1 <= len(keys) <= WS_MAX_KEYS:
-        raise ValueError(f"a window takes 1..{WS_MAX_KEYS} partition and "
-                         f"order keys, got {len(keys)}")
+def win_context(keys: Sequence[Value], npart: int, n: int,
+                device: torch.device):
+    """A window spec's segment structure over ``n`` rows sorted by
+    ``keys`` (the first ``npart`` partition keys, the rest order keys;
+    none: one partition, one peer group): (seg_start, peer_start) bool and
+    (seg_start_pos, seg_end_pos, peer_start_pos, peer_end_pos) int32."""
+    if torch.device(device).type == "cuda":
+        return win_context_kernel(keys, npart, n, device)
+    return win_context_plain(keys, npart, n, device)
+
+
+def win_context_plain(keys, npart: int, n: int, device=None):
+    """Plain PyTorch version of ``win_context`` in
+    ``csrc/window_scan.cu``: the flags, then four position scans."""
+    seg, peer = win_flags_plain(keys, npart, n, device)
+    i32 = torch.int32
+    return (seg, peer,
+            win_scan_plain(i32, "max", "start_pos", n, flags=seg),
+            win_scan_plain(i32, "min", "end_pos", n, flags=seg),
+            win_scan_plain(i32, "max", "start_pos", n, flags=peer),
+            win_scan_plain(i32, "min", "end_pos", n, flags=peer))
+
+
+def win_context_kernel(keys, npart: int, n: int, device):
+    """Launch ``win_context`` of ``csrc/window_scan.cu``: a forward kernel
+    (flags, start positions) and a backward one (end positions)."""
+    if len(keys) > WS_MAX_KEYS:
+        raise ValueError(f"a window takes at most {WS_MAX_KEYS} partition "
+                         f"and order keys, got {len(keys)}")
     _check([t for kv in keys for t in kv], n)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"win_context_kernel runs on a CUDA device, not "
+                         f"{dev}")
     args = [S.key_args(d) for d, _ in keys]
-    dev = keys[0][0].device
     seg = torch.empty(n, dtype=torch.bool, device=dev)
     peer = torch.empty(n, dtype=torch.bool, device=dev)
+    pos = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
     if n == 0:
-        return seg, peer
+        return (seg, peer, *pos)
     lib = kernels.load("window_scan")
+    scratch = _look_back(seg, n, lib)
     P = kernels.pointer_array
-    rc = lib.win_flags(npart, len(keys), P([d.data_ptr() for d, _ in keys]),
-                       P([_ptr(v) for _, v in keys]),
-                       kernels.int_array([e for e, _ in args]),
-                       kernels.int_array([k for _, k in args]), n,
-                       seg.data_ptr(), peer.data_ptr(), _stream(seg))
-    kernels.check_launch(lib, "win_flags", rc)
-    win_flags_kernel.launches += 1
-    return seg, peer
+    rc = lib.win_context(npart, len(keys), P([d.data_ptr() for d, _ in keys]),
+                         P([_ptr(v) for _, v in keys]),
+                         kernels.int_array([e for e, _ in args]),
+                         kernels.int_array([k for _, k in args]), n,
+                         seg.data_ptr(), peer.data_ptr(),
+                         *[p.data_ptr() for p in pos], scratch.data_ptr(),
+                         _stream(seg))
+    kernels.check_launch(lib, "win_context", rc)
+    win_context_kernel.launches += 1
+    return (seg, peer, *pos)
 
 
-win_flags_kernel.launches = 0
+win_context_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------------
@@ -148,10 +180,11 @@ def win_scan(dtype: torch.dtype, op: str, mode: str, n: int, *,
              vals=None, mask=None, flags=None, reset=None) -> torch.Tensor:
     """An inclusive scan of ``n`` rows, of ``dtype`` (int32, int64 or
     float64): ``mode`` "values" scans ``vals`` where ``mask`` (identity
-    elsewhere) with ``op``; "start_pos" is the forward max of i where
-    ``flags`` starts a group, "end_pos" the backward min of i where a group
-    ends, "flag_count" the count of ``flags``.  ``reset`` (partition
-    starts) restarts the scan."""
+    elsewhere) with ``op``; "flag_count" the count of ``flags``; the plain
+    version also gives the positions (``win_context``'s): "start_pos" is
+    the forward max of i where ``flags`` starts a group, "end_pos" the
+    backward min of i where a group ends.  ``reset`` (partition starts)
+    restarts the scan."""
     like = vals if vals is not None else flags
     if like.is_cuda:
         return win_scan_kernel(dtype, op, mode, n, vals, mask, flags, reset)
@@ -207,10 +240,13 @@ def win_scan_plain(dtype, op: str, mode: str, n: int, vals=None, mask=None,
 
 def win_scan_kernel(dtype, op: str, mode: str, n: int, vals=None, mask=None,
                     flags=None, reset=None) -> torch.Tensor:
-    """Launch ``win_scan`` of ``csrc/window_scan.cu``."""
+    """Launch ``win_scan`` of ``csrc/window_scan.cu`` (one kernel)."""
     if dtype not in _TYPES:
         raise ValueError(f"window scans run over int32, int64 or float64, "
                          f"not {dtype}")
+    if mode not in ("values", "flag_count"):
+        raise ValueError(f"the scan kernel takes values or a flag count; "
+                         f"{mode} comes from win_context")
     if vals is not None and vals.dtype != dtype:
         raise ValueError(f"scan values must be {dtype}, not {vals.dtype}")
     _check([vals, mask, flags, reset], n)
@@ -218,17 +254,12 @@ def win_scan_kernel(dtype, op: str, mode: str, n: int, vals=None, mask=None,
     out = torch.empty(n, dtype=dtype, device=like.device)
     if n == 0:
         return out
-    tiles = max(1, -(-n // _WS_TILE))
-    agg_v = torch.empty(tiles, dtype=torch.int64, device=like.device)
-    agg_f = torch.empty(tiles, dtype=torch.int32, device=like.device)
     lib = kernels.load("window_scan")
-    ident = identity(op, dtype)
-    if mode == "end_pos":
-        ident = n - 1
+    scratch = _look_back(out, n, lib)
     rc = lib.win_scan(_TYPES[dtype], _OPS[op], _MODES[mode], _ptr(vals),
                       _ptr(mask), _ptr(flags), _ptr(reset),
-                      _bits(ident, dtype), n, out.data_ptr(),
-                      agg_v.data_ptr(), agg_f.data_ptr(), _stream(out))
+                      _bits(identity(op, dtype), dtype), n, out.data_ptr(),
+                      scratch.data_ptr(), _stream(out))
     kernels.check_launch(lib, "win_scan", rc)
     win_scan_kernel.launches += 1
     return out
@@ -728,21 +759,9 @@ class SortedWindowContext:
                  n: int, device: torch.device):
         self.n = n
         self.device = device
-        if part_keys or order_keys:
-            self.seg_start, self.peer_start = win_flags(
-                part_keys + order_keys, len(part_keys), n)
-        else:  # one partition, every row a peer of every other
-            self.seg_start = torch.arange(n, device=device) == 0
-            self.peer_start = self.seg_start
-        i32 = torch.int32
-        self.seg_start_pos = win_scan(i32, "max", "start_pos", n,
-                                      flags=self.seg_start)
-        self.seg_end_pos = win_scan(i32, "min", "end_pos", n,
-                                    flags=self.seg_start)
-        self.peer_start_pos = win_scan(i32, "max", "start_pos", n,
-                                       flags=self.peer_start)
-        self.peer_end_pos = win_scan(i32, "min", "end_pos", n,
-                                     flags=self.peer_start)
+        (self.seg_start, self.peer_start, self.seg_start_pos,
+         self.seg_end_pos, self.peer_start_pos, self.peer_end_pos) = \
+            win_context(part_keys + order_keys, len(part_keys), n, device)
         self._dense = None
 
     @staticmethod

@@ -753,7 +753,7 @@ class BroadcastJoinExec(_EquiJoin):
                 if dup == 0:
                     m.add("joinDensePath", 1)
                     yield from self._dense(ctx, m, build, bkey, bvalid, kmin,
-                                           D)
+                                           D, n_valid)
                 else:
                     m.add("joinCsrPath", 1)
                     yield from self._csr(ctx, m, build, bkey, bvalid, kmin, D)
@@ -801,11 +801,14 @@ class BroadcastJoinExec(_EquiJoin):
             if probe.num_rows:
                 yield probe
 
-    def _dense(self, ctx, m, build, bkey, bvalid, kmin: int, D: int):
-        """Unique build keys: the direct-address table, sync-free probes."""
+    def _dense(self, ctx, m, build, bkey, bvalid, kmin: int, D: int,
+               count: int):
+        """Unique build keys: the direct-address table (or, sparse in a
+        large domain, its sparse layout), sync-free probes."""
         device = ctx.device
         with m.time("buildTime"):
-            table = join.build_join_table(bkey, bvalid, build.sel, kmin, D)
+            table = join.build_join_table(bkey, bvalid, build.sel, kmin, D,
+                                          count)
             payload = self._payload(build, device)
         for probe in self._probe_batches(ctx):
             with m.time("opTime"):

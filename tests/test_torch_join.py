@@ -319,6 +319,147 @@ def test_dense_semi_anti_left_match_reference(sessions, how, fact_filter):
     _check_path(sessions[1], "joinDensePath")
 
 
+# ---------------------------------------------------------------------------------
+# The dense join's two layouts: the direct table and the sparse layout
+# ---------------------------------------------------------------------------------
+
+I64 = np.iinfo(np.int64)
+
+
+def _layout_sides(case: str, seed: int = 31):
+    """A dimension table with unique keys and payload columns of 1, 2, 4
+    and 8 bytes, with and without nulls, and a fact table whose keys hit,
+    miss, are null and lie outside the build's domain; ``case`` shapes the
+    keys: null keys, keys outside the domain, an empty build (a filter
+    that no build row passes) or a domain at the bottom of int64."""
+    rng = np.random.default_rng(seed)
+    n, m = 600, 4000
+    base = {"extreme_kmin": int(I64.min) + 50}.get(case, 1000)
+    span = 3 * n
+    dk = (np.int64(base) + rng.permutation(span)[:n]).astype(object)
+    if case == "null_keys":
+        dk[rng.random(n) < 0.1] = None
+    fk = (np.int64(base) + (rng.integers(0, span + 80, m) - 40)).astype(
+        object)
+    if case == "outside":
+        fk[rng.random(m) < 0.3] = int(I64.max) - 5
+        fk[rng.random(m) < 0.2] = int(I64.min) + 1
+    fk[rng.random(m) < 0.05] = None
+
+    def nulls(vals, frac):
+        out = vals.astype(object)
+        out[rng.random(len(vals)) < frac] = None
+        return out
+    dim = {"d_key": dk,
+           "d_b": rng.integers(-100, 100, n).astype(np.int8),
+           "d_s": nulls(rng.integers(-3000, 3000, n).astype(np.int16), 0.2),
+           "d_i": rng.integers(-10**6, 10**6, n).astype(np.int32),
+           "d_l": nulls(rng.integers(-10**12, 10**12, n), 0.15),
+           "d_f": rng.normal(size=n),
+           "d_t": rng.random(n) < 0.5}
+    fact = {"f_key": fk, "f_q": rng.integers(0, 100, m).astype(np.int64)}
+    return dim, fact
+
+
+@pytest.mark.parametrize("case", ["null_keys", "outside", "empty_build",
+                                  "extreme_kmin"])
+@pytest.mark.parametrize("how", ["inner", "semi", "anti", "left"])
+@pytest.mark.parametrize("layout", ["direct", "sparse"])
+def test_dense_layouts_match_reference(sessions, monkeypatch, layout, how,
+                                       case):
+    """Both layouts of the dense join's build, forced through the layout
+    rule's thresholds, give the reference's rows for every join type, with
+    1-, 2-, 4- and 8-byte payload columns with and without nulls."""
+    if layout == "sparse":  # every domain leaves L2, every layout fits
+        monkeypatch.setattr(tj, "DIRECT_L2_BYTES", 0)
+        monkeypatch.setattr(tj, "SPARSE_L2_BYTES", 1 << 40)
+    else:
+        monkeypatch.setattr(tj, "DIRECT_L2_BYTES", 1 << 40)
+    built = []
+    plain = tj.dense_join_build_sparse_plain
+
+    def spy(*args):
+        built.append(args[-1])
+        return plain(*args)
+    monkeypatch.setattr(tj, "dense_join_build_sparse_plain", spy)
+    dim, fact = _layout_sides(case)
+
+    def q(F, d, f):
+        if case == "empty_build":
+            d = d.where(F.col("d_i") > 10**7)
+        return f.join(d, [("f_key", "d_key")], how=how)
+
+    jrows, jf, jexp, trows, tf, texp = _rows(sessions, dim, fact, q)
+    assert sorted(trows, key=_key) == sorted(jrows, key=_key)
+    assert trows or (case == "empty_build" and how in ("inner", "semi"))
+    assert tf <= jf
+    if case != "empty_build" or how in ("anti", "left"):
+        _check_path(sessions[1], "joinDensePath")
+    # the empty build's inner and semi joins return before any table
+    want = layout == "sparse" and (case != "empty_build"
+                                   or how in ("anti", "left"))
+    assert bool(built) == want
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4, 8])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_sparse_and_direct_probes_agree(elem, with_valid):
+    """The plain probe over the sparse layout equals the plain probe over
+    the direct table for every join type and payload width, at block
+    edges (224 slots a block, a rank tile of 2,048 blocks): selections,
+    data and validity."""
+    rng = np.random.default_rng(40 + elem)
+    D = tj.DJ_BLOCK_SLOTS * 3 + 5
+    n = 500
+    keys = torch.from_numpy((rng.permutation(D)[:n] - 7).astype(np.int64))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    active = torch.from_numpy(rng.random(n) < 0.8)
+    kmin, kmax, count, dup = tj.join_key_stats(keys, valid, active,
+                                               1 << 20).tolist()
+    assert dup == 0
+    span = kmax - kmin + 1
+    direct = tj.build_join_table(keys, valid, active, kmin, span)
+    sparse = tj.dense_join_build_sparse_plain(keys, valid, active, kmin,
+                                              span, count)
+    assert isinstance(sparse, tj.SparseTable) and sparse.rows.numel() == count
+    edges = torch.tensor([kmin - 1, kmin, kmin + 223, kmin + 224, kmax,
+                          kmax + 1], dtype=torch.int64)
+    probe = torch.cat([edges, torch.from_numpy(
+        rng.integers(kmin - 10, kmax + 10, 3000))])
+    pvalid = torch.from_numpy(rng.random(probe.numel()) < 0.95)
+    pactive = torch.from_numpy(rng.random(probe.numel()) < 0.9)
+    dtype = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[elem]
+    data = torch.from_numpy(rng.integers(-100, 100, n)).to(dtype)
+    dvalid = torch.from_numpy(rng.random(n) < 0.7) if with_valid else None
+    for how in ("inner", "semi", "anti", "left"):
+        pay = [(data, dvalid)] if how in ("inner", "left") else []
+        a = tj.probe_join(probe, pvalid, pactive, kmin, direct, pay, how)
+        b = tj.probe_join(probe, pvalid, pactive, kmin, sparse, pay, how)
+        assert torch.equal(a[0], b[0]), how
+        for (x, xv), (y, yv) in zip(a[1], b[1]):
+            assert torch.equal(x, y)
+            assert (xv is None) == (yv is None)
+            assert xv is None or torch.equal(xv, yv)
+    # the rank words count the set bits of the earlier blocks
+    blk = sparse.blk.view(-1, 8)
+    bits = tj._unpack_bits(sparse.blk).sum(1)
+    assert torch.equal(blk[:, 0].long(), torch.cumsum(bits, 0) - bits)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((15_003_036, 1_455_294), "sparse"),   # Q3's second join at SF10
+    ((15_000_000, 15_000), "sparse"),      # Q18's semi join (0.1% live)
+    ((15_000_000, 15_000_000), "direct"),  # a fully live build
+    ((1_500_000, 1_500_000), "direct"),    # customers: fits L2
+    ((4_000_000, 40_000), "direct"),       # a 16 MB table stays in L2
+    ((40_000_000, 3_000_000), "direct")])  # sparse layout past 16 MiB
+def test_dense_layout_rule(shape, want):
+    """The layout rule picks the sparse layout where the direct table
+    leaves L2 and the sparse one fits, else the direct table."""
+    assert tj.dense_layout(*shape) == want
+
+
 def _repeated(seed: int, n_build: int = 3000, n_probe: int = 4000,
               span: int = 60):
     """A build side whose int64 keys repeat heavily (``span`` values over

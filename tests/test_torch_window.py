@@ -272,3 +272,111 @@ def test_unported_windows_raise(sessions):
         TW.order_by("x")).alias("f")).collect() == [(0, 0), (1, 0), (2, 0)]
     with pytest.raises(TypeError, match="host-carried"):
         df.to_device_arrays()
+
+
+# ---------------------------------------------------------------------------------
+# The window context and the scans against the reference's functions
+# ---------------------------------------------------------------------------------
+
+def _context_keys(case: str, n: int, rng):
+    """(partition keys, order keys) as numpy (data, valid) pairs."""
+    part = rng.integers(0, 12, n).astype(np.int64)
+    pvalid = rng.random(n) < 0.9
+    day = rng.integers(-5, 5, n).astype(np.int32)
+    dvalid = rng.random(n) < 0.85
+    if case == "nullable":
+        return [(part, pvalid)], [(day, dvalid)]
+    if case == "float_nan":
+        x = rng.choice([-1.5, 0.0, 2.25, np.nan, np.inf, -np.inf], n)
+        return [(part, None)], [(x, rng.random(n) < 0.9), (day, None)]
+    if case == "no_partition":
+        return [], [(day, dvalid)]
+    return [], []
+
+
+@pytest.mark.parametrize("case", ["nullable", "float_nan", "no_partition",
+                                  "no_keys"])
+def test_window_context_plain_matches_reference(case):
+    """The two-pass window context (its plain version: the flags and four
+    position scans) over the rows in the reference's sorted order: flags
+    and positions equal the reference ``SortedWindowContext``'s, with null
+    keys and float keys with NaN and infinities."""
+    import jax.numpy as jnp
+    import torch
+    from spark_rapids_tpu.ops import window as JWIN
+    from spark_rapids_tpu_torch.ops import window as TWIN
+    rng = np.random.default_rng(61)
+    n = 3000
+    part, order = _context_keys(case, n, rng)
+
+    def jx(keys):
+        return [(jnp.asarray(d), None if v is None else jnp.asarray(v))
+                for d, v in keys]
+    ref = JWIN.SortedWindowContext(jx(part), jx(order), [False] * len(order),
+                                   [True] * len(order),
+                                   jnp.ones(n, dtype=bool))
+    perm = np.asarray(ref.perm)
+
+    def sorted_keys(keys):
+        return [(torch.from_numpy(d[perm]),
+                 None if v is None else torch.from_numpy(v[perm]))
+                for d, v in keys]
+    got = TWIN.win_context(sorted_keys(part) + sorted_keys(order), len(part),
+                           n, torch.device("cpu"))
+    names = ("seg_start", "peer_start", "seg_start_pos", "seg_end_pos",
+             "peer_start_pos", "peer_end_pos")
+    for name, value in zip(names, got):
+        assert np.array_equal(value.numpy(), np.asarray(getattr(ref, name))), \
+            name
+    w = TWIN.SortedWindowContext(sorted_keys(part), sorted_keys(order), n,
+                                 torch.device("cpu"))
+    for name, value in zip(names, got):
+        assert torch.equal(getattr(w, name), value), name
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("shape", ["one_partition", "single_rows"])
+def test_running_scans_match_reference(shape, dtype, op):
+    """A running scan whose one partition spans every row, and one whose
+    partitions are single rows, against the reference's ``running_sum``
+    and ``running_minmax``: integers and min/max exact, float sums within
+    1e-12 x the column's sum of |x| (the reference's sums are differences
+    of one prefix sum over every row, whose error follows that sum)."""
+    import jax.numpy as jnp
+    import torch
+    from spark_rapids_tpu.ops import window as JWIN
+    from spark_rapids_tpu_torch.ops import window as TWIN
+    rng = np.random.default_rng(62)
+    n = 20_000
+    part = np.zeros(n, dtype=np.int64) if shape == "one_partition" \
+        else np.arange(n, dtype=np.int64)
+    x = rng.integers(-1000, 1000, n) if dtype == "int64" \
+        else rng.uniform(-1e4, 1e4, n)
+    m = rng.random(n) < 0.9
+    ref = JWIN.SortedWindowContext([(jnp.asarray(part), None)], [], [], [],
+                                   jnp.ones(n, dtype=bool))
+    assert np.array_equal(np.asarray(ref.perm), np.arange(n))
+    if op == "sum":
+        want = np.asarray(JWIN.running_sum(
+            ref, jnp.where(jnp.asarray(m), jnp.asarray(x), 0)))
+    else:
+        want = np.asarray(JWIN.running_minmax(ref, jnp.asarray(x),
+                                              jnp.asarray(m), op))
+    w = TWIN.SortedWindowContext([(torch.from_numpy(part), None)], [], n,
+                                 torch.device("cpu"))
+    got = TWIN.running(w, torch.from_numpy(x), torch.from_numpy(m),
+                       op).numpy()
+    if op != "sum":
+        # a partition whose rows are all masked holds the op's identity
+        # in both; compare where a row contributed
+        seen = np.asarray(JWIN.running_sum(ref, jnp.asarray(m.astype(
+            np.int64)))) > 0
+        assert np.array_equal(got[seen], want[seen])
+    elif dtype == "int64":
+        assert np.array_equal(got, want)
+    else:
+        assert np.all(np.abs(got - want) <= REL * np.abs(x[m]).sum())
+    count = TWIN.running_count(w, torch.from_numpy(m)).numpy()
+    assert np.array_equal(count, np.asarray(JWIN.running_sum(
+        ref, jnp.asarray(m.astype(np.int64)))))

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Device times of variants of ``csrc/hash_agg.cu`` on one CUDA card, at
-``tools/kernel_ab.py``'s shapes: the hash aggregate's update (Q21's keys,
-Q18's float64 sum and count, F1's FIRST/LAST, Q9's and Q7's few groups,
-one group) with the merge (Q18's final in one call and in 64 buckets);
-the base variant times the grid at Q1's shape too.  A variant of another
-source is one more entry in VARIANTS.
+"""Device times of variants of the kernel sources on one CUDA card, at
+``tools/kernel_ab.py``'s shapes: for ``csrc/hash_agg.cu`` the hash
+aggregate's update (Q21's keys, Q18's float64 sum and count, F1's
+FIRST/LAST, Q9's and Q7's few groups, one group) with the merge (Q18's
+final in one call and in 64 buckets); for ``csrc/dense_join.cu`` the
+build and probe at Q3's, Q18's semi and a fully live shape; for
+``csrc/window_scan.cu`` W1's window context and running sum; the base
+variant times the grid at Q1's shape too.  A variant of another source is
+one more entry in VARIANTS.
 
     python3 tools/agg_bench.py [--variants base,sm2,sm8,nocache]
 
@@ -17,6 +20,10 @@ in a process of its own (a kernel library is loaded once a process):
     the update);
   * ``nocache``: ``hash_agg.cu`` without its shared-memory cache of
     groups (``HA_CACHE_BYTES`` 0);
+  * ``dj_base``, ``ws_base``: the checkout's sources, timed for
+    ``dense_join.cu``'s or ``window_scan.cu``'s shapes only;
+  * ``dj_rows8``: ``dense_join.cu``'s probe with 8 rows a thread
+    (``DJ_ROWS``) against the sources' 4;
 
 Prints kernel_ab's JSON lines, labelled with the variant.
 """
@@ -37,7 +44,10 @@ VARIANTS = {"base": (None, {}),
             "sm3": ("hash_agg.cu", {"HA_BLOCKS_PER_SM": "3"}),
             "sm6": ("hash_agg.cu", {"HA_BLOCKS_PER_SM": "6"}),
             "sm8": ("hash_agg.cu", {"HA_BLOCKS_PER_SM": "8"}),
-            "nocache": ("hash_agg.cu", {"HA_CACHE_BYTES": "0"})}
+            "nocache": ("hash_agg.cu", {"HA_CACHE_BYTES": "0"}),
+            "dj_base": ("dense_join.cu", {}),
+            "dj_rows8": ("dense_join.cu", {"DJ_ROWS": "8"}),
+            "ws_base": ("window_scan.cu", {})}
 
 
 def make_variant(name: str) -> Path:
@@ -84,6 +94,10 @@ def run_variant(name: str, csrc: str) -> int:
                              emit)
     if source in (None, "grid_agg.cu"):
         rc |= kernel_ab.time_grid_agg(torch, dev, groupby, emit)
+    if source in (None, "dense_join.cu"):
+        rc |= kernel_ab.time_dense_join(torch, dev, emit)
+    if source in (None, "window_scan.cu"):
+        rc |= kernel_ab.time_window_scan(torch, dev, emit)
     return rc
 
 

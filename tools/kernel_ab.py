@@ -7,7 +7,8 @@ on one CUDA card.
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
         [--only key_stats,merge,sort,sort_join,topk,dense_agg,
-                masked_reduce,csr_join]
+                masked_reduce,csr_join,hash_agg,grid_agg,dense_join,
+                window_scan]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -68,7 +69,19 @@ the bucket sequence one event pair a sequence, its host work included):
     contention); and Q18's shape with one value (and every 16th value) at
     1e-30, far below the query scale's range (the fallback); and
   * ``grid_agg`` at Q1's shape (4,194,304 rows, 98% live, codes over (4,
-    2), seven float64 sums), into an accumulator that has seen one call.
+    2), seven float64 sums), into an accumulator that has seen one call;
+  * ``dense_join``, the build and the probe through ``build_join_table``
+    and ``probe_join`` (a checkout whose build takes the live count is
+    given it, so its layout rule picks the layout): Q3's second join
+    (15,003,036 slots, 9.7% live; an inner probe of one 4,194,304-row
+    batch, 54% live, with 8, 4 and 8-byte payload), Q18's semi join
+    (15,000,000 slots, 0.1% live; 4,194,304 probe keys) and a fully live
+    build of 15,000,000 keys (the inner probe of Q3's shape); and
+  * ``window_scan`` at W1's shape (60,012,150 rows in (supplier, ship
+    date) order, ~600 rows a supplier): the window context of the
+    (supplier, ship date) spec (``SortedWindowContext``), the running
+    float64 sum reset per supplier, and the same sum over one partition
+    of every row.
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -135,7 +148,8 @@ def main() -> int:
                                           .parent.parent))
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
-                    "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg")
+                    "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg,"
+                    "dense_join,window_scan")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -179,6 +193,135 @@ def main() -> int:
         return 1
     if "grid_agg" in only and time_grid_agg(torch, dev, groupby, emit) != 0:
         return 1
+    if "dense_join" in only and time_dense_join(torch, dev, emit) != 0:
+        return 1
+    if "window_scan" in only and time_window_scan(torch, dev, emit) != 0:
+        return 1
+    return 0
+
+
+def _same_probe(torch, a, b) -> bool:
+    (sa, ca), (sb, cb) = a, b
+    return torch.equal(sa, sb) and all(
+        torch.equal(x[0], y[0]) and (x[1] is None) == (y[1] is None)
+        and (x[1] is None or torch.equal(x[1], y[1])) for x, y in zip(ca, cb))
+
+
+def time_dense_join(torch, dev, emit) -> int:
+    """The dense join's build and probe at Q3's, Q18's semi and a fully
+    live shape, each through the checkout's build_join_table and
+    probe_join."""
+    from spark_rapids_tpu_torch.ops import join
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    takes_count = "count" in inspect.signature(
+        join.build_join_table).parameters
+    n = 4 << 20
+    shapes = (("dense_join_q3", 15_003_036, 0.097, "inner", 0.54),
+              ("dense_join_q18_semi", 15_000_000, 0.001, "semi", None),
+              ("dense_join_full_live", 15_000_000, 1.0, "inner", 0.54))
+    for what, D, live, how, probe_live in shapes:
+        bkeys = torch.arange(1, D + 1, dtype=torch.int64, device=dev)
+        act = t(rng.random(D) < live) if live < 1 else None
+        count = int(act.sum()) if act is not None else D
+        extra = (count,) if takes_count else ()
+
+        def build(a=act, extra=extra, D=D, bkeys=bkeys):
+            return join.build_join_table(bkeys, None, a, 1, D, *extra)
+        table = build()
+        payload = [] if how == "semi" else [
+            (bkeys, None),
+            (t(rng.integers(8036, 8036 + 2406, D).astype(np.int32)), None),
+            (torch.zeros(D, dtype=torch.int64, device=dev), None)]
+        if how == "semi":
+            pk = torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+            pa = None
+        else:
+            pk = t(rng.integers(1, D + 1, n).astype(np.int64))
+            pa = t(rng.random(n) < probe_live)
+        got = join.probe_join(pk, None, pa, 1, table, payload, how)
+        plain_table = join.dense_join_build_plain(
+            bkeys, None, act, 1, D)
+        want = join.dense_join_probe_plain(pk, None, pa, 1, plain_table,
+                                           payload, how)
+        torch.cuda.synchronize()
+        if not _same_probe(torch, got, want):
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        del plain_table, want, got
+        layout = type(table).__name__
+        shape = dict(slots=D, live_build=count, probe_rows=n, how=how,
+                     layout=layout)
+        inputs = copies([pk] if pa is None else [pk, pa], 8)
+        emit(f"{what}_probe", time_ms(torch, [
+            (lambda c=c: join.probe_join(c[0], None, c[1] if len(c) > 1
+                                         else None, 1, table, payload, how))
+            for c in inputs], reps=8 * len(inputs)), **shape)
+        builds = copies([act], 4) if act is not None else [[None]] * 4
+        emit(f"{what}_build", time_ms(torch, [
+            (lambda a=c[0]: build(a)) for c in builds], reps=4 * len(builds)),
+            **shape)
+        del table, payload, inputs, builds, bkeys, act
+    return 0
+
+
+def time_window_scan(torch, dev, emit) -> int:
+    """W1's window context, its running sum and one partition's sum, each
+    through the checkout's SortedWindowContext and win_scan_kernel."""
+    from spark_rapids_tpu_torch.ops import window
+    rng = np.random.default_rng(52)
+    n, nsupp = 60_012_150, 100_000
+    supp = torch.from_numpy(rng.integers(1, nsupp + 1, n)).to(dev)
+    day = torch.from_numpy(rng.integers(8035, 8035 + 2526, n).astype(
+        np.int32)).to(dev)
+    order = torch.sort(supp * 4096 + day.long(), stable=True).indices
+    supp, day = supp[order], day[order]
+    price = torch.from_numpy(np.round(rng.uniform(900.0, 105000.0, n),
+                                      2)).to(dev)
+    del order
+    part, ords = [(supp, None)], [(day, None)]
+    w = window.SortedWindowContext(part, ords, n, dev)
+    seg = w.seg_start
+    flags = window.win_flags_plain(part + ords, 1, n, dev)
+    ok = torch.equal(seg, flags[0]) and torch.equal(w.peer_start, flags[1])
+    for name, mode, fl in (("seg_start_pos", "start_pos", flags[0]),
+                           ("seg_end_pos", "end_pos", flags[0]),
+                           ("peer_start_pos", "start_pos", flags[1]),
+                           ("peer_end_pos", "end_pos", flags[1])):
+        want = window.win_scan_plain(torch.int32, "max" if mode ==
+                                     "start_pos" else "min", mode, n,
+                                     flags=fl)
+        ok = ok and torch.equal(getattr(w, name), want)
+    del flags, want
+    run = window.win_scan_kernel(torch.float64, "sum", "values", n, price,
+                                 None, None, seg)
+    plain = window.win_scan_plain(torch.float64, "sum", "values", n, price,
+                                  None, None, seg)
+    scale = window.win_scan_plain(torch.float64, "sum", "values", n,
+                                  price.abs(), None, None, seg)
+    torch.cuda.synchronize()
+    ok = ok and float(((run - plain).abs() / scale.clamp(min=1.0)).max()) \
+        <= 1e-12
+    if not ok:
+        print("kernel_ab: window_scan differs from plain", file=sys.stderr)
+        return 1
+    del run, plain, scale, w
+    first = torch.zeros(n, dtype=torch.bool, device=dev)
+    first[0] = True
+    shape = dict(rows=n, partitions=int(seg.sum()))
+    emit("window_context_w1", time_ms(torch, [
+        lambda: window.SortedWindowContext(part, ords, n, dev)], reps=8),
+        **shape)
+    emit("window_scan_w1_running_sum", time_ms(torch, [
+        lambda: window.win_scan_kernel(torch.float64, "sum", "values", n,
+                                       price, None, None, seg)], reps=8),
+        **shape)
+    emit("window_scan_one_partition", time_ms(torch, [
+        lambda: window.win_scan_kernel(torch.float64, "sum", "values", n,
+                                       price, None, None, first)], reps=8),
+        rows=n, partitions=1)
+    emit("window_scan_w1_cumsum_library", time_ms(torch, [
+        lambda: torch.cumsum(price, 0)], reps=8), rows=n)
     return 0
 
 

@@ -4,7 +4,7 @@ CUDA card.
 
     python3 tools/path_walls.py [--root DIR] [--sf 10] [--runs 5] \
         [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18,
-                   s1,w1,q10_shuffled,q10_flip,q21_exists]
+                   s1,w1,w2,q10_shuffled,q10_flip,q21_exists]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts of the port in turns on
@@ -18,9 +18,10 @@ re-partitions); ``pq_<q>`` runs over parquet files that ``tpch.gen_db``
 writes once under ``build/tpch_parquet`` (kept between runs), read with
 ``fileCache.enabled``, as ``chip_smoke.py`` reads them.  ``_shuffled``
 runs on a session with ``sql.aqe.enabled`` false (Q10-shuffled: the
-sorted join over 8 hash partition pairs); ``s1`` (``tpch.sort_lineitem``)
-and ``w1`` (``tpch.supplier_history``) end in ``to_device_arrays()``, as
-``chip_smoke.py`` runs them; ``q21_exists`` runs on the default session
+sorted join over 8 hash partition pairs); ``s1`` (``tpch.sort_lineitem``),
+``w1`` (``tpch.supplier_history``) and ``w2`` (``tpch.w2``, windowed
+FIRST/LAST) end in ``to_device_arrays()``, as ``chip_smoke.py`` runs
+them; ``q21_exists`` runs on the default session
 (8 shuffle partition pairs), and so does ``q10_flip`` (Q10 with the
 defaults: its second join flips to a broadcast).  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
@@ -49,7 +50,8 @@ PARQUET_DIR = "build/tpch_parquet"
 # paths that are not TPC-H queries: (tpch function, tables); their results
 # stay on the device
 DEVICE_PATHS = {"s1": ("sort_lineitem", ("lineitem",)),
-                "w1": ("supplier_history", ("lineitem",))}
+                "w1": ("supplier_history", ("lineitem",)),
+                "w2": ("w2", ("lineitem",))}
 
 
 def split(name: str):
