@@ -3559,12 +3559,24 @@ def _cond_case(torch, rng, device, counts, n_build, lo=None):
 
 def check_cond_join(torch, join, device) -> float:
     """cond_expand, cond_counts and cross_pairs against their plain
-    versions on random cases: zero candidates, probes that are all
-    inactive (a sorted probe under an all-false mask), a build row that
-    every probe matches, one probe row with millions of candidates, and
-    pair counts past 2^24.  Every output is exact."""
+    versions, and csr_expand (the expansion they share) against its own,
+    on random cases: zero candidates, probes that are all inactive (a
+    sorted probe under an all-false mask), a build row that every probe
+    matches, one probe row with millions of candidates (a hot key of
+    2,000,003 among other rows), long runs of probe rows with none, fewer
+    pairs than one tile, keep all false and all true, and pair counts past
+    2^24; the counts with and without build counts (right and full joins)
+    after each.  Every output is exact.  Pairs at the int32 limit are
+    refused, by the wrapper and by the library."""
     rng = np.random.default_rng(66)
     n_probe, n_build = 1 << 20, 700_000
+    hot = np.zeros(300_000, dtype=np.int64)
+    hot[rng.integers(0, 300_000, 20_000)] = rng.integers(1, 9, 20_000)
+    hot[123_457] = 2_000_003
+    runs = np.zeros(n_probe, dtype=np.int64)
+    runs[[0, 5, 400_000, 400_001, n_probe - 1]] = [3, 2, 700, 1, 5]
+    few = np.zeros(500, dtype=np.int64)
+    few[[7, 498]] = [300, 900]
     cases = {
         "random": _cond_case(torch, rng, device, np.where(
             rng.random(n_probe) < 0.8, rng.integers(0, 7, n_probe), 0),
@@ -3579,6 +3591,12 @@ def check_cond_join(torch, join, device) -> float:
             torch, rng, device, np.where(np.arange(n_probe) == 777,
                                          n_build, 0), n_build,
             lo=np.zeros(n_probe, dtype=np.int64)),
+        "a hot key of 2,000,003 among others": _cond_case(
+            torch, rng, device, hot, 2_000_003),
+        "long runs of rows with none": _cond_case(torch, rng, device, runs,
+                                                  n_build),
+        "fewer pairs than one tile": _cond_case(torch, rng, device, few,
+                                                1_000),
         "past 2^24 pairs": _cond_case(
             torch, rng, device, np.full(1 << 22, 5, dtype=np.int64),
             3_000_000),
@@ -3593,31 +3611,57 @@ def check_cond_join(torch, join, device) -> float:
     torch.cuda.synchronize()
     cases["all-inactive probes"] = (offsets, lo, state.b_perm,
                                     int(offsets[-1]))
+    n_counts = 0
     for what, (offsets, lo, b_perm, total) in cases.items():
         kp, kb = join.cond_expand_kernel(offsets, lo, b_perm, total)
         pp, pb = join.cond_expand_plain(offsets, lo, b_perm, total)
-        keep = torch.rand(total, device=device) < 0.5
-        kc = join.cond_counts_kernel(keep, kp, kb, lo.shape[0],
-                                     b_perm.shape[0])
-        pc = join.cond_counts_plain(keep, pp, pb, lo.shape[0],
-                                    b_perm.shape[0])
-        ks = join.cond_counts_kernel(keep, kp, kb, lo.shape[0], None)
+        cp, cb = join.csr_expand_kernel(offsets, lo, b_perm, total)
         torch.cuda.synchronize()
         check(torch.equal(kp, pp) and torch.equal(kb, pb),
               f"cond_expand differs ({what}, {total} pairs)")
-        check(torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
-              and torch.equal(ks[0], pc[0]) and ks[1] is None,
-              f"cond_counts differs ({what}, {total} pairs)")
+        check(torch.equal(cp, pp.long()) and torch.equal(cb, pb),
+              f"csr_expand differs ({what}, {total} pairs)")
+        del cp, cb
+        n_p, n_b = lo.shape[0], b_perm.shape[0]
+        for keep_of in ("half", "none", "all"):
+            keep = (torch.rand(total, device=device) < 0.5) if keep_of == \
+                "half" else torch.full((total,), keep_of == "all",
+                                       dtype=torch.bool, device=device)
+            kc = join.cond_counts_kernel(keep, offsets, kb, n_p, n_b)
+            pc = join.cond_counts_plain(keep, pp, pb, n_p, n_b)
+            ks = join.cond_counts_kernel(keep, offsets, kb, n_p, None)
+            torch.cuda.synchronize()
+            check(torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+                  and torch.equal(ks[0], pc[0]) and ks[1] is None,
+                  f"cond_counts differs ({what}, keep {keep_of}, {total} "
+                  f"pairs)")
+            n_counts += 1
     for n_l, n_r in ((0, 5), (7, 0), (1, 1), (5, 25), (3000, 6000)):
         k = join.cross_pairs_kernel(n_l, n_r, device)
         p = join.cross_pairs_plain(n_l, n_r, device)
         torch.cuda.synchronize()
         check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
               f"cross_pairs differs ({n_l} x {n_r})")
+    # int32 pi at the pair limit: refused as before
+    offsets, lo, b_perm, _ = cases["fewer pairs than one tile"]
+    try:
+        join.cond_expand(offsets, lo, b_perm, 1 << 31)
+        check(False, "cond_expand took 2^31 pairs")
+    except ValueError:
+        pass
+    from spark_rapids_tpu_torch import kernels
+    lib = kernels.load("cond_join")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    one = torch.empty(1, dtype=torch.int32, device=device)
+    check(lib.cond_expand(offsets.data_ptr(), lo.data_ptr(),
+                          b_perm.data_ptr(), lo.shape[0], 1 << 31,
+                          one.data_ptr(), one.data_ptr(), stream) != 0,
+          "the cond_join library took 2^31 pairs")
     print(f"cond_join: kernels equal their plain versions on "
           f"{len(cases)} match states (up to "
-          f"{max(c[3] for c in cases.values())} pairs) and 5 cross "
-          f"products (up to 18,000,000 pairs)")
+          f"{max(c[3] for c in cases.values())} pairs; csr_expand on each "
+          f"too), the counts on {n_counts} keep masks (half, none, all), "
+          f"5 cross products (up to 18,000,000 pairs); 2^31 pairs refused")
     return 0.0
 
 
@@ -3654,7 +3698,7 @@ def time_slice6_kernels(torch, join, device, per_wrapper, worst,
     kp, kb = join.cond_expand_kernel(offsets, lo, b_perm, total)
     pp, pb = join.cond_expand_plain(offsets, lo, b_perm, total)
     keep = psupp[kp.long()] != bsupp[kb.long()]
-    kc, _ = join.cond_counts_kernel(keep, kp, kb, n_p, None)
+    kc, _ = join.cond_counts_kernel(keep, offsets, kb, n_p, None)
     pc, _ = join.cond_counts_plain(keep, pp, pb, n_p, None)
     torch.cuda.synchronize()
     check(torch.equal(kp, pp) and torch.equal(kb, pb) and torch.equal(kc, pc),
@@ -3681,18 +3725,19 @@ def time_slice6_kernels(torch, join, device, per_wrapper, worst,
                  f"pairs (library: torch.repeat_interleave of the probe "
                  f"rows, pi only)")
     del at
-    inputs = copies_for_l2([keep, kp, kb])
-    ms = time_ms(torch, [lambda k=k, a=a, b=b: join.cond_counts_kernel(
-        k, a, b, n_p, None) for k, a, b in inputs], reps=4 * len(inputs))
+    inputs = copies_for_l2([keep, offsets, kb])
+    ms = time_ms(torch, [lambda k=k, o=o, b=b: join.cond_counts_kernel(
+        k, o, b, n_p, None) for k, o, b in inputs], reps=4 * len(inputs))
     plain_ms = time_ms_synced(torch, [lambda: join.cond_counts_plain(
         keep, kp, kb, n_p, None)], reps=4)
     pl, kk = kp.long(), keep.int()
     lib_ms = time_ms(torch, [lambda: torch.zeros(
         n_p, dtype=torch.int32, device=device).index_add_(0, pl, kk)],
         reps=8)
-    # keep (1 B), pi and bi (4 B each) per pair, the counts written
+    # keep (1 B) per pair and offsets (8 B) per probe row read, the counts
+    # (4 B) written
     out.append(_row_of("cond_join", "cond_counts", per_wrapper, 0.0, ms,
-                       plain_ms, 9 * total + 4 * n_p, lib_ms,
+                       plain_ms, total + 8 * (n_p + 1) + 4 * n_p, lib_ms,
                        "spark_rapids_tpu/plan/join_exec.py:500"))
     notes.append(f"{total} pairs, {int(keep.sum())} kept, counted per "
                  f"probe row (library: index_add_ into zeros)")
@@ -4848,15 +4893,65 @@ def _bits(torch, t):
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
-def _bucketize_case(torch, rng, device, n, n_parts, cap, dead, last=None):
-    """Destinations (uniform, or every row to the last bucket but ``last``
-    of them spread), a live mask, and payload arrays of every element
+def device_launches(torch, fn, tries: int = 3):
+    """The device operations (kernels and memsets) one call of ``fn``
+    queues, counted by torch.profiler after a warm-up call; a fresh
+    profiler is started for each of up to ``tries`` calls until one sees
+    device activity.  None when none did (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if (getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0.0)) > 0)
+        if n:
+            return n
+    return None
+
+
+def bucketize_edges(ex):
+    """(what, n, destinations, cap, dead share, spread) of the bucketize
+    cases the kernel is held to: every destination count its paths turn
+    on, capacities 0 and 1, one destination for every row, overflow in one
+    destination only, a full last bucket, every row dead, and row counts
+    around a warp and a tile.  ``spread``: None for uniform destinations,
+    else every row goes to the last destination but ``spread`` of them."""
+    tile = ex.BZ_TILE
+    cases = [(f"n={n}", n, 8, 512, 0.2, None)
+             for n in (0, 1, 31, 32, 33, tile - 1, tile, tile + 1)]
+    cases += [(f"{p} destinations", 100_000, p, 100_000 // p + 64, 0.1,
+               None) for p in (1, 2, 8, 64, 256, 257)]
+    cases += [
+        ("4096 destinations", 300_000, 4096, 96, 0.1, None),
+        ("4096 destinations, overflow", 300_000, 4096, 48, 0.0, None),
+        ("cap 0", 10_000, 8, 0, 0.1, None),
+        ("cap 1", 10_000, 8, 1, 0.1, None),
+        ("every row to one destination", 100_000, 8, 100_000, 0.0, 0),
+        ("overflow in one destination only", 80_000, 8, 8_192, 0.0,
+         80_000 - 8_192 - 1),
+        ("a full last bucket", 80_000, 8, 8_192, 0.0, 80_000 - 8_192),
+        ("overflow everywhere", 100_000, 64, 1_024, 0.2, None),
+        ("every row dead", 50_000, 8, 4_096, 1.0, None),
+        ("a lineitem batch", BATCH_ROWS, 8, 1 << 19, 0.3, None),
+        ("a lineitem batch, 64 destinations", BATCH_ROWS, 64, 1 << 16, 0.0,
+         None)]
+    return cases
+
+
+def _bucketize_case(torch, rng, device, n, n_parts, cap, dead, spread=None):
+    """Destinations (uniform, or every row to the last bucket but
+    ``spread`` of them), a live mask, and payload arrays of every element
     size: int64, int32, float64 with NaN, bool."""
     t = _to_device(torch, device)
     pids = rng.integers(0, n_parts, n).astype(np.int32)
-    if last is not None:
+    if spread is not None:
         pids[:] = n_parts - 1
-        pids[rng.permutation(n)[:last]] = rng.integers(0, n_parts - 1, last)
+        pids[rng.permutation(n)[:spread]] = rng.integers(
+            0, max(n_parts - 1, 1), spread)
     x = rng.normal(size=n)
     x[rng.random(n) < 0.01] = np.nan
     arrays = [t(rng.integers(-2**62, 2**62, n)), t(rng.integers(
@@ -4864,20 +4959,21 @@ def _bucketize_case(torch, rng, device, n, n_parts, cap, dead, last=None):
     return t(pids), t(rng.random(n) >= dead), arrays
 
 
-def _compare_bucketize(torch, ex, pids, active, n_parts, cap, arrays):
+def _compare_bucketize(torch, ex, pids, active, n_parts, cap, arrays,
+                       what=""):
     """bucketize.cu vs its plain version: every bucket array bit for bit,
     the sent counts and the overflow exact, and every live row either
     sent or counted as overflow (none clamped into a slot)."""
     kb, ks, ko = ex.bucketize_kernel(pids, active, n_parts, cap, arrays)
     pb, ps, po = ex.bucketize_plain(pids, active, n_parts, cap, arrays)
     torch.cuda.synchronize()
+    at = f"{what} (n={pids.shape[0]} parts={n_parts} cap={cap})"
     check(torch.equal(ks, ps) and int(ko) == int(po),
-          f"bucketize counts differ at n={pids.shape[0]} parts={n_parts} "
-          f"cap={cap}: overflow {int(ko)} vs {int(po)}")
+          f"bucketize counts differ at {at}: overflow {int(ko)} vs "
+          f"{int(po)}")
     for j, (a, b) in enumerate(zip(kb, pb)):
         check(torch.equal(_bits(torch, a), _bits(torch, b)),
-              f"bucketize array {j} differs at n={pids.shape[0]} "
-              f"parts={n_parts} cap={cap}")
+              f"bucketize array {j} differs at {at}")
     live = int(active.sum()) if active is not None else pids.shape[0]
     check(int(ks.sum()) + int(ko) == live, "bucketize lost or invented rows")
     return int(ko)
@@ -5002,28 +5098,65 @@ def check_merge_pool(torch, groupby, device) -> float:
 
 
 def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
-    """bucketize.cu (8 and 64 destinations, overflow, a full last bucket,
-    every row dead, an empty batch, a lineitem batch), group_ratio.cu (up
+    """bucketize.cu (``bucketize_edges``: 1 to 4,096 destinations, cap 0
+    and 1, one destination for every row, overflow in one destination, a
+    full last bucket, every row dead, n around a warp and a tile, lineitem
+    batches; 64 columns of every element size; small calls after a large
+    one on the same stream and the reverse), group_ratio.cu (up
     to 2^18 sampled hashes), hashing.cu's xxhash64 % n and hash_agg.cu's
     merge ops against their plain versions: integers, counts and bits
     exact; the merge's float64 sums within F64_SUM_TOL x sum|x| of the
     plain version and equal to the bit from run to run."""
     rng = np.random.default_rng(10)
-    overflowed = 0
-    for n, n_parts, cap, dead, last in (
-            (0, 8, 64, 0.0, None), (1, 8, 1, 0.0, None),
-            (100_000, 8, 16_384, 0.1, None),
-            (100_000, 64, 1_024, 0.2, None),      # overflow everywhere
-            (80_000, 8, 8_192, 0.0, 8_192 * 7),   # last bucket 8,192 + 1
-            (50_000, 8, 4_096, 1.0, None),        # every row dead
-            (BATCH_ROWS, 8, 1 << 19, 0.3, None),
-            (BATCH_ROWS, 64, 1 << 16, 0.0, None)):
+    overflowed = n_cases = 0
+    for what, n, n_parts, cap, dead, spread in bucketize_edges(ex):
         case = _bucketize_case(torch, rng, device, n, n_parts, cap, dead,
-                               None if last is None else n - cap - 1)
+                               spread)
         overflowed += _compare_bucketize(torch, ex, case[0], case[1],
-                                         n_parts, cap, case[2])
-    check(overflowed > 0, "no bucketize case overflowed")
+                                         n_parts, cap, case[2], what)
+        n_cases += 1
+    # 64 columns of every element size
     t = _to_device(torch, device)
+    n = 50_000
+    pids, active, _ = _bucketize_case(torch, rng, device, n, 8, 8_192, 0.1,
+                                      None)
+    kinds = [np.int64, np.int32, np.int16, np.uint8, np.float64, np.float32,
+             bool]
+    wide = [t(rng.integers(0, 100, n).astype(kinds[j % len(kinds)]))
+            for j in range(ex.BZ_MAX_COLS)]
+    overflowed += _compare_bucketize(torch, ex, pids, active, 8, 8_192, wide,
+                                     "64 columns")
+    # small calls after a large one on the same stream, and the reverse:
+    # each call's status words are its own
+    big = (*_bucketize_case(torch, rng, device, BATCH_ROWS, 8, 1 << 19,
+                            0.5, None), 1 << 19)
+    small = [(*_bucketize_case(torch, rng, device, m, 8, 64, 0.0, None), 64)
+             for m in (64, 33, 2_049)]
+    for order in ("large first", "small first"):
+        seq = [big] + small if order == "large first" else small + [big]
+        got = [ex.bucketize_kernel(p, a, 8, cap, x) for p, a, x, cap in seq]
+        for (p, a, x, cap), (kb, ks, ko) in zip(seq, got):
+            pb, ps, po = ex.bucketize_plain(p, a, 8, cap, x)
+            torch.cuda.synchronize()
+            check(torch.equal(ks, ps) and int(ko) == int(po) and all(
+                torch.equal(_bits(torch, u), _bits(torch, v))
+                for u, v in zip(kb, pb)),
+                f"bucketize differs in a sequence ({order}, n="
+                f"{p.shape[0]})")
+        n_cases += len(seq)
+    check(overflowed > 0, "no bucketize case overflowed")
+    # device operations a call queues (the memset included): a lineitem
+    # batch and a 64-row call, both into 8 destinations
+    per_call = {f"{p.shape[0]} rows": device_launches(
+        torch, lambda p=p, a=a, x=x, cap=cap: ex.bucketize_kernel(
+            p, a, 8, cap, x)) for p, a, x, cap in (big, small[0])}
+    check(all(v is not None for v in per_call.values()),
+          f"bucketize's device operations not measured (the profiler saw "
+          f"no device activity): {per_call}")
+    check(all(v <= 3 for v in per_call.values()),
+          f"bucketize queues more than 3 device operations: {per_call}")
+    print(f"bucketize: device operations a call (torch.profiler), at most "
+          f"3: {per_call}")
     for n, distinct, dead in ((0, 1, 0.0), (1, 1, 0.0), (5000, 4, 0.0),
                               (1 << 18, 1 << 17, 0.5), (1 << 18, 1 << 30,
                                                         0.0),
@@ -5083,7 +5216,7 @@ def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
             else:
                 check(torch.equal(_bits(torch, a), _bits(torch, b)),
                       f"merge channel {j} ({op}) differs at n={n}")
-    print(f"check slice 10: bucketize on 8 cases ({overflowed} rows "
+    print(f"check slice 10: bucketize on {n_cases + 1} cases ({overflowed} rows "
           f"overflowed, none clamped), group_ratio on 6, xxhash64 % n for "
           f"n in (1, 7, 64, 4096), the merge ops on 5 (float64 sums equal "
           f"to the bit between runs, max |err| vs plain {worst:.3e}): ok")

@@ -36,14 +36,8 @@
 //                  the total in out[n] (block scans, a scan of the block
 //                  sums in one block, and a pass that adds them);
 //   csr_expand     the output rows of every probe row: pi = its probe row,
-//                  bi = b_perm[lo + k] or -1.  By output row: each block
-//                  takes a fixed share of the merged sequence of output
-//                  rows and probe-row ends (merge path: two warps find the
-//                  block's first and last probe row by a 32-way search over
-//                  offsets), keeps those rows' offsets and lo in shared
-//                  memory, and each thread finds its output row's probe row
-//                  there; pi and bi are written coalesced, and a key with
-//                  millions of matches spreads over the whole grid;
+//                  bi = b_perm[lo + k] or -1: expand.cuh's merge path by
+//                  output row (shared with cond_join.cu), int64 pi;
 //   csr_gather     per output row and column, data and validity gathered
 //                  at idx (idx < 0: a null row): a thread reads 4 rows'
 //                  indices once, then per column (its element size chosen
@@ -70,6 +64,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "expand.cuh"
 #include "radix.cuh"
 
 #define CJ_THREADS 256
@@ -100,25 +95,6 @@ __device__ __forceinline__ bool in_domain(long long k, long long kmin,
   if (d >= (unsigned long long)D) return false;
   *idx = (long long)d;
   return true;
-}
-
-// The first i in [lo, hi) where pred(i) is false (hi if none), for a pred
-// that is true then false along i; all 32 lanes of the warp call it and
-// get the answer.  Each step probes 32 evenly spaced positions at once.
-template <class Pred>
-__device__ __forceinline__ long long warp_search(long long lo, long long hi,
-                                                 const Pred& pred) {
-  const int lane = threadIdx.x & 31;
-  while (hi - lo > 32) {
-    const long long len = hi - lo;
-    const long long at = lo + (len * (lane + 1)) / 32 - 1;
-    const int c = __popc(__ballot_sync(0xffffffffu, pred(at)));
-    const long long new_lo = c > 0 ? lo + (len * c) / 32 : lo;
-    if (c < 32) hi = lo + (len * (c + 1)) / 32 - 1;
-    lo = new_lo;
-  }
-  const long long at = lo + lane;
-  return lo + __popc(__ballot_sync(0xffffffffu, at < hi && pred(at)));
 }
 
 // ---------------------------------------------------------------------------
@@ -319,58 +295,6 @@ scan_add(long long* __restrict__ out, long long n,
   for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
     const long long r = base + i;
     if (r < n) out[r] += add;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Expansion by output row
-// ---------------------------------------------------------------------------
-
-// The merge path of the output rows [0, total) and the ends offsets[r + 1]
-// of the n probe rows: row r's end comes before output j when
-// offsets[r + 1] <= j.  Block b takes items [b CJ_TILE, (b + 1) CJ_TILE):
-// probe-row ends [r0, r1) and outputs [j0, j1); output j's probe row is
-// r0 + the ends of [r0, r1) at or below j.
-__global__ void __launch_bounds__(CJ_THREADS)
-cj_expand(const long long* __restrict__ offsets, const int* __restrict__ lo,
-          const int* __restrict__ b_perm, long long n, long long total,
-          long long* __restrict__ pi, int* __restrict__ bi) {
-  __shared__ long long s_off[CJ_TILE + 1];  // offsets[r0 .. r1]
-  __shared__ int s_lo[CJ_TILE + 1];         // lo[r0 .. r1] (r < n)
-  __shared__ long long s_split[2];
-  const int t = threadIdx.x, warp = t >> 5;
-  const long long items = total + n;
-  const long long d0 = (long long)blockIdx.x * CJ_TILE;
-  const long long d1 = d0 + CJ_TILE < items ? d0 + CJ_TILE : items;
-  if (warp < 2) {
-    // ends among the first d items: end r is there when
-    // r + offsets[r + 1] < d
-    const long long d = warp == 0 ? d0 : d1;
-    const long long a = d - total > 0 ? d - total : 0;
-    const long long z = d < n ? d : n;
-    const long long r = warp_search(
-        a, z, [&](long long r) { return r + offsets[r + 1] < d; });
-    if ((t & 31) == 0) s_split[warp] = r;
-  }
-  __syncthreads();
-  const long long r0 = s_split[0], r1 = s_split[1];
-  const long long j0 = d0 - r0, j1 = d1 - r1;
-  const int rows = (int)(r1 - r0);
-  for (int k = t; k <= rows; k += CJ_THREADS) {
-    s_off[k] = offsets[r0 + k];
-    s_lo[k] = r0 + k < n ? lo[r0 + k] : -1;
-  }
-  __syncthreads();
-  for (long long j = j0 + t; j < j1; j += CJ_THREADS) {
-    int a = 1, z = rows + 1;  // ends s_off[1..rows] at or below j
-    while (a < z) {
-      const int mid = (a + z) >> 1;
-      if (s_off[mid] <= j) a = mid + 1; else z = mid;
-    }
-    const int k = a - 1;  // output j belongs to probe row r0 + k
-    const int l = s_lo[k];
-    pi[j] = r0 + k;
-    bi[j] = l < 0 ? -1 : b_perm[l + (j - s_off[k])];
   }
 }
 
@@ -585,14 +509,9 @@ extern "C" int csr_expand(const void* offsets, const void* lo,
                           const void* b_perm, long long n, long long total,
                           void* pi, void* bi, void* stream) {
   if (n < 0 || total < 0) return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaSuccess;
-  const long long tiles = (total + n + CJ_TILE - 1) / CJ_TILE;
-  cj_expand<<<(unsigned)tiles, CJ_THREADS, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(offsets), static_cast<const int*>(lo),
-      static_cast<const int*>(b_perm), n, total,
-      static_cast<long long*>(pi), static_cast<int*>(bi));
-  return (int)cudaGetLastError();
+  return (int)ex_expand_launch<long long>(offsets, lo, b_perm, n, total, pi,
+                                          bi,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int csr_gather(const void* idx, int idx_elem, long long n,

@@ -202,8 +202,11 @@ _SIGNATURES = {
     "cond_join": {
         # offsets, lo, b_perm, n, total, pi, bi, stream
         "cond_expand": [_P, _P, _P, _L, _L, _P, _P, _P],
-        # keep, pi, bi, total, pcount, bcount, stream
-        "cond_counts": [_P, _P, _P, _L, _P, _P, _P],
+        # n, total
+        "cond_counts_scratch": [_L, _L],
+        # keep, offsets, bi, n, total, pcount, bcount, scratch,
+        # scratch_bytes, stream
+        "cond_counts": [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P],
         # n_l, n_r, pi, bi, stream
         "cross_pairs": [_L, _L, _P, _P, _P],
     },
@@ -235,9 +238,12 @@ _SIGNATURES = {
         "key_stats": [_P, _I, _P, _P, _L, _P, _P, _P, _L, _P, _P, _I, _P],
     },
     "bucketize": {
-        # pids, active, n, nparts, cap, ncols, in[], out[], elems[], counts,
-        # sent, overflow, stream
-        "bucketize": [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P],
+        # n, nparts
+        "bucketize_scratch": [_L, _I],
+        # pids, active, n, nparts, cap, ncols, in[], out[], elems[], sent,
+        # overflow, scratch, scratch_bytes, stream
+        "bucketize": [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _L,
+                      _P],
     },
     "group_ratio": {
         # h, active, n, set, out, stream
@@ -253,7 +259,8 @@ _SIGNATURES = {
 # entries that return other than a CUDA error code
 _RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
              "topk_scratch": _L, "csr_build_scratch": _L,
-             "partition_perm_scratch": _L, "win_scratch_bytes": _L}
+             "partition_perm_scratch": _L, "win_scratch_bytes": _L,
+             "cond_counts_scratch": _L, "bucketize_scratch": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

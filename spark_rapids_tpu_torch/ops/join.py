@@ -1068,14 +1068,18 @@ cond_expand_kernel.launches = 0
 
 
 def cond_counts(keep: torch.Tensor, pi: torch.Tensor, bi: torch.Tensor,
-                n_probe: int, n_build: Optional[int]
+                n_probe: int, n_build: Optional[int], offsets: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The kept pairs counted per probe row (int32 [n_probe]) and, given
     ``n_build``, per build row (int32 [n_build]; None otherwise).
-    ``keep`` is bool [total]; ``pi`` is sorted."""
+    ``keep`` is bool [total]; ``pi`` is sorted, and ``offsets`` (int64
+    [n_probe + 1], ``cond_expand``'s) gives each probe row's range of
+    pairs: the kernel counts by those ranges, the plain version by
+    ``pi``."""
     _pairs_fit(keep.shape[0], n_probe, n_build or 0)
-    run = cond_counts_kernel if keep.is_cuda else cond_counts_plain
-    return run(keep, pi, bi, n_probe, n_build)
+    if keep.is_cuda:
+        return cond_counts_kernel(keep, offsets, bi, n_probe, n_build)
+    return cond_counts_plain(keep, pi, bi, n_probe, n_build)
 
 
 def cond_counts_plain(keep, pi, bi, n_probe: int, n_build: Optional[int]):
@@ -1089,18 +1093,24 @@ def cond_counts_plain(keep, pi, bi, n_probe: int, n_build: Optional[int]):
         .index_add_(0, bi.to(torch.int64), k)
 
 
-def cond_counts_kernel(keep, pi, bi, n_probe: int, n_build: Optional[int]):
-    """Launch ``cond_counts`` of ``csrc/cond_join.cu``."""
+def cond_counts_kernel(keep, offsets, bi, n_probe: int,
+                       n_build: Optional[int]):
+    """Launch ``cond_counts`` of ``csrc/cond_join.cu``: every probe row's
+    count is written once, from its range ``[offsets[p], offsets[p + 1])``
+    of the pairs; the build counts add into zeros."""
     total, dev = keep.shape[0], keep.device
+    _check(offsets, n_probe + 1, (torch.int64,), "offsets")
     _check(keep, total, (torch.bool,), "keep")
-    _check(pi, total, (torch.int32,), "pi")
     _check(bi, total, (torch.int32,), "bi")
-    pc = torch.zeros(n_probe, dtype=torch.int32, device=dev)
+    pc = torch.empty(n_probe, dtype=torch.int32, device=dev)
     bc = None if n_build is None else torch.zeros(n_build, dtype=torch.int32,
                                                   device=dev)
     lib = kernels.load("cond_join")
-    rc = lib.cond_counts(keep.data_ptr(), pi.data_ptr(), bi.data_ptr(),
-                         total, pc.data_ptr(), _ptr(bc), _stream(keep))
+    nbytes = lib.cond_counts_scratch(n_probe, total)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rc = lib.cond_counts(keep.data_ptr(), offsets.data_ptr(), bi.data_ptr(),
+                         n_probe, total, pc.data_ptr(), _ptr(bc),
+                         scratch.data_ptr(), nbytes, _stream(keep))
     kernels.check_launch(lib, "cond_counts", rc)
     cond_counts_kernel.launches += 1
     return pc, bc

@@ -26,13 +26,13 @@ from ..ops.hashing import spark_partition_id
 
 __all__ = ["hash_ids", "bucketize", "bucketize_plain", "bucketize_kernel",
            "exchange", "exchange_grouped_agg", "BZ_MAX_COLS",
-           "BZ_MAX_PARTS"]
+           "BZ_MAX_PARTS", "BZ_TILE"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 BZ_MAX_COLS = 64        # csrc/bucketize.cu BZ_MAX_COLS
 BZ_MAX_PARTS = 4096     # csrc/bucketize.cu BZ_MAX_PARTS
-BZ_CHUNK = 1024         # csrc/bucketize.cu BZ_CHUNK
+BZ_TILE = 2048          # csrc/bucketize.cu BZ_TILE: rows a block
 
 
 def hash_ids(keys: Sequence[Value], n_parts: int) -> torch.Tensor:
@@ -93,21 +93,21 @@ def bucketize_kernel(pids: torch.Tensor, active: Optional[torch.Tensor],
                                      and active.dtype != torch.bool):
         raise ValueError("bucketize takes int32 pids and a bool mask")
     dev = pids.device
-    out = [torch.zeros((n_parts, bucket_cap), dtype=a.dtype, device=dev)
+    # every slot is written by the kernel: the live rows and the zero tails
+    out = [torch.empty((n_parts, bucket_cap), dtype=a.dtype, device=dev)
            for a in arrays]
-    nblocks = -(-n // BZ_CHUNK)
-    counts = torch.empty(n_parts * max(nblocks, 1), dtype=torch.int32,
-                         device=dev)
     sent = torch.empty(n_parts, dtype=torch.int32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int64, device=dev)
+    overflow = torch.empty(1, dtype=torch.int64, device=dev)
     P = kernels.pointer_array
     lib = kernels.load("bucketize")
+    nbytes = lib.bucketize_scratch(n, n_parts)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = lib.bucketize(
         pids.data_ptr(), None if active is None else active.data_ptr(), n,
         n_parts, bucket_cap, len(arrays), P([a.data_ptr() for a in arrays]),
         P([o.data_ptr() for o in out]),
         kernels.int_array([a.element_size() for a in arrays]),
-        counts.data_ptr(), sent.data_ptr(), overflow.data_ptr(),
+        sent.data_ptr(), overflow.data_ptr(), scratch.data_ptr(), nbytes,
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(lib, "bucketize", rc)
     bucketize_kernel.launches += 1

@@ -425,7 +425,7 @@ class _EquiJoin(TpuExec):
         keep = _condition_mask(cond, cols, total, device)
         pc, bc = join.cond_counts(keep, pi, bi, probe.num_rows,
                                   build.num_rows if how in ("right", "full")
-                                  else None)
+                                  else None, offsets)
         plive = live_mask(probe.num_rows, None, probe.sel, device)
         hit = pc > 0
         if how == "existence":

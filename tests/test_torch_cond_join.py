@@ -7,6 +7,8 @@ as multisets (sorted), exactly: the cases carry integers, strings and
 nulls only.  The port runs on the CPU here (its kernels' plain
 versions)."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -180,17 +182,97 @@ def test_cond_expand_and_counts_plain(case):
     np.testing.assert_array_equal(pi.numpy(), want_pi)
     np.testing.assert_array_equal(bi.numpy(), want_bi)
     keep = rng.random(total) < 0.5
+    t_off = torch.from_numpy(offsets)
     pc, bc = join.cond_counts(torch.from_numpy(keep), pi, bi, n_probe,
-                              n_build)
+                              n_build, t_off)
     np.testing.assert_array_equal(
         pc.numpy(), np.bincount(want_pi[keep], minlength=n_probe))
     np.testing.assert_array_equal(
         bc.numpy(), np.bincount(want_bi[keep], minlength=n_build))
     pc2, bc2 = join.cond_counts(torch.from_numpy(keep), pi, bi, n_probe,
-                                None)
+                                None, t_off)
     assert bc2 is None and torch.equal(pc2, pc)
     if case == "one_build_row_for_all":
         assert bc.numpy()[b_perm[7]] == keep.sum()
+
+
+def _counts_state(case, rng):
+    """(offsets, lo, b_perm, keep) of the shapes the device counts split
+    on: a hot key, long runs of probe rows with no candidates, few pairs,
+    and keep all false or all true."""
+    n_probe, n_build = 4000, 6000
+    counts = np.zeros(n_probe, dtype=np.int64)
+    if case == "hot_key":
+        counts[1234] = 5003
+        counts[rng.integers(0, n_probe, 50)] += 3
+    elif case == "empty_runs":
+        counts[[0, 1999, 2000, 3999]] = [7, 1, 40, 2]
+    elif case == "few_pairs":
+        counts[[17, 18]] = [3, 2]
+    else:
+        counts = rng.integers(0, 5, n_probe)
+    lo = np.minimum(rng.integers(0, n_build, n_probe),
+                    n_build - counts).astype(np.int32)
+    offsets = np.concatenate(([0], np.cumsum(counts)))
+    b_perm = rng.permutation(n_build).astype(np.int32)
+    total = int(offsets[-1])
+    keep = {"keep_none": np.zeros(total, dtype=bool),
+            "keep_all": np.ones(total, dtype=bool)}.get(
+        case, rng.random(total) < 0.5)
+    return offsets, lo, b_perm, keep
+
+
+@pytest.mark.parametrize("case", ["hot_key", "empty_runs", "few_pairs",
+                                  "keep_none", "keep_all"])
+def test_cond_counts_by_ranges_plain(case):
+    """The plain expansion and counts on a hot key and on empty probe
+    ranges, called as the main path calls them (with the probe rows'
+    ranges, which the kernel counts by): equal to ``index_add_`` by pi and
+    to numpy, with and without build counts."""
+    rng = np.random.default_rng(["hot_key", "empty_runs", "few_pairs",
+                                 "keep_none", "keep_all"].index(case) + 40)
+    offsets, lo, b_perm, keep = _counts_state(case, rng)
+    n_probe, n_build, total = len(lo), len(b_perm), int(offsets[-1])
+    t_off = torch.from_numpy(offsets)
+    pi, bi = join.cond_expand(t_off, torch.from_numpy(lo),
+                              torch.from_numpy(b_perm), total)
+    cnt = np.diff(offsets)
+    want_pi = np.repeat(np.arange(n_probe), cnt)
+    want_bi = b_perm[np.repeat(lo, cnt) + (np.arange(total)
+                                            - np.repeat(offsets[:-1], cnt))]
+    np.testing.assert_array_equal(pi.numpy(), want_pi)
+    np.testing.assert_array_equal(bi.numpy(), want_bi)
+    t_keep = torch.from_numpy(keep)
+    pc, bc = join.cond_counts(t_keep, pi, bi, n_probe, n_build, t_off)
+    alone, none = join.cond_counts(t_keep, pi, bi, n_probe, None, t_off)
+    want_pc = np.bincount(want_pi[keep], minlength=n_probe)
+    assert pc.dtype == torch.int32 and none is None
+    np.testing.assert_array_equal(pc.numpy(), want_pc)
+    np.testing.assert_array_equal(alone.numpy(), want_pc)
+    np.testing.assert_array_equal(
+        bc.numpy(), np.bincount(want_bi[keep], minlength=n_build))
+    index_add = torch.zeros(n_probe, dtype=torch.int32).index_add_(
+        0, pi.long(), t_keep.int())
+    assert torch.equal(pc, index_add)
+    # each probe row's count is the kept pairs of its range
+    run = np.concatenate(([0], np.cumsum(keep)))
+    np.testing.assert_array_equal(pc.numpy(),
+                                  run[offsets[1:]] - run[offsets[:-1]])
+    if case == "hot_key":
+        assert int(pc[1234]) == int(keep[offsets[1234]:
+                                         offsets[1235]].sum())
+
+
+def test_device_cond_counts_needs_offsets():
+    """The kernel counts by the probe rows' ranges: it takes ``offsets``
+    (int64 [n_probe + 1]) where the plain version takes pi, and refuses
+    the int32 probe rows in their place."""
+    params = list(inspect.signature(join.cond_counts_kernel).parameters)
+    assert params[:3] == ["keep", "offsets", "bi"] and "pi" not in params
+    with pytest.raises(ValueError, match="offsets"):
+        join.cond_counts_kernel(torch.zeros(3, dtype=torch.bool),
+                                torch.zeros(3, dtype=torch.int32),
+                                torch.zeros(3, dtype=torch.int32), 1, None)
 
 
 @pytest.mark.parametrize("n_l, n_r", [(0, 5), (5, 0), (1, 1), (7, 13),

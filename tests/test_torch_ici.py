@@ -513,6 +513,46 @@ def test_bucketize_plain_matches_reference(rows, n_parts, cap, dead):
     assert kept + int(to) == int(active.sum())
 
 
+LIMIT_CASES = [
+    # (rows, n_parts, bucket_cap, destinations)
+    (500, 1, 64, "uniform"),       # one destination
+    (3000, 256, 8, "uniform"),     # the most destinations of one byte
+    (3000, 257, 8, "uniform"),     # one past it
+    (5000, 4096, 2, "uniform"),    # BZ_MAX_PARTS
+    (400, 8, 0, "uniform"),        # no capacity: every live row overflows
+    (600, 8, 100, "one"),          # one destination takes every row
+    (600, 8, 1000, "one"),         # ... and keeps them all
+]
+
+
+@pytest.mark.parametrize("rows,n_parts,cap,dest", LIMIT_CASES)
+def test_bucketize_plain_matches_reference_at_the_limits(rows, n_parts, cap,
+                                                         dest):
+    """The plain bucketize against the JAX package's at the destination
+    counts and capacities the kernel's paths turn on."""
+    rng = np.random.default_rng(rows * 7 + n_parts + cap)
+    pids = (rng.integers(0, n_parts, rows) if dest == "uniform"
+            else np.full(rows, n_parts - 3)).astype(np.int32)
+    active = rng.random(rows) >= 0.2
+    arrays = [rng.integers(-2**62, 2**62, rows),
+              rng.integers(-2**15, 2**15, rows).astype(np.int16),
+              rng.uniform(-1, 1, rows), rng.random(rows) < 0.5]
+    jb, js, jo = jexchange.bucketize(jnp.asarray(pids), jnp.asarray(active),
+                                     n_parts, cap,
+                                     [jnp.asarray(a) for a in arrays])
+    tb, ts, to = texchange.bucketize(torch.from_numpy(pids),
+                                     torch.from_numpy(active), n_parts, cap,
+                                     [torch.from_numpy(a) for a in arrays])
+    assert np.array_equal(np.asarray(js), ts.numpy())
+    assert int(jo) == int(to)
+    for j, t in zip(jb, tb):
+        assert tuple(t.shape) == (n_parts, cap)
+        assert np.array_equal(np.asarray(j), t.numpy())
+    assert int(ts.sum()) + int(to) == int(active.sum())
+    if cap == 0:
+        assert int(to) == int(active.sum())
+
+
 def test_exchange_swaps_the_bucket_axis():
     """Shard d receives buckets[s][d] of every shard s, in source order,
     with the transposed counts (``lax.all_to_all`` over the mesh)."""

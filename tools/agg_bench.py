@@ -12,8 +12,9 @@ one more entry in VARIANTS.
     python3 tools/agg_bench.py [--variants base,sm2,sm8,nocache]
 
 Each variant is a copy of ``spark_rapids_tpu_torch/csrc`` under
-``build/agg_variants/<name>/`` with one define changed, built and timed
-in a process of its own (a kernel library is loaded once a process):
+``build/agg_variants/<name>/`` with one define changed (or its zero tail
+left out), built and timed in a process of its own (a kernel library is
+loaded once a process):
 
   * ``base``: the checkout's sources (every shape);
   * ``sm<k>``: ``hash_agg.cu``'s ``HA_BLOCKS_PER_SM`` k (blocks an SM of
@@ -24,6 +25,9 @@ in a process of its own (a kernel library is loaded once a process):
     ``dense_join.cu``'s or ``window_scan.cu``'s shapes only;
   * ``dj_rows8``: ``dense_join.cu``'s probe with 8 rows a thread
     (``DJ_ROWS``) against the sources' 4;
+  * ``bz_base``: the checkout's sources, timed for ``bucketize.cu``'s
+    shapes only; ``bz_notail``: without its zero tail (results not
+    checked), the part of its time the tail takes;
 
 Prints kernel_ab's JSON lines, labelled with the variant.
 """
@@ -38,7 +42,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-# variant: (source, {define: value})
+# variant: (source, {define: value}, optionally [(text, replacement)])
 VARIANTS = {"base": (None, {}),
             "sm2": ("hash_agg.cu", {"HA_BLOCKS_PER_SM": "2"}),
             "sm3": ("hash_agg.cu", {"HA_BLOCKS_PER_SM": "3"}),
@@ -47,7 +51,15 @@ VARIANTS = {"base": (None, {}),
             "nocache": ("hash_agg.cu", {"HA_CACHE_BYTES": "0"}),
             "dj_base": ("dense_join.cu", {}),
             "dj_rows8": ("dense_join.cu", {"DJ_ROWS": "8"}),
-            "ws_base": ("window_scan.cu", {})}
+            "ws_base": ("window_scan.cu", {}),
+            "bz_base": ("bucketize.cu", {}),
+            # bucketize.cu without its zero tail (its results then differ
+            # from plain and are not checked)
+            "bz_notail": ("bucketize.cu", {}, [
+                ("? 0 : (slots + BZ_ZERO_SLOTS - 1) / BZ_ZERO_SLOTS;",
+                 "? 0 : 0;"),
+                ("if (ntiles == 1 && slots <= BZ_ZERO_SLOTS) {",
+                 "if (false) {")])}
 
 
 def make_variant(name: str) -> Path:
@@ -55,7 +67,7 @@ def make_variant(name: str) -> Path:
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(ROOT / "spark_rapids_tpu_torch" / "csrc", out)
-    source, defines = VARIANTS[name]
+    source, defines, *edits = VARIANTS[name]
     if source is not None:
         src = (out / source).read_text()
         for key, value in defines.items():
@@ -63,6 +75,10 @@ def make_variant(name: str) -> Path:
                              f"#define {key} {value} ", src)
             if n != 1:
                 raise SystemExit(f"agg_bench: no #define {key}")
+        for text, replacement in (edits[0] if edits else []):
+            if src.count(text) != 1:
+                raise SystemExit(f"agg_bench: no single {text!r}")
+            src = src.replace(text, replacement)
         (out / source).write_text(src)
     return out
 
@@ -98,6 +114,9 @@ def run_variant(name: str, csrc: str) -> int:
         rc |= kernel_ab.time_dense_join(torch, dev, emit)
     if source in (None, "window_scan.cu"):
         rc |= kernel_ab.time_window_scan(torch, dev, emit)
+    if source in (None, "bucketize.cu"):
+        rc |= kernel_ab.time_bucketize(torch, dev, emit,
+                                       check=len(VARIANTS[name]) < 3)
     return rc
 
 

@@ -8,7 +8,7 @@ on one CUDA card.
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
         [--only key_stats,merge,sort,sort_join,topk,dense_agg,
                 masked_reduce,csr_join,hash_agg,grid_agg,dense_join,
-                window_scan]
+                window_scan,bucketize,cond_join]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -81,7 +81,25 @@ the bucket sequence one event pair a sequence, its host work included):
     date) order, ~600 rows a supplier): the window context of the
     (supplier, ship date) spec (``SortedWindowContext``), the running
     float64 sum reset per supplier, and the same sum over one partition
-    of every row.
+    of every row;
+  * ``bucketize`` at ``chip_smoke.py``'s timed shape (a lineitem batch of
+    4,194,304 rows, half live, into 8 destinations x 524,288 slots, 10
+    arrays of Q3's exchange payload) and at a 64-row call into 8 x 64
+    slots (Q1-ici8's partial groups), each with the device operations one
+    call queues (``torch.profiler``, the memsets included); and the
+    exchange's swap (``parallel/exchange.py exchange``) at Q3-ici8's shape
+    (8 shards of 10 arrays of 8 x 262,144 slots on one card: 640 array
+    copies and 64 count copies), one call per event pair, with its device
+    operations and their device time summed by the profiler; and
+  * ``cond_join`` at a Q21-exists sub-partition pair as ``chip_smoke.py``
+    times it (the late lines of 117,188 orders probing all their lines,
+    drawn as TPC-H draws them: 1-7 lines an order, commit, ship and receipt
+    dates, 100,000 suppliers; about 312,000 probe rows, 470,000 build rows
+    and 1.5 M pairs, kept where the suppliers differ): ``cond_expand`` and
+    ``cond_counts`` (a checkout whose counts take the probe rows' offsets
+    is given them), with their device operations, and ``csr_expand`` at
+    Q13's shape (the left join of ``csr_join`` above: 11,998,869 output
+    rows of 1,500,000 probe rows).
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -149,7 +167,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
                     "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg,"
-                    "dense_join,window_scan")
+                    "dense_join,window_scan,bucketize,cond_join")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -197,6 +215,172 @@ def main() -> int:
         return 1
     if "window_scan" in only and time_window_scan(torch, dev, emit) != 0:
         return 1
+    if "bucketize" in only and time_bucketize(torch, dev, emit) != 0:
+        return 1
+    if "cond_join" in only and time_cond_join(torch, dev, emit) != 0:
+        return 1
+    return 0
+
+
+def device_ops(torch, fn):
+    """(device operations, their summed device ms) of one call of ``fn``
+    (kernels and memsets, counted by torch.profiler after a warm-up
+    call); (None, None) when the profiler saw no device activity (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        return None, None
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+def _bucketize_same(torch, ex, pids, active, parts, cap, arrays) -> bool:
+    kb, ks, ko = ex.bucketize_kernel(pids, active, parts, cap, arrays)
+    pb, ps, po = ex.bucketize_plain(pids, active, parts, cap, arrays)
+    bits = [(a.view(torch.int64), b.view(torch.int64))
+            if a.dtype == torch.float64 else (a, b) for a, b in zip(kb, pb)]
+    return torch.equal(ks, ps) and int(ko) == int(po) and all(
+        torch.equal(a, b) for a, b in bits)
+
+
+def time_bucketize(torch, dev, emit, check: bool = True) -> int:
+    """bucketize at chip_smoke.py's timed shape and at a 64-row call, and
+    the exchange's swap at Q3-ici8's shape (``check`` False: a variant
+    that leaves a part out is timed without holding it to plain)."""
+    from spark_rapids_tpu_torch.parallel import exchange as ex
+    rng = np.random.default_rng(1010)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n, parts, cap = 4 << 20, 8, 1 << 19
+    pids = t(rng.integers(0, parts, n).astype(np.int32))
+    active = t(rng.random(n) < 0.5)
+    payload = [t(rng.integers(0, 2**40, n)), t(rng.random(n) < 1),
+               t(rng.integers(0, 9999, n).astype(np.int32)),
+               t(rng.random(n) < 1), t(np.zeros(n, np.int32)),
+               t(rng.random(n) < 1), t(rng.normal(size=n)),
+               t(rng.random(n) < 1), t(rng.normal(size=n)),
+               t(rng.random(n) < 1)]
+    m = 64
+    sp = t(rng.integers(0, parts, m).astype(np.int32))
+    sa = t(rng.random(m) < 0.9)
+    sx = [t(rng.integers(0, 2**40, m)), t(rng.normal(size=m)),
+          t(rng.random(m) < 1)]
+    if check and not (
+            _bucketize_same(torch, ex, pids, active, parts, cap, payload)
+            and _bucketize_same(torch, ex, sp, sa, parts, m, sx)):
+        print("kernel_ab: bucketize differs from plain", file=sys.stderr)
+        return 1
+    inputs = copies([pids, active] + payload, 4)
+    emit("bucketize_lineitem_8", time_ms(torch, [
+        lambda x=x: ex.bucketize_kernel(x[0], x[1], parts, cap, x[2:])
+        for x in inputs], reps=4 * len(inputs)), rows=n,
+        live=int(active.sum()), destinations=parts, cap=cap, arrays=10,
+        device_ops=device_ops(torch, lambda: ex.bucketize_kernel(
+            pids, active, parts, cap, payload))[0])
+    del inputs
+    emit("bucketize_64_rows", time_ms(torch, [
+        lambda: ex.bucketize_kernel(sp, sa, parts, m, sx)], reps=64),
+        rows=m, destinations=parts, cap=m, arrays=3,
+        device_ops=device_ops(torch, lambda: ex.bucketize_kernel(
+            sp, sa, parts, m, sx))[0])
+    # the swap at Q3-ici8's shape: 8 shards on one card, 10 arrays each
+    n_dev, bcap = 8, 1 << 18
+    mesh = [dev] * n_dev
+    bucketed = [[torch.empty((n_dev, bcap), dtype=a.dtype, device=dev)
+                 for a in payload] for _ in range(n_dev)]
+    sent = [torch.full((n_dev,), bcap // 2, dtype=torch.int32, device=dev)
+            for _ in range(n_dev)]
+    shape = dict(shards=n_dev, arrays=len(payload), cap=bcap,
+                 array_copies=n_dev * n_dev * len(payload),
+                 count_copies=n_dev * n_dev)
+    # one call per event pair (its 704 launches outrun no spin kernel),
+    # and the device time of its operations summed from the profiler
+    swap = lambda: ex.exchange(bucketed, sent, mesh)  # noqa: E731
+    ops, busy = device_ops(torch, swap)
+    emit("exchange_q3_ici8_synced", time_ms_synced(torch, swap, reps=4),
+         device_ops=ops, device_busy_ms=busy, **shape)
+    return 0
+
+
+def time_cond_join(torch, dev, emit) -> int:
+    """cond_expand and cond_counts at a Q21-exists sub-partition pair, and
+    csr_expand at Q13's shape."""
+    from spark_rapids_tpu_torch.ops import join
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    # the orders of one of 128 sub-partitions and their lines, drawn as
+    # TPC-H draws them; a line is late when received after its commit date
+    orders = 15_000_000 // 128
+    lines = rng.integers(1, 8, orders)
+    okey = np.repeat(np.arange(orders, dtype=np.int64) * 128, lines)
+    nl = okey.shape[0]
+    odate = np.repeat(rng.integers(0, 2406, orders), lines)
+    commit = odate + rng.integers(30, 91, nl)
+    receipt = odate + rng.integers(1, 122, nl) + rng.integers(1, 31, nl)
+    supp = rng.integers(1, 100_001, nl)
+    late = receipt > commit
+    bkey, bsupp = t(okey), t(supp)
+    pkey, psupp = t(okey[late]), t(supp[late])
+    state = join.sorted_build([(bkey, None)], None)
+    lo, _, offsets = join.sorted_probe([(pkey, None)], None, state, "inner")
+    total = int(offsets[-1])
+    n_p, b_perm = pkey.shape[0], state.b_perm
+    kp, kb = join.cond_expand_kernel(offsets, lo, b_perm, total)
+    pp, pb = join.cond_expand_plain(offsets, lo, b_perm, total)
+    keep = psupp[kp.long()] != bsupp[kb.long()]
+    by_range = "offsets" in inspect.signature(
+        join.cond_counts_kernel).parameters
+
+    def counts(k, a, b, o):
+        return join.cond_counts_kernel(k, o if by_range else a, b, n_p, None)
+    kc, _ = counts(keep, kp, kb, offsets)
+    pc, _ = join.cond_counts_plain(keep, pp, pb, n_p, None)
+    torch.cuda.synchronize()
+    if not (torch.equal(kp, pp) and torch.equal(kb, pb)
+            and torch.equal(kc, pc)):
+        print("kernel_ab: cond_join differs from plain", file=sys.stderr)
+        return 1
+    shape = dict(probe_rows=n_p, build_rows=nl, pairs=total,
+                 kept=int(keep.sum()))
+    inputs = copies([offsets, lo, b_perm], 8)
+    emit("cond_expand_q21_exists", time_ms(torch, [
+        lambda o=o, a=a, b=b: join.cond_expand_kernel(o, a, b, total)
+        for o, a, b in inputs], reps=8 * len(inputs)),
+        device_ops=device_ops(torch, lambda: join.cond_expand_kernel(
+            offsets, lo, b_perm, total))[0], **shape)
+    inputs = copies([keep, kp, kb, offsets], 8)
+    emit("cond_counts_q21_exists", time_ms(torch, [
+        lambda x=x: counts(*x) for x in inputs], reps=8 * len(inputs)),
+        device_ops=device_ops(torch, lambda: counts(keep, kp, kb,
+                                                     offsets))[0],
+        **shape)
+    del inputs, kp, kb, pp, pb, kc, pc, state
+    # csr_expand at Q13's shape, drawn as time_csr_join draws it
+    rng = np.random.default_rng(7)
+    nb, C = 15_000_000, 1_500_000
+    ckey = t(rng.integers(1, C + 1, nb))
+    act = t(rng.random(nb) < 0.8)
+    probe = torch.arange(1, C + 1, dtype=torch.int64, device=dev)
+    got = join.csr_build_kernel(ckey, None, act, 1, C)
+    tables, b_perm = got[:-1], got[-1]
+    lo, off = join.csr_probe_kernel(probe, None, None, 1, *tables, "left")
+    total = int(off[-1])
+    pi, bi = join.csr_expand_kernel(off, lo, b_perm, total)
+    ppi, pbi = join.csr_expand_plain(off, lo, b_perm, total)
+    torch.cuda.synchronize()
+    if not (torch.equal(pi, ppi) and torch.equal(bi, pbi)):
+        print("kernel_ab: csr_expand differs from plain", file=sys.stderr)
+        return 1
+    del pi, bi, ppi, pbi
+    emit("csr_expand_q13", time_ms(torch, [
+        lambda: join.csr_expand_kernel(off, lo, b_perm, total)], reps=8),
+        probe_rows=C, output_rows=total)
     return 0
 
 

@@ -4,7 +4,8 @@ CUDA card.
 
     python3 tools/path_walls.py [--root DIR] [--sf 10] [--runs 5] \
         [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18,
-                   s1,w1,w2,q10_shuffled,q10_flip,q21_exists]
+                   s1,w1,w2,q10_shuffled,q10_flip,q21_exists,q1_ici8,
+                   q3_ici8]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts of the port in turns on
@@ -23,7 +24,10 @@ sorted join over 8 hash partition pairs); ``s1`` (``tpch.sort_lineitem``),
 FIRST/LAST) end in ``to_device_arrays()``, as ``chip_smoke.py`` runs
 them; ``q21_exists`` runs on the default session
 (8 shuffle partition pairs), and so does ``q10_flip`` (Q10 with the
-defaults: its second join flips to a broadcast).  Prints one JSON
+defaults: its second join flips to a broadcast).  ``_ici8`` runs on a
+session in ICI shuffle mode over a mesh of 8 shards on the first card
+(``[cuda:0] * 8``), with ``shuffle.ici.bucketRows`` as ``chip_smoke.py``
+sets them for Q1-ici8 (64) and Q3-ici8 (2^18).  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
 fetches of the last warm run, with the card's name and power limit.
 """
@@ -45,7 +49,10 @@ VARIANTS = {
     "2ph_repart": dict(TWO_PHASE, **{
         "spark.rapids.tpu.sql.batchSizeBytes": 8 << 20}),
     "pq": {"spark.rapids.tpu.sql.fileCache.enabled": True},
-    "shuffled": {"spark.rapids.tpu.sql.aqe.enabled": False}}
+    "shuffled": {"spark.rapids.tpu.sql.aqe.enabled": False},
+    "ici8": {"spark.rapids.tpu.shuffle.mode": "ICI"}}
+# chip_smoke.py's bucket rows for the paths over 8 shards of one card
+ICI8_BUCKET_ROWS = {"q1": 64, "q3": 1 << 18}
 PARQUET_DIR = "build/tpch_parquet"
 # paths that are not TPC-H queries: (tpch function, tables); their results
 # stay on the device
@@ -60,10 +67,17 @@ def split(name: str):
         return name[3:], "pq"
     if name.endswith("_flip"):  # the defaults: the runtime flip
         return name[:-len("_flip")], ""
-    for suffix in ("_2ph_repart", "_2ph", "_shuffled"):
+    for suffix in ("_2ph_repart", "_2ph", "_shuffled", "_ici8"):
         if name.endswith(suffix):
             return name[:-len(suffix)], suffix[1:]
     return name, ""
+
+
+def session_key(name: str) -> str:
+    """The session a path runs on: one per variant, and one per query
+    under ``_ici8`` (its bucket rows are the query's)."""
+    q, variant = split(name)
+    return f"ici8_{q}" if variant == "ici8" else variant
 
 
 def main() -> int:
@@ -101,24 +115,31 @@ def main() -> int:
     sessions, frames = {}, {}
     for name in paths:
         q, variant = split(name)
-        if variant in sessions:
+        key = session_key(name)
+        if key in sessions:
             continue
-        sess = Session.get_or_create(device="cuda") if variant == "" \
-            else Session(VARIANTS[variant], device="cuda")
-        sessions[variant] = sess
+        conf = dict(VARIANTS[variant])
+        if variant == "ici8":
+            conf["spark.rapids.tpu.shuffle.ici.bucketRows"] = \
+                ICI8_BUCKET_ROWS[q]
+        sess = Session.get_or_create(device="cuda") if not conf \
+            else Session(conf, device="cuda")
+        if variant == "ici8":
+            sess.set_mesh([torch.device("cuda", 0)] * 8)
+        sessions[key] = sess
         if variant == "pq":
             pq_tables = sorted({t for n in paths if split(n)[1] == "pq"
                                 for t in tables[split(n)[0]]})
             files = tpch.gen_db(args.sf, PARQUET_DIR, data=db,
                                 tables=pq_tables)
-            frames[variant] = {t: sess.read_parquet(p)
-                               for t, p in files.items()}
+            frames[key] = {t: sess.read_parquet(p)
+                           for t, p in files.items()}
         else:
-            frames[variant] = {t: sess.create_dataframe(cols)
-                               for t, cols in db.items()}
+            frames[key] = {t: sess.create_dataframe(cols)
+                           for t, cols in db.items()}
     for name in paths:
-        q, variant = split(name)
-        dfs = frames[variant]
+        q = split(name)[0]
+        dfs = frames[session_key(name)]
         walls, syncs = [], 0
         for i in range(1 + args.runs):
             torch.cuda.synchronize()
