@@ -981,6 +981,56 @@ def compare_compact(torch, batch_utils, cols, active) -> float:
     return err
 
 
+# the shapes the one-sweep compaction makes risky (tests/test_torch_compact.py
+# COMPACT_EDGES holds the plain version to the reference on the same ones)
+COMPACT_EDGES = ("one", "tile-1", "tile", "tile+1", "none_live", "all_live",
+                 "last_tile_one", "run_across", "clustered", "wide16",
+                 "wide16_valid", "odd_offset")
+COMPACT_KINDS = (np.int64, np.float64, np.int32, np.float32, np.int16,
+                 np.int8, bool)
+
+
+def compact_edge_case(torch, rng, shape: str, tile: int, device):
+    """((data, valid) columns, live mask) of one compaction shape: n = 1
+    and n at a tile boundary; no row and every row live; one live row in
+    the last tile; a live run across a tile boundary; a sparse mask (a
+    block takes several tiles) with one tile's worth of live rows across
+    two tiles (those tiles move apart); 16 columns of every
+    width, without and with validity; every column and the mask a view at
+    an odd offset."""
+    t = _to_device(torch, device)
+    n = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "clustered": 20 * tile + 5}.get(shape, 3 * tile + 7)
+    live = rng.random(n) < 0.4
+    if shape == "none_live":
+        live[:] = False
+    elif shape == "all_live":
+        live[:] = True
+    elif shape == "last_tile_one":
+        live[:] = False
+        live[n - 5] = True
+    elif shape == "run_across":
+        live[:] = False
+        live[tile - 100:tile + 100] = True
+    elif shape == "clustered":
+        live = rng.random(n) < 0.005
+        live[5 * tile + 3:6 * tile + 3] = True
+    if shape in ("wide16", "wide16_valid"):
+        cols = []
+        for j in range(16):
+            dt = COMPACT_KINDS[j % len(COMPACT_KINDS)]
+            data = (rng.random(n) < 0.5 if dt is bool
+                    else rng.integers(-100, 100, n)).astype(dt)
+            valid = rng.random(n) < 0.7 if shape == "wide16_valid" else None
+            cols.append((t(data), None if valid is None else t(valid)))
+        return cols, t(live)
+    cols, _ = compact_case(torch, n, int(rng.integers(1 << 30)), device, 0.0)
+    if shape == "odd_offset":
+        return ([(at_offset(torch, d, 1), at_offset(torch, v, 1))
+                 for d, v in cols], at_offset(torch, t(live), 1))
+    return cols, t(live)
+
+
 def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
                       device) -> dict:
     """The join, dense-aggregate, top-k and compaction kernels against
@@ -1065,6 +1115,32 @@ def check_new_kernels(torch, join, groupby, topk_mod, batch_utils,
             torch, batch_utils, cols, active))
     print(f"check compact: n in (0, 1, 4097, 5000 all-inactive, 4194321, "
           f"{Q3_ORDERS + 1}), 1/2/4/8-byte columns with validity: ok")
+
+    rng = np.random.default_rng(400)
+    for shape in COMPACT_EDGES:
+        cols, active = compact_edge_case(torch, rng, shape,
+                                         batch_utils.CP_TILE, device)
+        worst["compact"] = max(worst["compact"], compare_compact(
+            torch, batch_utils, cols, active))
+    # small calls right after a 60,012,150-row one on the same stream:
+    # each call's status words and ticket are its own
+    big = compact_case(torch, DB_LINEITEM, 11, device, 0.012)
+    small = [compact_case(torch, m, 12 + m, device, 0.5)
+             for m in (1, 4_097, 100_003)]
+    got = [batch_utils.compact_kernel(c, a, int(a.sum()))
+           for c, a in [big] + small]
+    for (c, a), g in zip([big] + small, got):
+        want = batch_utils.compact_plain(c, a, int(a.sum()))
+        torch.cuda.synchronize()
+        for j, ((gd, gv), (wd, wv)) in enumerate(zip(g, want)):
+            check(torch.equal(gd, wd) and (gv is None) == (wv is None)
+                  and (gv is None or torch.equal(gv, wv)),
+                  f"compact column {j} differs after a large call (n="
+                  f"{a.shape[0]})")
+    del big, small, got
+    print(f"check compact: COMPACT_EDGES ({', '.join(COMPACT_EDGES)}; tile "
+          f"{batch_utils.CP_TILE}) and 1, 4097 and 100003-row calls right "
+          f"after a {DB_LINEITEM}-row one on the same stream: ok")
     return worst
 
 
@@ -2369,6 +2445,50 @@ def check_hashing(torch, hashing, device) -> float:
           "nulls, int extremes, -0.0, NaN, +-inf and subnormals, alone and "
           "folded, n up to 4194321: murmur3 and xxhash64 bit-exact; "
           "partition ids and counts for 1/8/200/4096 partitions: ok")
+    # the division-free partition rule and the warp-aggregated counts: all
+    # three algorithms at every n in 1..64, the powers of two +-1 up to
+    # 4096, and 4095 and 4096, under a live mask
+    t = _to_device(torch, device)
+    rng = np.random.default_rng(9)
+    m = 20_011
+    cols = hash_columns_case(torch, m, 4, device)
+    keys = cols[3:5]
+    active = t(rng.random(m) < 0.8)
+    parts = set(range(1, 65)) | {4095, 4096}
+    for b in range(1, 13):
+        parts |= {(1 << b) - 1, 1 << b, (1 << b) + 1}
+    parts = sorted(p for p in parts if p <= hashing.HS_MAX_PARTS)
+
+    def same_ids(ks, act, nparts, algo, what):
+        kc = torch.zeros(nparts + 1, dtype=torch.int64, device=device)
+        pc = torch.zeros_like(kc)
+        if algo == "xxhash64_umod":
+            kp = hashing.xxhash64_mod_kernel(ks, nparts, act, kc)
+            pp = hashing.xxhash64_mod_plain(ks, nparts, act, pc)
+        else:
+            kp = hashing.hash_rows_kernel(ks, act, algo, 42, nparts, kc)[1]
+            pp = hashing.hash_rows_plain(ks, act, algo, 42, nparts, pc)[1]
+        torch.cuda.synchronize()
+        check(torch.equal(kp, pp) and torch.equal(kc, pc),
+              f"{algo} partition ids or counts differ ({nparts} "
+              f"partitions, {what})")
+
+    hot = [(t(np.full(m, 123456789, dtype=np.int64)), None)]
+    dead = torch.zeros(m, dtype=torch.bool, device=device)
+    odd = [(at_offset(torch, d, 1)[:m - 1], at_offset(torch, v, 1)[:m - 1])
+           for d, v in keys]
+    for algo in ("murmur3", "xxhash64", "xxhash64_umod"):
+        for nparts in parts:
+            same_ids(keys, active, nparts, algo, "int32 and int64 keys")
+        for nparts in (1, 8, 64, 4096):
+            same_ids(hot, active, nparts, algo, "one hot key")
+            same_ids(keys, dead, nparts, algo, "every row inactive")
+            same_ids(odd, at_offset(torch, active, 1)[:m - 1], nparts, algo,
+                     "views at an odd offset")
+    print(f"check hashing: murmur3, xxhash64 and xxhash64 % n partition "
+          f"ids and counts at {len(parts)} partition counts (1..64, 2^b "
+          f"+-1 up to 4096, 4095, 4096), a hot key, every row inactive "
+          f"and views at an odd offset: ok")
     return 0.0
 
 
@@ -4897,20 +5017,61 @@ def device_launches(torch, fn, tries: int = 3):
     """The device operations (kernels and memsets) one call of ``fn``
     queues, counted by torch.profiler after a warm-up call; a fresh
     profiler is started for each of up to ``tries`` calls until one sees
-    device activity.  None when none did (not measured)."""
+    device activity.  None when none did (not measured).  The profiler
+    records host activity too and the device events are counted from its
+    event list: with device activity alone, a second profiler in one
+    process saw nothing on the card."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if (getattr(e, "device_time_total", None)
-                    or getattr(e, "cuda_time_total", 0.0)) > 0)
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
         if n:
             return n
     return None
+
+
+def check_device_ops(torch, batch_utils, hashing, ex, device) -> None:
+    """The device operations one call queues (memsets included), by
+    torch.profiler, of the one-sweep kernels at the main path's shapes:
+    compact at Q3's slot count (at most 2: a memset and the kernel),
+    hash_rows at a lineitem batch (murmur3 ids into 8 partitions with
+    counts, xxhash64 % 64: 1), bucketize at a lineitem batch and a 64-row
+    call (at most 3).  Run first among the profiler's users: a session
+    after the CSR join's and the hash aggregate's checks saw no device
+    activity in this program (a fresh process sees it)."""
+    rng = np.random.default_rng(17)
+    t = _to_device(torch, device)
+    cols, active = compact_case(torch, Q3_ORDERS + 1, 18, device, 0.086)
+    n_live = int(active.sum())
+    keys = [(t(rng.integers(1, DB_ORDERS + 1, BATCH_ROWS)), None)]
+    live = t(rng.random(BATCH_ROWS) < 1 / 3)
+    counts = torch.zeros(9, dtype=torch.int64, device=device)
+    big = _bucketize_case(torch, rng, device, BATCH_ROWS, 8, 1 << 19, 0.5)
+    small = _bucketize_case(torch, rng, device, 64, 8, 64, 0.0)
+    calls = {
+        "compact": (2, lambda: batch_utils.compact_kernel(cols, active,
+                                                          n_live)),
+        "hash_rows murmur3": (1, lambda: hashing.hash_rows_kernel(
+            keys, live, "murmur3", 42, 8, counts, want_hash=False)),
+        "hash_rows xxhash64 % 64": (1, lambda: hashing.xxhash64_mod_kernel(
+            keys, 64)),
+        "bucketize, a lineitem batch": (3, lambda: ex.bucketize_kernel(
+            big[0], big[1], 8, 1 << 19, big[2])),
+        "bucketize, 64 rows": (3, lambda: ex.bucketize_kernel(
+            small[0], small[1], 8, 64, small[2]))}
+    ops = {what: device_launches(torch, fn) for what, (_, fn) in
+           calls.items()}
+    check(all(ops[w] is not None and ops[w] <= most
+              for w, (most, _) in calls.items()),
+          f"device operations a call over their limits (compact 2, "
+          f"hash_rows 1, bucketize 3; None: the profiler saw none): {ops}")
+    print(f"device operations a call (torch.profiler): {ops}")
 
 
 def bucketize_edges(ex):
@@ -5145,18 +5306,6 @@ def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
                 f"{p.shape[0]})")
         n_cases += len(seq)
     check(overflowed > 0, "no bucketize case overflowed")
-    # device operations a call queues (the memset included): a lineitem
-    # batch and a 64-row call, both into 8 destinations
-    per_call = {f"{p.shape[0]} rows": device_launches(
-        torch, lambda p=p, a=a, x=x, cap=cap: ex.bucketize_kernel(
-            p, a, 8, cap, x)) for p, a, x, cap in (big, small[0])}
-    check(all(v is not None for v in per_call.values()),
-          f"bucketize's device operations not measured (the profiler saw "
-          f"no device activity): {per_call}")
-    check(all(v <= 3 for v in per_call.values()),
-          f"bucketize queues more than 3 device operations: {per_call}")
-    print(f"bucketize: device operations a call (torch.profiler), at most "
-          f"3: {per_call}")
     for n, distinct, dead in ((0, 1, 0.0), (1, 1, 0.0), (5000, 4, 0.0),
                               (1 << 18, 1 << 17, 0.5), (1 << 18, 1 << 30,
                                                         0.0),
@@ -5589,6 +5738,7 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}")
 
         worst = check_kernels(torch, groupby, device)
+        check_device_ops(torch, batch_utils, hashing, ici_ex, device)
         worst.update(check_new_kernels(torch, join, groupby, topk_mod,
                                        batch_utils, device))
         worst["csr_join"] = check_csr_join(torch, join, device)

@@ -14,9 +14,9 @@
 // hash_ids).
 //
 // Entry point:
-//   hash_rows  one thread per row folds every key column into the running
-//              hash, left to right.  A null leaves the hash as it was.
-//              Per column type (elem bytes, is_float):
+//   hash_rows  each thread takes HS_ROWS neighbouring rows and folds every
+//              key column into their running hashes, left to right.  A
+//              null leaves the hash as it was.  Per column kind:
 //                1/2/4-byte integers (bool, int8, int16, int32, dates,
 //                dictionary codes): one 4-byte block, sign-extended;
 //                8-byte integers: murmur3 the low then the high word,
@@ -39,6 +39,24 @@
 //              partition's count (a block histogram in shared memory, one
 //              atomic per block and partition: a count is order-free).
 //
+// Design.  A thread's rows are read together: the live mask and each
+// validity mask as one 4-byte word, each key as one or two 16-byte loads
+// (a 2- or 1-byte key as one 8- or 4-byte load) when every pointer is
+// 16-byte aligned, element by element otherwise (a view at an odd offset)
+// and in the ragged last rows.  A column's kind is dispatched once per
+// HS_ROWS rows, and the algorithm is a template parameter.  Partition ids
+// take no division: the remainder is Lemire's direct computation
+// (fastmod), (M x mod 2^64) d / 2^64 with M = floor((2^64 - 1) / d) + 1,
+// exact for x < 2^52 when d <= 2^12 (Lemire, Kaser and Kurz, "Faster
+// Remainder by Direct Computation", 2019); a 64-bit hash is folded as
+// fastmod((fastmod(hi) << 32) | lo), and a signed hash is biased by 2^31
+// or 2^63 and the bias's remainder taken off again.  The wrapper computes
+// M and that remainder once per call (ops/hashing.py _divisor, whose
+// Python model of this rule the CPU tests hold to %); this entry checks
+// them.  Counts: the lanes of a warp that share an id find each other
+// (__match_any_sync) and one of them adds their number, so a hot key
+// costs one shared atomic a warp, not 32.  The SM count is queried once.
+//
 // Bound: device memory.  A row reads its key words, validity and active
 // byte once and writes 4 bytes of id (8 of hash); the hash arithmetic is a
 // few dozen integer operations per key, far under the card's integer rate.
@@ -46,6 +64,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define HS_THREADS 256
 #define HS_MAX_KEYS 8
@@ -55,11 +74,21 @@
 #define ALGO_XXHASH64 1
 #define ALGO_XXHASH64_UMOD 2
 
+#define HS_ROWS 8            // rows a thread
+#define HS_BLOCKS_PER_SM 8   // blocks an SM, at most
+
+// key kinds: how a column's element becomes the hash's input
+#define KIND_I8 0   // bool, int8
+#define KIND_I16 1
+#define KIND_I32 2  // int32, dates, dictionary codes
+#define KIND_I64 3
+#define KIND_F32 4
+#define KIND_F64 5
+
 struct HSKeys {
   const void* data[HS_MAX_KEYS];
   const uint8_t* valid[HS_MAX_KEYS];  // nullptr: no nulls
-  int elem[HS_MAX_KEYS];
-  int is_float[HS_MAX_KEYS];
+  int kind[HS_MAX_KEYS];
   int nkeys;
 };
 
@@ -156,35 +185,154 @@ __device__ __forceinline__ uint64_t f64_bits(double d) {
   return (uint64_t)__double_as_longlong(d);
 }
 
-// The column's value at row r as the hash's input: *wide says whether it
-// takes the 8-byte path.
-__device__ __forceinline__ uint64_t key_word(const HSKeys& k, int c,
-                                             long long r, bool* wide) {
-  const void* p = k.data[c];
-  *wide = k.elem[c] == 8;
-  if (k.is_float[c]) {
-    return *wide ? f64_bits(static_cast<const double*>(p)[r])
-                 : (uint64_t)f32_bits(static_cast<const float*>(p)[r]);
+template <int KIND> struct HSKind;
+template <> struct HSKind<KIND_I8> { typedef uint8_t T; };
+template <> struct HSKind<KIND_I16> { typedef unsigned short T; };
+template <> struct HSKind<KIND_I32> { typedef unsigned T; };
+template <> struct HSKind<KIND_I64> { typedef unsigned long long T; };
+template <> struct HSKind<KIND_F32> { typedef unsigned T; };
+template <> struct HSKind<KIND_F64> { typedef unsigned long long T; };
+
+// An element's bits as the hash's input.
+template <int KIND, typename T>
+__device__ __forceinline__ uint64_t key_word(T v) {
+  if (KIND == KIND_I8) return (uint32_t)(int)(int8_t)v;
+  if (KIND == KIND_I16) return (uint32_t)(int)(short)v;
+  if (KIND == KIND_I32) return (uint32_t)v;
+  if (KIND == KIND_F32) return f32_bits(__uint_as_float((unsigned)v));
+  if (KIND == KIND_F64)
+    return f64_bits(__longlong_as_double((long long)v));
+  return (uint64_t)v;
+}
+
+// HS_ROWS elements from row r on: whole (all in range, 16-byte aligned
+// base) as 16-byte accesses (or one of 8 or 4 bytes), else one by one
+// (zero past the last row).
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* p, long long r, int rows,
+                                          bool whole, T (&v)[HS_ROWS]) {
+  constexpr int B = (int)sizeof(T) * HS_ROWS;
+  if (whole) {
+    if constexpr (B >= 16) {
+      const uint4* q = reinterpret_cast<const uint4*>(p + r);
+      uint4 a[B / 16];
+#pragma unroll
+      for (int i = 0; i < B / 16; ++i) a[i] = __ldcs(q + i);
+      memcpy(v, a, B);
+    } else if constexpr (B == 8) {
+      const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p + r));
+      memcpy(v, &a, 8);
+    } else {
+      const unsigned a = __ldcs(reinterpret_cast<const unsigned*>(p + r));
+      memcpy(v, &a, 4);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < HS_ROWS; ++i) v[i] = i < rows ? p[r + i] : (T)0;
   }
-  switch (k.elem[c]) {
-    case 8:
-      return (uint64_t)static_cast<const long long*>(p)[r];
-    case 4:
-      return (uint32_t)static_cast<const int*>(p)[r];
-    case 2:
-      return (uint32_t)(int)static_cast<const short*>(p)[r];
-    default:
-      return (uint32_t)(int)static_cast<const int8_t*>(p)[r];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_rows(T* p, long long r, int rows,
+                                           bool whole,
+                                           const T (&v)[HS_ROWS]) {
+  constexpr int B = (int)sizeof(T) * HS_ROWS;
+  if (whole && B >= 16) {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i) {
+      uint4 q;
+      memcpy(&q, reinterpret_cast<const char*>(v) + 16 * i, 16);
+      reinterpret_cast<uint4*>(p + r)[i] = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < HS_ROWS; ++i)
+      if (i < rows) p[r + i] = v[i];
   }
+}
+
+// A mask's HS_ROWS bytes as flags (nullptr: all set).
+__device__ __forceinline__ void flag_rows(const uint8_t* m, long long r,
+                                          int rows, bool whole,
+                                          bool (&f)[HS_ROWS]) {
+  if (m == nullptr) {
+#pragma unroll
+    for (int i = 0; i < HS_ROWS; ++i) f[i] = true;
+    return;
+  }
+  uint8_t b[HS_ROWS];
+  load_rows<uint8_t>(m, r, rows, whole, b);
+#pragma unroll
+  for (int i = 0; i < HS_ROWS; ++i) f[i] = b[i] != 0;
+}
+
+template <int ALGO>
+__device__ __forceinline__ uint64_t fold(uint64_t h, uint64_t w, bool wide) {
+  if (ALGO == ALGO_MURMUR3)
+    return wide ? murmur_long(w, (uint32_t)h)
+                : murmur_int((uint32_t)w, (uint32_t)h);
+  return wide ? xx_long(w, h) : xx_int((uint32_t)w, h);
+}
+
+// Fold key column c of a thread's rows into their hashes.
+template <int ALGO, int KIND>
+__device__ __forceinline__ void fold_key(const HSKeys& k, int c, long long r,
+                                         int rows, bool whole,
+                                         uint64_t (&h)[HS_ROWS]) {
+  typedef typename HSKind<KIND>::T T;
+  T v[HS_ROWS];
+  bool ok[HS_ROWS];
+  load_rows<T>(static_cast<const T*>(k.data[c]), r, rows, whole, v);
+  flag_rows(k.valid[c], r, rows, whole, ok);
+#pragma unroll
+  for (int i = 0; i < HS_ROWS; ++i) {
+    const uint64_t f = fold<ALGO>(h[i], key_word<KIND>(v[i]),
+                                  KIND == KIND_I64 || KIND == KIND_F64);
+    h[i] = ok[i] ? f : h[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// partition ids without division
+// ---------------------------------------------------------------------------
+
+// x mod d for x < 2^52 and 1 <= d <= 2^12, M = floor((2^64 - 1) / d) + 1
+// (mod 2^64): the high 64 bits of (M x mod 2^64) d, from two 32 x 32-bit
+// products (d < 2^32).
+__device__ __forceinline__ uint32_t fastmod(uint64_t x, uint64_t M,
+                                            uint32_t d) {
+  const uint64_t low = M * x;
+  const uint64_t p0 = (uint64_t)(uint32_t)low * d;
+  const uint64_t p1 = (low >> 32) * d;
+  return (uint32_t)((p1 + (p0 >> 32)) >> 32);
+}
+
+// The partition of hash h among d: murmur3's pmod of (int32) h, xxhash64's
+// pmod of (int64) h, or the unsigned remainder; `bias` is 2^31 mod d, 2^63
+// mod d or 0.
+template <int ALGO>
+__device__ __forceinline__ int part_of(uint64_t h, uint32_t d, uint64_t M,
+                                       uint32_t bias) {
+  uint32_t r;
+  if (ALGO == ALGO_MURMUR3) {
+    r = fastmod((uint32_t)h ^ 0x80000000u, M, d);
+  } else {
+    const uint64_t a = ALGO == ALGO_XXHASH64 ? h ^ 0x8000000000000000ull : h;
+    r = fastmod(((uint64_t)fastmod(a >> 32, M, d) << 32) | (a & 0xffffffffull),
+                M, d);
+  }
+  return (int)(r >= bias ? r - bias : r + d - bias);
 }
 
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
+template <int ALGO, bool VEC>
 __global__ void __launch_bounds__(HS_THREADS)
 hs_rows(const __grid_constant__ HSKeys k, const uint8_t* __restrict__ active,
-        long long n, int algo, unsigned long long seed, int nparts,
+        long long n, unsigned long long seed, int nparts,
+        unsigned long long magic, unsigned bias,
         long long* __restrict__ hash_out, int* __restrict__ pid_out,
         unsigned long long* __restrict__ counts) {
   extern __shared__ unsigned int s_cnt[];
@@ -193,41 +341,62 @@ hs_rows(const __grid_constant__ HSKeys k, const uint8_t* __restrict__ active,
     for (int p = threadIdx.x; p <= nparts; p += blockDim.x) s_cnt[p] = 0;
     __syncthreads();
   }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // every thread runs the same number of rounds, so the block barrier
-  // below is reached by all of them
-  for (long long base = (long long)blockIdx.x * blockDim.x; base < n;
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)HS_THREADS * HS_ROWS;
+  const long long stride = (long long)gridDim.x * step;
+  // every thread runs the same number of rounds, so the warp and block
+  // collectives below are reached by all of them
+  for (long long base = (long long)blockIdx.x * step; base < n;
        base += stride) {
-    const long long r = base + threadIdx.x;
-    if (r < n) {
-      uint32_t h32 = (uint32_t)seed;
-      uint64_t h64 = seed;
+    const long long r = base + (long long)threadIdx.x * HS_ROWS;
+    const int rows = r >= n ? 0 : (n - r < HS_ROWS ? (int)(n - r) : HS_ROWS);
+    const bool whole = VEC && rows == HS_ROWS;
+    uint64_t h[HS_ROWS];
+#pragma unroll
+    for (int i = 0; i < HS_ROWS; ++i)
+      h[i] = ALGO == ALGO_MURMUR3 ? (uint64_t)(uint32_t)seed : seed;
+    if (rows > 0) {
       for (int c = 0; c < k.nkeys; ++c) {
-        if (k.valid[c] != nullptr && !k.valid[c][r]) continue;
-        bool wide;
-        const uint64_t w = key_word(k, c, r, &wide);
-        if (algo == ALGO_MURMUR3)
-          h32 = wide ? murmur_long(w, h32) : murmur_int((uint32_t)w, h32);
-        else
-          h64 = wide ? xx_long(w, h64) : xx_int((uint32_t)w, h64);
-      }
-      if (hash_out != nullptr)
-        hash_out[r] = algo == ALGO_MURMUR3 ? (long long)h32 : (long long)h64;
-      if (nparts > 0) {
-        int pid = nparts;
-        if (active == nullptr || active[r]) {
-          if (algo == ALGO_MURMUR3) {
-            const int m = (int)h32 % nparts;
-            pid = m < 0 ? m + nparts : m;
-          } else if (algo == ALGO_XXHASH64) {
-            const long long m = (long long)h64 % (long long)nparts;
-            pid = (int)(m < 0 ? m + nparts : m);
-          } else {
-            pid = (int)(h64 % (unsigned long long)nparts);
-          }
+        switch (k.kind[c]) {
+          case KIND_I64: fold_key<ALGO, KIND_I64>(k, c, r, rows, whole, h);
+            break;
+          case KIND_I32: fold_key<ALGO, KIND_I32>(k, c, r, rows, whole, h);
+            break;
+          case KIND_F64: fold_key<ALGO, KIND_F64>(k, c, r, rows, whole, h);
+            break;
+          case KIND_F32: fold_key<ALGO, KIND_F32>(k, c, r, rows, whole, h);
+            break;
+          case KIND_I16: fold_key<ALGO, KIND_I16>(k, c, r, rows, whole, h);
+            break;
+          default: fold_key<ALGO, KIND_I8>(k, c, r, rows, whole, h);
         }
-        if (pid_out != nullptr) pid_out[r] = pid;
-        if (counting) atomicAdd(s_cnt + pid, 1u);
+      }
+      if (hash_out != nullptr) {
+        long long o[HS_ROWS];
+#pragma unroll
+        for (int i = 0; i < HS_ROWS; ++i) o[i] = (long long)h[i];
+        store_rows<long long>(hash_out, r, rows, whole, o);
+      }
+    }
+    if (nparts > 0) {
+      bool live[HS_ROWS];
+      flag_rows(rows > 0 ? active : nullptr, r, rows, whole, live);
+      int pid[HS_ROWS];
+#pragma unroll
+      for (int i = 0; i < HS_ROWS; ++i)
+        pid[i] = i >= rows ? -1
+                 : live[i] ? part_of<ALGO>(h[i], (uint32_t)nparts, magic, bias)
+                           : nparts;
+      if (pid_out != nullptr && rows > 0)
+        store_rows<int>(pid_out, r, rows, whole, pid);
+      if (counting) {
+        // the lanes of one id find each other; the lowest adds their number
+#pragma unroll
+        for (int i = 0; i < HS_ROWS; ++i) {
+          const unsigned peers = __match_any_sync(0xffffffffu, pid[i]);
+          if (pid[i] >= 0 && lane == __ffs(peers) - 1)
+            atomicAdd(s_cnt + pid[i], (unsigned)__popc(peers));
+        }
       }
     }
   }
@@ -238,54 +407,107 @@ hs_rows(const __grid_constant__ HSKeys k, const uint8_t* __restrict__ active,
   }
 }
 
-static cudaError_t grid_for(long long n, int per_sm, int* blocks) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const long long want = (n + HS_THREADS - 1) / HS_THREADS;
-  const long long cap = (long long)sms * per_sm;
-  *blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
+// The device's SM count, queried once.
+static cudaError_t sm_count(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached;
   return cudaSuccess;
 }
 
+static bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+template <int ALGO>
+static void hs_launch(bool vec, int blocks, size_t shared, cudaStream_t st,
+                      const HSKeys& k, const uint8_t* active, long long n,
+                      unsigned long long seed, int nparts,
+                      unsigned long long magic, unsigned bias,
+                      long long* hash_out, int* pid_out,
+                      unsigned long long* counts) {
+  if (vec)
+    hs_rows<ALGO, true><<<blocks, HS_THREADS, shared, st>>>(
+        k, active, n, seed, nparts, magic, bias, hash_out, pid_out, counts);
+  else
+    hs_rows<ALGO, false><<<blocks, HS_THREADS, shared, st>>>(
+        k, active, n, seed, nparts, magic, bias, hash_out, pid_out, counts);
+}
+
 // Host entry, bound with ctypes; data/valid are host arrays of device
-// pointers.  hash_out: [n] int64 or nullptr; pid_out: [n] int32 or nullptr;
-// counts: [nparts + 1] uint64 (added to, not reset) or nullptr.  Returns
+// pointers.  magic and bias: the partition rule's constants for nparts
+// (M = floor((2^64 - 1) / nparts) + 1 mod 2^64; 2^31 mod nparts for
+// murmur3, 2^63 mod nparts for xxhash64, 0 for algo 2), checked here.
+// hash_out: [n] int64 or nullptr; pid_out: [n] int32 or nullptr; counts:
+// [nparts + 1] uint64 (added to, not reset) or nullptr.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int hash_rows(int nkeys, const void* const* data,
                          const void* const* valid, const int* elems,
                          const int* is_float, const void* active, long long n,
-                         int algo, long long seed, int nparts, void* hash_out,
+                         int algo, long long seed, int nparts,
+                         long long magic, int bias, void* hash_out,
                          void* pid_out, void* counts, void* stream) {
   if (nkeys < 1 || nkeys > HS_MAX_KEYS || n < 0 ||
       algo < ALGO_MURMUR3 || algo > ALGO_XXHASH64_UMOD || nparts < 0 ||
       nparts > HS_MAX_PARTS || ((pid_out != nullptr || counts != nullptr) &&
                                 nparts == 0))
     return (int)cudaErrorInvalidValue;
+  if (nparts > 0) {
+    const unsigned long long d = (unsigned long long)nparts;
+    const unsigned long long want =
+        algo == ALGO_MURMUR3 ? (1ull << 31) % d
+        : algo == ALGO_XXHASH64 ? (1ull << 63) % d : 0ull;
+    if ((unsigned long long)magic != ~0ull / d + 1ull ||
+        (unsigned long long)bias != want)
+      return (int)cudaErrorInvalidValue;
+  }
   HSKeys k = {};
+  bool vec = aligned16(active) && aligned16(hash_out) && aligned16(pid_out);
   for (int c = 0; c < nkeys; ++c) {
     const int e = elems[c];
     if (e != 1 && e != 2 && e != 4 && e != 8) return (int)cudaErrorInvalidValue;
     if (is_float[c] && e != 4 && e != 8) return (int)cudaErrorInvalidValue;
     k.data[c] = data[c];
     k.valid[c] = static_cast<const uint8_t*>(valid[c]);
-    k.elem[c] = e;
-    k.is_float[c] = is_float[c] != 0;
+    k.kind[c] = is_float[c] ? (e == 8 ? KIND_F64 : KIND_F32)
+                : e == 8 ? KIND_I64 : e == 4 ? KIND_I32
+                : e == 2 ? KIND_I16 : KIND_I8;
+    vec = vec && aligned16(data[c]) && aligned16(valid[c]);
   }
   k.nkeys = nkeys;
   if (n == 0) return (int)cudaSuccess;
-  int blocks = 1;
-  cudaError_t err = grid_for(n, 8, &blocks);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
+  const long long step = (long long)HS_THREADS * HS_ROWS;
+  const long long want = (n + step - 1) / step;
+  const long long cap = (long long)sms * HS_BLOCKS_PER_SM;
+  const int blocks = (int)(want < cap ? want : cap);
   const size_t shared =
       counts != nullptr ? (size_t)(nparts + 1) * sizeof(unsigned int) : 0;
-  hs_rows<<<blocks, HS_THREADS, shared, static_cast<cudaStream_t>(stream)>>>(
-      k, static_cast<const uint8_t*>(active), n, algo,
-      (unsigned long long)seed, nparts, static_cast<long long*>(hash_out),
-      static_cast<int*>(pid_out),
-      static_cast<unsigned long long*>(counts));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* act = static_cast<const uint8_t*>(active);
+  long long* ho = static_cast<long long*>(hash_out);
+  int* po = static_cast<int*>(pid_out);
+  unsigned long long* co = static_cast<unsigned long long*>(counts);
+  const unsigned long long sd = (unsigned long long)seed;
+  const unsigned long long mg = (unsigned long long)magic;
+  if (algo == ALGO_MURMUR3)
+    hs_launch<ALGO_MURMUR3>(vec, blocks, shared, st, k, act, n, sd, nparts,
+                            mg, (unsigned)bias, ho, po, co);
+  else if (algo == ALGO_XXHASH64)
+    hs_launch<ALGO_XXHASH64>(vec, blocks, shared, st, k, act, n, sd, nparts,
+                             mg, (unsigned)bias, ho, po, co);
+  else
+    hs_launch<ALGO_XXHASH64_UMOD>(vec, blocks, shared, st, k, act, n, sd,
+                                  nparts, mg, (unsigned)bias, ho, po, co);
   return (int)cudaGetLastError();
 }
 

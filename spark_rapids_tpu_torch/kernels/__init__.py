@@ -133,8 +133,9 @@ _SIGNATURES = {
     },
     "hashing": {
         # nkeys, data[], valid[], elems[], is_float[], active, n, algo, seed,
-        # nparts, hash_out, pid_out, counts, stream
-        "hash_rows": [_I, _P, _P, _P, _P, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+        # nparts, magic, bias, hash_out, pid_out, counts, stream
+        "hash_rows": [_I, _P, _P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P, _P,
+                      _P, _P],
     },
     "sort_join": {
         # n, passes
@@ -250,9 +251,11 @@ _SIGNATURES = {
         "group_ratio": [_P, _P, _L, _P, _P, _P],
     },
     "compact": {
+        # n
+        "compact_scratch": [_L],
         # ncols, in[], out[], vin[], vout[], elems[], active, n, n_live,
-        # scratch, stream
-        "compact": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P],
+        # scratch, scratch_bytes, stream
+        "compact": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _L, _P],
     },
 }
 
@@ -260,7 +263,8 @@ _SIGNATURES = {
 _RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
              "topk_scratch": _L, "csr_build_scratch": _L,
              "partition_perm_scratch": _L, "win_scratch_bytes": _L,
-             "cond_counts_scratch": _L, "bucketize_scratch": _L}
+             "cond_counts_scratch": _L, "bucketize_scratch": _L,
+             "compact_scratch": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

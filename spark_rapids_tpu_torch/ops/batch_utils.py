@@ -148,14 +148,15 @@ def compact_kernel(cols, active, n_live: int) -> List[Value]:
         vouts.append(None if ov is None else ov.data_ptr())
         elems.append(d.element_size())
         result.append((od, ov))
-    if n == 0 or n_live == 0:
+    if n == 0 or n_live == 0 or not cols:
         return result  # nothing to move: no launch
-    scratch = torch.empty(-(-n // CP_TILE), dtype=torch.int64, device=dev)
     lib = kernels.load("compact")
+    nbytes = lib.compact_scratch(n)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     P = kernels.pointer_array
     rc = lib.compact(len(cols), P(ins), P(outs), P(vins), P(vouts),
                      kernels.int_array(elems), active.data_ptr(), n, n_live,
-                     scratch.data_ptr(),
+                     scratch.data_ptr(), nbytes,
                      torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(lib, "compact", rc)
     compact_kernel.launches += 1

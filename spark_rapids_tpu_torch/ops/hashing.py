@@ -27,6 +27,9 @@ its launches; ``xxhash64_mod_kernel`` counts its own) and run the plain
 PyTorch versions for CPU tensors.  The plain versions hold unsigned
 32- and 64-bit words in int64 tensors: 32-bit words are masked, 64-bit
 products wrap modulo 2^64 and right shifts are made logical by masks.
+The kernel takes partition ids without division, by the constants
+``_divisor`` computes once a call; ``partition_rule`` is that rule on
+Python integers, which the tests hold to ``%``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ __all__ = ["SPARK_PARTITION_SEED", "HS_MAX_KEYS", "HS_MAX_PARTS",
            "hash_columns", "spark_partition_id", "xxhash64_value",
            "xxhash64_columns", "partition_ids", "hash_rows_plain",
            "hash_rows_kernel", "xxhash64_mod", "xxhash64_mod_plain",
-           "xxhash64_mod_kernel"]
+           "xxhash64_mod_kernel", "partition_rule"]
 
 Value = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -253,6 +256,7 @@ def _hash_rows(keys, active, algo: str, seed: int, nparts: int, counts,
     if nparts:
         pid = pid_out if pid_out is not None else torch.empty(
             n, dtype=torch.int32, device=dev)
+    magic, bias = _divisor(nparts, algo) if nparts else (0, 0)
     P = kernels.pointer_array
     lib = kernels.load("hashing")
     rc = lib.hash_rows(
@@ -261,7 +265,7 @@ def _hash_rows(keys, active, algo: str, seed: int, nparts: int, counts,
         kernels.int_array([d.element_size() for d, _ in keys]),
         kernels.int_array([int(d.is_floating_point()) for d, _ in keys]),
         None if active is None else active.data_ptr(), n, _ALGO[algo], seed,
-        nparts, None if h is None else h.data_ptr(),
+        nparts, magic, bias, None if h is None else h.data_ptr(),
         None if pid is None else pid.data_ptr(),
         None if counts is None else counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -270,6 +274,42 @@ def _hash_rows(keys, active, algo: str, seed: int, nparts: int, counts,
 
 
 hash_rows_kernel.launches = 0
+
+
+_M64 = (1 << 64) - 1
+_BIAS = {"murmur3": 1 << 31, "xxhash64": 1 << 63, "xxhash64_umod": 0}
+
+
+def _divisor(n: int, algo: str) -> Tuple[int, int]:
+    """The partition rule's constants for ``n`` partitions, as
+    ``csrc/hashing.cu`` takes them: (M = floor((2^64 - 1) / n) + 1 mod
+    2^64, as the int64 with its bits; the bias's remainder: 2^31 mod n for
+    murmur3, 2^63 mod n for xxhash64, 0 for the unsigned remainder)."""
+    return _s64((_M64 // n + 1) & _M64), _BIAS[algo] % n
+
+
+def _fastmod(x: int, m: int, n: int) -> int:
+    """x mod n as the kernel takes it (x < 2^52, n <= 2^12): the high 64
+    bits of (M x mod 2^64) n."""
+    return (((m * x) & _M64) * n) >> 64
+
+
+def partition_rule(h: int, n: int, algo: str) -> int:
+    """The kernel's partition id of one hash, on Python integers (``h``:
+    the uint32 murmur3 hash or the 64 xxhash64 bits, unsigned): the signed
+    hash's non-negative remainder by ``n`` (murmur3, xxhash64) or the
+    unsigned one (xxhash64_umod), with no division: the dividend is
+    biased to unsigned, reduced by fastmod (a 64-bit one as fastmod of
+    (fastmod(hi) << 32 | lo)) and the bias's remainder taken off again.
+    The tests hold it to Python's ``%``."""
+    m, bias = _divisor(n, algo)
+    m &= _M64
+    if algo == "murmur3":
+        r = _fastmod(h ^ (1 << 31), m, n)
+    else:
+        a = h ^ (1 << 63) if algo == "xxhash64" else h
+        r = _fastmod((_fastmod(a >> 32, m, n) << 32) | (a & _M32), m, n)
+    return r - bias if r >= bias else r + n - bias
 
 
 def _contiguous(keys: Sequence[Value]):

@@ -32,7 +32,15 @@ def _case(n, seed, live):
     return cols, rng.random(n) < live
 
 
-def _reference(cols, sel):
+def _reference(cols, sel, view=None):
+    """The JAX package's compaction of the batch, or of rows [start,
+    start + length) of it when ``view`` = (start, length) (cut here: the
+    reference slices only compacted batches)."""
+    if view is not None:
+        cut = slice(view[0], view[0] + view[1])
+        cols = [(name, kind, d[cut], None if v is None else v[cut])
+                for name, kind, d, v in cols]
+        sel = sel[cut]
     n = len(sel)
     fields = [jb.Field(name, getattr(JT, kind), True)
               for name, kind, _, _ in cols]
@@ -47,17 +55,87 @@ def _reference(cols, sel):
             for c in out.columns]
 
 
-def _port(cols, sel, n_live=None):
+def _port(cols, sel, n_live=None, view=None):
     fields = [tb.Field(name, getattr(TT, kind), True)
               for name, kind, _, _ in cols]
     dcols = [tb.DeviceColumn(getattr(TT, kind), torch.from_numpy(d),
                              None if v is None else torch.from_numpy(v))
              for _, kind, d, v in cols]
-    out = tbu.compact(tb.ColumnBatch(tb.Schema(fields), dcols, len(sel),
-                                     torch.from_numpy(sel)), n_live=n_live)
+    batch = tb.ColumnBatch(tb.Schema(fields), dcols, len(sel),
+                           torch.from_numpy(sel))
+    if view is not None:
+        batch = tbu.slice_batch(batch, *view)
+    out = tbu.compact(batch, n_live=n_live)
     assert out.sel is None
     return [(c.data.numpy(), None if c.valid is None else c.valid.numpy())
             for c in out.columns]
+
+
+# The shapes the one-sweep compaction (csrc/compact.cu) makes risky;
+# chip_smoke.py's COMPACT_EDGES runs the same shapes through the kernel.
+COMPACT_EDGES = ("one", "tile-1", "tile", "tile+1", "none_live", "all_live",
+                 "last_tile_one", "run_across", "clustered", "wide16",
+                 "wide16_valid", "odd_offset")
+WIDE_KINDS = [("INT64", np.int64), ("FLOAT64", np.float64),
+              ("INT32", np.int32), ("FLOAT32", np.float32),
+              ("INT16", np.int16), ("INT8", np.int8), ("BOOLEAN", np.bool_)]
+
+
+def compact_edge_case(rng, shape: str, tile: int = tbu.CP_TILE):
+    """(columns as (name, kind, data, valid), live mask, view) of one
+    shape: n = 1 and n at a tile boundary; no row and every row live; one
+    live row in the last tile; a live run across a tile boundary; a sparse
+    mask (a block takes several tiles) with one tile's worth of live rows
+    across two tiles (those tiles move apart); 16
+    columns of every width, without and with validity; and a view at an
+    odd row offset (``view`` = (start, length) for ``slice_batch``)."""
+    n = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "clustered": 20 * tile + 5}.get(shape, 3 * tile + 7)
+    live = rng.random(n) < 0.4
+    view = None
+    if shape == "none_live":
+        live[:] = False
+    elif shape == "all_live":
+        live[:] = True
+    elif shape == "last_tile_one":
+        live[:] = False
+        live[n - 5] = True
+    elif shape == "run_across":
+        live[:] = False
+        live[tile - 100:tile + 100] = True
+    elif shape == "clustered":
+        live = rng.random(n) < 0.005
+        live[5 * tile + 3:6 * tile + 3] = True
+    elif shape == "odd_offset":
+        view = (1, n - 2)
+    if shape in ("wide16", "wide16_valid"):
+        cols = []
+        for j in range(tbu.CP_MAX_COLS):
+            kind, dt = WIDE_KINDS[j % len(WIDE_KINDS)]
+            data = (rng.random(n) < 0.5 if dt == np.bool_
+                    else rng.integers(-100, 100, n)).astype(dt)
+            valid = rng.random(n) < 0.7 if shape == "wide16_valid" else None
+            cols.append((f"c{j}", kind, data, valid))
+    else:
+        cols, _ = _case(n, int(rng.integers(1 << 30)), 0.0)
+    return cols, live, view
+
+
+@pytest.mark.parametrize("shape", COMPACT_EDGES)
+def test_compact_edges_match_reference(shape):
+    rng = np.random.default_rng(400 + COMPACT_EDGES.index(shape))
+    cols, sel, view = compact_edge_case(rng, shape)
+    want = _reference(cols, sel, view)
+    kept = sel if view is None else sel[view[0]:view[0] + view[1]]
+    for n_live in (None, int(kept.sum())):
+        got = _port(cols, sel, n_live, view)
+        assert len(got[0][0]) == int(kept.sum())
+        for (gd, gv), (wd, wv) in zip(got, want):
+            np.testing.assert_array_equal(gd, wd)
+            if wv is not None:
+                np.testing.assert_array_equal(gv, wv)
+            else:
+                assert gv is None
 
 
 @pytest.mark.parametrize("n,live", [(1, 1.0), (1000, 0.3), (5003, 0.9),

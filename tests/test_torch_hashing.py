@@ -117,3 +117,32 @@ def test_hash_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(TypeError, match="no device hash"):
         H.hash_columns([(torch.zeros(4, dtype=torch.uint8), None)])
     assert H.hash_rows_kernel.launches == 0
+
+
+def _rule_dividends(n: int, bits: int):
+    """Edge dividends of a ``bits``-bit hash for ``n`` partitions: 0, 1,
+    n - 1, n, 2^31 - 1, 2^31, 2^32 - 1, 2^63 - 1, 2^63, 2^64 - 1 (their
+    low ``bits``), and k n - 1, k n, k n + 1 for the largest k n below
+    2^bits and below 2^(bits - 1)."""
+    top = 1 << bits
+    out = {0, 1, n - 1, n, 2**31 - 1, 2**31, 2**32 - 1, 2**63 - 1, 2**63,
+           2**64 - 1}
+    for edge in (top, top >> 1):
+        k = (edge - 1) // n
+        out |= {k * n - 1, k * n, k * n + 1}
+    return sorted(x % top for x in out if x >= 0)
+
+
+@pytest.mark.parametrize("algo", ["murmur3", "xxhash64", "xxhash64_umod"])
+def test_partition_rule_matches_python_remainder(algo):
+    """The kernel's division-free partition rule (``partition_rule``, with
+    the constants ``_divisor`` passes to csrc/hashing.cu) equals Python's
+    ``%`` for every n in 1..HS_MAX_PARTS at edge dividends: the int32
+    pmod of the murmur3 hash, the int64 pmod of xxhash64 and the unsigned
+    64-bit remainder of ``xxhash64_mod``."""
+    bits = 32 if algo == "murmur3" else 64
+    for n in range(1, H.HS_MAX_PARTS + 1):
+        for h in _rule_dividends(n, bits):
+            signed = h - (1 << bits) if h >> (bits - 1) else h
+            want = (h if algo == "xxhash64_umod" else signed) % n
+            assert H.partition_rule(h, n, algo) == want, (algo, n, h)

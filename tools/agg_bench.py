@@ -28,6 +28,18 @@ loaded once a process):
   * ``bz_base``: the checkout's sources, timed for ``bucketize.cu``'s
     shapes only; ``bz_notail``: without its zero tail (results not
     checked), the part of its time the tail takes;
+  * ``cp_base``, ``hs_base``: the checkout's sources, timed for
+    ``compact.cu``'s or ``hashing.cu``'s shapes only; ``cp_group1``:
+    ``compact.cu`` with 1 tile a group on a sparse mask (``CP_GROUP``)
+    against 4; ``cp_sparse16``: groups only under 1 live row in 16
+    (``CP_SPARSE``) against 8; ``cp_occ5``: registers fitted to 5 blocks
+    an SM (``CP_MIN_BLOCKS``), which the sources leave at 4;
+    ``cp_nofetch``: without reading the live values (results
+    not checked), the part of its time the gathered reads take;
+    ``hs_rows4``: ``hashing.cu``
+    with 4 rows a thread (``HS_ROWS``) against 8; ``hs_sm4``,
+    ``hs_sm16``: 4 and 16 blocks an SM at most (``HS_BLOCKS_PER_SM``)
+    against 8 (16: one block per 2,048 rows at a lineitem batch);
 
 Prints kernel_ab's JSON lines, labelled with the variant.
 """
@@ -53,6 +65,18 @@ VARIANTS = {"base": (None, {}),
             "dj_rows8": ("dense_join.cu", {"DJ_ROWS": "8"}),
             "ws_base": ("window_scan.cu", {}),
             "bz_base": ("bucketize.cu", {}),
+            "cp_base": ("compact.cu", {}),
+            "cp_group1": ("compact.cu", {"CP_GROUP": "1"}),
+            "cp_sparse16": ("compact.cu", {"CP_SPARSE": "16"}),
+            "cp_occ5": ("compact.cu", {"CP_MIN_BLOCKS": "5"}),
+            # compact.cu without its value fetches (its results then differ
+            # from plain and are not checked)
+            "cp_nofetch": ("compact.cu", {}, [
+                ("if (live > 0 && (!first || warp > 0)) {", "if (false) {")]),
+            "hs_base": ("hashing.cu", {}),
+            "hs_rows4": ("hashing.cu", {"HS_ROWS": "4"}),
+            "hs_sm4": ("hashing.cu", {"HS_BLOCKS_PER_SM": "4"}),
+            "hs_sm16": ("hashing.cu", {"HS_BLOCKS_PER_SM": "16"}),
             # bucketize.cu without its zero tail (its results then differ
             # from plain and are not checked)
             "bz_notail": ("bucketize.cu", {}, [
@@ -117,6 +141,11 @@ def run_variant(name: str, csrc: str) -> int:
     if source in (None, "bucketize.cu"):
         rc |= kernel_ab.time_bucketize(torch, dev, emit,
                                        check=len(VARIANTS[name]) < 3)
+    if source in (None, "compact.cu"):
+        rc |= kernel_ab.time_compact(torch, dev, emit,
+                                     check=len(VARIANTS[name]) < 3)
+    if source in (None, "hashing.cu"):
+        rc |= kernel_ab.time_hashing(torch, dev, emit)
     return rc
 
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Device times of kernels of one checkout of the port (the
 runtime-filter statistics, the final aggregate's merge, the full sort,
-the sorted join, the top-k, the dense update, the ungrouped reduction and
-the CSR join with the partition placement), for comparing two checkouts
-on one CUDA card.
+the sorted join, the top-k, the dense update, the ungrouped reduction,
+the CSR join with the partition placement, the hash and grid aggregates,
+the dense join, the window scans, the mesh exchange's bucketize, the
+conditioned join, the compaction and the row hashes), for comparing two
+checkouts on one CUDA card.
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
         [--only key_stats,merge,sort,sort_join,topk,dense_agg,
                 masked_reduce,csr_join,hash_agg,grid_agg,dense_join,
-                window_scan,bucketize,cond_join]
+                window_scan,bucketize,cond_join,compact,hashing]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -99,7 +101,27 @@ the bucket sequence one event pair a sequence, its host work included):
     ``cond_counts`` (a checkout whose counts take the probe rows' offsets
     is given them), with their device operations, and ``csr_expand`` at
     Q13's shape (the left join of ``csr_join`` above: 11,998,869 output
-    rows of 1,500,000 probe rows).
+    rows of 1,500,000 probe rows); and
+  * ``compact`` at Q3's aggregate output as ``chip_smoke.py`` times it
+    (15,003,037 slots, 1,287,275 live, int64, int32, int64 and float64
+    with validity), at W1's final compaction (the ``collect()`` of
+    ``tpch.supplier_history`` at SF10: 60,012,150 rows in (supplier, ship
+    date) order, live where the ship date is 1998-11-01 or later, drawn by
+    ``tpch.gen_db_arrays(10)``; its 15 columns, 4 with validity, as the
+    port's window output types them) and a dense guard (4,194,304 rows,
+    half live in runs, columns of 8, 8, 4, 4, 8 and 1 bytes, two with
+    validity), each with its bound (the mask, the live rows' sectors of
+    every column and validity mask, the output), mask indexing of every
+    column (the library call, one call per event pair) and the device
+    operations a call queues; and
+  * ``hashing``: the murmur3 partition id of one lineitem batch as
+    ``chip_smoke.py`` times it (4,194,304 int64 keys, a third live, 8
+    partitions, with counts), the same with every key equal (a hot key:
+    every live row in one partition), xxhash64's signed pmod at that shape
+    (an oversized pair's sub-partitions) and xxhash64 % 64 of 4,194,304
+    keys (the aggregate's re-partition), each with its bound and the
+    device operations a call queues, beside one PyTorch elementwise pass
+    over the same bytes (int64 keys to int32).
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -167,7 +189,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
                     "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg,"
-                    "dense_join,window_scan,bucketize,cond_join")
+                    "dense_join,window_scan,bucketize,cond_join,compact,"
+                    "hashing")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -219,6 +242,10 @@ def main() -> int:
         return 1
     if "cond_join" in only and time_cond_join(torch, dev, emit) != 0:
         return 1
+    if "compact" in only and time_compact(torch, dev, emit) != 0:
+        return 1
+    if "hashing" in only and time_hashing(torch, dev, emit) != 0:
+        return 1
     return 0
 
 
@@ -239,6 +266,183 @@ def device_ops(torch, fn):
     if not ops:
         return None, None
     return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+BANDWIDTH = 3.35e12  # the H100 SXM's device memory, bytes a second
+
+
+def sector_bytes(torch, rows, itemsize: int) -> int:
+    """Bytes in the 32-byte sectors that hold ``rows`` of a column of
+    ``itemsize``-byte elements: what reading those rows moves."""
+    return 32 * int(torch.unique(rows * itemsize // 32).numel())
+
+
+def w1_live_mask(torch, dev):
+    """W1's final filter over its window output: l_shipdate >= 1998-11-01
+    in (l_suppkey, l_shipdate) order, the SF10 lineitem as
+    ``tpch.gen_db_arrays(10)`` draws it (kept under ``build/`` between the
+    runs of one machine)."""
+    path = Path(__file__).resolve().parent.parent / "build" / "w1_mask.npy"
+    if not path.exists():
+        from spark_rapids_tpu_torch.models import tpch
+        li = tpch.gen_db_arrays(10, tables=("lineitem",), columns={
+            "lineitem": ("l_suppkey", "l_shipdate")})["lineitem"]
+        day = torch.from_numpy(li["l_shipdate"].astype("datetime64[D]")
+                               .astype(np.int64)).to(dev)
+        supp = torch.from_numpy(li["l_suppkey"]).to(dev)
+        order = torch.argsort(supp * 65536 + day)
+        cutoff = int(np.datetime64("1998-11-01").astype(np.int64))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(path, (day[order] >= cutoff).cpu().numpy())
+    return torch.from_numpy(np.load(path)).to(dev)
+
+
+# W1's output columns as the port types them: (dtype, has validity)
+W1_COLUMNS = ([("int64", False)] * 3 + [("int32", False)]
+              + [("float64", False)] * 2 + [("int32", False)]
+              + [("float64", False)] + [("float64", True)] * 3
+              + [("int32", False)] * 2 + [("float64", True),
+                                          ("float64", False)])
+
+
+def _compact_same(torch, bu, cols, active, n_live) -> bool:
+    got = bu.compact_kernel(cols, active, n_live)
+    want = bu.compact_plain(cols, active, n_live)
+    return all(torch.equal(gd, wd) and (gv is None) == (wv is None)
+               and (gv is None or torch.equal(gv, wv))
+               for (gd, gv), (wd, wv) in zip(got, want))
+
+
+def time_compact(torch, dev, emit, check: bool = True) -> int:
+    """compact at Q3's aggregate output, W1's final compaction and a dense
+    guard (``check`` False: a variant that leaves a part out is timed
+    without holding it to plain)."""
+    from spark_rapids_tpu_torch.ops import batch_utils as bu
+    rng = np.random.default_rng(1818)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1818)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def column(dtype, n):
+        if dtype == "float64":
+            return torch.rand(n, dtype=torch.float64, device=dev,
+                              generator=g) * 1e5
+        return torch.randint(0, 1 << 30, (n,), dtype=getattr(torch, dtype),
+                             device=dev, generator=g)
+
+    def valid(n):
+        return torch.rand(n, device=dev, generator=g) < 0.99
+
+    shapes = []
+    s, groups = 15_003_037, 1_287_275
+    present = torch.zeros(s, dtype=torch.bool, device=dev)
+    present[t(rng.choice(s - 1, groups, replace=False))] = True
+    shapes.append(("compact_q3", present, [
+        (torch.arange(s, dtype=torch.int64, device=dev), None),
+        (t(rng.integers(8036, 8036 + 2406, s).astype(np.int32)), None),
+        (torch.zeros(s, dtype=torch.int64, device=dev), None),
+        (t(rng.uniform(0.0, 8e5, s)), present.clone())]))
+    mask = w1_live_mask(torch, dev)
+    n = mask.shape[0]
+    shapes.append(("compact_w1", mask, [
+        (column(dt, n), valid(n) if v else None) for dt, v in W1_COLUMNS]))
+    n = 4 << 20
+    runs = np.cumsum(rng.geometric(1 / 48, n // 8))
+    live = (np.searchsorted(runs, np.arange(n), side="right") % 2) == 1
+    shapes.append(("compact_dense", t(live), [
+        (column("int64", n), None), (column("float64", n), valid(n)),
+        (column("int32", n), None), (column("int32", n), valid(n)),
+        (column("int64", n), None),
+        (torch.rand(n, device=dev, generator=g) < 0.5, None)]))
+    for what, active, cols in shapes:
+        n, n_live = active.shape[0], int(active.sum())
+        if check and not _compact_same(torch, bu, cols, active, n_live):
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        rows = active.nonzero().squeeze(1)
+        width = sum(d.element_size() + (v is not None) for d, v in cols)
+        nbytes = n + n_live * width + sum(
+            sector_bytes(torch, rows, d.element_size())
+            + (0 if v is None else sector_bytes(torch, rows, 1))
+            for d, v in cols)
+        flat = [active] + [x for d, v in cols for x in (d, v)
+                           if x is not None]
+        size = sum(x.numel() * x.element_size() for x in flat)
+        inputs = copies(flat, max(2, -(-(100 << 20) // size)))
+
+        def call(x, cols=cols):
+            it = iter(x[1:])
+            c = [(next(it), None if v is None else next(it))
+                 for _, v in cols]
+            return lambda: bu.compact_kernel(c, x[0], n_live)
+
+        ms = time_ms(torch, [call(x) for x in inputs], reps=4 * len(inputs))
+        lib_ms = time_ms_synced(torch, lambda: [x[active] for x in flat[1:]],
+                                reps=4)
+        emit(what, ms, rows=n, live=n_live, columns=len(cols),
+             validity=sum(v is not None for _, v in cols), bytes=nbytes,
+             bound_ms=nbytes / BANDWIDTH * 1e3, library_ms_synced=lib_ms,
+             device_ops=device_ops(torch, call(inputs[0]))[0])
+        del inputs
+    return 0
+
+
+def time_hashing(torch, dev, emit) -> int:
+    """hash_rows at one lineitem batch's partition ids (murmur3, a hot
+    key, xxhash64's pmod) and xxhash64 % 64."""
+    from spark_rapids_tpu_torch.ops import hashing
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = 4 << 20
+    keys = t(rng.integers(1, 15_000_001, n))
+    hot = torch.full((n,), 4_200_001, dtype=torch.int64, device=dev)
+    active = t(rng.random(n) < 1 / 3)
+    counts = torch.zeros(9, dtype=torch.int64, device=dev)
+    shapes = [("hashing_murmur3_8", keys, active, "murmur3", 8),
+              ("hashing_hot_key_8", hot, active, "murmur3", 8),
+              ("hashing_xxhash64_8", keys, active, "xxhash64", 8),
+              ("hashing_xxhash64_mod_64", keys, None, "xxhash64_umod", 64)]
+
+    def call(k, a, algo, parts, c=None):
+        if algo == "xxhash64_umod":
+            return lambda: hashing.xxhash64_mod_kernel([(k, None)], parts)
+        return lambda: hashing.hash_rows_kernel(
+            [(k, None)], a, algo, 42, parts, c, want_hash=False)
+
+    for what, k, a, algo, parts in shapes:
+        kc = torch.zeros(parts + 1, dtype=torch.int64, device=dev)
+        pc = torch.zeros_like(kc)
+        if algo == "xxhash64_umod":
+            same = torch.equal(hashing.xxhash64_mod_kernel([(k, None)], parts),
+                               hashing.xxhash64_mod_plain([(k, None)], parts))
+        else:
+            got = hashing.hash_rows_kernel([(k, None)], a, algo, 42, parts,
+                                           kc, want_hash=False)[1]
+            want = hashing.hash_rows_plain([(k, None)], a, algo, 42, parts,
+                                           pc)[1]
+            same = torch.equal(got, want) and torch.equal(kc, pc)
+        if not same:
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        flat = [k] if a is None else [k, a]
+        inputs = copies(flat, 8)
+        ms = time_ms(torch, [call(x[0], None if a is None else x[1], algo,
+                                  parts, counts) for x in inputs],
+                     reps=8 * len(inputs))
+        nbytes = n * (8 + 4 + (0 if a is None else 1))
+        emit(what, ms, rows=n, partitions=parts,
+             live=n if a is None else int(a.sum()), bytes=nbytes,
+             bound_ms=nbytes / BANDWIDTH * 1e3,
+             device_ops=device_ops(torch, call(k, a, algo, parts, counts))[0])
+        del inputs
+    # the same bytes as xxhash64 % 64 streamed by one PyTorch elementwise
+    # kernel (int64 keys in, int32 out): what a pass of them takes here
+    inputs = copies([keys], 8)
+    emit("copy_int64_to_int32", time_ms(torch, [
+        lambda x=x: x[0].to(torch.int32) for x in inputs],
+        reps=8 * len(inputs)), rows=n, bytes=n * 12,
+        bound_ms=n * 12 / BANDWIDTH * 1e3)
+    return 0
 
 
 def _bucketize_same(torch, ex, pids, active, parts, cap, arrays) -> bool:
