@@ -299,6 +299,14 @@ def time_ms_synced(torch, calls, reps: int) -> float:
     return total / reps
 
 
+def launch_floor_ms(torch, device) -> float:
+    """The device time of one queued launch that does nothing to speak of
+    (a one-element add), as ``time_ms`` takes it: the floor under any
+    one-launch kernel's time."""
+    tiny = torch.zeros(1, device=device)
+    return time_ms(torch, [lambda: tiny.add_(1.0)], reps=64)
+
+
 def copies_for_l2(tensors) -> list:
     """Enough copies of ``tensors`` (the first is the given one) that
     together they hold more than twice the L2."""
@@ -3871,8 +3879,10 @@ def time_slice6_kernels(torch, join, device, per_wrapper, worst,
     out.append(_row_of("cond_join", "cross_pairs", per_wrapper, 0.0, ms,
                        plain_ms, 8 * n_l * n_r, lib_ms,
                        "spark_rapids_tpu/plan/join_exec.py:827"))
+    out[-1]["launch_floor_ms"] = launch_floor_ms(torch, device)
     notes.append(f"{n_l} x {n_r} rows (the small cross join; library: "
-                 f"torch.cartesian_prod)")
+                 f"torch.cartesian_prod; launch floor "
+                 f"{out[-1]['launch_floor_ms']:.4f} ms)")
     for row, note in zip(out, notes):
         nbytes = round(row["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
         print(f"kernel {row['name']}: {row['ms']:.4f} ms at {note} (bound "
@@ -4601,13 +4611,15 @@ def check_sample(torch, sample_ops, device) -> None:
 
 
 def explode_case(torch, rng, device, lens, null_frac=0.0, elem_null=0.0,
-                 outer=False):
+                 outer=False, null=None):
     """A batch of lists of the given lengths (a ``null_frac`` of them null,
-    holding no element), elements float64 with an ``elem_null`` share of
-    nulls, and siblings of every width: int64 with nulls, int32 (a date),
-    int16, bool, float64, and the two limb columns of a wide decimal."""
+    or those where ``null`` holds, holding no element), elements float64
+    with an ``elem_null`` share of nulls, and siblings of every width with
+    and without validity: int64, int32 (a date), int16, bool, float64, and
+    the two limb columns of a wide decimal."""
     n = len(lens)
-    null = rng.random(n) < null_frac
+    if null is None:
+        null = rng.random(n) < null_frac
     lens = np.where(null, 0, lens).astype(np.int64)
     out_lens = np.maximum(lens, 1) if outer else lens
     starts = np.zeros(n + 1, dtype=np.int64)
@@ -4624,19 +4636,53 @@ def explode_case(torch, rng, device, lens, null_frac=0.0, elem_null=0.0,
             (t(rng.random(n) < 0.5), t(rng.random(n) < 0.5)),
             (t(rng.standard_normal(n)), None),
             (t(rng.integers(-1 << 62, 1 << 62, n)), None),  # wide limbs
-            (t(rng.integers(-1 << 62, 1 << 62, n)), None)]
+            (t(rng.integers(-1 << 62, 1 << 62, n)), None),
+            (t(rng.integers(-9000, 9000, n).astype(np.int32)),
+             t(rng.random(n) < 0.8)),
+            (t(rng.integers(-99, 99, n).astype(np.int16)),
+             t(rng.random(n) < 0.7)),
+            (t(rng.integers(0, 255, n).astype(np.uint8)), None)]
     return (t(starts), t(offs) if outer else None, values, values_valid,
             cols, int(starts[-1]))
+
+
+def _explode_same(torch, generate, case, lo, m, flat, what) -> int:
+    """One chunk of ``case`` through the kernel and the plain version, held
+    equal; returns the kernel's launches for it."""
+    starts, eoffs, values, vv, _, _ = case
+    before = generate.explode_kernel.launches
+    got = generate.explode_kernel(starts, eoffs, lo, m, values, vv, flat,
+                                  True)
+    launched = generate.explode_kernel.launches - before
+    want = generate.explode_plain(starts, eoffs, lo, m, values, vv, flat,
+                                  True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0][0], want[0][0])
+          and torch.equal(got[0][1], want[0][1]),
+          f"explode elements differ ({what}, rows {lo}+{m})")
+    for (gd, gv), (wd_, wv) in zip(got[1], want[1]):
+        check(torch.equal(gd, wd_) and (gv is None) == (wv is None)
+              and (gv is None or torch.equal(gv, wv)),
+              f"explode siblings differ ({what}, rows {lo}+{m})")
+    return launched
 
 
 def check_explode(torch, generate, device) -> None:
     """The explode kernel against its plain version, every output exact:
     random lists with null lists and null elements, with and without
-    OUTER, cut into chunks that split lists; every list empty (OUTER);
-    every list null under OUTER; one list longer than a chunk; more
-    sibling columns than one launch takes."""
+    OUTER, cut into chunks that split lists (4,096 rows, and 2,053: chunks
+    that start inside lists and end off a tile); every list empty (OUTER);
+    every list null under OUTER; one list longer than a tile and a chunk,
+    with and without OUTER; a run of 2,500 empty lists without OUTER (tiles
+    of parents' ends only) and runs of 2,500 empty and 2,500 null lists
+    under OUTER; siblings of 1, 2, 4 and 8 bytes with and without
+    validity, 16 of them in one launch, 17 and 18 in two."""
     rng = np.random.default_rng(82)
-    chunk = 4096
+    tile = 2048
+    runs = np.concatenate([rng.integers(1, 4, 50), np.zeros(2_500, np.int64),
+                           rng.integers(1, 4, 50)])
+    null_runs = np.zeros(2_600 + 2_500, bool)
+    null_runs[2_600:] = True
     cases = {
         "random": explode_case(torch, rng, device,
                                rng.integers(0, 9, 20_000), 0.05, 0.1),
@@ -4651,31 +4697,46 @@ def check_explode(torch, generate, device) -> None:
             outer=True),
         "one list longer than a chunk": explode_case(
             torch, rng, device, np.where(np.arange(3000) == 1234,
-                                         3 * chunk + 17, 1), 0.0, 0.05),
+                                         3 * 4096 + 17, 1), 0.0, 0.05),
         "one long list, outer": explode_case(
             torch, rng, device, np.where(np.arange(3000) == 5,
-                                         2 * chunk + 1, 0), 0.0, 0.0,
-            outer=True)}
-    for what, (starts, eoffs, values, vv, cols, total) in cases.items():
-        for lo in range(0, total, chunk):
-            m = min(chunk, total - lo)
-            flat = cols + cols[:2] * 6  # 18 columns: two launches
-            got = generate.explode_kernel(starts, eoffs, lo, m, values, vv,
-                                          flat, True)
-            want = generate.explode_plain(starts, eoffs, lo, m, values, vv,
-                                          flat, True)
-            torch.cuda.synchronize()
-            check(torch.equal(got[0][0], want[0][0])
-                  and torch.equal(got[0][1], want[0][1]),
-                  f"explode elements differ ({what}, rows {lo}+{m})")
-            for (gd, gv), (wd_, wv) in zip(got[1], want[1]):
-                check(torch.equal(gd, wd_) and (gv is None) == (wv is None)
-                      and (gv is None or torch.equal(gv, wv)),
-                      f"explode siblings differ ({what}, rows {lo}+{m})")
+                                         2 * 4096 + 1, 0), 0.0, 0.0,
+            outer=True),
+        "a list across tiles among short ones, outer": explode_case(
+            torch, rng, device, np.where(np.arange(3000) == 1500,
+                                         3 * tile + 11,
+                                         rng.integers(0, 3, 3000)), 0.02,
+            0.05, outer=True),
+        "a run of 2,500 empty lists": explode_case(torch, rng, device, runs,
+                                                   0.0, 0.1),
+        "runs of 2,500 empty and 2,500 null lists, outer": explode_case(
+            torch, rng, device, np.concatenate([runs, rng.integers(
+                1, 4, 2_500)]), 0.0, 0.1, outer=True, null=null_runs)}
+    calls = 0
+    for what, case in cases.items():
+        cols, total = case[4], case[5]
+        for chunk in (4096, tile + 5):
+            for lo in range(0, total, chunk):
+                m = min(chunk, total - lo)
+                flat = cols + cols[:8]  # 18 columns: two launches
+                check(_explode_same(torch, generate, case, lo, m, flat,
+                                    what) == 2, "explode of 18 siblings is "
+                      "not two launches")
+                calls += 1
+        for k, launches in ((16, 1), (17, 2)):
+            flat = (cols * 2)[:k]
+            for lo in range(0, total, tile + 5):
+                m = min(tile + 5, total - lo)
+                check(_explode_same(torch, generate, case, lo, m, flat, what)
+                      == launches, f"explode of {k} siblings is not "
+                      f"{launches} launch(es)")
+                calls += 1
     print(f"check explode: {len(cases)} batches (null lists, null elements, "
-          f"every list empty or null under OUTER, a list longer than a "
-          f"chunk) in chunks of {chunk} rows, 18 sibling columns of 1-8 "
-          f"bytes, equal plain exactly: ok")
+          f"every list empty or null under OUTER, lists longer than a tile "
+          f"and a chunk, runs of 2,500 empty and null lists) in chunks of "
+          f"4,096 and 2,053 rows, 16, 17 and 18 sibling columns of 1-8 bytes "
+          f"with and without validity (one launch for 16, two past it), "
+          f"{calls} calls, equal plain exactly: ok")
 
 
 def sample_batches(torch, sample_ops, n_rows: int, device) -> np.ndarray:
@@ -4698,9 +4759,29 @@ def sample_batches(torch, sample_ops, n_rows: int, device) -> np.ndarray:
     return np.concatenate(parts)
 
 
-# the card's peak rate for 32-bit integer instructions outside the tensor
-# cores, taken as the H100 SXM's non-tensor float32 peak rate
-INT32_OPS_PER_S = 67e12
+# 32-bit integer results a clock an SM on compute capability 9.0: the CUDA
+# C++ Programming Guide's table of arithmetic instruction throughput (32-bit
+# integer add, subtract, shift, compare and bitwise AND/OR/XOR: 64; 32-bit
+# integer multiply-add: 64).  On Hopper the first issue on the ALU pipe and
+# multiply-add (IMAD) on the FMA pipe beside it, so an add can take either:
+# shifts and logic at 64 a clock, all integer operations at 128 at most.
+INT32_ALU_PER_CLOCK_SM = 64
+INT32_ANY_PER_CLOCK_SM = 128
+
+
+def int32_ops_ms(torch, alu_ops: int, add_ops: int) -> float:
+    """The least time of ``alu_ops`` shifts and logic operations (the ALU
+    pipe only) and ``add_ops`` adds (either pipe) on the card: the larger
+    of the ALU pipe's share and both pipes' share, over its SMs x the SM
+    clock's maximum as nvidia-smi reads it (clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clocks = max(alu_ops / INT32_ALU_PER_CLOCK_SM,
+                 (alu_ops + add_ops) / INT32_ANY_PER_CLOCK_SM)
+    return clocks / (sms * mhz * 1e6) * 1e3
 
 
 def time_slice8_kernels(torch, sample_ops, generate, batch_utils, device,
@@ -4734,7 +4815,9 @@ def time_slice8_kernels(torch, sample_ops, generate, batch_utils, device,
         key, frac, None, n, n, device)], reps=4)
     lib_ms = time_ms(torch, [lambda: torch.rand(
         n, dtype=torch.float64, device=device) < frac], reps=32)
-    ops_ms = sample_ops.OPS_PER_ROW * n / INT32_OPS_PER_S * 1e3
+    alu_ops = sample_ops.ALU_OPS_PER_ROW * n
+    add_ops = sample_ops.ADD_OPS_PER_ROW * n
+    ops_ms = int32_ops_ms(torch, alu_ops, add_ops)
     bytes_ms = n / HBM_BYTES_PER_S * 1e3  # the mask written, no sel read
     out.append({"name": "sample_mask", "route": "cuda",
                 "source": "spark_rapids_tpu_torch/csrc/sample.cu",
@@ -4746,7 +4829,8 @@ def time_slice8_kernels(torch, sample_ops, generate, batch_utils, device,
                 "library_ms": lib_ms})
     print(f"kernel sample_mask: {ms:.4f} ms at {n} rows, fraction {frac} "
           f"(bound {max(ops_ms, bytes_ms):.4f} ms: "
-          f"{sample_ops.OPS_PER_ROW * n} integer ops {ops_ms:.4f} ms, {n} B "
+          f"{alu_ops} shifts and logic operations and {add_ops} adds "
+          f"{ops_ms:.4f} ms, {n} B "
           f"{bytes_ms:.4f} ms; plain {plain_ms:.4f} ms, torch.rand float64 "
           f"and a compare {lib_ms:.4f} ms), bit-exact vs plain, "
           f"{out[-1]['launches']} launches on the main path")
@@ -5036,15 +5120,18 @@ def device_launches(torch, fn, tries: int = 3):
     return None
 
 
-def check_device_ops(torch, batch_utils, hashing, ex, device) -> None:
+def check_device_ops(torch, batch_utils, hashing, ex, groupby,
+                     device) -> None:
     """The device operations one call queues (memsets included), by
     torch.profiler, of the one-sweep kernels at the main path's shapes:
     compact at Q3's slot count (at most 2: a memset and the kernel),
     hash_rows at a lineitem batch (murmur3 ids into 8 partitions with
     counts, xxhash64 % 64: 1), bucketize at a lineitem batch and a 64-row
-    call (at most 3).  Run first among the profiler's users: a session
-    after the CSR join's and the hash aggregate's checks saw no device
-    activity in this program (a fresh process sees it)."""
+    call (at most 3), group_ratio at the 2^18-row sample (1: the stream's
+    sets are kept, no fill, no zeroed output).  Run first among the
+    profiler's users: a session after the CSR join's and the hash
+    aggregate's checks saw no device activity in this program (a fresh
+    process sees it)."""
     rng = np.random.default_rng(17)
     t = _to_device(torch, device)
     cols, active = compact_case(torch, Q3_ORDERS + 1, 18, device, 0.086)
@@ -5054,6 +5141,9 @@ def check_device_ops(torch, batch_utils, hashing, ex, device) -> None:
     counts = torch.zeros(9, dtype=torch.int64, device=device)
     big = _bucketize_case(torch, rng, device, BATCH_ROWS, 8, 1 << 19, 0.5)
     small = _bucketize_case(torch, rng, device, 64, 8, 64, 0.0)
+    sample_h = hashing.hash_columns([(t(np.repeat(
+        np.arange(1 << 18), rng.integers(1, 8, 1 << 18))[:1 << 18]), None)])
+    sample_live = t(rng.random(1 << 18) < 0.9)
     calls = {
         "compact": (2, lambda: batch_utils.compact_kernel(cols, active,
                                                           n_live)),
@@ -5064,13 +5154,16 @@ def check_device_ops(torch, batch_utils, hashing, ex, device) -> None:
         "bucketize, a lineitem batch": (3, lambda: ex.bucketize_kernel(
             big[0], big[1], 8, 1 << 19, big[2])),
         "bucketize, 64 rows": (3, lambda: ex.bucketize_kernel(
-            small[0], small[1], 8, 64, small[2]))}
+            small[0], small[1], 8, 64, small[2])),
+        "group_ratio": (1, lambda: groupby.group_ratio_kernel(
+            sample_h, sample_live))}
     ops = {what: device_launches(torch, fn) for what, (_, fn) in
            calls.items()}
     check(all(ops[w] is not None and ops[w] <= most
               for w, (most, _) in calls.items()),
           f"device operations a call over their limits (compact 2, "
-          f"hash_rows 1, bucketize 3; None: the profiler saw none): {ops}")
+          f"hash_rows 1, bucketize 3, group_ratio 1; None: the profiler saw "
+          f"none): {ops}")
     print(f"device operations a call (torch.profiler): {ops}")
 
 
@@ -5258,6 +5351,92 @@ def check_merge_pool(torch, groupby, device) -> float:
     return worst
 
 
+def group_ratio_edges(torch, hashing, rng, device) -> dict:
+    """group_ratio's risky inputs, (hashes, live mask) by name: the sample
+    as Q18-2ph draws it (lineitem's order keys, runs of 1-7 rows) twice,
+    one key for every row, the hashes 2^32 - 1 and -1 (the set's empty
+    word, counted by the flag word) among others, every row dead, one
+    row."""
+    t = _to_device(torch, device)
+    s = 1 << 18
+    keys = np.repeat(np.arange(s), rng.integers(1, 8, s))[:s]
+    sample = hashing.hash_columns([(t(keys), None)])
+    live = t(rng.random(s) < 0.9)
+    extremes = t(rng.choice(np.array([0, 2**32 - 2, 2**32 - 1, -1, 7]),
+                            5_000))
+    return {"the sample": (sample, live), "the sample again": (sample, live),
+            "one key": (hashing.hash_columns([(t(np.full(s, 9)), None)]),
+                        None),
+            "2^32 - 1 and -1": (extremes, t(rng.random(5_000) < 0.7)),
+            "all dead": (sample, torch.zeros(s, dtype=torch.bool,
+                                             device=device)),
+            "n = 1": (sample[:1].clone(), None)}
+
+
+def check_group_ratio(torch, groupby, hashing, rng, device) -> dict:
+    """group_ratio.cu against its plain version, counts exact: up to 2^18
+    sampled hashes; ``group_ratio_edges`` back to back on one stream with
+    no sync between (each call must find the set it inserts into empty:
+    the call before it on the stream emptied it), on two streams in turn
+    and from two threads at once on one stream.  Returns the edge
+    cases."""
+    t = _to_device(torch, device)
+    for n, distinct, dead in ((0, 1, 0.0), (1, 1, 0.0), (5000, 4, 0.0),
+                              (1 << 18, 1 << 17, 0.5), (1 << 18, 1 << 30,
+                                                        0.0),
+                              (1 << 18, 3, 1.0)):
+        keys = rng.integers(0, distinct, n)
+        h = hashing.hash_columns([(t(keys), None)])
+        a = t(rng.random(n) >= dead)
+        got = groupby.group_ratio_kernel(h, a)
+        want = groupby.group_ratio_plain(h, a)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"group_ratio {got.tolist()} vs "
+              f"plain {want.tolist()} at n={n}")
+    gr_cases = group_ratio_edges(torch, hashing, rng, device)
+    # back to back on one stream, no sync between: each call must find the
+    # set it inserts into empty (a dirty set would count the repeated
+    # sample's hashes as seen, 0 distinct), the third the set the first
+    # filled
+    got = [groupby.group_ratio_kernel(h, a) for h, a in gr_cases.values()]
+    for (what, (h, a)), g in zip(gr_cases.items(), got):
+        want = groupby.group_ratio_plain(h, a)
+        torch.cuda.synchronize()
+        check(torch.equal(g, want), f"group_ratio {g.tolist()} vs plain "
+              f"{want.tolist()} ({what}, back to back on one stream)")
+    # two streams in turn, each with its own sets
+    streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(device))
+    pairs = list(gr_cases.values())
+    got = []
+    for j in range(6):
+        h, a = pairs[j % len(pairs)]
+        with torch.cuda.stream(streams[j % 2]):
+            got.append(groupby.group_ratio_kernel(h, a))
+    torch.cuda.synchronize()
+    for j, g in enumerate(got):
+        h, a = pairs[j % len(pairs)]
+        want = groupby.group_ratio_plain(h, a)
+        check(torch.equal(g, want), f"group_ratio {g.tolist()} vs plain "
+              f"{want.tolist()} (call {j}, on stream {j % 2} of two)")
+    # two threads at once on one stream: the set a call inserts into is
+    # chosen on the device, in stream order, so no two calls share it
+    def calls(k):
+        return [groupby.group_ratio_kernel(*pairs[(k + j) % len(pairs)])
+                for j in range(4)]
+    with ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(calls, range(2)))
+    torch.cuda.synchronize()
+    for k, gs in enumerate(got):
+        for j, g in enumerate(gs):
+            want = groupby.group_ratio_plain(*pairs[(k + j) % len(pairs)])
+            check(torch.equal(g, want), f"group_ratio {g.tolist()} vs "
+                  f"plain {want.tolist()} (thread {k}'s call {j}, two "
+                  f"threads on one stream)")
+    return gr_cases
+
+
 def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
     """bucketize.cu (``bucketize_edges``: 1 to 4,096 destinations, cap 0
     and 1, one destination for every row, overflow in one destination, a
@@ -5306,18 +5485,7 @@ def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
                 f"{p.shape[0]})")
         n_cases += len(seq)
     check(overflowed > 0, "no bucketize case overflowed")
-    for n, distinct, dead in ((0, 1, 0.0), (1, 1, 0.0), (5000, 4, 0.0),
-                              (1 << 18, 1 << 17, 0.5), (1 << 18, 1 << 30,
-                                                        0.0),
-                              (1 << 18, 3, 1.0)):
-        keys = rng.integers(0, distinct, n)
-        h = hashing.hash_columns([(t(keys), None)])
-        a = t(rng.random(n) >= dead)
-        got = groupby.group_ratio_kernel(h, a)
-        want = groupby.group_ratio_plain(h, a)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"group_ratio {got.tolist()} vs "
-              f"plain {want.tolist()} at n={n}")
+    gr_cases = check_group_ratio(torch, groupby, hashing, rng, device)
     cols = [(t(rng.integers(-2**63, 2**63 - 1, 200_000, dtype=np.int64)),
              t(rng.random(200_000) < .9)),
             (t(rng.integers(-2**31, 2**31 - 1, 200_000).astype(np.int32)),
@@ -5366,7 +5534,9 @@ def check_slice10_kernels(torch, ex, groupby, hashing, device) -> dict:
                 check(torch.equal(_bits(torch, a), _bits(torch, b)),
                       f"merge channel {j} ({op}) differs at n={n}")
     print(f"check slice 10: bucketize on {n_cases + 1} cases ({overflowed} rows "
-          f"overflowed, none clamped), group_ratio on 6, xxhash64 % n for "
+          f"overflowed, none clamped), group_ratio on 6 and on "
+          f"{len(gr_cases)} back to back ({', '.join(gr_cases)}), on two "
+          f"streams and from two threads on one, xxhash64 % n for "
           f"n in (1, 7, 64, 4096), the merge ops on 5 (float64 sums equal "
           f"to the bit between runs, max |err| vs plain {worst:.3e}): ok")
     return {"bucketize": 0.0, "group_ratio": 0.0, "xxhash64_mod": 0.0,
@@ -5443,9 +5613,11 @@ def time_slice10_kernels(torch, ex, groupby, hashing, device, per_wrapper,
     out.append(_row_of("group_ratio", "group_ratio", per_wrapper, 0.0, ms,
                        plain_ms, nbytes, lib_ms,
                        "spark_rapids_tpu/plan/physical.py:2006"))
+    out[-1]["launch_floor_ms"] = launch_floor_ms(torch, device)
     print(f"kernel group_ratio: {ms:.4f} ms at {s} sampled hashes, "
           f"{int(got[0])} distinct of {int(got[1])} live (bound "
-          f"{out[-1]['bound_ms']:.4f} ms for {nbytes} B; plain "
+          f"{out[-1]['bound_ms']:.4f} ms for {nbytes} B; launch floor "
+          f"{out[-1]['launch_floor_ms']:.4f} ms; plain "
           f"{plain_ms:.4f} ms; torch.unique of the live hashes {lib_ms:.4f} "
           f"ms), exact vs plain, {out[-1]['launches']} launches on the main "
           f"path")
@@ -5738,7 +5910,8 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}")
 
         worst = check_kernels(torch, groupby, device)
-        check_device_ops(torch, batch_utils, hashing, ici_ex, device)
+        check_device_ops(torch, batch_utils, hashing, ici_ex, groupby,
+                         device)
         worst.update(check_new_kernels(torch, join, groupby, topk_mod,
                                        batch_utils, device))
         worst["csr_join"] = check_csr_join(torch, join, device)

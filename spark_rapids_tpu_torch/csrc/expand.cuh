@@ -2,7 +2,7 @@
 // shared by csr_join.cu (csr_expand: int64 pi, bi = -1 for a left join's
 // unmatched row) and cond_join.cu (cond_expand: int32 pi, every row's lo a
 // real build position), and the merge-path split that cond_join.cu's
-// counts take too.
+// counts take too (explode.cu's rows take warp_search).
 //
 // The merge path of the output rows [0, total) and the ends offsets[r + 1]
 // of the n probe rows: row r's end comes before output j when

@@ -17,14 +17,17 @@
 // One thread per row, grid-stride.  A row that is not live (past
 // num_rows, or dropped by the selection) is written 0 without drawing.
 //
-// Bound: operations.  A live row costs 20 threefry rounds (add, a funnel
-// shift, xor), 5 key injections (2 adds each, the round constant folded),
-// the two initial adds and the bits-to-double step: about 83 32-bit
-// integer operations, against 2 bytes of memory (the selection byte read
-// and the mask byte written).  At one 4,194,304-row batch that is 348 M
-// operations (5.2 us at the 67 T/s of the card's non-tensor float32 rate,
-// applied to 32-bit integer instructions) against 8.4 MB (2.5 us at 3.35
-// TB/s).
+// Bound: operations.  A live row costs 20 threefry rounds (an add, a
+// funnel shift, an xor), 6 key injections (2 adds each, the round
+// constants folded per batch) and the bits-to-double step (2 shifts and an
+// or, then a float64 subtract and compare): 43 shifts and logic operations,
+// which only the ALU pipe issues, and 32 adds, which it or the FMA pipe (as
+// IMAD) issues; against 2 bytes of memory (the selection byte read and the
+// mask byte written).  At 64 results a clock an SM for each pipe (compute
+// capability 9.0), 132 SMs and 1,980 MHz, the ALU pipe's 43 a row are the
+// larger share: one 4,194,304-row batch takes at least 10.8 us, against
+// 8.4 MB (2.5 us at 3.35 TB/s).  tools/sass_count.py counts what the
+// compiled row loop issues by pipe.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -247,7 +247,8 @@ _SIGNATURES = {
                       _P],
     },
     "group_ratio": {
-        # h, active, n, set, out, stream
+        "group_ratio_scratch_words": [],
+        # h, active, n, scratch, out, stream
         "group_ratio": [_P, _P, _L, _P, _P, _P],
     },
     "compact": {
@@ -264,7 +265,7 @@ _RESTYPES = {"sort_build_scratch": _L, "sort_perm_scratch": _L,
              "topk_scratch": _L, "csr_build_scratch": _L,
              "partition_perm_scratch": _L, "win_scratch_bytes": _L,
              "cond_counts_scratch": _L, "bucketize_scratch": _L,
-             "compact_scratch": _L}
+             "compact_scratch": _L, "group_ratio_scratch_words": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1273,7 +1273,6 @@ class HashAccumulator:
         self.bound = 0
         self.growths = 0
         self.calls = 0
-        self.ngroups = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.merging = False   # merge calls use the merge table
         self.pool = pool
         self.gids = 0          # the groups the value records have room for
@@ -1281,6 +1280,14 @@ class HashAccumulator:
         self.f64 = [int(f) for _, f in self.channels]
         self.nf = sum(1 for op, f in zip(self.ops, self.f64)
                       if f and op == _HA_OP["sum"])  # float64 sums
+        # the group count and, for the kernel, its table words (zero at the
+        # start: per float64 sum its largest |x| bits and scale word, the
+        # count of the last call's fallback list, the group count each
+        # launch starts from, a ticket, the rows of the list's call), made
+        # by one fill
+        words = torch.zeros(1 + (2 * self.nf + 4 if self.kernel else 0),
+                            dtype=torch.int64, device=self.device)
+        self.ngroups, self.fwords = words[:1], words[1:]
         self.fblist: Optional[torch.Tensor] = None
         self._c_layout = None  # the ctypes arrays of the layout, once
         self.hot, self.cold, self.W, self.H, self.fresh = \
@@ -1306,14 +1313,6 @@ class HashAccumulator:
                                        dtype=dtype, device=dev))
             self.aux.append(torch.zeros(0, dtype=torch.int64, device=dev)
                             if op in ORDERED_OPS else None)
-
-    def _kernel_words(self) -> None:
-        """The kernel's table words, zero at the start (per float64 sum its
-        largest |x| bits and scale word, the count of the last call's
-        fallback list, the group count each launch starts from, a ticket,
-        the rows of the list's call)."""
-        self.fwords = torch.zeros(2 * self.nf + 4, dtype=torch.int64,
-                                  device=self.device)
 
     @staticmethod
     def _slots_for(groups: int) -> int:
@@ -1342,7 +1341,6 @@ class HashAccumulator:
         if self.cap == 0:
             cap = self._slots_for(self._limit_bound(2 * n))
             if self.kernel:
-                self._kernel_words()
                 self._records(cap, 0)
             else:
                 self._alloc_plain()
@@ -1411,7 +1409,6 @@ class HashAccumulator:
             if self.pool is None:
                 self.pool = MergePool(self.device)
             self.pool.acquire(self)
-            self._kernel_words()
             self.meta, self.vals = self.pool.dense(bound, self.nkeys, self.W,
                                                    0)
             self.recs = self.pool.records(self.cap * self.stride)
@@ -1814,7 +1811,6 @@ class MergePool:
 # ---------------------------------------------------------------------------------
 
 GR_MAX_ROWS = 1 << 18       # csrc/group_ratio.cu GR_MAX_ROWS
-GR_SLOTS = 1 << 19          # csrc/group_ratio.cu GR_SLOTS
 
 
 def group_ratio_plain(h: torch.Tensor, active: Optional[torch.Tensor]
@@ -1832,24 +1828,39 @@ def group_ratio_plain(h: torch.Tensor, active: Optional[torch.Tensor]
                         device=h.device)
 
 
+# one stream's scratch of csrc/group_ratio.cu: its two sets, flag words,
+# ticket and set word, all -1 (their empty state) once; each call empties
+# the set the call before it filled and flips the set word on the device.
+# Kept for the process's life: 8.4 MB for each stream that ever called.
+_GR_SCRATCH: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
 def group_ratio_kernel(h: torch.Tensor, active: Optional[torch.Tensor]
                        ) -> torch.Tensor:
     """Launch ``group_ratio`` of ``csrc/group_ratio.cu``: int64 [2]
-    (distinct hashes, live rows) of at most ``GR_MAX_ROWS`` rows."""
+    (distinct hashes, live rows) of at most ``GR_MAX_ROWS`` rows, one
+    device operation a call (the stream's two sets are kept between
+    calls).  A failed launch drops the stream's scratch before it
+    raises."""
     n = h.shape[0]
     if n > GR_MAX_ROWS:
         raise ValueError(f"group_ratio takes at most {GR_MAX_ROWS} rows")
     _check_column(h, n, (torch.int64,), "hashes")
     if active is not None:
         _check_column(active, n, (torch.bool,), "active")
-    out = torch.zeros(2, dtype=torch.int64, device=h.device)
-    if n == 0:
-        return out
-    table = torch.full((GR_SLOTS,), -1, dtype=torch.int64, device=h.device)
+    out = torch.empty(2, dtype=torch.int64, device=h.device)
     lib = kernels.load("group_ratio")
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    key = (h.device, stream)
+    words = _GR_SCRATCH.get(key)
+    if words is None:
+        words = _GR_SCRATCH.setdefault(key, torch.full(
+            (int(lib.group_ratio_scratch_words()),), -1, dtype=torch.int64,
+            device=h.device))
     rc = lib.group_ratio(h.data_ptr(), _opt_ptr(active), n,
-                         table.data_ptr(), out.data_ptr(),
-                         torch.cuda.current_stream(h.device).cuda_stream)
+                         words.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        _GR_SCRATCH.pop(key, None)
     kernels.check_launch(lib, "group_ratio", rc)
     group_ratio_kernel.launches += 1
     return out

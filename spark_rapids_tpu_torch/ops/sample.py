@@ -30,12 +30,20 @@ from .. import kernels
 __all__ = ["M32", "prng_key", "fold_in", "batch_key",
            "threefry2x32_plain", "threefry2x32_kernel", "uniform_plain",
            "sample_mask", "sample_mask_plain", "sample_mask_kernel",
-           "OPS_PER_ROW"]
+           "ALU_OPS_PER_ROW", "ADD_OPS_PER_ROW"]
 
 M32 = 0xFFFFFFFF
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-# 32-bit integer operations per drawn row (csrc/sample.cu's count)
-OPS_PER_ROW = 83
+# 32-bit integer operations a drawn row, counted from the function (not
+# from any compiled code): 20 threefry rounds of an add, a rotate (one
+# funnel shift) and an xor, 12 adds of the key injections (6 of 2, their
+# constants folded per batch), and 2 shifts and an or that turn the 64 bits
+# into a double's mantissa (its subtract and compare are float64).  The
+# shifts, xors and the or issue on the ALU pipe only; an add issues there
+# or on the FMA pipe as IMAD.  chip_smoke.py's bound takes the larger of
+# the ALU pipe's share and both pipes' share of them.
+ALU_OPS_PER_ROW = 43   # 20 + 20 + 2 + 1
+ADD_OPS_PER_ROW = 32   # 20 + 12
 
 Key = Tuple[int, int]
 

@@ -393,3 +393,176 @@ def test_x1o_matches_reference_and_oracle(db):
     got = rows(out, lambda x: x.numpy())
     assert got == rows(want, np.asarray)
     assert got == rows(ref, lambda x: np.asarray(x)[:len(got)])
+
+
+# ---------------------------------------------------------------------------------
+# The kernel's tile edges (``csrc/explode.cu`` takes 2,048 merge-path items,
+# rows and parents' ends, a tile; 16 siblings a launch), run here through
+# the plain version: a list longer than a tile and a chunk, runs of more
+# than a tile of empty and null lists under OUTER, chunks that start inside
+# lists, 17 siblings, siblings of every width with validity, wide decimals.
+# ---------------------------------------------------------------------------------
+
+EDGE_CHUNK = 1000
+
+
+def _edge_lists(case, rng):
+    """(list lengths, list validity) of one tile-edge case."""
+    if case == "long_list":
+        lens = rng.integers(0, 4, 60)
+        lens[17] = 5_000
+        return lens, rng.random(60) < 0.9
+    if case == "empty_and_null_runs":
+        lens = np.concatenate([rng.integers(1, 4, 40), np.zeros(2_500, int),
+                               rng.integers(1, 4, 40), rng.integers(
+                                   1, 4, 2_500), rng.integers(0, 4, 40)])
+        valid = np.ones(len(lens), bool)
+        valid[2_580:5_080] = False  # a run of 2,500 null lists
+        return lens, valid
+    lens = np.full(700, 7)  # 1,000 rows a chunk: chunks start inside lists
+    return lens, rng.random(700) < 0.97
+
+
+def _edge_siblings(case, n, rng):
+    """(port columns, reference columns) of the siblings beside the
+    list."""
+    nulls = rng.random(n) < 0.25
+    if case == "17_siblings":
+        cols = {f"c{i}": rng.integers(-9, 9, n) + 100 * i for i in range(17)}
+        return cols, dict(cols)
+    if case == "wide_decimals":
+        big = rng.integers(-10 ** 15, 10 ** 15, n) * 1000
+        small = rng.integers(-10 ** 6, 10 ** 6, n)
+        port = {"w": DecimalArray(big, 30, 2, valid=~nulls),
+                "w2": DecimalArray(small, 25, 3),
+                "id": np.arange(n, dtype=np.int64)}
+        ref = {"w": pa.array([None if z else decimal.Decimal(int(c))
+                              .scaleb(-2) for z, c in zip(nulls, big)],
+                             type=pa.decimal128(30, 2)),
+               "w2": pa.array([decimal.Decimal(int(c)).scaleb(-3)
+                               for c in small], type=pa.decimal128(25, 3)),
+               "id": port["id"]}
+        return port, ref
+    # every width: 1 byte with and without validity, 2, 4 with validity, 8
+    # with validity, floats of 4 and 8
+    flags = [None if z else bool(b) for z, b in
+             zip(nulls, rng.random(n) < 0.5)]
+    days = [None if z else datetime.date(1995, 1, 1) + datetime.timedelta(
+        days=int(d)) for z, d in zip(rng.random(n) < 0.2,
+                                     rng.integers(0, 900, n))]
+    ints = [None if z else int(x) for z, x in
+            zip(rng.random(n) < 0.3, rng.integers(-10 ** 12, 10 ** 12, n))]
+    port = {"b": _objects(flags),
+            "i8": rng.integers(-100, 100, n).astype(np.int8),
+            "i16": rng.integers(-1000, 1000, n).astype(np.int16),
+            "d": _objects(days), "i64": _objects(ints),
+            "f32": rng.standard_normal(n).astype(np.float32),
+            "f64": rng.standard_normal(n)}
+    ref = dict(port, b=pa.array(flags, type=pa.bool_()),
+               d=pa.array(days, type=pa.date32()),
+               i64=pa.array(ints, type=pa.int64()))
+    return port, ref
+
+
+def _numpy_rows(names, port, lens, valid, values, elem_valid, outer):
+    """The explode's rows by numpy: per parent its siblings (as the
+    port's collect gives them) and each element, or one null row under
+    OUTER for an empty or null list."""
+    offs = np.concatenate([[0], np.cumsum(np.where(valid, lens, 0))])
+    sib = []
+    for name in names:
+        col = port[name]
+        if isinstance(col, DecimalArray):
+            v = col.unscaled if col.unscaled.ndim == 1 else (
+                col.unscaled[:, 0].astype(object) % (1 << 64)
+                + (col.unscaled[:, 1].astype(object) << 64))
+            vals = [decimal.Decimal(int(x)).scaleb(-col.dtype.scale)
+                    for x in v]
+            ok = np.ones(len(vals), bool) if col.valid is None else col.valid
+            sib.append([x if o else None for x, o in zip(vals, ok)])
+        elif col.dtype == object:
+            sib.append(list(col))
+        else:
+            sib.append(col.tolist())
+    rows = []
+    for i in range(len(lens)):
+        lo, hi = int(offs[i]), int(offs[i + 1])
+        head = tuple(s[i] for s in sib)
+        if hi == lo:
+            if outer:
+                rows.append(head + (None,))
+            continue
+        for e in range(lo, hi):
+            rows.append(head + (int(values[e]) if elem_valid[e] else None,))
+    return rows
+
+
+@pytest.mark.parametrize("case,outer", [
+    ("long_list", False), ("long_list", True),
+    ("empty_and_null_runs", True), ("chunk_inside_list", False),
+    ("chunk_inside_list", True), ("17_siblings", True),
+    ("sibling_widths", True), ("sibling_widths", False),
+    ("wide_decimals", True)])
+def test_explode_tile_edges_match_reference_and_numpy(case, outer):
+    rng = np.random.default_rng(1916)
+    shape = case if case in ("long_list", "empty_and_null_runs") \
+        else "chunk_inside_list"
+    lens, valid = _edge_lists(shape, rng)
+    n = len(lens)
+    offs = np.concatenate([[0], np.cumsum(np.where(valid, lens, 0))])
+    values = rng.integers(-10 ** 9, 10 ** 9, int(offs[-1]))
+    elem_valid = rng.random(len(values)) < 0.9
+    lists = _lists(offs, values, valid=valid, elem_valid=elem_valid)
+    port, ref = _edge_siblings(case, n, rng)
+    names = list(port)
+    port["arr"], ref["arr"] = lists, _pa_list(lists)
+    settings = {"spark.rapids.tpu.sql.batchSizeRows": EDGE_CHUNK}
+    got = _both(port, ref, lambda df, F: df.explode(
+        "arr", out_name="v", outer=outer), settings)
+    want = _numpy_rows(names, port, lens, valid, values, elem_valid, outer)
+    _same(got, want)
+    out_rows = np.where(valid, lens, 0)
+    if outer:
+        out_rows = np.maximum(out_rows, 1)
+    assert len(got) == int(out_rows.sum()) > EDGE_CHUNK
+
+
+@pytest.mark.parametrize("shape", ["long_list", "empty_and_null_runs",
+                                   "chunk_inside_list"])
+def test_plain_explode_tile_edges_equal_numpy(shape):
+    """``explode_rows`` (the kernel's contract, through its plain version)
+    over chunks of a tile and a few rows, 17 siblings of 1, 2, 4 and 8
+    bytes, with and without validity, and wide limbs, against numpy."""
+    rng = np.random.default_rng(2048)
+    lens, valid = _edge_lists(shape, rng)
+    lens = np.where(valid, lens, 0)
+    n = len(lens)
+    kinds = (np.int8, np.int16, np.int32, np.int64, np.float32, np.float64,
+             bool)
+    cols = [(rng.integers(0, 99, n).astype(kinds[c % len(kinds)]),
+             rng.random(n) < 0.8 if c % 2 else None) for c in range(16)]
+    cols.append((rng.integers(-9, 9, (n, 2)), rng.random(n) < 0.5))
+    t = torch.from_numpy
+    tcols = [(t(d), None if v is None else t(v)) for d, v in cols]
+    for outer in (False, True):
+        out_lens = np.maximum(lens, 1) if outer else lens
+        starts = np.concatenate([[0], np.cumsum(out_lens)])
+        eoffs = np.concatenate([[0], np.cumsum(lens)]) if outer else None
+        values = rng.standard_normal(int(lens.sum()))
+        vv = rng.random(len(values)) < 0.9
+        total, chunk = int(starts[-1]), 2_048 + 5
+        for lo in range(0, total, chunk):
+            m = min(chunk, total - lo)
+            (d, v), moved = generate.explode_rows(
+                t(starts), None if eoffs is None else t(eoffs), lo, m,
+                t(values), t(vv), tcols, True)
+            wd, wv, wcols = _numpy_explode(starts, eoffs, values, vv, cols,
+                                           lo, m)
+            assert np.array_equal(d.numpy(), wd)
+            assert np.array_equal(v.numpy(), wv)
+            assert len(moved) == len(cols)
+            for (gd, gv), (xd, xv) in zip(moved, wcols):
+                assert gd.dtype == torch.from_numpy(xd).dtype
+                assert np.array_equal(gd.numpy(), xd)
+                assert (gv is None) == (xv is None)
+                assert gv is None or np.array_equal(gv.numpy(), xv)

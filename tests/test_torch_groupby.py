@@ -1137,13 +1137,13 @@ def test_record_layout(channels, hot, cold, W, H):
     ([("sum", True), ("last_valid", True), ("sum", True)], 2)],
     ids=["q18", "no_float_sum", "two_float_sums"])
 def test_hash_table_words_follow_the_float64_sums(channels, nf):
-    """The kernel's table words hold, per float64 sum, its largest |x| and
-    scale word, then the fallback list's count, the launch's starting
-    group count, a ticket and the rows of the list's call, all zero; only
-    float64 sums count (a call's fallback list has room for n of each)."""
+    """The kernel's table words (made with the group count, by one fill)
+    hold, per float64 sum, its largest |x| and scale word, then the
+    fallback list's count, the launch's starting group count, a ticket and
+    the rows of the list's call, all zero; only float64 sums count (a
+    call's fallback list has room for n of each)."""
     acc = tg.HashAccumulator(1, channels, CPU, plain=False)
     assert acc.nf == nf
-    acc._kernel_words()
     assert acc.fwords.tolist() == [0] * (2 * nf + 4)
 
 
@@ -1153,7 +1153,6 @@ def test_update_table_growth_keeps_groups():
     count was just read), with the scales untouched."""
     acc = tg.HashAccumulator(2, [("sum", True), ("count", False)], CPU,
                              plain=False)
-    acc._kernel_words()
     acc._records(2048, 0)
     assert acc.gids == 1024 and acc.recs.shape == (2048 * acc.stride,)
     assert acc.stride == 4 and int(acc.recs.abs().sum()) == 0
@@ -1221,7 +1220,6 @@ def test_table_output_masks_rows_past_the_groups():
     with key words 0 and null, so no garbage code reaches a dictionary."""
     acc = tg.HashAccumulator(2, [("count", False), ("max", False)], CPU,
                              plain=False)
-    acc._kernel_words()
     acc._records(1024, 0)
     acc.meta.fill_(-123456789)
     acc.meta[:3, 1] = torch.tensor([0, 1, 2])

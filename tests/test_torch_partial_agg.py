@@ -188,13 +188,17 @@ def _grouped(F, d):
 
 
 @pytest.mark.parametrize("case", ["unique", "few", "nulls", "half",
-                                  "filtered", "all_filtered"])
+                                  "filtered", "all_filtered", "runs",
+                                  "one_key"])
 def test_skip_decision_matches_reference(rng, case):
     n = 5000
     k = {"unique": rng.permutation(n), "few": rng.integers(0, 7, n),
          "nulls": rng.integers(0, 4000, n), "half": rng.integers(0, 1500, n),
          "filtered": rng.permutation(n),
-         "all_filtered": rng.permutation(n)}[case].astype(object)
+         "all_filtered": rng.permutation(n),
+         # lineitem's order keys: each repeated by 1-7 neighbouring rows
+         "runs": np.repeat(np.arange(n), rng.integers(1, 8, n))[:n],
+         "one_key": np.full(n, 42)}[case].astype(object)
     if case == "nulls":
         k[rng.random(n) < 0.5] = None
     v = rng.uniform(-10, 10, n).astype(object)
@@ -310,6 +314,52 @@ def test_group_ratio_plain_matches_reference_program(rows, distinct, dead):
     assert np.array_equal(np.asarray(jh), th.numpy())
     got = groupby.group_ratio(th, torch.from_numpy(active))
     assert got.tolist() == want
+
+
+def _sort_and_count(h: np.ndarray, active: np.ndarray):
+    """The reference program's count (``plan/physical.py:2006``) in numpy:
+    sort where(active, h, INT64_MAX), count the adjacent distinct values
+    below INT64_MAX, beside the live rows."""
+    big = np.iinfo(np.int64).max
+    s = np.sort(np.where(active, h, big))
+    first = np.concatenate([[True], s[1:] != s[:-1]])[:len(s)]
+    return [int((first & (s != big)).sum()), int(active.sum())]
+
+
+@pytest.mark.parametrize("shape", ["runs", "one_key", "all_dead", "n1",
+                                   "n_max", "hash_extremes"])
+def test_group_ratio_plain_on_key_shapes(shape):
+    """The shapes the kernel's warp merge, set and flag word meet: keys in
+    runs of 1-7 neighbouring rows (lineitem's order keys), one key for
+    every row, every row dead, one row, 2^18 rows in runs with dead rows,
+    and hashes at 0, 2^32 - 2 and 2^32 - 1 (and -1, the set's empty word,
+    which no murmur3 hash takes), against the reference's sort-and-count
+    (through the JAX program as the reference writes it, and numpy)."""
+    rng = np.random.default_rng(1845)
+    n = {"n1": 1, "n_max": groupby.GR_MAX_ROWS}.get(shape, 20_000)
+    if shape == "hash_extremes":
+        h = rng.choice(np.array([0, 2**32 - 2, 2**32 - 1, -1, 7]), n)
+        active = rng.random(n) < 0.7
+    else:
+        keys = {"one_key": np.full(n, 5)}.get(
+            shape, np.repeat(np.arange(n), rng.integers(1, 8, n))[:n])
+        active = np.ones(n, bool) if shape in ("runs", "one_key", "n1") \
+            else (np.zeros(n, bool) if shape == "all_dead"
+                  else rng.random(n) < 0.9)
+        jh = jhashing.hash_columns([(jnp.asarray(keys), None)]) \
+            .astype(jnp.int64)
+        h = np.array(jh)
+        th = hashing.hash_columns([(torch.from_numpy(keys), None)])
+        assert np.array_equal(h, th.numpy())
+    big = jnp.int64(np.iinfo(np.int64).max)
+    s = jnp.sort(jnp.where(jnp.asarray(active), jnp.asarray(h), big))
+    first = jnp.concatenate([jnp.ones((1,), bool), s[1:] != s[:-1]])
+    want = [int(jnp.sum(first & (s != big))), int(active.sum())]
+    assert want == _sort_and_count(h, active)
+    got = groupby.group_ratio(torch.from_numpy(h), torch.from_numpy(active))
+    assert got.tolist() == want
+    assert groupby.group_ratio(torch.from_numpy(h), None).tolist() == \
+        _sort_and_count(h, np.ones(n, bool))
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 64, 1000])

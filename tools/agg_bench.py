@@ -40,6 +40,11 @@ loaded once a process):
     with 4 rows a thread (``HS_ROWS``) against 8; ``hs_sm4``,
     ``hs_sm16``: 4 and 16 blocks an SM at most (``HS_BLOCKS_PER_SM``)
     against 8 (16: one block per 2,048 rows at a lineitem batch);
+  * ``ex_base``, ``gr_base``: the checkout's sources, timed for
+    ``explode.cu``'s or ``group_ratio.cu``'s shapes only; ``ex_nosib``:
+    explode without its siblings (results not checked), the part of its
+    time the sibling pass takes; ``gr_noclear``: the other set left as it
+    is (results not checked), the part of its time the emptying takes;
 
 Prints kernel_ab's JSON lines, labelled with the variant.
 """
@@ -77,6 +82,18 @@ VARIANTS = {"base": (None, {}),
             "hs_rows4": ("hashing.cu", {"HS_ROWS": "4"}),
             "hs_sm4": ("hashing.cu", {"HS_BLOCKS_PER_SM": "4"}),
             "hs_sm16": ("hashing.cu", {"HS_BLOCKS_PER_SM": "16"}),
+            "ex_base": ("explode.cu", {}),
+            # explode.cu without its siblings (results not checked): the
+            # part of its time they take
+            "ex_nosib": ("explode.cu", {}, [
+                ("for (int c = 0; c < args.ncols; ++c) {",
+                 "for (int c = 0; c < 0; ++c) {")]),
+            "gr_base": ("group_ratio.cu", {}),
+            # group_ratio.cu without emptying the other set (its results
+            # then differ from plain and are not checked)
+            "gr_noclear": ("group_ratio.cu", {}, [
+                ("w < GR_SET_WORDS / 2; w += stride)",
+                 "w < 0; w += stride)")]),
             # bucketize.cu without its zero tail (its results then differ
             # from plain and are not checked)
             "bz_notail": ("bucketize.cu", {}, [
@@ -146,6 +163,12 @@ def run_variant(name: str, csrc: str) -> int:
                                      check=len(VARIANTS[name]) < 3)
     if source in (None, "hashing.cu"):
         rc |= kernel_ab.time_hashing(torch, dev, emit)
+    if source in (None, "explode.cu"):
+        rc |= kernel_ab.time_explode(torch, dev, emit,
+                                     check=len(VARIANTS[name]) < 3)
+    if source in (None, "group_ratio.cu"):
+        rc |= kernel_ab.time_group_ratio(torch, dev, groupby, emit,
+                                         check=name != "gr_noclear")
     return rc
 
 

@@ -10,7 +10,8 @@ checkouts on one CUDA card.
     python3 tools/kernel_ab.py [--root DIR] [--label NAME] \
         [--only key_stats,merge,sort,sort_join,topk,dense_agg,
                 masked_reduce,csr_join,hash_agg,grid_agg,dense_join,
-                window_scan,bucketize,cond_join,compact,hashing]
+                window_scan,bucketize,cond_join,compact,hashing,
+                explode,group_ratio,merge_profile]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts in turns on one card
@@ -121,7 +122,21 @@ the bucket sequence one event pair a sequence, its host work included):
     (an oversized pair's sub-partitions) and xxhash64 % 64 of 4,194,304
     keys (the aggregate's re-partition), each with its bound and the
     device operations a call queues, beside one PyTorch elementwise pass
-    over the same bytes (int64 keys to int32).
+    over the same bytes (int64 keys to int32); and
+  * ``explode`` at X1o's first chunk as ``chip_smoke.py`` times it
+    (4,194,304 output rows of the first orders, OUTER, 1-7 lines an order
+    as TPC-H draws them, 1% of the lists null and 1% emptied; the float64
+    elements and one int64 sibling), and the same rows without OUTER and
+    with 16 siblings, each with its bound and device operations; and
+  * ``group_ratio`` over 2^18 sampled murmur3 hashes, 90% live, of order
+    keys in runs of 1-7 rows and of order keys drawn uniformly over
+    15,000,000 orders (``chip_smoke.py``'s timed shape, nearly every hash
+    distinct), with the device operations a call queues and the launch
+    floor beside it; and
+  * ``merge_profile``: one bucket of the 64-bucket sequence above (merge,
+    finish, release) under ``torch.profiler`` (host operations by name
+    and count, device operations and their device time) and its host wall
+    (one bucket between two synchronizations, the median of 40).
 Each result is first held to the checkout's plain version.
 
 Prints one JSON line per measurement, in ms, with the card's name and
@@ -190,7 +205,7 @@ def main() -> int:
     ap.add_argument("--only", default="key_stats,merge,sort,sort_join,topk,"
                     "dense_agg,masked_reduce,csr_join,hash_agg,grid_agg,"
                     "dense_join,window_scan,bucketize,cond_join,compact,"
-                    "hashing")
+                    "hashing,explode,group_ratio")
     args = ap.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, args.root)
@@ -246,6 +261,13 @@ def main() -> int:
         return 1
     if "hashing" in only and time_hashing(torch, dev, emit) != 0:
         return 1
+    if "explode" in only and time_explode(torch, dev, emit) != 0:
+        return 1
+    if "group_ratio" in only and time_group_ratio(torch, dev, groupby,
+                                                  emit) != 0:
+        return 1
+    if "merge_profile" in only:
+        profile_merge_bucket(torch, dev, rng, groupby, emit)
     return 0
 
 
@@ -442,6 +464,108 @@ def time_hashing(torch, dev, emit) -> int:
         lambda x=x: x[0].to(torch.int32) for x in inputs],
         reps=8 * len(inputs)), rows=n, bytes=n * 12,
         bound_ms=n * 12 / BANDWIDTH * 1e3)
+    return 0
+
+
+def x1o_chunk(rng, n: int):
+    """(starts, element offsets, output rows, parents of the chunk) of the
+    first n output rows of an OUTER explode over n orders' line lists:
+    1-7 lines an order as TPC-H draws them, 1% of the lists null and 1%
+    emptied (``tpch.order_quantities(..., 0.01, 0.01)``)."""
+    lens = rng.integers(1, 8, n)
+    lens[rng.random(n) < 0.02] = 0
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.maximum(lens, 1), out=starts[1:])
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    parents = int(np.searchsorted(starts, n - 1, side="right"))
+    return starts, offs, parents
+
+
+def time_explode(torch, dev, emit, check: bool = True) -> int:
+    """explode at X1o's first chunk (OUTER, one int64 sibling), the same
+    rows without OUTER and with 16 int64 siblings (``check`` False: a
+    variant that leaves a part out is timed without holding it to
+    plain)."""
+    from spark_rapids_tpu_torch.ops import generate
+    rng = np.random.default_rng(1916)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n = 4 << 20
+    starts, offs, parents = x1o_chunk(rng, n)
+    inner = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.diff(offs), out=inner[1:])
+    values = t(rng.integers(1, 51, int(offs[-1])).astype(np.float64))
+    key = t(np.arange(1, n + 1, dtype=np.int64) * 4)
+    shapes = [("explode_x1o", t(starts), t(offs), [(key, None)], parents),
+              ("explode_inner", t(inner), None, [(key, None)],
+               int(np.searchsorted(inner, n - 1, side="right"))),
+              ("explode_x1o_16", t(starts), t(offs),
+               [(key + i, None) for i in range(16)], parents)]
+    for what, st, eo, cols, p_cnt in shapes:
+        got = generate.explode_kernel(st, eo, 0, n, values, None, cols, True)
+        want = generate.explode_plain(st, eo, 0, n, values, None, cols, True)
+        if check and not (torch.equal(got[0][0], want[0][0])
+                and torch.equal(got[0][1], want[0][1])
+                and all(torch.equal(g[0], w[0])
+                        for g, w in zip(got[1], want[1]))):
+            print(f"kernel_ab: {what} differs from plain", file=sys.stderr)
+            return 1
+        del got, want
+        flat = [st, values] + ([] if eo is None else [eo]) + [
+            d for d, _ in cols]
+        size = sum(x.numel() * x.element_size() for x in flat)
+        inputs = copies(flat, max(2, -(-(100 << 20) // size)))
+
+        def call(x, eo=eo, k=len(cols)):
+            e = None if eo is None else x[2]
+            c = [(d, None) for d in x[len(x) - k:]]
+            return lambda: generate.explode_kernel(x[0], e, 0, n, x[1],
+                                                   None, c, True)
+
+        ms = time_ms(torch, [call(x) for x in inputs], reps=4 * len(inputs))
+        # per row the element (read and written), its validity and each
+        # sibling written; per parent its start, offset and siblings read
+        nbytes = n * (8 + 8 + 1 + 8 * len(cols)) + p_cnt * (
+            8 + (0 if eo is None else 8) + 8 * len(cols))
+        emit(what, ms, rows=n, parents=p_cnt, siblings=len(cols),
+             bytes=nbytes, bound_ms=nbytes / BANDWIDTH * 1e3,
+             device_ops=device_ops(torch, call(inputs[0]))[0])
+        del inputs
+    return 0
+
+
+def time_group_ratio(torch, dev, groupby, emit, check: bool = True) -> int:
+    """group_ratio at the 2^18-row sample, 90% live, of order keys in runs
+    of 1-7 rows (lineitem in order-key order, as TPC-H writes it) and of
+    order keys drawn as ``tpch.gen_db_arrays`` draws lineitem's (uniform
+    over 15,000,000 orders: nearly every hash distinct; ``chip_smoke.py``'s
+    shape), hashed by murmur3 (``check`` False: a variant that leaves a
+    part out is timed without holding it to plain)."""
+    from spark_rapids_tpu_torch.ops import hashing
+    rng = np.random.default_rng(1845)
+    s = 1 << 18
+    tiny = torch.zeros(1, device=dev)
+    shapes = (("group_ratio",
+               np.repeat(np.arange(1, s + 1), rng.integers(1, 8, s))[:s]),
+              ("group_ratio_random", rng.integers(1, 15_000_001, s)))
+    for what, keys in shapes:
+        h = hashing.hash_columns([(torch.from_numpy(keys).to(dev), None)])
+        live = torch.from_numpy(rng.random(s) < 0.9).to(dev)
+        for _ in range(2):  # twice: the second call finds what the first left
+            got = groupby.group_ratio_kernel(h, live)
+            if check and not torch.equal(
+                    got, groupby.group_ratio_plain(h, live)):
+                print(f"kernel_ab: {what} differs from plain",
+                      file=sys.stderr)
+                return 1
+        call = lambda h=h, live=live: groupby.group_ratio_kernel(h, live)
+        nbytes = s * 9 + 16
+        emit(what, time_ms(torch, [call], reps=16), rows=s,
+             distinct=int(got[0]), live=int(got[1]), bytes=nbytes,
+             bound_ms=nbytes / BANDWIDTH * 1e3,
+             launch_floor_ms=time_ms(torch, [lambda: tiny.add_(1.0)],
+                                     reps=64),
+             device_ops=device_ops(torch, call)[0])
     return 0
 
 
@@ -1210,6 +1334,56 @@ def time_merge(torch, dev, rng, groupby, emit) -> None:
             merge(w, q, rows, True)
     emit("merge_64_buckets", time_ms_synced(torch, sequence, reps=4),
          rows=m, groups=groups, pooled=pooled)
+
+
+def profile_merge_bucket(torch, dev, rng, groupby, emit) -> None:
+    """One bucket of the merge's 64-bucket sequence (merge, finish,
+    release), profiled: its host operations by name and count, its device
+    operations and their summed device time, and its host wall."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    n, m = 15_000_000, 4 << 20
+    okeys = torch.from_numpy(rng.integers(1, n + 1, m)).to(dev)
+    qty = torch.from_numpy(rng.integers(1, 51, m).astype(np.float64)).to(dev)
+    pooled = "pool" in inspect.signature(groupby.HashAccumulator).parameters
+    pool = groupby.MergePool(dev) if pooled else None
+    w = okeys[okeys % 64 == 7].contiguous()
+    q = qty[:w.numel()].contiguous()
+    rows = w.numel()
+
+    def bucket():
+        kw = {"pool": pool} if pooled else {}
+        acc = groupby.HashAccumulator(1, [("sum", True)], dev, **kw)
+        acc.merge([(w, None)], [(q, None)], None, rows)
+        acc.finish()
+        if pooled:
+            acc.release()
+    for _ in range(3):
+        bucket()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(40):
+        t0 = time.perf_counter()
+        bucket()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bucket()
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name.startswith(("aten::", "cuda")):
+            host[e.name] = host.get(e.name, 0) + 1
+    emit("merge_bucket_profile", float(np.median(walls)), rows=rows,
+         pooled=pooled, device_ops=len(dev_ops),
+         device_ms=sum(e.time_range.elapsed_us() for e in dev_ops) / 1e3,
+         device_names=sorted({e.name[:60] for e in dev_ops}),
+         host_ops=sum(host.values()), host_by_name=dict(sorted(
+             host.items(), key=lambda kv: -kv[1])))
 
 
 def copies(tensors, count: int) -> list:

@@ -5,7 +5,7 @@ CUDA card.
     python3 tools/path_walls.py [--root DIR] [--sf 10] [--runs 5] \
         [--queries q1,q3,q18,q7,q9,q3_2ph,q18_2ph,q18_2ph_repart,pq_q18,
                    s1,w1,w2,q10_shuffled,q10_flip,q21_exists,q1_ici8,
-                   q3_ici8]
+                   q3_ici8,x1,x1o]
 
 Imports ``spark_rapids_tpu_torch`` from ``--root`` (default: this
 checkout), so one command can time two checkouts of the port in turns on
@@ -27,7 +27,11 @@ them; ``q21_exists`` runs on the default session
 defaults: its second join flips to a broadcast).  ``_ici8`` runs on a
 session in ICI shuffle mode over a mesh of 8 shards on the first card
 (``[cuda:0] * 8``), with ``shuffle.ici.bucketRows`` as ``chip_smoke.py``
-sets them for Q1-ici8 (64) and Q3-ici8 (2^18).  Prints one JSON
+sets them for Q1-ici8 (64) and Q3-ici8 (2^18).  ``x1`` and ``x1o`` run
+the explodes over orders with their lines' quantities as lists
+(``tpch.order_quantities``, lineitem in order-key order; X1o with 1% of
+the lists null and 1% emptied), as ``chip_smoke.py`` builds them: X1
+collects, X1o ends in ``to_device_arrays()``.  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
 fetches of the last warm run, with the card's name and power limit.
 """
@@ -58,7 +62,31 @@ PARQUET_DIR = "build/tpch_parquet"
 # stay on the device
 DEVICE_PATHS = {"s1": ("sort_lineitem", ("lineitem",)),
                 "w1": ("supplier_history", ("lineitem",)),
-                "w2": ("w2", ("lineitem",))}
+                "w2": ("w2", ("lineitem",)),
+                "x1o": ("x1o", ("x1o_orders",))}
+# the explodes' tables: orders with an o_qty list column
+LIST_TABLES = {"x1": "x1_orders", "x1o": "x1o_orders"}
+
+
+def list_tables(tpch, torch, db, names) -> dict:
+    """X1's and X1o's orders with their quantity lists, as chip_smoke.py
+    builds them (lineitem sorted by order key on the card)."""
+    order = torch.sort(torch.from_numpy(db["lineitem"]["l_orderkey"])
+                       .to("cuda"), stable=True).indices.cpu().numpy()
+    out = {}
+    if "x1" in names:
+        out["x1_orders"] = dict(
+            {c: db["orders"][c] for c in ("o_orderkey", "o_orderdate",
+                                          "o_orderpriority")},
+            o_qty=tpch.order_quantities(db["orders"], db["lineitem"],
+                                        order=order))
+    if "x1o" in names:
+        out["x1o_orders"] = {
+            "o_orderkey": db["orders"]["o_orderkey"],
+            "o_qty": tpch.order_quantities(db["orders"], db["lineitem"],
+                                           null_frac=0.01, empty_frac=0.01,
+                                           order=order)}
+    return out
 
 
 def split(name: str):
@@ -108,10 +136,16 @@ def main() -> int:
         q = split(name)[0]
         if q in DEVICE_PATHS:
             tables[q] = DEVICE_PATHS[q][1]
+        elif q in LIST_TABLES:
+            tables[q] = (LIST_TABLES[q],)
         elif q not in tables:
             tables[q] = tpch.QUERY_TABLES.get(q) or tpch.SUITE_QUERIES[q]
-    needed = sorted({t for name in paths for t in tables[split(name)[0]]})
+    needed = sorted({t for name in paths for t in tables[split(name)[0]]
+                     if t not in LIST_TABLES.values()})
+    if any(split(name)[0] in LIST_TABLES for name in paths):
+        needed = sorted(set(needed) | {"orders", "lineitem"})
     db = tpch.gen_db_arrays(args.sf, tables=needed)
+    db.update(list_tables(tpch, torch, db, {split(n)[0] for n in paths}))
     sessions, frames = {}, {}
     for name in paths:
         q, variant = split(name)
