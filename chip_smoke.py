@@ -38,7 +38,16 @@ under ``build/spill``), Q3 over ``Session.ici_mesh()`` (the visible
 cards) and Q1 and Q3 over a mesh of 8 shards on the one card (a harness
 standing in for 8 devices; the exchange is ``csrc/bucketize.cu`` and a
 swap of the bucket axis), Q1 once more with 1-row buckets (the overflow
-retried at 4x), and one distributed aggregation step over 8 shards.  It
+retried at 4x), and one distributed aggregation step over 8 shards; and
+the twentieth slice's: the 22 TPC-DS queries of ``bench.py`` (``ds_q3`` ..
+``ds_q98``) over the parquet files the port's ``tpcds.gen_db`` writes
+into ``build/tpcds_parquet/`` at SF10 (store_sales 28,804,040 rows,
+catalog_sales 14,415,480, web_sales 7,193,840), read through
+``Session.read_parquet`` with the file cache on as ``bench.py`` reads
+them (the cross-query cache, ``sql.cache.enabled``, stays off: the port
+raises on it until ``cache/`` is ported), one cold and two warm runs each,
+with ``df.cache()`` in ds_q64, ds_q94 and ds_q95 (each run must execute
+its cached child once) and TPC-H Q21's cached late pairs.  It
 checks the results against numpy oracles and shows that each query went
 through its kernels.  Prints per-query and per-kernel timings, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
@@ -235,6 +244,37 @@ SLICE10_FETCH_CEILINGS = {
     "q18_host": (62, _REF), "q3_ici": (23, _REF), "q1_ici8": (19, _REF),
     "q3_ici8": (23, _REF),
     "q1_ici8_small": (19, "the reference's count for Q1-ici8")}
+
+
+# slice 20: the 22 TPC-DS queries of bench.py over parquet that the port's
+# tpcds.gen_db writes into build/tpcds_parquet/, read as bench.py reads
+# them: fileCache.enabled; the cross-query cache (sql.cache.enabled) stays
+# off, as the port raises on it until cache/ is ported (ROADMAP.md item 3)
+TPCDS_DIR = "build/tpcds_parquet"
+TPCDS_SF = 10.0
+TPCDS_SETTINGS = {"spark.rapids.tpu.sql.fileCache.enabled": True}
+TPCDS_ROWS = {"store_sales": 28_804_040, "catalog_sales": 14_415_480,
+              "web_sales": 7_193_840, "customer": 1_000_000,
+              "customer_address": 500_000, "item": 180_000}
+TPCDS_RUNS = 3                # one cold and two warm runs a query
+# kernels the slice's plans run: each launched by some TPC-DS query (no
+# query launches sort.cu: ds_q64's ORDER BY without a LIMIT has string
+# keys, which sort on the host)
+TPCDS_KERNELS = ("dense_join", "csr_join", "hash_agg", "dense_agg",
+                 "masked_reduce", "topk", "compact", "key_stats", "grid_agg",
+                 "sort_join", "hashing")
+# blocking fetch ceilings: the reference's count for the same plan over
+# its own gen_db files (tools/fetch_budget.py --tpcds --sf 1 --batch-rows
+# 411487, which gives store_sales the 7 batches, catalog_sales the 4 and
+# web_sales the 2 they have at SF10, with the broadcast threshold and
+# join.denseMinProbeRows scaled to SF1)
+TPCDS_FETCH_CEILINGS = {q: (n, _REF) for q, n in (
+    ("ds_q3", 16), ("ds_q7", 17), ("ds_q12", 12), ("ds_q13", 3),
+    ("ds_q19", 33), ("ds_q20", 20), ("ds_q25", 50), ("ds_q26", 11),
+    ("ds_q34", 22), ("ds_q42", 5), ("ds_q46", 27), ("ds_q48", 3),
+    ("ds_q52", 4), ("ds_q55", 13), ("ds_q64", 59), ("ds_q65", 38),
+    ("ds_q68", 27), ("ds_q73", 26), ("ds_q79", 27), ("ds_q94", 15),
+    ("ds_q95", 17), ("ds_q98", 32))}
 
 
 class SmokeFailure(Exception):
@@ -1704,6 +1744,7 @@ def run_query(torch, sess, df_fn, checker, want, name, counters,
                      "upload_ms": stats.upload_ms(),
                      "upload_bytes": path_stats.upload_bytes,
                      "syncs": path_stats.blocking_fetches,
+                     "cached_runs": path_stats.cache_materializations,
                      "kernel_launches": launches, "max_rel_err": err,
                      "output_rows": out_rows})
         print(f"query {name} {runs[-1]['run']}: " + json.dumps(runs[-1]))
@@ -5079,6 +5120,114 @@ def scan_report(sess) -> dict:
     return out
 
 
+def check_canonical_rows(name: str):
+    """A checker for a TPC-DS query's rows, whose ORDER BY leaves ties
+    unspecified: the rows in the query's ORDER BY order
+    (``tpcds.in_query_order``), and equal to the oracle's with both sides
+    sorted canonically (strings and integers exact, floats within
+    QUERY_REL_TOL, and bench.py's gate, ``tpcds.rows_rel_err`` < 1e-6):
+    together, the oracle's rows in order, ties in any order."""
+    def key(row):
+        return tuple((x is None, type(x).__name__, 0 if x is None else (
+            round(x, 6) if isinstance(x, float) else x)) for x in row)
+    inner = check_rows(name)
+
+    def checker(rows, want) -> float:
+        from spark_rapids_tpu_torch.models import tpcds
+        check(tpcds.rows_rel_err(rows, want) < 1e-6,
+              f"{name} fails bench.py's gate")
+        check(tpcds.in_query_order(name, want),
+              f"{name}'s oracle rows are not in its ORDER BY order")
+        check(tpcds.in_query_order(name, rows),
+              f"{name}'s rows are not in its ORDER BY order")
+        return inner(sorted(rows, key=key), sorted(want, key=key))
+    return checker
+
+
+def tpcds_phase(torch, Session, counters, launches, per_wrapper,
+                runs_of) -> None:
+    """Slice 20: the port's ``tpcds.gen_db`` writes the sixteen TPC-DS
+    tables at TPCDS_SF into TPCDS_DIR (store_sales 28,804,040 rows at
+    SF10), and the 22 queries of ``bench.py`` run over them through
+    ``read_parquet`` with the file cache on, one cold and two warm runs
+    each, against the numpy oracles (computed in 4 threads while the
+    files are written).  Every kernel is counted from 0 before each query;
+    each warm run must launch every kernel the cold run launched; ds_q64,
+    ds_q94 and ds_q95 must run their cached child once a run."""
+    from spark_rapids_tpu_torch.io import filecache
+    from spark_rapids_tpu_torch.models import tpcds
+    check(set(TPCDS_FETCH_CEILINGS) == set(tpcds.QUERIES),
+          "a TPC-DS query has no fetch ceiling")
+    filecache.clear_file_cache()
+    t0 = time.perf_counter()
+    groups = {}
+    data = tpcds.gen_db_arrays(TPCDS_SF, row_groups=groups)
+    rows = {t: len(next(iter(data[t].values()))) for t in TPCDS_ROWS}
+    check(rows == TPCDS_ROWS, f"SF{TPCDS_SF:g} TPC-DS tables have {rows}")
+    print(f"tpcds datagen: {rows} rows in {time.perf_counter() - t0:.1f} s")
+    pool = ThreadPoolExecutor(ORACLE_THREADS)
+    took = {}
+
+    def oracle(q):
+        t1 = time.perf_counter()
+        out = tpcds.query_oracle(q, data)
+        took[q] = time.perf_counter() - t1
+        return out
+    futures = {q: pool.submit(oracle, q) for q in tpcds.QUERIES}
+    t1 = time.perf_counter()
+    paths = tpcds.gen_db(TPCDS_SF, TPCDS_DIR, data=data, row_groups=groups)
+    mib = sum(os.path.getsize(p) for p in paths.values()) / 2**20
+    print(f"tpcds gen_db: {mib:.0f} MiB of uncompressed parquet written by "
+          f"the port in {time.perf_counter() - t1:.1f} s")
+    want = {q: f.result() for q, f in futures.items()}
+    pool.shutdown()
+    del data, futures
+    print(f"tpcds oracles: " + ", ".join(
+        f"{q} {len(want[q])} rows {took[q]:.1f} s" for q in sorted(want)))
+    sess = Session(TPCDS_SETTINGS, device="cuda")
+    dfs = {t: sess.read_parquet(p) for t, p in paths.items()}
+    seen = set()
+    for q in sorted(tpcds.QUERIES, key=lambda n: int(n[4:])):
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+        reports = []
+        runs_of[q] = run_query(
+            torch, sess, lambda q=q: tpcds.run_query(q, dfs),
+            check_canonical_rows(q), want[q], q, counters,
+            result=lambda rows: rows, require=(), runs=TPCDS_RUNS,
+            on_run=lambda i: reports.append(scan_report(sess)))
+        cached = [r["cached_runs"] for r in runs_of[q]]
+        check(cached == [int(q in tpcds.CACHED_QUERIES)] * TPCDS_RUNS,
+              f"{q} ran its cached child {cached} times a run")
+        print(f"query {q} cold scans (last collect): "
+              + json.dumps(reports[0]) + f"; cached child runs a query "
+              f"{cached}")
+        launched = runs_of[q][0]["kernel_launches"]
+        seen |= {k for k, v in launched.items() if v}
+        check(launched.get("key_stats", 0)
+              or not reports[0]["runtime_predicates"],
+              f"{q} pushed runtime filters without key_stats")
+        for k, v in launch_counts(counters).items():
+            launches[k] = launches.get(k, 0) + v
+        for fns in counters.values():
+            for fn in fns:
+                if fn.launches:
+                    per_wrapper[fn.__name__] = \
+                        per_wrapper.get(fn.__name__, 0) + fn.launches
+        profile_query(torch, lambda q=q: tpcds.run_query(q, dfs), q,
+                      result=lambda rows: rows)
+    missing = sorted(set(TPCDS_KERNELS) - seen)
+    check(not missing, f"no TPC-DS query launched {missing}")
+    for q, (ceiling, why) in TPCDS_FETCH_CEILINGS.items():
+        fetches = max(r["syncs"] for r in runs_of[q])
+        check(fetches <= ceiling, f"{q} made {fetches} blocking fetches, "
+              f"more than {ceiling} ({why})")
+    del dfs, sess
+    filecache.clear_file_cache()
+    print(f"tpcds phase: {time.perf_counter() - t0:.1f} s")
+
+
 def check_f1(out, want) -> float:
     """F1's device columns, sorted by o_custkey (the hash aggregate's
     output order is not specified), against the oracle exactly."""
@@ -5868,6 +6017,7 @@ def main() -> int:
     try:
         from spark_rapids_tpu_torch import Session, kernels
         from spark_rapids_tpu_torch.batch import numpy_column
+        from spark_rapids_tpu_torch.io import filecache
         from spark_rapids_tpu_torch.models import tpch
         from spark_rapids_tpu_torch.ops import (batch_utils, groupby, hashing,
                                                 join, window)
@@ -5908,6 +6058,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
+
 
         worst = check_kernels(torch, groupby, device)
         check_device_ops(torch, batch_utils, hashing, ici_ex, groupby,
@@ -6141,6 +6292,7 @@ def main() -> int:
             "hash_agg_merge": [groupby.hash_agg_merge],
             "bucketize": [ici_ex.bucketize_kernel],
             "xxhash64_mod": [hashing.xxhash64_mod_kernel]}
+
         paths = [("q6", lambda: tpch.q6(df), check_q6, q6_want,
                   ("masked_reduce",)),
                  ("q1", lambda: tpch.q1(df), check_q1, q1_want,
@@ -6371,6 +6523,9 @@ def main() -> int:
         check(filtered, "no parquet query launched key_stats")
         print(f"runtime join filters (key_stats launched): {filtered}")
         del pdf, psess, pdf1, psess1
+        # no later path reads these files: free the file cache's host and
+        # device tiers for the paths below
+        filecache.clear_file_cache()
         # slice 10: the partial/final split (CACHE_ONLY), the HOST shuffle
         # and the mesh (ICI) over the in-memory tables, their oracles
         # reused; every kernel counted from 0 before each path
@@ -6673,6 +6828,11 @@ def main() -> int:
 
         del df, cdf, odf, dbf, sbf, q11f, ddf, dec, x1f, x1of, sess, shuf
         del frames, sessions10, two, lif, cfs, ici11
+        # slice 20: the 22 TPC-DS queries over parquet, once the in-memory
+        # TPC-H tables the kernel timings do not read are released (the
+        # card's host holds 96 GiB)
+        del data, li0, orders, cust, full, db1
+        tpcds_phase(torch, Session, counters, launches, per_wrapper, runs_of)
         table = time_kernels(torch, groupby, device, launches, worst)
         table += time_new_kernels(torch, join, groupby, topk_mod,
                                   batch_utils, device, launches, worst,

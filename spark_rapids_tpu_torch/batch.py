@@ -431,7 +431,16 @@ def numpy_column(arr) -> Tuple[DataType, np.ndarray, Optional[np.ndarray]]:
     int64 microseconds; unicode arrays stay host strings; a
     :class:`DecimalArray` keeps its type and unscaled values; a
     :class:`ListArray` (or an object array of lists) becomes the typed
-    lists and their validity."""
+    lists and their validity; a numeric ``np.ma.MaskedArray`` is null
+    where it is masked."""
+    if isinstance(arr, np.ma.MaskedArray):
+        valid = ~np.ma.getmaskarray(arr)
+        dt, data, _ = numpy_column(np.ma.getdata(arr))
+        if dt.is_host_carried:
+            raise TypeError("a masked array of strings: give an object "
+                            "array with None for nulls")
+        data = np.where(valid, data, np.zeros((), dtype=data.dtype))
+        return dt, data, (None if valid.all() else valid)
     if isinstance(arr, ListArray):
         return _normalized(ListArray(arr.offsets, arr.values, None,
                                      arr.elem_valid, arr.element),

@@ -167,12 +167,16 @@ def encode_column(col, d: Optional[StringDictionary], device: torch.device):
         hit = d.remaps.get(id(col.dictionary))
         if hit is None or hit[0] is not col.dictionary:
             codes, _ = d.encode(np.asarray(col.dictionary, dtype=object))
-            hit = (col.dictionary,
-                   upload(torch.from_numpy(codes), col.codes.device))
+            # one more entry for a dead row's code: a grid aggregate's
+            # null slot is code len(dictionary), and a dead row's code is
+            # clamped into the table
+            hit = (col.dictionary, upload(torch.from_numpy(
+                np.append(codes, np.int32(0))), col.codes.device))
             d.remaps[id(col.dictionary)] = hit
         from .join import gather_rows
-        (codes, _), = gather_rows(col.codes, [(hit[1], None)],
-                                  nullable=False)
+        (codes, _), = gather_rows(
+            col.codes.clamp(0, len(col.dictionary)), [(hit[1], None)],
+            nullable=False)
         return d, codes, col.valid
     cached = col._enc_cache
     if cached is not None and cached[1].device == device \

@@ -1,6 +1,6 @@
 """Sort-shaped operators (``spark_rapids_tpu/plan/exec_nodes.py``
 counterpart): the running top-k that ``ORDER BY ... LIMIT k`` becomes, the
-device ORDER BY, LIMIT and UNION ALL.
+device ORDER BY, LIMIT, UNION ALL and the cache of ``df.cache()``.
 
 ``TopKExec`` (reference :236) keeps at most k rows on the device: each
 input batch goes through the top-k kernel (``ops/topk.py``,
@@ -44,6 +44,14 @@ with the rest, where the reference gathers the strings on the host
 (:571-576): gathering millions of strings and encoding them again for
 the operator above costs the host more than the explode itself.  Other
 list siblings are gathered on the host.
+
+``CacheExec`` (reference :323) materializes ``df.cache()``: its first run,
+under the logical node's lock, compacts each child batch
+(``batch_utils.compact``, ``csrc/compact.cu``) and holds the batches on the
+logical ``Cache`` node; later runs, in the same plan or another action,
+replay them.  The reference registers them in its spill catalog
+(``memory/spill.py``); the port holds plain device batches until that is
+ported (ROADMAP.md item 3).
 """
 
 from __future__ import annotations
@@ -338,6 +346,36 @@ class UnionExec(TpuExec):
         for c in self.children:
             for b in c.execute(ctx):
                 yield ColumnBatch(self._schema, b.columns, b.num_rows, b.sel)
+
+
+class CacheExec(TpuExec):
+    """The child's batches, compacted and held on ``cache_node`` (the
+    logical ``Cache``) by the first run; later runs replay them."""
+
+    def __init__(self, child: TpuExec, cache_node):
+        super().__init__([child])
+        self.cache_node = cache_node
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema
+
+    def node_desc(self) -> str:
+        return self.cache_node.node_desc()
+
+    def execute(self, ctx: ExecContext) -> Iterator[ColumnBatch]:
+        from ..utils.metrics import QueryStats
+        node = self.cache_node
+        stats = QueryStats.get()
+        with node.lock:
+            if node.materialized is None:
+                node.materialized = [batch_utils.compact(b) for b in
+                                     self.children[0].execute(ctx)]
+                stats.cache_materializations += 1
+            else:
+                stats.cache_replays += 1
+            batches = node.materialized
+        yield from batches
 
 
 class SampleExec(TpuExec):

@@ -1,7 +1,7 @@
 """Logical plan nodes built by the DataFrame API
 (``spark_rapids_tpu/plan/logical.py`` counterpart: scan, project, filter,
-aggregate, distinct, sort, join, limit, union, window, sample,
-generate)."""
+aggregate, distinct, sort, join, limit, union, window, sample, generate,
+cache)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from ..exprs import Expression, bind
 
 __all__ = ["LogicalPlan", "LogicalScan", "Project", "Filter", "Aggregate",
            "Distinct", "Sort", "SortOrder", "Join", "Limit", "Union", "Window",
-           "Sample", "Generate"]
+           "Sample", "Generate", "Cache"]
 
 
 class LogicalPlan:
@@ -270,3 +270,28 @@ class Generate(LogicalPlan):
     def node_desc(self):
         kind = "explode_outer" if self.outer else "explode"
         return f"Generate {kind}({self.column}) as {self.out_name}"
+
+
+class Cache(LogicalPlan):
+    """``df.cache()`` (reference :235): the child's batches, materialized on
+    first use by ``CacheExec`` and held here, replayed by later runs.  The
+    reference registers them in its spill catalog; the port holds the
+    device batches themselves until ``memory/spill.py`` is ported
+    (ROADMAP.md item 3)."""
+
+    def __init__(self, child: LogicalPlan):
+        import threading
+        self.children = (child,)
+        self.materialized = None  # the cached batches after the first run
+        self.lock = threading.Lock()
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+    def unpersist(self) -> None:
+        with self.lock:
+            self.materialized = None
+
+    def node_desc(self):
+        state = "materialized" if self.materialized else "lazy"
+        return f"InMemoryCache [{state}]"

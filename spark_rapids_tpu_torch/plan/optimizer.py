@@ -11,7 +11,11 @@ conjuncts.  The port's expressions are deterministic, so every conjunct
 may move.  Not ported: the extraction of string predicates out of residual
 join conditions into projected booleans (the reference's
 ``_extract_bool_subtrees``).  A filter above a union moves into every
-branch.
+branch.  Neither rewrite enters a ``Cache`` (reference ``optimizer.py:204``,
+``pushdown.py:93``, ``:235``): the node is state shared by every plan that
+reads it, and its batches keep the child's whole schema.  Unlike the
+reference's, its child was optimized on its own when the cache was made
+(``DataFrame.cache``), so a cached subplan scans only the columns it reads.
 
 ``prune_columns`` narrows every scan to the columns the plan above it
 references, so pruned columns are never uploaded, and puts a Project on a
@@ -144,6 +148,8 @@ def push_filters(plan: L.LogicalPlan) -> L.LogicalPlan:
     """Rewrite the tree, sinking filters toward scans."""
     if isinstance(plan, L.Filter):
         return _push_filter(plan)
+    if isinstance(plan, L.Cache):
+        return plan  # a barrier: shared state, never rebuilt
     if not plan.children:
         return plan
     kids = tuple(push_filters(c) for c in plan.children)
@@ -246,7 +252,7 @@ def _prune_to(node: L.LogicalPlan,
     """A column-pruning Project over a join input whose schema carries
     columns the join does not need (a filtered dimension table would drag
     its filter column into the build side)."""
-    if required is None or isinstance(node, L.LogicalScan):
+    if required is None or isinstance(node, (L.LogicalScan, L.Cache)):
         return node
     names = node.schema().names()
     keep = [n for n in names if n in required]
@@ -341,6 +347,9 @@ def prune_columns(plan: L.LogicalPlan,
                     | _refs(e for _, e in plan.window_exprs))
         return L.Window(prune_columns(plan.children[0], need),
                         plan.window_exprs)
+    if isinstance(plan, L.Cache):
+        # a barrier: nothing is pruned or pushed through the cache
+        return plan
     if isinstance(plan, L.Union):
         # the branches stay aligned column by column: nothing is pruned
         # through a union, and no predicate crosses it (reference

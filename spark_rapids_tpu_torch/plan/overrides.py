@@ -25,7 +25,8 @@ kernel reaches (else ``LimitExec`` over the sort, as over anything else,
 (:279-300) and becomes ``WindowExec`` (:457).  A window the reference
 sends to the CPU (string partition or order keys) raises: the CPU window
 is not ported (ROADMAP item 6).  A ``Union`` becomes ``UnionExec``
-(reference :442), on the device as there (:216).
+(reference :442), on the device as there (:216), and a ``Cache``
+``CacheExec`` (:438).
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ class NodeMeta:
                         f"explode of array<{elem}> runs on CPU (elements "
                         f"have no device representation)")
             return
-        if isinstance(p, (L.Limit, L.Union, L.Distinct, L.Sample)):
+        if isinstance(p, (L.Limit, L.Union, L.Distinct, L.Sample, L.Cache)):
             # Distinct groups by bare column references: string columns
             # go through dictionary codes like any group key
             return
@@ -408,6 +409,10 @@ def _convert(meta: NodeMeta, conf: TpuConf) -> TpuExec:
         from .exec_nodes import UnionExec
         return UnionExec([_convert(c, conf) for c in meta.children],
                          p.schema())
+
+    if isinstance(p, L.Cache):
+        from .exec_nodes import CacheExec
+        return CacheExec(_convert(meta.children[0], conf), p)
 
     if isinstance(p, L.Limit):
         from .exec_nodes import LimitExec

@@ -1,7 +1,7 @@
 """String expressions evaluated on the host once per distinct value
-(``spark_rapids_tpu/plan/stringpred.py`` counterpart, single-column case:
-``lowerable_kind``, ``lower_string_predicate_steps`` :176 and
-``evaluate_host_expr`` :244).
+(``spark_rapids_tpu/plan/stringpred.py`` counterpart: ``lowerable_kind``,
+``lower_string_predicate_steps`` :176 and ``evaluate_host_expr`` :244, over
+one string column or, for a comparison, two).
 
 Strings have no device representation in the port.  An expression whose
 only column input is one string column is a function of that column's
@@ -13,6 +13,17 @@ maps the results back to the rows:
 * a string-valued one (``substring``) becomes a new dictionary and the
   device int32 codes of its rows (a ``DictStringColumn``), which later
   steps, joins, aggregates and sorts read as any dictionary column.
+
+A comparison (``=``, ``<``, ``<=``, ``>``, ``>=``; ``!=`` is the NOT of
+``=``) of two string operands that read different columns, each the
+column itself or a string expression over it (``ca_city != bought_city``,
+``substr(ca_zip, 1, 5) != substr(s_zip, 1, 5)``), compares strings, never
+the codes of two dictionaries: each side becomes a ``DictStringColumn``
+as above, the two dictionaries are merged on the host into one sorted
+union (cached per pair of dictionaries, O(distinct)), each side's codes
+are gathered on the device into union ranks, and the ranks are compared.
+Numpy sorts strings by code point, which is UTF-8 byte order, so ranks
+compare as Spark compares the strings; a null on either side gives null.
 
 The column may be a host column (a scan's; its distinct values by
 ``np.unique``, the result cached on the column object, so warm runs
@@ -38,9 +49,9 @@ from ..batch import DictStringColumn, HostStringColumn, upload
 from ..ops.strings import distinct_strings
 from ..stringfns import Like, Substring
 
-__all__ = ["HostStringExpr", "lowerable_kind", "lower_string_predicate_steps",
-           "evaluate_host_expr", "host_predicate_column",
-           "host_string_column"]
+__all__ = ["HostStringExpr", "StringPairCompare", "lowerable_kind",
+           "lower_string_predicate_steps", "evaluate_host_expr",
+           "host_predicate_column", "host_string_column"]
 
 _COMPARE = {E.EqualTo: np.equal, E.LessThan: np.less,
             E.LessThanOrEqual: np.less_equal, E.GreaterThan: np.greater,
@@ -62,6 +73,13 @@ class HostStringExpr(E.Expression):
         self.children = ()
 
     def eval(self, ctx) -> E.Value:
+        if self.dtype.is_string:
+            # a device expression would read the codes of a dictionary of
+            # its own: only a projection (``column``) or a comparison with
+            # another string operand (StringPairCompare) reads one
+            raise NotImplementedError(
+                f"{self.inner.fingerprint()} is a string read by a device "
+                f"expression (ROADMAP.md item 8, the expression libraries)")
         return host_predicate_column(self.inner, ctx.host[self.ordinal],
                                      ctx.device)
 
@@ -74,6 +92,25 @@ class HostStringExpr(E.Expression):
         return f"{self.ordinal}:{self.inner.fingerprint()}"
 
 
+class StringPairCompare(HostStringExpr):
+    """A comparison of two string operands over two different columns of
+    the step's input (:func:`_pair_compare`): each side as dictionary
+    codes, compared as ranks in the union of the two dictionaries
+    (:func:`compare_string_columns`)."""
+
+    def __init__(self, inner: E.Expression):
+        super().__init__(inner, _operand_ordinal(inner.children[0]))
+        self.sides = [(c, _operand_ordinal(c)) for c in inner.children]
+
+    def eval(self, ctx) -> E.Value:
+        left, right = (_dict_column(e, ctx.host[o], ctx.device)
+                       for e, o in self.sides)
+        return compare_string_columns(type(self.inner).op, left, right)
+
+    def _fp_extra(self):
+        return f"pair:{self.inner.fingerprint()}"
+
+
 def _refs(e: E.Expression) -> List[E.BoundReference]:
     if isinstance(e, E.BoundReference):
         return [e]
@@ -83,14 +120,38 @@ def _refs(e: E.Expression) -> List[E.BoundReference]:
     return out
 
 
+def _operand_ordinal(e: E.Expression) -> Optional[int]:
+    """The ordinal of the one string column a string-valued operand reads:
+    the column itself, or a host string expression over it; None for any
+    other operand."""
+    if isinstance(e, E.BoundReference):
+        return e.ordinal if e.dtype is not None and e.dtype.is_string \
+            else None
+    if lowerable_kind(e) == "string":
+        return _refs(e)[0].ordinal
+    return None
+
+
+def _pair_compare(e: E.Expression) -> bool:
+    """Is ``e`` a comparison of two string operands over two different
+    columns?"""
+    if type(e) not in _COMPARE:
+        return False
+    lo, ro = (_operand_ordinal(c) for c in e.children)
+    return lo is not None and ro is not None and lo != ro
+
+
 def lowerable_kind(e: E.Expression) -> Optional[str]:
     """'device' for a bound boolean subtree and 'string' for a string-valued
     one that the host evaluates per distinct value: only the host nodes
-    above, literals and references to one string column.  None otherwise
-    (plain references and literals pass through; device columns stay on
-    the device)."""
+    above, literals and references to one string column.  A comparison of
+    two string operands over different columns (:func:`_pair_compare`) is
+    'device' too.  None otherwise (plain references and literals pass
+    through; device columns stay on the device)."""
     if e.dtype is None or isinstance(e, (E.BoundReference, E.Literal)):
         return None
+    if _pair_compare(e):
+        return "device"
     if e.dtype != T.BOOLEAN and not e.dtype.is_string:
         return None
 
@@ -122,6 +183,8 @@ def lower_string_predicate_steps(steps):
     :class:`HostStringExpr` over the step's input."""
 
     def lower(e):
+        if _pair_compare(e):
+            return StringPairCompare(e)
         if lowerable_kind(e) is not None:
             return HostStringExpr(e, _refs(e)[0].ordinal)
         if not e.children:
@@ -232,8 +295,10 @@ def _dict_cached(dictionary: np.ndarray, key: tuple, make):
 
 def _codes_or_null(col: DictStringColumn, n_entries: int) -> torch.Tensor:
     """Each row's dictionary code, or ``n_entries`` (the null entry of a
-    per-entry table) where the row is null."""
-    codes = col.codes.to(torch.int64)
+    per-entry table) where the row is null.  A dead row's code may lie
+    past the dictionary (a grid aggregate's null slot): it is clamped into
+    the table."""
+    codes = col.codes.to(torch.int64).clamp(0, n_entries)
     if col.valid is None:
         return codes
     return torch.where(col.valid, codes, n_entries)
@@ -306,8 +371,9 @@ def host_string_column(expr: E.Expression, col, device: torch.device
             return dictionary, upload(torch.from_numpy(remap),
                                       col.codes.device)
         dictionary, remap = _dict_cached(col.dictionary, ("str",) + key, make)
-        return DictStringColumn(remap[col.codes.to(torch.int64)], col.valid,
-                                dictionary)
+        return DictStringColumn(
+            remap[col.codes.to(torch.int64).clamp(0, len(col.dictionary))],
+            col.valid, dictionary)
     if not isinstance(col, HostStringColumn):
         raise TypeError(f"a string expression over {type(col).__name__}")
     cache = col.__dict__.setdefault("_pred_cache", {})
@@ -323,3 +389,54 @@ def host_string_column(expr: E.Expression, col, device: torch.device
                                                  device), dictionary)
         cache[key] = hit
     return DictStringColumn(hit[0], hit[1], hit[2])
+
+
+def _dict_column(e: E.Expression, col, device: torch.device
+                 ) -> DictStringColumn:
+    """String operand ``e`` over string column ``col`` as dictionary
+    codes: a dictionary column itself, else :func:`host_string_column` (a
+    host column's distinct values, cached on the column object)."""
+    if isinstance(e, E.BoundReference) and isinstance(col, DictStringColumn):
+        return col
+    return host_string_column(e, col, device)
+
+
+# per pair of dictionary values arrays, each side's rank table in their
+# sorted union (the entry holds both arrays, so their ids cannot be reused
+# while cached)
+_PAIR_CACHE: Dict[tuple, tuple] = {}
+
+
+def _union_ranks(left: np.ndarray, right: np.ndarray, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each dictionary's entries as ranks in the sorted union of both
+    dictionaries, with one more entry (rank 0) for a null row's code."""
+    key = (id(left), id(right), str(device))
+    hit = _PAIR_CACHE.get(key)
+    if hit is None or hit[0] is not left or hit[1] is not right:
+        if len(_PAIR_CACHE) >= _DICT_CACHE_MAX:
+            _PAIR_CACHE.clear()
+        sides = [np.asarray(d, dtype=str) if len(d) else
+                 np.empty(0, dtype="<U1") for d in (left, right)]
+        union = np.unique(np.concatenate(sides))
+        ranks = tuple(upload(torch.from_numpy(np.append(
+            np.searchsorted(union, s), 0).astype(np.int64)), device)
+            for s in sides)
+        hit = (left, right, ranks)
+        _PAIR_CACHE[key] = hit
+    return hit[2]
+
+
+def compare_string_columns(op, left: DictStringColumn,
+                           right: DictStringColumn) -> E.Value:
+    """``op`` (a comparison's elementwise function) over the strings of
+    two dictionary columns, as device (data, valid): the codes gathered
+    into ranks of the union of both dictionaries, then compared; null
+    where either side is null."""
+    lt, rt = _union_ranks(left.dictionary, right.dictionary,
+                          left.codes.device)
+    lr = lt[_codes_or_null(left, len(left.dictionary))]
+    rr = rt[_codes_or_null(right, len(right.dictionary))]
+    valid = left.valid if right.valid is None else (
+        right.valid if left.valid is None else left.valid & right.valid)
+    return op(lr, rr), valid

@@ -128,6 +128,8 @@ def _exprs_of(node: L.LogicalPlan) -> List[E.Expression]:
 
 
 def _walk(node: L.LogicalPlan, collect: Collect) -> L.LogicalPlan:
+    if isinstance(node, L.Cache):
+        return node  # shared state: never rebuilt (reference :108)
     if isinstance(node, L.Filter) and _has_in_subquery(node.condition):
         return _rewrite_in_filter(node, collect)
     kids = tuple(_walk(c, collect) for c in node.children)

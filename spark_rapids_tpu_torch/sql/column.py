@@ -92,6 +92,11 @@ class Column:
     def __invert__(self):
         return Column(E.Not(self.expr))
 
+    def between(self, low, high) -> "Column":
+        """``low <= self <= high``, as ``(self >= low) & (self <= high)``
+        (reference :163)."""
+        return (self >= low) & (self <= high)
+
     def isin(self, *values) -> "Column":
         vals = values[0] if len(values) == 1 and isinstance(
             values[0], (list, tuple, set)) else values

@@ -202,6 +202,25 @@ class DataFrame:
             seed = random.randint(0, 2 ** 31 - 1)
         return DataFrame(L.Sample(self._plan, fraction, seed), self.session)
 
+    def cache(self) -> "DataFrame":
+        """This result, materialized on the device on first use; later
+        actions replay the cached batches (reference :231,
+        ``plan/exec_nodes.py CacheExec``).  The child is optimized here,
+        once, against its own whole output, as Spark plans a cached
+        query: no filter or column need of a plan above reaches into it,
+        and its batches keep the child's schema."""
+        from ..plan.optimizer import optimize
+        return DataFrame(L.Cache(optimize(self._plan)), self.session)
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        """Release the cached batches; the next action runs the child
+        again (reference :238)."""
+        if isinstance(self._plan, L.Cache):
+            self._plan.unpersist()
+        return self
+
     def union(self, other: "DataFrame") -> "DataFrame":
         """The rows of both inputs, this one's first, duplicates kept
         (UNION ALL, reference :251); the schemas must agree column by
@@ -245,6 +264,13 @@ class DataFrame:
     def collect(self) -> List[tuple]:
         """Execute and fetch all rows as tuples of Python values."""
         return self.session._execute(self._plan)
+
+    def count(self) -> int:
+        """The number of rows, as an int: ``count(*)`` over this result
+        (reference :380)."""
+        from . import functions as F
+        counted = self.agg(F.count_star().alias("count"))
+        return self.session._execute(counted._plan)[0][0]
 
     def to_device_arrays(self) -> dict:
         """Execute and return the result on the device (reference :298,

@@ -27,7 +27,7 @@ _STATS_STACK: "contextvars.ContextVar[tuple]" = \
 _COUNTERS = ("blocking_fetches", "fetch_bytes", "fetch_wait_s", "uploads",
              "upload_bytes", "shuffle_bytes", "shuffle_bytes_written",
              "shuffle_bytes_read", "ici_fragments", "ici_fragment_rows",
-             "ici_retries")
+             "ici_retries", "cache_materializations", "cache_replays")
 
 
 class QueryStats:
@@ -58,6 +58,10 @@ class QueryStats:
         self.ici_fragments = 0
         self.ici_fragment_rows = 0
         self.ici_retries = 0
+        # df.cache(): runs that executed the cached child, and runs that
+        # replayed its batches
+        self.cache_materializations = 0
+        self.cache_replays = 0
         self.upload_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] \
             = []
 

@@ -75,3 +75,44 @@ def test_gen_db_partsupp_and_nation_match_reference_parquet(tmp_path, table):
         else:
             np.testing.assert_array_equal(got[name], want, err_msg=name)
     assert len(got[ref.column_names[0]]) == tpch.db_rows(table, sf)
+
+
+@pytest.mark.parametrize("chunk", [1_000_000, 1000])
+def test_tpcds_gen_db_arrays_match_reference_parquet(tmp_path, chunk):
+    """Every column of the sixteen TPC-DS tables equals what the
+    reference's ``models/tpcds.gen_db`` writes at SF 0.01, nulls included
+    (masked where the reference's column is null), in one chunk and over
+    1,000-row chunks, whose sizes are the reference's row groups."""
+    from spark_rapids_tpu.models import tpcds as ref_tpcds
+    from spark_rapids_tpu_torch.models import tpcds
+    paths = ref_tpcds.gen_db(0.01, str(tmp_path), chunk=chunk)
+    groups = {}
+    got = tpcds.gen_db_arrays(0.01, chunk=chunk, row_groups=groups)
+    assert list(got) == list(tpcds.DB_TABLES) == list(paths)
+    nullable = 0
+    for t in tpcds.DB_TABLES:
+        ref = pq.read_table(paths[t])
+        assert ref.column_names == list(got[t]), t
+        for name in ref.column_names:
+            col = got[t][name]
+            want = ref.column(name).to_pylist()
+            if isinstance(col, np.ma.MaskedArray):
+                nullable += 1
+                data = np.ma.getdata(col).tolist()
+                mine = [None if m else v for v, m in zip(
+                    data, np.ma.getmaskarray(col).tolist())]
+            else:
+                mine = col.astype(object).tolist()
+            assert mine == want, f"{t}.{name}"
+        if t in groups:
+            md = pq.ParquetFile(paths[t]).metadata
+            assert groups[t] == [md.row_group(i).num_rows
+                                 for i in range(md.num_row_groups)], t
+        if tpcds.db_rows(t, 0.01) is not None:
+            assert ref.num_rows == tpcds.db_rows(t, 0.01), t
+    assert nullable == 15
+    picked = tpcds.gen_db_arrays(0.01, tables=("store_returns",),
+                                 chunk=chunk)
+    assert list(picked) == ["store_returns"]
+    np.testing.assert_array_equal(picked["store_returns"]["sr_net_loss"],
+                                  got["store_returns"]["sr_net_loss"])

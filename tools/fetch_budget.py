@@ -42,6 +42,15 @@ reference over its own ``gen_db`` files (pyarrow) under ``DIR/reference``
 and the port over the files its ``gen_db`` writes under ``DIR/port`` (the
 same values and row groups; the codec does not change a fetch count).
 
+With ``--tpcds DIR`` the twentieth slice's forms run instead: the 22
+TPC-DS queries of ``bench.py`` (``ds_q3`` .. ``ds_q98``) over the
+reference's TPC-DS ``gen_db`` files under ``DIR`` (both packages read the
+same files), with the broadcast threshold and ``join.denseMinProbeRows``
+scaled from SF10 to ``--sf``; each port's rows are held to the
+reference's (``tpcds.rows_rel_err`` < 1e-6).  ``--sf 1 --batch-rows
+411487`` gives store_sales the 7 batches it has at SF10 in 4,194,304-row
+batches (catalog_sales 4, web_sales 2, every other table 1, as at SF10).
+
 Both packages run on the CPU over the same ``gen_db_arrays`` data (the
 reference suite's ``gen_db`` draws) with ``--batch-rows``-row batches
 (4,194,304, the default of ``batchSizeRows``) and
@@ -183,6 +192,53 @@ def _same_by_key(got: dict, want: dict) -> bool:
                           for c, (d, v) in got.items()}, want)
 
 
+def _tpcds(args) -> None:
+    """``--tpcds DIR``: the reference's and the port's blocking fetches of
+    the 22 TPC-DS queries over the reference's files."""
+    scale = args.sf / 10
+    settings = {"spark.rapids.tpu.sql.batchSizeRows": args.batch_rows,
+                "spark.rapids.tpu.sql.fileCache.enabled": True,
+                "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": int(
+                    SF10_BROADCAST_THRESHOLD * scale),
+                "spark.rapids.tpu.join.denseMinProbeRows": int(
+                    16384 * scale)}
+    from spark_rapids_tpu.models import tpcds as ref_tpcds
+    from spark_rapids_tpu_torch.models import tpcds
+    paths = ref_tpcds.gen_db(args.sf, args.tpcds)
+    queries = [q for q in args.queries.split(",") if q in tpcds.QUERIES] \
+        or sorted(tpcds.QUERIES)
+    for q in queries:
+        rows = {}
+        for package in ("reference", "port"):
+            if args.package not in (package, "both"):
+                continue
+            t0 = time.perf_counter()
+            if package == "reference":
+                import spark_rapids_tpu as jsrt
+                from spark_rapids_tpu.utils.metrics import QueryStats
+                sess = jsrt.Session(settings)
+                run = ref_tpcds.QUERIES[q][0]
+            else:
+                import spark_rapids_tpu_torch as tsrt
+                from spark_rapids_tpu_torch.utils.metrics import \
+                    QueryStats
+                sess = tsrt.Session(settings, device="cpu")
+                run = tpcds.QUERIES[q][0]
+            dfs = {t: sess.read_parquet(paths[t]) for t in tpcds.TABLES[q]}
+            with QueryStats.scoped() as st:
+                rows[package] = run(dfs)
+            print(json.dumps({"query": q, "package": package,
+                              "blocking_fetches": st.blocking_fetches,
+                              "rows": len(rows[package]),
+                              "seconds": round(time.perf_counter() - t0,
+                                               2)}), flush=True)
+        if len(rows) == 2:
+            err = tpcds.rows_rel_err(rows["port"], rows["reference"])
+            if err >= 1e-6:
+                sys.exit(f"{q}: the port's rows differ from the "
+                         f"reference's (rel_err {err})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -194,7 +250,13 @@ def main() -> None:
     ap.add_argument("--batch-rows", type=int, default=4 << 20)
     ap.add_argument("--parquet", metavar="DIR", default=None,
                     help="run the 22 queries over parquet files under DIR")
+    ap.add_argument("--tpcds", metavar="DIR", default=None,
+                    help="run the 22 TPC-DS queries over the reference's "
+                         "files under DIR")
     args = ap.parse_args()
+    if args.tpcds:
+        _tpcds(args)
+        return
     base = dict(SETTINGS, **{"spark.rapids.tpu.sql.batchSizeRows":
                              args.batch_rows})
 

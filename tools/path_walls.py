@@ -33,7 +33,9 @@ the explodes over orders with their lines' quantities as lists
 the lists null and 1% emptied), as ``chip_smoke.py`` builds them: X1
 collects, X1o ends in ``to_device_arrays()``.  Prints one JSON
 line per query: the warm median and every warm wall in ms, the blocking
-fetches of the last warm run, with the card's name and power limit.
+fetches and the kernel launches of the last warm run (by wrapper: the
+``launches`` count every kernel wrapper keeps), with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -99,6 +101,28 @@ def split(name: str):
         if name.endswith(suffix):
             return name[:-len(suffix)], suffix[1:]
     return name, ""
+
+
+# the modules whose kernel wrappers count their launches
+LAUNCH_MODULES = ("ops.groupby", "ops.join", "ops.batch_utils", "ops.topk",
+                  "ops.sort", "ops.hashing", "ops.window",
+                  "ops.runtime_filter", "ops.sample", "ops.generate",
+                  "ops.wide_decimal", "parallel.exchange")
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches so far, by module and name (a
+    wrapper that two modules hold counts once)."""
+    import importlib
+    out, seen = {}, set()
+    for m in LAUNCH_MODULES:
+        mod = importlib.import_module(f"spark_rapids_tpu_torch.{m}")
+        for name, fn in sorted(vars(mod).items()):
+            n = getattr(fn, "launches", None)
+            if callable(fn) and isinstance(n, int) and id(fn) not in seen:
+                seen.add(id(fn))
+                out[f"{m.split('.')[-1]}.{name}"] = n
+    return out
 
 
 def session_key(name: str) -> str:
@@ -177,6 +201,7 @@ def main() -> int:
         walls, syncs = [], 0
         for i in range(1 + args.runs):
             torch.cuda.synchronize()
+            before = launch_counts()
             t0 = time.perf_counter()
             with QueryStats.scoped() as st:
                 df = (funcs.get(q) or getattr(tpch, q))(
@@ -189,9 +214,14 @@ def main() -> int:
             if i:
                 walls.append((time.perf_counter() - t0) * 1e3)
                 syncs = st.blocking_fetches
+                launches = {k: v - before[k]
+                            for k, v in launch_counts().items()
+                            if v != before[k]}
         print(json.dumps({"label": args.label, "query": name, "sf": args.sf,
                           "warm_median_ms": statistics.median(walls),
                           "warm_ms": walls, "syncs": syncs,
+                          "launches": launches,
+                          "launches_total": sum(launches.values()),
                           "device": smi}), flush=True)
     return 0
 
